@@ -1,0 +1,259 @@
+"""WordPiece tokenization in pure Python (counterpart of
+bert_pytorch_tpu/data/tokenization.py, WordPiece only).
+
+The canonical Google-BERT algorithms: BasicTokenizer (control-character
+cleanup, CJK spacing, optional lowercase + NFD accent stripping,
+punctuation splitting) and WordpieceTokenizer (greedy longest-match-first
+over '##' continuations), with an end-to-end `BertWordPieceTokenizer` that
+frames [CLS]/[SEP] and keeps character offsets. The JAX package's native
+C++ encoder gives the same output and is not ported yet.
+"""
+
+from __future__ import annotations
+
+import collections
+import unicodedata
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+SPECIAL_TOKENS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+
+
+def load_vocab(vocab_file: str) -> "collections.OrderedDict[str, int]":
+    """One token per line -> token->id, line order (reference
+    src/tokenization.py:18-30)."""
+    vocab = collections.OrderedDict()
+    with open(vocab_file, "r", encoding="utf-8") as f:
+        for i, line in enumerate(f):
+            vocab[line.strip()] = i  # strip(), not rstrip('\n'): CRLF vocabs
+    return vocab
+
+
+def whitespace_tokenize(text: str) -> List[str]:
+    return text.split()
+
+
+# ---------------------------------------------------------------------------
+# character classes (Unicode categories per the original BERT definition)
+# ---------------------------------------------------------------------------
+
+def _is_whitespace(ch: str) -> bool:
+    if ch in (" ", "\t", "\n", "\r"):
+        return True
+    return unicodedata.category(ch) == "Zs"
+
+
+def _is_control(ch: str) -> bool:
+    if ch in ("\t", "\n", "\r"):
+        return False
+    return unicodedata.category(ch).startswith("C")
+
+
+def _is_punctuation(ch: str) -> bool:
+    cp = ord(ch)
+    # ASCII ranges treated as punctuation even where Unicode disagrees
+    # (e.g. '$', '`') — standard BERT behavior.
+    if (33 <= cp <= 47) or (58 <= cp <= 64) or (91 <= cp <= 96) \
+            or (123 <= cp <= 126):
+        return True
+    return unicodedata.category(ch).startswith("P")
+
+
+def _is_cjk(cp: int) -> bool:
+    return ((0x4E00 <= cp <= 0x9FFF) or (0x3400 <= cp <= 0x4DBF)
+            or (0x20000 <= cp <= 0x2A6DF) or (0x2A700 <= cp <= 0x2B73F)
+            or (0x2B740 <= cp <= 0x2B81F) or (0x2B820 <= cp <= 0x2CEAF)
+            or (0xF900 <= cp <= 0xFAFF) or (0x2F800 <= cp <= 0x2FA1F))
+
+
+class BasicTokenizer:
+    """Whitespace/punctuation/CJK pre-tokenizer with optional lowercasing
+    (spec: reference src/tokenization.py:60-174)."""
+
+    def __init__(self, do_lower_case: bool = True,
+                 never_split: Sequence[str] = SPECIAL_TOKENS):
+        self.do_lower_case = do_lower_case
+        self.never_split = tuple(never_split)
+
+    def tokenize(self, text: str) -> List[str]:
+        out: List[str] = []
+        for token in whitespace_tokenize(self._clean(text)):
+            if token in self.never_split:
+                out.append(token)
+                continue
+            if self.do_lower_case:
+                token = self._strip_accents(token.lower())
+            out.extend(self._split_punc(token))
+        return [t for t in out if t]
+
+    def _clean(self, text: str) -> str:
+        chars = []
+        for ch in text:
+            cp = ord(ch)
+            if cp == 0 or cp == 0xFFFD or _is_control(ch):
+                continue
+            if _is_cjk(cp):
+                chars.append(f" {ch} ")
+            elif _is_whitespace(ch):
+                chars.append(" ")
+            else:
+                chars.append(ch)
+        return "".join(chars)
+
+    @staticmethod
+    def _strip_accents(text: str) -> str:
+        return "".join(ch for ch in unicodedata.normalize("NFD", text)
+                       if unicodedata.category(ch) != "Mn")
+
+    @staticmethod
+    def _split_punc(token: str) -> List[str]:
+        pieces: List[str] = []
+        current = ""
+        for ch in token:
+            if _is_punctuation(ch):
+                if current:
+                    pieces.append(current)
+                    current = ""
+                pieces.append(ch)
+            else:
+                current += ch
+        if current:
+            pieces.append(current)
+        return pieces
+
+
+class WordpieceTokenizer:
+    """Greedy longest-match-first subword split (spec: reference
+    src/tokenization.py:176-229)."""
+
+    def __init__(self, vocab: Dict[str, int], unk_token: str = "[UNK]",
+                 max_input_chars_per_word: int = 200):
+        self.vocab = vocab
+        self.unk_token = unk_token
+        self.max_input_chars_per_word = max_input_chars_per_word
+
+    def tokenize(self, text: str) -> List[str]:
+        out: List[str] = []
+        for word in whitespace_tokenize(text):
+            if len(word) > self.max_input_chars_per_word:
+                out.append(self.unk_token)
+                continue
+            subs = self._split_word(word)
+            out.extend(subs if subs is not None else [self.unk_token])
+        return out
+
+    def _split_word(self, word: str) -> Optional[List[str]]:
+        subs: List[str] = []
+        start = 0
+        while start < len(word):
+            end = len(word)
+            piece = None
+            while start < end:
+                cand = word[start:end]
+                if start > 0:
+                    cand = "##" + cand
+                if cand in self.vocab:
+                    piece = cand
+                    break
+                end -= 1
+            if piece is None:
+                return None
+            subs.append(piece)
+            start = end
+        return subs
+
+
+@dataclass
+class Encoding:
+    """Minimal analogue of the HF tokenizers Encoding the reference consumed:
+    ids, tokens, per-token char offsets into the *original* text, and
+    type_ids for pairs."""
+
+    ids: List[int] = field(default_factory=list)
+    tokens: List[str] = field(default_factory=list)
+    offsets: List[Tuple[int, int]] = field(default_factory=list)
+    type_ids: List[int] = field(default_factory=list)
+
+
+class BertWordPieceTokenizer:
+    """End-to-end WordPiece encoder: basic-tokenize (tracking offsets) then
+    wordpiece, with [CLS]/[SEP] framing — the in-framework replacement for
+    tokenizers.BertWordPieceTokenizer (reference src/tokenization.py:42-49).
+    """
+
+    def __init__(self, vocab: Dict[str, int], lowercase: bool = True,
+                 unk_token: str = "[UNK]", cls_token: str = "[CLS]",
+                 sep_token: str = "[SEP]"):
+        if isinstance(vocab, str):
+            vocab = load_vocab(vocab)
+        self.vocab = dict(vocab)
+        self.basic = BasicTokenizer(do_lower_case=lowercase)
+        self.wordpiece = WordpieceTokenizer(self.vocab, unk_token=unk_token)
+        self.unk_token = unk_token
+        self.cls_token = cls_token
+        self.sep_token = sep_token
+
+    # -- HF-compatible surface ---------------------------------------------
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        return self.vocab.get(token)
+
+    def encode(self, text: str, pair: Optional[str] = None,
+               add_special_tokens: bool = True) -> Encoding:
+        enc = Encoding()
+        cls_id = self.vocab.get(self.cls_token)
+        sep_id = self.vocab.get(self.sep_token)
+
+        def add(token: str, tid: int, span: Tuple[int, int], type_id: int):
+            enc.tokens.append(token)
+            enc.ids.append(tid)
+            enc.offsets.append(span)
+            enc.type_ids.append(type_id)
+
+        if add_special_tokens:
+            add(self.cls_token, cls_id, (0, 0), 0)
+        for seq_idx, seq in enumerate([text] + ([pair] if pair else [])):
+            for word, span in self._words_with_offsets(seq):
+                for wp in self.wordpiece.tokenize(word):
+                    tid = self.vocab.get(wp, self.vocab.get(self.unk_token, 0))
+                    add(wp, tid, span, seq_idx)
+            if add_special_tokens:
+                add(self.sep_token, sep_id, (0, 0), seq_idx)
+        return enc
+
+    def _words_with_offsets(self, text: str) -> List[Tuple[str, Tuple[int, int]]]:
+        """basic-tokenize while tracking each word's (start, end) char span in
+        the original text. Offsets point at the pre-normalization word, which
+        is what SQuAD answer realignment needs."""
+        out = []
+        n = len(text)
+        i = 0
+        while i < n:
+            ch = text[i]
+            if _is_whitespace(ch) or _is_control(ch) or ord(ch) in (0, 0xFFFD):
+                i += 1
+                continue
+            if _is_punctuation(ch) or _is_cjk(ord(ch)):
+                out.append((self._norm(ch), (i, i + 1)))
+                i += 1
+                continue
+            j = i
+            while j < n and not (_is_whitespace(text[j]) or _is_control(text[j])
+                                 or _is_punctuation(text[j])
+                                 or _is_cjk(ord(text[j]))):
+                j += 1
+            word = text[i:j]
+            out.append((self._norm(word), (i, j)))
+            i = j
+        return [(w, s) for w, s in out if w]
+
+    def _norm(self, word: str) -> str:
+        if self.basic.do_lower_case:
+            return BasicTokenizer._strip_accents(word.lower())
+        return word
+
+
+def get_wordpiece_tokenizer(vocab, uppercase: bool = False
+                            ) -> BertWordPieceTokenizer:
+    """WordPiece tokenizer from a vocab file or dict."""
+    return BertWordPieceTokenizer(vocab, lowercase=not uppercase)

@@ -1,0 +1,101 @@
+"""Flax parameter trees -> the port's state_dicts, and serving checkpoints.
+
+The JAX package's BertForQuestionAnswering keeps its parameters in a flax
+tree; flattened with "/" between keys it reads, for example,
+
+    bert/embeddings/word_embeddings/embedding          (V, E)
+    bert/encoder/layers/layer/attention/qkv/kernel     (L, E, 3, H, D)
+    bert/encoder/layer_0/attention/qkv/kernel          (E, 3, H, D)
+    qa_outputs/kernel                                  (E, 2)
+
+in either encoder layout: stacked (`encoder/layers/layer/...`, one leaf per
+weight with a leading L axis, the JAX default) or unstacked
+(`encoder/layer_{i}/...`). `params_from_flax` takes such a flat dict of
+numpy arrays, unstacks it with numpy where needed, and returns the
+state_dict of the port's model (models/bert.py): Linear weights transposed
+to PyTorch's (out, in), the QKV kernel's (3, H, D) features flattened in
+that order. `load_serving_params` reads a serving checkpoint: a `.npz` of
+that flat tree, or a `.pt` state_dict.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+
+_STACKED = "bert/encoder/layers/layer/"
+_UNSTACKED = re.compile(r"^bert/encoder/layer_(\d+)/(.*)$")
+
+
+def unstack_layers(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Stacked `encoder/layers/layer/X` leaves (leading L axis) ->
+    `encoder/layer_{i}/X`; other keys pass through."""
+    out: Dict[str, np.ndarray] = {}
+    for key, value in flat.items():
+        if key.startswith(_STACKED):
+            rest = key[len(_STACKED):]
+            for i in range(value.shape[0]):
+                out[f"bert/encoder/layer_{i}/{rest}"] = value[i]
+        else:
+            out[key] = value
+    return out
+
+
+def _dense(kernel: np.ndarray) -> np.ndarray:
+    """Flax kernel (in..., out...) with the input axes first -> PyTorch
+    Linear weight (out, in)."""
+    return np.ascontiguousarray(kernel.T)
+
+
+def params_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flat flax BertForQuestionAnswering params (either layout) -> the
+    port's BertForQuestionAnswering state_dict (f32 tensors). The NSP
+    pooler's parameters, which the QA forward never reads, are dropped."""
+    flat = unstack_layers({k: np.asarray(v) for k, v in flat.items()})
+    sd: Dict[str, np.ndarray] = {}
+    for key, value in flat.items():
+        if key.startswith("bert/pooler/"):
+            continue  # the NSP pooler: the QA head does not read it
+        m = _UNSTACKED.match(key)
+        if m:
+            i, rest = m.group(1), m.group(2)
+            prefix = f"bert.encoder.layers.{i}."
+            if rest == "attention/qkv/kernel":      # (E, 3, H, D)
+                e = value.shape[0]
+                sd[prefix + "attention.qkv.weight"] = _dense(
+                    value.reshape(e, -1))
+            elif rest == "attention/qkv/bias":      # (3, H, D)
+                sd[prefix + "attention.qkv.bias"] = value.reshape(-1)
+            elif rest == "attention/output/kernel":  # (H, D, E)
+                sd[prefix + "attention.output.weight"] = _dense(
+                    value.reshape(-1, value.shape[-1]))
+            elif rest.endswith("/kernel"):
+                sd[prefix + rest[:-len("/kernel")].replace("/", ".")
+                   + ".weight"] = _dense(value)
+            else:
+                sd[prefix + rest.replace("/", ".")] = value
+        elif key.endswith("/embedding"):
+            sd[key[:-len("/embedding")].replace("/", ".") + ".weight"] = value
+        elif key.endswith("/kernel"):
+            sd[key[:-len("/kernel")].replace("/", ".") + ".weight"] = \
+                _dense(value)
+        else:
+            sd[key.replace("/", ".")] = value
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in sd.items()}
+
+
+def load_serving_params(path: str) -> Dict[str, torch.Tensor]:
+    """A serving checkpoint -> the port's state_dict: `.npz` holds the
+    flat flax tree (keys joined with "/"), `.pt` a PyTorch state_dict."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return params_from_flax({k: z[k] for k in z.files})
+    if path.endswith(".pt"):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        return {k: v.float() for k, v in sd.items()}
+    raise ValueError(f"unknown checkpoint format {path!r}: want a .npz of "
+                     "the flat flax tree or a .pt state_dict")

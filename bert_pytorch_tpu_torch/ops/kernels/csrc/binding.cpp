@@ -1,0 +1,150 @@
+// PyTorch binding of the port's kernels: the only source that includes
+// PyTorch's headers, and only the tensor, pybind and CUDA-stream ones (not
+// torch/extension.h, whose C++-frontend headers would lengthen every
+// build). Each function checks its tensors, allocates outputs with
+// at::empty, launches on the current stream and raises if the launch
+// failed.
+#include <ATen/core/Tensor.h>
+#include <ATen/ops/empty.h>
+#include <ATen/ops/empty_like.h>
+#include <c10/cuda/CUDAException.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+#include <torch/csrc/utils/pybind.h>
+
+#include <vector>
+
+#include "kernels.h"
+
+namespace {
+
+bert_kernels::DType activation_dtype(const at::Tensor& t, const char* name) {
+  if (t.scalar_type() == at::kFloat) return bert_kernels::kFloat32;
+  if (t.scalar_type() == at::kBFloat16) return bert_kernels::kBFloat16;
+  TORCH_CHECK(false, name, " must be float32 or bfloat16, got ", t.scalar_type());
+}
+
+void check_cuda(const at::Tensor& t, const at::Tensor& ref, const char* name) {
+  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(t.device() == ref.device(), name, " is on ", t.device(),
+              ", expected ", ref.device());
+}
+
+void check_launch(cudaError_t err, const char* what) {
+  TORCH_CHECK(err == cudaSuccess, what, " launch failed: ", cudaGetErrorString(err));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+std::vector<at::Tensor> layer_norm_fwd(const at::Tensor& x,
+                                          const at::Tensor& scale,
+                                          const at::Tensor& bias,
+                                          double eps) {
+  check_cuda(x, x, "x");
+  check_cuda(scale, x, "scale");
+  check_cuda(bias, x, "bias");
+  const auto dtype = activation_dtype(x, "x");
+  TORCH_CHECK(x.dim() >= 1 && x.numel() > 0, "x must be non-empty");
+  TORCH_CHECK(x.is_contiguous(), "x must be contiguous");
+  const int64_t cols = x.size(-1);
+  TORCH_CHECK(cols <= 12288, "layer_norm_fwd supports widths up to 12288, got ", cols);
+  for (const auto* t : {&scale, &bias}) {
+    TORCH_CHECK(t->scalar_type() == at::kFloat, "scale and bias must be float32");
+    TORCH_CHECK(t->is_contiguous() && t->dim() == 1 && t->size(0) == cols,
+                "scale and bias must be contiguous (", cols, ",)");
+  }
+  const int64_t rows = x.numel() / cols;
+  const c10::cuda::CUDAGuard guard(x.device());
+  auto y = at::empty_like(x);
+  auto stats = x.options().dtype(at::kFloat);
+  auto mean = at::empty({rows}, stats);
+  auto rstd = at::empty({rows}, stats);
+  check_launch(bert_kernels::layer_norm_fwd(
+                   x.data_ptr(), scale.data_ptr<float>(), bias.data_ptr<float>(),
+                   y.data_ptr(), mean.data_ptr<float>(), rstd.data_ptr<float>(),
+                   rows, static_cast<int>(cols), static_cast<float>(eps), dtype,
+                   c10::cuda::getCurrentCUDAStream().stream()),
+               "layer_norm_fwd");
+  return {y, mean, rstd};
+}
+
+std::vector<at::Tensor> flash_attention_fwd(
+    const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+    const c10::optional<at::Tensor>& bias,
+    const c10::optional<at::Tensor>& segment_ids,
+    const c10::optional<at::Tensor>& skipped, double scale) {
+  check_cuda(q, q, "q");
+  check_cuda(k, q, "k");
+  check_cuda(v, q, "v");
+  const auto dtype = activation_dtype(q, "q");
+  TORCH_CHECK(k.scalar_type() == q.scalar_type() && v.scalar_type() == q.scalar_type(),
+              "q, k and v must share a dtype");
+  TORCH_CHECK(q.dim() == 4, "q must be (B, S, H, D)");
+  TORCH_CHECK(k.sizes() == q.sizes() && v.sizes() == q.sizes(),
+              "q, k and v must share one (B, S, H, D) shape");
+  const int64_t B = q.size(0), S = q.size(1), H = q.size(2), D = q.size(3);
+  TORCH_CHECK(D == 64, "flash_attention_fwd supports head_dim 64, got ", D);
+  // 16-byte row accesses: unit last stride, other strides whole vectors
+  const int64_t vec = dtype == bert_kernels::kBFloat16 ? 8 : 4;
+  for (const auto* t : {&q, &k, &v}) {
+    TORCH_CHECK(t->stride(3) == 1, "q, k and v need a unit head_dim stride");
+    TORCH_CHECK(t->stride(0) % vec == 0 && t->stride(1) % vec == 0 &&
+                    t->stride(2) % vec == 0,
+                "q, k and v strides must be multiples of ", vec, " elements");
+    TORCH_CHECK(reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 == 0,
+                "q, k and v must be 16-byte aligned");
+  }
+  bert_kernels::FlashParams p{};
+  if (bias.has_value()) {
+    const auto& bt = *bias;
+    check_cuda(bt, q, "bias");
+    TORCH_CHECK(bt.scalar_type() == at::kFloat && bt.is_contiguous() &&
+                    bt.numel() == B * S,
+                "bias must be a contiguous float32 (B, 1, 1, S) tensor");
+    p.bias = bt.data_ptr<float>();
+  }
+  if (segment_ids.has_value()) {
+    const auto& st = *segment_ids;
+    check_cuda(st, q, "segment_ids");
+    TORCH_CHECK(st.scalar_type() == at::kInt && st.is_contiguous() &&
+                    st.dim() == 2 && st.size(0) == B && st.size(1) == S,
+                "segment_ids must be a contiguous int32 (B, S) tensor");
+    p.seg = st.data_ptr<int32_t>();
+  }
+  if (skipped.has_value()) {
+    const auto& ct = *skipped;
+    check_cuda(ct, q, "skipped");
+    TORCH_CHECK(ct.scalar_type() == at::kInt && ct.numel() == 1,
+                "skipped must be one int32");
+    p.skipped = ct.data_ptr<int32_t>();
+  }
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto out = at::empty({B, S, H, D}, q.options());
+  auto lse = at::empty({B, H, S}, q.options().dtype(at::kFloat));
+  p.q = q.data_ptr();
+  p.k = k.data_ptr();
+  p.v = v.data_ptr();
+  p.out = out.data_ptr();
+  p.lse = lse.data_ptr<float>();
+  for (int i = 0; i < 3; ++i) {
+    p.q_strides[i] = q.stride(i);
+    p.k_strides[i] = k.stride(i);
+    p.v_strides[i] = v.stride(i);
+  }
+  p.batch = static_cast<int>(B);
+  p.seq = static_cast<int>(S);
+  p.heads = static_cast<int>(H);
+  p.head_dim = static_cast<int>(D);
+  p.scale = static_cast<float>(scale);
+  check_launch(bert_kernels::flash_attention_fwd(
+                   p, dtype, c10::cuda::getCurrentCUDAStream().stream()),
+               "flash_attention_fwd");
+  return {out, lse};
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("layer_norm_fwd", &layer_norm_fwd, "LayerNorm forward (y, mean, rstd)");
+  m.def("flash_attention_fwd", &flash_attention_fwd,
+        "flash-attention forward (out, lse)");
+}

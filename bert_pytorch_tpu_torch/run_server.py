@@ -1,0 +1,211 @@
+"""Inference server entry point of the port: a SQuAD checkpoint -> HTTP.
+
+    python -m bert_pytorch_tpu_torch.run_server \\
+        --model_config_file configs/bert_large_uncased_config.json \\
+        --vocab_file vocab.txt --task_checkpoint squad=qa_params.pt \\
+        --port 8000
+
+Serves `POST /v1/squad` ({"question", "context"} -> answer + n-best) and
+`GET /healthz`, with the JAX server's defaults: buckets 64/128/256/512,
+8 rows per batch, up to 8 packed requests per row, bf16 compute over f32
+parameters. Runs on CUDA unless `--device cpu`. A checkpoint is a `.npz`
+of the flat flax param tree or a `.pt` state_dict (models/convert.py).
+`--port 0` binds an ephemeral port; `--port_file` receives the bound port
+once every bucket has run once.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import sys
+import threading
+from typing import Callable, Dict
+
+TASKS = ("squad",)
+
+
+def parse_arguments(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--model_config_file", required=True, type=str)
+    p.add_argument("--vocab_file", default=None, type=str)
+    p.add_argument("--task_checkpoint", action="append", default=None,
+                   metavar="TASK=FILE",
+                   help="serve a task from a .npz (flat flax tree) or .pt "
+                        "(state_dict) checkpoint; tasks: " + ", ".join(TASKS))
+    p.add_argument("--port", type=int, default=8000,
+                   help="HTTP port (0 = ephemeral)")
+    p.add_argument("--host", type=str, default="0.0.0.0")
+    p.add_argument("--port_file", type=str, default=None,
+                   help="write the bound port here once warm")
+    p.add_argument("--buckets", type=str, default="64,128,256,512",
+                   help="comma-separated sequence-length buckets")
+    p.add_argument("--batch_rows", type=int, default=8,
+                   help="rows per forward batch")
+    p.add_argument("--max_segments", type=int, default=8,
+                   help="max packed requests per row")
+    p.add_argument("--packing", type=str, default="on", choices=["on", "off"],
+                   help="pack several requests per row (segment-aware "
+                        "attention); off = one request per row")
+    p.add_argument("--serve_dtype", type=str, default="bfloat16",
+                   choices=["bfloat16", "float32"],
+                   help="compute dtype; parameters stay f32")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu")
+    p.add_argument("--queue_size", type=int, default=128,
+                   help="admission queue bound; a full queue sheds with 503")
+    p.add_argument("--admission_timeout", type=float, default=10.0,
+                   help="seconds a request may wait before 504")
+    p.add_argument("--batch_wait_ms", type=float, default=2.0,
+                   help="coalescing window before running a batch")
+    p.add_argument("--doc_stride", type=int, default=128)
+    p.add_argument("--max_query_length", type=int, default=64)
+    p.add_argument("--n_best_size", type=int, default=20)
+    p.add_argument("--max_answer_length", type=int, default=30)
+    return p.parse_args(argv)
+
+
+def task_checkpoints(args) -> Dict[str, str]:
+    out = {}
+    for entry in args.task_checkpoint or []:
+        task, sep, path = entry.partition("=")
+        if not sep or not task or not path:
+            raise SystemExit(f"--task_checkpoint wants TASK=FILE, got "
+                             f"{entry!r}")
+        out[task] = path
+    unknown = sorted(set(out) - set(TASKS))
+    if unknown:
+        raise SystemExit(f"unknown task(s) {unknown}; this server serves: "
+                         + ", ".join(TASKS))
+    if not out:
+        raise SystemExit("nothing to serve: pass --task_checkpoint "
+                         "squad=FILE")
+    return out
+
+
+class ServerHandle:
+    """Everything `serve()` started, closable in one call (frontend first,
+    so no request lands on a closing scheduler)."""
+
+    def __init__(self, frontend, scheduler, engine, models):
+        self.frontend = frontend
+        self.scheduler = scheduler
+        self.engine = engine
+        self.models = models
+        self.url = frontend.url
+        self.port = frontend.port
+
+    def close(self) -> None:
+        self.frontend.close()
+        self.scheduler.close()
+
+
+def serve(args, log: Callable[[str], None] = print) -> ServerHandle:
+    """Build the stack and return a live ServerHandle: the port is open and
+    every (task, bucket) has run once when this returns."""
+    import torch
+
+    from bert_pytorch_tpu_torch import resolve_device
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.data.tokenization import (
+        get_wordpiece_tokenizer)
+    from bert_pytorch_tpu_torch.models.bert import BertForQuestionAnswering
+    from bert_pytorch_tpu_torch.models.convert import load_serving_params
+    from bert_pytorch_tpu_torch.serving.batcher import Scheduler
+    from bert_pytorch_tpu_torch.serving.engine import TorchServingEngine
+    from bert_pytorch_tpu_torch.serving.frontend import (ServingFrontend,
+                                                         SquadService)
+    from bert_pytorch_tpu_torch.tasks import predict, squad
+
+    device = resolve_device(args.device)
+    checkpoints = task_checkpoints(args)
+    config = BertConfig.from_json_file(args.model_config_file)
+    # checkpoints carry the table padded to a multiple of 8, as the
+    # training entry points pad it
+    config = config.replace(vocab_size=pad_vocab_size(config.vocab_size, 8))
+    vocab_file = args.vocab_file or config.vocab_file
+    if not vocab_file:
+        raise SystemExit("vocab_file required (CLI or model config)")
+    tokenizer = get_wordpiece_tokenizer(vocab_file,
+                                        uppercase=not config.lowercase)
+    dtype = (torch.float32 if args.serve_dtype == "float32"
+             else torch.bfloat16)
+
+    buckets = sorted({int(b) for b in args.buckets.split(",") if b.strip()})
+    usable = [b for b in buckets if b <= config.max_position_embeddings]
+    if usable != buckets:
+        log(f"WARNING: dropping buckets beyond max_position_embeddings="
+            f"{config.max_position_embeddings}: "
+            f"{sorted(set(buckets) - set(usable))}")
+    if not usable:
+        raise SystemExit("no usable bucket <= max_position_embeddings")
+
+    models = {}
+    forwards = {}
+    for task, path in sorted(checkpoints.items()):
+        model = BertForQuestionAnswering(config, dtype=dtype)
+        # strict: a head or layer silently left at random init is an
+        # outage, not a warning
+        model.load_state_dict(load_serving_params(path), strict=True)
+        models[task] = model.to(device).eval()
+        forwards[task] = predict.build_qa_forward(models[task])
+        log(f"serving: {task} <- {path} "
+            f"({sum(p.numel() for p in model.parameters())} params, "
+            f"{config.num_hidden_layers} layers, {device}, "
+            f"{args.serve_dtype})")
+
+    engine = TorchServingEngine(forwards, device, buckets=usable,
+                                batch_rows=args.batch_rows,
+                                max_segments=args.max_segments)
+    n = engine.warmup(log=log)
+    log(f"serving: {n} (task, bucket) forward(s) warm (buckets "
+        f"{engine.buckets}, batch_rows {engine.batch_rows}, packing "
+        f"{args.packing})")
+    scheduler = Scheduler(engine, queue_size=args.queue_size,
+                          admission_timeout_s=args.admission_timeout,
+                          batch_wait_ms=args.batch_wait_ms,
+                          packing=(args.packing == "on")).start()
+    answer_cfg = squad.AnswerConfig(n_best_size=args.n_best_size,
+                                    max_answer_length=args.max_answer_length,
+                                    do_lower_case=config.lowercase)
+    services = {"squad": SquadService(
+        scheduler, tokenizer, answer_cfg, doc_stride=args.doc_stride,
+        max_query_length=args.max_query_length)}
+
+    def healthz():
+        return {"status": "ok", "device": str(device),
+                "tasks": sorted(services), "buckets": list(engine.buckets),
+                "packing": args.packing == "on",
+                "serve_dtype": args.serve_dtype,
+                "scheduler": scheduler.stats()}
+
+    frontend = ServingFrontend(services, healthz_fn=healthz, port=args.port,
+                               host=args.host)
+    log(f"serving: listening on {frontend.url} (POST /v1/squad, "
+        "GET /healthz)")
+    return ServerHandle(frontend, scheduler, engine, models)
+
+
+def main(argv=None) -> int:
+    args = parse_arguments(argv)
+    handle = serve(args)
+    if args.port_file:
+        tmp = args.port_file + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            f.write(str(handle.port))
+        os.replace(tmp, args.port_file)
+    stop = threading.Event()
+    old = {sig: signal.signal(sig, lambda signum, frame: stop.set())
+           for sig in (signal.SIGINT, signal.SIGTERM)}
+    try:
+        stop.wait()
+    finally:
+        for sig, handler in old.items():
+            signal.signal(sig, handler)
+        handle.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
