@@ -1,12 +1,16 @@
-"""Model configuration (counterpart of bert_pytorch_tpu/config.py).
+"""Model and run configuration (counterpart of bert_pytorch_tpu/config.py).
 
 `BertConfig` keeps the fields of the JAX package's dataclass that the
-serving slice reads; `from_dict` ignores the others, so the repository's
-model config JSONs load unchanged.
+port's slices read; `from_dict` ignores the others, so the repository's
+model config JSONs load unchanged. `merge_args_with_config` is the JAX
+package's three-level precedence for entry points: CLI > JSON run config >
+argparse defaults.
 """
 
 from __future__ import annotations
 
+import argparse
+import copy
 import dataclasses
 import json
 from typing import Any, Dict, Optional
@@ -20,6 +24,8 @@ class BertConfig:
     num_attention_heads: int = 12
     intermediate_size: int = 3072
     hidden_act: str = "gelu"
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     initializer_range: float = 0.02
@@ -28,6 +34,12 @@ class BertConfig:
     model_name: Optional[str] = None
     vocab_file: Optional[str] = None
     lowercase: bool = True
+    # Counter-hash dropout at every training dropout site: each residual
+    # tail is one fused residual-dropout-LayerNorm (mask evaluated in the
+    # kernel), and the embeddings and attention-probability sites
+    # regenerate their hash masks in the backward pass. False (the JAX
+    # package's nn.Dropout stream) is not ported: training raises.
+    fused_dropout_ln: bool = True
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "BertConfig":
@@ -55,3 +67,33 @@ def pad_vocab_size(vocab_size: int, multiple: int = 8) -> int:
     """Round the vocab up to a multiple, as every checkpoint's padded
     embedding table is."""
     return ((vocab_size + multiple - 1) // multiple) * multiple
+
+
+def explicit_cli_keys(parser: argparse.ArgumentParser,
+                      argv: Optional[list] = None) -> set:
+    """Which destinations were given explicitly on the command line,
+    found by re-parsing with every default suppressed."""
+    suppressed = copy.deepcopy(parser)
+    for action in suppressed._actions:  # noqa: SLF001
+        action.default = argparse.SUPPRESS
+    return set(vars(suppressed.parse_args(argv)))
+
+
+def merge_args_with_config(parser: argparse.ArgumentParser,
+                           argv: Optional[list] = None,
+                           config_key: str = "config_file"
+                           ) -> argparse.Namespace:
+    """CLI > JSON run config > parser defaults: values of the JSON file
+    named by `config_key` override defaults but never explicit CLI flags;
+    keys the parser does not declare attach to the namespace."""
+    args = parser.parse_args(argv)
+    config_path = getattr(args, config_key, None)
+    if not config_path:
+        return args
+    with open(config_path, "r", encoding="utf-8") as f:
+        config = json.load(f)
+    explicit = explicit_cli_keys(parser, argv)
+    for key, value in config.items():
+        if key not in explicit:
+            setattr(args, key, value)
+    return args

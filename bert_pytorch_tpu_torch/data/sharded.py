@@ -1,0 +1,252 @@
+"""Sharded-HDF5 pretraining input pipeline (a copy of
+bert_pytorch_tpu/data/sharded.py, trimmed: dynamic-masking shards only,
+no sequence packing).
+
+The shards are gzip'd HDF5 files with the keys input_ids,
+special_token_positions and next_sentence_labels. The loader slices
+contiguous batches out of the resident shard and masks them in one
+vectorized call (data/masking.py). Masks are a pure function of
+(seed, epoch, global sample index), so they do not depend on how samples
+were grouped into batches. Each host takes a contiguous chunk of the
+global index space, padded by wraparound to world_size * num_samples.
+"""
+
+from __future__ import annotations
+
+import bisect
+import warnings
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from bert_pytorch_tpu_torch.data import masking
+
+REQUIRED_KEYS = ("input_ids", "special_token_positions",
+                 "next_sentence_labels")
+
+
+def _h5py():
+    try:
+        import h5py
+    except ImportError as e:  # the one optional dependency of the slice
+        raise ImportError(
+            "reading pretraining shards needs h5py, which is not installed"
+        ) from e
+    return h5py
+
+
+class ShardIndex:
+    """Discover and verify shard files, and map a global sample index to
+    (file, row). Unreadable files, files whose per-key counts differ and
+    legacy premasked files (no special_token_positions) are skipped with a
+    warning. `load(fi)` reads file `fi` whole."""
+
+    def __init__(self, files: Sequence[str]):
+        h5py = _h5py()
+        self.files: List[str] = []
+        self.starts: List[int] = []
+        total = 0
+        for path in sorted(str(f) for f in files):
+            try:
+                with h5py.File(path, "r") as f:
+                    missing = [k for k in REQUIRED_KEYS if k not in f]
+                    counts = {len(f[k]) for k in REQUIRED_KEYS if k in f}
+            except OSError as e:
+                warnings.warn(f"skipping unreadable shard {path}: {e}")
+                continue
+            if missing:
+                warnings.warn(f"skipping shard {path}: no {missing} (legacy "
+                              "premasked shards are not read by this port)")
+                continue
+            if len(counts) != 1:
+                warnings.warn(f"skipping shard {path}: per-key sample counts "
+                              "differ")
+                continue
+            self.files.append(path)
+            self.starts.append(total)
+            total += counts.pop()
+        if not self.files:
+            raise RuntimeError("no valid shard files found")
+        self.total = total
+
+    def __len__(self) -> int:
+        return self.total
+
+    def locate(self, idx: int) -> Tuple[int, int]:
+        """global sample idx -> (file_idx, row_within_file)."""
+        if not 0 <= idx < self.total:
+            raise IndexError(f"sample {idx} out of range ({self.total})")
+        fi = bisect.bisect_right(self.starts, idx) - 1
+        return fi, idx - self.starts[fi]
+
+    def file_end(self, fi: int) -> int:
+        return self.starts[fi + 1] if fi + 1 < len(self.files) else self.total
+
+    def load(self, fi: int) -> Dict[str, np.ndarray]:
+        with _h5py().File(self.files[fi], "r") as f:
+            return {k: np.asarray(f[k][:]) for k in REQUIRED_KEYS}
+
+
+class HostShardSampler:
+    """Contiguous per-host index stream: the global index space padded by
+    wraparound to world_size * num_samples; host r owns
+    [r * num_samples, (r + 1) * num_samples)."""
+
+    def __init__(self, dataset_size: int, world_size: int = 1, rank: int = 0,
+                 seed: int = 0):
+        if not 0 <= rank < world_size:
+            raise ValueError(f"rank {rank} out of range for world {world_size}")
+        self.dataset_size = dataset_size
+        self.world_size = world_size
+        self.rank = rank
+        self.seed = seed
+        self.num_samples = -(-dataset_size // world_size)
+        self.total_size = self.num_samples * self.world_size
+        self.index = 0
+        self.epoch = 0
+
+    def __len__(self) -> int:
+        return self.num_samples
+
+    def next_indices(self, n: int) -> Optional[np.ndarray]:
+        """Next n global sample indices, or None at epoch end (a partial
+        tail batch is dropped)."""
+        if self.index + n > self.num_samples:
+            return None
+        base = self.rank * self.num_samples + self.index
+        self.index += n
+        return np.arange(base, base + n) % self.dataset_size
+
+    def reset_epoch(self) -> None:
+        self.index = 0
+        self.epoch += 1
+
+
+class PretrainingDataLoader:
+    """Iterator of numpy batches shaped (batch, seq): input_ids,
+    token_type_ids, attention_mask, masked_lm_labels, plus
+    next_sentence_labels (batch,); all int32.
+
+    prefetch_batches > 0 assembles batches (shard reads, row gather,
+    masking) on one executor thread that many batches ahead of the
+    consumer, so the next batch is ready while the card runs this one."""
+
+    def __init__(self, index: ShardIndex, sampler: HostShardSampler,
+                 batch_size: int, mask_token_index: int,
+                 max_pred_per_seq: int, masked_lm_prob: float,
+                 vocab_size: int, original_token_prob: float = 0.1,
+                 random_token_prob: float = 0.1, seed: Optional[int] = None,
+                 prefetch_batches: int = 0):
+        if not 0 <= masked_lm_prob <= 1:
+            raise ValueError("masked_lm_prob must be in [0,1]")
+        if original_token_prob + random_token_prob > 1:
+            raise ValueError("original_token_prob + random_token_prob > 1")
+        if max_pred_per_seq < 0:
+            raise ValueError("max_pred_per_seq must be >= 0")
+        self.index = index
+        self.sampler = sampler
+        self.batch_size = batch_size
+        self.mask_token_index = mask_token_index
+        self.max_pred_per_seq = max_pred_per_seq
+        self.masked_lm_prob = masked_lm_prob
+        self.vocab_size = vocab_size
+        self.original_token_prob = original_token_prob
+        self.random_token_prob = random_token_prob
+        self._mask_seed = int(seed if seed is not None else sampler.seed)
+        self._resident_fi: Optional[int] = None
+        self._resident: Optional[Dict[str, np.ndarray]] = None
+        self.prefetch_batches = int(prefetch_batches)
+        self._assembler = (ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="batch-assemble")
+            if self.prefetch_batches > 0 else None)
+        self._queue: List[Future] = []
+
+    def _ensure_resident(self, fi: int) -> Dict[str, np.ndarray]:
+        if fi != self._resident_fi:
+            self._resident = self.index.load(fi)
+            self._resident_fi = fi
+        return self._resident
+
+    def _gather_rows(self, indices: np.ndarray) -> Dict[str, np.ndarray]:
+        """Rows for (mostly contiguous) global indices, across shard
+        boundaries."""
+        out: Dict[str, List[np.ndarray]] = {}
+        i = 0
+        while i < len(indices):
+            fi, _ = self.index.locate(int(indices[i]))
+            data = self._ensure_resident(fi)
+            start, end = self.index.starts[fi], self.index.file_end(fi)
+            j = i
+            while j < len(indices) and start <= int(indices[j]) < end:
+                j += 1
+            rows = np.asarray(indices[i:j]) - start
+            for k, arr in data.items():
+                out.setdefault(k, []).append(arr[rows])
+            i = j
+        return {k: np.concatenate(v, axis=0) for k, v in out.items()}
+
+    def _build(self, indices: np.ndarray) -> Dict[str, np.ndarray]:
+        raw = self._gather_rows(indices)
+        input_ids = raw["input_ids"].astype(np.int32)
+        specials = raw["special_token_positions"]
+        rngs = [np.random.default_rng([self._mask_seed, self.sampler.epoch,
+                                       int(i)]) for i in indices]
+        masked, labels = masking.dynamic_mask_batch(
+            input_ids, specials, mask_token_index=self.mask_token_index,
+            max_pred_per_seq=self.max_pred_per_seq,
+            masked_lm_prob=self.masked_lm_prob,
+            draws=masking.per_row_mask_draws(rngs, input_ids.shape[1],
+                                             self.vocab_size),
+            original_token_prob=self.original_token_prob,
+            random_token_prob=self.random_token_prob)
+        return {
+            "input_ids": masked.astype(np.int32),
+            "token_type_ids": masking.segment_ids_from_specials(
+                input_ids, specials).astype(np.int32),
+            "attention_mask": masking.input_mask_from_specials(
+                input_ids, specials).astype(np.int32),
+            "masked_lm_labels": labels.astype(np.int32),
+            "next_sentence_labels":
+                raw["next_sentence_labels"].reshape(-1).astype(np.int32),
+        }
+
+    def _assemble(self) -> Optional[Dict[str, np.ndarray]]:
+        indices = self.sampler.next_indices(self.batch_size)
+        return None if indices is None else self._build(indices)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        if self._assembler is None:
+            batch = self._assemble()
+        else:
+            if not self._queue:
+                self._queue.append(self._assembler.submit(self._assemble))
+            head = self._queue.pop(0)
+            while len(self._queue) < self.prefetch_batches:
+                self._queue.append(self._assembler.submit(self._assemble))
+            batch = head.result()
+        if batch is None:
+            self._drain_queue()
+            raise StopIteration
+        return batch
+
+    def _drain_queue(self) -> None:
+        """Wait out in-flight assemblies; their results (end-of-epoch
+        markers, or batches past a reset) are dropped, their errors
+        raised."""
+        queue, self._queue = self._queue, []
+        for f in queue:
+            f.result()
+
+    def reset_epoch(self) -> None:
+        self._drain_queue()
+        self.sampler.reset_epoch()
+
+    def close(self) -> None:
+        if self._assembler is not None:
+            self._assembler.shutdown(wait=True, cancel_futures=True)
+            self._assembler = None
+        self._queue = []

@@ -1,23 +1,33 @@
-"""BERT for extractive QA in PyTorch (counterpart of
-bert_pytorch_tpu/models/bert.py, deterministic forward only).
+"""BERT in PyTorch: the encoder, the QA head and the pretraining heads
+(counterpart of bert_pytorch_tpu/models/bert.py).
 
 Numerics follow the JAX model: parameters stay f32 and are cast to the
 compute dtype at use (bf16 by default); LayerNorm statistics and attention
-softmax are f32; the residual add before each LayerNorm happens in the
-compute dtype; the QA logits come out f32. The encoder is an
-`nn.ModuleList` of layers, and the QKV projection is one (E -> 3 * H * D)
-Linear whose output splits as the JAX kernel's (3, H, D) features.
+softmax are f32; the QA and NSP logits come out f32, and the tied MLM
+decoder computes f32 logits from compute-dtype operands. The encoder is an
+`nn.ModuleList` of layers (the JAX package's unstacked layout), and the
+QKV projection is one (E -> 3 * H * D) Linear whose output splits as the
+JAX kernel's (3, H, D) features.
+
+Training: `dropout_seeds`, an int32 tensor of 1 + 3L seeds on the host,
+turns dropout on; None is the deterministic (eval and serving) forward.
+The JAX model draws one seed per dropout site per micro-step, in this
+order: the embeddings, then for each layer the attention probabilities,
+the attention tail and the MLP tail. Every site uses the counter-hash
+mask: `hash_dropout` at the embeddings and attention probabilities, the
+fused residual-dropout-LayerNorm kernel at both residual tails.
 
 `plain=True` builds the same model with every kernel call replaced by the
-kernel's plain PyTorch version: a reference to hold the kernels against on
-the card, never a route a served model takes.
+kernel's plain PyTorch version, differentiated by autograd: a reference to
+hold the kernels against on the card, never a route a run takes.
 
-Shape glossary: B batch, S sequence, H heads, D head_dim, E hidden.
+Shape glossary: B batch, S sequence, H heads, D head_dim, E hidden,
+P masked positions per row, V vocab.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,8 +36,11 @@ from torch import nn
 from bert_pytorch_tpu_torch.config import BertConfig
 from bert_pytorch_tpu_torch.ops.activations import ACT2FN
 from bert_pytorch_tpu_torch.ops.attention import (dot_product_attention,
+                                                  hash_dropout,
                                                   make_attention_bias)
-from bert_pytorch_tpu_torch.ops.layernorm import layer_norm, layer_norm_ref
+from bert_pytorch_tpu_torch.ops.layernorm import (add_dropout_layer_norm,
+                                                  add_dropout_layer_norm_ref,
+                                                  layer_norm, layer_norm_ref)
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -50,18 +63,31 @@ class LayerNorm(nn.Module):
         return fn(x, self.scale, self.bias, self.eps)
 
 
-class ResidualLayerNorm(LayerNorm):
-    """LN(residual + x), the add in the compute dtype: the deterministic
-    form of the JAX model's ResidualDropoutLayerNorm."""
+class ResidualDropoutLayerNorm(LayerNorm):
+    """LN(residual + dropout(x)), the tail of both residual sites in every
+    layer. Deterministic (no seed) or at rate 0: LN(residual + x) with the
+    add in the compute dtype. Training: the fused kernel, which adds in
+    f32 after dropping x with the counter-hash mask of `seed`."""
+
+    def __init__(self, dim: int, rate: float, eps: float = 1e-12,
+                 plain: bool = False):
+        super().__init__(dim, eps, plain)
+        self.rate = rate
 
     def forward(self, x: torch.Tensor,  # type: ignore[override]
-                residual: torch.Tensor) -> torch.Tensor:
-        return super().forward(residual + x)
+                residual: torch.Tensor,
+                seed: Optional[int] = None) -> torch.Tensor:
+        if seed is None or self.rate == 0.0:
+            return super().forward(residual + x)
+        fn = add_dropout_layer_norm_ref if self.plain else add_dropout_layer_norm
+        return fn(x, residual, self.scale, self.bias, seed, self.rate,
+                  self.eps)
 
 
 class BertEmbeddings(nn.Module):
     """word + position (+ token-type iff next_sentence) embeddings, then
-    LayerNorm. `position_ids` resets positions per packed segment."""
+    LayerNorm and (training) hash dropout. `position_ids` resets positions
+    per packed segment."""
 
     def __init__(self, config: BertConfig, plain: bool = False):
         super().__init__()
@@ -73,11 +99,13 @@ class BertEmbeddings(nn.Module):
             nn.Embedding(config.type_vocab_size, e)
             if config.next_sentence else None)
         self.layer_norm = LayerNorm(e, plain=plain)
+        self.rate = config.hidden_dropout_prob
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor],
                 position_ids: Optional[torch.Tensor],
-                dtype: torch.dtype) -> torch.Tensor:
+                dtype: torch.dtype,
+                seed: Optional[int] = None) -> torch.Tensor:
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[-1],
                                         device=input_ids.device)[None, :]
@@ -88,7 +116,10 @@ class BertEmbeddings(nn.Module):
             if token_type_ids is None:
                 token_type_ids = torch.zeros_like(input_ids)
             x = x + self.token_type_embeddings(token_type_ids).to(dtype)
-        return self.layer_norm(x)
+        x = self.layer_norm(x)
+        if seed is not None and self.rate > 0.0:
+            x = hash_dropout(x, seed, self.rate)
+        return x
 
 
 class BertSelfAttention(nn.Module):
@@ -101,17 +132,20 @@ class BertSelfAttention(nn.Module):
         e = config.hidden_size
         self.qkv = nn.Linear(e, 3 * self.n_heads * self.head_dim)
         self.output = nn.Linear(self.n_heads * self.head_dim, e)
+        self.rate = config.attention_probs_dropout_prob
         self.plain = plain
 
     def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor,
-                segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
+                segment_ids: Optional[torch.Tensor],
+                seed: Optional[int] = None) -> torch.Tensor:
         b, s, _ = hidden.shape
         qkv = _linear(hidden, self.qkv).view(b, s, 3, self.n_heads,
                                              self.head_dim)
         # strided views: the flash kernel reads them in place
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         ctx = dot_product_attention(q, k, v, attention_bias, segment_ids,
-                                    plain=self.plain)
+                                    plain=self.plain, dropout_seed=seed,
+                                    dropout_rate=self.rate)
         return _linear(ctx.reshape(b, s, -1), self.output)
 
 
@@ -121,19 +155,26 @@ class BertLayer(nn.Module):
     def __init__(self, config: BertConfig, plain: bool = False):
         super().__init__()
         e = config.hidden_size
+        rate = config.hidden_dropout_prob
         self.attention = BertSelfAttention(config, plain=plain)
-        self.attention_layer_norm = ResidualLayerNorm(e, plain=plain)
+        self.attention_layer_norm = ResidualDropoutLayerNorm(e, rate,
+                                                             plain=plain)
         self.intermediate = nn.Linear(e, config.intermediate_size)
         self.mlp_output = nn.Linear(config.intermediate_size, e)
-        self.output_layer_norm = ResidualLayerNorm(e, plain=plain)
+        self.output_layer_norm = ResidualDropoutLayerNorm(e, rate,
+                                                          plain=plain)
         self.act = ACT2FN[config.hidden_act]
 
     def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor,
-                segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
-        attn = self.attention(hidden, attention_bias, segment_ids)
-        hidden = self.attention_layer_norm(attn, hidden)
+                segment_ids: Optional[torch.Tensor],
+                seeds: Sequence[Optional[int]] = (None, None, None)
+                ) -> torch.Tensor:
+        """`seeds`: (attention probabilities, attention tail, MLP tail)."""
+        attn = self.attention(hidden, attention_bias, segment_ids, seeds[0])
+        hidden = self.attention_layer_norm(attn, hidden, seeds[1])
         inter = self.act(_linear(hidden, self.intermediate))
-        return self.output_layer_norm(_linear(inter, self.mlp_output), hidden)
+        return self.output_layer_norm(_linear(inter, self.mlp_output),
+                                      hidden, seeds[2])
 
 
 class BertEncoder(nn.Module):
@@ -144,17 +185,53 @@ class BertEncoder(nn.Module):
             for _ in range(config.num_hidden_layers))
 
     def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor,
-                segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
-        for layer in self.layers:
-            hidden = layer(hidden, attention_bias, segment_ids)
+                segment_ids: Optional[torch.Tensor],
+                seeds: Optional[List[int]] = None) -> torch.Tensor:
+        for i, layer in enumerate(self.layers):
+            layer_seeds = ((None, None, None) if seeds is None
+                           else seeds[3 * i:3 * i + 3])
+            hidden = layer(hidden, attention_bias, segment_ids, layer_seeds)
         return hidden
+
+
+class BertPooler(nn.Module):
+    """tanh(dense([CLS])) in the compute dtype."""
+
+    def __init__(self, config: BertConfig):
+        super().__init__()
+        self.dense = nn.Linear(config.hidden_size, config.hidden_size)
+
+    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(_linear(hidden[:, 0], self.dense))
+
+
+def dropout_seed_list(config: BertConfig,
+                      dropout_seeds: Optional[torch.Tensor]
+                      ) -> Optional[List[int]]:
+    """The (1 + 3L,) int32 seed tensor as Python ints, checked: the sites
+    are the embeddings, then per layer the attention probabilities, the
+    attention tail and the MLP tail."""
+    if dropout_seeds is None:
+        return None
+    seeds = [int(s) for s in dropout_seeds.reshape(-1).tolist()]
+    want = 1 + 3 * config.num_hidden_layers
+    if len(seeds) != want:
+        raise ValueError(f"dropout_seeds holds {len(seeds)} seeds; this "
+                         f"model has {want} dropout sites (1 + 3L)")
+    rates = (config.hidden_dropout_prob, config.attention_probs_dropout_prob)
+    if not config.fused_dropout_ln and max(rates) > 0.0:
+        raise NotImplementedError(
+            "training with fused_dropout_ln=False (the nn.Dropout stream) "
+            "is not ported; the port's dropout is the counter-hash mask")
+    return seeds
 
 
 class BertModel(nn.Module):
     """Embeddings -> encoder. Packed rows pass `position_ids` and
     `segment_ids` (1..n per row, 0 = pad); attention is then restricted
-    to q_seg == k_seg blocks. The JAX model's NSP pooler is not built: the
-    QA head never reads it (models/convert.py drops its parameters)."""
+    to q_seg == k_seg blocks. The NSP pooler is built iff
+    `config.next_sentence`, as in the JAX model; the forward returns the
+    sequence output and the pretraining head applies the pooler."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.bfloat16,
                  plain: bool = False):
@@ -163,13 +240,17 @@ class BertModel(nn.Module):
         self.dtype = dtype
         self.embeddings = BertEmbeddings(config, plain=plain)
         self.encoder = BertEncoder(config, plain=plain)
+        self.pooler = BertPooler(config) if config.next_sentence else None
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
                 position_ids: Optional[torch.Tensor] = None,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                segment_ids: Optional[torch.Tensor] = None,
+                dropout_seeds: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         """(B, S, E) sequence output in the compute dtype."""
+        seeds = dropout_seed_list(self.config, dropout_seeds)
         if attention_mask is None:
             attention_mask = (segment_ids > 0 if segment_ids is not None
                               else torch.ones_like(input_ids))
@@ -177,8 +258,9 @@ class BertModel(nn.Module):
         if segment_ids is not None:
             segment_ids = segment_ids.to(torch.int32).contiguous()
         x = self.embeddings(input_ids, token_type_ids, position_ids,
-                            self.dtype)
-        return self.encoder(x, bias, segment_ids)
+                            self.dtype, None if seeds is None else seeds[0])
+        return self.encoder(x, bias, segment_ids,
+                            None if seeds is None else seeds[1:])
 
 
 class BertForQuestionAnswering(nn.Module):
@@ -203,11 +285,72 @@ class BertForQuestionAnswering(nn.Module):
         return logits[..., 0], logits[..., 1]
 
 
+class BertMLMHead(nn.Module):
+    """transform (dense + act + LayerNorm), then the decoder tied to the
+    word-embedding table plus a free f32 bias. The logits are f32 from
+    compute-dtype operands: products of bf16 values are exact in f32, so
+    an f32 product of the upcast operands (TF32 off) is the JAX einsum's
+    preferred_element_type=f32 value, never rounded to bf16."""
+
+    def __init__(self, config: BertConfig, plain: bool = False):
+        super().__init__()
+        e = config.hidden_size
+        self.transform = nn.Linear(e, e)
+        self.act = ACT2FN["gelu" if config.hidden_act == "bias_gelu"
+                          else config.hidden_act]
+        self.layer_norm = LayerNorm(e, plain=plain)
+        self.bias = nn.Parameter(torch.zeros(config.vocab_size))
+
+    def forward(self, hidden: torch.Tensor,
+                word_embedding: torch.Tensor) -> torch.Tensor:
+        x = self.layer_norm(self.act(_linear(hidden, self.transform)))
+        table = word_embedding.to(x.dtype)
+        return torch.matmul(x.float(), table.float().t()) + self.bias
+
+
+class BertForPreTraining(nn.Module):
+    """MLM + NSP heads. `masked_positions` (B, P) gathers the hidden
+    states at those positions before the MLM head, so the logits are
+    (B, P, V) f32 and the (B, S, V) tensor never exists; None scores every
+    position. Returns (mlm_logits, nsp_logits (B, 2) f32 or None)."""
+
+    def __init__(self, config: BertConfig, dtype: torch.dtype = torch.bfloat16,
+                 plain: bool = False):
+        super().__init__()
+        self.config = config
+        self.bert = BertModel(config, dtype=dtype, plain=plain)
+        self.cls_predictions = BertMLMHead(config, plain=plain)
+        self.cls_seq_relationship = (nn.Linear(config.hidden_size, 2)
+                                     if config.next_sentence else None)
+
+    def forward(self, input_ids: torch.Tensor,
+                token_type_ids: Optional[torch.Tensor] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                masked_positions: Optional[torch.Tensor] = None,
+                dropout_seeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        seq = self.bert(input_ids, token_type_ids, attention_mask,
+                        dropout_seeds=dropout_seeds)
+        hidden = seq
+        if masked_positions is not None:
+            index = masked_positions.long()[..., None].expand(
+                -1, -1, seq.shape[-1])
+            hidden = torch.gather(seq, 1, index)
+        mlm_logits = self.cls_predictions(
+            hidden, self.bert.embeddings.word_embeddings.weight)
+        nsp_logits = None
+        if self.cls_seq_relationship is not None:
+            nsp_logits = _linear(self.bert.pooler(seq),
+                                 self.cls_seq_relationship).float()
+        return mlm_logits, nsp_logits
+
+
 def init_weights(model: nn.Module, generator: torch.Generator,
                  std: float = 0.02) -> nn.Module:
     """Random weights as the JAX model initialises them: normal(0, std)
-    for Linear and Embedding weights, zero biases, unit LayerNorm scales.
-    Draws from `generator` on the parameters' device, in module order."""
+    for Linear and Embedding weights, zero biases, unit LayerNorm scales
+    (the MLM head's free bias stays zero). Draws from `generator` on the
+    parameters' device, in module order."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (nn.Linear, nn.Embedding)):

@@ -1,12 +1,16 @@
 """Flax parameter trees -> the port's state_dicts, and serving checkpoints.
 
-The JAX package's BertForQuestionAnswering keeps its parameters in a flax
-tree; flattened with "/" between keys it reads, for example,
+The JAX package's models keep their parameters in a flax tree; flattened
+with "/" between keys it reads, for example,
 
     bert/embeddings/word_embeddings/embedding          (V, E)
     bert/encoder/layers/layer/attention/qkv/kernel     (L, E, 3, H, D)
     bert/encoder/layer_0/attention/qkv/kernel          (E, 3, H, D)
+    bert/pooler/dense/kernel                           (E, E)
     qa_outputs/kernel                                  (E, 2)
+    cls_predictions/transform/kernel                   (E, E)
+    cls_predictions/bias                               (V,)
+    cls_seq_relationship/kernel                        (E, 2)
 
 in either encoder layout: stacked (`encoder/layers/layer/...`, one leaf per
 weight with a leading L axis, the JAX default) or unstacked
@@ -14,8 +18,10 @@ weight with a leading L axis, the JAX default) or unstacked
 numpy arrays, unstacks it with numpy where needed, and returns the
 state_dict of the port's model (models/bert.py): Linear weights transposed
 to PyTorch's (out, in), the QKV kernel's (3, H, D) features flattened in
-that order. `load_serving_params` reads a serving checkpoint: a `.npz` of
-that flat tree, or a `.pt` state_dict.
+that order. The map is only transposes and reshapes, so it turns a
+flat JAX gradient tree into the port's layout as well. `load_serving_params`
+reads a serving checkpoint: a `.npz` of that flat tree, or a `.pt`
+state_dict.
 """
 
 from __future__ import annotations
@@ -51,14 +57,12 @@ def _dense(kernel: np.ndarray) -> np.ndarray:
 
 
 def params_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Flat flax BertForQuestionAnswering params (either layout) -> the
-    port's BertForQuestionAnswering state_dict (f32 tensors). The NSP
-    pooler's parameters, which the QA forward never reads, are dropped."""
+    """Flat flax params of BertForQuestionAnswering or BertForPreTraining
+    (either encoder layout) -> the port's state_dict of the same model,
+    f32 tensors."""
     flat = unstack_layers({k: np.asarray(v) for k, v in flat.items()})
     sd: Dict[str, np.ndarray] = {}
     for key, value in flat.items():
-        if key.startswith("bert/pooler/"):
-            continue  # the NSP pooler: the QA head does not read it
         m = _UNSTACKED.match(key)
         if m:
             i, rest = m.group(1), m.group(2)

@@ -3,14 +3,19 @@
 `LAUNCHES` counts, per kernel, the launches its wrapper made since the
 last `reset_launches()`: a wrapper adds one right after it launched its
 kernel and nowhere else, so a run can show that its path went through the
-kernels (chip_smoke.py reads it around the serving run).
+kernels (chip_smoke.py reads it around the serving and the training
+run). A backward that takes two launches (the row pass and the column
+sum of its cross-row reductions) counts once.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"layer_norm_fwd": 0, "flash_attention_fwd": 0}
+LAUNCHES: Dict[str, int] = {
+    "layer_norm_fwd": 0, "layer_norm_bwd": 0,
+    "add_dropout_layer_norm_fwd": 0, "add_dropout_layer_norm_bwd": 0,
+    "flash_attention_fwd": 0}
 
 
 def reset_launches() -> None:

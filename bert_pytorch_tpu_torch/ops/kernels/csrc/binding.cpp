@@ -12,6 +12,7 @@
 #include <c10/cuda/CUDAStream.h>
 #include <torch/csrc/utils/pybind.h>
 
+#include <cstdint>
 #include <vector>
 
 #include "kernels.h"
@@ -35,36 +36,163 @@ void check_launch(cudaError_t err, const char* what) {
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-std::vector<at::Tensor> layer_norm_fwd(const at::Tensor& x,
-                                          const at::Tensor& scale,
-                                          const at::Tensor& bias,
-                                          double eps) {
+// x-shaped activation `t` of x's dtype, contiguous, on x's card
+void check_like(const at::Tensor& t, const at::Tensor& x, const char* name) {
+  check_cuda(t, x, name);
+  TORCH_CHECK(t.scalar_type() == x.scalar_type(), name, " must be ",
+              x.scalar_type(), ", got ", t.scalar_type());
+  TORCH_CHECK(t.sizes() == x.sizes(), name, " must have x's shape");
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+}
+
+void check_vector(const at::Tensor& t, const at::Tensor& x, int64_t n,
+                  const char* name) {
+  check_cuda(t, x, name);
+  TORCH_CHECK(t.scalar_type() == at::kFloat && t.is_contiguous() &&
+                  t.dim() == 1 && t.size(0) == n,
+              name, " must be a contiguous float32 (", n, ",) tensor");
+}
+
+bert_kernels::DropoutArgs dropout_args(int64_t seed, int64_t threshold,
+                                       double keep_div, bool apply) {
+  TORCH_CHECK(seed >= INT32_MIN && seed <= INT32_MAX, "seed must be an int32");
+  TORCH_CHECK(threshold >= 0 && threshold <= UINT32_MAX,
+              "threshold must be a uint32");
+  bert_kernels::DropoutArgs d;
+  d.seed_term = static_cast<uint32_t>(static_cast<int32_t>(seed)) * 0xC2B2AE3Du;
+  d.threshold = static_cast<uint32_t>(threshold);
+  d.keep_div = static_cast<float>(keep_div);
+  d.apply = apply;
+  return d;
+}
+
+// y, mean, rstd of LN(h); h = x (residual undefined) or
+// f32(residual) + dropout(f32(x))
+std::vector<at::Tensor> ln_fwd_common(const at::Tensor& x,
+                                      const at::Tensor* residual,
+                                      const at::Tensor& scale,
+                                      const at::Tensor& bias, double eps,
+                                      const bert_kernels::DropoutArgs& d,
+                                      const char* what) {
   check_cuda(x, x, "x");
-  check_cuda(scale, x, "scale");
-  check_cuda(bias, x, "bias");
   const auto dtype = activation_dtype(x, "x");
   TORCH_CHECK(x.dim() >= 1 && x.numel() > 0, "x must be non-empty");
   TORCH_CHECK(x.is_contiguous(), "x must be contiguous");
   const int64_t cols = x.size(-1);
-  TORCH_CHECK(cols <= 12288, "layer_norm_fwd supports widths up to 12288, got ", cols);
-  for (const auto* t : {&scale, &bias}) {
-    TORCH_CHECK(t->scalar_type() == at::kFloat, "scale and bias must be float32");
-    TORCH_CHECK(t->is_contiguous() && t->dim() == 1 && t->size(0) == cols,
-                "scale and bias must be contiguous (", cols, ",)");
-  }
+  TORCH_CHECK(cols <= 12288, what, " supports widths up to 12288, got ", cols);
+  check_vector(scale, x, cols, "scale");
+  check_vector(bias, x, cols, "bias");
+  if (residual != nullptr) check_like(*residual, x, "residual");
   const int64_t rows = x.numel() / cols;
   const c10::cuda::CUDAGuard guard(x.device());
   auto y = at::empty_like(x);
   auto stats = x.options().dtype(at::kFloat);
   auto mean = at::empty({rows}, stats);
   auto rstd = at::empty({rows}, stats);
-  check_launch(bert_kernels::layer_norm_fwd(
-                   x.data_ptr(), scale.data_ptr<float>(), bias.data_ptr<float>(),
-                   y.data_ptr(), mean.data_ptr<float>(), rstd.data_ptr<float>(),
-                   rows, static_cast<int>(cols), static_cast<float>(eps), dtype,
-                   c10::cuda::getCurrentCUDAStream().stream()),
-               "layer_norm_fwd");
+  const auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  cudaError_t err;
+  if (residual == nullptr) {
+    err = bert_kernels::layer_norm_fwd(
+        x.data_ptr(), scale.data_ptr<float>(), bias.data_ptr<float>(),
+        y.data_ptr(), mean.data_ptr<float>(), rstd.data_ptr<float>(), rows,
+        static_cast<int>(cols), static_cast<float>(eps), dtype, stream);
+  } else {
+    err = bert_kernels::adln_fwd(
+        x.data_ptr(), residual->data_ptr(), scale.data_ptr<float>(),
+        bias.data_ptr<float>(), y.data_ptr(), mean.data_ptr<float>(),
+        rstd.data_ptr<float>(), rows, static_cast<int>(cols),
+        static_cast<float>(eps), dtype, d, stream);
+  }
+  check_launch(err, what);
   return {y, mean, rstd};
+}
+
+std::vector<at::Tensor> layer_norm_fwd(const at::Tensor& x,
+                                       const at::Tensor& scale,
+                                       const at::Tensor& bias, double eps) {
+  return ln_fwd_common(x, nullptr, scale, bias, eps,
+                       bert_kernels::DropoutArgs{}, "layer_norm_fwd");
+}
+
+std::vector<at::Tensor> add_dropout_layer_norm_fwd(
+    const at::Tensor& x, const at::Tensor& residual, const at::Tensor& scale,
+    const at::Tensor& bias, int64_t seed, int64_t threshold, double keep_div,
+    bool apply, double eps) {
+  return ln_fwd_common(x, &residual, scale, bias, eps,
+                       dropout_args(seed, threshold, keep_div, apply),
+                       "add_dropout_layer_norm_fwd");
+}
+
+// dx, [dres,] dscale, dbias (dscale and dbias f32)
+std::vector<at::Tensor> ln_bwd_common(const at::Tensor& x,
+                                      const at::Tensor* residual,
+                                      const at::Tensor& scale,
+                                      const at::Tensor& mean,
+                                      const at::Tensor& rstd,
+                                      const at::Tensor& g,
+                                      const bert_kernels::DropoutArgs& d,
+                                      const char* what) {
+  check_cuda(x, x, "x");
+  const auto dtype = activation_dtype(x, "x");
+  TORCH_CHECK(x.dim() >= 1 && x.numel() > 0, "x must be non-empty");
+  TORCH_CHECK(x.is_contiguous(), "x must be contiguous");
+  const int64_t cols = x.size(-1);
+  TORCH_CHECK(cols <= bert_kernels::max_bwd_cols(), what,
+              " supports widths up to ", bert_kernels::max_bwd_cols(),
+              ", got ", cols);
+  const int64_t rows = x.numel() / cols;
+  check_vector(scale, x, cols, "scale");
+  check_vector(mean, x, rows, "mean");
+  check_vector(rstd, x, rows, "rstd");
+  check_like(g, x, "g");
+  if (residual != nullptr) check_like(*residual, x, "residual");
+  const c10::cuda::CUDAGuard guard(x.device());
+  auto dx = at::empty_like(x);
+  at::Tensor dres;
+  if (residual != nullptr) dres = at::empty_like(x);
+  auto f32 = x.options().dtype(at::kFloat);
+  auto dscale = at::empty({cols}, f32);
+  auto dbias = at::empty({cols}, f32);
+  auto partial = at::empty({2 * bert_kernels::bwd_ctas(rows) * cols}, f32);
+  bert_kernels::BwdParams p{};
+  p.x = x.data_ptr();
+  p.residual = residual != nullptr ? residual->data_ptr() : nullptr;
+  p.scale = scale.data_ptr<float>();
+  p.mean = mean.data_ptr<float>();
+  p.rstd = rstd.data_ptr<float>();
+  p.g = g.data_ptr();
+  p.dx = dx.data_ptr();
+  p.dres = residual != nullptr ? dres.data_ptr() : nullptr;
+  p.dscale = dscale.data_ptr<float>();
+  p.dbias = dbias.data_ptr<float>();
+  p.partial = partial.data_ptr<float>();
+  p.rows = rows;
+  p.cols = static_cast<int>(cols);
+  const auto stream = c10::cuda::getCurrentCUDAStream().stream();
+  if (residual == nullptr) {
+    check_launch(bert_kernels::layer_norm_bwd(p, dtype, stream), what);
+    return {dx, dscale, dbias};
+  }
+  check_launch(bert_kernels::adln_bwd(p, dtype, d, stream), what);
+  return {dx, dres, dscale, dbias};
+}
+
+std::vector<at::Tensor> layer_norm_bwd(const at::Tensor& x,
+                                       const at::Tensor& scale,
+                                       const at::Tensor& mean,
+                                       const at::Tensor& rstd,
+                                       const at::Tensor& g) {
+  return ln_bwd_common(x, nullptr, scale, mean, rstd, g,
+                       bert_kernels::DropoutArgs{}, "layer_norm_bwd");
+}
+
+std::vector<at::Tensor> add_dropout_layer_norm_bwd(
+    const at::Tensor& x, const at::Tensor& residual, const at::Tensor& scale,
+    const at::Tensor& mean, const at::Tensor& rstd, const at::Tensor& g,
+    int64_t seed, int64_t threshold, double keep_div, bool apply) {
+  return ln_bwd_common(x, &residual, scale, mean, rstd, g,
+                       dropout_args(seed, threshold, keep_div, apply),
+                       "add_dropout_layer_norm_bwd");
 }
 
 std::vector<at::Tensor> flash_attention_fwd(
@@ -145,6 +273,12 @@ std::vector<at::Tensor> flash_attention_fwd(
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("layer_norm_fwd", &layer_norm_fwd, "LayerNorm forward (y, mean, rstd)");
+  m.def("layer_norm_bwd", &layer_norm_bwd,
+        "LayerNorm backward (dx, dscale, dbias)");
+  m.def("add_dropout_layer_norm_fwd", &add_dropout_layer_norm_fwd,
+        "residual-dropout-LayerNorm forward (y, mean, rstd)");
+  m.def("add_dropout_layer_norm_bwd", &add_dropout_layer_norm_bwd,
+        "residual-dropout-LayerNorm backward (dx, dres, dscale, dbias)");
   m.def("flash_attention_fwd", &flash_attention_fwd,
         "flash-attention forward (out, lse)");
 }

@@ -21,6 +21,52 @@ cudaError_t layer_norm_fwd(const void* x, const float* scale,
                            float* rstd, int64_t rows, int cols, float eps,
                            DType dtype, cudaStream_t stream);
 
+// The dropout arm of the fused residual-dropout-LayerNorm: keep an element
+// iff row_col_keep's hash of (flat row, column) exceeds `threshold`
+// (rate * 2^32); `seed_term` is uint32(seed) * 0xC2B2AE3D; kept values are
+// divided by `keep_div` = f32(1 - rate). `apply` false: no dropout (rate 0).
+struct DropoutArgs {
+  uint32_t seed_term = 0;
+  uint32_t threshold = 0;
+  float keep_div = 1.f;
+  bool apply = false;
+};
+
+// h = f32(residual) + dropout(f32(x)), y = LN(h): x and residual are
+// contiguous (rows, cols) tensors of one dtype, the rest as layer_norm_fwd.
+cudaError_t adln_fwd(const void* x, const void* residual, const float* scale,
+                     const float* bias, void* y, float* mean, float* rstd,
+                     int64_t rows, int cols, float eps, DType dtype,
+                     const DropoutArgs& dropout, cudaStream_t stream);
+
+// Backward of layer_norm_fwd (residual, dres null) and of adln_fwd. x,
+// residual, g, dx and dres are contiguous (rows, cols) tensors of one
+// dtype; scale (cols,), mean and rstd (rows,) f32; dscale and dbias (cols,)
+// f32 outputs; `partial` is f32 scratch of 2 * bwd_ctas(rows) * cols.
+struct BwdParams {
+  const void* x;
+  const void* residual;
+  const float* scale;
+  const float* mean;
+  const float* rstd;
+  const void* g;
+  void* dx;
+  void* dres;
+  float* dscale;
+  float* dbias;
+  float* partial;
+  int64_t rows;
+  int cols;
+};
+
+cudaError_t layer_norm_bwd(const BwdParams& p, DType dtype,
+                           cudaStream_t stream);
+cudaError_t adln_bwd(const BwdParams& p, DType dtype,
+                     const DropoutArgs& dropout, cudaStream_t stream);
+// CTAs of a backward launch over `rows` rows, and the widest row it takes
+int bwd_ctas(int64_t rows);
+int max_bwd_cols();
+
 // Strides are in elements; q/k/v share (B, S, H, D) with a unit last-axis
 // stride. out is a contiguous (B, S, H, D) tensor, lse a contiguous
 // (B, H, S) f32 tensor. bias (B, S) f32 and seg (B, S) int32 may be null;

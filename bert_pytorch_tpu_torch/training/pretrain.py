@@ -1,0 +1,157 @@
+"""The pretraining step: forward, loss, gradients, accumulation, LAMB
+(counterpart of bert_pytorch_tpu/training/pretrain.py, one device).
+
+Batch layout: every tensor arrives shaped (accum_steps, micro_batch, ...)
+on the step's device, and `seeds` is an int32 host tensor of shape
+(accum_steps, 1 + 3L), one row of dropout seeds per microbatch (None: no
+dropout). The loss is the mean over microbatches.
+
+`grad_dtype` (bf16 under --grad_dtype auto with bf16 compute): the
+forward and backward run against a copy of every float parameter cast to
+that dtype, so the gradients are bf16 too; the accumulator stays in that
+dtype up to 128 microbatches and is f32 beyond; LAMB upcasts them onto the
+f32 masters. The copy is made with `torch.func.functional_call`, which
+runs the model's own modules on the given tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from bert_pytorch_tpu_torch.models import losses
+from bert_pytorch_tpu_torch.optim.lamb import Lamb, global_norm_f32
+from bert_pytorch_tpu_torch.telemetry.health import (HealthConfig,
+                                                     health_signals)
+from bert_pytorch_tpu_torch.training.state import TrainState
+
+Batch = Dict[str, torch.Tensor]
+
+
+def gather_masked_labels(masked_lm_labels: torch.Tensor,
+                         max_predictions: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S) dense labels (-1 = unmasked) -> ((B, P) positions, (B, P)
+    labels), the masked positions first in their original order (a stable
+    argsort of the unmasked flag). Rows with fewer than P masked tokens
+    fill the tail with positions whose label is -1, which the loss
+    ignores."""
+    unmasked = (masked_lm_labels == -1).to(torch.int32)
+    positions = torch.argsort(unmasked, dim=-1, stable=True)
+    positions = positions[:, :max_predictions]
+    return positions, torch.gather(masked_lm_labels, 1, positions)
+
+
+def compute_params(params: Dict[str, torch.Tensor],
+                   grad_dtype: Optional[torch.dtype]
+                   ) -> Dict[str, torch.Tensor]:
+    """Leaves the forward and backward run against: each float parameter
+    cast to `grad_dtype` (or itself, detached, when None), requiring
+    grad."""
+    out = {}
+    for name, p in params.items():
+        leaf = p.detach()
+        if grad_dtype is not None and leaf.is_floating_point():
+            leaf = leaf.to(grad_dtype)
+        out[name] = leaf.requires_grad_()
+    return out
+
+
+def pretrain_loss_and_grads(model: nn.Module,
+                            gparams: Dict[str, torch.Tensor], micro: Batch,
+                            seeds: Optional[torch.Tensor],
+                            max_predictions: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, Dict, Dict]:
+    """One microbatch: (loss, aux counts, grads by parameter name).
+    `max_predictions` turns on the gathered MLM head: logits for at most
+    that many masked positions per row."""
+    labels = micro["masked_lm_labels"]
+    positions = None
+    dropped = torch.zeros((), dtype=torch.int64, device=labels.device)
+    if max_predictions is not None:
+        dense_total = (labels != -1).sum()
+        positions, labels = gather_masked_labels(labels, max_predictions)
+        # rows with more than max_predictions masks lose the excess
+        dropped = dense_total - (labels != -1).sum()
+    mlm_logits, nsp_logits = functional_call(
+        model, gparams, (micro["input_ids"],),
+        {"token_type_ids": micro.get("token_type_ids"),
+         "attention_mask": micro.get("attention_mask"),
+         "masked_positions": positions, "dropout_seeds": seeds})
+    loss = losses.pretraining_loss(mlm_logits, labels, nsp_logits,
+                                   micro.get("next_sentence_labels"))
+    names = list(gparams)
+    grads = torch.autograd.grad(loss, [gparams[k] for k in names])
+    with torch.no_grad():
+        correct, total = losses.mlm_accuracy(mlm_logits, labels)
+    aux = {"mlm_correct": correct, "mlm_total": total,
+           "mlm_dropped": dropped}
+    return loss.detach(), aux, dict(zip(names, grads))
+
+
+def build_pretrain_step(model: nn.Module, tx: Lamb,
+                        schedule: Optional[Callable[[int], float]] = None,
+                        accum_steps: int = 1,
+                        max_predictions: Optional[int] = None,
+                        grad_dtype: Optional[torch.dtype] = None,
+                        health: Optional[HealthConfig] = None
+                        ) -> Callable[[TrainState, Batch,
+                                       Optional[torch.Tensor]], Dict]:
+    """Returns train_step(state, batch, seeds) -> metrics, which updates
+    `state` in place. Metrics: loss, grad_norm, mlm_accuracy,
+    mlm_dropped (tensors on the card), learning_rate (`schedule` at the
+    step before the update) and, with `health`, the non-finite counts
+    (plus skipped_nonfinite under action "skip")."""
+
+    def train_step(state: TrainState, batch: Batch,
+                   seeds: Optional[torch.Tensor]) -> Dict:
+        gparams = compute_params(state.params, grad_dtype)
+
+        def micro(i):
+            return pretrain_loss_and_grads(
+                model, gparams, {k: v[i] for k, v in batch.items()},
+                None if seeds is None else seeds[i], max_predictions)
+
+        if accum_steps == 1:
+            loss, aux, grads = micro(0)
+        else:
+            # the carry follows the gradient dtype up to 128 microbatches
+            deep = accum_steps > 128
+            grads, loss, aux = None, None, None
+            for i in range(accum_steps):
+                l_i, a_i, g_i = micro(i)
+                if grads is None:
+                    grads = {k: g.float() if deep else g
+                             for k, g in g_i.items()}
+                    loss, aux = l_i.float(), dict(a_i)
+                else:
+                    for k, g in g_i.items():
+                        grads[k] += g.to(grads[k].dtype)
+                    loss = loss + l_i
+                    aux = {k: aux[k] + a_i[k] for k in aux}
+            grads = {k: g / accum_steps for k, g in grads.items()}
+            loss = loss / accum_steps
+
+        grad_norm = global_norm_f32(grads.values())
+        metrics: Dict = {"loss": loss, "grad_norm": grad_norm}
+        skip = False
+        if health is not None:
+            hmetrics, bad = health_signals(loss, grads, grad_norm)
+            metrics.update(hmetrics)
+            if health.action == "skip":
+                skip = bool(bad)
+                metrics["skipped_nonfinite"] = int(skip)
+        if not skip:
+            tx.update(grads, state.opt_state, state.params)
+        metrics["mlm_accuracy"] = (aux["mlm_correct"]
+                                   / aux["mlm_total"].clamp_min(1))
+        metrics["mlm_dropped"] = aux["mlm_dropped"]
+        if schedule is not None:
+            metrics["learning_rate"] = schedule(state.step)
+        state.step += 1
+        return metrics
+
+    return train_step

@@ -9,12 +9,17 @@ Phases, each of which must pass:
 1. device   the card's name and power limit (nvidia-smi) and the versions;
 2. build    the CUDA kernels, from this checkout's sources, timed;
 3. kernels  each kernel's wrapper against its plain PyTorch version on the
-            card, in f32 and bf16, at the shapes the serving path gives it
-            (LayerNorm at (8 * bucket, 1024) for every bucket; flash
-            attention at (8, 512, 16, 64) with a padding bias and packed
-            segments, and at S = 1024), with the tolerances below; the
-            segment tile skip must fire as often as the layout predicts and
-            pad rows must come out exactly zero;
+            card, in f32 and bf16, at the shapes the serving and training
+            paths give it (LayerNorm at (8 * bucket, 1024) for every
+            bucket; flash attention at (8, 512, 16, 64) with a padding bias
+            and packed segments, and at S = 1024; the LayerNorm backward
+            and the fused residual-dropout-LayerNorm forward and backward
+            at phase 1's (12288, 1024) and (1920, 1024), rates 0 and 0.1,
+            a negative and a positive seed), with the tolerances below;
+            the segment tile skip must fire as often as the layout
+            predicts, pad rows must come out exactly zero, dropped
+            positions must match the plain mask exactly and every backward
+            must give the same bits twice;
 4. timing   each kernel, its plain version and the PyTorch library call
             that computes the same function (timed here as a yardstick, used
             nowhere in the port), by CUDA events, L2 flushed before each
@@ -28,7 +33,15 @@ Phases, each of which must pass:
             bucket, each answered 200 with a span of its context; the launch
             counts, zeroed just before, show every forward went through the
             kernels; one packed 512 batch of the engine is held against the
-            same weights run with the plain versions.
+            same weights run with the plain versions;
+6. train    a seeded random BERT-Large (24 layers, full width, vocab 30528)
+            trained for 3 phase-1 steps (the run config's microbatch of
+            96 x 128, accumulation 2) by the entry point's trainer
+            (run_pretraining.train) over synthetic phase-1 shards held in
+            memory; exact launch counts of the training kernels, finite
+            losses and gradient norms; one optimizer step profiled; one
+            microbatch through the kernels held against the plain
+            versions (f32 and bf16 loss and gradients).
 
 It prints a `kernels` JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits 2 and prints
@@ -71,6 +84,15 @@ LSE_TOL = 1e-4
 # differences.
 MODEL_TOL = 0.1
 MODEL_TOL_F32 = 1e-3
+# Training kernels (#2-#4) at phase 1's (B * S, E) and (B * P, E) rows.
+# Backward outputs are compared relative to their largest magnitude: dx
+# and dres in f32 differ only in the order of the two row sums; in bf16
+# both sides round the same f32 value, so they may land one bf16 step
+# apart (2^-8 relative). dscale and dbias are f32 sums over up to 12288
+# rows in another order on either side.
+TRAIN_ROWS = (96 * 128, 96 * 20)
+TRAIN_TOL = {"float32": {"dx": 1e-5, "sums": 1e-5},
+             "bfloat16": {"dx": 2 ** -7, "sums": 1e-5}}
 
 
 def log(msg: str) -> None:
@@ -279,6 +301,117 @@ def phase_kernels(torch, np, results):
             if seq == 512:
                 fl_err[name] = err
     results["flash_attention_fwd"] = {"max_abs_err": fl_err}
+    check_training_kernels(torch, np, results)
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|: the error of an output against the
+    plain version's, relative to the output's scale."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def check_training_kernels(torch, np, results):
+    """Kernels #2-#4 against their plain versions at the training path's
+    shapes ((B * S, E) and (B * P, E) of phase 1), f32 and bf16, rates 0
+    and 0.1, a negative and a positive seed; dropped positions compared
+    exactly (dx is 0 exactly where the plain mask drops), and every
+    backward run twice with bit-identical results."""
+    from bert_pytorch_tpu_torch.ops.layernorm import (
+        add_dropout_layer_norm_bwd, add_dropout_layer_norm_bwd_ref,
+        add_dropout_layer_norm_fwd, add_dropout_layer_norm_stats_ref,
+        hash_keep_mask, layer_norm_bwd, layer_norm_bwd_ref, layer_norm_fwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {"layer_norm_bwd": {}, "add_dropout_layer_norm_fwd": {},
+             "add_dropout_layer_norm_bwd": {}}
+
+    def note(kernel, name, got, want):
+        """worst max |a - b| over the kernel's activation-shaped outputs"""
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        worst[kernel][name] = max(worst[kernel].get(name, 0.0), err)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        tol = TRAIN_TOL[name]
+        for rows in TRAIN_ROWS:
+            x = (randn(rows, HIDDEN) * 2.0 + 0.5).to(dtype)
+            res = randn(rows, HIDDEN).to(dtype)
+            g = randn(rows, HIDDEN).to(dtype)
+            scale = 1.0 + 0.2 * randn(HIDDEN)
+            bias = 0.1 * randn(HIDDEN)
+
+            # 2: LayerNorm backward from the kernel forward's statistics
+            _, mean, rstd = layer_norm_fwd(x, scale, bias)
+            got = layer_norm_bwd(x, scale, mean, rstd, g)
+            again = layer_norm_bwd(x, scale, mean, rstd, g)
+            want = layer_norm_bwd_ref(x, scale, mean, rstd, g)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"layer_norm_bwd {name} ({rows}): two runs differ")
+            errs = [_rel(a, b) for a, b in zip(got, want)]
+            log(f"kernels: layer_norm_bwd {name} ({rows}, {HIDDEN}) rel err "
+                f"dx {errs[0]:.3g} (tol {tol['dx']:g}), dscale {errs[1]:.3g}"
+                f", dbias {errs[2]:.3g} (tol {tol['sums']:g}); rerun "
+                "bit-identical")
+            check(errs[0] <= tol["dx"] and max(errs[1:]) <= tol["sums"],
+                  f"layer_norm_bwd {name} ({rows}): errors {errs}")
+            note("layer_norm_bwd", name, got[:1], want[:1])
+
+            for rate in (0.0, 0.1):
+                for seed in (-1640531527, 12345):
+                    # 3: the fused forward
+                    y, mean, rstd = add_dropout_layer_norm_fwd(
+                        x, res, scale, bias, seed, rate)
+                    yr, mr, rr = add_dropout_layer_norm_stats_ref(
+                        x, res, scale, bias, seed, rate)
+                    torch.cuda.synchronize()
+                    yerr = (y.float() - yr.float()).abs().max().item()
+                    serr = max((mean - mr).abs().max().item(),
+                               ((rstd - rr).abs() / rr).max().item())
+                    check(yerr <= LN_TOL[name] and serr <= 1e-5,
+                          f"add_dropout_layer_norm_fwd {name} ({rows}) rate "
+                          f"{rate} seed {seed}: y error {yerr}, stats {serr}")
+                    note("add_dropout_layer_norm_fwd", name, [y], [yr])
+                    # 4: the fused backward, from the plain statistics
+                    got = add_dropout_layer_norm_bwd(x, res, scale, mr, rr,
+                                                     g, seed, rate)
+                    again = add_dropout_layer_norm_bwd(x, res, scale, mr, rr,
+                                                       g, seed, rate)
+                    want = add_dropout_layer_norm_bwd_ref(x, res, scale, mr,
+                                                          rr, g, seed, rate)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"add_dropout_layer_norm_bwd {name} ({rows}): two "
+                          "runs differ")
+                    errs = [_rel(a, b) for a, b in zip(got, want)]
+                    dropped = 0
+                    if rate > 0.0:
+                        keep = hash_keep_mask(seed, x.shape, rate, x.device)
+                        dropped = int((~keep).sum().item())
+                        check(torch.equal(got[0] == 0, ~keep),
+                              f"add_dropout_layer_norm_bwd {name} ({rows}) "
+                              f"seed {seed}: dx zeros do not match the mask")
+                    log(f"kernels: add_dropout_layer_norm {name} ({rows}, "
+                        f"{HIDDEN}) rate {rate} seed {seed}: fwd max|y-ref| "
+                        f"{yerr:.3g} (tol {LN_TOL[name]:g}), stats "
+                        f"{serr:.3g}; bwd rel err dx {errs[0]:.3g} dres "
+                        f"{errs[1]:.3g} (tol {tol['dx']:g}) dscale "
+                        f"{errs[2]:.3g} dbias {errs[3]:.3g} (tol "
+                        f"{tol['sums']:g}); {dropped} dropped, zeros exact; "
+                        "rerun bit-identical")
+                    check(max(errs[:2]) <= tol["dx"]
+                          and max(errs[2:]) <= tol["sums"],
+                          f"add_dropout_layer_norm_bwd {name} ({rows}) rate "
+                          f"{rate} seed {seed}: errors {errs}")
+                    note("add_dropout_layer_norm_bwd", name, got[:2],
+                         want[:2])
+    for kernel, errs in worst.items():
+        results[kernel] = {"max_abs_err": errs}
 
 
 def phase_timing(torch, np, results, peaks):
@@ -340,12 +473,107 @@ def phase_timing(torch, np, results, peaks):
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "operations": nops,
         "dense_operations": 4 * HEAD_DIM * batch * seq * seq * HEADS})
-    for name in ("layer_norm_fwd", "flash_attention_fwd"):
+    time_training_kernels(torch, results, peaks, timer)
+    for name in KERNEL_ROWS:
         r = results[name]
+        lib = r["library_ms"]
         log(f"timing: {name} {r['shape']} {r['dtype']}: kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+            + (f"{lib:.4f} ms" if lib is not None else "none")
+            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def _row_col_keep_int64(torch, seed, rows, cols, rate, device):
+    """row_col_keep emulated in int64 with a mask after every multiply:
+    the other emulation the port could use, timed against its int32 one."""
+    m = 0xFFFFFFFF
+    r = torch.arange(rows, dtype=torch.int64, device=device)
+    c = torch.arange(cols, dtype=torch.int64, device=device)
+    h = ((r[:, None] * 0x9E3779B1) & m) ^ ((c[None, :] * 0x85EBCA77) & m)
+    h = h ^ (((seed & m) * 0xC2B2AE3D) & m)
+    h = h ^ (h >> 16)
+    h = (h * 0x7FEB352D) & m
+    h = h ^ (h >> 15)
+    h = (h * 0x846CA68B) & m
+    return h > int(rate * float(2 ** 32))
+
+
+def time_training_kernels(torch, results, peaks, timer):
+    """#2-#4 at phase 1's (B * S, E) = (12288, 1024) bf16, rate 0.1;
+    bound = bytes moved (each input read once, each output written once)
+    over the memory rate, or the f32 operations over the f32 peak. And
+    the plain hash_dropout over the attention probabilities, whose mask
+    the port emulates in int32 (timed beside the int64 emulation)."""
+    from bert_pytorch_tpu_torch.ops.attention import hash_dropout
+    from bert_pytorch_tpu_torch.ops.layernorm import (
+        add_dropout_layer_norm_bwd, add_dropout_layer_norm_bwd_ref,
+        add_dropout_layer_norm_fwd, add_dropout_layer_norm_stats_ref,
+        hash_keep_mask, layer_norm_bwd, layer_norm_bwd_ref, layer_norm_fwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, e, seed, rate = TRAIN_ROWS[0], HIDDEN, -1640531527, 0.1
+    n = rows * e
+    bf = torch.bfloat16
+    x = torch.randn(rows, e, generator=gen, device="cuda").to(bf)
+    res = torch.randn(rows, e, generator=gen, device="cuda").to(bf)
+    g = torch.randn(rows, e, generator=gen, device="cuda").to(bf)
+    scale = torch.ones(e, device="cuda")
+    bias = torch.zeros(e, device="cuda")
+    _, mean, rstd = layer_norm_fwd(x, scale, bias)
+    stats = 2 * rows * 4
+    vec = 2 * e * 4
+
+    def row(nbytes, nops, **kw):
+        t_bytes = nbytes / peaks["bytes_per_s"]
+        t_ops = nops / peaks["f32_flops"]
+        return dict(kw, shape=[rows, e], dtype="bfloat16",
+                    bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bytes=nbytes, operations=nops)
+
+    scale16 = scale.to(bf)
+    results["layer_norm_bwd"].update(row(
+        3 * n * 2 + stats + e * 4 + vec, 11 * n,
+        ms=timer(lambda: layer_norm_bwd(x, scale, mean, rstd, g)),
+        plain_ms=timer(lambda: layer_norm_bwd_ref(x, scale, mean, rstd, g)),
+        library_ms=timer(lambda: torch.ops.aten.native_layer_norm_backward(
+            g, x, [e], mean[:, None], rstd[:, None], scale16, scale16,
+            [True, True, True]))))
+    results["add_dropout_layer_norm_fwd"].update(row(
+        3 * n * 2 + 2 * e * 4 + stats, 20 * n,
+        ms=timer(lambda: add_dropout_layer_norm_fwd(x, res, scale, bias,
+                                                    seed, rate)),
+        plain_ms=timer(lambda: add_dropout_layer_norm_stats_ref(
+            x, res, scale, bias, seed, rate)),
+        library_ms=None))
+    results["add_dropout_layer_norm_bwd"].update(row(
+        5 * n * 2 + e * 4 + stats + vec, 28 * n,
+        ms=timer(lambda: add_dropout_layer_norm_bwd(x, res, scale, mean,
+                                                    rstd, g, seed, rate)),
+        plain_ms=timer(lambda: add_dropout_layer_norm_bwd_ref(
+            x, res, scale, mean, rstd, g, seed, rate)),
+        library_ms=None))
+
+    # hash_dropout over phase 1's attention probabilities (96, 16, 128,
+    # 128) bf16: 48 calls per microbatch (24 forward, 24 backward)
+    shape = (96, 16, 128, 128)
+    probs = torch.rand(*shape, generator=gen, device="cuda").to(bf)
+    r_all = shape[0] * shape[1] * shape[2]
+    m32 = hash_keep_mask(seed, shape, rate, probs.device).reshape(r_all, -1)
+    m64 = _row_col_keep_int64(torch, seed, r_all, shape[3], rate,
+                              probs.device)
+    torch.cuda.synchronize()
+    check(torch.equal(m32, m64), "int32 and int64 hash emulations differ")
+    hd = {"shape": list(shape), "dtype": "bfloat16",
+          "hash_dropout_ms": timer(lambda: hash_dropout(probs, seed, rate)),
+          "mask_int32_ms": timer(lambda: hash_keep_mask(seed, shape, rate,
+                                                        probs.device)),
+          "mask_int64_ms": timer(lambda: _row_col_keep_int64(
+              torch, seed, r_all, shape[3], rate, probs.device))}
+    results["hash_dropout_plain"] = hd
+    log(f"timing: plain hash_dropout {list(shape)} bf16 {hd['hash_dropout_ms']:.3f}"
+        f" ms; its mask in int32 {hd['mask_int32_ms']:.3f} ms, in int64 "
+        f"{hd['mask_int64_ms']:.3f} ms (identical masks)")
 
 
 # -- serving ------------------------------------------------------------------
@@ -484,7 +712,7 @@ def phase_serve(torch, np, summary, device="cuda",
         wall = time.perf_counter() - t0
         launches = dict(LAUNCHES)
         forwards = dict(engine.forward_counts)
-        summary["launches"] = launches
+        summary.setdefault("launches", {})["serve"] = launches
         n_fwd = sum(forwards.values())
         n_512 = forwards[("squad", 512)]
         for i, (body, reply) in enumerate(zip(bodies, replies)):
@@ -587,11 +815,352 @@ def phase_serve(torch, np, summary, device="cuda",
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- training -----------------------------------------------------------------
+
+PHASE1_CONFIG = os.path.join(HERE, "configs",
+                             "bert_pretraining_phase1_config.json")
+TRAIN_STEPS, TRAIN_GLOBAL_BATCH = 3, 192
+# f32 kernels against plain versions on one microbatch (the contract's
+# tolerances). bf16: both sides round every kernel output to bf16 from f32
+# values that differ in their last f32 bits, so single elements land one
+# bf16 step (2^-8 relative) apart; 24 layers carry those differences into
+# every gradient.
+# Measured on the card (PERF.md): loss 2.1e-5 relative, worst gradient
+# 1.9e-2 relative L2 (the position embeddings, a sum over the batch of
+# per-token gradients that mostly cancel); the tolerance leaves 2.5x.
+TRAIN_MODEL_TOL = {"float32": {"loss": 1e-5, "grad": 2e-4},
+                   "bfloat16": {"loss": 1e-3, "grad": 5e-2}}
+F32_CHECK_ROWS = 96
+
+
+def phase1_arrays(np, n: int, seq: int, vocab: int, seed: int):
+    """`n` synthetic phase-1 samples in the shard schema (input_ids,
+    special_token_positions, next_sentence_labels): [CLS] a [SEP] b [SEP]
+    with both segments' lengths drawn at random, then padding."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(5, vocab, (n, seq)).astype(np.int32)
+    specials = np.zeros((n, 3), np.int32)
+    for i in range(n):
+        last = int(rng.randint(seq // 2, seq))
+        sep1 = int(rng.randint(8, last - 8))
+        ids[i, 0], ids[i, sep1], ids[i, last] = 101, 102, 102
+        ids[i, last + 1:] = 0
+        specials[i] = (0, sep1, last)
+    nsp = rng.randint(0, 2, n).astype(np.int8)
+    return {"input_ids": ids, "special_token_positions": specials,
+            "next_sentence_labels": nsp}
+
+
+def array_index(shards):
+    """A data.sharded.ShardIndex over shards held in memory (dicts of the
+    shard schema's arrays): the chip machine has no h5py, so only the
+    file read differs from the entry point's run."""
+    from bert_pytorch_tpu_torch.data.sharded import ShardIndex
+
+    class ArrayIndex(ShardIndex):
+        def __init__(self):  # noqa: D107 (no files to open)
+            self.files = [f"memory:{i}" for i in range(len(shards))]
+            self.starts = [0]
+            for sh in shards[:-1]:
+                self.starts.append(self.starts[-1] + len(sh["input_ids"]))
+            self.total = self.starts[-1] + len(shards[-1]["input_ids"])
+
+        def load(self, fi):
+            return dict(shards[fi])
+
+    return ArrayIndex()
+
+
+def _device_ms(ev, self_only=False) -> float:
+    """Device time of a profiler event average, in ms."""
+    key = "self_device_time_total" if self_only else "device_time_total"
+    us = getattr(ev, key, None)
+    if us is None:
+        us = getattr(ev, key.replace("device", "cuda"), 0)
+    return (us or 0) / 1e3
+
+
+def _profile_step(torch, step_fn, state, batch, seeds):
+    """One optimizer step under torch.profiler: device time by kernel
+    class and by the PyTorch op that launched it (top 12)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batch, seeds)["loss"].item()
+        torch.cuda.synchronize()
+    classes, ops = {}, {}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) is None:
+            continue
+        if str(ev.device_type).split(".")[-1] != "CUDA":
+            if ev.key.startswith("aten::") and _device_ms(ev, True) > 0:
+                ops[ev.key] = _device_ms(ev, True)
+            continue
+        us = _device_ms(ev) * 1e3
+        if not us:
+            continue
+        name, low = ev.key, ev.key.lower()
+        if "ln_bwd_kernel" in name or "column_sum_kernel" in name:
+            cls = "layer norm backward kernels (#2, #4)"
+        elif "ln_fwd_kernel" in name:
+            cls = "layer norm forward kernels (#1, #3)"
+        elif any(t in low for t in ("gemm", "cutlass", "sm90_", "xmma",
+                                    "cublas", "nvjet")):
+            cls = "matmul (cuBLAS)"
+        elif "softmax" in low:
+            cls = "softmax (plain attention)"
+        elif "reduce" in low or "norm" in low:
+            cls = "reductions (norms, sums)"
+        elif "elementwise" in low or "vectorized" in low:
+            cls = "elementwise (casts, hash masks, dropout, GELU, LAMB)"
+        else:
+            cls = "other: " + name[:60]
+        classes[cls] = classes.get(cls, 0.0) + us / 1e3
+    top = dict(sorted(ops.items(), key=lambda kv: -kv[1])[:12])
+    return dict(sorted(classes.items(), key=lambda kv: -kv[1])), top
+
+
+def _host_ms(torch, fn, reps: int = 3) -> float:
+    """Median host-clock ms of fn() between two synchronizations."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _loss_and_grads(torch, config, dtype, plain, weights, micro, seeds,
+                    max_pred, device):
+    """One microbatch's loss and f32 gradients through a fresh model
+    holding `weights`: the kernels (plain=False) or the plain versions."""
+    from bert_pytorch_tpu_torch.models.bert import BertForPreTraining
+    from bert_pytorch_tpu_torch.training.pretrain import (
+        compute_params, pretrain_loss_and_grads)
+
+    with torch.device(device):
+        model = BertForPreTraining(config, dtype=dtype, plain=plain)
+    model.load_state_dict(weights)
+    grad_dtype = torch.bfloat16 if dtype == torch.bfloat16 else None
+    gparams = compute_params(dict(model.named_parameters()), grad_dtype)
+    loss, _, grads = pretrain_loss_and_grads(model, gparams, micro, seeds,
+                                             max_pred)
+    return loss.item(), {k: g.float() for k, g in grads.items()}
+
+
+def phase_train(torch, np, summary, device="cuda",
+                cfg_path=os.path.join(HERE, "configs",
+                                      "bert_large_uncased_config.json")):
+    """Phase-1 pretraining: TRAIN_STEPS optimizer steps of a seeded random
+    model at the run config's microbatch (96 x 128), accumulation 2,
+    through the entry point's trainer; the launch counts; one optimizer
+    step profiled; and one microbatch through the kernels against the
+    plain versions. `device` and `cfg_path` exist so the phase can be
+    rehearsed on the CPU at a tiny size; the script itself runs BERT-Large
+    on CUDA."""
+    import shutil
+
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.data.sharded import (HostShardSampler,
+                                                     PretrainingDataLoader)
+    from bert_pytorch_tpu_torch.models.bert import (BertForPreTraining,
+                                                    init_weights)
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from bert_pytorch_tpu_torch.optim.lamb import Lamb
+    from bert_pytorch_tpu_torch.optim.schedulers import make_schedule
+    from bert_pytorch_tpu_torch.telemetry.health import HealthConfig
+    from bert_pytorch_tpu_torch.training.pretrain import (
+        build_pretrain_step, compute_params, pretrain_loss_and_grads)
+    from bert_pytorch_tpu_torch.training.state import make_train_state
+
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        args = run_pretraining.parse_arguments([
+            "--config_file", PHASE1_CONFIG, "--model_config_file", cfg_path,
+            "--input_dir", os.path.join(tmp, "data"),
+            "--output_dir", os.path.join(tmp, "out"),
+            "--global_batch_size", str(TRAIN_GLOBAL_BATCH),
+            "--steps", str(TRAIN_STEPS), "--skip_checkpoint",
+            "--vocab_pad_multiple", "8", "--seed", "0", "--device", device])
+        config = BertConfig.from_json_file(cfg_path)
+        config = config.replace(vocab_size=pad_vocab_size(config.vocab_size,
+                                                          8))
+        layers, micro = config.num_hidden_layers, args.local_batch_size
+        accum = TRAIN_GLOBAL_BATCH // micro
+        seq = 128
+        t0 = time.perf_counter()
+        shards = [phase1_arrays(np, 320, seq, config.vocab_size, seed)
+                  for seed in (0, 1)]
+        index = array_index(shards)
+        log(f"train: {len(index)} synthetic phase-1 samples (seq {seq}) in "
+            f"{len(shards)} in-memory shards, {time.perf_counter() - t0:.1f}"
+            " s")
+
+        # the main path: counts zeroed just before, read just after
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        result = run_pretraining.train(args, index,
+                                       log=lambda m: log("train: " + m))
+        launches = dict(LAUNCHES)
+        peak_gb = (torch.cuda.max_memory_allocated() / 2 ** 30
+                   if on_card else None)
+        summary.setdefault("launches", {})["train"] = launches
+        losses = [r["loss"] for r in result.history]
+        norms = [r["grad_norm"] for r in result.history]
+        check(result.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS,
+              f"trainer ran {result.step} steps, want {TRAIN_STEPS}")
+        check(result.accum_steps == accum and micro == 96,
+              f"accumulation {result.accum_steps} x {micro}, want "
+              f"{accum} x 96")
+        check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+              f"non-finite losses {losses} or grad norms {norms}")
+        micro_steps = accum * TRAIN_STEPS
+        want = {"add_dropout_layer_norm_fwd": 2 * layers * micro_steps,
+                "add_dropout_layer_norm_bwd": 2 * layers * micro_steps,
+                "layer_norm_fwd": 2 * micro_steps,
+                "layer_norm_bwd": 2 * micro_steps,
+                "flash_attention_fwd": 0}
+        if on_card:
+            check(launches == want, f"launch counts {launches}, want {want}")
+        step_ms = [r["step_ms"] for r in result.history]
+        log(f"train: {TRAIN_STEPS} steps of {result.seqs_per_step} sequences"
+            f" ({accum} x {micro}): losses {losses}, grad norms {norms}; "
+            f"step ms {step_ms}; seq/s "
+            f"{[round(r['seq_per_sec'], 1) for r in result.history]}; peak "
+            f"memory {peak_gb} GiB; launches {launches}")
+        train = {"steps": result.step, "accum_steps": result.accum_steps,
+                 "micro_batch": micro, "losses": losses, "grad_norms": norms,
+                 "step_ms": step_ms,
+                 "seq_per_sec": [r["seq_per_sec"] for r in result.history],
+                 "peak_memory_gib": peak_gb, "launches": launches}
+        summary["train"] = train
+        del result
+
+        # the same trainer's pieces, for a profile of one optimizer step
+        # and the kernels-vs-plain check
+        with torch.device(device):
+            model = BertForPreTraining(config, dtype=torch.bfloat16)
+        init_weights(model, torch.Generator(device=device).manual_seed(1))
+        weights = {k: v.detach().clone() for k, v in
+                   model.state_dict().items()}
+        loader = PretrainingDataLoader(
+            index, HostShardSampler(len(index), seed=1),
+            batch_size=accum * micro, mask_token_index=103,
+            max_pred_per_seq=args.max_predictions_per_seq,
+            masked_lm_prob=args.masked_token_fraction,
+            vocab_size=config.vocab_size, seed=1)
+        batch_np = next(loader)
+        loader.close()
+        batch = {k: torch.from_numpy(v.reshape(accum, micro, *v.shape[1:]))
+                 .to(device) for k, v in batch_np.items()}
+        gen = torch.Generator().manual_seed(7)
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (accum, 1 + 3 * layers),
+                              dtype=torch.int32, generator=gen)
+        schedule = make_schedule("poly", args.learning_rate, args.max_steps,
+                                 warmup=args.warmup_proportion)
+        tx = Lamb(schedule)
+        state = make_train_state(model, tx)
+        step_fn = build_pretrain_step(
+            model, tx, schedule=schedule, accum_steps=accum,
+            max_predictions=args.max_predictions_per_seq,
+            grad_dtype=torch.bfloat16, health=HealthConfig())
+        step_fn(state, batch, seeds)["loss"].item()   # warm
+        if on_card:
+            step_ms = _host_ms(torch, lambda: step_fn(state, batch, seeds))
+            micro0 = {k: v[0] for k, v in batch.items()}
+            gparams = compute_params(state.params, torch.bfloat16)
+            holder = {}
+
+            def fwd_bwd():
+                holder["grads"] = pretrain_loss_and_grads(
+                    model, gparams, micro0, seeds[0],
+                    args.max_predictions_per_seq)[2]
+
+            fb_ms = _host_ms(torch, fwd_bwd)
+            lamb_ms = _host_ms(torch, lambda: tx.update(
+                holder["grads"], state.opt_state, state.params))
+            classes, top = _profile_step(torch, step_fn, state, batch, seeds)
+            train["step_split"] = {"step_ms": step_ms,
+                                   "forward_backward_ms": fb_ms,
+                                   "lamb_ms": lamb_ms}
+            train["profiled_step"] = {
+                "device_ms": classes,
+                "device_total_ms": sum(classes.values()),
+                "device_ms_by_op": top}
+            log(f"train: one optimizer step {step_ms:.1f} ms (host clock, "
+                f"median of 3): one microbatch forward+backward "
+                f"{fb_ms:.1f} ms, one LAMB update {lamb_ms:.1f} ms; "
+                f"profiled, device ms by class {classes}; by op (top 12) "
+                f"{top}")
+            del holder, gparams
+        del model, state, step_fn, tx
+
+        # one microbatch: kernels against the plain versions
+        train["kernels_vs_plain"] = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            rows = micro if dtype == torch.bfloat16 else F32_CHECK_ROWS
+            one = {k: v[0, :rows] for k, v in batch.items()}
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            got = _loss_and_grads(torch, config, dtype, False, weights, one,
+                                  seeds[0], args.max_predictions_per_seq,
+                                  device)
+            want_ = _loss_and_grads(torch, config, dtype, True, weights, one,
+                                    seeds[0], args.max_predictions_per_seq,
+                                    device)
+            loss_rel = abs(got[0] - want_[0]) / abs(want_[0])
+            worst, worst_name = 0.0, None
+            for k, w in want_[1].items():
+                rel = (torch.linalg.vector_norm(got[1][k] - w)
+                       / torch.linalg.vector_norm(w).clamp_min(1e-30)).item()
+                if rel > worst:
+                    worst, worst_name = rel, k
+            peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+                    if on_card else None)
+            tol = TRAIN_MODEL_TOL[name]
+            log(f"train: one microbatch ({rows} x {seq}) {name}, kernels vs "
+                f"plain: loss {got[0]:.6f} vs {want_[0]:.6f} (rel "
+                f"{loss_rel:.3g}, tol {tol['loss']:g}); worst gradient rel "
+                f"L2 {worst:.3g} at {worst_name} (tol {tol['grad']:g}); "
+                f"peak memory {peak} GiB")
+            check(np.isfinite(got[0]) and loss_rel <= tol["loss"],
+                  f"{name} loss kernels {got[0]} vs plain {want_[0]}")
+            check(worst <= tol["grad"], f"{name} gradient {worst_name}: rel "
+                  f"L2 {worst} > {tol['grad']}")
+            train["kernels_vs_plain"][name] = {
+                "rows": rows, "loss": got[0], "plain_loss": want_[0],
+                "loss_rel": loss_rel, "max_grad_rel_l2": worst,
+                "worst_leaf": worst_name, "peak_memory_gib": peak}
+            del got, want_
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 KERNEL_ROWS = {
     "layer_norm_fwd": {
         "route": "cuda",
         "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/layernorm.cu",
         "replaces": "bert_pytorch_tpu/ops/pallas/layernorm.py:93"},
+    "layer_norm_bwd": {
+        "route": "cuda",
+        "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/layernorm.cu",
+        "replaces": "bert_pytorch_tpu/ops/pallas/layernorm.py:129"},
+    "add_dropout_layer_norm_fwd": {
+        "route": "cuda",
+        "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/layernorm.cu",
+        "replaces": "bert_pytorch_tpu/ops/pallas/layernorm.py:270"},
+    "add_dropout_layer_norm_bwd": {
+        "route": "cuda",
+        "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/layernorm.cu",
+        "replaces": "bert_pytorch_tpu/ops/pallas/layernorm.py:311"},
     "flash_attention_fwd": {
         "route": "cuda",
         "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/"
@@ -602,7 +1171,8 @@ KERNEL_ROWS = {
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="device,build,kernels,timing,serve",
+    ap.add_argument("--phases",
+                    default="device,build,kernels,timing,serve,train",
                     help="comma-separated subset, in order (development)")
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke.json")
@@ -625,9 +1195,13 @@ def main(argv=None) -> int:
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     peaks = card_peaks(kind)
+    import importlib.util
+
+    has_h5py = importlib.util.find_spec("h5py") is not None
     log(f"device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | python {sys.version.split()[0]} | "
-        f"{torch.cuda.device_count()} card(s) | peaks {peaks}")
+        f"{torch.cuda.device_count()} card(s) | peaks {peaks} | h5py "
+        f"{'present' if has_h5py else 'absent'}")
     results = {}
     summary = {"device": smi, "kind": kind, "peaks": peaks,
                "phases": {}, "kernels": results}
@@ -650,6 +1224,8 @@ def main(argv=None) -> int:
                 phase_timing(torch, np, results, peaks)
             elif phase == "serve":
                 phase_serve(torch, np, summary)
+            elif phase == "train":
+                phase_train(torch, np, summary)
             else:
                 raise PhaseError(f"unknown phase {phase!r}")
             torch.cuda.synchronize()
@@ -670,12 +1246,16 @@ def main(argv=None) -> int:
     if not ok:
         log("chip_smoke: FAILED: " + json.dumps(summary["phases"]))
         return 1
-    launches = summary.get("launches", {})
+    # launches: each kernel's count summed over the main paths (serve,
+    # train), each path's counts zeroed just before it and read just after
+    by_path = summary.get("launches", {})
     line = []
     for name, row in KERNEL_ROWS.items():
         r = results.get(name, {})
+        counts = {path: c[name] for path, c in by_path.items()}
         line.append(dict(row, name=name,
-                         launches=launches.get(name),
+                         launches=sum(counts.values()),
+                         launches_by_path=counts,
                          max_abs_err=r.get("max_abs_err", {}).get("bfloat16"),
                          ms=r.get("ms"), plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),
