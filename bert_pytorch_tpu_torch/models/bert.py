@@ -13,9 +13,11 @@ Training: `dropout_seeds`, an int32 tensor of 1 + 3L seeds on the host,
 turns dropout on; None is the deterministic (eval and serving) forward.
 The JAX model draws one seed per dropout site per micro-step, in this
 order: the embeddings, then for each layer the attention probabilities,
-the attention tail and the MLP tail. Every site uses the counter-hash
-mask: `hash_dropout` at the embeddings and attention probabilities, the
-fused residual-dropout-LayerNorm kernel at both residual tails.
+the attention tail and the MLP tail. Every site uses a counter-hash
+mask: `hash_dropout` at the embeddings and at the attention probabilities
+of plain attention, the flash kernels' own mask at the attention
+probabilities where attention takes the flash route (seq 512), the fused
+residual-dropout-LayerNorm kernel at both residual tails.
 
 `plain=True` builds the same model with every kernel call replaced by the
 kernel's plain PyTorch version, differentiated by autograd: a reference to

@@ -15,7 +15,8 @@ from typing import Dict
 LAUNCHES: Dict[str, int] = {
     "layer_norm_fwd": 0, "layer_norm_bwd": 0,
     "add_dropout_layer_norm_fwd": 0, "add_dropout_layer_norm_bwd": 0,
-    "flash_attention_fwd": 0}
+    "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+    "flash_attention_bwd_dkv": 0}
 
 
 def reset_launches() -> None:

@@ -29,8 +29,10 @@ _ext = None
 def load_kernels(verbose: bool = False):
     """The compiled extension module (`layer_norm_fwd`, `layer_norm_bwd`,
     `add_dropout_layer_norm_fwd`, `add_dropout_layer_norm_bwd`,
-    `flash_attention_fwd`). Raises if CUDA or the toolchain is missing —
-    there is no other route to the kernels."""
+    `flash_attention_fwd`, `flash_attention_bwd_dq`,
+    `flash_attention_bwd_dkv`, and `flash_tiles`, the flash kernels' tile
+    sizes). Raises if CUDA or the toolchain is missing
+    — there is no other route to the kernels."""
     global _ext
     with _lock:
         if _ext is None:

@@ -13,6 +13,9 @@
 #include <torch/csrc/utils/pybind.h>
 
 #include <cstdint>
+#include <map>
+#include <string>
+#include <utility>
 #include <vector>
 
 #include "kernels.h"
@@ -195,11 +198,27 @@ std::vector<at::Tensor> add_dropout_layer_norm_bwd(
                        "add_dropout_layer_norm_bwd");
 }
 
-std::vector<at::Tensor> flash_attention_fwd(
+bert_kernels::FlashDropout flash_dropout(int64_t seed, int64_t threshold,
+                                         double keep_div, bool apply) {
+  TORCH_CHECK(seed >= INT32_MIN && seed <= INT32_MAX, "seed must be an int32");
+  TORCH_CHECK(threshold >= 0 && threshold < (1 << 23),
+              "threshold must be below 2^23");
+  bert_kernels::FlashDropout d;
+  d.seed = static_cast<uint32_t>(static_cast<int32_t>(seed));
+  d.threshold = static_cast<uint32_t>(threshold);
+  d.keep_div = static_cast<float>(keep_div);
+  d.apply = apply;
+  return d;
+}
+
+// Checks q/k/v, the bias, segment ids and skip counter of a flash launch
+// and fills the parameters they give.
+bert_kernels::FlashParams flash_params(
     const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
     const c10::optional<at::Tensor>& bias,
     const c10::optional<at::Tensor>& segment_ids,
-    const c10::optional<at::Tensor>& skipped, double scale) {
+    const c10::optional<at::Tensor>& skipped, double scale,
+    const bert_kernels::FlashDropout& drop, const char* what) {
   check_cuda(q, q, "q");
   check_cuda(k, q, "k");
   check_cuda(v, q, "v");
@@ -210,7 +229,7 @@ std::vector<at::Tensor> flash_attention_fwd(
   TORCH_CHECK(k.sizes() == q.sizes() && v.sizes() == q.sizes(),
               "q, k and v must share one (B, S, H, D) shape");
   const int64_t B = q.size(0), S = q.size(1), H = q.size(2), D = q.size(3);
-  TORCH_CHECK(D == 64, "flash_attention_fwd supports head_dim 64, got ", D);
+  TORCH_CHECK(D == 64, what, " supports head_dim 64, got ", D);
   // 16-byte row accesses: unit last stride, other strides whole vectors
   const int64_t vec = dtype == bert_kernels::kBFloat16 ? 8 : 4;
   for (const auto* t : {&q, &k, &v}) {
@@ -245,14 +264,9 @@ std::vector<at::Tensor> flash_attention_fwd(
                 "skipped must be one int32");
     p.skipped = ct.data_ptr<int32_t>();
   }
-  const c10::cuda::CUDAGuard guard(q.device());
-  auto out = at::empty({B, S, H, D}, q.options());
-  auto lse = at::empty({B, H, S}, q.options().dtype(at::kFloat));
   p.q = q.data_ptr();
   p.k = k.data_ptr();
   p.v = v.data_ptr();
-  p.out = out.data_ptr();
-  p.lse = lse.data_ptr<float>();
   for (int i = 0; i < 3; ++i) {
     p.q_strides[i] = q.stride(i);
     p.k_strides[i] = k.stride(i);
@@ -263,10 +277,108 @@ std::vector<at::Tensor> flash_attention_fwd(
   p.heads = static_cast<int>(H);
   p.head_dim = static_cast<int>(D);
   p.scale = static_cast<float>(scale);
+  p.drop = drop;
+  return p;
+}
+
+// a contiguous (B, H, S) float32 tensor for q
+void check_bhs(const at::Tensor& t, const at::Tensor& q, const char* name) {
+  check_cuda(t, q, name);
+  TORCH_CHECK(t.scalar_type() == at::kFloat && t.is_contiguous() &&
+                  t.dim() == 3 && t.size(0) == q.size(0) &&
+                  t.size(1) == q.size(2) && t.size(2) == q.size(1),
+              name, " must be a contiguous float32 (B, H, S) tensor");
+}
+
+std::vector<at::Tensor> flash_attention_fwd(
+    const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+    const c10::optional<at::Tensor>& bias,
+    const c10::optional<at::Tensor>& segment_ids,
+    const c10::optional<at::Tensor>& skipped, double scale, int64_t seed,
+    int64_t threshold, double keep_div, bool apply) {
+  auto p = flash_params(q, k, v, bias, segment_ids, skipped, scale,
+                        flash_dropout(seed, threshold, keep_div, apply),
+                        "flash_attention_fwd");
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto out = at::empty(q.sizes(), q.options());
+  auto lse = at::empty({q.size(0), q.size(2), q.size(1)},
+                       q.options().dtype(at::kFloat));
+  p.out = out.data_ptr();
+  p.lse = lse.data_ptr<float>();
   check_launch(bert_kernels::flash_attention_fwd(
-                   p, dtype, c10::cuda::getCurrentCUDAStream().stream()),
+                   p, activation_dtype(q, "q"),
+                   c10::cuda::getCurrentCUDAStream().stream()),
                "flash_attention_fwd");
   return {out, lse};
+}
+
+std::vector<at::Tensor> flash_attention_bwd_dq(
+    const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+    const c10::optional<at::Tensor>& bias,
+    const c10::optional<at::Tensor>& segment_ids, const at::Tensor& out,
+    const at::Tensor& lse, const at::Tensor& dout,
+    const c10::optional<at::Tensor>& skipped, double scale, int64_t seed,
+    int64_t threshold, double keep_div, bool apply) {
+  bert_kernels::FlashBwdParams p{};
+  p.f = flash_params(q, k, v, bias, segment_ids, skipped, scale,
+                     flash_dropout(seed, threshold, keep_div, apply),
+                     "flash_attention_bwd_dq");
+  check_like(out, q, "out");
+  check_like(dout, q, "dout");
+  check_bhs(lse, q, "lse");
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto dq = at::empty(q.sizes(), q.options());
+  auto delta = at::empty_like(lse);
+  p.f.out = out.data_ptr();
+  p.f.lse = lse.data_ptr<float>();
+  p.dout = dout.data_ptr();
+  p.delta = delta.data_ptr<float>();
+  p.dq = dq.data_ptr();
+  check_launch(bert_kernels::flash_attention_bwd_dq(
+                   p, activation_dtype(q, "q"),
+                   c10::cuda::getCurrentCUDAStream().stream()),
+               "flash_attention_bwd_dq");
+  return {dq, delta};
+}
+
+std::vector<at::Tensor> flash_attention_bwd_dkv(
+    const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+    const c10::optional<at::Tensor>& bias,
+    const c10::optional<at::Tensor>& segment_ids, const at::Tensor& lse,
+    const at::Tensor& delta, const at::Tensor& dout,
+    const c10::optional<at::Tensor>& skipped, double scale, int64_t seed,
+    int64_t threshold, double keep_div, bool apply) {
+  bert_kernels::FlashBwdParams p{};
+  p.f = flash_params(q, k, v, bias, segment_ids, skipped, scale,
+                     flash_dropout(seed, threshold, keep_div, apply),
+                     "flash_attention_bwd_dkv");
+  check_like(dout, q, "dout");
+  check_bhs(lse, q, "lse");
+  check_bhs(delta, q, "delta");
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto dk = at::empty(q.sizes(), q.options());
+  auto dv = at::empty(q.sizes(), q.options());
+  p.f.lse = lse.data_ptr<float>();
+  p.dout = dout.data_ptr();
+  p.delta = delta.data_ptr<float>();
+  p.dk = dk.data_ptr();
+  p.dv = dv.data_ptr();
+  check_launch(bert_kernels::flash_attention_bwd_dkv(
+                   p, activation_dtype(q, "q"),
+                   c10::cuda::getCurrentCUDAStream().stream()),
+               "flash_attention_bwd_dkv");
+  return {dk, dv};
+}
+
+// {kernel name: (query rows, keys)} of the flash kernels for bf16 (or f32)
+// inputs, from the kernels' own tile constants.
+std::map<std::string, std::pair<int, int>> flash_tiles(bool bf16) {
+  bert_kernels::FlashTile t[3];
+  bert_kernels::flash_tiles(
+      bf16 ? bert_kernels::kBFloat16 : bert_kernels::kFloat32, t);
+  return {{"flash_attention_fwd", {t[0].rows, t[0].keys}},
+          {"flash_attention_bwd_dq", {t[1].rows, t[1].keys}},
+          {"flash_attention_bwd_dkv", {t[2].rows, t[2].keys}}};
 }
 
 }  // namespace
@@ -281,4 +393,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "residual-dropout-LayerNorm backward (dx, dres, dscale, dbias)");
   m.def("flash_attention_fwd", &flash_attention_fwd,
         "flash-attention forward (out, lse)");
+  m.def("flash_attention_bwd_dq", &flash_attention_bwd_dq,
+        "flash-attention backward: (dq, delta)");
+  m.def("flash_attention_bwd_dkv", &flash_attention_bwd_dkv,
+        "flash-attention backward: (dk, dv) from the dq launch's delta");
+  m.def("flash_tiles", &flash_tiles,
+        "{flash kernel: (query rows, keys) tile} for bf16 or f32 inputs");
 }

@@ -67,6 +67,18 @@ cudaError_t adln_bwd(const BwdParams& p, DType dtype,
 int bwd_ctas(int64_t rows);
 int max_bwd_cols();
 
+// The flash kernels' dropout (`_keep_mask` of the Pallas kernels): keep a
+// probability iff the top 23 bits of the hash of (query, key, seed + bh *
+// 0xC2B2AE3D), bh = batch * heads + head, are >= `threshold` (int(rate *
+// 2^23)); `seed` is the int32 seed's bits; kept values are scaled by
+// dividing by `keep_div` = f32(1 - rate). `apply` false: no dropout.
+struct FlashDropout {
+  uint32_t seed = 0;
+  uint32_t threshold = 0;
+  float keep_div = 1.f;
+  bool apply = false;
+};
+
 // Strides are in elements; q/k/v share (B, S, H, D) with a unit last-axis
 // stride. out is a contiguous (B, S, H, D) tensor, lse a contiguous
 // (B, H, S) f32 tensor. bias (B, S) f32 and seg (B, S) int32 may be null;
@@ -86,9 +98,38 @@ struct FlashParams {
   int64_t v_strides[3];
   int batch, seq, heads, head_dim;
   float scale;
+  FlashDropout drop;
 };
 
 cudaError_t flash_attention_fwd(const FlashParams& p, DType dtype,
                                 cudaStream_t stream);
+
+// The backward pair. q/k/v, bias, seg, skipped and the dropout as in
+// FlashParams; out (the forward's output), dout, dq, dk and dv contiguous
+// (B, S, H, D) of q's dtype; lse and delta contiguous (B, H, S) f32.
+// flash_attention_bwd_dq reads out and writes delta = rowsum(dout * out)
+// and dq; flash_attention_bwd_dkv reads that delta and writes dk and dv,
+// so it runs after the dq launch on the same stream.
+struct FlashBwdParams {
+  FlashParams f;  // f.out is the forward output, f.lse its lse
+  const void* dout;
+  float* delta;
+  void* dq;
+  void* dk;
+  void* dv;
+};
+
+cudaError_t flash_attention_bwd_dq(const FlashBwdParams& p, DType dtype,
+                                   cudaStream_t stream);
+cudaError_t flash_attention_bwd_dkv(const FlashBwdParams& p, DType dtype,
+                                    cudaStream_t stream);
+
+// The (query rows, keys) tile of the forward, dq and dk/dv kernels for a
+// dtype, in that order: the grain of their segment tile skip.
+struct FlashTile {
+  int rows;
+  int keys;
+};
+void flash_tiles(DType dtype, FlashTile tiles[3]);
 
 }  // namespace bert_kernels

@@ -1,8 +1,9 @@
-"""Pretraining entry point of the port: phase-1 BERT pretraining on one
-card.
+"""Pretraining entry point of the port: BERT pretraining on one card,
+phase 1 (seq 128) or phase 2 (seq 512, attention through the flash
+kernels), the sequence length taken from the shards.
 
     python -m bert_pytorch_tpu_torch.run_pretraining \\
-        --config_file configs/bert_pretraining_phase1_config.json \\
+        --config_file configs/bert_pretraining_phase{1,2}_config.json \\
         --input_dir <dir of .hdf5 shards> --output_dir <dir> \\
         --skip_checkpoint [--device cuda|cpu] [--steps N]
 
@@ -13,9 +14,12 @@ sharded-HDF5 data, the gathered MLM head, gradient accumulation up to
 --global_batch_size, bf16 compute with bf16 gradients over f32 masters,
 unfused LAMB with a warmup schedule, and the non-finite health checks.
 Checkpointing is not ported yet: the run refuses to start without
---skip_checkpoint. Each optimizer step logs one line (loss, grad_norm,
-lr, step ms, seq/s) to stdout and one JSON record to
-<output_dir>/<log_prefix>.jsonl. Runs on CUDA unless --device cpu.
+--skip_checkpoint and refuses a run config that sets init_checkpoint,
+so phase 2 starts from random weights at step 0 (where the run config's previous_phase_end_step
+offset holds the schedule at the start of its warmup). Each optimizer
+step logs one line (loss, grad_norm, lr, step ms, seq/s) to stdout and
+one JSON record to <output_dir>/<log_prefix>.jsonl. Runs on CUDA unless
+--device cpu.
 """
 
 from __future__ import annotations

@@ -41,7 +41,17 @@ Phases, each of which must pass:
             memory; exact launch counts of the training kernels, finite
             losses and gradient norms; one optimizer step profiled; one
             microbatch through the kernels held against the plain
-            versions (f32 and bf16 loss and gradients).
+            versions (f32 and bf16 loss and gradients);
+7. train_phase2  the same for phase 2: 3 steps under the phase-2 run
+            config (microbatch 16 x 512, 80 predictions, accumulation 2),
+            where attention runs the flash forward with dropout and the
+            flash backward pair.
+
+The kernels phase also holds the flash kernels of training at phase 2's
+(16, 512, 16, 64): the forward's dropout arm, the dropout mask read out of
+the forward and out of dv and compared exactly, and the backward pair
+against its plain version; the timing phase times them beside their plain
+versions and scaled_dot_product_attention.
 
 It prints a `kernels` JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits 2 and prints
@@ -93,6 +103,17 @@ MODEL_TOL_F32 = 1e-3
 TRAIN_ROWS = (96 * 128, 96 * 20)
 TRAIN_TOL = {"float32": {"dx": 1e-5, "sums": 1e-5},
              "bfloat16": {"dx": 2 ** -7, "sums": 1e-5}}
+# Flash in training (#5/#6 dropout arm, #7-#10) at phase 2's microbatch
+# (16, 512, 16, 64). Backward outputs are compared relative to their
+# largest magnitude. f32: the kernels and the plain version sum s, dp and
+# the dq/dk/dv products in another order. bf16: both sides round ds and
+# p_drop to bf16 from f32 values that differ in their last bits, and round
+# the outputs to bf16 (2^-8 relative).
+# Measured on the card (PERF.md): f32 3.0e-7, bf16 3.2e-3; the tolerances
+# leave 3.3x (f32) and 2.5x (bf16, 2^-7).
+PHASE2_ATTN = (16, 512)
+FLASH_BWD_TOL = {"float32": 1e-6, "bfloat16": 2 ** -7}
+FLASH_SEEDS = (-1640531527, 12345)
 
 
 def log(msg: str) -> None:
@@ -225,8 +246,8 @@ def allowed_pairs(np, seg) -> int:
 
 def phase_kernels(torch, np, results):
     from bert_pytorch_tpu_torch.ops.attention import (
-        FLASH_TILES, flash_attention, flash_attention_ref,
-        make_attention_bias)
+        flash_attention, flash_attention_ref, make_attention_bias)
+    from bert_pytorch_tpu_torch.ops.kernels.build import load_kernels
     from bert_pytorch_tpu_torch.ops.layernorm import (layer_norm_fwd,
                                                       layer_norm_stats_ref)
 
@@ -280,8 +301,9 @@ def phase_kernels(torch, np, results):
             lerr = (lse - lse_ref).abs().max().item()
             pad = seg == 0
             pad_max = out[pad].abs().max().item() if pad.any() else 0.0
-            want_skips = expected_skips(np, seg_np, *FLASH_TILES[dtype],
-                                        HEADS)
+            tile = load_kernels().flash_tiles(dtype == torch.bfloat16)[
+                "flash_attention_fwd"]
+            want_skips = expected_skips(np, seg_np, *tile, HEADS)
             got_skips = int(skipped.item())
             log(f"kernels: flash_attention {name} ({batch}, {seq}, {HEADS}, "
                 f"{HEAD_DIM}) max|out-ref| {err:.3g} (tol "
@@ -302,6 +324,7 @@ def phase_kernels(torch, np, results):
                 fl_err[name] = err
     results["flash_attention_fwd"] = {"max_abs_err": fl_err}
     check_training_kernels(torch, np, results)
+    check_flash_training_kernels(torch, np, results)
 
 
 def _rel(a, b) -> float:
@@ -414,6 +437,185 @@ def check_training_kernels(torch, np, results):
         results[kernel] = {"max_abs_err": errs}
 
 
+def padding_bias(torch, np, rng, batch: int, seq: int):
+    """(B, 1, 1, S) f32 padding bias of rows with real lengths S/2..S."""
+    from bert_pytorch_tpu_torch.ops.attention import make_attention_bias
+
+    mask = np.zeros((batch, seq), np.int32)
+    for r, ln in enumerate(rng.randint(seq // 2, seq + 1, batch)):
+        mask[r, :ln] = 1
+    return make_attention_bias(torch.from_numpy(mask).cuda()).contiguous()
+
+
+def check_flash_training_kernels(torch, np, results):
+    """The flash kernels of the training path at phase 2's (16, 512, 16,
+    64), f32 and bf16: the forward's dropout arm against its plain version
+    (rate 0.1, two seeds; lse unchanged by the rate), two probes that read
+    the dropout mask out of the forward and out of dv exactly, and the
+    backward pair against flash_attention_bwd_ref at rates 0 and 0.1 and
+    once with packed segments (skip counts as the layout predicts), every
+    backward run twice with bit-identical results."""
+    from bert_pytorch_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_bwd_dkv,
+        flash_attention_bwd_dq, flash_attention_bwd_ref,
+        flash_attention_delta_ref, flash_attention_ref, flash_keep_all,
+        make_attention_bias)
+    from bert_pytorch_tpu_torch.ops.kernels.build import load_kernels
+
+    batch, seq = PHASE2_ATTN
+    rate = 0.1
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rng = np.random.RandomState(4)
+    bias = padding_bias(torch, np, rng, batch, seq)
+    seg_np = packed_segments(np, rng, batch, seq)
+    seg = torch.from_numpy(seg_np).cuda()
+    seg_bias = make_attention_bias((seg > 0).int()).contiguous()
+    fwd_err, bwd_err, bwd_abs, probes = {}, {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        qkv = torch.randn(batch, seq, 3, HEADS, HEAD_DIM, generator=gen,
+                          device="cuda").to(dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        do = torch.randn(batch, seq, HEADS, HEAD_DIM, generator=gen,
+                         device="cuda").to(dtype)
+        _, lse0 = flash_attention(q, k, v, bias)
+        # the forward's dropout arm
+        for seed in FLASH_SEEDS:
+            out, lse = flash_attention(q, k, v, bias, None, seed, rate)
+            ref, lse_ref = flash_attention_ref(q, k, v, bias, None, seed,
+                                               rate)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            lerr = (lse - lse_ref).abs().max().item()
+            log(f"kernels: flash_attention {name} ({batch}, {seq}, {HEADS}, "
+                f"{HEAD_DIM}) rate {rate} seed {seed}: max|out-ref| "
+                f"{err:.3g} (tol {FLASH_TOL[name]:g}), max|lse-ref| "
+                f"{lerr:.3g} (tol {LSE_TOL:g}), lse equal to rate 0's: "
+                f"{torch.equal(lse, lse0)}")
+            check(err <= FLASH_TOL[name] and lerr <= LSE_TOL,
+                  f"flash {name} rate {rate} seed {seed}: out error {err}, "
+                  f"lse error {lerr}")
+            check(torch.equal(lse, lse0), f"flash {name}: lse moved with "
+                  "the dropout rate")
+            fwd_err[name] = max(fwd_err.get(name, 0.0), err)
+
+        # the backward pair: rates 0 and 0.1 over the padding bias, then
+        # packed segments (pad rows' cotangent zero, as the model gives)
+        cases = [(r, sd, None, bias) for r in (0.0, rate)
+                 for sd in ((None,) if r == 0.0 else FLASH_SEEDS)]
+        cases.append((rate, FLASH_SEEDS[0], seg, seg_bias))
+        for r, sd, sg, bs in cases:
+            g = do if sg is None else do * (sg > 0).to(dtype)[:, :, None, None]
+            out, lse = flash_attention(q, k, v, bs, sg, sd, r)
+            skips = [torch.zeros(1, dtype=torch.int32, device="cuda")
+                     for _ in range(2)]
+            dq, delta = flash_attention_bwd_dq(q, k, v, bs, sg, out, lse, g,
+                                               sd, r, skipped=skips[0])
+            dk, dv = flash_attention_bwd_dkv(q, k, v, bs, sg, lse, delta, g,
+                                             sd, r, skipped=skips[1])
+            dq2, delta2 = flash_attention_bwd_dq(q, k, v, bs, sg, out, lse,
+                                                 g, sd, r)
+            dk2, dv2 = flash_attention_bwd_dkv(q, k, v, bs, sg, lse, delta2,
+                                               g, sd, r)
+            want = flash_attention_bwd_ref(q, k, v, bs, sg, out, lse, g, sd,
+                                           r)
+            delta_ref = flash_attention_delta_ref(out, g)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in
+                      ((dq, dq2), (dk, dk2), (dv, dv2), (delta, delta2))),
+                  f"flash backward {name} rate {r}: two runs differ")
+            errs = [_rel(a, b) for a, b in zip((dq, dk, dv), want)]
+            derr = _rel(delta, delta_ref)
+            what = ("packed segments" if sg is not None
+                    else f"padding bias, rate {r} seed {sd}")
+            line = (f"kernels: flash backward {name} ({batch}, {seq}, "
+                    f"{HEADS}, {HEAD_DIM}) {what}: rel err dq {errs[0]:.3g} "
+                    f"dk {errs[1]:.3g} dv {errs[2]:.3g} (tol "
+                    f"{FLASH_BWD_TOL[name]:g}), delta {derr:.3g}; rerun "
+                    "bit-identical")
+            if sg is not None:
+                pad = sg == 0
+                pad_dq = dq[pad].abs().max().item()
+                tiles = load_kernels().flash_tiles(dtype == torch.bfloat16)
+                want_skips = [expected_skips(
+                    np, seg_np, *tiles[f"flash_attention_bwd_{kern}"], HEADS)
+                    for kern in ("dq", "dkv")]
+                got_skips = [int(c.item()) for c in skips]
+                line += (f"; pad-row dq max {pad_dq}; tiles skipped "
+                         f"{got_skips} (layout predicts {want_skips})")
+                check(pad_dq == 0.0, f"flash backward {name}: pad-row dq "
+                      f"{pad_dq}")
+                check(got_skips == want_skips and min(got_skips) > 0,
+                      f"flash backward {name}: skipped {got_skips}, layout "
+                      f"predicts {want_skips}")
+            log(line)
+            check(max(errs) <= FLASH_BWD_TOL[name] and derr <= 1e-5,
+                  f"flash backward {name} {what}: errors {errs}, delta "
+                  f"{derr}")
+            abs_errs = [(a.float() - b.float()).abs().max().item()
+                        for a, b in zip((dq, dk, dv), want)]
+            for kern, sl in (("dq", slice(0, 1)), ("dkv", slice(1, 3))):
+                for acc, vals in ((bwd_err, errs), (bwd_abs, abs_errs)):
+                    acc.setdefault(kern, {})
+                    acc[kern][name] = max(acc[kern].get(name, 0.0),
+                                          *vals[sl])
+
+        # the mask, exactly: q = k = 0, the bias admitting the 64 keys
+        # [w_b, w_b + 64) of batch row b, v[k, d] = (k mod 64 == d): out[b,
+        # q, h, d] = keep / (64 (1 - rate)) at key w_b + d. And dv with dO
+        # one-hot on the queries [qw, qw + 64): dv[b, k, h, d] = p_drop at
+        # (qw + d, k), zero exactly where that pair is dropped.
+        seed = FLASH_SEEDS[0]
+        zeros = torch.zeros(batch, seq, HEADS, HEAD_DIM, device="cuda",
+                            dtype=dtype)
+        win = [(64 * b) % seq for b in range(batch)]
+        allow = torch.zeros(batch, seq, device="cuda")
+        for b, w in enumerate(win):
+            allow[b, w:w + 64] = 1
+        wbias = ((1.0 - allow) * -10000.0)[:, None, None, :].contiguous()
+        pos = torch.arange(seq, device="cuda")
+        onehot = (pos[:, None] % 64 == torch.arange(HEAD_DIM, device="cuda"))
+        vp = onehot[None, :, None, :].expand(batch, seq, HEADS,
+                                             HEAD_DIM).to(dtype).contiguous()
+        out, lse = flash_attention(zeros, zeros, vp, wbias, None, seed, rate)
+        qw = 128
+        dop = torch.zeros_like(zeros)
+        dop[:, qw:qw + 64] = onehot[:64, None, :].to(dtype)
+        dq, delta = flash_attention_bwd_dq(zeros, zeros, vp, wbias, None,
+                                           out, lse, dop, seed, rate)
+        _, dv = flash_attention_bwd_dkv(zeros, zeros, vp, wbias, None, lse,
+                                        delta, dop, seed, rate)
+        keep = flash_keep_all(seed, batch, HEADS, seq, rate, "cuda")
+        fwd_ok = dv_ok = True
+        dropped = [0, 0]
+        for b, w in enumerate(win):
+            # (H, S, 64): out[b, q, h, d] read at key w + d
+            got = out[b, :, :, :].permute(1, 0, 2) != 0
+            want_keep = keep[b, :, :, w:w + 64]
+            fwd_ok &= torch.equal(got, want_keep)
+            # (H, 64 keys, 64 d): dv[b, w + j, h, d] at query qw + d
+            got_dv = dv[b, w:w + 64].permute(1, 0, 2) != 0
+            want_dv = keep[b, :, qw:qw + 64, w:w + 64].transpose(1, 2)
+            dv_ok &= torch.equal(got_dv, want_dv)
+            dropped[0] += int((~want_keep).sum().item())
+            dropped[1] += int((~want_dv).sum().item())
+        torch.cuda.synchronize()
+        log(f"kernels: flash dropout mask probe {name} seed {seed}: forward "
+            f"reads {dropped[0]} dropped of {batch * HEADS * seq * 64}, "
+            f"equal to flash_keep_mask: {fwd_ok}; dv reads {dropped[1]} "
+            f"dropped of {batch * HEADS * 64 * 64}, equal: {dv_ok}")
+        check(fwd_ok and dv_ok, f"flash {name}: the mask read from the "
+              f"kernels differs from flash_keep_mask (forward {fwd_ok}, "
+              f"dv {dv_ok})")
+        probes[name] = {"forward_dropped": dropped[0],
+                        "dv_dropped": dropped[1]}
+    results["flash_attention_fwd"]["train_phase2"] = {
+        "max_abs_err": fwd_err, "mask_probes": probes}
+    for kern in ("dq", "dkv"):
+        results["flash_attention_bwd_" + kern] = {
+            "max_abs_err": bwd_abs[kern], "max_rel_err": bwd_err[kern]}
+
+
 def phase_timing(torch, np, results, peaks):
     import torch.nn.functional as F
 
@@ -474,6 +676,7 @@ def phase_timing(torch, np, results, peaks):
         "bytes": nbytes, "operations": nops,
         "dense_operations": 4 * HEAD_DIM * batch * seq * seq * HEADS})
     time_training_kernels(torch, results, peaks, timer)
+    time_flash_training_kernels(torch, np, results, peaks, timer)
     for name in KERNEL_ROWS:
         r = results[name]
         lib = r["library_ms"]
@@ -574,6 +777,103 @@ def time_training_kernels(torch, results, peaks, timer):
     log(f"timing: plain hash_dropout {list(shape)} bf16 {hd['hash_dropout_ms']:.3f}"
         f" ms; its mask in int32 {hd['mask_int32_ms']:.3f} ms, in int64 "
         f"{hd['mask_int64_ms']:.3f} ms (identical masks)")
+
+
+def time_flash_training_kernels(torch, np, results, peaks, timer):
+    """The flash kernels of phase 2 at (16, 512, 16, 64) bf16 with a
+    padding bias: the forward at rate 0.1, the dq and dk/dv kernels and the
+    backward as a whole, each beside its plain version; the library
+    yardstick is scaled_dot_product_attention (forward, and its backward)
+    with the same float mask at rate 0, since its dropout is another
+    function. Bounds count each input read once and each output written
+    once, and the products the function needs: 2 (forward), 3 (dq), 4
+    (dk/dv) and 5 (the backward as one function) of 2 B H S^2 D flops."""
+    import torch.nn.functional as F
+
+    from bert_pytorch_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dkv_ref,
+        flash_attention_bwd_dq, flash_attention_bwd_dq_ref,
+        flash_attention_bwd_ref, flash_attention_ref)
+
+    batch, seq = PHASE2_ATTN
+    rate, seed = 0.1, FLASH_SEEDS[0]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bias = padding_bias(torch, np, np.random.RandomState(5), batch, seq)
+    bf = torch.bfloat16
+    qkv = torch.randn(batch, seq, 3, HEADS, HEAD_DIM, generator=gen,
+                      device="cuda").to(bf)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn(batch, seq, HEADS, HEAD_DIM, generator=gen,
+                     device="cuda").to(bf)
+    out, lse = flash_attention(q, k, v, bias, None, seed, rate)
+    _, delta = flash_attention_bwd_dq(q, k, v, bias, None, out, lse, do,
+                                      seed, rate)
+    tensor = batch * seq * HEADS * HEAD_DIM * 2
+    rows_f32 = batch * HEADS * seq * 4          # lse or delta
+    bias_bytes = batch * seq * 4
+    product = 2 * batch * HEADS * seq * seq * HEAD_DIM
+
+    def row(nbytes, nops, **kw):
+        t_bytes = nbytes / peaks["bytes_per_s"]
+        t_ops = nops / peaks["bf16_flops"]
+        return dict(kw, shape=[batch, seq, HEADS, HEAD_DIM],
+                    dtype="bfloat16", rate=rate,
+                    bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bytes=nbytes, operations=nops)
+
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    mask = bias.to(bf)
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    go = do.transpose(1, 2)
+    sdpa_fwd = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    sdpa_bwd = timer(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), go,
+                                                 retain_graph=True))
+    results["flash_attention_fwd"]["train_phase2"].update(row(
+        4 * tensor + rows_f32 + bias_bytes, 2 * product,
+        ms=timer(lambda: flash_attention(q, k, v, bias, None, seed, rate)),
+        plain_ms=timer(lambda: flash_attention_ref(q, k, v, bias, None,
+                                                   seed, rate)),
+        library_ms=sdpa_fwd))
+    results["flash_attention_bwd_dq"].update(row(
+        6 * tensor + 2 * rows_f32 + bias_bytes, 3 * product,
+        ms=timer(lambda: flash_attention_bwd_dq(q, k, v, bias, None, out,
+                                                lse, do, seed, rate)),
+        plain_ms=timer(lambda: flash_attention_bwd_dq_ref(
+            q, k, v, bias, None, lse, delta, do, seed, rate)),
+        library_ms=None))
+    results["flash_attention_bwd_dkv"].update(row(
+        6 * tensor + 2 * rows_f32 + bias_bytes, 4 * product,
+        ms=timer(lambda: flash_attention_bwd_dkv(q, k, v, bias, None, lse,
+                                                 delta, do, seed, rate)),
+        plain_ms=timer(lambda: flash_attention_bwd_dkv_ref(
+            q, k, v, bias, None, lse, delta, do, seed, rate)),
+        library_ms=None))
+
+    def both():
+        _, delta_ = flash_attention_bwd_dq(q, k, v, bias, None, out, lse,
+                                           do, seed, rate)
+        flash_attention_bwd_dkv(q, k, v, bias, None, lse, delta_, do, seed,
+                                rate)
+
+    whole = row(8 * tensor + rows_f32 + bias_bytes, 5 * product,
+                ms=timer(both),
+                plain_ms=timer(lambda: flash_attention_bwd_ref(
+                    q, k, v, bias, None, out, lse, do, seed, rate)),
+                library_ms=sdpa_bwd)
+    results["flash_attention_bwd"] = whole
+    fwd = results["flash_attention_fwd"]["train_phase2"]
+    log(f"timing: flash_attention_fwd phase 2 {fwd['shape']} bf16 rate "
+        f"{rate}: kernel {fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms,"
+        f" SDPA (rate 0) {fwd['library_ms']:.4f} ms, bound "
+        f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']})")
+    log(f"timing: flash backward as a whole {whole['shape']} bf16 rate "
+        f"{rate}: kernels {whole['ms']:.4f} ms, plain "
+        f"{whole['plain_ms']:.4f} ms, SDPA backward (rate 0) "
+        f"{whole['library_ms']:.4f} ms, bound {whole['bound_ms']:.4f} ms "
+        f"({whole['bound_by']})")
 
 
 # -- serving ------------------------------------------------------------------
@@ -819,7 +1119,9 @@ def phase_serve(torch, np, summary, device="cuda",
 
 PHASE1_CONFIG = os.path.join(HERE, "configs",
                              "bert_pretraining_phase1_config.json")
-TRAIN_STEPS, TRAIN_GLOBAL_BATCH = 3, 192
+PHASE2_CONFIG = os.path.join(HERE, "configs",
+                             "bert_pretraining_phase2_config.json")
+TRAIN_STEPS = 3
 # f32 kernels against plain versions on one microbatch (the contract's
 # tolerances). bf16: both sides round every kernel output to bf16 from f32
 # values that differ in their last f32 bits, so single elements land one
@@ -830,11 +1132,29 @@ TRAIN_STEPS, TRAIN_GLOBAL_BATCH = 3, 192
 # per-token gradients that mostly cancel); the tolerance leaves 2.5x.
 TRAIN_MODEL_TOL = {"float32": {"loss": 1e-5, "grad": 2e-4},
                    "bfloat16": {"loss": 1e-3, "grad": 5e-2}}
-F32_CHECK_ROWS = 96
+# Phase 2 (16 x 512, flash attention in both directions), measured on the
+# card (PERF.md): bf16 loss 2.1e-5 relative, worst gradient 2.2e-2
+# relative L2 (again the position embeddings); the gradient tolerance
+# leaves 2.5x. f32: the contract's tolerances, as in phase 1.
+TRAIN2_MODEL_TOL = {"float32": {"loss": 1e-5, "grad": 2e-4},
+                    "bfloat16": {"loss": 1e-3, "grad": 5.5e-2}}
+# The two pretraining runs: the run config, its microbatch (the config's
+# local_batch_size) and sequence, the global batch of the cut run
+# (accumulation 2), the synthetic samples per shard (two shards), the rows
+# of the f32 kernels-vs-plain check, and whether seq > 256 sends attention
+# through the flash kernels.
+TRAIN_RUNS = {
+    "train": {"config": PHASE1_CONFIG, "micro": 96, "seq": 128,
+              "global_batch": 192, "samples": 320, "f32_rows": 96,
+              "flash": False, "tol": TRAIN_MODEL_TOL},
+    "train_phase2": {"config": PHASE2_CONFIG, "micro": 16, "seq": 512,
+                     "global_batch": 32, "samples": 64, "f32_rows": 16,
+                     "flash": True, "tol": TRAIN2_MODEL_TOL},
+}
 
 
-def phase1_arrays(np, n: int, seq: int, vocab: int, seed: int):
-    """`n` synthetic phase-1 samples in the shard schema (input_ids,
+def pretraining_arrays(np, n: int, seq: int, vocab: int, seed: int):
+    """`n` synthetic pretraining samples in the shard schema (input_ids,
     special_token_positions, next_sentence_labels): [CLS] a [SEP] b [SEP]
     with both segments' lengths drawn at random, then padding."""
     rng = np.random.RandomState(seed)
@@ -882,13 +1202,17 @@ def _device_ms(ev, self_only=False) -> float:
 
 def _profile_step(torch, step_fn, state, batch, seeds):
     """One optimizer step under torch.profiler: device time by kernel
-    class and by the PyTorch op that launched it (top 12)."""
+    class, by the PyTorch op that launched it (top 12), and the step's own
+    host-clock ms between two synchronizations, profiler on."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         step_fn(state, batch, seeds)["loss"].item()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     classes, ops = {}, {}
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) is None:
@@ -901,7 +1225,13 @@ def _profile_step(torch, step_fn, state, batch, seeds):
         if not us:
             continue
         name, low = ev.key, ev.key.lower()
-        if "ln_bwd_kernel" in name or "column_sum_kernel" in name:
+        if "flash_fwd" in name:
+            cls = "flash attention forward (#5/#6)"
+        elif "flash_bwd_dq" in name:
+            cls = "flash attention dq (#7-#10)"
+        elif "flash_bwd_dkv" in name:
+            cls = "flash attention dk/dv (#7-#10)"
+        elif "ln_bwd_kernel" in name or "column_sum_kernel" in name:
             cls = "layer norm backward kernels (#2, #4)"
         elif "ln_fwd_kernel" in name:
             cls = "layer norm forward kernels (#1, #3)"
@@ -918,7 +1248,8 @@ def _profile_step(torch, step_fn, state, batch, seeds):
             cls = "other: " + name[:60]
         classes[cls] = classes.get(cls, 0.0) + us / 1e3
     top = dict(sorted(ops.items(), key=lambda kv: -kv[1])[:12])
-    return dict(sorted(classes.items(), key=lambda kv: -kv[1])), top
+    return (dict(sorted(classes.items(), key=lambda kv: -kv[1])), top,
+            wall_ms)
 
 
 def _host_ms(torch, fn, reps: int = 3) -> float:
@@ -953,14 +1284,16 @@ def _loss_and_grads(torch, config, dtype, plain, weights, micro, seeds,
 
 def phase_train(torch, np, summary, device="cuda",
                 cfg_path=os.path.join(HERE, "configs",
-                                      "bert_large_uncased_config.json")):
-    """Phase-1 pretraining: TRAIN_STEPS optimizer steps of a seeded random
-    model at the run config's microbatch (96 x 128), accumulation 2,
-    through the entry point's trainer; the launch counts; one optimizer
-    step profiled; and one microbatch through the kernels against the
-    plain versions. `device` and `cfg_path` exist so the phase can be
-    rehearsed on the CPU at a tiny size; the script itself runs BERT-Large
-    on CUDA."""
+                                      "bert_large_uncased_config.json"),
+                run="train"):
+    """One pretraining run of TRAIN_RUNS (`run`: "train" is phase 1,
+    "train_phase2" phase 2): TRAIN_STEPS optimizer steps of a seeded
+    random model at the run config's microbatch, accumulation 2, through
+    the entry point's trainer; the launch counts; one optimizer step
+    profiled; and one microbatch through the kernels against the plain
+    versions. `device` and `cfg_path` exist so the phase can be rehearsed
+    on the CPU at a tiny size; the script itself runs BERT-Large on
+    CUDA."""
     import shutil
 
     from bert_pytorch_tpu_torch import run_pretraining
@@ -977,27 +1310,29 @@ def phase_train(torch, np, summary, device="cuda",
         build_pretrain_step, compute_params, pretrain_loss_and_grads)
     from bert_pytorch_tpu_torch.training.state import make_train_state
 
+    spec = TRAIN_RUNS[run]
     on_card = torch.device(device).type == "cuda"
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         args = run_pretraining.parse_arguments([
-            "--config_file", PHASE1_CONFIG, "--model_config_file", cfg_path,
+            "--config_file", spec["config"], "--model_config_file", cfg_path,
             "--input_dir", os.path.join(tmp, "data"),
             "--output_dir", os.path.join(tmp, "out"),
-            "--global_batch_size", str(TRAIN_GLOBAL_BATCH),
+            "--global_batch_size", str(spec["global_batch"]),
             "--steps", str(TRAIN_STEPS), "--skip_checkpoint",
             "--vocab_pad_multiple", "8", "--seed", "0", "--device", device])
         config = BertConfig.from_json_file(cfg_path)
         config = config.replace(vocab_size=pad_vocab_size(config.vocab_size,
                                                           8))
         layers, micro = config.num_hidden_layers, args.local_batch_size
-        accum = TRAIN_GLOBAL_BATCH // micro
-        seq = 128
+        accum = spec["global_batch"] // micro
+        seq = spec["seq"]
         t0 = time.perf_counter()
-        shards = [phase1_arrays(np, 320, seq, config.vocab_size, seed)
+        shards = [pretraining_arrays(np, spec["samples"], seq,
+                                     config.vocab_size, seed)
                   for seed in (0, 1)]
         index = array_index(shards)
-        log(f"train: {len(index)} synthetic phase-1 samples (seq {seq}) in "
+        log(f"{run}: {len(index)} synthetic samples (seq {seq}) in "
             f"{len(shards)} in-memory shards, {time.perf_counter() - t0:.1f}"
             " s")
 
@@ -1006,40 +1341,50 @@ def phase_train(torch, np, summary, device="cuda",
             torch.cuda.reset_peak_memory_stats()
         reset_launches()
         result = run_pretraining.train(args, index,
-                                       log=lambda m: log("train: " + m))
+                                       log=lambda m: log(f"{run}: {m}"))
         launches = dict(LAUNCHES)
         peak_gb = (torch.cuda.max_memory_allocated() / 2 ** 30
                    if on_card else None)
-        summary.setdefault("launches", {})["train"] = launches
+        summary.setdefault("launches", {})[run] = launches
         losses = [r["loss"] for r in result.history]
         norms = [r["grad_norm"] for r in result.history]
         check(result.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS,
               f"trainer ran {result.step} steps, want {TRAIN_STEPS}")
-        check(result.accum_steps == accum and micro == 96,
+        check(result.accum_steps == accum == 2 and micro == spec["micro"],
               f"accumulation {result.accum_steps} x {micro}, want "
-              f"{accum} x 96")
+              f"2 x {spec['micro']}")
         check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
               f"non-finite losses {losses} or grad norms {norms}")
+        # per microbatch: the two residual tails of every layer (#3/#4),
+        # the embedding and MLM-transform LayerNorms (#1/#2), and at seq >
+        # 256 every layer's attention (flash forward, dq, dk/dv)
         micro_steps = accum * TRAIN_STEPS
+        flash = layers * micro_steps if spec["flash"] else 0
         want = {"add_dropout_layer_norm_fwd": 2 * layers * micro_steps,
                 "add_dropout_layer_norm_bwd": 2 * layers * micro_steps,
                 "layer_norm_fwd": 2 * micro_steps,
                 "layer_norm_bwd": 2 * micro_steps,
-                "flash_attention_fwd": 0}
+                "flash_attention_fwd": flash,
+                "flash_attention_bwd_dq": flash,
+                "flash_attention_bwd_dkv": flash}
         if on_card:
             check(launches == want, f"launch counts {launches}, want {want}")
         step_ms = [r["step_ms"] for r in result.history]
-        log(f"train: {TRAIN_STEPS} steps of {result.seqs_per_step} sequences"
-            f" ({accum} x {micro}): losses {losses}, grad norms {norms}; "
+        log(f"{run}: {TRAIN_STEPS} steps of {result.seqs_per_step} sequences"
+            f" ({accum} x {micro} x {seq}): losses {losses}, grad norms "
+            f"{norms}; learning rates "
+            f"{[r['learning_rate'] for r in result.history]}; "
             f"step ms {step_ms}; seq/s "
             f"{[round(r['seq_per_sec'], 1) for r in result.history]}; peak "
-            f"memory {peak_gb} GiB; launches {launches}")
+            f"memory {peak_gb} GiB; launches {launches} (predicted "
+            f"{want})")
         train = {"steps": result.step, "accum_steps": result.accum_steps,
-                 "micro_batch": micro, "losses": losses, "grad_norms": norms,
+                 "micro_batch": micro, "seq": seq, "losses": losses,
+                 "grad_norms": norms, "launches_predicted": want,
                  "step_ms": step_ms,
                  "seq_per_sec": [r["seq_per_sec"] for r in result.history],
                  "peak_memory_gib": peak_gb, "launches": launches}
-        summary["train"] = train
+        summary[run] = train
         del result
 
         # the same trainer's pieces, for a profile of one optimizer step
@@ -1085,19 +1430,26 @@ def phase_train(torch, np, summary, device="cuda",
             fb_ms = _host_ms(torch, fwd_bwd)
             lamb_ms = _host_ms(torch, lambda: tx.update(
                 holder["grads"], state.opt_state, state.params))
-            classes, top = _profile_step(torch, step_fn, state, batch, seeds)
+            classes, top, prof_ms = _profile_step(torch, step_fn, state,
+                                                  batch, seeds)
             train["step_split"] = {"step_ms": step_ms,
                                    "forward_backward_ms": fb_ms,
                                    "lamb_ms": lamb_ms}
+            device_total = sum(classes.values())
+            # one stream: the card is idle for the rest of that same step
+            idle = 1.0 - device_total / prof_ms
+            check(idle >= 0.0, f"{run}: device time {device_total} ms "
+                  f"exceeds the profiled step's {prof_ms} ms")
             train["profiled_step"] = {
-                "device_ms": classes,
-                "device_total_ms": sum(classes.values()),
+                "step_ms": prof_ms, "device_ms": classes,
+                "device_total_ms": device_total, "idle_share": idle,
                 "device_ms_by_op": top}
-            log(f"train: one optimizer step {step_ms:.1f} ms (host clock, "
+            log(f"{run}: one optimizer step {step_ms:.1f} ms (host clock, "
                 f"median of 3): one microbatch forward+backward "
                 f"{fb_ms:.1f} ms, one LAMB update {lamb_ms:.1f} ms; "
-                f"profiled, device ms by class {classes}; by op (top 12) "
-                f"{top}")
+                f"profiled step {prof_ms:.1f} ms (host clock, profiler on),"
+                f" device {device_total:.1f} ms of it (idle share "
+                f"{idle:.3f}), by class {classes}; by op (top 12) {top}")
             del holder, gparams
         del model, state, step_fn, tx
 
@@ -1105,7 +1457,7 @@ def phase_train(torch, np, summary, device="cuda",
         train["kernels_vs_plain"] = {}
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
-            rows = micro if dtype == torch.bfloat16 else F32_CHECK_ROWS
+            rows = micro if dtype == torch.bfloat16 else spec["f32_rows"]
             one = {k: v[0, :rows] for k, v in batch.items()}
             if on_card:
                 torch.cuda.empty_cache()
@@ -1125,8 +1477,8 @@ def phase_train(torch, np, summary, device="cuda",
                     worst, worst_name = rel, k
             peak = (torch.cuda.max_memory_allocated() / 2 ** 30
                     if on_card else None)
-            tol = TRAIN_MODEL_TOL[name]
-            log(f"train: one microbatch ({rows} x {seq}) {name}, kernels vs "
+            tol = spec["tol"][name]
+            log(f"{run}: one microbatch ({rows} x {seq}) {name}, kernels vs "
                 f"plain: loss {got[0]:.6f} vs {want_[0]:.6f} (rel "
                 f"{loss_rel:.3g}, tol {tol['loss']:g}); worst gradient rel "
                 f"L2 {worst:.3g} at {worst_name} (tol {tol['grad']:g}); "
@@ -1166,13 +1518,79 @@ KERNEL_ROWS = {
         "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/"
                   "flash_attention.cu",
         "replaces": "bert_pytorch_tpu/ops/pallas/flash_attention.py:660"},
+    # one of the two kernels that replace the four Pallas backward
+    # kernels (#7-#10, flash_attention.py:754, :799, :840, :871)
+    "flash_attention_bwd_dq": {
+        "route": "cuda",
+        "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/"
+                  "flash_attention.cu",
+        "replaces": "bert_pytorch_tpu/ops/pallas/flash_attention.py:840"},
+    "flash_attention_bwd_dkv": {
+        "route": "cuda",
+        "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/"
+                  "flash_attention.cu",
+        "replaces": "bert_pytorch_tpu/ops/pallas/flash_attention.py:871"},
+    # the pair as one backward, the function of the fused Pallas kernel
+    # the TPU takes at BERT-Large seq 512 (#7): launched as one dq and one
+    # dk/dv launch, so its launches are the pair's
+    "flash_attention_bwd": {
+        "route": "cuda",
+        "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/"
+                  "flash_attention.cu",
+        "replaces": "bert_pytorch_tpu/ops/pallas/flash_attention.py:754",
+        "launched_as": ["flash_attention_bwd_dq",
+                        "flash_attention_bwd_dkv"]},
 }
+# the numbers of one measurement that the kernels line carries
+_LINE_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "shape", "rate")
+
+
+def _line_numbers(r: dict) -> dict:
+    out = {k: r.get(k) for k in _LINE_KEYS}
+    out["rate"] = out["rate"] or 0.0
+    out["max_abs_err"] = r.get("max_abs_err", {}).get("bfloat16")
+    return out
+
+
+def kernels_line(results: dict, by_path: dict) -> list:
+    """One row a kernel: its launches on each main path (counts zeroed
+    just before the path and read just after) and its measured numbers.
+    The flash forward runs at two shapes and rates (serving, rate 0;
+    phase-2 training, rate 0.1, its dropout arm): its row carries the
+    training numbers, the arm of the slice that launches it most, and
+    both under `variants`. A row `launched_as` two kernels counts the
+    launches of the pair, which must be equal on every path."""
+    line = []
+    for name, row in KERNEL_ROWS.items():
+        row = dict(row)
+        kerns = row.pop("launched_as", [name])
+        counts = {path: c[kerns[0]] for path, c in by_path.items()}
+        for path, c in by_path.items():
+            check(all(c[k] == counts[path] for k in kerns),
+                  f"{name}: the launches of {kerns} differ on {path}")
+        r = results.get(name, {})
+        nums = _line_numbers(r)
+        if len(kerns) > 1:
+            errs = [_line_numbers(results.get(k, {}))["max_abs_err"]
+                    for k in kerns]
+            nums["max_abs_err"] = None if None in errs else max(errs)
+        variants = {}
+        if "train_phase2" in r:
+            variants = {"serve": nums,
+                        "train_phase2": _line_numbers(r["train_phase2"])}
+            nums = variants["train_phase2"]
+        line.append(dict(row, name=name, launches=sum(counts.values()),
+                         launches_by_path=counts, **nums,
+                         **({"variants": variants} if variants else {})))
+    return line
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="device,build,kernels,timing,serve,train",
+                    default="device,build,kernels,timing,serve,train,"
+                            "train_phase2",
                     help="comma-separated subset, in order (development)")
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke.json")
@@ -1224,8 +1642,8 @@ def main(argv=None) -> int:
                 phase_timing(torch, np, results, peaks)
             elif phase == "serve":
                 phase_serve(torch, np, summary)
-            elif phase == "train":
-                phase_train(torch, np, summary)
+            elif phase in TRAIN_RUNS:
+                phase_train(torch, np, summary, run=phase)
             else:
                 raise PhaseError(f"unknown phase {phase!r}")
             torch.cuda.synchronize()
@@ -1246,21 +1664,11 @@ def main(argv=None) -> int:
     if not ok:
         log("chip_smoke: FAILED: " + json.dumps(summary["phases"]))
         return 1
-    # launches: each kernel's count summed over the main paths (serve,
-    # train), each path's counts zeroed just before it and read just after
-    by_path = summary.get("launches", {})
-    line = []
-    for name, row in KERNEL_ROWS.items():
-        r = results.get(name, {})
-        counts = {path: c[name] for path, c in by_path.items()}
-        line.append(dict(row, name=name,
-                         launches=sum(counts.values()),
-                         launches_by_path=counts,
-                         max_abs_err=r.get("max_abs_err", {}).get("bfloat16"),
-                         ms=r.get("ms"), plain_ms=r.get("plain_ms"),
-                         bound_ms=r.get("bound_ms"),
-                         bound_by=r.get("bound_by"),
-                         library_ms=r.get("library_ms")))
+    try:
+        line = kernels_line(results, summary.get("launches", {}))
+    except PhaseError as e:
+        log(f"chip_smoke: FAILED: kernels line: {e}")
+        return 1
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
