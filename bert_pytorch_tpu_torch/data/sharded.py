@@ -122,6 +122,28 @@ class HostShardSampler:
         self.index = 0
         self.epoch += 1
 
+    def state_dict(self) -> Dict[str, int]:
+        return {"epoch": self.epoch, "seed": self.seed,
+                "world_size": self.world_size, "total_size": self.total_size,
+                "index": self.index}
+
+    def load_state_dict(self, state: Dict[str, int]) -> None:
+        """Restore a cursor; one taken over another index space (another
+        total_size, as when phase 2 resumes phase 1's checkpoint over its
+        own shards) or another world size warns and is not restored."""
+        if state.get("total_size") != self.total_size:
+            warnings.warn(
+                "sampler total_size changed "
+                f"({state.get('total_size')} -> {self.total_size}); "
+                "not restoring sampler state")
+            return
+        if state.get("world_size") != self.world_size:
+            warnings.warn("world size changed; not restoring sampler state")
+            return
+        self.epoch = state["epoch"]
+        self.seed = state["seed"]
+        self.index = state["index"]
+
 
 class PretrainingDataLoader:
     """Iterator of numpy batches shaped (batch, seq): input_ids,
@@ -130,7 +152,10 @@ class PretrainingDataLoader:
 
     prefetch_batches > 0 assembles batches (shard reads, row gather,
     masking) on one executor thread that many batches ahead of the
-    consumer, so the next batch is ready while the card runs this one."""
+    consumer, so the next batch is ready while the card runs this one.
+    `state_dict()` is the sampler's cursor as of the last batch the loader
+    YIELDED, so a checkpoint taken with assembly running ahead resumes
+    without skipping or replaying a batch."""
 
     def __init__(self, index: ShardIndex, sampler: HostShardSampler,
                  batch_size: int, mask_token_index: int,
@@ -161,6 +186,7 @@ class PretrainingDataLoader:
             max_workers=1, thread_name_prefix="batch-assemble")
             if self.prefetch_batches > 0 else None)
         self._queue: List[Future] = []
+        self._last_state = sampler.state_dict()
 
     def _ensure_resident(self, fi: int) -> Dict[str, np.ndarray]:
         if fi != self._resident_fi:
@@ -211,27 +237,42 @@ class PretrainingDataLoader:
                 raw["next_sentence_labels"].reshape(-1).astype(np.int32),
         }
 
-    def _assemble(self) -> Optional[Dict[str, np.ndarray]]:
+    def _assemble(self) -> Tuple[Optional[Dict[str, np.ndarray]],
+                                 Dict[str, int]]:
+        """(batch or None at epoch end, the sampler's cursor after it)."""
         indices = self.sampler.next_indices(self.batch_size)
-        return None if indices is None else self._build(indices)
+        batch = None if indices is None else self._build(indices)
+        return batch, self.sampler.state_dict()
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         return self
 
     def __next__(self) -> Dict[str, np.ndarray]:
         if self._assembler is None:
-            batch = self._assemble()
+            batch, state = self._assemble()
         else:
             if not self._queue:
                 self._queue.append(self._assembler.submit(self._assemble))
             head = self._queue.pop(0)
             while len(self._queue) < self.prefetch_batches:
                 self._queue.append(self._assembler.submit(self._assemble))
-            batch = head.result()
+            batch, state = head.result()
         if batch is None:
             self._drain_queue()
             raise StopIteration
+        self._last_state = state
         return batch
+
+    def state_dict(self) -> Dict[str, int]:
+        return dict(self._last_state)
+
+    def load_state_dict(self, state: Dict[str, int]) -> None:
+        """Restore the sampler's cursor (or warn and keep it, see
+        HostShardSampler.load_state_dict); batches assembled ahead are
+        dropped."""
+        self._drain_queue()
+        self.sampler.load_state_dict(state)
+        self._last_state = self.sampler.state_dict()
 
     def _drain_queue(self) -> None:
         """Wait out in-flight assemblies; their results (end-of-epoch
@@ -244,6 +285,7 @@ class PretrainingDataLoader:
     def reset_epoch(self) -> None:
         self._drain_queue()
         self.sampler.reset_epoch()
+        self._last_state = self.sampler.state_dict()
 
     def close(self) -> None:
         if self._assembler is not None:

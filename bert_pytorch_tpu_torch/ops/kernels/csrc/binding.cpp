@@ -13,6 +13,7 @@
 #include <torch/csrc/utils/pybind.h>
 
 #include <cstdint>
+#include <cstring>
 #include <map>
 #include <string>
 #include <utility>
@@ -381,6 +382,163 @@ std::map<std::string, std::pair<int, int>> flash_tiles(bool bf16) {
           {"flash_attention_bwd_dkv", {t[2].rows, t[2].keys}}};
 }
 
+// Fused LAMB. The tensor lists are checked here and turned into the
+// kernels' per-tensor table; `chunks` is the (C, 2) int64 CPU chunk table
+// (ops/fused_optim.chunk_table). Both tables go to the card in one
+// transfer from pinned memory on the current stream, fresh every call, so
+// no table outlives the tensors it names.
+
+bool aligned(const void* ptr, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
+}
+
+// the chunk table checked against the tensors' sizes, then the device copy
+// of [tensor rows | chunks]; returns it with the chunks' byte offset
+template <typename Row>
+std::pair<at::Tensor, size_t> lamb_tables(const std::vector<Row>& rows,
+                                          const at::Tensor& chunks,
+                                          int64_t chunk_size,
+                                          const at::Tensor& ref,
+                                          const char* what) {
+  TORCH_CHECK(!chunks.is_cuda() && chunks.scalar_type() == at::kLong &&
+                  chunks.is_contiguous() && chunks.dim() == 2 &&
+                  chunks.size(1) == 2,
+              what, ": chunks must be a contiguous (C, 2) int64 CPU tensor");
+  TORCH_CHECK(chunk_size > 0 && chunk_size % 4 == 0 && chunk_size <= INT32_MAX,
+              what, ": chunk_size must be a positive multiple of 4");
+  const int64_t n_chunks = chunks.size(0);
+  TORCH_CHECK(n_chunks <= INT32_MAX, what, ": too many chunks");
+  const int64_t* c = chunks.data_ptr<int64_t>();
+  for (int64_t i = 0; i < n_chunks; ++i) {
+    const int64_t t = c[2 * i], start = c[2 * i + 1];
+    TORCH_CHECK(t >= 0 && t < static_cast<int64_t>(rows.size()) &&
+                    start >= 0 && start < rows[t].n && start % 4 == 0,
+                what, ": chunk ", i, " (tensor ", t, ", start ", start,
+                ") is outside its tensor");
+  }
+  const size_t row_bytes = rows.size() * sizeof(Row);
+  const size_t total = row_bytes + n_chunks * sizeof(bert_kernels::LambChunk);
+  auto host = at::empty({static_cast<int64_t>(total)},
+                        at::TensorOptions().dtype(at::kByte).pinned_memory(true));
+  auto* dst = static_cast<char*>(host.data_ptr());
+  std::memcpy(dst, rows.data(), row_bytes);
+  std::memcpy(dst + row_bytes, c, n_chunks * sizeof(bert_kernels::LambChunk));
+  auto dev = at::empty({static_cast<int64_t>(total)},
+                       ref.options().dtype(at::kByte));
+  dev.copy_(host, /*non_blocking=*/true);
+  return {dev, row_bytes};
+}
+
+void check_f32_like(const at::Tensor& t, const at::Tensor& g,
+                    const char* name) {
+  check_cuda(t, g, name);
+  TORCH_CHECK(t.scalar_type() == at::kFloat, name, " must be float32, got ",
+              t.scalar_type());
+  TORCH_CHECK(t.sizes() == g.sizes(), name, " must have its gradient's shape");
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+}
+
+void lamb_stage1(const std::vector<at::Tensor>& g,
+                 const std::vector<at::Tensor>& mu,
+                 const std::vector<at::Tensor>& nu,
+                 const std::vector<at::Tensor>& p,
+                 const std::vector<at::Tensor>& u,
+                 const std::vector<double>& wd, const at::Tensor& denom,
+                 const at::Tensor& chunks, int64_t chunk_size, double c1,
+                 double c2, double b1, double b2, double eps) {
+  const size_t n = g.size();
+  TORCH_CHECK(n > 0 && mu.size() == n && nu.size() == n && p.size() == n &&
+                  u.size() == n && wd.size() == n,
+              "lamb_stage1: g, mu, nu, p, u and wd must be lists of one length");
+  const at::Tensor& ref = g[0];
+  check_cuda(ref, ref, "g");
+  const auto g_dtype = activation_dtype(ref, "g");
+  check_cuda(denom, ref, "denom");
+  TORCH_CHECK(denom.scalar_type() == at::kFloat && denom.numel() == 1,
+              "denom must be one float32");
+  const uintptr_t g_vec = g_dtype == bert_kernels::kBFloat16 ? 8 : 16;
+  std::vector<bert_kernels::LambStage1Tensor> rows(n);
+  for (size_t i = 0; i < n; ++i) {
+    check_cuda(g[i], ref, "g");
+    TORCH_CHECK(g[i].scalar_type() == ref.scalar_type(),
+                "every gradient must have one dtype");
+    TORCH_CHECK(g[i].is_contiguous(), "g must be contiguous");
+    check_f32_like(mu[i], g[i], "mu");
+    check_f32_like(nu[i], g[i], "nu");
+    check_f32_like(p[i], g[i], "p");
+    check_f32_like(u[i], g[i], "u");
+    auto& r = rows[i];
+    r.g = g[i].data_ptr();
+    r.mu = mu[i].data_ptr<float>();
+    r.nu = nu[i].data_ptr<float>();
+    r.p = p[i].data_ptr<float>();
+    r.u = u[i].data_ptr<float>();
+    r.n = g[i].numel();
+    r.wd = static_cast<float>(wd[i]);
+    r.vec = aligned(r.g, g_vec) && aligned(r.mu, 16) && aligned(r.nu, 16) &&
+            aligned(r.p, 16) && aligned(r.u, 16);
+  }
+  const c10::cuda::CUDAGuard guard(ref.device());
+  auto [table, chunk_off] =
+      lamb_tables(rows, chunks, chunk_size, ref, "lamb_stage1");
+  const auto* base = static_cast<const char*>(table.data_ptr());
+  // torch multiplies f32 tensors by a Python float rounded to f32; 1 - b1
+  // is formed in double first, as Python forms it
+  bert_kernels::LambStage1Scalars s;
+  s.b1 = static_cast<float>(b1);
+  s.one_minus_b1 = static_cast<float>(1.0 - b1);
+  s.b2 = static_cast<float>(b2);
+  s.one_minus_b2 = static_cast<float>(1.0 - b2);
+  s.eps = static_cast<float>(eps);
+  s.c1 = static_cast<float>(c1);
+  s.c2 = static_cast<float>(c2);
+  check_launch(
+      bert_kernels::lamb_stage1(
+          reinterpret_cast<const bert_kernels::LambStage1Tensor*>(base),
+          reinterpret_cast<const bert_kernels::LambChunk*>(base + chunk_off),
+          chunks.size(0), static_cast<int>(chunk_size),
+          denom.data_ptr<float>(), s, g_dtype,
+          c10::cuda::getCurrentCUDAStream().stream()),
+      "lamb_stage1");
+}
+
+void lamb_stage2(const at::Tensor& t, const std::vector<at::Tensor>& u,
+                 const std::vector<at::Tensor>& out, const at::Tensor& chunks,
+                 int64_t chunk_size, bool apply) {
+  const size_t n = u.size();
+  TORCH_CHECK(n > 0 && out.size() == n,
+              "lamb_stage2: u and out must be lists of one length");
+  const at::Tensor& ref = u[0];
+  check_cuda(ref, ref, "u");
+  check_cuda(t, ref, "t");
+  TORCH_CHECK(t.scalar_type() == at::kFloat && t.is_contiguous() &&
+                  t.numel() == static_cast<int64_t>(n),
+              "t must be a contiguous float32 tensor of one value per tensor");
+  std::vector<bert_kernels::LambStage2Tensor> rows(n);
+  for (size_t i = 0; i < n; ++i) {
+    check_f32_like(u[i], u[i], "u");
+    check_cuda(u[i], ref, "u");
+    check_f32_like(out[i], u[i], apply ? "p" : "out");
+    auto& r = rows[i];
+    r.u = u[i].data_ptr<float>();
+    r.out = out[i].data_ptr<float>();
+    r.n = u[i].numel();
+    r.vec = aligned(r.u, 16) && aligned(r.out, 16);
+    r.unused = 0;
+  }
+  const c10::cuda::CUDAGuard guard(ref.device());
+  auto [table, chunk_off] =
+      lamb_tables(rows, chunks, chunk_size, ref, "lamb_stage2");
+  const auto* base = static_cast<const char*>(table.data_ptr());
+  check_launch(
+      bert_kernels::lamb_stage2(
+          reinterpret_cast<const bert_kernels::LambStage2Tensor*>(base),
+          reinterpret_cast<const bert_kernels::LambChunk*>(base + chunk_off),
+          chunks.size(0), static_cast<int>(chunk_size), t.data_ptr<float>(),
+          apply, c10::cuda::getCurrentCUDAStream().stream()),
+      "lamb_stage2");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -399,4 +557,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "flash-attention backward: (dk, dv) from the dq launch's delta");
   m.def("flash_tiles", &flash_tiles,
         "{flash kernel: (query rows, keys) tile} for bf16 or f32 inputs");
+  m.def("lamb_stage1", &lamb_stage1,
+        "fused LAMB stage 1: mu, nu in place, u written");
+  m.def("lamb_stage2", &lamb_stage2,
+        "fused LAMB stage 2: out = t * u, or p += t * u with apply");
 }

@@ -132,4 +132,55 @@ struct FlashTile {
 };
 void flash_tiles(DType dtype, FlashTile tiles[3]);
 
+// Fused multi-tensor LAMB (fused_optim.cu). The host passes device copies
+// of a per-tensor table and a chunk table; one CTA takes the elements
+// [start, min(start + chunk_size, n)) of its chunk's tensor. `vec` is 1
+// when every pointer of the tensor allows 16-byte vector access (8-byte
+// for a bf16 gradient); chunk starts are multiples of 4.
+struct LambChunk {
+  int64_t tensor;
+  int64_t start;
+};
+
+// g (f32 or bf16, one dtype per call) is read; mu and nu (f32) updated in
+// place; p (f32) read; u (f32) written. All contiguous with n elements.
+struct LambStage1Tensor {
+  const void* g;
+  float* mu;
+  float* nu;
+  const float* p;
+  float* u;
+  int64_t n;
+  float wd;
+  int32_t vec;
+};
+
+// The f32 values of the reference's Python-float multipliers.
+struct LambStage1Scalars {
+  float b1, one_minus_b1, b2, one_minus_b2, eps, c1, c2;
+};
+
+// denom is one f32 on the card.
+cudaError_t lamb_stage1(const LambStage1Tensor* tensors,
+                        const LambChunk* chunks, int64_t n_chunks,
+                        int chunk_size, const float* denom,
+                        const LambStage1Scalars& s, DType g_dtype,
+                        cudaStream_t stream);
+
+// out = t[tensor] * u, or with `apply` out += t[tensor] * u (out is then
+// the f32 master p); u and out f32, contiguous, n elements; t one f32 per
+// tensor on the card.
+struct LambStage2Tensor {
+  const float* u;
+  float* out;
+  int64_t n;
+  int32_t vec;
+  int32_t unused;
+};
+
+cudaError_t lamb_stage2(const LambStage2Tensor* tensors,
+                        const LambChunk* chunks, int64_t n_chunks,
+                        int chunk_size, const float* t, bool apply,
+                        cudaStream_t stream);
+
 }  // namespace bert_kernels

@@ -1,5 +1,4 @@
-"""LAMB, unfused (counterpart of bert_pytorch_tpu/optim/lamb.py, the
-`fused=False` path; the fused multi-tensor kernels are a later slice).
+"""LAMB (counterpart of bert_pytorch_tpu/optim/lamb.py), on two routes.
 
 NVLAMB semantics as the JAX package implements them:
 
@@ -10,6 +9,18 @@ NVLAMB semantics as the JAX package implements them:
    LayerNorm parameters (`default_weight_decay_mask`);
 4. one trust ratio ||p|| / ||u|| per tensor, 1 where either norm is 0;
 5. p <- p - lr * ratio * u, lr = schedule(count - 1).
+
+`fused` mirrors the JAX package's --fused_optim (`lamb(fused=...)`):
+"off" and "xla" run the five steps tensor by tensor with the plain
+stage-1 math of ops/fused_optim.py (one tensor's temporaries alive at a
+time); "auto" and "pallas" run them as stages over the whole list
+through the wrappers (stage 1 over every tensor, the trust norms, the
+ratios, stage 2), which launch the fused multi-tensor kernels on CUDA
+tensors (one launch per stage) and take the plain versions on CPU
+tensors, giving the same bits as "off" there. Both routes compute the
+trust norms with one function (`trust_norms`) and keep one mu and one nu
+tensor per parameter name, so a state written under one route resumes
+under the other.
 
 The port keeps every encoder weight as its own tensor (the JAX package's
 unstacked layout), so one ratio per tensor is the per-layer ratio that
@@ -22,12 +33,15 @@ mutable; JAX returns new arrays).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from bert_pytorch_tpu_torch.ops import fused_optim
+
 Params = Dict[str, torch.Tensor]
+FUSED_CHOICES = ("off", "auto", "xla", "pallas")
 
 
 def default_weight_decay_mask(name: str) -> bool:
@@ -49,6 +63,24 @@ def global_norm_f32(tensors) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def trust_norms(ps: Sequence[torch.Tensor], us: Sequence[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(||p_i||, ||u_i||) as two f32 vectors of one entry per tensor: the
+    trust norms of both routes (the JAX package keeps them outside its
+    kernels too)."""
+    return (torch.stack(torch._foreach_norm(list(ps))),
+            torch.stack(torch._foreach_norm(list(us))))
+
+
+def trust_ratio_t(pn: torch.Tensor, un: torch.Tensor, lr: float
+                  ) -> torch.Tensor:
+    """t = -lr * ratio per tensor, ratio = ||p|| / ||u|| or 1 where either
+    norm is 0."""
+    ratio = torch.where((pn > 0) & (un > 0),
+                        pn / torch.clamp(un, min=1e-30), torch.ones_like(pn))
+    return -lr * ratio
+
+
 @dataclasses.dataclass
 class LambState:
     count: int
@@ -60,15 +92,21 @@ class Lamb:
     """`update(grads, state, params)` applies one LAMB step in place to the
     f32 `params` and the moments of `state`; `learning_rate` is a float or
     a schedule step -> lr. Weight decay follows
-    `default_weight_decay_mask` of each parameter's name."""
+    `default_weight_decay_mask` of each parameter's name; `fused` is the
+    route (FUSED_CHOICES, see the module docstring)."""
 
     def __init__(self, learning_rate: Union[float, Callable[[int], float]],
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
-                 weight_decay: float = 0.01, max_grad_norm: float = 1.0):
+                 weight_decay: float = 0.01, max_grad_norm: float = 1.0,
+                 fused: str = "off"):
+        if fused not in FUSED_CHOICES:
+            raise ValueError(f"fused must be one of {FUSED_CHOICES}, got "
+                             f"{fused!r}")
         self.learning_rate = learning_rate
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
+        self.fused = fused
 
     def init(self, params: Params) -> LambState:
         zeros = lambda: {k: torch.zeros_like(p, dtype=torch.float32)  # noqa
@@ -81,27 +119,34 @@ class Lamb:
         return float(self.learning_rate)
 
     @torch.no_grad()
-    def update(self, grads: Params, state: LambState, params: Params
-               ) -> None:
+    def update(self, grads: Params, state: LambState, params: Params,
+               grad_norm: Optional[torch.Tensor] = None) -> None:
+        """`grad_norm`: global_norm_f32 of `grads`, when the caller has it
+        already (the train step does); computed here otherwise."""
         state.count += 1
-        b1, b2 = self.b1, self.b2
-        gnorm = global_norm_f32(grads[k] for k in params)
-        denom = torch.clamp(gnorm / self.max_grad_norm, min=1.0)
+        names = list(params)
+        if grad_norm is None:
+            grad_norm = global_norm_f32(grads[k] for k in names)
+        denom = torch.clamp(grad_norm / self.max_grad_norm, min=1.0)
         cf = np.float32(state.count)
-        c1 = float(np.float32(1.0) - np.float32(b1) ** cf)
-        c2 = float(np.float32(1.0) - np.float32(b2) ** cf)
+        c1 = float(np.float32(1.0) - np.float32(self.b1) ** cf)
+        c2 = float(np.float32(1.0) - np.float32(self.b2) ** cf)
         lr = self.lr(state.count - 1)
-        for name, p in params.items():
-            g = grads[name].float() / denom
-            mu, nu = state.mu[name], state.nu[name]
-            mu.copy_(b1 * mu + (1 - b1) * g)
-            nu.copy_(b2 * nu + (1 - b2) * g.square())
-            wd = self.weight_decay if default_weight_decay_mask(name) else 0.0
-            pf = p.float()
-            u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps) + wd * pf
-            pn = torch.linalg.vector_norm(pf)
-            un = torch.linalg.vector_norm(u)
-            ratio = torch.where((pn > 0) & (un > 0),
-                                pn / torch.clamp(un, min=1e-30),
-                                torch.ones_like(pn))
-            p.add_((-lr * ratio * u).to(p.dtype))
+        wd = [self.weight_decay if default_weight_decay_mask(k) else 0.0
+              for k in names]
+        g = [grads[k] for k in names]
+        mu = [state.mu[k] for k in names]
+        nu = [state.nu[k] for k in names]
+        p = [params[k] for k in names]
+        if self.fused in ("off", "xla"):
+            c1t, c2t = fused_optim.bias_corrections(c1, c2, denom.device)
+            for args in zip(g, mu, nu, p, wd):
+                u = fused_optim.stage1_math(*args, denom, c1t, c2t, self.b1,
+                                            self.b2, self.eps)
+                pi = args[3]
+                t = trust_ratio_t(*trust_norms([pi], [u]), lr)
+                pi.add_(t[0] * u)
+            return
+        u = fused_optim.lamb_stage1(g, mu, nu, p, wd, denom, c1, c2,
+                                    self.b1, self.b2, self.eps)
+        fused_optim.lamb_stage2(trust_ratio_t(*trust_norms(p, u), lr), u, p)

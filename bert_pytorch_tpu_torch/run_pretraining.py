@@ -5,21 +5,31 @@ kernels), the sequence length taken from the shards.
     python -m bert_pytorch_tpu_torch.run_pretraining \\
         --config_file configs/bert_pretraining_phase{1,2}_config.json \\
         --input_dir <dir of .hdf5 shards> --output_dir <dir> \\
-        --skip_checkpoint [--device cuda|cpu] [--steps N]
+        [--fused_optim auto] [--device cuda|cpu] [--steps N]
 
 Flags, defaults and precedence (CLI > JSON run config > defaults) are the
-JAX entry point's (run_pretraining.py), trimmed to what this slice
+JAX entry point's (run_pretraining.py), trimmed to what the port
 implements: a model initialised at random from --seed, dynamic masking of
 sharded-HDF5 data, the gathered MLM head, gradient accumulation up to
 --global_batch_size, bf16 compute with bf16 gradients over f32 masters,
-unfused LAMB with a warmup schedule, and the non-finite health checks.
-Checkpointing is not ported yet: the run refuses to start without
---skip_checkpoint and refuses a run config that sets init_checkpoint,
-so phase 2 starts from random weights at step 0 (where the run config's previous_phase_end_step
-offset holds the schedule at the start of its warmup). Each optimizer
-step logs one line (loss, grad_norm, lr, step ms, seq/s) to stdout and
-one JSON record to <output_dir>/<log_prefix>.jsonl. Runs on CUDA unless
---device cpu.
+LAMB with a warmup schedule (--fused_optim: "off" and "xla" tensor by
+tensor, "auto"/"pallas" the fused multi-tensor kernels on the card), and
+the non-finite health checks.
+
+Checkpoints: every --num_steps_per_checkpoint steps and at the end of the
+run into <output_dir>/pretrain_ckpts/<global step>/, the newest
+--keep_checkpoints kept (--skip_checkpoint turns saving off). A run
+auto-resumes from the newest checkpoint in its output_dir, which takes
+precedence over --init_checkpoint <dir>[@step] (weights only, from a port
+checkpoint directory). So phase 2 run in phase 1's output_dir continues
+from phase 1's last step with its LAMB moments, and its schedule takes
+the run config's previous_phase_end_step as its offset. Each step's
+dropout seeds are a pure function of (--seed, global step), so a resumed
+run draws the masks an uninterrupted run draws.
+
+Each optimizer step logs one line (loss, grad_norm, lr, step ms, seq/s)
+to stdout and one JSON record to <output_dir>/<log_prefix>.jsonl. Runs on
+CUDA unless --device cpu.
 """
 
 from __future__ import annotations
@@ -31,8 +41,9 @@ import math
 import os
 import time
 from pathlib import Path
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 # ROADMAP item named when a run asks for something this slice lacks
@@ -48,13 +59,20 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     p.add_argument("--input_dir", default=None, type=str,
                    help="dir containing .hdf5 shards")
     p.add_argument("--output_dir", default=None, type=str,
-                   help="dir for logs")
+                   help="dir for logs and checkpoints")
     p.add_argument("--model_config_file", default=None, type=str,
                    help="BERT model config JSON")
     p.add_argument("--masked_token_fraction", type=float, default=0.2)
     p.add_argument("--max_predictions_per_seq", type=int, default=80)
+    p.add_argument("--init_checkpoint", type=str, default="",
+                   help="<checkpoint dir>[@step]: seed the weights (only) "
+                        "from a port checkpoint; an auto-resume from "
+                        "output_dir takes precedence")
+    p.add_argument("--num_steps_per_checkpoint", type=int, default=200)
+    p.add_argument("--keep_checkpoints", type=int, default=3,
+                   help="rolling window of checkpoints kept")
     p.add_argument("--skip_checkpoint", action="store_true",
-                   help="required: checkpointing is not ported yet")
+                   help="save no checkpoint")
     p.add_argument("--log_prefix", type=str, default="logfile")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--learning_rate", default=5e-5, type=float)
@@ -82,6 +100,12 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                    help="pad the vocab to a multiple of this")
     p.add_argument("--optimizer", type=str, default="lamb",
                    choices=["lamb"])
+    p.add_argument("--fused_optim", type=str, default="off",
+                   choices=["off", "auto", "xla", "pallas"],
+                   help="LAMB's route: 'off' and 'xla' tensor by tensor; "
+                        "'auto' and 'pallas' the fused multi-tensor kernels "
+                        "on CUDA tensors. On the CPU every choice runs the "
+                        "plain versions")
     p.add_argument("--prefetch_batches", type=int, default=2,
                    help="host batches assembled ahead on a thread")
     p.add_argument("--health_pack", type=str, default="on",
@@ -119,23 +143,43 @@ class NonFiniteHalt(RuntimeError):
 
 @dataclasses.dataclass
 class PretrainResult:
+    """What a run did: its last global step, the train state it ends with,
+    the step it resumed from (None: a fresh start) and the checkpoints it
+    saved ({"step", "bytes", "seconds"} each)."""
     step: int
     train_time_s: float
     accum_steps: int
     seqs_per_step: int
     history: List[Dict]
+    state: object = None
+    resumed_from: Optional[int] = None
+    restore_s: Optional[float] = None
+    saves: List[Dict] = dataclasses.field(default_factory=list)
 
 
 def _unsupported(args) -> None:
-    """Refuse what the slice does not implement rather than ignore it."""
-    if not args.skip_checkpoint:
-        raise NotImplementedError(
-            "checkpointing is not ported yet; pass --skip_checkpoint "
-            f"(see {_ROADMAP}: checkpointing)")
-    for key in ("kfac", "packing", "stream_dir", "init_checkpoint"):
+    """Refuse what the port does not implement rather than ignore it."""
+    for key in ("kfac", "packing", "stream_dir"):
         if getattr(args, key, None):
             raise NotImplementedError(
                 f"{key} is not ported yet (see {_ROADMAP})")
+
+
+def dropout_seeds(seed: int, step: int, accum_steps: int, n_sites: int
+                  ) -> torch.Tensor:
+    """(accum_steps, n_sites) int32 dropout seeds of global step `step`
+    (the step being taken, 1-based): a pure function of (seed, step), the
+    port's counterpart of fold_in(PRNGKey(seed + 1000), step), so a
+    resumed run draws the seeds an uninterrupted run draws."""
+    rng = np.random.default_rng([(seed + 1000) % 2 ** 64, step])
+    return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31,
+                                         (accum_steps, n_sites),
+                                         dtype=np.int32))
+
+
+def _config_echo(args) -> Dict:
+    return {k: v for k, v in sorted(vars(args).items())
+            if isinstance(v, (str, int, float, bool)) or v is None}
 
 
 def main(argv=None, log: Callable[[str], None] = print) -> PretrainResult:
@@ -170,6 +214,8 @@ def train(args: argparse.Namespace, index,
     from bert_pytorch_tpu_torch.optim.lamb import Lamb
     from bert_pytorch_tpu_torch.optim.schedulers import make_schedule
     from bert_pytorch_tpu_torch.telemetry.health import HealthConfig
+    from bert_pytorch_tpu_torch.training.checkpoint import (
+        CheckpointManager, load_init_params)
     from bert_pytorch_tpu_torch.training.pretrain import build_pretrain_step
     from bert_pytorch_tpu_torch.training.state import make_train_state
 
@@ -205,7 +251,15 @@ def train(args: argparse.Namespace, index,
         prefetch_batches=max(0, args.prefetch_batches))
     os.makedirs(args.output_dir, exist_ok=True)
     log_path = os.path.join(args.output_dir, args.log_prefix + ".jsonl")
+    if not args.skip_checkpoint and args.num_steps_per_checkpoint < 1:
+        raise SystemExit("--num_steps_per_checkpoint must be >= 1")
+    manager = CheckpointManager(
+        os.path.join(args.output_dir, "pretrain_ckpts"),
+        max_to_keep=args.keep_checkpoints, log=log)
     try:
+        if len(loader.sampler) < step_batch:
+            raise SystemExit(f"the data holds fewer than one step's batch "
+                             f"({step_batch} samples)")
         with torch.device(device):
             model = BertForPreTraining(config, dtype=compute_dtype)
         init_weights(model, torch.Generator(device=device).manual_seed(
@@ -214,7 +268,7 @@ def train(args: argparse.Namespace, index,
                                  args.max_steps,
                                  warmup=args.warmup_proportion,
                                  offset=args.previous_phase_end_step)
-        tx = Lamb(schedule, weight_decay=0.01)
+        tx = Lamb(schedule, weight_decay=0.01, fused=args.fused_optim)
         state = make_train_state(model, tx)
         step_fn = build_pretrain_step(
             model, tx, schedule=schedule, accum_steps=accum_steps,
@@ -224,51 +278,77 @@ def train(args: argparse.Namespace, index,
             f"microbatch={micro} global_batch={step_batch} dtype={args.dtype} "
             f"grad_dtype={grad_name} vocab={config.vocab_size} "
             f"layers={config.num_hidden_layers} shards={len(index.files)} "
-            f"samples={len(index)} [MASK]={mask_id}")
-        # one int32 seed per dropout site per microbatch, from --seed
-        seed_gen = torch.Generator().manual_seed(args.seed + 1000)
+            f"samples={len(index)} [MASK]={mask_id} "
+            f"fused_optim={args.fused_optim}")
+        resumed_from = restore_s = None
+        if manager.latest_step() is not None:
+            t0 = time.perf_counter()
+            sd, extra, resumed_from = manager.restore_with_fallback(
+                map_location=device)
+            state.load_state_dict(sd)
+            del sd
+            if "sampler" in extra:
+                loader.load_state_dict(extra["sampler"])
+            restore_s = time.perf_counter() - t0
+            log(f"auto-resumed from step {resumed_from} "
+                f"({restore_s:.1f} s)")
+        elif args.init_checkpoint:
+            load_init_params(args.init_checkpoint, state.params, log=log)
         n_sites = 1 + 3 * config.num_hidden_layers
         target = args.previous_phase_end_step + args.max_steps
         limit = min(target, state.step + args.steps
                     if args.steps is not None else target)
         history: List[Dict] = []
+        saves: List[Dict] = []
+
+        def save():
+            rec = manager.save(state.step, state.state_dict(), extra={
+                "sampler": loader.state_dict(),
+                "epoch": loader.sampler.epoch,
+                "config": _config_echo(args)})
+            saves.append(dict(rec, step=state.step))
+            log(f"checkpoint: step {state.step} saved ({rec['bytes'] / 1e9:.3f}"
+                f" GB in {rec['seconds']:.1f} s)")
+
         train_start = time.perf_counter()
         with open(log_path, "a", encoding="utf-8") as log_file:
+            # the loop pulls a batch only for a step it takes, so the
+            # loader's cursor is the last batch trained on
             while state.step < limit:
-                stepped = False
-                for batch_np in loader:
-                    if state.step >= limit:
-                        break
-                    stepped = True
-                    history.append(_one_step(
-                        step_fn, state, batch_np, accum_steps, micro,
-                        device, seed_gen, n_sites, health, log, log_file))
-                else:
-                    if not stepped:
-                        raise SystemExit(
-                            f"the data holds fewer than one step's batch "
-                            f"({step_batch} samples)")
+                batch_np = next(loader, None)
+                if batch_np is None:
                     loader.reset_epoch()
+                    continue
+                history.append(_one_step(
+                    step_fn, state, batch_np, accum_steps, micro, device,
+                    args.seed, n_sites, health, log, log_file))
+                if (not args.skip_checkpoint
+                        and state.step % args.num_steps_per_checkpoint == 0):
+                    save()
         train_time = time.perf_counter() - train_start
+        if history and not args.skip_checkpoint and (
+                not saves or saves[-1]["step"] != state.step):
+            save()
         if history:
             log(f"training_seq_per_sec = "
                 f"{step_batch * len(history) / train_time:.2f} "
                 f"({len(history)} steps in {train_time:.1f}s)")
         return PretrainResult(step=state.step, train_time_s=train_time,
                               accum_steps=accum_steps,
-                              seqs_per_step=step_batch, history=history)
+                              seqs_per_step=step_batch, history=history,
+                              state=state, resumed_from=resumed_from,
+                              restore_s=restore_s, saves=saves)
     finally:
         loader.close()
 
 
 def _one_step(step_fn, state, batch_np, accum_steps, micro, device,
-              seed_gen, n_sites, health, log, log_file) -> Dict:
+              seed, n_sites, health, log, log_file) -> Dict:
     t0 = time.perf_counter()
     batch = {k: torch.from_numpy(v.reshape(accum_steps, micro,
                                            *v.shape[1:])).to(device)
              for k, v in batch_np.items()}
-    seeds = torch.randint(-2 ** 31, 2 ** 31, (accum_steps, n_sites),
-                          dtype=torch.int32, generator=seed_gen)
+    seeds = dropout_seeds(seed, state.step + 1, accum_steps, n_sites)
     metrics = step_fn(state, batch, seeds)
     # reading the metrics waits for the card: the step time below is the
     # whole step, host and device

@@ -1,0 +1,186 @@
+"""Checkpoints and auto-resume (counterpart of
+bert_pytorch_tpu/training/checkpoint.py, in the port's own format).
+
+A checkpoint is a step directory `<directory>/<global_step>/` holding
+`state.pt` (torch.save of TrainState.state_dict(): the step, the f32
+parameters by name, LAMB's count, mu and nu by name), `extra.json` (the
+sampler cursor, the epoch, an echo of the run config) and the integrity
+sidecar of resilience/manifest.py. The reference's policy, as the JAX
+package keeps it:
+
+- a save every `num_steps_per_checkpoint` steps and at the end of the run,
+  named by the global step (which includes previous_phase_end_step), so
+  phase 2 in phase 1's output directory resumes phase 1's last state with
+  its moments (the two-phase handoff);
+- a rolling window of the newest `max_to_keep`;
+- auto-resume from the newest step that verifies: a corrupt step is
+  quarantined (`<step>.corrupt`) and the walk goes on to the next-newest.
+
+A save writes the data files into `<step>.tmp-<pid>/`, then the sidecar
+(its digests of the complete files), then commits the step with one
+rename: a step directory either is whole or does not exist. Reading the
+JAX package's orbax checkpoints is not supported.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from bert_pytorch_tpu_torch.resilience.manifest import (
+    CorruptCheckpointError, all_steps_on_disk, quarantine_step,
+    step_dir_path, verify_step_dir, write_step_manifest)
+
+STATE_FILE = "state.pt"
+EXTRA_FILE = "extra.json"
+
+
+class CheckpointManager:
+    """Save, list and restore the step directories under `directory`."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 log: Callable[[str], None] = print):
+        if max_to_keep < 1:
+            raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        self._log = log
+
+    def all_steps(self) -> List[int]:
+        """Every committed step, ascending."""
+        return all_steps_on_disk(self.directory)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: Dict[str, Any],
+             extra: Optional[Dict[str, Any]] = None) -> Dict[str, float]:
+        """Write and commit step `step`, then drop the oldest steps beyond
+        the window. Returns the bytes written and the seconds taken."""
+        t0 = time.perf_counter()
+        os.makedirs(self.directory, exist_ok=True)
+        final = step_dir_path(self.directory, step)
+        tmp = f"{final}.tmp-{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(state, os.path.join(tmp, STATE_FILE))
+        with open(os.path.join(tmp, EXTRA_FILE), "w", encoding="utf-8") as f:
+            json.dump(extra or {}, f, indent=1, sort_keys=True)
+        write_step_manifest(tmp, step, extra_echo=extra)
+        os.replace(tmp, final)
+        for old in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(step_dir_path(self.directory, old),
+                          ignore_errors=True)
+        nbytes = sum(os.path.getsize(os.path.join(final, f))
+                     for f in os.listdir(final))
+        return {"bytes": nbytes, "seconds": time.perf_counter() - t0}
+
+    def verify(self, step: int) -> List[str]:
+        """[] when the step matches its sidecar, else the errors."""
+        return verify_step_dir(step_dir_path(self.directory, step))
+
+    def restore(self, step: Optional[int] = None,
+                map_location: Any = "cpu"
+                ) -> Tuple[Dict[str, Any], Dict[str, Any], int]:
+        """(state_dict, extra, step) of `step` (default the newest).
+        Digests are verified before anything is deserialised: a corrupt
+        step raises CorruptCheckpointError naming the failed item."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(
+                f"no checkpoint found under {self.directory}")
+        errors = self.verify(step)
+        if errors:
+            raise CorruptCheckpointError(step, errors)
+        return self._load(step, map_location)
+
+    def _load(self, step: int, map_location: Any
+              ) -> Tuple[Dict[str, Any], Dict[str, Any], int]:
+        sd = step_dir_path(self.directory, step)
+        if not os.path.isdir(sd):
+            raise FileNotFoundError(f"no checkpoint step {step} under "
+                                    f"{self.directory}")
+        state = torch.load(os.path.join(sd, STATE_FILE),
+                           map_location=map_location, weights_only=True)
+        with open(os.path.join(sd, EXTRA_FILE), encoding="utf-8") as f:
+            extra = json.load(f)
+        return state, extra, step
+
+    def restore_with_fallback(self, map_location: Any = "cpu"
+                              ) -> Tuple[Dict[str, Any], Dict[str, Any],
+                                         int]:
+        """Auto-resume that survives a torn or corrupt newest checkpoint:
+        walk the steps newest to oldest; a step that fails verification
+        (a missing sidecar included) is quarantined with a warning naming
+        the failed item and the walk goes on. A step whose digests verify
+        but which still fails to load is raised as it is: intact data that
+        will not load is not corruption.
+
+        Raises CorruptCheckpointError when every step was quarantined,
+        FileNotFoundError when there were none."""
+        steps = self.all_steps()
+        if not steps:
+            raise FileNotFoundError(
+                f"no checkpoint found under {self.directory}")
+        quarantined: List[int] = []
+        for step in reversed(steps):
+            errors = self.verify(step)
+            if not errors:
+                return self._load(step, map_location)
+            dst = quarantine_step(self.directory, step)
+            quarantined.append(step)
+            self._log(f"WARNING: checkpoint step {step} is CORRUPT — "
+                      f"{'; '.join(errors)}. Quarantined to {dst}; "
+                      "auto-resume falls back to the next-newest checkpoint")
+        raise CorruptCheckpointError(
+            None, [f"every checkpoint under {self.directory} failed "
+                   f"verification; quarantined steps: {quarantined}"])
+
+
+def parse_init_checkpoint(spec: str) -> Tuple[str, Optional[int]]:
+    """'<dir>[@step]' -> (dir, step or None for the newest)."""
+    head, sep, tail = spec.rpartition("@")
+    if sep and tail.isdigit():
+        return head, int(tail)
+    return spec, None
+
+
+def load_init_params(spec: str, params: Dict[str, torch.Tensor],
+                     log: Callable[[str], None] = print) -> int:
+    """Seed `params` in place from the parameters of a port checkpoint,
+    `<checkpoint dir>[@step]` (a directory of step directories, such as
+    `<output_dir>/pretrain_ckpts`): weights only, the step and the
+    optimizer state stay fresh. Every parameter that is not loaded
+    (absent from the checkpoint, or of another shape) is reported; raises
+    when none matches. Returns the checkpoint's step."""
+    directory, step = parse_init_checkpoint(spec)
+    src, _, step = CheckpointManager(directory, log=log).restore(
+        step, map_location="cpu")
+    src = src["params"]
+    loaded, fresh = [], []
+    with torch.no_grad():
+        for k, p in params.items():
+            cand = src.get(k)
+            if cand is not None and tuple(cand.shape) == tuple(p.shape):
+                p.copy_(cand)
+                loaded.append(k)
+            else:
+                fresh.append(k if cand is None else
+                             f"{k} (shape {tuple(cand.shape)} != "
+                             f"{tuple(p.shape)})")
+    if not loaded:
+        raise ValueError(f"--init_checkpoint {spec}: no parameter of this "
+                         "model is in the checkpoint")
+    log(f"init_checkpoint: loaded {len(loaded)} parameters from {directory} "
+        f"step {step}")
+    if fresh:
+        log(f"WARNING: init_checkpoint: {len(fresh)} parameters keep their "
+            f"fresh initialisation: {fresh}")
+    return step

@@ -145,7 +145,8 @@ def build_pretrain_step(model: nn.Module, tx: Lamb,
                 skip = bool(bad)
                 metrics["skipped_nonfinite"] = int(skip)
         if not skip:
-            tx.update(grads, state.opt_state, state.params)
+            tx.update(grads, state.opt_state, state.params,
+                      grad_norm=grad_norm)
         metrics["mlm_accuracy"] = (aux["mlm_correct"]
                                    / aux["mlm_total"].clamp_min(1))
         metrics["mlm_dropped"] = aux["mlm_dropped"]

@@ -3,7 +3,11 @@ trimmed): the global step, the f32 master parameters and the LAMB state.
 
 `params` are the model's own parameter tensors (detached views of them),
 so the model and the state always hold the same weights; the step updates
-them in place.
+them in place, and `load_state_dict` copies a checkpoint into them.
+
+`state_dict()` is what a checkpoint carries: {"step", "params" by name,
+"opt_state": {"count", "mu" by name, "nu" by name}}. Both LAMB routes
+keep that layout, so a state saved under one resumes under the other.
 """
 
 from __future__ import annotations
@@ -22,6 +26,39 @@ class TrainState:
     step: int
     params: Dict[str, torch.Tensor]
     opt_state: LambState
+
+    def state_dict(self) -> Dict:
+        return {"step": int(self.step), "params": dict(self.params),
+                "opt_state": {"count": int(self.opt_state.count),
+                              "mu": dict(self.opt_state.mu),
+                              "nu": dict(self.opt_state.nu)}}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        """Copy a state_dict() in place: every tensor by name, of the same
+        shape (a missing, extra or reshaped entry raises before anything
+        is copied), then the step and LAMB's count."""
+        opt = sd["opt_state"]
+        pairs = []
+        for what, have, got in (("params", self.params, sd["params"]),
+                                ("mu", self.opt_state.mu, opt["mu"]),
+                                ("nu", self.opt_state.nu, opt["nu"])):
+            if set(have) != set(got):
+                missing = sorted(set(have) - set(got))
+                extra = sorted(set(got) - set(have))
+                raise ValueError(f"checkpoint {what} do not match the "
+                                 f"model: missing {missing[:5]}, unexpected "
+                                 f"{extra[:5]}")
+            for k, t in have.items():
+                if tuple(got[k].shape) != tuple(t.shape):
+                    raise ValueError(f"checkpoint {what} {k}: shape "
+                                     f"{tuple(got[k].shape)}, model "
+                                     f"{tuple(t.shape)}")
+                pairs.append((t, got[k]))
+        with torch.no_grad():
+            for t, src in pairs:
+                t.copy_(src)
+        self.step = int(sd["step"])
+        self.opt_state.count = int(opt["count"])
 
 
 def make_train_state(model: nn.Module, tx: Lamb) -> TrainState:

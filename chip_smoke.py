@@ -37,21 +37,30 @@ Phases, each of which must pass:
 6. train    a seeded random BERT-Large (24 layers, full width, vocab 30528)
             trained for 3 phase-1 steps (the run config's microbatch of
             96 x 128, accumulation 2) by the entry point's trainer
-            (run_pretraining.train) over synthetic phase-1 shards held in
-            memory; exact launch counts of the training kernels, finite
-            losses and gradient norms; one optimizer step profiled; one
-            microbatch through the kernels held against the plain
-            versions (f32 and bf16 loss and gradients);
+            (run_pretraining.train, --fused_optim auto) over synthetic
+            phase-1 shards held in memory, saving checkpoints (steps 2 and
+            3) into a temporary directory; exact launch counts of the
+            training kernels and the fused LAMB kernels, finite losses and
+            gradient norms; the last checkpoint read back bit-equal; one
+            optimizer step profiled, the step and one LAMB update timed on
+            the kernels and on route off; one microbatch through the
+            kernels held against the plain versions (f32 and bf16 loss and
+            gradients);
 7. train_phase2  the same for phase 2: 3 steps under the phase-2 run
             config (microbatch 16 x 512, 80 predictions, accumulation 2),
             where attention runs the flash forward with dropout and the
-            flash backward pair.
+            flash backward pair; it auto-resumes phase 1's last checkpoint
+            (previous_phase_end_step set to 3 for it) and must continue
+            from step 3 with phase 1's LAMB state.
 
 The kernels phase also holds the flash kernels of training at phase 2's
 (16, 512, 16, 64): the forward's dropout arm, the dropout mask read out of
 the forward and out of dv and compared exactly, and the backward pair
 against its plain version; the timing phase times them beside their plain
-versions and scaled_dot_product_attention.
+versions and scaled_dot_product_attention. It holds the fused LAMB stages
+(#11, #12) against their plain versions bit for bit over BERT-Large's 302
+parameter tensors and a list of odd sizes and misaligned views, and the
+timing phase times them over the 302 tensors.
 
 It prints a `kernels` JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits 2 and prints
@@ -163,7 +172,15 @@ def nvidia_smi_line() -> str:
 
 class Timer:
     """CUDA-event time of one call, with the L2 cache (50 MB) flushed by a
-    256 MB write before every launch: median of `reps` launches, ms."""
+    256 MB write before every launch: median of `reps` launches, ms.
+
+    The events bracket the call as its caller sees it, host work
+    included. `hide_host=True` queues a 20 ms spin on the card before the
+    start event, so that the call's host work (a wrapper that builds
+    tables) is done before the card reaches the start event and the time
+    is the device's alone."""
+
+    SPIN_CYCLES = 40_000_000          # ~20 ms at the H100's 1.98 GHz
 
     def __init__(self, torch, reps: int = 25):
         self.torch = torch
@@ -171,13 +188,15 @@ class Timer:
         self.flush = torch.empty(64 * 2 ** 20, dtype=torch.float32,
                                  device="cuda")
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, hide_host: bool = False) -> float:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(self.reps):
             self.flush.zero_()
+            if hide_host:
+                torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -325,6 +344,7 @@ def phase_kernels(torch, np, results):
     results["flash_attention_fwd"] = {"max_abs_err": fl_err}
     check_training_kernels(torch, np, results)
     check_flash_training_kernels(torch, np, results)
+    check_lamb_kernels(torch, np, results)
 
 
 def _rel(a, b) -> float:
@@ -616,6 +636,119 @@ def check_flash_training_kernels(torch, np, results):
             "max_abs_err": bwd_abs[kern], "max_rel_err": bwd_err[kern]}
 
 
+def bert_large_lamb_state(torch, gen, g_dtype):
+    """LAMB's lists over BERT-Large's 302 parameter tensors (names and
+    shapes from the pretraining model built on the meta device, vocab
+    30528) on the card: gradients in `g_dtype`, f32 moments (nu >= 0),
+    f32 parameters, and each tensor's weight decay."""
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.models.bert import BertForPreTraining
+    from bert_pytorch_tpu_torch.optim.lamb import default_weight_decay_mask
+
+    config = BertConfig.from_json_file(os.path.join(
+        HERE, "configs", "bert_large_uncased_config.json"))
+    config = config.replace(vocab_size=pad_vocab_size(config.vocab_size, 8))
+    with torch.device("meta"):
+        shapes = [(k, p.shape) for k, p in
+                  BertForPreTraining(config).named_parameters()]
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    return {"names": [k for k, _ in shapes],
+            "g": [randn(s, 0.01).to(g_dtype) for _, s in shapes],
+            "mu": [randn(s, 1e-3) for _, s in shapes],
+            "nu": [randn(s, 1e-3).square() for _, s in shapes],
+            "p": [randn(s, 0.02) for _, s in shapes],
+            "wd": [0.01 if default_weight_decay_mask(k) else 0.0
+                   for k, _ in shapes]}
+
+
+def odd_lamb_state(torch, gen, g_dtype):
+    """Lists the BERT-Large list lacks: sizes 1-3 and around the 4-element
+    vectors and the kernels' chunk, and views that start off a 16-byte
+    (f32) or 8-byte (bf16 gradient) boundary, which take the scalar path."""
+    from bert_pytorch_tpu_torch.ops.fused_optim import CHUNK
+
+    sizes = [1, 2, 3, 5, 7, 4095, 4097, CHUNK - 1, CHUNK + 1,
+             3 * CHUNK + 6, 1000]
+    out = {"g": [], "mu": [], "nu": [], "p": [], "wd": []}
+    for i, n in enumerate(sizes):
+        shift = i % 3                     # every third tensor aligned
+        base = {k: torch.randn(n + shift, generator=gen, device="cuda")
+                for k in ("g", "mu", "nu", "p")}
+        out["g"].append((base["g"] * 0.01).to(g_dtype)[shift:])
+        out["mu"].append((base["mu"] * 1e-3)[shift:])
+        out["nu"].append((base["nu"] * 1e-3).square()[shift:])
+        out["p"].append((base["p"] * 0.02)[shift:])
+        out["wd"].append(0.01 if i % 2 else 0.0)
+    return out
+
+
+def check_lamb_kernels(torch, np, results):
+    """Kernels #11 and #12 against their plain versions on the card, bit
+    for bit: over BERT-Large's parameter list with bf16 gradients (the
+    training path's), the same with f32 gradients, and the odd list; stage
+    1's mu, nu and u, stage 2's product and its fused apply to p; every
+    kernel run twice with identical bits."""
+    from bert_pytorch_tpu_torch.ops.fused_optim import (
+        lamb_stage1, lamb_stage1_ref, lamb_stage2, lamb_stage2_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    args = dict(denom=torch.full((), 1.37, device="cuda"),
+                c1=float(np.float32(1.0) - np.float32(0.9) ** np.float32(3)),
+                c2=float(np.float32(1.0) - np.float32(0.999) ** np.float32(3)),
+                b1=0.9, b2=0.999, eps=1e-6)
+    worst = {"lamb_stage1": {}, "lamb_stage2": {}}
+    for what, make, g_dtype in (
+            ("BERT-Large", bert_large_lamb_state, torch.bfloat16),
+            ("BERT-Large", bert_large_lamb_state, torch.float32),
+            ("odd sizes and views", odd_lamb_state, torch.bfloat16),
+            ("odd sizes and views", odd_lamb_state, torch.float32)):
+        name = str(g_dtype).split(".")[-1]
+        st = make(torch, gen, g_dtype)
+        n_el = sum(x.numel() for x in st["g"])
+        runs = []
+        for fn in (lamb_stage1, lamb_stage1, lamb_stage1_ref):
+            mu = [x.clone() for x in st["mu"]]
+            nu = [x.clone() for x in st["nu"]]
+            u = fn(st["g"], mu, nu, st["p"], st["wd"], **args)
+            runs.append((mu, nu, u))
+        torch.cuda.synchronize()
+        same = [all(torch.equal(a, b) for a, b in zip(runs[0][j], runs[i][j]))
+                for i in (1, 2) for j in range(3)]
+        err = max((a - b).abs().max().item() for j in range(3)
+                  for a, b in zip(runs[0][j], runs[2][j]))
+        check(all(same[:3]), f"lamb_stage1 {what} {name}: two runs differ")
+        check(all(same[3:]), f"lamb_stage1 {what} {name}: mu, nu, u differ "
+              f"from the plain version (equal: {same[3:]}, max|diff| {err})")
+        u = runs[2][2]
+        del runs
+        t = torch.randn(len(u), generator=gen, device="cuda") * 1e-3
+        prods = [lamb_stage2(t, u), lamb_stage2(t, u), lamb_stage2_ref(t, u)]
+        applied = []
+        for fn in (lamb_stage2, lamb_stage2, lamb_stage2_ref):
+            p = [x.clone() for x in st["p"]]
+            fn(t, u, p)
+            applied.append(p)
+        torch.cuda.synchronize()
+        ok2 = [all(torch.equal(a, b) for a, b in zip(r[0], r[i]))
+               for r in (prods, applied) for i in (1, 2)]
+        err2 = max((a - b).abs().max().item() for r in (prods, applied)
+                   for a, b in zip(r[0], r[2]))
+        check(all(ok2), f"lamb_stage2 {what} {name}: reruns / plain version "
+              f"differ (equal: {ok2}, max|diff| {err2})")
+        log(f"kernels: lamb_stage1 {what} ({len(u)} tensors, {n_el} "
+            f"elements) {name} gradients: mu, nu, u bit-equal to the plain "
+            f"version, rerun bit-identical; lamb_stage2 t * u and p += t * u "
+            f"bit-equal, rerun bit-identical")
+        for kern, e in (("lamb_stage1", err), ("lamb_stage2", err2)):
+            worst[kern][name] = max(worst[kern].get(name, 0.0), e)
+        del st, u, prods, applied
+    for kern, errs in worst.items():
+        results[kern] = {"max_abs_err": errs}
+
+
 def phase_timing(torch, np, results, peaks):
     import torch.nn.functional as F
 
@@ -677,6 +810,7 @@ def phase_timing(torch, np, results, peaks):
         "dense_operations": 4 * HEAD_DIM * batch * seq * seq * HEADS})
     time_training_kernels(torch, results, peaks, timer)
     time_flash_training_kernels(torch, np, results, peaks, timer)
+    time_lamb_kernels(torch, np, results, peaks, timer)
     for name in KERNEL_ROWS:
         r = results[name]
         lib = r["library_ms"]
@@ -874,6 +1008,67 @@ def time_flash_training_kernels(torch, np, results, peaks, timer):
         f"{whole['plain_ms']:.4f} ms, SDPA backward (rate 0) "
         f"{whole['library_ms']:.4f} ms, bound {whole['bound_ms']:.4f} ms "
         f"({whole['bound_by']})")
+
+
+def time_lamb_kernels(torch, np, results, peaks, timer):
+    """#11 and #12 over BERT-Large's 302 parameter tensors (336,232,258
+    elements), bf16 gradients, each beside its plain version. Stage 1 has
+    no one PyTorch call that computes it (library none); stage 2 with the
+    apply is timed against torch._foreach_mul then torch._foreach_add_.
+    Bounds: bytes of the tensors (each read once, each written once; the
+    kernels' tables, under 0.4 MB, left out) over the memory rate, or the
+    f32 operations over the f32 peak: stage 1 26 bytes and 15 operations
+    an element, stage 2 with the apply 12 bytes and 2 operations."""
+    from bert_pytorch_tpu_torch.ops.fused_optim import (
+        lamb_stage1, lamb_stage1_ref, lamb_stage2, lamb_stage2_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    st = bert_large_lamb_state(torch, gen, torch.bfloat16)
+    n = sum(x.numel() for x in st["g"])
+    args = dict(denom=torch.full((), 1.37, device="cuda"), c1=0.1, c2=1e-3,
+                b1=0.9, b2=0.999, eps=1e-6)
+    u = lamb_stage1_ref(st["g"], st["mu"], st["nu"], st["p"], st["wd"],
+                        **args)
+    t = torch.randn(len(u), generator=gen, device="cuda") * 1e-7
+    t_host = t.tolist()
+
+    def row(nbytes, nops, **kw):
+        t_bytes = nbytes / peaks["bytes_per_s"]
+        t_ops = nops / peaks["f32_flops"]
+        return dict(kw, shape=[len(u), n], dtype="bfloat16 gradients",
+                    bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bytes=nbytes, operations=nops)
+
+    def foreach_apply():
+        torch._foreach_add_(st["p"], torch._foreach_mul(u, t_host))
+
+    def stage1():
+        lamb_stage1(st["g"], st["mu"], st["nu"], st["p"], st["wd"], **args)
+
+    def stage2():
+        lamb_stage2(t, u, st["p"])
+
+    # ms: the kernel on the card; call_ms: the wrapper's whole call as the
+    # step sees it, its host work (checks, tables, their copy) included
+    results["lamb_stage1"].update(row(
+        26 * n, 15 * n, ms=timer(stage1, hide_host=True),
+        call_ms=timer(stage1),
+        plain_ms=timer(lambda: lamb_stage1_ref(
+            st["g"], st["mu"], st["nu"], st["p"], st["wd"], **args)),
+        library_ms=None))
+    results["lamb_stage2"].update(row(
+        12 * n, 2 * n, ms=timer(stage2, hide_host=True),
+        call_ms=timer(stage2),
+        plain_ms=timer(lambda: lamb_stage2_ref(t, u, st["p"])),
+        library_ms=timer(foreach_apply),
+        product_only_ms=timer(lambda: lamb_stage2(t, u), hide_host=True),
+        product_only_bound_ms=8 * n / peaks["bytes_per_s"] * 1e3))
+    for name in ("lamb_stage1", "lamb_stage2"):
+        r = results[name]
+        log(f"timing: {name}: kernel on the card {r['ms']:.4f} ms, the "
+            f"wrapper's call {r['call_ms']:.4f} ms (host work included)")
+    del st, u
 
 
 # -- serving ------------------------------------------------------------------
@@ -1235,12 +1430,14 @@ def _profile_step(torch, step_fn, state, batch, seeds):
             cls = "layer norm backward kernels (#2, #4)"
         elif "ln_fwd_kernel" in name:
             cls = "layer norm forward kernels (#1, #3)"
+        elif "lamb_stage" in name:
+            cls = "fused LAMB kernels (#11, #12)"
         elif any(t in low for t in ("gemm", "cutlass", "sm90_", "xmma",
                                     "cublas", "nvjet")):
             cls = "matmul (cuBLAS)"
         elif "softmax" in low:
             cls = "softmax (plain attention)"
-        elif "reduce" in low or "norm" in low:
+        elif "reduce" in low or "norm" in low or "multi_tensor" in low:
             cls = "reductions (norms, sums)"
         elif "elementwise" in low or "vectorized" in low:
             cls = "elementwise (casts, hash masks, dropout, GELU, LAMB)"
@@ -1282,18 +1479,36 @@ def _loss_and_grads(torch, config, dtype, plain, weights, micro, seeds,
     return loss.item(), {k: g.float() for k, g in grads.items()}
 
 
+def _check_state_dicts_equal(torch, a, b, what):
+    """Two TrainState.state_dict()s hold the same step, count and bits."""
+    oa, ob = a["opt_state"], b["opt_state"]
+    check(a["step"] == b["step"] and oa["count"] == ob["count"],
+          f"{what}: step {a['step']} / {b['step']}, count {oa['count']} / "
+          f"{ob['count']}")
+    for name, x, y in (("params", a["params"], b["params"]),
+                       ("mu", oa["mu"], ob["mu"]), ("nu", oa["nu"], ob["nu"])):
+        bad = [k for k in y if k not in x or not torch.equal(x[k], y[k])]
+        check(not bad and set(x) == set(y),
+              f"{what}: {name} differ at {bad[:3]}")
+
+
 def phase_train(torch, np, summary, device="cuda",
                 cfg_path=os.path.join(HERE, "configs",
                                       "bert_large_uncased_config.json"),
-                run="train"):
+                run="train", ckpt_dir=None):
     """One pretraining run of TRAIN_RUNS (`run`: "train" is phase 1,
     "train_phase2" phase 2): TRAIN_STEPS optimizer steps of a seeded
     random model at the run config's microbatch, accumulation 2, through
-    the entry point's trainer; the launch counts; one optimizer step
-    profiled; and one microbatch through the kernels against the plain
-    versions. `device` and `cfg_path` exist so the phase can be rehearsed
-    on the CPU at a tiny size; the script itself runs BERT-Large on
-    CUDA."""
+    the entry point's trainer under --fused_optim auto, saving checkpoints
+    into `ckpt_dir` (every 2 steps and at the end, 2 kept); the launch
+    counts; one optimizer step profiled, and the step and one LAMB update
+    timed on the kernels and on route off; and one microbatch through the
+    kernels against the plain versions. Phase 1 restores its last
+    checkpoint and holds it against the state it saved; phase 2 runs in
+    the same `ckpt_dir` with previous_phase_end_step set to phase 1's last
+    step (a cut: the run config's is 7038), so it auto-resumes phase 1's
+    state. `device` and `cfg_path` exist so the phase can be rehearsed on
+    the CPU at a tiny size; the script itself runs BERT-Large on CUDA."""
     import shutil
 
     from bert_pytorch_tpu_torch import run_pretraining
@@ -1306,6 +1521,7 @@ def phase_train(torch, np, summary, device="cuda",
     from bert_pytorch_tpu_torch.optim.lamb import Lamb
     from bert_pytorch_tpu_torch.optim.schedulers import make_schedule
     from bert_pytorch_tpu_torch.telemetry.health import HealthConfig
+    from bert_pytorch_tpu_torch.training.checkpoint import CheckpointManager
     from bert_pytorch_tpu_torch.training.pretrain import (
         build_pretrain_step, compute_params, pretrain_loss_and_grads)
     from bert_pytorch_tpu_torch.training.state import make_train_state
@@ -1313,13 +1529,22 @@ def phase_train(torch, np, summary, device="cuda",
     spec = TRAIN_RUNS[run]
     on_card = torch.device(device).type == "cuda"
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    start_step = 0
+    if run == "train_phase2":
+        prev = summary.get("train", {}).get("checkpoint")
+        check(prev is not None and ckpt_dir is not None,
+              "phase 2 resumes phase 1's checkpoint: run the train phase "
+              "first, in the same checkpoint directory")
+        start_step = prev["step"]
     try:
         args = run_pretraining.parse_arguments([
             "--config_file", spec["config"], "--model_config_file", cfg_path,
             "--input_dir", os.path.join(tmp, "data"),
-            "--output_dir", os.path.join(tmp, "out"),
+            "--output_dir", ckpt_dir or os.path.join(tmp, "out"),
             "--global_batch_size", str(spec["global_batch"]),
-            "--steps", str(TRAIN_STEPS), "--skip_checkpoint",
+            "--steps", str(TRAIN_STEPS), "--fused_optim", "auto",
+            "--num_steps_per_checkpoint", "2", "--keep_checkpoints", "2",
+            "--previous_phase_end_step", str(start_step),
             "--vocab_pad_multiple", "8", "--seed", "0", "--device", device])
         config = BertConfig.from_json_file(cfg_path)
         config = config.replace(vocab_size=pad_vocab_size(config.vocab_size,
@@ -1336,6 +1561,9 @@ def phase_train(torch, np, summary, device="cuda",
             f"{len(shards)} in-memory shards, {time.perf_counter() - t0:.1f}"
             " s")
 
+        ckpts = CheckpointManager(os.path.join(args.output_dir,
+                                               "pretrain_ckpts"))
+        before = ckpts.all_steps()
         # the main path: counts zeroed just before, read just after
         if on_card:
             torch.cuda.reset_peak_memory_stats()
@@ -1348,8 +1576,39 @@ def phase_train(torch, np, summary, device="cuda",
         summary.setdefault("launches", {})[run] = launches
         losses = [r["loss"] for r in result.history]
         norms = [r["grad_norm"] for r in result.history]
-        check(result.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS,
-              f"trainer ran {result.step} steps, want {TRAIN_STEPS}")
+        end_step = start_step + TRAIN_STEPS
+        check(result.step == end_step and len(losses) == TRAIN_STEPS
+              and result.state.opt_state.count == end_step,
+              f"trainer ended at step {result.step} (LAMB count "
+              f"{result.state.opt_state.count}) after {len(losses)} steps, "
+              f"want {end_step} after {TRAIN_STEPS}")
+        check(result.resumed_from == (start_step or None),
+              f"resumed from {result.resumed_from}, want "
+              f"{start_step or None}")
+        saved = [s["step"] for s in result.saves]
+        want_saved = [s for s in range(start_step + 1, end_step + 1)
+                      if s % 2 == 0 or s == end_step]
+        check(saved == want_saved, f"saved steps {saved}, want {want_saved}")
+        kept = sorted({*before, *want_saved})[-2:]
+        check(ckpts.all_steps() == kept, f"checkpoints on disk "
+              f"{ckpts.all_steps()}, want the newest 2, {kept}")
+        ckpt = {"step": end_step, "resumed_from": result.resumed_from,
+                "restore_s": result.restore_s, "saves": result.saves,
+                "gb": result.saves[-1]["bytes"] / 1e9}
+        # the last checkpoint read back: the state the run ended with
+        t0 = time.perf_counter()
+        sd, extra, step = ckpts.restore(map_location=device)
+        ckpt["reread_s"] = time.perf_counter() - t0
+        _check_state_dicts_equal(torch, sd, result.state.state_dict(),
+                                 f"{run}: checkpoint step {step} read back")
+        del sd
+        log(f"{run}: checkpoints: saved steps {saved} "
+            f"({ckpt['gb']:.3f} GB each, save s "
+            f"{[round(x['seconds'], 2) for x in result.saves]}); "
+            + (f"resumed from step {result.resumed_from} in "
+               f"{result.restore_s:.2f} s; " if result.resumed_from else "")
+            + f"step {step} read back bit-equal in {ckpt['reread_s']:.2f} s "
+            f"(sampler cursor {extra.get('sampler')})")
         check(result.accum_steps == accum == 2 and micro == spec["micro"],
               f"accumulation {result.accum_steps} x {micro}, want "
               f"2 x {spec['micro']}")
@@ -1366,7 +1625,8 @@ def phase_train(torch, np, summary, device="cuda",
                 "layer_norm_bwd": 2 * micro_steps,
                 "flash_attention_fwd": flash,
                 "flash_attention_bwd_dq": flash,
-                "flash_attention_bwd_dkv": flash}
+                "flash_attention_bwd_dkv": flash,
+                "lamb_stage1": TRAIN_STEPS, "lamb_stage2": TRAIN_STEPS}
         if on_card:
             check(launches == want, f"launch counts {launches}, want {want}")
         step_ms = [r["step_ms"] for r in result.history]
@@ -1378,12 +1638,14 @@ def phase_train(torch, np, summary, device="cuda",
             f"{[round(r['seq_per_sec'], 1) for r in result.history]}; peak "
             f"memory {peak_gb} GiB; launches {launches} (predicted "
             f"{want})")
-        train = {"steps": result.step, "accum_steps": result.accum_steps,
+        train = {"steps": len(result.history), "end_step": result.step,
+                 "accum_steps": result.accum_steps,
                  "micro_batch": micro, "seq": seq, "losses": losses,
                  "grad_norms": norms, "launches_predicted": want,
                  "step_ms": step_ms,
                  "seq_per_sec": [r["seq_per_sec"] for r in result.history],
-                 "peak_memory_gib": peak_gb, "launches": launches}
+                 "peak_memory_gib": peak_gb, "launches": launches,
+                 "checkpoint": ckpt}
         summary[run] = train
         del result
 
@@ -1409,15 +1671,28 @@ def phase_train(torch, np, summary, device="cuda",
                               dtype=torch.int32, generator=gen)
         schedule = make_schedule("poly", args.learning_rate, args.max_steps,
                                  warmup=args.warmup_proportion)
-        tx = Lamb(schedule)
+        # LAMB on the kernels (the trainer's route) and on route off, over
+        # one state
+        txs = {"kernels": Lamb(schedule, fused="auto"),
+               "off": Lamb(schedule, fused="off")}
+        tx = txs["kernels"]
         state = make_train_state(model, tx)
-        step_fn = build_pretrain_step(
-            model, tx, schedule=schedule, accum_steps=accum,
+        step_fns = {route: build_pretrain_step(
+            model, t, schedule=schedule, accum_steps=accum,
             max_predictions=args.max_predictions_per_seq,
             grad_dtype=torch.bfloat16, health=HealthConfig())
-        step_fn(state, batch, seeds)["loss"].item()   # warm
+            for route, t in txs.items()}
+        step_fn = step_fns["kernels"]
+        for fn in step_fns.values():
+            fn(state, batch, seeds)["loss"].item()   # warm
         if on_card:
-            step_ms = _host_ms(torch, lambda: step_fn(state, batch, seeds))
+            # in turns, off / kernels / kernels / off: the host clock drifts
+            order = ("off", "kernels", "kernels", "off")
+            step_runs = {"off": [], "kernels": []}
+            for route in order:
+                step_runs[route].append(_host_ms(
+                    torch, lambda: step_fns[route](state, batch, seeds)))
+            step_ms = statistics.median(step_runs["kernels"])
             micro0 = {k: v[0] for k, v in batch.items()}
             gparams = compute_params(state.params, torch.bfloat16)
             holder = {}
@@ -1428,13 +1703,19 @@ def phase_train(torch, np, summary, device="cuda",
                     args.max_predictions_per_seq)[2]
 
             fb_ms = _host_ms(torch, fwd_bwd)
-            lamb_ms = _host_ms(torch, lambda: tx.update(
-                holder["grads"], state.opt_state, state.params))
+            lamb_runs = {"off": [], "kernels": []}
+            for route in order:
+                lamb_runs[route].append(_host_ms(torch, lambda: txs[
+                    route].update(holder["grads"], state.opt_state,
+                                  state.params)))
+            lamb_ms = statistics.median(lamb_runs["kernels"])
             classes, top, prof_ms = _profile_step(torch, step_fn, state,
                                                   batch, seeds)
             train["step_split"] = {"step_ms": step_ms,
                                    "forward_backward_ms": fb_ms,
-                                   "lamb_ms": lamb_ms}
+                                   "lamb_ms": lamb_ms,
+                                   "step_ms_by_route": step_runs,
+                                   "lamb_ms_by_route": lamb_runs}
             device_total = sum(classes.values())
             # one stream: the card is idle for the rest of that same step
             idle = 1.0 - device_total / prof_ms
@@ -1445,13 +1726,15 @@ def phase_train(torch, np, summary, device="cuda",
                 "device_total_ms": device_total, "idle_share": idle,
                 "device_ms_by_op": top}
             log(f"{run}: one optimizer step {step_ms:.1f} ms (host clock, "
-                f"median of 3): one microbatch forward+backward "
-                f"{fb_ms:.1f} ms, one LAMB update {lamb_ms:.1f} ms; "
+                f"median of 3, fused LAMB): one microbatch forward+backward "
+                f"{fb_ms:.1f} ms, one LAMB update {lamb_ms:.1f} ms; in turns "
+                f"(off, kernels, kernels, off) step ms {step_runs}, LAMB ms "
+                f"{lamb_runs}; "
                 f"profiled step {prof_ms:.1f} ms (host clock, profiler on),"
                 f" device {device_total:.1f} ms of it (idle share "
                 f"{idle:.3f}), by class {classes}; by op (top 12) {top}")
             del holder, gparams
-        del model, state, step_fn, tx
+        del model, state, step_fn, step_fns, tx, txs
 
         # one microbatch: kernels against the plain versions
         train["kernels_vs_plain"] = {}
@@ -1517,7 +1800,9 @@ KERNEL_ROWS = {
         "route": "cuda",
         "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/"
                   "flash_attention.cu",
-        "replaces": "bert_pytorch_tpu/ops/pallas/flash_attention.py:660"},
+        "replaces": "bert_pytorch_tpu/ops/pallas/flash_attention.py:660",
+        # the bh-layout forward (#6) is the same kernel: strided reads
+        "also_replaces": ["bert_pytorch_tpu/ops/pallas/flash_attention.py:698"]},
     # one of the two kernels that replace the four Pallas backward
     # kernels (#7-#10, flash_attention.py:754, :799, :840, :871)
     "flash_attention_bwd_dq": {
@@ -1538,8 +1823,17 @@ KERNEL_ROWS = {
         "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/"
                   "flash_attention.cu",
         "replaces": "bert_pytorch_tpu/ops/pallas/flash_attention.py:754",
+        "also_replaces": ["bert_pytorch_tpu/ops/pallas/flash_attention.py:799"],
         "launched_as": ["flash_attention_bwd_dq",
                         "flash_attention_bwd_dkv"]},
+    "lamb_stage1": {
+        "route": "cuda",
+        "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/fused_optim.cu",
+        "replaces": "bert_pytorch_tpu/ops/pallas/fused_optim.py:130"},
+    "lamb_stage2": {
+        "route": "cuda",
+        "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/fused_optim.cu",
+        "replaces": "bert_pytorch_tpu/ops/pallas/fused_optim.py:150"},
 }
 # the numbers of one measurement that the kernels line carries
 _LINE_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -1624,6 +1918,38 @@ def main(argv=None) -> int:
     summary = {"device": smi, "kind": kind, "peaks": peaks,
                "phases": {}, "kernels": results}
     ok = True
+    # phase 1's checkpoints, which phase 2 resumes (~4 GB each at
+    # BERT-Large, 2 kept), removed when the script ends
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ok = run_phases(torch, np, phases, summary, results, peaks, ckpt_dir)
+    finally:
+        import shutil
+
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+            json.dump(summary, f, indent=1, default=str)
+    if not ok:
+        log("chip_smoke: FAILED: " + json.dumps(summary["phases"]))
+        return 1
+    try:
+        line = kernels_line(results, summary.get("launches", {}))
+    except PhaseError as e:
+        log(f"chip_smoke: FAILED: kernels line: {e}")
+        return 1
+    print(json.dumps({"kernels": line}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
+    """Run each phase in order, report each; False if any failed."""
+    ok = True
     for phase in phases:
         t0 = time.perf_counter()
         try:
@@ -1643,7 +1969,7 @@ def main(argv=None) -> int:
             elif phase == "serve":
                 phase_serve(torch, np, summary)
             elif phase in TRAIN_RUNS:
-                phase_train(torch, np, summary, run=phase)
+                phase_train(torch, np, summary, run=phase, ckpt_dir=ckpt_dir)
             else:
                 raise PhaseError(f"unknown phase {phase!r}")
             torch.cuda.synchronize()
@@ -1656,25 +1982,7 @@ def main(argv=None) -> int:
             ok = False
         log(f"phase {phase}: {summary['phases'][phase]} "
             f"({time.perf_counter() - t0:.1f} s)")
-
-    if args.out:
-        os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump(summary, f, indent=1, default=str)
-    if not ok:
-        log("chip_smoke: FAILED: " + json.dumps(summary["phases"]))
-        return 1
-    try:
-        line = kernels_line(results, summary.get("launches", {}))
-    except PhaseError as e:
-        log(f"chip_smoke: FAILED: kernels line: {e}")
-        return 1
-    print(json.dumps({"kernels": line}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return ok
 
 
 if __name__ == "__main__":

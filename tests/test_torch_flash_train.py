@@ -341,19 +341,21 @@ def test_run_pretraining_phase2_main_on_cpu(tmp_path, monkeypatch):
                                                      abs=1e-12)
     logged = (out / "phase2_log.jsonl").read_text().splitlines()
     assert len(logged) == 2
-    # a run config that chains from a phase-1 checkpoint is refused
+    # a run config that chains from a phase-1 checkpoint reads it (weights
+    # only): a checkpoint directory that does not exist is an error
     chained = tmp_path / "phase2_from_checkpoint.json"
     with open(run_config) as f:
         chained.write_text(json.dumps(dict(json.load(f),
                                            init_checkpoint="phase1.ckpt")))
     argv[argv.index(run_config)] = str(chained)
-    with pytest.raises(NotImplementedError, match="init_checkpoint"):
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         run_pretraining.main(argv, log=lines.append)
 
 
 def test_chip_smoke_phase2_train_rehearses_on_cpu(tmp_path):
     """chip_smoke.py's phase-2 train phase at a tiny width on the CPU (the
-    plain versions): the run config, the in-memory seq-512 shards, the
+    plain versions), after its phase-1 phase: the run config, the
+    in-memory seq-512 shards, the resume of phase 1's checkpoint, the
     entry point's run and the kernels-vs-plain comparison."""
     sys.path.insert(0, REPO)
     import chip_smoke
@@ -361,9 +363,15 @@ def test_chip_smoke_phase2_train_rehearses_on_cpu(tmp_path):
     cfg = tmp_path / "tiny_seq512.json"
     cfg.write_text(json.dumps(dict(tp.CFG, max_position_embeddings=S2)))
     summary = {}
-    chip_smoke.phase_train(torch, np, summary, device="cpu",
-                           cfg_path=str(cfg), run="train_phase2")
+    # phase 2 resumes phase 1's checkpoint, as in the script
+    ckpt_dir = str(tmp_path / "ckpt")
+    for run in ("train", "train_phase2"):
+        chip_smoke.phase_train(torch, np, summary, device="cpu",
+                               cfg_path=str(cfg), run=run,
+                               ckpt_dir=ckpt_dir)
     train = summary["train_phase2"]
+    assert train["checkpoint"]["resumed_from"] == 3
+    assert train["end_step"] == 6
     assert train["steps"] == 3 and train["accum_steps"] == 2
     assert train["micro_batch"] == 16 and train["seq"] == 512
     assert all(np.isfinite(train["losses"]))

@@ -435,9 +435,13 @@ def test_run_pretraining_main_on_cpu(tmp_path):
     # the run config's log_prefix names the log
     logged = (out / "phase1_log.jsonl").read_text().splitlines()
     assert len(logged) == 2
-    with pytest.raises(NotImplementedError, match="checkpointing"):
-        run_pretraining.main([a for a in argv if a != "--skip_checkpoint"],
-                             log=lines.append)
+    # without --skip_checkpoint the run saves its last step (it used to
+    # refuse to start before checkpointing was ported)
+    again = run_pretraining.main(
+        [a for a in argv if a != "--skip_checkpoint"], log=lines.append)
+    assert again.step == 2 and again.resumed_from is None
+    assert [s["step"] for s in again.saves] == [2]
+    assert (out / "pretrain_ckpts" / "2" / "state.pt").is_file()
 
 
 def test_run_pretraining_defaults_to_cuda(tmp_path, monkeypatch):
