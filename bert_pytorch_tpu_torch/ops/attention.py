@@ -26,9 +26,13 @@ padding bias, packed-sequence `segment_ids` (B, S) with 1..n per row and
   the whole backward: dq, dk, dv recomputed from that lse with the same
   masks.
 - `flash_attention`, `flash_attention_bwd_dq` and `flash_attention_bwd_dkv`
-  wrap the CUDA kernels that replace the Pallas flash forward and backward
-  (ops/kernels/csrc/flash_attention.cu); `FlashAttentionFn` is the
-  autograd Function over them (their plain versions on the CPU).
+  wrap the CUDA kernels that replace the Pallas flash forward and split
+  backward (ops/kernels/csrc/flash_attention.cu); `flash_attention_bwd`
+  wraps the fused dq/dk/dv kernel that replaces the fused Pallas backward
+  (ops/kernels/csrc/flash_attention_bwd.cu), which `fused_bwd_takes`
+  sends bf16 at head dim 64 and seq <= FUSED_BWD_MAX_SEQ (512) to;
+  `FlashAttentionFn` is the autograd Function over them (their plain
+  versions on the CPU).
 - `dot_product_attention` is the "auto" rule of ops/attention.py: flash
   when seq > 256, seq % 128 == 0 and q and k have one shape, plain
   attention with `hash_dropout` otherwise.
@@ -55,6 +59,14 @@ SEGMENT_MASK_BIAS = -1e30
 # shape, the JAX package's gate).
 FLASH_MIN_SEQ = 256
 FLASH_SEQ_MULTIPLE = 128
+
+
+# The fused backward kernel takes whole 128-key tiles up to this sequence
+# length, the longest whose f32 dq accumulator and TMA ring fit the 227 KB
+# of shared memory a Hopper block may use (flash_attention_bwd.cu;
+# chip_smoke.py checks it against the kernel's own limit on the card).
+FUSED_BWD_MAX_SEQ = 512
+FUSED_BWD_SEQ_MULTIPLE = 128
 
 
 def make_attention_bias(attention_mask: torch.Tensor,
@@ -435,10 +447,52 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     return dk, dv
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: Optional[torch.Tensor],
+                        segment_ids: Optional[torch.Tensor],
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, dropout_seed=None,
+                        dropout_rate: float = 0.0,
+                        skipped: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused backward kernel wrapper: (dq, dk, dv) in one launch, delta
+    formed inside it. CUDA tensors: bf16 q/k/v as the forward takes them
+    (head_dim 64, seq a multiple of 128 up to FUSED_BWD_MAX_SEQ), out and
+    do contiguous (B, S, H, D) bf16, lse (B, H, S) f32; anything else
+    raises. `skipped`
+    gains the (64-query, 128-key) tile pairs skipped by the segment test.
+    CPU tensors take the plain version, flash_attention_bwd_ref."""
+    rate = _flash_rate(dropout_seed, dropout_rate)
+    if not q.is_cuda:
+        return flash_attention_bwd_ref(q, k, v, bias, segment_ids, out, lse,
+                                       do, dropout_seed, rate)
+    from bert_pytorch_tpu_torch.ops.kernels.build import load_kernels
+
+    dq, dk, dv = load_kernels().flash_attention_bwd(
+        q, k, v, bias, segment_ids, out, lse, do, skipped,
+        1.0 / math.sqrt(q.shape[-1]), *_dropout_args(dropout_seed, rate))
+    count_launch("flash_attention_bwd")
+    return dq, dk, dv
+
+
+def fused_bwd_takes(q: torch.Tensor) -> bool:
+    """Does the backward of flash attention over q take the fused kernel?
+    bf16, head dim 64 and seq a multiple of 128 up to FUSED_BWD_MAX_SEQ
+    (its dq accumulator and q/dO ring fit a block's shared memory); f32,
+    the checking dtype, and longer sequences take the dq and dk/dv pair,
+    as the JAX package keeps its split kernels beyond its fused gate. A
+    rule on dtype and shape, not a fallback: a failing kernel raises."""
+    seq = q.shape[1]
+    return (q.dtype == torch.bfloat16 and q.shape[-1] == 64
+            and seq % FUSED_BWD_SEQ_MULTIPLE == 0
+            and seq <= FUSED_BWD_MAX_SEQ)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention whose forward is the forward kernel (#5/#6) and
-    whose backward is the dq and dk/dv kernels (#7-#10); CPU tensors run
-    their plain versions. Saves q, k, v, the bias and segment ids, out,
+    whose backward is the fused dq/dk/dv kernel (#7/#8) where
+    `fused_bwd_takes`, else the dq and dk/dv kernels (#9/#10); CPU tensors
+    run their plain versions. Saves q, k, v, the bias and segment ids, out,
     lse and the int32 seed, as the Pallas custom VJP saves its residuals;
     the bias, segment ids, seed and rate get no gradient (the zero
     cotangents of `_bwd_epilogue`)."""
@@ -454,14 +508,14 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, bias, seg, out, lse = ctx.saved_tensors
         g = g.contiguous()
-        if q.is_cuda:
+        if fused_bwd_takes(q):
+            dq, dk, dv = flash_attention_bwd(q, k, v, bias, seg, out, lse, g,
+                                             ctx.seed, ctx.rate)
+        else:
             dq, delta = flash_attention_bwd_dq(q, k, v, bias, seg, out, lse,
                                                g, ctx.seed, ctx.rate)
             dk, dv = flash_attention_bwd_dkv(q, k, v, bias, seg, lse, delta,
                                              g, ctx.seed, ctx.rate)
-        else:
-            dq, dk, dv = flash_attention_bwd_ref(q, k, v, bias, seg, out,
-                                                 lse, g, ctx.seed, ctx.rate)
         return dq, dk, dv, None, None, None, None
 
 

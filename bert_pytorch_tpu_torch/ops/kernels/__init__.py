@@ -15,8 +15,9 @@ from typing import Dict
 LAUNCHES: Dict[str, int] = {
     "layer_norm_fwd": 0, "layer_norm_bwd": 0,
     "add_dropout_layer_norm_fwd": 0, "add_dropout_layer_norm_bwd": 0,
-    "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-    "flash_attention_bwd_dkv": 0, "lamb_stage1": 0, "lamb_stage2": 0}
+    "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+    "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+    "lamb_stage1": 0, "lamb_stage2": 0}
 
 
 def reset_launches() -> None:

@@ -371,15 +371,82 @@ std::vector<at::Tensor> flash_attention_bwd_dkv(
   return {dk, dv};
 }
 
+std::vector<at::Tensor> flash_attention_bwd(
+    const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
+    const c10::optional<at::Tensor>& bias,
+    const c10::optional<at::Tensor>& segment_ids, const at::Tensor& out,
+    const at::Tensor& lse, const at::Tensor& dout,
+    const c10::optional<at::Tensor>& skipped, double scale, int64_t seed,
+    int64_t threshold, double keep_div, bool apply) {
+  bert_kernels::FlashBwdParams p{};
+  p.f = flash_params(q, k, v, bias, segment_ids, skipped, scale,
+                     flash_dropout(seed, threshold, keep_div, apply),
+                     "flash_attention_bwd");
+  TORCH_CHECK(q.scalar_type() == at::kBFloat16,
+              "flash_attention_bwd takes bfloat16, got ", q.scalar_type());
+  const int64_t keys = bert_kernels::flash_bwd_fused_tile().keys;
+  TORCH_CHECK(q.size(1) % keys == 0 &&
+                  q.size(1) <= bert_kernels::flash_bwd_fused_max_seq(),
+              "flash_attention_bwd takes sequences of whole ", keys,
+              "-key tiles up to ", bert_kernels::flash_bwd_fused_max_seq(),
+              ", got ", q.size(1));
+  check_like(out, q, "out");
+  check_like(dout, q, "dout");
+  check_bhs(lse, q, "lse");
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto dq = at::empty(q.sizes(), q.options());
+  auto dk = at::empty(q.sizes(), q.options());
+  auto dv = at::empty(q.sizes(), q.options());
+  p.f.out = out.data_ptr();
+  p.f.lse = lse.data_ptr<float>();
+  p.dout = dout.data_ptr();
+  p.dq = dq.data_ptr();
+  p.dk = dk.data_ptr();
+  p.dv = dv.data_ptr();
+  check_launch(bert_kernels::flash_attention_bwd_fused(
+                   p, c10::cuda::getCurrentCUDAStream().stream()),
+               "flash_attention_bwd");
+  return {dq, dk, dv};
+}
+
 // {kernel name: (query rows, keys)} of the flash kernels for bf16 (or f32)
-// inputs, from the kernels' own tile constants.
+// inputs, from the kernels' own tile constants; the fused backward
+// (bf16 only) as "flash_attention_bwd".
 std::map<std::string, std::pair<int, int>> flash_tiles(bool bf16) {
   bert_kernels::FlashTile t[3];
   bert_kernels::flash_tiles(
       bf16 ? bert_kernels::kBFloat16 : bert_kernels::kFloat32, t);
-  return {{"flash_attention_fwd", {t[0].rows, t[0].keys}},
-          {"flash_attention_bwd_dq", {t[1].rows, t[1].keys}},
-          {"flash_attention_bwd_dkv", {t[2].rows, t[2].keys}}};
+  std::map<std::string, std::pair<int, int>> out = {
+      {"flash_attention_fwd", {t[0].rows, t[0].keys}},
+      {"flash_attention_bwd_dq", {t[1].rows, t[1].keys}},
+      {"flash_attention_bwd_dkv", {t[2].rows, t[2].keys}}};
+  if (bf16) {
+    const auto f = bert_kernels::flash_bwd_fused_tile();
+    out["flash_attention_bwd"] = {f.rows, f.keys};
+  }
+  return out;
+}
+
+// The fused backward as compiled: registers, local (spill) and static
+// shared bytes of its dropout and no-dropout variants, the dynamic shared
+// memory of a launch at `seq` and the longest sequence it takes.
+std::map<std::string, int64_t> flash_bwd_fused_info(int64_t seq) {
+  std::map<std::string, int64_t> out;
+  for (const bool drop : {true, false}) {
+    bert_kernels::KernelInfo info{};
+    const cudaError_t err = bert_kernels::flash_bwd_fused_info(drop, &info);
+    TORCH_CHECK(err == cudaSuccess, "cudaFuncGetAttributes: ",
+                cudaGetErrorString(err));
+    const std::string arm = drop ? "dropout_" : "plain_";
+    out[arm + "registers"] = info.registers;
+    out[arm + "local_bytes"] = info.local_bytes;
+    out[arm + "static_smem_bytes"] = info.static_smem_bytes;
+    out[arm + "max_threads"] = info.max_threads;
+  }
+  out["dynamic_smem_bytes"] =
+      bert_kernels::flash_bwd_fused_smem(static_cast<int>(seq));
+  out["max_seq"] = bert_kernels::flash_bwd_fused_max_seq();
+  return out;
 }
 
 // Fused LAMB. The tensor lists are checked here and turned into the
@@ -555,6 +622,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "flash-attention backward: (dq, delta)");
   m.def("flash_attention_bwd_dkv", &flash_attention_bwd_dkv,
         "flash-attention backward: (dk, dv) from the dq launch's delta");
+  m.def("flash_attention_bwd", &flash_attention_bwd,
+        "fused flash-attention backward, bf16: (dq, dk, dv)");
+  m.def("flash_bwd_fused_info", &flash_bwd_fused_info,
+        "the fused backward's registers, spills and shared memory");
   m.def("flash_tiles", &flash_tiles,
         "{flash kernel: (query rows, keys) tile} for bf16 or f32 inputs");
   m.def("lamb_stage1", &lamb_stage1,

@@ -11,12 +11,13 @@
 // training dropout with the counter-hash `_keep_mask`: the row sum l is of
 // the undropped probabilities, dropped ones are zeroed before the PV
 // product, and the output is divided by 1 - rate after the divide by l.
-// Backward: `_dqkv_kernel_native`, `_dqkv_kernel`, `_dq_kernel` and
-// `_dkv_kernel`, four grid layouts of one function (dq, dk, dv recomputed
-// from lse with the same masks and tile skip), here two kernels: one CTA
-// per (64-row q tile, head, batch) for dq, one per (64-key tile, head,
-// batch) for dk and dv, so every output element has one owner and a rerun
-// gives the same bits (no atomics in any numeric output). delta =
+// Backward: `_dq_kernel` and `_dkv_kernel`, the split grid layouts of one
+// function (dq, dk, dv recomputed from lse with the same masks and tile
+// skip) whose fused layouts `_dqkv_kernel_native` and `_dqkv_kernel` are
+// flash_attention_bwd.cu's, here two kernels: one CTA per (64-row q tile,
+// head, batch) for dq, one per (64-key tile, head, batch) for dk and dv,
+// so every output element has one owner and a rerun gives the same bits
+// (no atomics in any numeric output). delta =
 // rowsum(dO * out), which the Pallas wrappers compute outside any kernel,
 // is formed in the dq kernel's prologue and written out for the dk/dv
 // kernel, which runs after it.
@@ -38,16 +39,18 @@
 // the tensor cores; f32 inputs go through f32 FMA. The dropout mask is
 // evaluated in registers from the global (query, key) position, never
 // stored. This is the simple version: no cp.async pipelining, no wgmma or
-// TMA, and the backward evaluates s, p and the mask in both kernels; later
-// work fuses and pipelines.
+// TMA, and the backward pair evaluates s, p and the mask in both kernels.
+// bf16 backwards at head dim 64 and S <= 512 (phase 2's) take the fused
+// kernel of flash_attention_bwd.cu instead; the pair serves f32 and longer
+// sequences.
 #include "common.cuh"
+#include "flash_common.cuh"
 #include "kernels.h"
 
 namespace bert_kernels {
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' NEG_INF
-constexpr int kSegBig = 1 << 30;   // above any real segment id
 constexpr int kThreads = 128;
 
 // [min non-pad, max] segment id over `n` positions starting at `start`
@@ -71,11 +74,6 @@ __device__ __forceinline__ void seg_range(const int32_t* __restrict__ seg_row,
   __syncthreads();
 }
 
-__device__ __forceinline__ bool seg_overlap(int qmn, int qmx, int kmn,
-                                            int kmx) {
-  return qmx > 0 && kmx > 0 && qmx >= kmn && kmx >= qmn;
-}
-
 // Is the tile starting at `start` (n positions) skipped against the range
 // [mn, mx] of the CTA's own tile? Counts the skip once per CTA.
 __device__ __forceinline__ bool skip_tile(const int32_t* seg_row, int start,
@@ -87,26 +85,6 @@ __device__ __forceinline__ bool skip_tile(const int32_t* seg_row, int start,
   if (seg_overlap(mn, mx, omn, omx)) return false;
   if (threadIdx.x == 0 && skipped) atomicAdd(skipped, 1);
   return true;  // block-uniform: every thread computed the same ranges
-}
-
-// `_keep_mask` for one (query, key) element: two multiply-xorshift rounds,
-// the top 23 bits compared with the threshold. seed_bh = seed + bh *
-// 0xC2B2AE3D in uint32.
-__device__ __forceinline__ bool flash_keep(uint32_t row, uint32_t col,
-                                           uint32_t seed_bh,
-                                           uint32_t threshold) {
-  uint32_t x = (row * 0x9E3779B1u) ^ (col * 0x85EBCA77u);
-  x ^= seed_bh;
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  return (x >> 9) >= threshold;
-}
-
-__device__ __forceinline__ uint32_t seed_bh_of(const FlashDropout& d, int b,
-                                               int heads, int h) {
-  return d.seed + static_cast<uint32_t>(b * heads + h) * 0xC2B2AE3Du;
 }
 
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],

@@ -132,6 +132,30 @@ struct FlashTile {
 };
 void flash_tiles(DType dtype, FlashTile tiles[3]);
 
+// The fused backward (flash_attention_bwd.cu), bf16 with head_dim 64: one
+// launch writes dq, dk and dv from q/k/v, bias, seg, skipped and the
+// dropout as in FlashParams, out, lse and dout (p.delta is unused: delta
+// is formed in shared memory). It takes sequences of whole tiles (a
+// multiple of flash_bwd_fused_tile().keys) up to flash_bwd_fused_max_seq()
+// and refuses others with cudaErrorInvalidValue. Its (query rows, keys)
+// tile is the grain of its segment tile skip; flash_bwd_fused_smem(seq) is
+// the dynamic shared memory of one launch.
+cudaError_t flash_attention_bwd_fused(const FlashBwdParams& p,
+                                      cudaStream_t stream);
+int flash_bwd_fused_smem(int seq);
+int flash_bwd_fused_max_seq();
+FlashTile flash_bwd_fused_tile();
+
+// What the compiler gave a kernel: registers a thread, local memory
+// (spills) bytes a thread, static shared memory bytes, threads a block.
+struct KernelInfo {
+  int registers;
+  int local_bytes;
+  int static_smem_bytes;
+  int max_threads;
+};
+cudaError_t flash_bwd_fused_info(bool dropout, KernelInfo* info);
+
 // Fused multi-tensor LAMB (fused_optim.cu). The host passes device copies
 // of a per-tensor table and a chunk table; one CTA takes the elements
 // [start, min(start + chunk_size, n)) of its chunk's tensor. `vec` is 1

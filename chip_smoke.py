@@ -7,7 +7,9 @@
 Phases, each of which must pass:
 
 1. device   the card's name and power limit (nvidia-smi) and the versions;
-2. build    the CUDA kernels, from this checkout's sources, timed;
+2. build    the CUDA kernels, from this checkout's sources, timed, and the
+            fused flash backward's registers, spills and shared memory as
+            compiled;
 3. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, in f32 and bf16, at the shapes the serving and training
             paths give it (LayerNorm at (8 * bucket, 1024) for every
@@ -49,15 +51,19 @@ Phases, each of which must pass:
 7. train_phase2  the same for phase 2: 3 steps under the phase-2 run
             config (microbatch 16 x 512, 80 predictions, accumulation 2),
             where attention runs the flash forward with dropout and the
-            flash backward pair; it auto-resumes phase 1's last checkpoint
+            fused flash backward (no launch of the split pair); it
+            auto-resumes phase 1's last checkpoint
             (previous_phase_end_step set to 3 for it) and must continue
             from step 3 with phase 1's LAMB state.
 
 The kernels phase also holds the flash kernels of training at phase 2's
 (16, 512, 16, 64): the forward's dropout arm, the dropout mask read out of
-the forward and out of dv and compared exactly, and the backward pair
-against its plain version; the timing phase times them beside their plain
-versions and scaled_dot_product_attention. It holds the fused LAMB stages
+the forward and out of dv (of the pair and of the fused backward) and
+compared exactly, and the fused backward and the split pair against their
+plain version; the timing phase times them (the fused backward at rates
+0.1 and 0) beside their plain versions and scaled_dot_product_attention.
+The launches the kernels phase makes for its checks are reported apart
+from the main paths' (`launches_in_checks`). It holds the fused LAMB stages
 (#11, #12) against their plain versions bit for bit over BERT-Large's 302
 parameter tensors and a list of odd sizes and misaligned views, and the
 timing phase times them over the 302 tensors.
@@ -117,9 +123,12 @@ TRAIN_TOL = {"float32": {"dx": 1e-5, "sums": 1e-5},
 # largest magnitude. f32: the kernels and the plain version sum s, dp and
 # the dq/dk/dv products in another order. bf16: both sides round ds and
 # p_drop to bf16 from f32 values that differ in their last bits, and round
-# the outputs to bf16 (2^-8 relative).
-# Measured on the card (PERF.md): f32 3.0e-7, bf16 3.2e-3; the tolerances
-# leave 3.3x (f32) and 2.5x (bf16, 2^-7).
+# the outputs to bf16 (2^-8 relative); the fused backward (bf16 only)
+# also multiplies by 1 / (1 - rate) where the plain version divides, and
+# exponentiates log2-scaled scores with the card's ex2.
+# Measured on the card (PERF.md): f32 3.0e-7, bf16 3.2e-3 (the pair and
+# the fused backward alike); the tolerances leave 3.3x (f32) and 2.5x
+# (bf16, 2^-7).
 PHASE2_ATTN = (16, 512)
 FLASH_BWD_TOL = {"float32": 1e-6, "bfloat16": 2 ** -7}
 FLASH_SEEDS = (-1640531527, 12345)
@@ -347,6 +356,30 @@ def phase_kernels(torch, np, results):
     check_lamb_kernels(torch, np, results)
 
 
+def fused_backward_build(torch) -> dict:
+    """The fused backward as compiled (cudaFuncGetAttributes): registers
+    and local-memory (spill) bytes a thread, static shared memory, the
+    dynamic shared memory of a launch at seq 512, and the longest sequence
+    it takes, which must be the one ops/attention.py gates on."""
+    from bert_pytorch_tpu_torch.ops.attention import FUSED_BWD_MAX_SEQ
+    from bert_pytorch_tpu_torch.ops.kernels.build import load_kernels
+
+    seq = PHASE2_ATTN[1]
+    info = dict(load_kernels().flash_bwd_fused_info(seq))
+    log(f"build: flash_bwd_fused_bf16_kernel: registers a thread "
+        f"{info['dropout_registers']} (dropout arm) / "
+        f"{info['plain_registers']} (rate 0), spills (local bytes a "
+        f"thread) {info['dropout_local_bytes']} / "
+        f"{info['plain_local_bytes']}, static shared "
+        f"{info['dropout_static_smem_bytes']} B, dynamic shared at seq "
+        f"{seq} {info['dynamic_smem_bytes']} B (of 232448), longest seq "
+        f"{info['max_seq']}, 256 threads a CTA, one CTA a (batch, head)")
+    check(info["max_seq"] == FUSED_BWD_MAX_SEQ,
+          f"the fused backward takes seq up to {info['max_seq']}, "
+          f"ops/attention.py gates on {FUSED_BWD_MAX_SEQ}")
+    return info
+
+
 def _rel(a, b) -> float:
     """max |a - b| over max |b|: the error of an output against the
     plain version's, relative to the output's scale."""
@@ -470,13 +503,14 @@ def padding_bias(torch, np, rng, batch: int, seq: int):
 def check_flash_training_kernels(torch, np, results):
     """The flash kernels of the training path at phase 2's (16, 512, 16,
     64), f32 and bf16: the forward's dropout arm against its plain version
-    (rate 0.1, two seeds; lse unchanged by the rate), two probes that read
-    the dropout mask out of the forward and out of dv exactly, and the
-    backward pair against flash_attention_bwd_ref at rates 0 and 0.1 and
-    once with packed segments (skip counts as the layout predicts), every
+    (rate 0.1, two seeds; lse unchanged by the rate), probes that read the
+    dropout mask out of the forward and out of dv exactly, and the
+    backward pair (f32 and bf16) and the fused backward (bf16, the main
+    path's) against flash_attention_bwd_ref at rates 0 and 0.1 and once
+    with packed segments (skip counts as the layout predicts), every
     backward run twice with bit-identical results."""
     from bert_pytorch_tpu_torch.ops.attention import (
-        flash_attention, flash_attention_bwd_dkv,
+        flash_attention, flash_attention_bwd, flash_attention_bwd_dkv,
         flash_attention_bwd_dq, flash_attention_bwd_ref,
         flash_attention_delta_ref, flash_attention_ref, flash_keep_all,
         make_attention_bias)
@@ -579,6 +613,10 @@ def check_flash_training_kernels(torch, np, results):
                     acc.setdefault(kern, {})
                     acc[kern][name] = max(acc[kern].get(name, 0.0),
                                           *vals[sl])
+            if dtype == torch.bfloat16:
+                check_fused_backward(torch, np, (q, k, v, bs, sg, out, lse,
+                                                 g, sd, r), want, what,
+                                     seg_np, bwd_err, bwd_abs)
 
         # the mask, exactly: q = k = 0, the bias admitting the 64 keys
         # [w_b, w_b + 64) of batch row b, v[k, d] = (k mod 64 == d): out[b,
@@ -605,8 +643,13 @@ def check_flash_training_kernels(torch, np, results):
                                            out, lse, dop, seed, rate)
         _, dv = flash_attention_bwd_dkv(zeros, zeros, vp, wbias, None, lse,
                                         delta, dop, seed, rate)
+        dvs = {"pair": dv}
+        if dtype == torch.bfloat16:
+            dvs["fused"] = flash_attention_bwd(zeros, zeros, vp, wbias, None,
+                                               out, lse, dop, seed, rate)[2]
         keep = flash_keep_all(seed, batch, HEADS, seq, rate, "cuda")
-        fwd_ok = dv_ok = True
+        fwd_ok = True
+        dv_ok = {kern: True for kern in dvs}
         dropped = [0, 0]
         for b, w in enumerate(win):
             # (H, S, 64): out[b, q, h, d] read at key w + d
@@ -614,9 +657,10 @@ def check_flash_training_kernels(torch, np, results):
             want_keep = keep[b, :, :, w:w + 64]
             fwd_ok &= torch.equal(got, want_keep)
             # (H, 64 keys, 64 d): dv[b, w + j, h, d] at query qw + d
-            got_dv = dv[b, w:w + 64].permute(1, 0, 2) != 0
             want_dv = keep[b, :, qw:qw + 64, w:w + 64].transpose(1, 2)
-            dv_ok &= torch.equal(got_dv, want_dv)
+            for kern, dv_ in dvs.items():
+                got_dv = dv_[b, w:w + 64].permute(1, 0, 2) != 0
+                dv_ok[kern] &= torch.equal(got_dv, want_dv)
             dropped[0] += int((~want_keep).sum().item())
             dropped[1] += int((~want_dv).sum().item())
         torch.cuda.synchronize()
@@ -624,16 +668,63 @@ def check_flash_training_kernels(torch, np, results):
             f"reads {dropped[0]} dropped of {batch * HEADS * seq * 64}, "
             f"equal to flash_keep_mask: {fwd_ok}; dv reads {dropped[1]} "
             f"dropped of {batch * HEADS * 64 * 64}, equal: {dv_ok}")
-        check(fwd_ok and dv_ok, f"flash {name}: the mask read from the "
-              f"kernels differs from flash_keep_mask (forward {fwd_ok}, "
-              f"dv {dv_ok})")
+        check(fwd_ok and all(dv_ok.values()), f"flash {name}: the mask "
+              f"read from the kernels differs from flash_keep_mask "
+              f"(forward {fwd_ok}, dv {dv_ok})")
         probes[name] = {"forward_dropped": dropped[0],
-                        "dv_dropped": dropped[1]}
+                        "dv_dropped": dropped[1],
+                        "dv_kernels": sorted(dvs)}
     results["flash_attention_fwd"]["train_phase2"] = {
         "max_abs_err": fwd_err, "mask_probes": probes}
-    for kern in ("dq", "dkv"):
-        results["flash_attention_bwd_" + kern] = {
-            "max_abs_err": bwd_abs[kern], "max_rel_err": bwd_err[kern]}
+    for kern in ("dq", "dkv", "fused"):
+        name = "flash_attention_bwd" + ("" if kern == "fused" else "_" + kern)
+        results[name] = {"max_abs_err": bwd_abs[kern],
+                         "max_rel_err": bwd_err[kern]}
+
+
+def check_fused_backward(torch, np, args, want, what, seg_np, bwd_err,
+                         bwd_abs):
+    """The fused dq/dk/dv kernel on one backward case of
+    check_flash_training_kernels (bf16): against the plain version's
+    `want` within FLASH_BWD_TOL, run twice with bit-identical results,
+    and with packed segments pad-row dq exactly 0 and the skip count of
+    its (64-query, 128-key) tiles as the layout predicts."""
+    from bert_pytorch_tpu_torch.ops.attention import flash_attention_bwd
+    from bert_pytorch_tpu_torch.ops.kernels.build import load_kernels
+
+    q, k, v, bs, sg, out, lse, g, sd, r = args
+    skipped = torch.zeros(1, dtype=torch.int32, device="cuda")
+    got = flash_attention_bwd(q, k, v, bs, sg, out, lse, g, sd, r,
+                              skipped=skipped)
+    again = flash_attention_bwd(q, k, v, bs, sg, out, lse, g, sd, r)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"fused flash backward {what}: two runs differ")
+    errs = [_rel(a, b) for a, b in zip(got, want)]
+    line = (f"kernels: fused flash backward bfloat16 {tuple(q.shape)} "
+            f"{what}: rel err dq {errs[0]:.3g} dk {errs[1]:.3g} dv "
+            f"{errs[2]:.3g} (tol {FLASH_BWD_TOL['bfloat16']:g}); rerun "
+            "bit-identical")
+    if sg is not None:
+        pad_dq = got[0][sg == 0].abs().max().item()
+        tile = load_kernels().flash_tiles(True)["flash_attention_bwd"]
+        want_skips = expected_skips(np, seg_np, *tile, HEADS)
+        got_skips = int(skipped.item())
+        line += (f"; pad-row dq max {pad_dq}; tiles {tuple(tile)} skipped "
+                 f"{got_skips} (layout predicts {want_skips})")
+        check(pad_dq == 0.0, f"fused flash backward: pad-row dq {pad_dq}")
+        check(got_skips == want_skips and got_skips > 0,
+              f"fused flash backward: skipped {got_skips}, layout predicts "
+              f"{want_skips}")
+    log(line)
+    check(max(errs) <= FLASH_BWD_TOL["bfloat16"],
+          f"fused flash backward {what}: errors {errs}")
+    abs_errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in zip(got, want)]
+    for acc, vals in ((bwd_err, errs), (bwd_abs, abs_errs)):
+        acc.setdefault("fused", {})
+        acc["fused"]["bfloat16"] = max(acc["fused"].get("bfloat16", 0.0),
+                                       *vals)
 
 
 def bert_large_lamb_state(torch, gen, g_dtype):
@@ -915,19 +1006,21 @@ def time_training_kernels(torch, results, peaks, timer):
 
 def time_flash_training_kernels(torch, np, results, peaks, timer):
     """The flash kernels of phase 2 at (16, 512, 16, 64) bf16 with a
-    padding bias: the forward at rate 0.1, the dq and dk/dv kernels and the
-    backward as a whole, each beside its plain version; the library
-    yardstick is scaled_dot_product_attention (forward, and its backward)
-    with the same float mask at rate 0, since its dropout is another
-    function. Bounds count each input read once and each output written
-    once, and the products the function needs: 2 (forward), 3 (dq), 4
-    (dk/dv) and 5 (the backward as one function) of 2 B H S^2 D flops."""
+    padding bias: the forward at rate 0.1, the fused backward at rates 0.1
+    and 0, the dq and dk/dv pair and the pair as one backward at rate 0.1,
+    each beside its plain version; the library yardstick is
+    scaled_dot_product_attention (forward, and its backward) with the same
+    float mask at rate 0, since its dropout is another function. Bounds
+    count each input read once and each output written once, and the
+    products the function needs: 2 (forward), 3 (dq), 4 (dk/dv) and 5 (the
+    backward as one function) of 2 B H S^2 D flops."""
     import torch.nn.functional as F
 
     from bert_pytorch_tpu_torch.ops.attention import (
-        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dkv_ref,
-        flash_attention_bwd_dq, flash_attention_bwd_dq_ref,
-        flash_attention_bwd_ref, flash_attention_ref)
+        flash_attention, flash_attention_bwd, flash_attention_bwd_dkv,
+        flash_attention_bwd_dkv_ref, flash_attention_bwd_dq,
+        flash_attention_bwd_dq_ref, flash_attention_bwd_ref,
+        flash_attention_ref)
 
     batch, seq = PHASE2_ATTN
     rate, seed = 0.1, FLASH_SEEDS[0]
@@ -963,8 +1056,11 @@ def time_flash_training_kernels(torch, np, results, peaks, timer):
     go = do.transpose(1, 2)
     sdpa_fwd = timer(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask))
+    # backward times are the device's alone (hide_host): autograd's host
+    # work around SDPA's backward kernels is not theirs
     sdpa_bwd = timer(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), go,
-                                                 retain_graph=True))
+                                                 retain_graph=True),
+                     hide_host=True)
     results["flash_attention_fwd"]["train_phase2"].update(row(
         4 * tensor + rows_f32 + bias_bytes, 2 * product,
         ms=timer(lambda: flash_attention(q, k, v, bias, None, seed, rate)),
@@ -974,14 +1070,16 @@ def time_flash_training_kernels(torch, np, results, peaks, timer):
     results["flash_attention_bwd_dq"].update(row(
         6 * tensor + 2 * rows_f32 + bias_bytes, 3 * product,
         ms=timer(lambda: flash_attention_bwd_dq(q, k, v, bias, None, out,
-                                                lse, do, seed, rate)),
+                                                lse, do, seed, rate),
+                 hide_host=True),
         plain_ms=timer(lambda: flash_attention_bwd_dq_ref(
             q, k, v, bias, None, lse, delta, do, seed, rate)),
         library_ms=None))
     results["flash_attention_bwd_dkv"].update(row(
         6 * tensor + 2 * rows_f32 + bias_bytes, 4 * product,
         ms=timer(lambda: flash_attention_bwd_dkv(q, k, v, bias, None, lse,
-                                                 delta, do, seed, rate)),
+                                                 delta, do, seed, rate),
+                 hide_host=True),
         plain_ms=timer(lambda: flash_attention_bwd_dkv_ref(
             q, k, v, bias, None, lse, delta, do, seed, rate)),
         library_ms=None))
@@ -992,21 +1090,34 @@ def time_flash_training_kernels(torch, np, results, peaks, timer):
         flash_attention_bwd_dkv(q, k, v, bias, None, lse, delta_, do, seed,
                                 rate)
 
-    whole = row(8 * tensor + rows_f32 + bias_bytes, 5 * product,
-                ms=timer(both),
-                plain_ms=timer(lambda: flash_attention_bwd_ref(
-                    q, k, v, bias, None, out, lse, do, seed, rate)),
-                library_ms=sdpa_bwd)
-    results["flash_attention_bwd"] = whole
+    # the backward as one function: the fused kernel at the main path's
+    # rate 0.1 and at SDPA's rate 0 (out and lse of a rate-0 forward), the
+    # pair at rate 0.1 beside it
+    out0, lse0 = flash_attention(q, k, v, bias)
+    whole = results.setdefault("flash_attention_bwd", {})
+    whole.update(row(
+        8 * tensor + rows_f32 + bias_bytes, 5 * product,
+        ms=timer(lambda: flash_attention_bwd(q, k, v, bias, None, out, lse,
+                                             do, seed, rate), hide_host=True),
+        plain_ms=timer(lambda: flash_attention_bwd_ref(
+            q, k, v, bias, None, out, lse, do, seed, rate)),
+        library_ms=sdpa_bwd,
+        rate0_ms=timer(lambda: flash_attention_bwd(q, k, v, bias, None, out0,
+                                                   lse0, do), hide_host=True),
+        rate0_plain_ms=timer(lambda: flash_attention_bwd_ref(
+            q, k, v, bias, None, out0, lse0, do)),
+        pair_ms=timer(both, hide_host=True)))
     fwd = results["flash_attention_fwd"]["train_phase2"]
     log(f"timing: flash_attention_fwd phase 2 {fwd['shape']} bf16 rate "
         f"{rate}: kernel {fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms,"
         f" SDPA (rate 0) {fwd['library_ms']:.4f} ms, bound "
         f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']})")
-    log(f"timing: flash backward as a whole {whole['shape']} bf16 rate "
-        f"{rate}: kernels {whole['ms']:.4f} ms, plain "
-        f"{whole['plain_ms']:.4f} ms, SDPA backward (rate 0) "
-        f"{whole['library_ms']:.4f} ms, bound {whole['bound_ms']:.4f} ms "
+    log(f"timing: flash backward as a whole {whole['shape']} bf16: fused "
+        f"kernel {whole['ms']:.4f} ms at rate {rate}, {whole['rate0_ms']:.4f}"
+        f" ms at rate 0; the dq + dk/dv pair {whole['pair_ms']:.4f} ms at "
+        f"rate {rate}; plain {whole['plain_ms']:.4f} ms (rate {rate}), "
+        f"{whole['rate0_plain_ms']:.4f} ms (rate 0); SDPA backward (rate 0) "
+        f"{whole['library_ms']:.4f} ms; bound {whole['bound_ms']:.4f} ms "
         f"({whole['bound_by']})")
 
 
@@ -1422,10 +1533,12 @@ def _profile_step(torch, step_fn, state, batch, seeds):
         name, low = ev.key, ev.key.lower()
         if "flash_fwd" in name:
             cls = "flash attention forward (#5/#6)"
+        elif "flash_bwd_fused" in name:
+            cls = "flash attention fused backward (#7/#8)"
         elif "flash_bwd_dq" in name:
-            cls = "flash attention dq (#7-#10)"
+            cls = "flash attention dq (#9)"
         elif "flash_bwd_dkv" in name:
-            cls = "flash attention dk/dv (#7-#10)"
+            cls = "flash attention dk/dv (#10)"
         elif "ln_bwd_kernel" in name or "column_sum_kernel" in name:
             cls = "layer norm backward kernels (#2, #4)"
         elif "ln_fwd_kernel" in name:
@@ -1616,7 +1729,8 @@ def phase_train(torch, np, summary, device="cuda",
               f"non-finite losses {losses} or grad norms {norms}")
         # per microbatch: the two residual tails of every layer (#3/#4),
         # the embedding and MLM-transform LayerNorms (#1/#2), and at seq >
-        # 256 every layer's attention (flash forward, dq, dk/dv)
+        # 256 every layer's attention (the flash forward and, bf16 at seq
+        # 512, the fused backward; the dq and dk/dv pair never)
         micro_steps = accum * TRAIN_STEPS
         flash = layers * micro_steps if spec["flash"] else 0
         want = {"add_dropout_layer_norm_fwd": 2 * layers * micro_steps,
@@ -1624,8 +1738,9 @@ def phase_train(torch, np, summary, device="cuda",
                 "layer_norm_fwd": 2 * micro_steps,
                 "layer_norm_bwd": 2 * micro_steps,
                 "flash_attention_fwd": flash,
-                "flash_attention_bwd_dq": flash,
-                "flash_attention_bwd_dkv": flash,
+                "flash_attention_bwd": flash,
+                "flash_attention_bwd_dq": 0,
+                "flash_attention_bwd_dkv": 0,
                 "lamb_stage1": TRAIN_STEPS, "lamb_stage2": TRAIN_STEPS}
         if on_card:
             check(launches == want, f"launch counts {launches}, want {want}")
@@ -1803,8 +1918,16 @@ KERNEL_ROWS = {
         "replaces": "bert_pytorch_tpu/ops/pallas/flash_attention.py:660",
         # the bh-layout forward (#6) is the same kernel: strided reads
         "also_replaces": ["bert_pytorch_tpu/ops/pallas/flash_attention.py:698"]},
-    # one of the two kernels that replace the four Pallas backward
-    # kernels (#7-#10, flash_attention.py:754, :799, :840, :871)
+    # the fused backward (#7/#8): the main path's, bf16 at seq <= 512
+    "flash_attention_bwd": {
+        "route": "cuda",
+        "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": "bert_pytorch_tpu/ops/pallas/flash_attention.py:754",
+        # the bh-layout fused backward (#8) is the same kernel: strided reads
+        "also_replaces": ["bert_pytorch_tpu/ops/pallas/flash_attention.py:799"]},
+    # the split pair (#9/#10): f32 and seq > 512, off the main path;
+    # launched by the kernels phase's checks
     "flash_attention_bwd_dq": {
         "route": "cuda",
         "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/"
@@ -1815,17 +1938,6 @@ KERNEL_ROWS = {
         "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/"
                   "flash_attention.cu",
         "replaces": "bert_pytorch_tpu/ops/pallas/flash_attention.py:871"},
-    # the pair as one backward, the function of the fused Pallas kernel
-    # the TPU takes at BERT-Large seq 512 (#7): launched as one dq and one
-    # dk/dv launch, so its launches are the pair's
-    "flash_attention_bwd": {
-        "route": "cuda",
-        "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/"
-                  "flash_attention.cu",
-        "replaces": "bert_pytorch_tpu/ops/pallas/flash_attention.py:754",
-        "also_replaces": ["bert_pytorch_tpu/ops/pallas/flash_attention.py:799"],
-        "launched_as": ["flash_attention_bwd_dq",
-                        "flash_attention_bwd_dkv"]},
     "lamb_stage1": {
         "route": "cuda",
         "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/fused_optim.cu",
@@ -1835,47 +1947,42 @@ KERNEL_ROWS = {
         "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/fused_optim.cu",
         "replaces": "bert_pytorch_tpu/ops/pallas/fused_optim.py:150"},
 }
-# the numbers of one measurement that the kernels line carries
+# the numbers of one measurement that the kernels line carries, and those
+# only some rows have (the fused backward at rate 0, the pair beside it)
 _LINE_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "shape", "rate")
+_EXTRA_KEYS = ("rate0_ms", "rate0_plain_ms", "pair_ms")
 
 
 def _line_numbers(r: dict) -> dict:
     out = {k: r.get(k) for k in _LINE_KEYS}
+    out.update({k: r[k] for k in _EXTRA_KEYS if k in r})
     out["rate"] = out["rate"] or 0.0
     out["max_abs_err"] = r.get("max_abs_err", {}).get("bfloat16")
     return out
 
 
-def kernels_line(results: dict, by_path: dict) -> list:
+def kernels_line(results: dict, by_path: dict, in_checks: dict) -> list:
     """One row a kernel: its launches on each main path (counts zeroed
-    just before the path and read just after) and its measured numbers.
-    The flash forward runs at two shapes and rates (serving, rate 0;
-    phase-2 training, rate 0.1, its dropout arm): its row carries the
-    training numbers, the arm of the slice that launches it most, and
-    both under `variants`. A row `launched_as` two kernels counts the
-    launches of the pair, which must be equal on every path."""
+    just before the path and read just after), the launches the kernels
+    phase made to hold it against its plain version (`launches_in_checks`,
+    not part of `launches`), and its measured numbers. The flash forward
+    runs at two shapes and rates (serving, rate 0; phase-2 training, rate
+    0.1, its dropout arm): its row carries the training numbers, the arm of
+    the slice that launches it most, and both under `variants`."""
     line = []
     for name, row in KERNEL_ROWS.items():
-        row = dict(row)
-        kerns = row.pop("launched_as", [name])
-        counts = {path: c[kerns[0]] for path, c in by_path.items()}
-        for path, c in by_path.items():
-            check(all(c[k] == counts[path] for k in kerns),
-                  f"{name}: the launches of {kerns} differ on {path}")
+        counts = {path: c[name] for path, c in by_path.items()}
         r = results.get(name, {})
         nums = _line_numbers(r)
-        if len(kerns) > 1:
-            errs = [_line_numbers(results.get(k, {}))["max_abs_err"]
-                    for k in kerns]
-            nums["max_abs_err"] = None if None in errs else max(errs)
         variants = {}
         if "train_phase2" in r:
             variants = {"serve": nums,
                         "train_phase2": _line_numbers(r["train_phase2"])}
             nums = variants["train_phase2"]
         line.append(dict(row, name=name, launches=sum(counts.values()),
-                         launches_by_path=counts, **nums,
+                         launches_by_path=counts,
+                         launches_in_checks=in_checks.get(name), **nums,
                          **({"variants": variants} if variants else {})))
     return line
 
@@ -1935,7 +2042,8 @@ def main(argv=None) -> int:
         log("chip_smoke: FAILED: " + json.dumps(summary["phases"]))
         return 1
     try:
-        line = kernels_line(results, summary.get("launches", {}))
+        line = kernels_line(results, summary.get("launches", {}),
+                            summary.get("launches_in_checks", {}))
     except PhaseError as e:
         log(f"chip_smoke: FAILED: kernels line: {e}")
         return 1
@@ -1962,8 +2070,14 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
                 load_kernels()
                 summary["build_s"] = time.perf_counter() - t0
                 log(f"build: kernels built in {summary['build_s']:.1f} s")
+                summary["fused_bwd_build"] = fused_backward_build(torch)
             elif phase == "kernels":
+                from bert_pytorch_tpu_torch.ops.kernels import (
+                    LAUNCHES, reset_launches)
+
+                reset_launches()
                 phase_kernels(torch, np, results)
+                summary["launches_in_checks"] = dict(LAUNCHES)
             elif phase == "timing":
                 phase_timing(torch, np, results, peaks)
             elif phase == "serve":

@@ -376,8 +376,11 @@ def test_chip_smoke_phase2_train_rehearses_on_cpu(tmp_path):
     assert train["micro_batch"] == 16 and train["seq"] == 512
     assert all(np.isfinite(train["losses"]))
     layers = tp.CFG["num_hidden_layers"]
-    assert train["launches_predicted"]["flash_attention_bwd_dkv"] == \
+    # bf16 at seq 512: the fused backward, never the split pair
+    assert train["launches_predicted"]["flash_attention_bwd"] == \
         layers * 2 * 3
+    assert train["launches_predicted"]["flash_attention_bwd_dq"] == 0
+    assert train["launches_predicted"]["flash_attention_bwd_dkv"] == 0
     # the CPU runs the plain versions on both sides of the comparison
     assert train["launches"] == {k: 0 for k in train["launches"]}
     tol = chip_smoke.TRAIN_RUNS["train_phase2"]["tol"]
