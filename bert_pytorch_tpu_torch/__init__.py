@@ -14,6 +14,10 @@ from typing import Optional, Union
 
 import torch
 
+# The ROADMAP item an option or a data format the pretraining slice lacks
+# names when it is refused.
+PRETRAIN_GAPS = "ROADMAP.md, queue A: what the pretraining slice left out"
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:

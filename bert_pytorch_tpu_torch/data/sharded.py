@@ -20,6 +20,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from bert_pytorch_tpu_torch import PRETRAIN_GAPS
 from bert_pytorch_tpu_torch.data import masking
 
 REQUIRED_KEYS = ("input_ids", "special_token_positions",
@@ -38,9 +39,12 @@ def _h5py():
 
 class ShardIndex:
     """Discover and verify shard files, and map a global sample index to
-    (file, row). Unreadable files, files whose per-key counts differ and
-    legacy premasked files (no special_token_positions) are skipped with a
-    warning. `load(fi)` reads file `fi` whole."""
+    (file, row). Unreadable files, files that lack input_ids or
+    next_sentence_labels, and files whose per-key counts differ are
+    skipped with a warning. A legacy premasked file (input_ids without
+    special_token_positions), which the JAX loader reads, raises: this
+    port does not read that format yet, and skipping it would train on a
+    subset of the data. `load(fi)` reads file `fi` whole."""
 
     def __init__(self, files: Sequence[str]):
         h5py = _h5py()
@@ -55,9 +59,13 @@ class ShardIndex:
             except OSError as e:
                 warnings.warn(f"skipping unreadable shard {path}: {e}")
                 continue
+            if missing == ["special_token_positions"]:
+                raise NotImplementedError(
+                    f"{path} is a legacy premasked shard (no "
+                    "special_token_positions); reading that format is not "
+                    f"ported yet (see {PRETRAIN_GAPS})")
             if missing:
-                warnings.warn(f"skipping shard {path}: no {missing} (legacy "
-                              "premasked shards are not read by this port)")
+                warnings.warn(f"skipping shard {path}: no {missing}")
                 continue
             if len(counts) != 1:
                 warnings.warn(f"skipping shard {path}: per-key sample counts "

@@ -26,8 +26,10 @@ padding bias, packed-sequence `segment_ids` (B, S) with 1..n per row and
   the whole backward: dq, dk, dv recomputed from that lse with the same
   masks.
 - `flash_attention`, `flash_attention_bwd_dq` and `flash_attention_bwd_dkv`
-  wrap the CUDA kernels that replace the Pallas flash forward and split
-  backward (ops/kernels/csrc/flash_attention.cu); `flash_attention_bwd`
+  wrap the CUDA kernels that replace the Pallas flash forward (bf16:
+  ops/kernels/csrc/flash_attention_fwd.cu, sequences of whole 128-key
+  tiles; f32: flash_attention.cu) and split backward
+  (flash_attention.cu); `flash_attention_bwd`
   wraps the fused dq/dk/dv kernel that replaces the fused Pallas backward
   (ops/kernels/csrc/flash_attention_bwd.cu), which `fused_bwd_takes`
   sends bf16 at head dim 64 and seq <= FUSED_BWD_MAX_SEQ (512) to;
@@ -376,11 +378,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward kernel wrapper: (out, lse). CUDA tensors launch the kernel,
     which reads q/k/v through their strides (unit head_dim stride, 16-byte
-    aligned rows, head_dim 64) and takes a contiguous f32 bias of B * S
-    entries and contiguous int32 (B, S) segment ids; anything else raises.
-    CPU tensors take the plain version. `skipped`, a one-element int32
-    CUDA tensor, gains the count of (q-tile, k-tile) pairs the kernel
-    skipped because their segment ranges do not meet. A rate above 0
+    aligned rows, head_dim 64; bf16 sequences a multiple of 128) and takes
+    a contiguous f32 bias of B * S entries and contiguous int32 (B, S)
+    segment ids; anything else raises. CPU tensors take the plain version.
+    `skipped`, a one-element int32 CUDA tensor, gains the count of
+    (q-tile, k-tile) pairs the kernel skipped because their segment ranges
+    do not meet (bf16: 64-query, 128-key tiles). A rate above 0
     drops probabilities with `flash_keep_mask` of the int32
     `dropout_seed`."""
     rate = _flash_rate(dropout_seed, dropout_rate)

@@ -300,6 +300,11 @@ std::vector<at::Tensor> flash_attention_fwd(
   auto p = flash_params(q, k, v, bias, segment_ids, skipped, scale,
                         flash_dropout(seed, threshold, keep_div, apply),
                         "flash_attention_fwd");
+  if (q.scalar_type() == at::kBFloat16) {
+    const int64_t keys = bert_kernels::flash_fwd_tile().keys;
+    TORCH_CHECK(q.size(1) % keys == 0, "flash_attention_fwd takes bfloat16 "
+                "sequences of whole ", keys, "-key tiles, got ", q.size(1));
+  }
   const c10::cuda::CUDAGuard guard(q.device());
   auto out = at::empty(q.sizes(), q.options());
   auto lse = at::empty({q.size(0), q.size(2), q.size(1)},
@@ -446,6 +451,31 @@ std::map<std::string, int64_t> flash_bwd_fused_info(int64_t seq) {
   out["dynamic_smem_bytes"] =
       bert_kernels::flash_bwd_fused_smem(static_cast<int>(seq));
   out["max_seq"] = bert_kernels::flash_bwd_fused_max_seq();
+  return out;
+}
+
+// The bf16 forward as compiled: registers, local (spill) and static
+// shared bytes of its four arms (dropout or not, packed segments or not),
+// the dynamic shared memory of a launch and its (query rows, keys) tile.
+std::map<std::string, int64_t> flash_fwd_info() {
+  std::map<std::string, int64_t> out;
+  for (const bool drop : {true, false}) {
+    for (const bool seg : {false, true}) {
+      bert_kernels::KernelInfo info{};
+      const cudaError_t err = bert_kernels::flash_fwd_info(drop, seg, &info);
+      TORCH_CHECK(err == cudaSuccess, "cudaFuncGetAttributes: ",
+                  cudaGetErrorString(err));
+      const std::string arm = std::string(drop ? "dropout" : "plain") +
+                              (seg ? "_packed_" : "_");
+      out[arm + "registers"] = info.registers;
+      out[arm + "local_bytes"] = info.local_bytes;
+      out[arm + "static_smem_bytes"] = info.static_smem_bytes;
+      out[arm + "max_threads"] = info.max_threads;
+    }
+  }
+  out["dynamic_smem_bytes"] = bert_kernels::flash_fwd_smem();
+  out["tile_rows"] = bert_kernels::flash_fwd_tile().rows;
+  out["tile_keys"] = bert_kernels::flash_fwd_tile().keys;
   return out;
 }
 
@@ -626,6 +656,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "fused flash-attention backward, bf16: (dq, dk, dv)");
   m.def("flash_bwd_fused_info", &flash_bwd_fused_info,
         "the fused backward's registers, spills and shared memory");
+  m.def("flash_fwd_info", &flash_fwd_info,
+        "the bf16 flash forward's registers, spills and shared memory");
   m.def("flash_tiles", &flash_tiles,
         "{flash kernel: (query rows, keys) tile} for bf16 or f32 inputs");
   m.def("lamb_stage1", &lamb_stage1,

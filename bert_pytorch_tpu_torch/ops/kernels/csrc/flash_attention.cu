@@ -1,5 +1,6 @@
-// Flash attention for Hopper: the forward (with its dropout arm) and the
-// backward pair.
+// Flash attention for Hopper: the f32 forward (with its dropout arm) and
+// the backward pair. The bf16 forward is flash_attention_fwd.cu's, the
+// fused bf16 backward flash_attention_bwd.cu's.
 //
 // Replaces the Pallas kernels of bert_pytorch_tpu/ops/pallas/
 // flash_attention.py. Forward: `_fwd_kernel_native` and `_fwd_kernel`, one
@@ -23,9 +24,7 @@
 // kernel, which runs after it.
 //
 // What bounds them: at BERT-Large's phase-2 shape (16, 512, 16, 64) in
-// bf16 the forward needs 17.2 GFLOP against 67.7 MB of q/k/v/out/lse, about
-// 17 us of dense bf16 tensor-core time against 20 us of HBM time on an
-// H100 SXM; the backward pair needs 6 + 8 products of S^2 D per head
+// bf16 the backward pair needs 6 + 8 products of S^2 D per head
 // (dq: s, dp, dq; dk/dv: s, dp, dv, dk) against ~10 tensors of traffic:
 // close to the balance point, so neither the (S, S) score matrix nor any
 // transposed copy may touch device memory. The design: the CTA's own tile
@@ -109,23 +108,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
 constexpr int kBM = 64;
 constexpr int kBN = 64;
 
-// rows row0.. of a strided bf16 (rows, HD) panel -> tile, zero past `seq`,
-// 16 bytes per access
-template <int ROWS, int HD, int PITCH>
-__device__ __forceinline__ void load_rows_bf16(uint16_t (*tile)[PITCH],
-                                               const uint16_t* src,
-                                               int64_t stride, int row0,
-                                               int seq) {
-  constexpr int kChunks = HD / 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < seq)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(&tile[r][c]) = val;
-  }
-}
-
 // the same rows of two panels (K and V, or q and dO) -> two tiles, the two
 // loads of a row issued together so their latencies overlap
 template <int ROWS, int HD, int PITCH>
@@ -204,163 +186,6 @@ __device__ __forceinline__ void mma_pt(float (&acc)[HD / 8][4],
                           (static_cast<uint32_t>(tile[r0 + 9][c]) << 16);
       mma_bf16_16816(acc[dt], a, b0, b1);
     }
-  }
-}
-
-template <int HD, bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(FlashParams p) {
-  constexpr int kPad = HD + 8;  // row pitch in bf16: conflict-free fragments
-  __shared__ __align__(16) uint16_t qs[kBM][kPad];
-  __shared__ __align__(16) uint16_t ks[kBN][kPad];
-  __shared__ __align__(16) uint16_t vs[kBN][kPad];
-  __shared__ float bias_s[kBN];
-  __shared__ int segk_s[kBN];
-  __shared__ int red[8];
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBM;
-  const int S = p.seq;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const uint16_t* qg = static_cast<const uint16_t*>(p.q) +
-                       b * p.q_strides[0] + h * p.q_strides[2];
-  const uint16_t* kg = static_cast<const uint16_t*>(p.k) +
-                       b * p.k_strides[0] + h * p.k_strides[2];
-  const uint16_t* vg = static_cast<const uint16_t*>(p.v) +
-                       b * p.v_strides[0] + h * p.v_strides[2];
-  const int32_t* seg_row = p.seg ? p.seg + static_cast<int64_t>(b) * S : nullptr;
-  const float* bias_row = p.bias ? p.bias + static_cast<int64_t>(b) * S : nullptr;
-
-  load_rows_bf16<kBM, HD, kPad>(qs, qg, p.q_strides[1], q0, S);
-  int qmn = 0, qmx = 0;
-  if (seg_row) seg_range(seg_row, q0, kBM, S, red, qmn, qmx);
-  __syncthreads();
-
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
-  const int segq_a = (seg_row && row_a < S) ? seg_row[row_a] : 0;
-  const int segq_b = (seg_row && row_b < S) ? seg_row[row_b] : 0;
-  const uint32_t seed_bh = kDrop ? seed_bh_of(p.drop, b, p.heads, h) : 0u;
-
-  uint32_t qf[HD / 16][4];
-  load_a_frags<HD, kPad>(qf, qs, warp * 16, g, t);
-
-  float o[HD / 8][4];
-#pragma unroll
-  for (int i = 0; i < HD / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
-
-  const int n_tiles = (S + kBN - 1) / kBN;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBN;
-    if (skip_tile(seg_row, k0, kBN, S, red, qmn, qmx, p.skipped)) continue;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows2_bf16<kBN, HD, kPad>(ks, kg, p.k_strides[1], vs, vg,
-                                   p.v_strides[1], k0, S);
-    if (tid < kBN) {
-      const bool in = k0 + tid < S;
-      bias_s[tid] = (bias_row && in) ? bias_row[k0 + tid] : 0.f;
-      segk_s[tid] = (seg_row && in) ? seg_row[k0 + tid] : 0;
-    }
-    __syncthreads();
-
-    // scores: (16 rows of this warp) x 64 keys, 8 n-tiles of 8 keys
-    float s[kBN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    mma_abt<kBN, HD, kPad>(s, qf, ks, g, t);
-
-    float mx_a = kNegInf, mx_b = kNegInf;
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        float v = s[nt][e] * p.scale + bias_s[col];
-        if (seg_row) {
-          const int sq = (e < 2) ? segq_a : segq_b;
-          if (!(sq == segk_s[col] && sq > 0)) v = kNegInf;
-        }
-        if (k0 + col >= S) v = -INFINITY;
-        s[nt][e] = v;
-      }
-      mx_a = fmaxf(mx_a, fmaxf(s[nt][0], s[nt][1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[nt][2], s[nt][3]));
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-    }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float alpha_a = expf(m_a - mn_a), alpha_b = expf(m_b - mn_b);
-    float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - mn_a);
-      s[nt][1] = expf(s[nt][1] - mn_a);
-      s[nt][2] = expf(s[nt][2] - mn_b);
-      s[nt][3] = expf(s[nt][3] - mn_b);
-      sum_a += s[nt][0] + s[nt][1];
-      sum_b += s[nt][2] + s[nt][3];
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      sum_a += __shfl_xor_sync(0xffffffffu, sum_a, off);
-      sum_b += __shfl_xor_sync(0xffffffffu, sum_b, off);
-    }
-    l_a = l_a * alpha_a + sum_a;  // the undropped sum
-    l_b = l_b * alpha_b + sum_b;
-    m_a = mn_a;
-    m_b = mn_b;
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      o[dt][0] *= alpha_a;
-      o[dt][1] *= alpha_a;
-      o[dt][2] *= alpha_b;
-      o[dt][3] *= alpha_b;
-    }
-    if constexpr (kDrop) {
-#pragma unroll
-      for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + nt * 8 + 2 * t + (e & 1);
-          if (!flash_keep((e < 2) ? row_a : row_b, key, seed_bh,
-                          p.drop.threshold))
-            s[nt][e] = 0.f;
-        }
-      }
-    }
-    mma_pt<kBN, HD, kPad>(o, s, vs, g, t);
-  }
-
-  const float ls_a = fmaxf(l_a, 1e-30f), ls_b = fmaxf(l_b, 1e-30f);
-  const bool zero_a = seg_row && segq_a == 0;
-  const bool zero_b = seg_row && segq_b == 0;
-  uint16_t* out = static_cast<uint16_t*>(p.out);
-  const int H = p.heads;
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    float v[4] = {o[dt][0] / ls_a, o[dt][1] / ls_a, o[dt][2] / ls_b,
-                  o[dt][3] / ls_b};
-    if constexpr (kDrop) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = v[e] / p.drop.keep_div;
-    }
-    if (row_a < S) {
-      const uint32_t w = zero_a ? 0u : pack_bf16(v[0], v[1]);
-      *reinterpret_cast<uint32_t*>(out + ((static_cast<int64_t>(b) * S + row_a) * H + h) * HD + c) = w;
-    }
-    if (row_b < S) {
-      const uint32_t w = zero_b ? 0u : pack_bf16(v[2], v[3]);
-      *reinterpret_cast<uint32_t*>(out + ((static_cast<int64_t>(b) * S + row_b) * H + h) * HD + c) = w;
-    }
-  }
-  if (t == 0) {
-    float* lse = p.lse + (static_cast<int64_t>(b) * H + h) * S;
-    if (row_a < S) lse[row_a] = m_a + logf(ls_a);
-    if (row_b < S) lse[row_b] = m_b + logf(ls_b);
   }
 }
 
@@ -1038,9 +863,7 @@ cudaError_t launch(void (*with_drop)(Params), void (*without)(Params),
 
 cudaError_t flash_attention_fwd(const FlashParams& p, DType dtype,
                                 cudaStream_t stream) {
-  if (dtype == kBFloat16)
-    return launch(flash_fwd_bf16_kernel<64, true>,
-                  flash_fwd_bf16_kernel<64, false>, p, p, kBM, stream);
+  if (dtype == kBFloat16) return flash_attention_fwd_bf16(p, stream);
   return launch(flash_fwd_f32_kernel<64, true>,
                 flash_fwd_f32_kernel<64, false>, p, p, kFM, stream);
 }
@@ -1065,7 +888,7 @@ cudaError_t flash_attention_bwd_dkv(const FlashBwdParams& p, DType dtype,
 
 void flash_tiles(DType dtype, FlashTile tiles[3]) {
   if (dtype == kBFloat16) {
-    tiles[0] = {kBM, kBN};
+    tiles[0] = flash_fwd_tile();
     tiles[1] = {kBM, kBN};
     tiles[2] = {kBM, kBN};
   } else {

@@ -79,6 +79,12 @@ struct FlashDropout {
   bool apply = false;
 };
 
+// A (query rows, keys) tile of a flash kernel.
+struct FlashTile {
+  int rows;
+  int keys;
+};
+
 // Strides are in elements; q/k/v share (B, S, H, D) with a unit last-axis
 // stride. out is a contiguous (B, S, H, D) tensor, lse a contiguous
 // (B, H, S) f32 tensor. bias (B, S) f32 and seg (B, S) int32 may be null;
@@ -101,8 +107,20 @@ struct FlashParams {
   FlashDropout drop;
 };
 
+// The forward: bf16 runs flash_attention_fwd_bf16, f32 the f32 kernel of
+// flash_attention.cu.
 cudaError_t flash_attention_fwd(const FlashParams& p, DType dtype,
                                 cudaStream_t stream);
+
+// The bf16 forward (flash_attention_fwd.cu), head_dim 64: sequences of
+// whole flash_fwd_tile().keys-key tiles, others refused with
+// cudaErrorInvalidValue. Its (query rows, keys) tile is the grain of its
+// segment tile skip; flash_fwd_smem() is the dynamic shared memory of a
+// launch.
+cudaError_t flash_attention_fwd_bf16(const FlashParams& p,
+                                     cudaStream_t stream);
+FlashTile flash_fwd_tile();
+int flash_fwd_smem();
 
 // The backward pair. q/k/v, bias, seg, skipped and the dropout as in
 // FlashParams; out (the forward's output), dout, dq, dk and dv contiguous
@@ -126,10 +144,6 @@ cudaError_t flash_attention_bwd_dkv(const FlashBwdParams& p, DType dtype,
 
 // The (query rows, keys) tile of the forward, dq and dk/dv kernels for a
 // dtype, in that order: the grain of their segment tile skip.
-struct FlashTile {
-  int rows;
-  int keys;
-};
 void flash_tiles(DType dtype, FlashTile tiles[3]);
 
 // The fused backward (flash_attention_bwd.cu), bf16 with head_dim 64: one
@@ -155,6 +169,8 @@ struct KernelInfo {
   int max_threads;
 };
 cudaError_t flash_bwd_fused_info(bool dropout, KernelInfo* info);
+// the bf16 forward's arms: with or without dropout, packed segments
+cudaError_t flash_fwd_info(bool dropout, bool segments, KernelInfo* info);
 
 // Fused multi-tensor LAMB (fused_optim.cu). The host passes device copies
 // of a per-tensor table and a chunk table; one CTA takes the elements

@@ -27,8 +27,17 @@
 // What bounds them: memory. At BERT-Large's training shape (12288, 1024)
 // in bf16 they do tens of flops per element against 4-10 bytes moved,
 // far below the card's balance point. So each reads every input from
-// device memory once: one warp owns one row, loads it with 16-byte
-// accesses and keeps it in shared memory as f32 for the reduction passes.
+// device memory once: one warp owns one row and loads it with 16-byte
+// accesses. The forward at BERT-Large's width (1024) is specialised on
+// the width (ln_fwd_row_kernel): a lane's share of the row (32 elements)
+// and of the residual is loaded by 16-byte accesses
+// all issued before the first use, so the row's DRAM round trips overlap
+// instead of following one another, and the row stays in registers for
+// the two reduction passes; scale and bias are read as float4, and the
+// launch needs no dynamic shared memory (no attribute call). Other widths
+// take ln_fwd_kernel, which stages the row in shared memory as f32. Both
+// give the same statistics and y: the same per-lane sum order, the same
+// mask, the same IEEE division.
 //
 // The cross-row sums of the backward: the Pallas kernel adds each grid
 // step's partial into one output block, which is legal only because TPU
@@ -163,6 +172,95 @@ ln_fwd_kernel(const typename T::raw* __restrict__ x,
       }
       store_vec<VEC>(yr + c, o);
     }
+  }
+  if (lane == 0) {
+    mean_out[row] = mu;
+    rstd_out[row] = rs;
+  }
+}
+
+// ln_fwd_kernel at a width COLS fixed at compile time, the row in
+// registers: lane `lane` holds columns j * 32 * VEC + lane * VEC + i (the
+// generic kernel's chunks, summed in the same order).
+template <typename T, int VEC, int COLS, bool kResidual>
+__global__ void __launch_bounds__(kWarps * 32)
+ln_fwd_row_kernel(const typename T::raw* __restrict__ x,
+                  const typename T::raw* __restrict__ residual,
+                  const float* __restrict__ scale,
+                  const float* __restrict__ bias,
+                  typename T::raw* __restrict__ y,
+                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                  int64_t rows, float eps, DropoutArgs d) {
+  using raw = typename T::raw;
+  constexpr int kChunk = 32 * VEC;   // columns one warp access covers
+  constexpr int kN = COLS / kChunk;  // accesses a lane makes
+  static_assert(COLS % kChunk == 0 && VEC % 4 == 0, "whole chunks");
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  if (row >= rows) return;
+  const raw* xr = x + row * COLS + lane * VEC;
+  raw xv[kN][VEC], rv[kN][VEC];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) load_vec<VEC>(xr + j * kChunk, xv[j]);
+  if constexpr (kResidual) {
+    const raw* rr = residual + row * COLS + lane * VEC;
+#pragma unroll
+    for (int j = 0; j < kN; ++j) load_vec<VEC>(rr + j * kChunk, rv[j]);
+  }
+
+  float h[kN][VEC];
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      float v = T::to_f32(xv[j][i]);
+      if constexpr (kResidual) {
+        if (d.apply) {
+          const int c = j * kChunk + lane * VEC + i;
+          v = keep_element(static_cast<uint32_t>(row), static_cast<uint32_t>(c),
+                           d.seed_term, d.threshold)
+                  ? v / d.keep_div
+                  : 0.f;
+        }
+        v = T::to_f32(rv[j][i]) + v;
+      }
+      h[j][i] = v;
+      sum += v;
+    }
+  }
+  const float mu = warp_sum(sum) / static_cast<float>(COLS);
+  float sq = 0.f;
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float dv = h[j][i] - mu;
+      sq += dv * dv;
+    }
+  }
+  const float rs = rsqrtf(warp_sum(sq) / static_cast<float>(COLS) + eps);
+
+  raw* yr = y + row * COLS + lane * VEC;
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    const int c = j * kChunk + lane * VEC;
+    float sc[VEC], bi[VEC];
+#pragma unroll
+    for (int q = 0; q < VEC; q += 4) {
+      const float4 s4 = *reinterpret_cast<const float4*>(scale + c + q);
+      const float4 b4 = *reinterpret_cast<const float4*>(bias + c + q);
+      sc[q] = s4.x, sc[q + 1] = s4.y, sc[q + 2] = s4.z, sc[q + 3] = s4.w;
+      bi[q] = b4.x, bi[q + 1] = b4.y, bi[q + 2] = b4.z, bi[q + 3] = b4.w;
+    }
+    raw o[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float yv = (h[j][i] - mu) * rs;
+      o[i] = T::from_f32(yv * sc[i] + bi[i]);
+    }
+    store_vec<VEC>(yr + j * kChunk, o);
   }
   if (lane == 0) {
     mean_out[row] = mu;
@@ -357,6 +455,23 @@ bool aligned16(const void* p) {
   return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+template <typename T, int VEC, int COLS, bool kResidual>
+cudaError_t launch_fwd_row(const void* x, const void* residual,
+                           const float* scale, const float* bias, void* y,
+                           float* mean, float* rstd, int64_t rows, float eps,
+                           const DropoutArgs& d, cudaStream_t stream) {
+  using raw = typename T::raw;
+  const unsigned blocks = static_cast<unsigned>((rows + kWarps - 1) / kWarps);
+  auto kernel = ln_fwd_row_kernel<T, VEC, COLS, kResidual>;
+  kernel<<<blocks, kWarps * 32, 0, stream>>>(
+      static_cast<const raw*>(x), static_cast<const raw*>(residual), scale,
+      bias, static_cast<raw*>(y), mean, rstd, rows, eps, d);
+  return cudaGetLastError();
+}
+
+// BERT-Large's width, the one every path on the card runs
+constexpr int kRowCols = 1024;
+
 template <bool kResidual>
 cudaError_t dispatch_fwd(const void* x, const void* residual,
                          const float* scale, const float* bias, void* y,
@@ -365,6 +480,13 @@ cudaError_t dispatch_fwd(const void* x, const void* residual,
                          cudaStream_t stream) {
   if (rows == 0) return cudaSuccess;
   const bool aligned = aligned16(x) && aligned16(y) && aligned16(residual);
+  if (cols == kRowCols && aligned && aligned16(scale) && aligned16(bias)) {
+    if (dtype == kBFloat16)
+      return launch_fwd_row<BF16, 8, kRowCols, kResidual>(
+          x, residual, scale, bias, y, mean, rstd, rows, eps, d, stream);
+    return launch_fwd_row<F32, 4, kRowCols, kResidual>(
+        x, residual, scale, bias, y, mean, rstd, rows, eps, d, stream);
+  }
   if (dtype == kBFloat16) {
     if (aligned && cols % 8 == 0)
       return launch_fwd<BF16, 8, kResidual>(x, residual, scale, bias, y, mean,

@@ -46,8 +46,67 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-# ROADMAP item named when a run asks for something this slice lacks
-_ROADMAP = "ROADMAP.md, queue A: what the pretraining slice left out"
+from bert_pytorch_tpu_torch import PRETRAIN_GAPS as _ROADMAP
+
+# The JAX entry point's flags (run_pretraining.py, parse_arguments) that
+# this parser does not declare. A run config may still set them (the merge
+# attaches every JSON key), so each one is refused unless its value leaves
+# its feature off: key -> the values that do. (The CLI refuses undeclared
+# flags itself.)
+_REFUSED = {
+    "steps_per_loop": (1,),
+    "checkpoint_activations": (False,),
+    "kfac": (False,),
+    "mesh": ("",),
+    "profile_steps": (None,),
+    # the port's per-layer modules are the JAX "false" layout
+    "stacked_params": ("auto", "false"),
+    # one card: "auto" shards nothing
+    "zero1": ("auto", "false"),
+    "zero1_overlap": (False,),
+    "zero1_rs": (False,),
+    "fsdp_overlap": (False,),
+    "mesh_config": ("auto",),
+    "coalesce_reductions": ("off",),
+    # batches move to the card in the step; no device-side prefetcher
+    "h2d_prefetch": (0,),
+    # the libtpu flag pack
+    "overlap_flags": ("off",),
+    # the port's dropout seeds come from numpy (dropout_seeds)
+    "rng_impl": ("threefry2x32",),
+    "packing": (False,),
+    "flight_recorder": ("off",),
+    "metrics_port": (None,),
+    "inject_nonfinite_step": (None,),
+    "stream_dir": (None,),
+    "tensorboard": ("off",),
+    # --device cpu is the port's
+    "force_cpu": (False,),
+    "watchdog_timeout": (0, 0.0),
+    "chaos": (None,),
+    "slo_config": (None,),
+    "stream_inject": (None,),
+}
+# Flags that only tune a feature refused above (or, for log_freq, the
+# metrics plane's StepWatch, which metrics_port stands for): accepted with
+# any value, since their feature is off.
+_TUNING = {
+    "kfac_inv_interval": "kfac", "kfac_factor_interval": "kfac",
+    "kfac_stat_decay": "kfac", "kfac_damping": "kfac",
+    "kfac_kl_clip": "kfac", "kfac_stats_dtype": "kfac",
+    "kfac_skip_layers": "kfac", "kfac_bucket_mb": "kfac",
+    "kfac_factor_sync_freq": "kfac",
+    "packing_max_segments": "packing", "packing_lookahead": "packing",
+    "recorder_window": "flight_recorder",
+    "log_freq": "metrics_port",
+    "stream_vocab": "stream_dir", "stream_tokenizer": "stream_dir",
+    "stream_seq_len": "stream_dir", "stream_workers": "stream_dir",
+    "stream_queue_batches": "stream_dir",
+    "watchdog_action": "watchdog_timeout",
+    "chaos_step": "chaos", "chaos_stall_secs": "chaos",
+    "slo_eval_interval_s": "slo_config", "slo_action": "slo_config",
+    "slo_halt_after_s": "slo_config",
+}
 
 
 def parse_arguments(argv=None) -> argparse.Namespace:
@@ -117,7 +176,16 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         "'skip' drops the update, 'halt' stops the run")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
-    return merge_args_with_config(p, argv)
+    args = merge_args_with_config(p, argv)
+    # a run config's value of a declared flag bypasses argparse's choices
+    # (--optimizer bert_adam is a JAX choice the port lacks)
+    for action in p._actions:  # noqa: SLF001
+        value = getattr(args, action.dest, None)
+        if action.choices is not None and value not in action.choices:
+            raise NotImplementedError(
+                f"{action.dest}={value!r} is not ported yet (choices "
+                f"{list(action.choices)}; see {_ROADMAP})")
+    return args
 
 
 def find_mask_token_index(args, config) -> int:
@@ -158,11 +226,13 @@ class PretrainResult:
 
 
 def _unsupported(args) -> None:
-    """Refuse what the port does not implement rather than ignore it."""
-    for key in ("kfac", "packing", "stream_dir"):
-        if getattr(args, key, None):
+    """Refuse what the port does not implement rather than ignore it: a
+    key of `_REFUSED` whose value switches its feature on."""
+    for key, off in _REFUSED.items():
+        if hasattr(args, key) and getattr(args, key) not in off:
             raise NotImplementedError(
-                f"{key} is not ported yet (see {_ROADMAP})")
+                f"{key}={getattr(args, key)!r} is not ported yet (see "
+                f"{_ROADMAP})")
 
 
 def dropout_seeds(seed: int, step: int, accum_steps: int, n_sites: int
@@ -263,7 +333,7 @@ def train(args: argparse.Namespace, index,
         with torch.device(device):
             model = BertForPreTraining(config, dtype=compute_dtype)
         init_weights(model, torch.Generator(device=device).manual_seed(
-            args.seed))
+            args.seed), std=config.initializer_range)
         schedule = make_schedule(args.lr_decay, args.learning_rate,
                                  args.max_steps,
                                  warmup=args.warmup_proportion,

@@ -8,8 +8,10 @@ Phases, each of which must pass:
 
 1. device   the card's name and power limit (nvidia-smi) and the versions;
 2. build    the CUDA kernels, from this checkout's sources, timed, and the
-            fused flash backward's registers, spills and shared memory as
-            compiled;
+            flash forward's and fused flash backward's registers, spills
+            and shared memory as compiled (a spill in the forward fails);
+            beside the build, nvcc compiles those two sources alone for
+            ptxas's report, and a wgmma serialization note (C75xx) fails;
 3. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, in f32 and bf16, at the shapes the serving and training
             paths give it (LayerNorm at (8 * bucket, 1024) for every
@@ -25,9 +27,10 @@ Phases, each of which must pass:
 4. timing   each kernel, its plain version and the PyTorch library call
             that computes the same function (timed here as a yardstick, used
             nowhere in the port), by CUDA events, L2 flushed before each
-            launch, median of repeats; and the least time the card could
-            take (bytes over the memory rate or operations over the peak
-            rate, whichever is larger);
+            launch, median of repeats, as the device's time alone (the
+            call's host work done before the start event); and the least
+            time the card could take (bytes over the memory rate or
+            operations over the peak rate, whichever is larger);
 5. serve    a seeded random BERT-Large QA checkpoint (24 layers, full
             width) served by bert_pytorch_tpu_torch.run_server.serve with
             the default buckets 64/128/256/512, 8 rows, 8 segments, packing
@@ -101,6 +104,9 @@ HEADS, HEAD_DIM = 16, 64
 # Flash bf16: the kernel rounds exp(s - running max) to bf16 before PV,
 # the plain version exp(s - row max); outputs are bf16 (2^-8 relative).
 LN_TOL = {"float32": 1e-5, "bfloat16": 3.2e-2}
+# LayerNorm forward widths that take the generic kernel: BERT-Base's
+# hidden size and an odd one (the by-element arm)
+GENERIC_LN_COLS = (768, 1022)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LSE_TOL = 1e-4
 # Whole BERT-Large forward with the kernels against the plain versions:
@@ -309,6 +315,7 @@ def phase_kernels(torch, np, results):
             worst = max(worst, err)
         ln_err[name] = worst
     results["layer_norm_fwd"] = {"max_abs_err": ln_err}
+    check_generic_layer_norm(torch, results)
 
     rng = np.random.RandomState(0)
     fl_err = {}
@@ -356,6 +363,87 @@ def phase_kernels(torch, np, results):
     check_lamb_kernels(torch, np, results)
 
 
+def check_generic_layer_norm(torch, results):
+    """The LayerNorm forward at widths other than 1024 (ln_fwd_kernel,
+    which the dispatcher keeps for them; 1024 takes ln_fwd_row_kernel):
+    BERT-Base's 768 (16-byte loads) and an odd 1022 (bf16 by the element),
+    f32 and bf16, plain arm and residual arm at rates 0 and 0.1, against
+    the plain versions at LN_TOL with stats within 1e-5; and the residual
+    arm's dropped positions read back out of y exactly (residual 0, x in
+    [1, 2), unit scale and zero bias: a dropped element's LN input is 0, a
+    kept one's at least 1 / (1 - rate))."""
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES
+    from bert_pytorch_tpu_torch.ops.layernorm import (
+        add_dropout_layer_norm_fwd, add_dropout_layer_norm_stats_ref,
+        hash_keep_mask, layer_norm_fwd, layer_norm_stats_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows, seed = BATCH_ROWS * 128, -1640531527
+    before = (LAUNCHES["layer_norm_fwd"],
+              LAUNCHES["add_dropout_layer_norm_fwd"])
+    calls, worst = 0, {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    for cols in GENERIC_LN_COLS:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x = (randn(rows, cols) * 2.0 + 0.5).to(dtype)
+            res = randn(rows, cols).to(dtype)
+            scale = 1.0 + 0.1 * randn(cols)
+            bias = 0.1 * randn(cols)
+            cases = [("plain", layer_norm_fwd(x, scale, bias),
+                      layer_norm_stats_ref(x, scale, bias))]
+            for rate in (0.0, 0.1):
+                cases.append((f"residual rate {rate}",
+                              add_dropout_layer_norm_fwd(x, res, scale, bias,
+                                                         seed, rate),
+                              add_dropout_layer_norm_stats_ref(
+                                  x, res, scale, bias, seed, rate)))
+            # the mask probe
+            xm = (1.0 + torch.rand(rows, cols, generator=gen,
+                                   device="cuda")).to(dtype)
+            one, zero = torch.ones(cols, device="cuda"), torch.zeros(
+                cols, device="cuda")
+            ym, mm, rm = add_dropout_layer_norm_fwd(
+                xm, torch.zeros_like(xm), one, zero, seed, 0.1)
+            calls += len(cases) + 1
+            torch.cuda.synchronize()
+            for what, (y, mean, rstd), (yr, mr, rr) in cases:
+                err = (y.float() - yr.float()).abs().max().item()
+                stat_err = max((mean - mr).abs().max().item(),
+                               ((rstd - rr).abs() / rr.abs()).max().item())
+                log(f"kernels: layer_norm {what} {name} ({rows}, {cols}) "
+                    f"(ln_fwd_kernel) max|y-ref| {err:.3g} (tol "
+                    f"{LN_TOL[name]:g}), stats {stat_err:.3g} (tol 1e-5)")
+                check(y.dtype == dtype and y.shape == x.shape
+                      and err <= LN_TOL[name] and stat_err <= 1e-5,
+                      f"layer_norm {what} {name} at ({rows}, {cols}): "
+                      f"{y.dtype} {tuple(y.shape)}, max error {err}, stats "
+                      f"error {stat_err}")
+                worst[name] = max(worst.get(name, 0.0), err)
+            kept = (ym.float() / rm[:, None] + mm[:, None]).abs() > 0.5
+            want = hash_keep_mask(seed, xm.shape, 0.1, xm.device)
+            dropped = int((~want).sum().item())
+            exact = torch.equal(kept, want)
+            log(f"kernels: add_dropout_layer_norm {name} ({rows}, {cols}) "
+                f"(ln_fwd_kernel): {dropped} dropped, positions read out of "
+                f"y {'exact' if exact else 'DIFFER'}")
+            check(exact and dropped > 0,
+                  f"add_dropout_layer_norm {name} at ({rows}, {cols}): the "
+                  "dropped positions in y do not match the plain mask")
+    launched = (LAUNCHES["layer_norm_fwd"] - before[0]
+                + LAUNCHES["add_dropout_layer_norm_fwd"] - before[1])
+    log(f"kernels: ln_fwd_kernel (widths {GENERIC_LN_COLS}): {launched} "
+        f"launches for {calls} wrapper calls")
+    check(launched == calls, f"ln_fwd_kernel checks: {launched} launches "
+          f"counted for {calls} calls")
+    results["layer_norm_fwd_generic"] = {
+        "widths": list(GENERIC_LN_COLS), "launches": launched,
+        "max_abs_err": worst}
+
+
 def fused_backward_build(torch) -> dict:
     """The fused backward as compiled (cudaFuncGetAttributes): registers
     and local-memory (spill) bytes a thread, static shared memory, the
@@ -377,6 +465,85 @@ def fused_backward_build(torch) -> dict:
     check(info["max_seq"] == FUSED_BWD_MAX_SEQ,
           f"the fused backward takes seq up to {info['max_seq']}, "
           f"ops/attention.py gates on {FUSED_BWD_MAX_SEQ}")
+    return info
+
+
+# the wgmma kernels, compiled alone for ptxas's report beside the build
+PTXAS_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu")
+
+
+def ptxas_start():
+    """Start one nvcc for each wgmma kernel's source (-Xptxas -v, the
+    build's target and optimisation), to run beside the extension's
+    build; a source with no PyTorch header compiles in seconds."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from bert_pytorch_tpu_torch.ops.kernels.build import CSRC_DIR
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ptxas_")
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else "nvcc"
+    procs = {}
+    for src in PTXAS_SOURCES:
+        procs[src] = subprocess.Popen(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "--expt-relaxed-constexpr", "-c",
+             os.path.join(CSRC_DIR, src), "-o", os.path.join(tmp, src + ".o"),
+             "-I", CSRC_DIR, "-Xptxas", "-v"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return tmp, procs
+
+
+def ptxas_check(tmp, procs) -> dict:
+    """ptxas's report of each source started by ptxas_start: its spill
+    lines, and a failure on any C75xx line (ptxas serializing the wgmma
+    pipeline, a performance loss it reports as information only)."""
+    import shutil
+
+    report = {}
+    try:
+        for src, proc in procs.items():
+            out, _ = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"nvcc {src} failed:\n{out[-2000:]}")
+            serial = [ln.strip() for ln in out.splitlines() if "C75" in ln]
+            spills = sorted({ln.strip() for ln in out.splitlines()
+                             if "spill" in ln})
+            report[src] = {"serialized": serial, "spill_lines": spills}
+            log(f"build: ptxas {src}: {len(serial)} wgmma serialization "
+                f"notes (C75xx); spill lines {spills}")
+            check(not serial, f"ptxas serializes the wgmma pipeline of "
+                  f"{src}: {serial}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return report
+
+
+def forward_build(torch) -> dict:
+    """The bf16 flash forward as compiled (cudaFuncGetAttributes):
+    registers and local-memory (spill) bytes a thread of each of its four
+    arms, its dynamic shared memory and its (query rows, keys) tile, which
+    must be the one flash_tiles reports for the skip counts. A spill
+    fails the phase."""
+    from bert_pytorch_tpu_torch.ops.kernels.build import load_kernels
+
+    ext = load_kernels()
+    info = dict(ext.flash_fwd_info())
+    arms = ("plain", "plain_packed", "dropout", "dropout_packed")
+    log("build: flash_fwd_kernel: registers a thread "
+        + ", ".join(f"{a} {info[a + '_registers']}" for a in arms)
+        + "; spills (local bytes a thread) "
+        + ", ".join(f"{a} {info[a + '_local_bytes']}" for a in arms)
+        + f"; dynamic shared {info['dynamic_smem_bytes']} B (of 232448), "
+        f"{info['plain_max_threads']} threads a CTA, tile "
+        f"({info['tile_rows']}, {info['tile_keys']})")
+    check(all(info[a + "_local_bytes"] == 0 for a in arms),
+          "the flash forward spills to local memory")
+    check(tuple(ext.flash_tiles(True)["flash_attention_fwd"])
+          == (info["tile_rows"], info["tile_keys"]),
+          "flash_tiles and the forward disagree on its tile")
     return info
 
 
@@ -561,6 +728,20 @@ def check_flash_training_kernels(torch, np, results):
         for r, sd, sg, bs in cases:
             g = do if sg is None else do * (sg > 0).to(dtype)[:, :, None, None]
             out, lse = flash_attention(q, k, v, bs, sg, sd, r)
+            # every arm of the forward (rate 0 or not, packed or not)
+            # against its plain version before it feeds the backward
+            ref, lse_ref = flash_attention_ref(q, k, v, bs, sg, sd, r)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            lerr = (lse - lse_ref).abs().max().item()
+            pad_max = (out[sg == 0].abs().max().item()
+                       if sg is not None else 0.0)
+            check(err <= FLASH_TOL[name] and lerr <= LSE_TOL
+                  and pad_max == 0.0,
+                  f"flash {name} rate {r} seed {sd} packed {sg is not None}:"
+                  f" out error {err}, lse error {lerr}, pad rows {pad_max}")
+            fwd_err[name] = max(fwd_err.get(name, 0.0), err)
+            del ref, lse_ref
             skips = [torch.zeros(1, dtype=torch.int32, device="cuda")
                      for _ in range(2)]
             dq, delta = flash_attention_bwd_dq(q, k, v, bs, sg, out, lse, g,
@@ -841,6 +1022,8 @@ def check_lamb_kernels(torch, np, results):
 
 
 def phase_timing(torch, np, results, peaks):
+    """Every row as the device's time alone (`hide_host`), kernel, plain
+    version and library call alike."""
     import torch.nn.functional as F
 
     from bert_pytorch_tpu_torch.ops.attention import (
@@ -853,22 +1036,26 @@ def phase_timing(torch, np, results, peaks):
     gen = torch.Generator(device="cuda").manual_seed(1)
     bw = peaks["bytes_per_s"]
 
-    # LayerNorm at the 512 bucket, bf16 (the serving dtype)
+    # LayerNorm at the 512 bucket, bf16 (the serving dtype), f32 scale and
+    # bias as the model keeps them; F.layer_norm on a CUDA bf16 x refuses
+    # f32 ones (it wants one dtype), so the yardstick takes them in bf16
     rows = BATCH_ROWS * 512
     x = torch.randn(rows, HIDDEN, generator=gen, device="cuda").to(
         torch.bfloat16)
-    scale = torch.ones(HIDDEN, device="cuda")
-    bias = torch.zeros(HIDDEN, device="cuda")
+    scale = 1.0 + 0.1 * torch.randn(HIDDEN, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(HIDDEN, generator=gen, device="cuda")
     scale16, bias16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
     nbytes = 2 * rows * HIDDEN * 2 + 2 * HIDDEN * 4 + 2 * rows * 4
     nops = 8 * rows * HIDDEN
     bound = max(nbytes / bw, nops / peaks["f32_flops"]) * 1e3
     results["layer_norm_fwd"].update({
         "shape": [rows, HIDDEN], "dtype": "bfloat16",
-        "ms": timer(lambda: layer_norm_fwd(x, scale, bias)),
-        "plain_ms": timer(lambda: layer_norm_ref(x, scale, bias)),
-        "library_ms": timer(lambda: F.layer_norm(x, (HIDDEN,), scale16,
-                                                 bias16, 1e-12)),
+        "library_dtypes": "bf16 x, bf16 scale and bias (kernel: f32 ones)",
+        "ms": timer(lambda: layer_norm_fwd(x, scale, bias), hide_host=True),
+        "plain_ms": timer(lambda: layer_norm_ref(x, scale, bias),
+                          hide_host=True),
+        "library_ms": timer(lambda: F.layer_norm(
+            x, (HIDDEN,), scale16, bias16, 1e-12), hide_host=True),
         "bound_ms": bound,
         "bound_by": "bytes" if nbytes / bw >= nops / peaks["f32_flops"]
         else "operations",
@@ -890,11 +1077,12 @@ def phase_timing(torch, np, results, peaks):
     t_bytes, t_ops = nbytes / bw, nops / peaks["bf16_flops"]
     results["flash_attention_fwd"].update({
         "shape": [batch, seq, HEADS, HEAD_DIM], "dtype": "bfloat16",
-        "ms": timer(lambda: flash_attention(q, k, v, pad_bias, seg)),
+        "ms": timer(lambda: flash_attention(q, k, v, pad_bias, seg),
+                    hide_host=True),
         "plain_ms": timer(lambda: flash_attention_ref(q, k, v, pad_bias,
-                                                      seg)),
+                                                      seg), hide_host=True),
         "library_ms": timer(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask)),
+            qt, kt, vt, attn_mask=mask), hide_host=True),
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "operations": nops,
@@ -931,7 +1119,8 @@ def time_training_kernels(torch, results, peaks, timer):
     bound = bytes moved (each input read once, each output written once)
     over the memory rate, or the f32 operations over the f32 peak. And
     the plain hash_dropout over the attention probabilities, whose mask
-    the port emulates in int32 (timed beside the int64 emulation)."""
+    the port emulates in int32 (timed beside the int64 emulation). The
+    forward (#3) is timed as the device's time alone."""
     from bert_pytorch_tpu_torch.ops.attention import hash_dropout
     from bert_pytorch_tpu_torch.ops.layernorm import (
         add_dropout_layer_norm_bwd, add_dropout_layer_norm_bwd_ref,
@@ -969,10 +1158,10 @@ def time_training_kernels(torch, results, peaks, timer):
             [True, True, True]))))
     results["add_dropout_layer_norm_fwd"].update(row(
         3 * n * 2 + 2 * e * 4 + stats, 20 * n,
-        ms=timer(lambda: add_dropout_layer_norm_fwd(x, res, scale, bias,
-                                                    seed, rate)),
+        ms=timer(lambda: add_dropout_layer_norm_fwd(
+            x, res, scale, bias, seed, rate), hide_host=True),
         plain_ms=timer(lambda: add_dropout_layer_norm_stats_ref(
-            x, res, scale, bias, seed, rate)),
+            x, res, scale, bias, seed, rate), hide_host=True),
         library_ms=None))
     results["add_dropout_layer_norm_bwd"].update(row(
         5 * n * 2 + e * 4 + stats + vec, 28 * n,
@@ -1006,9 +1195,10 @@ def time_training_kernels(torch, results, peaks, timer):
 
 def time_flash_training_kernels(torch, np, results, peaks, timer):
     """The flash kernels of phase 2 at (16, 512, 16, 64) bf16 with a
-    padding bias: the forward at rate 0.1, the fused backward at rates 0.1
-    and 0, the dq and dk/dv pair and the pair as one backward at rate 0.1,
-    each beside its plain version; the library yardstick is
+    padding bias: the forward at rates 0.1 and 0 (the hash's share), the
+    fused backward at rates 0.1 and 0, the dq and dk/dv pair and the pair
+    as one backward at rate 0.1, each beside its plain version; the
+    library yardstick is
     scaled_dot_product_attention (forward, and its backward) with the same
     float mask at rate 0, since its dropout is another function. Bounds
     count each input read once and each output written once, and the
@@ -1055,18 +1245,27 @@ def time_flash_training_kernels(torch, np, results, peaks, timer):
     sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     go = do.transpose(1, 2)
     sdpa_fwd = timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask))
+        qt, kt, vt, attn_mask=mask), hide_host=True)
     # backward times are the device's alone (hide_host): autograd's host
     # work around SDPA's backward kernels is not theirs
     sdpa_bwd = timer(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), go,
                                                  retain_graph=True),
                      hide_host=True)
-    results["flash_attention_fwd"]["train_phase2"].update(row(
+    fwd = results["flash_attention_fwd"]["train_phase2"]
+    fwd.update(row(
         4 * tensor + rows_f32 + bias_bytes, 2 * product,
-        ms=timer(lambda: flash_attention(q, k, v, bias, None, seed, rate)),
+        ms=timer(lambda: flash_attention(q, k, v, bias, None, seed, rate),
+                 hide_host=True),
         plain_ms=timer(lambda: flash_attention_ref(q, k, v, bias, None,
-                                                   seed, rate)),
-        library_ms=sdpa_fwd))
+                                                   seed, rate),
+                       hide_host=True),
+        library_ms=sdpa_fwd,
+        # rate 0, the same inputs: the dropout hash's share is the
+        # difference
+        rate0_ms=timer(lambda: flash_attention(q, k, v, bias),
+                       hide_host=True),
+        rate0_plain_ms=timer(lambda: flash_attention_ref(q, k, v, bias),
+                             hide_host=True)))
     results["flash_attention_bwd_dq"].update(row(
         6 * tensor + 2 * rows_f32 + bias_bytes, 3 * product,
         ms=timer(lambda: flash_attention_bwd_dq(q, k, v, bias, None, out,
@@ -1107,11 +1306,11 @@ def time_flash_training_kernels(torch, np, results, peaks, timer):
         rate0_plain_ms=timer(lambda: flash_attention_bwd_ref(
             q, k, v, bias, None, out0, lse0, do)),
         pair_ms=timer(both, hide_host=True)))
-    fwd = results["flash_attention_fwd"]["train_phase2"]
-    log(f"timing: flash_attention_fwd phase 2 {fwd['shape']} bf16 rate "
-        f"{rate}: kernel {fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms,"
-        f" SDPA (rate 0) {fwd['library_ms']:.4f} ms, bound "
-        f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']})")
+    log(f"timing: flash_attention_fwd phase 2 {fwd['shape']} bf16: kernel "
+        f"{fwd['ms']:.4f} ms at rate {rate}, {fwd['rate0_ms']:.4f} ms at "
+        f"rate 0, plain {fwd['plain_ms']:.4f} ms, SDPA (rate 0) "
+        f"{fwd['library_ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms "
+        f"({fwd['bound_by']})")
     log(f"timing: flash backward as a whole {whole['shape']} bf16: fused "
         f"kernel {whole['ms']:.4f} ms at rate {rate}, {whole['rate0_ms']:.4f}"
         f" ms at rate 0; the dq + dk/dv pair {whole['pair_ms']:.4f} ms at "
@@ -1225,7 +1424,7 @@ def _profile_forward(torch, engine, batch):
         if str(ev.device_type).split(".")[-1] != "CUDA":
             continue
         name = ev.key
-        if "layer_norm_fwd_kernel" in name:
+        if "ln_fwd" in name:  # ln_fwd_row_kernel, ln_fwd_kernel
             cls = "layer_norm_fwd (kernel)"
         elif "flash_fwd" in name:
             cls = "flash_attention_fwd (kernel)"
@@ -1277,7 +1476,8 @@ def phase_serve(torch, np, summary, device="cuda",
         t0 = time.perf_counter()
         with torch.device(device):
             model = BertForQuestionAnswering(config)
-        init_weights(model, torch.Generator(device=device).manual_seed(0))
+        init_weights(model, torch.Generator(device=device).manual_seed(0),
+                     std=config.initializer_range)
         ckpt = os.path.join(tmp, "squad_large.pt")
         torch.save(model.state_dict(), ckpt)
         n_params = sum(p.numel() for p in model.parameters())
@@ -1541,7 +1741,7 @@ def _profile_step(torch, step_fn, state, batch, seeds):
             cls = "flash attention dk/dv (#10)"
         elif "ln_bwd_kernel" in name or "column_sum_kernel" in name:
             cls = "layer norm backward kernels (#2, #4)"
-        elif "ln_fwd_kernel" in name:
+        elif "ln_fwd" in name:  # ln_fwd_row_kernel, ln_fwd_kernel
             cls = "layer norm forward kernels (#1, #3)"
         elif "lamb_stage" in name:
             cls = "fused LAMB kernels (#11, #12)"
@@ -1768,7 +1968,8 @@ def phase_train(torch, np, summary, device="cuda",
         # and the kernels-vs-plain check
         with torch.device(device):
             model = BertForPreTraining(config, dtype=torch.bfloat16)
-        init_weights(model, torch.Generator(device=device).manual_seed(1))
+        init_weights(model, torch.Generator(device=device).manual_seed(1),
+                     std=config.initializer_range)
         weights = {k: v.detach().clone() for k, v in
                    model.state_dict().items()}
         loader = PretrainingDataLoader(
@@ -1911,10 +2112,12 @@ KERNEL_ROWS = {
         "route": "cuda",
         "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/layernorm.cu",
         "replaces": "bert_pytorch_tpu/ops/pallas/layernorm.py:311"},
+    # the bf16 forward (the main paths'); the f32 forward, which the
+    # kernels phase checks, stays in flash_attention.cu
     "flash_attention_fwd": {
         "route": "cuda",
         "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/"
-                  "flash_attention.cu",
+                  "flash_attention_fwd.cu",
         "replaces": "bert_pytorch_tpu/ops/pallas/flash_attention.py:660",
         # the bh-layout forward (#6) is the same kernel: strided reads
         "also_replaces": ["bert_pytorch_tpu/ops/pallas/flash_attention.py:698"]},
@@ -2067,10 +2270,15 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
                 from bert_pytorch_tpu_torch.ops.kernels.build import (
                     load_kernels)
 
-                load_kernels()
+                ptxas = ptxas_start()
+                try:
+                    load_kernels()
+                finally:
+                    summary["ptxas"] = ptxas_check(*ptxas)
                 summary["build_s"] = time.perf_counter() - t0
                 log(f"build: kernels built in {summary['build_s']:.1f} s")
                 summary["fused_bwd_build"] = fused_backward_build(torch)
+                summary["fwd_build"] = forward_build(torch)
             elif phase == "kernels":
                 from bert_pytorch_tpu_torch.ops.kernels import (
                     LAUNCHES, reset_launches)

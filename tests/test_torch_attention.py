@@ -119,10 +119,10 @@ def test_bf16_attention_keeps_dtype():
                                rtol=2e-2, atol=2e-2)
 
 
-def test_flash_dropout_not_ported():
-    """The flash dropout arm is ported now (tests/test_torch_flash_train.py
-    holds it against the Pallas kernels); a rate above 0 without a seed
-    stays refused, as the Pallas kernel requires one."""
+def test_flash_dropout_requires_seed():
+    """A rate above 0 without a seed is refused, as the Pallas kernel
+    requires one (tests/test_torch_flash_train.py holds the dropout arm
+    against the Pallas kernels)."""
     q, k, v, bias, _ = _inputs(128, False)
     with pytest.raises(ValueError, match="dropout_seed"):
         tatt.flash_attention(*_torch(q, k, v, bias), dropout_rate=0.1)
