@@ -157,7 +157,6 @@ std::vector<at::Tensor> ln_bwd_common(const at::Tensor& x,
   auto f32 = x.options().dtype(at::kFloat);
   auto dscale = at::empty({cols}, f32);
   auto dbias = at::empty({cols}, f32);
-  auto partial = at::empty({2 * bert_kernels::bwd_ctas(rows) * cols}, f32);
   bert_kernels::BwdParams p{};
   p.x = x.data_ptr();
   p.residual = residual != nullptr ? residual->data_ptr() : nullptr;
@@ -169,9 +168,10 @@ std::vector<at::Tensor> ln_bwd_common(const at::Tensor& x,
   p.dres = residual != nullptr ? dres.data_ptr() : nullptr;
   p.dscale = dscale.data_ptr<float>();
   p.dbias = dbias.data_ptr<float>();
-  p.partial = partial.data_ptr<float>();
   p.rows = rows;
   p.cols = static_cast<int>(cols);
+  auto partial = at::empty({2 * bert_kernels::bwd_ctas(p, dtype) * cols}, f32);
+  p.partial = partial.data_ptr<float>();
   const auto stream = c10::cuda::getCurrentCUDAStream().stream();
   if (residual == nullptr) {
     check_launch(bert_kernels::layer_norm_bwd(p, dtype, stream), what);

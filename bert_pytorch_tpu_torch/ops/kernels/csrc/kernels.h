@@ -42,7 +42,7 @@ cudaError_t adln_fwd(const void* x, const void* residual, const float* scale,
 // Backward of layer_norm_fwd (residual, dres null) and of adln_fwd. x,
 // residual, g, dx and dres are contiguous (rows, cols) tensors of one
 // dtype; scale (cols,), mean and rstd (rows,) f32; dscale and dbias (cols,)
-// f32 outputs; `partial` is f32 scratch of 2 * bwd_ctas(rows) * cols.
+// f32 outputs; `partial` is f32 scratch of 2 * bwd_ctas(p, dtype) * cols.
 struct BwdParams {
   const void* x;
   const void* residual;
@@ -63,8 +63,10 @@ cudaError_t layer_norm_bwd(const BwdParams& p, DType dtype,
                            cudaStream_t stream);
 cudaError_t adln_bwd(const BwdParams& p, DType dtype,
                      const DropoutArgs& dropout, cudaStream_t stream);
-// CTAs of a backward launch over `rows` rows, and the widest row it takes
-int bwd_ctas(int64_t rows);
+// CTAs of the row pass of a backward launch with these parameters (its
+// route: bf16 at width 1024, aligned, or the generic kernel), a function
+// of the shape and the route alone; and the widest row it takes
+int bwd_ctas(const BwdParams& p, DType dtype);
 int max_bwd_cols();
 
 // The flash kernels' dropout (`_keep_mask` of the Pallas kernels): keep a

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the forward kernels (#1, #3, #5/#6) of two checkouts on one card.
+"""Time the LayerNorm and flash kernels of two checkouts on one card.
 
-    python3 bert_pytorch_tpu_torch/tools/time_forward_ab.py --parent DIR \
+    python3 bert_pytorch_tpu_torch/tools/time_kernels_ab.py --parent DIR \
         [--out FILE]
 
 DIR is another checkout of the repo, e.g. the parent commit unpacked by
@@ -17,9 +17,18 @@ same seeded inputs at chip_smoke.py's timing shapes with chip_smoke.Timer
 - `host_ms`: the call's host work included, as chip_smoke.py timed the
   forward rows before it hid the host work.
 
+The kernels: the forwards (#1, #3, #5/#6) at chip_smoke.py's timing
+shapes, and the LayerNorm backwards (#2, and #4 at rate 0.1) at phase 1's
+(12288, 1024) and phase 2's (8192, 1024) bf16 rows. A backward is two
+launches, the row pass and the column pass of its cross-row sums; each
+backward row also carries the device time of each launch (`row_ms`,
+`column_ms`: chip_smoke.launch_split, torch.profiler's mean over the
+launches of 25 calls, L2 flushed before each, kernels told apart by name:
+`column_sum` in it, or `ln_bwd` without it).
+
 Each turn also times the library yardsticks (F.layer_norm, SDPA with the
-same float mask) the same two ways. The script prints one JSON line a
-turn and, last, one JSON object with each tree's mean of its two turns,
+same float mask, native_layer_norm_backward for #2) the same two ways.
+The script prints one JSON line a turn and, last, one JSON object with each tree's mean of its two turns,
 the card's name and power limit, and the integer-issue floor of the flash
 forward's dropout arm: 7 32-bit integer operations a score (the hash
 split into row and column terms: an xor, two multiplies, a shift and an
@@ -52,7 +61,7 @@ def _chip_smoke():
 
 
 def time_tree(tree: str) -> dict:
-    """One turn: the forward kernels of the checkout at `tree`."""
+    """One turn: the kernels of the checkout at `tree`."""
     sys.path.insert(0, tree)
     import numpy as np
     import torch
@@ -62,7 +71,8 @@ def time_tree(tree: str) -> dict:
     from bert_pytorch_tpu_torch.ops.attention import (
         flash_attention, make_attention_bias, make_segment_attention_bias)
     from bert_pytorch_tpu_torch.ops.layernorm import (
-        add_dropout_layer_norm_fwd, layer_norm_fwd)
+        add_dropout_layer_norm_bwd, add_dropout_layer_norm_fwd,
+        layer_norm_bwd, layer_norm_fwd)
 
     pkg = os.path.dirname(os.path.abspath(bert_pytorch_tpu_torch.__file__))
     if os.path.dirname(pkg) != os.path.abspath(tree):
@@ -100,6 +110,30 @@ def time_tree(tree: str) -> dict:
     both("add_dropout_layer_norm_fwd", lambda: add_dropout_layer_norm_fwd(
         x, res, ones, zeros, cs.FLASH_SEEDS[0], 0.1), shape=[n, cs.HIDDEN],
         rate=0.1)
+
+    # 2 and 4 (rate 0.1) at phase 1's and phase 2's rows, from the kernel
+    # forward's statistics; native_layer_norm_backward takes scale in the
+    # dtype of x
+    scale = 1.0 + 0.2 * torch.randn(cs.HIDDEN, generator=gen, device="cuda")
+    scale16 = scale.to(bf)
+    for tag, n in (("", cs.TRAIN_ROWS[0]), ("_phase2", cs.PHASE2_LN_ROWS)):
+        x = torch.randn(n, cs.HIDDEN, generator=gen, device="cuda").to(bf)
+        res = torch.randn(n, cs.HIDDEN, generator=gen, device="cuda").to(bf)
+        g = torch.randn(n, cs.HIDDEN, generator=gen, device="cuda").to(bf)
+        _, mean, rstd = layer_norm_fwd(x, scale, zeros)
+        ln = lambda: layer_norm_bwd(x, scale, mean, rstd, g)  # noqa: E731
+        both("layer_norm_bwd" + tag, ln,
+             lambda: torch.ops.aten.native_layer_norm_backward(
+                 g, x, [cs.HIDDEN], mean[:, None], rstd[:, None], scale16,
+                 scale16, [True, True, True]), shape=[n, cs.HIDDEN])
+        rows["layer_norm_bwd" + tag].update(
+            cs.launch_split(torch, timer, ln))
+        adln = lambda: add_dropout_layer_norm_bwd(  # noqa: E731
+            x, res, scale, mean, rstd, g, cs.FLASH_SEEDS[0], 0.1)
+        both("add_dropout_layer_norm_bwd" + tag, adln, shape=[n, cs.HIDDEN],
+             rate=0.1)
+        rows["add_dropout_layer_norm_bwd" + tag].update(
+            cs.launch_split(torch, timer, adln))
 
     # 5/6: the 512-bucket serving forward, packed, rate 0
     batch, seq = cs.BATCH_ROWS, 512
@@ -145,6 +179,7 @@ def _smi(query: str) -> str:
 
 
 def _mean_rows(turns: list) -> dict:
+    """Each tree's mean of its turns, the turns beside it."""
     out = {}
     for name, row in turns[0]["rows"].items():
         out[name] = dict(row)
@@ -175,7 +210,7 @@ def main(argv=None) -> int:
             [sys.executable, os.path.abspath(__file__), "--tree", tree],
             stdout=subprocess.PIPE, text=True, timeout=900)
         if proc.returncode != 0:
-            print(f"time_forward_ab: the {tag} turn ({tree}) exited "
+            print(f"time_kernels_ab: the {tag} turn ({tree}) exited "
                   f"{proc.returncode}", file=sys.stderr)
             return 1
         turn = json.loads(proc.stdout.strip().splitlines()[-1])

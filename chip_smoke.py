@@ -10,16 +10,20 @@ Phases, each of which must pass:
 2. build    the CUDA kernels, from this checkout's sources, timed, and the
             flash forward's and fused flash backward's registers, spills
             and shared memory as compiled (a spill in the forward fails);
-            beside the build, nvcc compiles those two sources alone for
-            ptxas's report, and a wgmma serialization note (C75xx) fails;
+            beside the build, nvcc compiles those two sources and
+            layernorm.cu alone for ptxas's report: a wgmma serialization
+            note (C75xx) fails, and so does a spill of the LayerNorm
+            backward's row kernel, whose registers it lists;
 3. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, in f32 and bf16, at the shapes the serving and training
             paths give it (LayerNorm at (8 * bucket, 1024) for every
             bucket; flash attention at (8, 512, 16, 64) with a padding bias
             and packed segments, and at S = 1024; the LayerNorm backward
             and the fused residual-dropout-LayerNorm forward and backward
-            at phase 1's (12288, 1024) and (1920, 1024), rates 0 and 0.1,
-            a negative and a positive seed), with the tolerances below;
+            at phase 1's (12288, 1024) and (1920, 1024), phase 2's
+            (8192, 1024) and a tail of 1003 rows, rates 0 and 0.1, a
+            negative and a positive seed, and the backward's generic
+            kernel at widths 768 and 1022), with the tolerances below;
             the segment tile skip must fire as often as the layout
             predicts, pad rows must come out exactly zero, dropped
             positions must match the plain mask exactly and every backward
@@ -30,7 +34,9 @@ Phases, each of which must pass:
             launch, median of repeats, as the device's time alone (the
             call's host work done before the start event); and the least
             time the card could take (bytes over the memory rate or
-            operations over the peak rate, whichever is larger);
+            operations over the peak rate, whichever is larger); the
+            LayerNorm backwards also at phase 2's rows, and by launch
+            (row pass, column pass: torch.profiler);
 5. serve    a seeded random BERT-Large QA checkpoint (24 layers, full
             width) served by bert_pytorch_tpu_torch.run_server.serve with
             the default buckets 64/128/256/512, 8 rows, 8 segments, packing
@@ -118,10 +124,17 @@ MODEL_TOL_F32 = 1e-3
 # Training kernels (#2-#4) at phase 1's (B * S, E) and (B * P, E) rows.
 # Backward outputs are compared relative to their largest magnitude: dx
 # and dres in f32 differ only in the order of the two row sums; in bf16
-# both sides round the same f32 value, so they may land one bf16 step
-# apart (2^-8 relative). dscale and dbias are f32 sums over up to 12288
-# rows in another order on either side.
+# both sides round the same f32 value, up to that order and the bf16 row
+# kernel's multiply by 1 / (1 - rate) where the plain version divides, so
+# they may land one bf16 step apart (2^-8 relative). dscale and dbias are
+# f32 sums over up to 12288 rows in another order on either side.
 TRAIN_ROWS = (96 * 128, 96 * 20)
+# phase 2's (B * S, E) rows: the residual tails' and the timing phase's
+# second shape for #2 and #4
+PHASE2_LN_ROWS = 16 * 512
+# the rows the kernels phase holds #2-#4 at: both phases' and a tail that
+# fills no CTA of either backward kernel
+TRAIN_CHECK_ROWS = TRAIN_ROWS + (PHASE2_LN_ROWS, 1003)
 TRAIN_TOL = {"float32": {"dx": 1e-5, "sums": 1e-5},
              "bfloat16": {"dx": 2 ** -7, "sums": 1e-5}}
 # Flash in training (#5/#6 dropout arm, #7-#10) at phase 2's microbatch
@@ -468,8 +481,37 @@ def fused_backward_build(torch) -> dict:
     return info
 
 
-# the wgmma kernels, compiled alone for ptxas's report beside the build
-PTXAS_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu")
+# the wgmma kernels and the LayerNorm kernels, compiled alone for ptxas's
+# report beside the build
+PTXAS_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
+                 "layernorm.cu")
+# kernels whose registers and spills the report lists; a spill fails
+PTXAS_WATCH = ("ln_bwd_row_kernel",)
+
+
+def ptxas_entries(out: str, watch) -> dict:
+    """Registers and spill bytes of each kernel entry of ptxas's -v report
+    whose (mangled) name holds one of `watch`, keyed by its name and
+    template arguments as mangled ("ln_bwd_row_kernelILb1EE...")."""
+    entries, name = {}, None
+    for ln in out.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            hit = [w for w in watch if w in mangled]
+            name = (mangled[mangled.index(hit[0]):][:40] if hit else None)
+            if name:
+                entries[name] = {}
+        elif name and "spill stores" in ln:
+            words = ln.replace(",", "").split()
+            entries[name]["spill_store_bytes"] = int(
+                words[words.index("spill") - 2])
+            entries[name]["spill_load_bytes"] = int(
+                words[words.index("loads") - 3])
+        elif name and "Used" in ln and "registers" in ln:
+            words = ln.replace(",", "").split()
+            entries[name]["registers"] = int(
+                words[words.index("registers") - 1])
+    return entries
 
 
 def ptxas_start():
@@ -507,11 +549,20 @@ def ptxas_check(tmp, procs) -> dict:
             serial = [ln.strip() for ln in out.splitlines() if "C75" in ln]
             spills = sorted({ln.strip() for ln in out.splitlines()
                              if "spill" in ln})
-            report[src] = {"serialized": serial, "spill_lines": spills}
+            watched = ptxas_entries(out, PTXAS_WATCH)
+            report[src] = {"serialized": serial, "spill_lines": spills,
+                           "kernels": watched}
             log(f"build: ptxas {src}: {len(serial)} wgmma serialization "
-                f"notes (C75xx); spill lines {spills}")
+                f"notes (C75xx); spill lines {spills}"
+                + (f"; {watched}" if watched else ""))
             check(not serial, f"ptxas serializes the wgmma pipeline of "
                   f"{src}: {serial}")
+            check(all(e.get("spill_store_bytes", 1) == 0
+                      for e in watched.values()),
+                  f"ptxas spills in {src}: {watched}")
+        found = [n for r in report.values() for n in r["kernels"]]
+        check(all(any(w in n for n in found) for w in PTXAS_WATCH),
+              f"ptxas reported none of {PTXAS_WATCH}: {found}")
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -555,11 +606,13 @@ def _rel(a, b) -> float:
 
 
 def check_training_kernels(torch, np, results):
-    """Kernels #2-#4 against their plain versions at the training path's
-    shapes ((B * S, E) and (B * P, E) of phase 1), f32 and bf16, rates 0
-    and 0.1, a negative and a positive seed; dropped positions compared
-    exactly (dx is 0 exactly where the plain mask drops), and every
-    backward run twice with bit-identical results."""
+    """Kernels #2-#4 against their plain versions at the training paths'
+    shapes ((B * S, E) and (B * P, E) of phase 1, (B * S, E) of phase 2)
+    and a tail row count, f32 and bf16, rates 0 and 0.1, a negative and a
+    positive seed; dropped positions compared exactly (dx is 0 exactly
+    where the plain mask drops), and every backward run twice with
+    bit-identical results. bf16 takes the backward's row kernel, f32 the
+    generic one (check_generic_layer_norm_bwd holds it at other widths)."""
     from bert_pytorch_tpu_torch.ops.layernorm import (
         add_dropout_layer_norm_bwd, add_dropout_layer_norm_bwd_ref,
         add_dropout_layer_norm_fwd, add_dropout_layer_norm_stats_ref,
@@ -581,7 +634,7 @@ def check_training_kernels(torch, np, results):
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         tol = TRAIN_TOL[name]
-        for rows in TRAIN_ROWS:
+        for rows in TRAIN_CHECK_ROWS:
             x = (randn(rows, HIDDEN) * 2.0 + 0.5).to(dtype)
             res = randn(rows, HIDDEN).to(dtype)
             g = randn(rows, HIDDEN).to(dtype)
@@ -655,6 +708,90 @@ def check_training_kernels(torch, np, results):
                          want[:2])
     for kernel, errs in worst.items():
         results[kernel] = {"max_abs_err": errs}
+    check_generic_layer_norm_bwd(torch, results)
+
+
+def check_generic_layer_norm_bwd(torch, results):
+    """The LayerNorm backward at widths other than 1024 (ln_bwd_kernel,
+    which the dispatcher keeps for them, for f32 and for unaligned
+    tensors): 768 (16-byte loads) and an odd 1022 (by the element), f32 and
+    bf16, #2 and #4 at rates 0 and 0.1, against the plain versions at
+    TRAIN_TOL; every call run twice with bit-identical results, dx zeros
+    exactly where the plain mask drops, and one launch counted a call."""
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES
+    from bert_pytorch_tpu_torch.ops.layernorm import (
+        add_dropout_layer_norm_bwd, add_dropout_layer_norm_bwd_ref,
+        add_dropout_layer_norm_stats_ref, hash_keep_mask, layer_norm_bwd,
+        layer_norm_bwd_ref, layer_norm_stats_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows, seed = 1003, FLASH_SEEDS[0]
+    before = (LAUNCHES["layer_norm_bwd"],
+              LAUNCHES["add_dropout_layer_norm_bwd"])
+    calls, worst = 0, {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    for cols in GENERIC_LN_COLS:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            tol = TRAIN_TOL[name]
+            x = (randn(rows, cols) * 2.0 + 0.5).to(dtype)
+            res = randn(rows, cols).to(dtype)
+            g = randn(rows, cols).to(dtype)
+            scale = 1.0 + 0.2 * randn(cols)
+            bias = 0.1 * randn(cols)
+            _, mean, rstd = layer_norm_stats_ref(x, scale, bias)
+            cases = [("plain", None,
+                      lambda: layer_norm_bwd(x, scale, mean, rstd, g),
+                      layer_norm_bwd_ref(x, scale, mean, rstd, g))]
+            for rate in (0.0, 0.1):
+                _, mr, rr = add_dropout_layer_norm_stats_ref(
+                    x, res, scale, bias, seed, rate)
+                cases.append((
+                    f"residual rate {rate}", rate,
+                    lambda mr=mr, rr=rr, rate=rate:
+                        add_dropout_layer_norm_bwd(x, res, scale, mr, rr, g,
+                                                   seed, rate),
+                    add_dropout_layer_norm_bwd_ref(x, res, scale, mr, rr, g,
+                                                   seed, rate)))
+            for what, rate, fn, want in cases:
+                got, again = fn(), fn()
+                calls += 2
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"ln_bwd_kernel {what} {name} ({rows}, {cols}): two "
+                      "runs differ")
+                errs = [_rel(a, b) for a, b in zip(got, want)]
+                n_act = len(got) - 2   # dx (and dres), then dscale, dbias
+                zeros = ""
+                if rate:
+                    keep = hash_keep_mask(seed, x.shape, rate, x.device)
+                    check(torch.equal(got[0] == 0, ~keep),
+                          f"ln_bwd_kernel {what} {name} ({rows}, {cols}): "
+                          "dx zeros do not match the mask")
+                    zeros = (f"; {int((~keep).sum().item())} dropped, "
+                             "zeros exact")
+                log(f"kernels: layer_norm_bwd {what} {name} ({rows}, {cols}) "
+                    f"(ln_bwd_kernel) rel err "
+                    + ", ".join(f"{e:.3g}" for e in errs)
+                    + f" (tol {tol['dx']:g} / {tol['sums']:g}); rerun "
+                    f"bit-identical{zeros}")
+                check(max(errs[:n_act]) <= tol["dx"]
+                      and max(errs[n_act:]) <= tol["sums"],
+                      f"ln_bwd_kernel {what} {name} ({rows}, {cols}): "
+                      f"errors {errs}")
+                worst[name] = max(worst.get(name, 0.0), max(errs[:n_act]))
+    launched = (LAUNCHES["layer_norm_bwd"] - before[0]
+                + LAUNCHES["add_dropout_layer_norm_bwd"] - before[1])
+    log(f"kernels: ln_bwd_kernel (widths {GENERIC_LN_COLS}): {launched} "
+        f"launches for {calls} wrapper calls")
+    check(launched == calls, f"ln_bwd_kernel checks: {launched} launches "
+          f"counted for {calls} calls")
+    results["layer_norm_bwd_generic"] = {
+        "widths": list(GENERIC_LN_COLS), "launches": launched,
+        "max_rel_err": worst}
 
 
 def padding_bias(torch, np, rng, batch: int, seq: int):
@@ -1114,13 +1251,49 @@ def _row_col_keep_int64(torch, seed, rows, cols, rate, device):
     return h > int(rate * float(2 ** 32))
 
 
+def launch_split(torch, timer, fn, reps: int = 25) -> dict:
+    """Mean device ms of each launch of a LayerNorm backward call, by
+    kernel: its row pass (`row_ms`: a kernel named ln_bwd...) and its
+    column pass (`column_ms`: column_sum_kernel), by torch.profiler over
+    `reps` calls with the L2 flushed before each; each a mean over the
+    launches the profiler recorded (`row_launches`, `column_launches`,
+    which should be `reps`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total = {"row": 0.0, "column": 0.0}
+    count = {"row": 0, "column": 0}
+    for ev in prof.key_averages():
+        if "column_sum" in ev.key:
+            kind = "column"
+        elif "ln_bwd" in ev.key:
+            kind = "row"
+        else:
+            continue
+        total[kind] += _device_ms(ev)
+        count[kind] += ev.count
+    out = {}
+    for kind in total:
+        out[f"{kind}_ms"] = total[kind] / max(count[kind], 1)
+        out[f"{kind}_launches"] = count[kind]
+    return out
+
+
 def time_training_kernels(torch, results, peaks, timer):
-    """#2-#4 at phase 1's (B * S, E) = (12288, 1024) bf16, rate 0.1;
-    bound = bytes moved (each input read once, each output written once)
-    over the memory rate, or the f32 operations over the f32 peak. And
-    the plain hash_dropout over the attention probabilities, whose mask
-    the port emulates in int32 (timed beside the int64 emulation). The
-    forward (#3) is timed as the device's time alone."""
+    """#2-#4 at phase 1's (B * S, E) = (12288, 1024) bf16, rate 0.1, and
+    the backwards #2 and #4 also at phase 2's (8192, 1024) (`phase2`),
+    each as the device's time alone, the backwards also by launch (row
+    pass, column pass); bound = bytes moved (each input read once, each
+    output written once) over the memory rate, or the f32 operations over
+    the f32 peak. And the plain hash_dropout over the attention
+    probabilities, whose mask the port emulates in int32 (timed beside the
+    int64 emulation)."""
     from bert_pytorch_tpu_torch.ops.attention import hash_dropout
     from bert_pytorch_tpu_torch.ops.layernorm import (
         add_dropout_layer_norm_bwd, add_dropout_layer_norm_bwd_ref,
@@ -1128,19 +1301,14 @@ def time_training_kernels(torch, results, peaks, timer):
         hash_keep_mask, layer_norm_bwd, layer_norm_bwd_ref, layer_norm_fwd)
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    rows, e, seed, rate = TRAIN_ROWS[0], HIDDEN, -1640531527, 0.1
-    n = rows * e
+    e, seed, rate = HIDDEN, -1640531527, 0.1
     bf = torch.bfloat16
-    x = torch.randn(rows, e, generator=gen, device="cuda").to(bf)
-    res = torch.randn(rows, e, generator=gen, device="cuda").to(bf)
-    g = torch.randn(rows, e, generator=gen, device="cuda").to(bf)
     scale = torch.ones(e, device="cuda")
     bias = torch.zeros(e, device="cuda")
-    _, mean, rstd = layer_norm_fwd(x, scale, bias)
-    stats = 2 * rows * 4
+    scale16 = scale.to(bf)
     vec = 2 * e * 4
 
-    def row(nbytes, nops, **kw):
+    def row(rows, nbytes, nops, **kw):
         t_bytes = nbytes / peaks["bytes_per_s"]
         t_ops = nops / peaks["f32_flops"]
         return dict(kw, shape=[rows, e], dtype="bfloat16",
@@ -1148,28 +1316,54 @@ def time_training_kernels(torch, results, peaks, timer):
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     bytes=nbytes, operations=nops)
 
-    scale16 = scale.to(bf)
-    results["layer_norm_bwd"].update(row(
-        3 * n * 2 + stats + e * 4 + vec, 11 * n,
-        ms=timer(lambda: layer_norm_bwd(x, scale, mean, rstd, g)),
-        plain_ms=timer(lambda: layer_norm_bwd_ref(x, scale, mean, rstd, g)),
-        library_ms=timer(lambda: torch.ops.aten.native_layer_norm_backward(
-            g, x, [e], mean[:, None], rstd[:, None], scale16, scale16,
-            [True, True, True]))))
-    results["add_dropout_layer_norm_fwd"].update(row(
-        3 * n * 2 + 2 * e * 4 + stats, 20 * n,
-        ms=timer(lambda: add_dropout_layer_norm_fwd(
-            x, res, scale, bias, seed, rate), hide_host=True),
-        plain_ms=timer(lambda: add_dropout_layer_norm_stats_ref(
-            x, res, scale, bias, seed, rate), hide_host=True),
-        library_ms=None))
-    results["add_dropout_layer_norm_bwd"].update(row(
-        5 * n * 2 + e * 4 + stats + vec, 28 * n,
-        ms=timer(lambda: add_dropout_layer_norm_bwd(x, res, scale, mean,
-                                                    rstd, g, seed, rate)),
-        plain_ms=timer(lambda: add_dropout_layer_norm_bwd_ref(
-            x, res, scale, mean, rstd, g, seed, rate)),
-        library_ms=None))
+    for rows in (TRAIN_ROWS[0], PHASE2_LN_ROWS):
+        n = rows * e
+        stats = 2 * rows * 4
+        x = torch.randn(rows, e, generator=gen, device="cuda").to(bf)
+        res = torch.randn(rows, e, generator=gen, device="cuda").to(bf)
+        g = torch.randn(rows, e, generator=gen, device="cuda").to(bf)
+        _, mean, rstd = layer_norm_fwd(x, scale, bias)
+        ln = lambda: layer_norm_bwd(x, scale, mean, rstd, g)  # noqa: E731
+        adln = lambda: add_dropout_layer_norm_bwd(  # noqa: E731
+            x, res, scale, mean, rstd, g, seed, rate)
+        times = {
+            "layer_norm_bwd": row(
+                rows, 3 * n * 2 + stats + e * 4 + vec, 11 * n,
+                ms=timer(ln, hide_host=True),
+                plain_ms=timer(lambda: layer_norm_bwd_ref(
+                    x, scale, mean, rstd, g), hide_host=True),
+                library_ms=timer(
+                    lambda: torch.ops.aten.native_layer_norm_backward(
+                        g, x, [e], mean[:, None], rstd[:, None], scale16,
+                        scale16, [True, True, True]), hide_host=True),
+                **launch_split(torch, timer, ln)),
+            "add_dropout_layer_norm_bwd": row(
+                rows, 5 * n * 2 + e * 4 + stats + vec, 28 * n, rate=rate,
+                ms=timer(adln, hide_host=True),
+                plain_ms=timer(lambda: add_dropout_layer_norm_bwd_ref(
+                    x, res, scale, mean, rstd, g, seed, rate),
+                    hide_host=True),
+                library_ms=None, **launch_split(torch, timer, adln))}
+        if rows == TRAIN_ROWS[0]:
+            for name, r in times.items():
+                results[name].update(r)
+            results["add_dropout_layer_norm_fwd"].update(row(
+                rows, 3 * n * 2 + 2 * e * 4 + stats, 20 * n, rate=rate,
+                ms=timer(lambda: add_dropout_layer_norm_fwd(
+                    x, res, scale, bias, seed, rate), hide_host=True),
+                plain_ms=timer(lambda: add_dropout_layer_norm_stats_ref(
+                    x, res, scale, bias, seed, rate), hide_host=True),
+                library_ms=None))
+        else:
+            for name, r in times.items():
+                results[name]["phase2"] = r
+    for name in ("layer_norm_bwd", "add_dropout_layer_norm_bwd"):
+        for r in (results[name], results[name]["phase2"]):
+            log(f"timing: {name} {r['shape']}: row pass {r['row_ms']:.4f} "
+                f"ms, column pass {r['column_ms']:.4f} ms (profiler, mean "
+                f"of {r['row_launches']} / {r['column_launches']} "
+                f"launches); the wrapper {r['ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms")
 
     # hash_dropout over phase 1's attention probabilities (96, 16, 128,
     # 128) bf16: 48 calls per microbatch (24 forward, 24 backward)
@@ -1739,8 +1933,10 @@ def _profile_step(torch, step_fn, state, batch, seeds):
             cls = "flash attention dq (#9)"
         elif "flash_bwd_dkv" in name:
             cls = "flash attention dk/dv (#10)"
-        elif "ln_bwd_kernel" in name or "column_sum_kernel" in name:
-            cls = "layer norm backward kernels (#2, #4)"
+        elif "column_sum_kernel" in name:
+            cls = "layer norm backward column pass (#2, #4)"
+        elif "ln_bwd" in name:  # ln_bwd_row_kernel, ln_bwd_kernel
+            cls = "layer norm backward row pass (#2, #4)"
         elif "ln_fwd" in name:  # ln_fwd_row_kernel, ln_fwd_kernel
             cls = "layer norm forward kernels (#1, #3)"
         elif "lamb_stage" in name:
@@ -2154,7 +2350,8 @@ KERNEL_ROWS = {
 # only some rows have (the fused backward at rate 0, the pair beside it)
 _LINE_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "shape", "rate")
-_EXTRA_KEYS = ("rate0_ms", "rate0_plain_ms", "pair_ms")
+_EXTRA_KEYS = ("rate0_ms", "rate0_plain_ms", "pair_ms", "row_ms",
+               "column_ms")
 
 
 def _line_numbers(r: dict) -> dict:
@@ -2172,7 +2369,9 @@ def kernels_line(results: dict, by_path: dict, in_checks: dict) -> list:
     not part of `launches`), and its measured numbers. The flash forward
     runs at two shapes and rates (serving, rate 0; phase-2 training, rate
     0.1, its dropout arm): its row carries the training numbers, the arm of
-    the slice that launches it most, and both under `variants`."""
+    the slice that launches it most, and both under `variants`. The
+    LayerNorm backwards carry phase 1's (12288, 1024), and both phases'
+    under `variants`."""
     line = []
     for name, row in KERNEL_ROWS.items():
         counts = {path: c[name] for path, c in by_path.items()}
@@ -2183,6 +2382,11 @@ def kernels_line(results: dict, by_path: dict, in_checks: dict) -> list:
             variants = {"serve": nums,
                         "train_phase2": _line_numbers(r["train_phase2"])}
             nums = variants["train_phase2"]
+        elif "phase2" in r:
+            variants = {"train": nums,
+                        "train_phase2": _line_numbers(
+                            dict(r["phase2"],
+                                 max_abs_err=r.get("max_abs_err", {})))}
         line.append(dict(row, name=name, launches=sum(counts.values()),
                          launches_by_path=counts,
                          launches_in_checks=in_checks.get(name), **nums,
