@@ -28,8 +28,9 @@ padding bias, packed-sequence `segment_ids` (B, S) with 1..n per row and
 - `flash_attention`, `flash_attention_bwd_dq` and `flash_attention_bwd_dkv`
   wrap the CUDA kernels that replace the Pallas flash forward (bf16:
   ops/kernels/csrc/flash_attention_fwd.cu, sequences of whole 128-key
-  tiles; f32: flash_attention.cu) and split backward
-  (flash_attention.cu); `flash_attention_bwd`
+  tiles; f32: flash_attention.cu) and split backward (bf16:
+  flash_attention_split_bwd.cu, sequences of whole 128-key tiles; f32:
+  flash_attention.cu); `flash_attention_bwd`
   wraps the fused dq/dk/dv kernel that replaces the fused Pallas backward
   (ops/kernels/csrc/flash_attention_bwd.cu), which `fused_bwd_takes`
   sends bf16 at head dim 64 and seq <= FUSED_BWD_MAX_SEQ (512) to;
@@ -408,10 +409,12 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            skipped: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dq kernel wrapper: (dq, delta (B, H, S) f32). The kernel forms
-    delta = rowsum(dO * out) for its q tile in its prologue and writes it
-    out for the dk/dv kernel. CUDA tensors: q/k/v as the forward takes
-    them, out and do contiguous (B, S, H, D) in q's dtype, lse (B, H, S)
-    f32. CPU tensors take the plain version."""
+    delta = rowsum(dO * out) for its q tile and writes it out for the
+    dk/dv kernel. CUDA tensors: q/k/v as the forward takes them (bf16
+    sequences a multiple of 128), out and do contiguous (B, S, H, D) in
+    q's dtype, lse (B, H, S) f32; anything else raises. `skipped` gains
+    the (q-tile, k-tile) pairs skipped by the segment test (bf16: 64
+    queries by 128 keys). CPU tensors take the plain version."""
     rate = _flash_rate(dropout_seed, dropout_rate)
     if not q.is_cuda:
         delta = flash_attention_delta_ref(out, do)
@@ -436,7 +439,10 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                             skipped: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk/dv kernel wrapper: (dk, dv), from the lse of the forward and the
-    delta of flash_attention_bwd_dq. CPU tensors take the plain version."""
+    delta of flash_attention_bwd_dq; CUDA tensors as that wrapper takes
+    them, delta contiguous (B, H, S) f32. `skipped` gains the (q-tile,
+    k-tile) pairs skipped by the segment test (bf16: 64 queries by 64
+    keys). CPU tensors take the plain version."""
     rate = _flash_rate(dropout_seed, dropout_rate)
     if not q.is_cuda:
         return flash_attention_bwd_dkv_ref(q, k, v, bias, segment_ids, lse,

@@ -20,7 +20,7 @@ CSRC_DIR = os.path.join(KERNELS_DIR, "csrc")
 BUILD_DIR = os.path.join(KERNELS_DIR, "_build")
 SOURCES = ("binding.cpp", "layernorm.cu", "flash_attention.cu",
            "flash_attention_fwd.cu", "flash_attention_bwd.cu",
-           "fused_optim.cu")
+           "flash_attention_split_bwd.cu", "fused_optim.cu")
 EXTENSION_NAME = "bert_pytorch_tpu_torch_kernels"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 
@@ -33,8 +33,8 @@ def load_kernels(verbose: bool = False):
     `add_dropout_layer_norm_fwd`, `add_dropout_layer_norm_bwd`,
     `flash_attention_fwd`, `flash_attention_bwd_dq`,
     `flash_attention_bwd_dkv`, `flash_attention_bwd` (the fused backward),
-    `flash_bwd_fused_info`, `flash_fwd_info`, `flash_tiles`, the flash
-    kernels' tile sizes, and `lamb_stage1`, `lamb_stage2`). Raises if CUDA
+    `flash_bwd_fused_info`, `flash_fwd_info`, `flash_split_bwd_info`,
+    `flash_tiles`, the flash kernels' tile sizes, and `lamb_stage1`, `lamb_stage2`). Raises if CUDA
     or the toolchain is missing — there is no other route to the
     kernels."""
     global _ext

@@ -291,6 +291,15 @@ void check_bhs(const at::Tensor& t, const at::Tensor& q, const char* name) {
               name, " must be a contiguous float32 (B, H, S) tensor");
 }
 
+// The bf16 pair takes sequences of whole tiles of its work items (its
+// dq tile's keys).
+void check_pair_seq(const at::Tensor& q, const char* what) {
+  if (q.scalar_type() != at::kBFloat16) return;
+  const int64_t keys = bert_kernels::flash_bwd_dq_tile().keys;
+  TORCH_CHECK(q.size(1) % keys == 0, what, " takes bfloat16 sequences of "
+              "whole ", keys, "-key tiles, got ", q.size(1));
+}
+
 std::vector<at::Tensor> flash_attention_fwd(
     const at::Tensor& q, const at::Tensor& k, const at::Tensor& v,
     const c10::optional<at::Tensor>& bias,
@@ -329,6 +338,7 @@ std::vector<at::Tensor> flash_attention_bwd_dq(
   p.f = flash_params(q, k, v, bias, segment_ids, skipped, scale,
                      flash_dropout(seed, threshold, keep_div, apply),
                      "flash_attention_bwd_dq");
+  check_pair_seq(q, "flash_attention_bwd_dq");
   check_like(out, q, "out");
   check_like(dout, q, "dout");
   check_bhs(lse, q, "lse");
@@ -358,6 +368,7 @@ std::vector<at::Tensor> flash_attention_bwd_dkv(
   p.f = flash_params(q, k, v, bias, segment_ids, skipped, scale,
                      flash_dropout(seed, threshold, keep_div, apply),
                      "flash_attention_bwd_dkv");
+  check_pair_seq(q, "flash_attention_bwd_dkv");
   check_like(dout, q, "dout");
   check_bhs(lse, q, "lse");
   check_bhs(delta, q, "delta");
@@ -451,6 +462,34 @@ std::map<std::string, int64_t> flash_bwd_fused_info(int64_t seq) {
   out["dynamic_smem_bytes"] =
       bert_kernels::flash_bwd_fused_smem(static_cast<int>(seq));
   out["max_seq"] = bert_kernels::flash_bwd_fused_max_seq();
+  return out;
+}
+
+// The bf16 pair as compiled: registers, local (spill) and static shared
+// bytes of each arm of its dq and dk/dv kernels (dropout or not, packed
+// segments or not), keyed "dq_" / "dkv_" + arm, and each kernel's dynamic
+// shared memory.
+std::map<std::string, int64_t> flash_split_bwd_info() {
+  std::map<std::string, int64_t> out;
+  for (const bool dkv : {false, true}) {
+    const std::string kern = dkv ? "dkv_" : "dq_";
+    for (const bool drop : {true, false}) {
+      for (const bool seg : {false, true}) {
+        bert_kernels::KernelInfo info{};
+        const cudaError_t err =
+            bert_kernels::flash_split_bwd_info(dkv, drop, seg, &info);
+        TORCH_CHECK(err == cudaSuccess, "cudaFuncGetAttributes: ",
+                    cudaGetErrorString(err));
+        const std::string arm = kern + (drop ? "dropout" : "plain") +
+                                (seg ? "_packed_" : "_");
+        out[arm + "registers"] = info.registers;
+        out[arm + "local_bytes"] = info.local_bytes;
+        out[arm + "static_smem_bytes"] = info.static_smem_bytes;
+        out[arm + "max_threads"] = info.max_threads;
+      }
+    }
+    out[kern + "dynamic_smem_bytes"] = bert_kernels::flash_split_bwd_smem(dkv);
+  }
   return out;
 }
 
@@ -656,6 +695,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "fused flash-attention backward, bf16: (dq, dk, dv)");
   m.def("flash_bwd_fused_info", &flash_bwd_fused_info,
         "the fused backward's registers, spills and shared memory");
+  m.def("flash_split_bwd_info", &flash_split_bwd_info,
+        "the bf16 backward pair's registers, spills and shared memory");
   m.def("flash_fwd_info", &flash_fwd_info,
         "the bf16 flash forward's registers, spills and shared memory");
   m.def("flash_tiles", &flash_tiles,

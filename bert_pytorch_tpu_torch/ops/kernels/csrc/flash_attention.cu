@@ -1,6 +1,8 @@
-// Flash attention for Hopper: the f32 forward (with its dropout arm) and
-// the backward pair. The bf16 forward is flash_attention_fwd.cu's, the
-// fused bf16 backward flash_attention_bwd.cu's.
+// Flash attention for Hopper in f32, the checking dtype: the forward (with
+// its dropout arm) and the backward pair. The bf16 forward is
+// flash_attention_fwd.cu's, the fused bf16 backward flash_attention_bwd.cu's
+// and the bf16 pair flash_attention_split_bwd.cu's; this file's entry
+// points send bf16 there.
 //
 // Replaces the Pallas kernels of bert_pytorch_tpu/ops/pallas/
 // flash_attention.py. Forward: `_fwd_kernel_native` and `_fwd_kernel`, one
@@ -14,34 +16,19 @@
 // product, and the output is divided by 1 - rate after the divide by l.
 // Backward: `_dq_kernel` and `_dkv_kernel`, the split grid layouts of one
 // function (dq, dk, dv recomputed from lse with the same masks and tile
-// skip) whose fused layouts `_dqkv_kernel_native` and `_dqkv_kernel` are
-// flash_attention_bwd.cu's, here two kernels: one CTA per (64-row q tile,
-// head, batch) for dq, one per (64-key tile, head, batch) for dk and dv,
-// so every output element has one owner and a rerun gives the same bits
-// (no atomics in any numeric output). delta =
-// rowsum(dO * out), which the Pallas wrappers compute outside any kernel,
-// is formed in the dq kernel's prologue and written out for the dk/dv
-// kernel, which runs after it.
+// skip), here two kernels: one CTA per (64-row q tile, head, batch) for
+// dq, one per (32-key tile, head, batch) for dk and dv, so every output
+// element has one owner and a rerun gives the same bits (no atomics in any
+// numeric output). delta = rowsum(dO * out), which the Pallas wrappers
+// compute outside any kernel, is formed in the dq kernel's prologue and
+// written out for the dk/dv kernel, which runs after it.
 //
-// What bounds them: at BERT-Large's phase-2 shape (16, 512, 16, 64) in
-// bf16 the backward pair needs 6 + 8 products of S^2 D per head
-// (dq: s, dp, dq; dk/dv: s, dp, dv, dk) against ~10 tensors of traffic:
-// close to the balance point, so neither the (S, S) score matrix nor any
-// transposed copy may touch device memory. The design: the CTA's own tile
-// (q, or k and v) sits in registers as mma fragments; a loop streams the
-// other tiles through shared memory; scores, probabilities and
-// accumulators stay in f32 registers, and an accumulator of one product is
-// the A operand of the next without leaving registers. q/k/v are read in
-// the model's (B, S, H, D) layout through their strides, so the fused QKV
-// projection's output feeds the kernels without a transpose or a copy.
-// bf16 products go through mma.sync m16n8k16 (bf16 in, f32 accumulate) on
-// the tensor cores; f32 inputs go through f32 FMA. The dropout mask is
-// evaluated in registers from the global (query, key) position, never
-// stored. This is the simple version: no cp.async pipelining, no wgmma or
-// TMA, and the backward pair evaluates s, p and the mask in both kernels.
-// bf16 backwards at head dim 64 and S <= 512 (phase 2's) take the fused
-// kernel of flash_attention_bwd.cu instead; the pair serves f32 and longer
-// sequences.
+// The design: f32 inputs go through f32 FMA (the tensor cores take no
+// f32), the CTA's own rows in shared memory, the other tiles streamed
+// through it; scores, probabilities and accumulators stay in registers
+// and no (S, S) tile touches device memory. The dropout mask is evaluated
+// in registers from the global (query, key) position, never stored. q/k/v
+// are read in the model's (B, S, H, D) layout through their strides.
 #include "common.cuh"
 #include "flash_common.cuh"
 #include "kernels.h"
@@ -84,381 +71,6 @@ __device__ __forceinline__ bool skip_tile(const int32_t* seg_row, int start,
   if (seg_overlap(mn, mx, omn, omx)) return false;
   if (threadIdx.x == 0 && skipped) atomicAdd(skipped, 1);
   return true;  // block-uniform: every thread computed the same ranges
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores. 4 warps x 16 rows of the CTA's own 64-row tile, the
-// other operand streamed in 64-row tiles. Fragment layouts are PTX's for
-// m16n8k16: lane = 4 * g + t; an A fragment holds rows g and g + 8, columns
-// 2t, 2t + 1 (+ 8); B holds k rows 2t, 2t + 1 (+ 8) of column g; the f32
-// accumulator holds rows g and g + 8, columns 2t, 2t + 1.
-// ---------------------------------------------------------------------------
-
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-
-// the same rows of two panels (K and V, or q and dO) -> two tiles, the two
-// loads of a row issued together so their latencies overlap
-template <int ROWS, int HD, int PITCH>
-__device__ __forceinline__ void load_rows2_bf16(
-    uint16_t (*ta)[PITCH], const uint16_t* sa, int64_t stride_a,
-    uint16_t (*tb)[PITCH], const uint16_t* sb, int64_t stride_b, int row0,
-    int seq) {
-  constexpr int kChunks = HD / 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 va = make_uint4(0, 0, 0, 0), vb = make_uint4(0, 0, 0, 0);
-    if (row0 + r < seq) {
-      va = *reinterpret_cast<const uint4*>(sa + (row0 + r) * stride_a + c);
-      vb = *reinterpret_cast<const uint4*>(sb + (row0 + r) * stride_b + c);
-    }
-    *reinterpret_cast<uint4*>(&ta[r][c]) = va;
-    *reinterpret_cast<uint4*>(&tb[r][c]) = vb;
-  }
-}
-
-// A fragments of rows r0..r0+15 of a (.., HD) bf16 tile
-template <int HD, int PITCH>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[HD / 16][4],
-                                             const uint16_t (*tile)[PITCH],
-                                             int r0, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int r = r0 + g, c = kk * 16 + 2 * t;
-    f[kk][0] = *reinterpret_cast<const uint32_t*>(&tile[r][c]);
-    f[kk][1] = *reinterpret_cast<const uint32_t*>(&tile[r + 8][c]);
-    f[kk][2] = *reinterpret_cast<const uint32_t*>(&tile[r][c + 8]);
-    f[kk][3] = *reinterpret_cast<const uint32_t*>(&tile[r + 8][c + 8]);
-  }
-}
-
-// acc (16 x N) += A (16 x HD) T^T, T an (N, HD) bf16 tile
-template <int N, int HD, int PITCH>
-__device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4],
-                                        const uint32_t (&a)[HD / 16][4],
-                                        const uint16_t (*tile)[PITCH], int g,
-                                        int t) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-    for (int nt = 0; nt < N / 8; ++nt) {
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&tile[nt * 8 + g][kk * 16 + 2 * t]);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&tile[nt * 8 + g][kk * 16 + 8 + 2 * t]);
-      mma_bf16_16816(acc[nt], a[kk], b0, b1);
-    }
-  }
-}
-
-// acc (16 x HD) += bf16(P) T: P (16 x K) in accumulator layout, rounded to
-// bf16 as the reference casts it, is the A operand straight from the
-// registers; T a (K, HD) bf16 tile whose B fragments pair two rows, so they
-// are gathered as 16-bit halves
-template <int K, int HD, int PITCH>
-__device__ __forceinline__ void mma_pt(float (&acc)[HD / 8][4],
-                                       const float (&pm)[K / 8][4],
-                                       const uint16_t (*tile)[PITCH], int g,
-                                       int t) {
-#pragma unroll
-  for (int kc = 0; kc < K / 16; ++kc) {
-    uint32_t a[4];
-    a[0] = pack_bf16(pm[2 * kc][0], pm[2 * kc][1]);
-    a[1] = pack_bf16(pm[2 * kc][2], pm[2 * kc][3]);
-    a[2] = pack_bf16(pm[2 * kc + 1][0], pm[2 * kc + 1][1]);
-    a[3] = pack_bf16(pm[2 * kc + 1][2], pm[2 * kc + 1][3]);
-    const int r0 = kc * 16 + 2 * t;
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-      const int c = dt * 8 + g;
-      const uint32_t b0 = static_cast<uint32_t>(tile[r0][c]) |
-                          (static_cast<uint32_t>(tile[r0 + 1][c]) << 16);
-      const uint32_t b1 = static_cast<uint32_t>(tile[r0 + 8][c]) |
-                          (static_cast<uint32_t>(tile[r0 + 9][c]) << 16);
-      mma_bf16_16816(acc[dt], a, b0, b1);
-    }
-  }
-}
-
-// dq: one CTA per (64-row q tile, head, batch). q and dO sit in registers
-// as A fragments; K/V tiles stream through shared memory; per tile s = q
-// k^T and dp = dO v^T on the tensor cores, then in registers p = exp(s -
-// lse) (undropped), dp dropped and scaled, ds = p (dp - delta), and dq +=
-// bf16(ds) k. 37 KB of static shared memory.
-template <int HD, bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16_kernel(FlashBwdParams bp) {
-  const FlashParams& p = bp.f;
-  constexpr int kPad = HD + 8;
-  __shared__ __align__(16) uint16_t qs[kBM][kPad];
-  __shared__ __align__(16) uint16_t dos[kBM][kPad];
-  __shared__ __align__(16) uint16_t ks[kBN][kPad];
-  __shared__ __align__(16) uint16_t vs[kBN][kPad];
-  __shared__ float bias_s[kBN];
-  __shared__ int segk_s[kBN];
-  __shared__ float delta_s[kBM];
-  __shared__ int red[8];
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBM;
-  const int S = p.seq, H = p.heads;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const uint16_t* qg = static_cast<const uint16_t*>(p.q) +
-                       b * p.q_strides[0] + h * p.q_strides[2];
-  const uint16_t* kg = static_cast<const uint16_t*>(p.k) +
-                       b * p.k_strides[0] + h * p.k_strides[2];
-  const uint16_t* vg = static_cast<const uint16_t*>(p.v) +
-                       b * p.v_strides[0] + h * p.v_strides[2];
-  // out, dO and dq: contiguous (B, S, H, D)
-  const int64_t row_stride = static_cast<int64_t>(H) * HD;
-  const int64_t bh_off = (static_cast<int64_t>(b) * S * H + h) * HD;
-  const uint16_t* og = static_cast<const uint16_t*>(p.out) + bh_off;
-  const uint16_t* dg = static_cast<const uint16_t*>(bp.dout) + bh_off;
-  const int32_t* seg_row = p.seg ? p.seg + static_cast<int64_t>(b) * S : nullptr;
-  const float* bias_row = p.bias ? p.bias + static_cast<int64_t>(b) * S : nullptr;
-  const float* lse_row = p.lse + (static_cast<int64_t>(b) * H + h) * S;
-  float* delta_row = bp.delta + (static_cast<int64_t>(b) * H + h) * S;
-
-  load_rows2_bf16<kBM, HD, kPad>(qs, qg, p.q_strides[1], dos, dg, row_stride,
-                                 q0, S);
-  __syncthreads();
-  {  // delta = rowsum(f32(dO) * f32(out)): two threads per row
-    const int r = tid >> 1, c0 = (tid & 1) * (HD / 2);
-    float acc = 0.f;
-    if (q0 + r < S) {
-      const uint16_t* orow = og + (q0 + r) * row_stride + c0;
-      for (int c = 0; c < HD / 2; c += 8) {
-        uint16_t ov[8];
-        load_vec<8>(orow + c, ov);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          acc += BF16::to_f32(dos[r][c0 + c + j]) * BF16::to_f32(ov[j]);
-      }
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if ((tid & 1) == 0) {
-      delta_s[r] = acc;
-      if (q0 + r < S) delta_row[q0 + r] = acc;
-    }
-  }
-  int qmn = 0, qmx = 0;
-  if (seg_row) seg_range(seg_row, q0, kBM, S, red, qmn, qmx);
-  __syncthreads();
-
-  uint32_t qf[HD / 16][4], dof[HD / 16][4];
-  load_a_frags<HD, kPad>(qf, qs, warp * 16, g, t);
-  load_a_frags<HD, kPad>(dof, dos, warp * 16, g, t);
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
-  const int segq_a = (seg_row && row_a < S) ? seg_row[row_a] : 0;
-  const int segq_b = (seg_row && row_b < S) ? seg_row[row_b] : 0;
-  // pad (segment-0) and out-of-range rows contribute nothing
-  const bool live_a = row_a < S && (!seg_row || segq_a > 0);
-  const bool live_b = row_b < S && (!seg_row || segq_b > 0);
-  const float lse_a = live_a ? lse_row[row_a] : 0.f;
-  const float lse_b = live_b ? lse_row[row_b] : 0.f;
-  const float dl_a = delta_s[warp * 16 + g], dl_b = delta_s[warp * 16 + g + 8];
-  const uint32_t seed_bh = kDrop ? seed_bh_of(p.drop, b, H, h) : 0u;
-
-  float dq[HD / 8][4];
-#pragma unroll
-  for (int i = 0; i < HD / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
-
-  const int n_tiles = (S + kBN - 1) / kBN;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBN;
-    if (skip_tile(seg_row, k0, kBN, S, red, qmn, qmx, p.skipped)) continue;
-    __syncthreads();
-    load_rows2_bf16<kBN, HD, kPad>(ks, kg, p.k_strides[1], vs, vg,
-                                   p.v_strides[1], k0, S);
-    if (tid < kBN) {
-      const bool in = k0 + tid < S;
-      bias_s[tid] = (bias_row && in) ? bias_row[k0 + tid] : 0.f;
-      segk_s[tid] = (seg_row && in) ? seg_row[k0 + tid] : 0;
-    }
-    __syncthreads();
-
-    float s[kBN / 8][4], dp[kBN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    }
-    mma_abt<kBN, HD, kPad>(s, qf, ks, g, t);
-    mma_abt<kBN, HD, kPad>(dp, dof, vs, g, t);
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1), key = k0 + col;
-        const bool hi = e >= 2;
-        float sv = s[nt][e] * p.scale + bias_s[col];
-        if (seg_row) {
-          const int sq = hi ? segq_b : segq_a;
-          if (!(sq == segk_s[col] && sq > 0)) sv = kNegInf;
-        }
-        const bool live = (hi ? live_b : live_a) && key < S;
-        const float pv = live ? expf(sv - (hi ? lse_b : lse_a)) : 0.f;
-        float dpv = dp[nt][e];
-        if constexpr (kDrop) {
-          dpv = flash_keep(hi ? row_b : row_a, key, seed_bh, p.drop.threshold)
-                    ? dpv / p.drop.keep_div
-                    : 0.f;
-        }
-        s[nt][e] = pv * (dpv - (hi ? dl_b : dl_a));  // ds
-      }
-    }
-    mma_pt<kBN, HD, kPad>(dq, s, ks, g, t);
-  }
-
-  uint16_t* dqg = static_cast<uint16_t*>(bp.dq) + bh_off;
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (row_a < S)
-      *reinterpret_cast<uint32_t*>(dqg + row_a * row_stride + c) =
-          pack_bf16(dq[dt][0] * p.scale, dq[dt][1] * p.scale);
-    if (row_b < S)
-      *reinterpret_cast<uint32_t*>(dqg + row_b * row_stride + c) =
-          pack_bf16(dq[dt][2] * p.scale, dq[dt][3] * p.scale);
-  }
-}
-
-// dk, dv: one CTA per (64-key tile, head, batch). k and v sit in registers
-// as A fragments; q/dO tiles with their lse, delta and segment ids stream
-// through shared memory; per tile s^T = k q^T and dp^T = v dO^T on the
-// tensor cores, then p^T, p_drop^T and ds^T in registers, dv +=
-// bf16(p_drop^T) dO and dk += bf16(ds^T) q. 37 KB of static shared memory.
-template <int HD, bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16_kernel(FlashBwdParams bp) {
-  const FlashParams& p = bp.f;
-  constexpr int kPad = HD + 8;
-  __shared__ __align__(16) uint16_t ks[kBN][kPad];
-  __shared__ __align__(16) uint16_t vs[kBN][kPad];
-  __shared__ __align__(16) uint16_t qs[kBM][kPad];
-  __shared__ __align__(16) uint16_t dos[kBM][kPad];
-  __shared__ float lse_s[kBM];
-  __shared__ float delta_s[kBM];
-  __shared__ int segq_s[kBM];
-  __shared__ int red[8];
-
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kBN;
-  const int S = p.seq, H = p.heads;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const uint16_t* qg = static_cast<const uint16_t*>(p.q) +
-                       b * p.q_strides[0] + h * p.q_strides[2];
-  const uint16_t* kg = static_cast<const uint16_t*>(p.k) +
-                       b * p.k_strides[0] + h * p.k_strides[2];
-  const uint16_t* vg = static_cast<const uint16_t*>(p.v) +
-                       b * p.v_strides[0] + h * p.v_strides[2];
-  const int64_t row_stride = static_cast<int64_t>(H) * HD;
-  const int64_t bh_off = (static_cast<int64_t>(b) * S * H + h) * HD;
-  const uint16_t* dg = static_cast<const uint16_t*>(bp.dout) + bh_off;
-  const int32_t* seg_row = p.seg ? p.seg + static_cast<int64_t>(b) * S : nullptr;
-  const float* bias_row = p.bias ? p.bias + static_cast<int64_t>(b) * S : nullptr;
-  const float* lse_row = p.lse + (static_cast<int64_t>(b) * H + h) * S;
-  const float* delta_row = bp.delta + (static_cast<int64_t>(b) * H + h) * S;
-
-  load_rows2_bf16<kBN, HD, kPad>(ks, kg, p.k_strides[1], vs, vg,
-                                 p.v_strides[1], k0, S);
-  int kmn = 0, kmx = 0;
-  if (seg_row) seg_range(seg_row, k0, kBN, S, red, kmn, kmx);
-  __syncthreads();
-
-  uint32_t kf[HD / 16][4], vf[HD / 16][4];
-  load_a_frags<HD, kPad>(kf, ks, warp * 16, g, t);
-  load_a_frags<HD, kPad>(vf, vs, warp * 16, g, t);
-  const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;
-  const int segk_a = (seg_row && key_a < S) ? seg_row[key_a] : 0;
-  const int segk_b = (seg_row && key_b < S) ? seg_row[key_b] : 0;
-  const float bias_a = (bias_row && key_a < S) ? bias_row[key_a] : 0.f;
-  const float bias_b = (bias_row && key_b < S) ? bias_row[key_b] : 0.f;
-  const uint32_t seed_bh = kDrop ? seed_bh_of(p.drop, b, H, h) : 0u;
-
-  float dk[HD / 8][4], dv[HD / 8][4];
-#pragma unroll
-  for (int i = 0; i < HD / 8; ++i) {
-    dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
-    dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
-  }
-
-  const int n_tiles = (S + kBM - 1) / kBM;
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    const int q0 = qt * kBM;
-    if (skip_tile(seg_row, q0, kBM, S, red, kmn, kmx, p.skipped)) continue;
-    __syncthreads();
-    load_rows2_bf16<kBM, HD, kPad>(qs, qg, p.q_strides[1], dos, dg,
-                                   row_stride, q0, S);
-    if (tid < kBM) {
-      const bool in = q0 + tid < S;
-      lse_s[tid] = in ? lse_row[q0 + tid] : 0.f;
-      delta_s[tid] = in ? delta_row[q0 + tid] : 0.f;
-      segq_s[tid] = (seg_row && in) ? seg_row[q0 + tid] : 0;
-    }
-    __syncthreads();
-
-    float st[kBM / 8][4], dpt[kBM / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBM / 8; ++nt) {
-      st[nt][0] = st[nt][1] = st[nt][2] = st[nt][3] = 0.f;
-      dpt[nt][0] = dpt[nt][1] = dpt[nt][2] = dpt[nt][3] = 0.f;
-    }
-    mma_abt<kBM, HD, kPad>(st, kf, qs, g, t);
-    mma_abt<kBM, HD, kPad>(dpt, vf, dos, g, t);
-#pragma unroll
-    for (int nt = 0; nt < kBM / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1), qrow = q0 + col;
-        const bool hi = e >= 2;
-        const int key = hi ? key_b : key_a;
-        const int sq = segq_s[col];
-        float sv = st[nt][e] * p.scale + (hi ? bias_b : bias_a);
-        if (seg_row && !(sq == (hi ? segk_b : segk_a) && sq > 0)) sv = kNegInf;
-        const bool live = qrow < S && key < S && (!seg_row || sq > 0);
-        const float pv = live ? expf(sv - lse_s[col]) : 0.f;
-        float dpv = dpt[nt][e], pd = pv;
-        if constexpr (kDrop) {
-          const bool keep = flash_keep(qrow, key, seed_bh, p.drop.threshold);
-          dpv = keep ? dpv / p.drop.keep_div : 0.f;
-          pd = keep ? pv / p.drop.keep_div : 0.f;
-        }
-        dpt[nt][e] = pv * (dpv - delta_s[col]);  // ds^T
-        st[nt][e] = pd;                           // p_drop^T
-      }
-    }
-    mma_pt<kBM, HD, kPad>(dv, st, dos, g, t);
-    mma_pt<kBM, HD, kPad>(dk, dpt, qs, g, t);
-  }
-
-  uint16_t* dkg = static_cast<uint16_t*>(bp.dk) + bh_off;
-  uint16_t* dvg = static_cast<uint16_t*>(bp.dv) + bh_off;
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (key_a < S) {
-      *reinterpret_cast<uint32_t*>(dkg + key_a * row_stride + c) =
-          pack_bf16(dk[dt][0] * p.scale, dk[dt][1] * p.scale);
-      *reinterpret_cast<uint32_t*>(dvg + key_a * row_stride + c) =
-          pack_bf16(dv[dt][0], dv[dt][1]);
-    }
-    if (key_b < S) {
-      *reinterpret_cast<uint32_t*>(dkg + key_b * row_stride + c) =
-          pack_bf16(dk[dt][2] * p.scale, dk[dt][3] * p.scale);
-      *reinterpret_cast<uint32_t*>(dvg + key_b * row_stride + c) =
-          pack_bf16(dv[dt][2], dv[dt][3]);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -870,18 +482,14 @@ cudaError_t flash_attention_fwd(const FlashParams& p, DType dtype,
 
 cudaError_t flash_attention_bwd_dq(const FlashBwdParams& p, DType dtype,
                                    cudaStream_t stream) {
-  if (dtype == kBFloat16)
-    return launch(flash_bwd_dq_bf16_kernel<64, true>,
-                  flash_bwd_dq_bf16_kernel<64, false>, p, p.f, kBM, stream);
+  if (dtype == kBFloat16) return flash_attention_bwd_dq_bf16(p, stream);
   return launch(flash_bwd_dq_f32_kernel<64, true>,
                 flash_bwd_dq_f32_kernel<64, false>, p, p.f, kDqM, stream);
 }
 
 cudaError_t flash_attention_bwd_dkv(const FlashBwdParams& p, DType dtype,
                                     cudaStream_t stream) {
-  if (dtype == kBFloat16)
-    return launch(flash_bwd_dkv_bf16_kernel<64, true>,
-                  flash_bwd_dkv_bf16_kernel<64, false>, p, p.f, kBN, stream);
+  if (dtype == kBFloat16) return flash_attention_bwd_dkv_bf16(p, stream);
   return launch(flash_bwd_dkv_f32_kernel<64, true>,
                 flash_bwd_dkv_f32_kernel<64, false>, p, p.f, kKvN, stream);
 }
@@ -889,8 +497,8 @@ cudaError_t flash_attention_bwd_dkv(const FlashBwdParams& p, DType dtype,
 void flash_tiles(DType dtype, FlashTile tiles[3]) {
   if (dtype == kBFloat16) {
     tiles[0] = flash_fwd_tile();
-    tiles[1] = {kBM, kBN};
-    tiles[2] = {kBM, kBN};
+    tiles[1] = flash_bwd_dq_tile();
+    tiles[2] = flash_bwd_dkv_tile();
   } else {
     tiles[0] = {kFM, kFN};
     tiles[1] = {kDqM, kDqN};

@@ -136,33 +136,6 @@ __device__ __forceinline__ Item item_of(int item, int seq, int heads) {
   return {bh / heads, bh - bh / heads * heads, (item - bh * nqb) * kQB};
 }
 
-// [min non-pad, max] segment id of n = 32 * N positions from `start`, the
-// whole warp taking part
-template <int N>
-__device__ __forceinline__ void warp_seg_range(const int32_t* seg_row,
-                                               int start, int lane, int& mn,
-                                               int& mx) {
-  int hi = 0, lo = kSegBig;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int v = seg_row[start + 32 * i + lane];
-    hi = max(hi, v);
-    if (v > 0) lo = min(lo, v);
-  }
-  mx = warp_max(hi);
-  mn = warp_min(lo);
-}
-
-// the rest of `_keep_mask` once the row and column terms are mixed:
-// x = (r ^ (r >> 16)) ^ (c ^ (c >> 16)) is the hash's input after its
-// first xorshift
-__device__ __forceinline__ uint32_t keep_mix(uint32_t x) {
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  return x;
-}
-
 template <bool kDrop, bool kSeg>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 flash_fwd_kernel(const __grid_constant__ FwdMaps maps, FlashParams p,
@@ -566,16 +539,6 @@ FwdKernel fwd_kernel(bool drop, bool seg) {
   if (drop)
     return seg ? flash_fwd_kernel<true, true> : flash_fwd_kernel<true, false>;
   return seg ? flash_fwd_kernel<false, true> : flash_fwd_kernel<false, false>;
-}
-
-// SMs of the current card, read once per device
-int sm_count() {
-  static int counts[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (counts[dev] == 0)
-    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
-  return counts[dev];
 }
 
 }  // namespace

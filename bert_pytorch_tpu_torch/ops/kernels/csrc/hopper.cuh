@@ -1,8 +1,9 @@
 // Hopper building blocks the flash kernels share (flash_attention_fwd.cu,
-// flash_attention_bwd.cu): shared-memory addresses, ldmatrix, the
-// 128-byte swizzle, wgmma descriptors, the wgmma instructions and their
-// fences, mbarriers, TMA loads, ex2, and the host side of TMA (tensor maps
-// of a bf16 (B, S, H, 64) tensor read through its strides).
+// flash_attention_bwd.cu, flash_attention_split_bwd.cu): shared-memory
+// addresses, ldmatrix, the 128-byte swizzle, wgmma descriptors, the wgmma
+// instructions and their fences, mbarriers, TMA loads, ex2, and the host
+// side: the card's SM count and TMA tensor maps (of a bf16 (B, S, H, 64)
+// tensor read through its strides, and of rows of 4-byte elements).
 #pragma once
 
 #include <cuda.h>
@@ -174,6 +175,29 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// d (64 x 64) = (scale_d ? d : 0) + a (64 x 16) b (16 x 64), both
+// K-major by descriptor; the accumulator is eight [4] of 8 columns
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[8][4],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d (64 x 32) = (scale_d ? d : 0) + a (64 x 16) b (16 x 32), both
 // MN-major by descriptor
 __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[4][4],
@@ -270,6 +294,16 @@ __device__ __forceinline__ void tma_load_row(void* dst, const CUtensorMap* map,
 }
 
 // -- host: tensor maps --------------------------------------------------------
+
+// SMs of the current card, read once per device
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0)
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
+}
 
 constexpr int kMapCols = 64;  // head dim: one 128-byte swizzle atom a row
 

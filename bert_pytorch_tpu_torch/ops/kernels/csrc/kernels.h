@@ -144,6 +144,19 @@ cudaError_t flash_attention_bwd_dq(const FlashBwdParams& p, DType dtype,
 cudaError_t flash_attention_bwd_dkv(const FlashBwdParams& p, DType dtype,
                                     cudaStream_t stream);
 
+// The bf16 pair (flash_attention_split_bwd.cu), head_dim 64: sequences of
+// whole 128-row tiles, others refused with cudaErrorInvalidValue. Their
+// (query rows, keys) tiles are the grain of their segment tile skip;
+// flash_split_bwd_smem(dkv) is the dynamic shared memory of a launch of
+// the dq (false) or the dk/dv (true) kernel.
+cudaError_t flash_attention_bwd_dq_bf16(const FlashBwdParams& p,
+                                        cudaStream_t stream);
+cudaError_t flash_attention_bwd_dkv_bf16(const FlashBwdParams& p,
+                                         cudaStream_t stream);
+FlashTile flash_bwd_dq_tile();
+FlashTile flash_bwd_dkv_tile();
+int flash_split_bwd_smem(bool dkv);
+
 // The (query rows, keys) tile of the forward, dq and dk/dv kernels for a
 // dtype, in that order: the grain of their segment tile skip.
 void flash_tiles(DType dtype, FlashTile tiles[3]);
@@ -173,6 +186,10 @@ struct KernelInfo {
 cudaError_t flash_bwd_fused_info(bool dropout, KernelInfo* info);
 // the bf16 forward's arms: with or without dropout, packed segments
 cudaError_t flash_fwd_info(bool dropout, bool segments, KernelInfo* info);
+// the bf16 pair's arms: the dq (dkv false) or dk/dv kernel, with or
+// without dropout, packed segments
+cudaError_t flash_split_bwd_info(bool dkv, bool dropout, bool segments,
+                                 KernelInfo* info);
 
 // Fused multi-tensor LAMB (fused_optim.cu). The host passes device copies
 // of a per-tensor table and a chunk table; one CTA takes the elements

@@ -18,8 +18,10 @@ same seeded inputs at chip_smoke.py's timing shapes with chip_smoke.Timer
   forward rows before it hid the host work.
 
 The kernels: the forwards (#1, #3, #5/#6) at chip_smoke.py's timing
-shapes, and the LayerNorm backwards (#2, and #4 at rate 0.1) at phase 1's
-(12288, 1024) and phase 2's (8192, 1024) bf16 rows. A backward is two
+shapes, the LayerNorm backwards (#2, and #4 at rate 0.1) at phase 1's
+(12288, 1024) and phase 2's (8192, 1024) bf16 rows, and the flash
+backward's dq and dk/dv pair (#9/#10, bf16, a padding bias, rate 0.1) at
+(16, 512), (8, 1024) and (4, 2048) x 16 heads x 64. A backward is two
 launches, the row pass and the column pass of its cross-row sums; each
 backward row also carries the device time of each launch (`row_ms`,
 `column_ms`: chip_smoke.launch_split, torch.profiler's mean over the
@@ -69,7 +71,8 @@ def time_tree(tree: str) -> dict:
 
     import bert_pytorch_tpu_torch
     from bert_pytorch_tpu_torch.ops.attention import (
-        flash_attention, make_attention_bias, make_segment_attention_bias)
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        make_attention_bias, make_segment_attention_bias)
     from bert_pytorch_tpu_torch.ops.layernorm import (
         add_dropout_layer_norm_bwd, add_dropout_layer_norm_fwd,
         layer_norm_bwd, layer_norm_fwd)
@@ -166,6 +169,29 @@ def time_tree(tree: str) -> dict:
          lambda: flash_attention(q, k, v, pad),
          lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
          shape=shape, rate=0.0)
+    # 9/10: the dq and dk/dv pair, bf16 with a padding bias, rate 0.1, at
+    # phase 2's shape and at seq 1024 and 2048 (the same 8192 tokens)
+    for batch, seq in (cs.PHASE2_ATTN,) + cs.PAIR_LONG_SHAPES:
+        pad = cs.padding_bias(torch, np, np.random.RandomState(seq), batch,
+                              seq)
+        qkv = torch.randn(batch, seq, 3, cs.HEADS, cs.HEAD_DIM,
+                          generator=gen, device="cuda").to(bf)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        do = torch.randn(batch, seq, cs.HEADS, cs.HEAD_DIM, generator=gen,
+                         device="cuda").to(bf)
+        seed, shape = cs.FLASH_SEEDS[0], [batch, seq, cs.HEADS, cs.HEAD_DIM]
+        out, lse = flash_attention(q, k, v, pad, None, seed, 0.1)
+        _, delta = flash_attention_bwd_dq(q, k, v, pad, None, out, lse, do,
+                                          seed, 0.1)
+        both(f"flash_attention_bwd_dq_{batch}x{seq}",
+             lambda: flash_attention_bwd_dq(q, k, v, pad, None, out, lse, do,
+                                            seed, 0.1),
+             shape=shape, rate=0.1)
+        both(f"flash_attention_bwd_dkv_{batch}x{seq}",
+             lambda: flash_attention_bwd_dkv(q, k, v, pad, None, lse, delta,
+                                             do, seed, 0.1),
+             shape=shape, rate=0.1)
+        del qkv, q, k, v, do, out, lse, delta
     props = torch.cuda.get_device_properties(0)
     return {"tree": tree, "kind": props.name,
             "sms": props.multi_processor_count, "rows": rows}

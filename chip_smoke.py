@@ -8,12 +8,13 @@ Phases, each of which must pass:
 
 1. device   the card's name and power limit (nvidia-smi) and the versions;
 2. build    the CUDA kernels, from this checkout's sources, timed, and the
-            flash forward's and fused flash backward's registers, spills
-            and shared memory as compiled (a spill in the forward fails);
-            beside the build, nvcc compiles those two sources and
-            layernorm.cu alone for ptxas's report: a wgmma serialization
-            note (C75xx) fails, and so does a spill of the LayerNorm
-            backward's row kernel, whose registers it lists;
+            flash forward's, fused flash backward's and backward pair's
+            registers, spills and shared memory as compiled (a spill in
+            the forward or the pair fails); beside the build, nvcc
+            compiles those three sources and layernorm.cu alone for
+            ptxas's report: a wgmma serialization note (C75xx) fails, and
+            so does a spill of the LayerNorm backward's row kernel or of
+            the pair's kernels, whose registers it lists;
 3. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, in f32 and bf16, at the shapes the serving and training
             paths give it (LayerNorm at (8 * bucket, 1024) for every
@@ -36,8 +37,14 @@ Phases, each of which must pass:
             time the card could take (bytes over the memory rate or
             operations over the peak rate, whichever is larger); the
             LayerNorm backwards also at phase 2's rows, and by launch
-            (row pass, column pass: torch.profiler);
-5. serve    a seeded random BERT-Large QA checkpoint (24 layers, full
+            (row pass, column pass: torch.profiler); the flash backward
+            pair also at (8, 1024) and (4, 2048) and in f32;
+5. model_seq1024  BERT-Large's widths cut to 2 layers at 8 x 1024
+            tokens, bf16: one microbatch's loss and gradients through the
+            kernels (the flash backward by the dq and dk/dv pair, each
+            launched once a layer, the fused backward never) against the
+            plain versions;
+6. serve    a seeded random BERT-Large QA checkpoint (24 layers, full
             width) served by bert_pytorch_tpu_torch.run_server.serve with
             the default buckets 64/128/256/512, 8 rows, 8 segments, packing
             on, bf16: SQuAD requests over HTTP, one of them in the 512
@@ -45,7 +52,7 @@ Phases, each of which must pass:
             counts, zeroed just before, show every forward went through the
             kernels; one packed 512 batch of the engine is held against the
             same weights run with the plain versions;
-6. train    a seeded random BERT-Large (24 layers, full width, vocab 30528)
+7. train    a seeded random BERT-Large (24 layers, full width, vocab 30528)
             trained for 3 phase-1 steps (the run config's microbatch of
             96 x 128, accumulation 2) by the entry point's trainer
             (run_pretraining.train, --fused_optim auto) over synthetic
@@ -57,7 +64,7 @@ Phases, each of which must pass:
             the kernels and on route off; one microbatch through the
             kernels held against the plain versions (f32 and bf16 loss and
             gradients);
-7. train_phase2  the same for phase 2: 3 steps under the phase-2 run
+8. train_phase2  the same for phase 2: 3 steps under the phase-2 run
             config (microbatch 16 x 512, 80 predictions, accumulation 2),
             where attention runs the flash forward with dropout and the
             fused flash backward (no launch of the split pair); it
@@ -69,8 +76,10 @@ The kernels phase also holds the flash kernels of training at phase 2's
 (16, 512, 16, 64): the forward's dropout arm, the dropout mask read out of
 the forward and out of dv (of the pair and of the fused backward) and
 compared exactly, and the fused backward and the split pair against their
-plain version; the timing phase times them (the fused backward at rates
-0.1 and 0) beside their plain versions and scaled_dot_product_attention.
+plain version; and the split pair again at (8, 1024) and (4, 2048), the
+lengths where bf16 takes it. The timing phase times them (the fused
+backward at rates 0.1 and 0) beside their plain versions and
+scaled_dot_product_attention.
 The launches the kernels phase makes for its checks are reported apart
 from the main paths' (`launches_in_checks`). It holds the fused LAMB stages
 (#11, #12) against their plain versions bit for bit over BERT-Large's 302
@@ -373,6 +382,7 @@ def phase_kernels(torch, np, results):
     results["flash_attention_fwd"] = {"max_abs_err": fl_err}
     check_training_kernels(torch, np, results)
     check_flash_training_kernels(torch, np, results)
+    check_pair_long(torch, np, results)
     check_lamb_kernels(torch, np, results)
 
 
@@ -484,9 +494,10 @@ def fused_backward_build(torch) -> dict:
 # the wgmma kernels and the LayerNorm kernels, compiled alone for ptxas's
 # report beside the build
 PTXAS_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
-                 "layernorm.cu")
+                 "flash_attention_split_bwd.cu", "layernorm.cu")
 # kernels whose registers and spills the report lists; a spill fails
-PTXAS_WATCH = ("ln_bwd_row_kernel",)
+PTXAS_WATCH = ("ln_bwd_row_kernel", "flash_bwd_dq_bf16_kernel",
+               "flash_bwd_dkv_bf16_kernel")
 
 
 def ptxas_entries(out: str, watch) -> dict:
@@ -596,6 +607,31 @@ def forward_build(torch) -> dict:
           == (info["tile_rows"], info["tile_keys"]),
           "flash_tiles and the forward disagree on its tile")
     return info
+
+
+def split_backward_build(torch) -> dict:
+    """The bf16 backward pair as compiled (cudaFuncGetAttributes):
+    registers and local-memory (spill) bytes a thread of each arm of its
+    dq and dk/dv kernels, their dynamic shared memory, and the tiles
+    flash_tiles reports for the skip counts. A spill fails the phase."""
+    from bert_pytorch_tpu_torch.ops.kernels.build import load_kernels
+
+    ext = load_kernels()
+    info = dict(ext.flash_split_bwd_info())
+    tiles = ext.flash_tiles(True)
+    arms = ("plain", "plain_packed", "dropout", "dropout_packed")
+    for kern in ("dq", "dkv"):
+        log(f"build: flash_bwd_{kern}_bf16_kernel: registers a thread "
+            + ", ".join(f"{a} {info[f'{kern}_{a}_registers']}" for a in arms)
+            + "; spills (local bytes a thread) "
+            + ", ".join(f"{a} {info[f'{kern}_{a}_local_bytes']}"
+                        for a in arms)
+            + f"; dynamic shared {info[kern + '_dynamic_smem_bytes']} B (of "
+            f"232448), {info[kern + '_plain_max_threads']} threads a CTA, "
+            f"tile {tuple(tiles['flash_attention_bwd_' + kern])}")
+        check(all(info[f"{kern}_{a}_local_bytes"] == 0 for a in arms),
+              f"the flash backward's {kern} kernel spills to local memory")
+    return dict(info, tiles={k: list(v) for k, v in tiles.items()})
 
 
 def _rel(a, b) -> float:
@@ -812,13 +848,11 @@ def check_flash_training_kernels(torch, np, results):
     backward pair (f32 and bf16) and the fused backward (bf16, the main
     path's) against flash_attention_bwd_ref at rates 0 and 0.1 and once
     with packed segments (skip counts as the layout predicts), every
-    backward run twice with bit-identical results."""
+    backward run twice with bit-identical results (backward_case)."""
     from bert_pytorch_tpu_torch.ops.attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_dkv,
-        flash_attention_bwd_dq, flash_attention_bwd_ref,
-        flash_attention_delta_ref, flash_attention_ref, flash_keep_all,
+        flash_attention_bwd_dq, flash_attention_ref, flash_keep_all,
         make_attention_bias)
-    from bert_pytorch_tpu_torch.ops.kernels.build import load_kernels
 
     batch, seq = PHASE2_ATTN
     rate = 0.1
@@ -859,82 +893,9 @@ def check_flash_training_kernels(torch, np, results):
 
         # the backward pair: rates 0 and 0.1 over the padding bias, then
         # packed segments (pad rows' cotangent zero, as the model gives)
-        cases = [(r, sd, None, bias) for r in (0.0, rate)
-                 for sd in ((None,) if r == 0.0 else FLASH_SEEDS)]
-        cases.append((rate, FLASH_SEEDS[0], seg, seg_bias))
-        for r, sd, sg, bs in cases:
-            g = do if sg is None else do * (sg > 0).to(dtype)[:, :, None, None]
-            out, lse = flash_attention(q, k, v, bs, sg, sd, r)
-            # every arm of the forward (rate 0 or not, packed or not)
-            # against its plain version before it feeds the backward
-            ref, lse_ref = flash_attention_ref(q, k, v, bs, sg, sd, r)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            lerr = (lse - lse_ref).abs().max().item()
-            pad_max = (out[sg == 0].abs().max().item()
-                       if sg is not None else 0.0)
-            check(err <= FLASH_TOL[name] and lerr <= LSE_TOL
-                  and pad_max == 0.0,
-                  f"flash {name} rate {r} seed {sd} packed {sg is not None}:"
-                  f" out error {err}, lse error {lerr}, pad rows {pad_max}")
-            fwd_err[name] = max(fwd_err.get(name, 0.0), err)
-            del ref, lse_ref
-            skips = [torch.zeros(1, dtype=torch.int32, device="cuda")
-                     for _ in range(2)]
-            dq, delta = flash_attention_bwd_dq(q, k, v, bs, sg, out, lse, g,
-                                               sd, r, skipped=skips[0])
-            dk, dv = flash_attention_bwd_dkv(q, k, v, bs, sg, lse, delta, g,
-                                             sd, r, skipped=skips[1])
-            dq2, delta2 = flash_attention_bwd_dq(q, k, v, bs, sg, out, lse,
-                                                 g, sd, r)
-            dk2, dv2 = flash_attention_bwd_dkv(q, k, v, bs, sg, lse, delta2,
-                                               g, sd, r)
-            want = flash_attention_bwd_ref(q, k, v, bs, sg, out, lse, g, sd,
-                                           r)
-            delta_ref = flash_attention_delta_ref(out, g)
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in
-                      ((dq, dq2), (dk, dk2), (dv, dv2), (delta, delta2))),
-                  f"flash backward {name} rate {r}: two runs differ")
-            errs = [_rel(a, b) for a, b in zip((dq, dk, dv), want)]
-            derr = _rel(delta, delta_ref)
-            what = ("packed segments" if sg is not None
-                    else f"padding bias, rate {r} seed {sd}")
-            line = (f"kernels: flash backward {name} ({batch}, {seq}, "
-                    f"{HEADS}, {HEAD_DIM}) {what}: rel err dq {errs[0]:.3g} "
-                    f"dk {errs[1]:.3g} dv {errs[2]:.3g} (tol "
-                    f"{FLASH_BWD_TOL[name]:g}), delta {derr:.3g}; rerun "
-                    "bit-identical")
-            if sg is not None:
-                pad = sg == 0
-                pad_dq = dq[pad].abs().max().item()
-                tiles = load_kernels().flash_tiles(dtype == torch.bfloat16)
-                want_skips = [expected_skips(
-                    np, seg_np, *tiles[f"flash_attention_bwd_{kern}"], HEADS)
-                    for kern in ("dq", "dkv")]
-                got_skips = [int(c.item()) for c in skips]
-                line += (f"; pad-row dq max {pad_dq}; tiles skipped "
-                         f"{got_skips} (layout predicts {want_skips})")
-                check(pad_dq == 0.0, f"flash backward {name}: pad-row dq "
-                      f"{pad_dq}")
-                check(got_skips == want_skips and min(got_skips) > 0,
-                      f"flash backward {name}: skipped {got_skips}, layout "
-                      f"predicts {want_skips}")
-            log(line)
-            check(max(errs) <= FLASH_BWD_TOL[name] and derr <= 1e-5,
-                  f"flash backward {name} {what}: errors {errs}, delta "
-                  f"{derr}")
-            abs_errs = [(a.float() - b.float()).abs().max().item()
-                        for a, b in zip((dq, dk, dv), want)]
-            for kern, sl in (("dq", slice(0, 1)), ("dkv", slice(1, 3))):
-                for acc, vals in ((bwd_err, errs), (bwd_abs, abs_errs)):
-                    acc.setdefault(kern, {})
-                    acc[kern][name] = max(acc[kern].get(name, 0.0),
-                                          *vals[sl])
-            if dtype == torch.bfloat16:
-                check_fused_backward(torch, np, (q, k, v, bs, sg, out, lse,
-                                                 g, sd, r), want, what,
-                                     seg_np, bwd_err, bwd_abs)
+        for r, sd, sg, bs in backward_cases(bias, seg, seg_bias, rate):
+            backward_case(torch, np, (q, k, v, do), bs, sg, sd, r, seg_np,
+                          fwd_err, bwd_err, bwd_abs)
 
         # the mask, exactly: q = k = 0, the bias admitting the 64 keys
         # [w_b, w_b + 64) of batch row b, v[k, d] = (k mod 64 == d): out[b,
@@ -998,6 +959,139 @@ def check_flash_training_kernels(torch, np, results):
         name = "flash_attention_bwd" + ("" if kern == "fused" else "_" + kern)
         results[name] = {"max_abs_err": bwd_abs[kern],
                          "max_rel_err": bwd_err[kern]}
+
+
+def backward_cases(bias, seg, seg_bias, rate):
+    """(rate, seed, segment ids, bias) of the backward checks: rate 0, the
+    rate with both FLASH_SEEDS over the padding bias, and packed segments
+    at the rate."""
+    cases = [(r, sd, None, bias) for r in (0.0, rate)
+             for sd in ((None,) if r == 0.0 else FLASH_SEEDS)]
+    cases.append((rate, FLASH_SEEDS[0], seg, seg_bias))
+    return cases
+
+
+def backward_case(torch, np, tensors, bs, sg, sd, r, seg_np, fwd_err,
+                  bwd_err, bwd_abs):
+    """One backward case of the flash kernels: the forward at (bs, sg, sd,
+    r) against its plain version, then the dq and dk/dv pair against
+    flash_attention_bwd_ref within FLASH_BWD_TOL, run twice with
+    bit-identical results, delta against its plain version, and with
+    packed segments pad-row dq exactly 0 and each kernel's skip count as
+    its tiles predict; where the fused backward takes the shape (bf16, seq
+    <= FUSED_BWD_MAX_SEQ) it gets the same checks (check_fused_backward).
+    The worst errors land in fwd_err / bwd_err / bwd_abs by dtype."""
+    from bert_pytorch_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_bwd_ref, flash_attention_delta_ref,
+        flash_attention_ref, fused_bwd_takes)
+    from bert_pytorch_tpu_torch.ops.kernels.build import load_kernels
+
+    q, k, v, do = tensors
+    dtype = q.dtype
+    name = str(dtype).split(".")[-1]
+    batch, seq = q.shape[:2]
+    g = do if sg is None else do * (sg > 0).to(dtype)[:, :, None, None]
+    out, lse = flash_attention(q, k, v, bs, sg, sd, r)
+    # every arm of the forward (rate 0 or not, packed or not) against its
+    # plain version before it feeds the backward
+    ref, lse_ref = flash_attention_ref(q, k, v, bs, sg, sd, r)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    lerr = (lse - lse_ref).abs().max().item()
+    pad_max = out[sg == 0].abs().max().item() if sg is not None else 0.0
+    check(err <= FLASH_TOL[name] and lerr <= LSE_TOL and pad_max == 0.0,
+          f"flash {name} {tuple(q.shape)} rate {r} seed {sd} packed "
+          f"{sg is not None}: out error {err}, lse error {lerr}, pad rows "
+          f"{pad_max}")
+    fwd_err[name] = max(fwd_err.get(name, 0.0), err)
+    del ref, lse_ref
+    skips = [torch.zeros(1, dtype=torch.int32, device="cuda")
+             for _ in range(2)]
+    dq, delta = flash_attention_bwd_dq(q, k, v, bs, sg, out, lse, g, sd, r,
+                                       skipped=skips[0])
+    dk, dv = flash_attention_bwd_dkv(q, k, v, bs, sg, lse, delta, g, sd, r,
+                                     skipped=skips[1])
+    dq2, delta2 = flash_attention_bwd_dq(q, k, v, bs, sg, out, lse, g, sd, r)
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, bs, sg, lse, delta2, g, sd, r)
+    want = flash_attention_bwd_ref(q, k, v, bs, sg, out, lse, g, sd, r)
+    delta_ref = flash_attention_delta_ref(out, g)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in
+              ((dq, dq2), (dk, dk2), (dv, dv2), (delta, delta2))),
+          f"flash backward {name} {tuple(q.shape)} rate {r}: two runs differ")
+    errs = [_rel(a, b) for a, b in zip((dq, dk, dv), want)]
+    derr = _rel(delta, delta_ref)
+    what = ("packed segments" if sg is not None
+            else f"padding bias, rate {r} seed {sd}")
+    line = (f"kernels: flash backward {name} {tuple(q.shape)} {what}: rel "
+            f"err dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} (tol "
+            f"{FLASH_BWD_TOL[name]:g}), delta {derr:.3g}; rerun "
+            "bit-identical")
+    if sg is not None:
+        pad_dq = dq[sg == 0].abs().max().item()
+        tiles = load_kernels().flash_tiles(dtype == torch.bfloat16)
+        want_skips = [expected_skips(
+            np, seg_np, *tiles[f"flash_attention_bwd_{kern}"], q.shape[2])
+            for kern in ("dq", "dkv")]
+        got_skips = [int(c.item()) for c in skips]
+        line += (f"; pad-row dq max {pad_dq}; tiles skipped {got_skips} "
+                 f"(layout predicts {want_skips})")
+        check(pad_dq == 0.0, f"flash backward {name}: pad-row dq {pad_dq}")
+        check(got_skips == want_skips and min(got_skips) > 0,
+              f"flash backward {name} {tuple(q.shape)}: skipped "
+              f"{got_skips}, layout predicts {want_skips}")
+    log(line)
+    check(max(errs) <= FLASH_BWD_TOL[name] and derr <= 1e-5,
+          f"flash backward {name} {tuple(q.shape)} {what}: errors {errs}, "
+          f"delta {derr}")
+    abs_errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in zip((dq, dk, dv), want)]
+    for kern, sl in (("dq", slice(0, 1)), ("dkv", slice(1, 3))):
+        for acc, vals in ((bwd_err, errs), (bwd_abs, abs_errs)):
+            acc.setdefault(kern, {})
+            acc[kern][name] = max(acc[kern].get(name, 0.0), *vals[sl])
+    if fused_bwd_takes(q):
+        check_fused_backward(torch, np, (q, k, v, bs, sg, out, lse, g, sd,
+                                         r), want, what, seg_np, bwd_err,
+                             bwd_abs)
+
+
+# The backward pair beyond phase 2's shape, at the same 8192 tokens: the
+# lengths where the fused backward's gate sends bf16 to the pair.
+PAIR_LONG_SHAPES = ((8, 1024), (4, 2048))
+
+
+def check_pair_long(torch, np, results):
+    """The dq and dk/dv pair at PAIR_LONG_SHAPES x 16 heads, f32 and bf16,
+    through backward_case: rates 0 and 0.1 with both FLASH_SEEDS over a
+    padding bias, and packed segments; per shape the worst errors land in
+    results[dq or dkv]["long"]."""
+    rate = 0.1
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rng = np.random.RandomState(6)
+    from bert_pytorch_tpu_torch.ops.attention import make_attention_bias
+
+    for batch, seq in PAIR_LONG_SHAPES:
+        bias = padding_bias(torch, np, rng, batch, seq)
+        seg_np = packed_segments(np, rng, batch, seq)
+        seg = torch.from_numpy(seg_np).cuda()
+        seg_bias = make_attention_bias((seg > 0).int()).contiguous()
+        fwd_err, bwd_err, bwd_abs = {}, {}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn(batch, seq, 3, HEADS, HEAD_DIM, generator=gen,
+                              device="cuda").to(dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            do = torch.randn(batch, seq, HEADS, HEAD_DIM, generator=gen,
+                             device="cuda").to(dtype)
+            for r, sd, sg, bs in backward_cases(bias, seg, seg_bias, rate):
+                backward_case(torch, np, (q, k, v, do), bs, sg, sd, r,
+                              seg_np, fwd_err, bwd_err, bwd_abs)
+            del qkv, q, k, v, do
+        for kern in ("dq", "dkv"):
+            results["flash_attention_bwd_" + kern].setdefault("long", {})[
+                f"{batch}x{seq}"] = {"max_abs_err": bwd_abs[kern],
+                                     "max_rel_err": bwd_err[kern]}
 
 
 def check_fused_backward(torch, np, args, want, what, seg_np, bwd_err,
@@ -1226,6 +1320,7 @@ def phase_timing(torch, np, results, peaks):
         "dense_operations": 4 * HEAD_DIM * batch * seq * seq * HEADS})
     time_training_kernels(torch, results, peaks, timer)
     time_flash_training_kernels(torch, np, results, peaks, timer)
+    time_pair(torch, np, results, peaks, timer)
     time_lamb_kernels(torch, np, results, peaks, timer)
     for name in KERNEL_ROWS:
         r = results[name]
@@ -1513,6 +1608,136 @@ def time_flash_training_kernels(torch, np, results, peaks, timer):
         f"{whole['library_ms']:.4f} ms; bound {whole['bound_ms']:.4f} ms "
         f"({whole['bound_by']})")
 
+
+def time_pair(torch, np, results, peaks, timer):
+    """The dq and dk/dv pair (#9/#10) at PAIR_LONG_SHAPES bf16 with a
+    padding bias, rate 0.1, each kernel beside its plain version and its
+    bound (`seq1024`, `seq2048` in the kernel's results); at those shapes
+    and at phase 2's, the pair as one backward at rates 0.1 and 0 beside
+    SDPA's backward at rate 0 (same inputs, the bias as a float mask), and
+    at phase 2's the fused kernel beside them (`pair_by_shape` in the
+    fused backward's results); and the f32 pair at phase 2's shape
+    (`float32`), bound by the f32 peak. Device time alone throughout."""
+    import torch.nn.functional as F
+
+    from bert_pytorch_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_dkv,
+        flash_attention_bwd_dkv_ref, flash_attention_bwd_dq,
+        flash_attention_bwd_dq_ref, fused_bwd_takes)
+
+    rate, seed = 0.1, FLASH_SEEDS[0]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    by_shape = results.setdefault("flash_attention_bwd", {}).setdefault(
+        "pair_by_shape", {})
+    for batch, seq in (PHASE2_ATTN,) + PAIR_LONG_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            if dtype == torch.float32 and seq != PHASE2_ATTN[1]:
+                continue
+            name = str(dtype).split(".")[-1]
+            size = 2 if dtype == torch.bfloat16 else 4
+            peak = peaks["bf16_flops" if size == 2 else "f32_flops"]
+            bias = padding_bias(torch, np, np.random.RandomState(seq),
+                                batch, seq)
+            qkv = torch.randn(batch, seq, 3, HEADS, HEAD_DIM, generator=gen,
+                              device="cuda").to(dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            do = torch.randn(batch, seq, HEADS, HEAD_DIM, generator=gen,
+                             device="cuda").to(dtype)
+            out, lse = flash_attention(q, k, v, bias, None, seed, rate)
+            _, delta = flash_attention_bwd_dq(q, k, v, bias, None, out, lse,
+                                              do, seed, rate)
+            tensor = batch * seq * HEADS * HEAD_DIM * size
+            rows_f32 = batch * HEADS * seq * 4
+            product = 2 * batch * HEADS * seq * seq * HEAD_DIM
+            nbytes = 6 * tensor + 2 * rows_f32 + batch * seq * 4
+
+            def row(nops, **kw):
+                t_bytes = nbytes / peaks["bytes_per_s"]
+                t_ops = nops / peak
+                return dict(kw, shape=[batch, seq, HEADS, HEAD_DIM],
+                            dtype=name, rate=rate,
+                            bound_ms=max(t_bytes, t_ops) * 1e3,
+                            bound_by=("bytes" if t_bytes >= t_ops
+                                      else "operations"),
+                            bytes=nbytes, operations=nops, library_ms=None)
+
+            dq_row = row(
+                3 * product,
+                ms=timer(lambda: flash_attention_bwd_dq(
+                    q, k, v, bias, None, out, lse, do, seed, rate),
+                    hide_host=True),
+                plain_ms=timer(lambda: flash_attention_bwd_dq_ref(
+                    q, k, v, bias, None, lse, delta, do, seed, rate)))
+            kv_row = row(
+                4 * product,
+                ms=timer(lambda: flash_attention_bwd_dkv(
+                    q, k, v, bias, None, lse, delta, do, seed, rate),
+                    hide_host=True),
+                plain_ms=timer(lambda: flash_attention_bwd_dkv_ref(
+                    q, k, v, bias, None, lse, delta, do, seed, rate)))
+            tag = f"{batch}x{seq}"
+            if dtype == torch.float32:
+                results["flash_attention_bwd_dq"]["float32"] = dq_row
+                results["flash_attention_bwd_dkv"]["float32"] = kv_row
+                log(f"timing: f32 pair {dq_row['shape']} rate {rate}: dq "
+                    f"{dq_row['ms']:.4f} ms (plain {dq_row['plain_ms']:.4f}, "
+                    f"bound {dq_row['bound_ms']:.4f} {dq_row['bound_by']}), "
+                    f"dk/dv {kv_row['ms']:.4f} ms (plain "
+                    f"{kv_row['plain_ms']:.4f}, bound {kv_row['bound_ms']:.4f}"
+                    f" {kv_row['bound_by']})")
+                continue
+            if seq != PHASE2_ATTN[1]:
+                for kern, r in (("dq", dq_row), ("dkv", kv_row)):
+                    long = results["flash_attention_bwd_" + kern].get(
+                        "long", {}).get(tag, {})
+                    r["max_abs_err"] = long.get("max_abs_err", {})
+                    results["flash_attention_bwd_" + kern][f"seq{seq}"] = r
+
+            def pair(out_, lse_, seed_=None, rate_=0.0):
+                _, delta_ = flash_attention_bwd_dq(q, k, v, bias, None, out_,
+                                                   lse_, do, seed_, rate_)
+                flash_attention_bwd_dkv(q, k, v, bias, None, lse_, delta_,
+                                        do, seed_, rate_)
+
+            out0, lse0 = flash_attention(q, k, v, bias)
+            qt, kt, vt = (x.detach().transpose(1, 2).contiguous()
+                          .requires_grad_() for x in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=bias.to(dtype))
+            go = do.transpose(1, 2)
+            whole = {
+                "shape": [batch, seq, HEADS, HEAD_DIM],
+                "dq_ms": dq_row["ms"], "dkv_ms": kv_row["ms"],
+                "pair_ms": timer(lambda: pair(out, lse, seed, rate),
+                                 hide_host=True),
+                "pair_rate0_ms": timer(lambda: pair(out0, lse0),
+                                       hide_host=True),
+                "sdpa_bwd_rate0_ms": timer(
+                    lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), go,
+                                                retain_graph=True),
+                    hide_host=True),
+                "bound_ms": max((8 * tensor + rows_f32 + batch * seq * 4)
+                                / peaks["bytes_per_s"],
+                                5 * product / peak) * 1e3}
+            if fused_bwd_takes(q):
+                whole["fused_ms"] = timer(lambda: flash_attention_bwd(
+                    q, k, v, bias, None, out, lse, do, seed, rate),
+                    hide_host=True)
+                whole["fused_rate0_ms"] = timer(lambda: flash_attention_bwd(
+                    q, k, v, bias, None, out0, lse0, do), hide_host=True)
+            by_shape[tag] = whole
+            log(f"timing: pair {tag} bf16: dq {dq_row['ms']:.4f} ms (bound "
+                f"{dq_row['bound_ms']:.4f} {dq_row['bound_by']}, plain "
+                f"{dq_row['plain_ms']:.4f}), dk/dv {kv_row['ms']:.4f} ms "
+                f"(bound {kv_row['bound_ms']:.4f} {kv_row['bound_by']}, plain "
+                f"{kv_row['plain_ms']:.4f}); the pair {whole['pair_ms']:.4f} "
+                f"ms at rate {rate}, {whole['pair_rate0_ms']:.4f} at rate 0; "
+                f"SDPA backward (rate 0) {whole['sdpa_bwd_rate0_ms']:.4f} ms"
+                + (f"; fused {whole['fused_ms']:.4f} / "
+                   f"{whole['fused_rate0_ms']:.4f} ms" if "fused_ms" in whole
+                   else "")
+                + f"; the whole backward's bound {whole['bound_ms']:.4f} ms")
+            del qkv, q, k, v, do, out, lse, out0, lse0, qt, kt, vt, sdpa_out
 
 def time_lamb_kernels(torch, np, results, peaks, timer):
     """#11 and #12 over BERT-Large's 302 parameter tensors (336,232,258
@@ -2001,6 +2226,107 @@ def _check_state_dicts_equal(torch, a, b, what):
               f"{what}: {name} differ at {bad[:3]}")
 
 
+# The seq-1024 model check: BERT-Large's widths (H 1024, A 16, I 4096) cut
+# to 2 layers, the position table grown to 1024 on the in-memory config;
+# one microbatch of 8 x 1024 in bf16 (160 predictions: the phase-2
+# config's masked fraction of 1024 tokens) forward and backward through
+# models/bert.py on the kernels and on the plain versions, at
+# TRAIN2_MODEL_TOL. At seq 1024 every layer's flash backward takes the dq
+# and dk/dv pair (#9/#10), never the fused kernel.
+LONG_MODEL = {"layers": 2, "batch": 8, "seq": 1024, "max_pred": 160}
+
+
+def phase_model_seq1024(torch, np, summary, device="cuda",
+                        cfg_path=os.path.join(
+                            HERE, "configs", "bert_large_uncased_config.json"),
+                        batch=LONG_MODEL["batch"], seq=LONG_MODEL["seq"]):
+    """One seq-`seq` microbatch through a LONG_MODEL["layers"]-layer model
+    of `cfg_path`'s widths (LONG_MODEL): loss and gradients on the kernels
+    (counts zeroed just before, read just after: the flash forward, dq and
+    dk/dv once a layer, no fused backward) against the plain versions.
+    `device`, `cfg_path`, `batch` and `seq` exist so the phase can be
+    rehearsed on the CPU at a tiny size."""
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.data.sharded import (HostShardSampler,
+                                                     PretrainingDataLoader)
+    from bert_pytorch_tpu_torch.models.bert import (BertForPreTraining,
+                                                    init_weights)
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    layers, max_pred = LONG_MODEL["layers"], LONG_MODEL["max_pred"]
+    on_card = torch.device(device).type == "cuda"
+    config = BertConfig.from_json_file(cfg_path)
+    config = config.replace(
+        vocab_size=pad_vocab_size(config.vocab_size, 8),
+        num_hidden_layers=layers,
+        max_position_embeddings=max(seq, config.max_position_embeddings))
+    index = array_index([pretraining_arrays(np, 2 * batch, seq,
+                                            config.vocab_size, 3)])
+    loader = PretrainingDataLoader(
+        index, HostShardSampler(len(index), seed=1), batch_size=batch,
+        mask_token_index=103, max_pred_per_seq=max_pred, masked_lm_prob=0.15,
+        vocab_size=config.vocab_size, seed=1)
+    micro = {k: torch.from_numpy(v).to(device)
+             for k, v in next(loader).items()}
+    loader.close()
+    with torch.device(device):
+        model = BertForPreTraining(config, dtype=torch.bfloat16)
+    init_weights(model, torch.Generator(device=device).manual_seed(2),
+                 std=config.initializer_range)
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (1 + 3 * layers,),
+                          dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(8))
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    # the path: counts zeroed just before, read just after
+    reset_launches()
+    got = _loss_and_grads(torch, config, torch.bfloat16, False, weights,
+                          micro, seeds, max_pred, device)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
+    want_ = _loss_and_grads(torch, config, torch.bfloat16, True, weights,
+                            micro, seeds, max_pred, device)
+    summary.setdefault("launches", {})["model_seq1024"] = launches
+    # one microbatch: the embedding and MLM-transform LayerNorms, the two
+    # residual tails of every layer, and every layer's attention by the
+    # flash forward and the pair
+    predicted = {"add_dropout_layer_norm_fwd": 2 * layers,
+                 "add_dropout_layer_norm_bwd": 2 * layers,
+                 "layer_norm_fwd": 2, "layer_norm_bwd": 2,
+                 "flash_attention_fwd": layers, "flash_attention_bwd": 0,
+                 "flash_attention_bwd_dq": layers,
+                 "flash_attention_bwd_dkv": layers,
+                 "lamb_stage1": 0, "lamb_stage2": 0}
+    if on_card:
+        check(launches == predicted, f"model_seq1024: launch counts "
+              f"{launches}, want {predicted}")
+    loss_rel = abs(got[0] - want_[0]) / abs(want_[0])
+    worst, worst_name = 0.0, None
+    for k, w in want_[1].items():
+        rel = (torch.linalg.vector_norm(got[1][k] - w)
+               / torch.linalg.vector_norm(w).clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, k
+    tol = TRAIN2_MODEL_TOL["bfloat16"]
+    log(f"model_seq1024: {layers} layers of hidden {config.hidden_size}, "
+        f"{batch} x {seq} bf16, kernels vs plain: loss {got[0]:.6f} vs "
+        f"{want_[0]:.6f} (rel {loss_rel:.3g}, tol {tol['loss']:g}); worst "
+        f"gradient rel L2 {worst:.3g} at {worst_name} (tol {tol['grad']:g});"
+        f" launches {launches}; peak memory {peak} GiB")
+    check(np.isfinite(got[0]) and loss_rel <= tol["loss"],
+          f"model_seq1024: loss kernels {got[0]} vs plain {want_[0]}")
+    check(worst <= tol["grad"], f"model_seq1024: gradient {worst_name}: rel "
+          f"L2 {worst} > {tol['grad']}")
+    summary["model_seq1024"] = {
+        "layers": layers, "batch": batch, "seq": seq, "loss": got[0],
+        "plain_loss": want_[0], "loss_rel": loss_rel,
+        "max_grad_rel_l2": worst, "worst_leaf": worst_name,
+        "launches": launches, "launches_predicted": predicted,
+        "peak_memory_gib": peak}
+
 def phase_train(torch, np, summary, device="cuda",
                 cfg_path=os.path.join(HERE, "configs",
                                       "bert_large_uncased_config.json"),
@@ -2325,17 +2651,18 @@ KERNEL_ROWS = {
         "replaces": "bert_pytorch_tpu/ops/pallas/flash_attention.py:754",
         # the bh-layout fused backward (#8) is the same kernel: strided reads
         "also_replaces": ["bert_pytorch_tpu/ops/pallas/flash_attention.py:799"]},
-    # the split pair (#9/#10): f32 and seq > 512, off the main path;
-    # launched by the kernels phase's checks
+    # the split pair (#9/#10), bf16: seq > 512, off the phases' paths;
+    # launched by the seq-1024 model check (model_seq1024) and the kernels
+    # phase's checks (the f32 pair stays in flash_attention.cu)
     "flash_attention_bwd_dq": {
         "route": "cuda",
         "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/"
-                  "flash_attention.cu",
+                  "flash_attention_split_bwd.cu",
         "replaces": "bert_pytorch_tpu/ops/pallas/flash_attention.py:840"},
     "flash_attention_bwd_dkv": {
         "route": "cuda",
         "source": "bert_pytorch_tpu_torch/ops/kernels/csrc/"
-                  "flash_attention.cu",
+                  "flash_attention_split_bwd.cu",
         "replaces": "bert_pytorch_tpu/ops/pallas/flash_attention.py:871"},
     "lamb_stage1": {
         "route": "cuda",
@@ -2351,14 +2678,17 @@ KERNEL_ROWS = {
 _LINE_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "shape", "rate")
 _EXTRA_KEYS = ("rate0_ms", "rate0_plain_ms", "pair_ms", "row_ms",
-               "column_ms")
+               "column_ms", "pair_by_shape")
+# the backward pair's other measurements: the longer sequences and f32
+_PAIR_VARIANTS = ("seq1024", "seq2048", "float32")
 
 
 def _line_numbers(r: dict) -> dict:
     out = {k: r.get(k) for k in _LINE_KEYS}
     out.update({k: r[k] for k in _EXTRA_KEYS if k in r})
     out["rate"] = out["rate"] or 0.0
-    out["max_abs_err"] = r.get("max_abs_err", {}).get("bfloat16")
+    out["max_abs_err"] = r.get("max_abs_err", {}).get(
+        r.get("dtype") or "bfloat16")
     return out
 
 
@@ -2371,7 +2701,8 @@ def kernels_line(results: dict, by_path: dict, in_checks: dict) -> list:
     0.1, its dropout arm): its row carries the training numbers, the arm of
     the slice that launches it most, and both under `variants`. The
     LayerNorm backwards carry phase 1's (12288, 1024), and both phases'
-    under `variants`."""
+    under `variants`. The dq and dk/dv pair carry phase 2's (16, 512) in
+    bf16, and under `variants` also (8, 1024), (4, 2048) and f32."""
     line = []
     for name, row in KERNEL_ROWS.items():
         counts = {path: c[name] for path, c in by_path.items()}
@@ -2387,6 +2718,12 @@ def kernels_line(results: dict, by_path: dict, in_checks: dict) -> list:
                         "train_phase2": _line_numbers(
                             dict(r["phase2"],
                                  max_abs_err=r.get("max_abs_err", {})))}
+        elif any(v in r for v in _PAIR_VARIANTS):
+            variants = {"train_phase2_shape": nums}
+            variants.update({v: _line_numbers(
+                dict(r[v], max_abs_err=r.get("max_abs_err", {})
+                     if v == "float32" else r[v].get("max_abs_err", {})))
+                for v in _PAIR_VARIANTS if v in r})
         line.append(dict(row, name=name, launches=sum(counts.values()),
                          launches_by_path=counts,
                          launches_in_checks=in_checks.get(name), **nums,
@@ -2397,8 +2734,8 @@ def kernels_line(results: dict, by_path: dict, in_checks: dict) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="device,build,kernels,timing,serve,train,"
-                            "train_phase2",
+                    default="device,build,kernels,timing,model_seq1024,"
+                            "serve,train,train_phase2",
                     help="comma-separated subset, in order (development)")
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke.json")
@@ -2483,6 +2820,7 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
                 log(f"build: kernels built in {summary['build_s']:.1f} s")
                 summary["fused_bwd_build"] = fused_backward_build(torch)
                 summary["fwd_build"] = forward_build(torch)
+                summary["split_bwd_build"] = split_backward_build(torch)
             elif phase == "kernels":
                 from bert_pytorch_tpu_torch.ops.kernels import (
                     LAUNCHES, reset_launches)
@@ -2492,6 +2830,8 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
                 summary["launches_in_checks"] = dict(LAUNCHES)
             elif phase == "timing":
                 phase_timing(torch, np, results, peaks)
+            elif phase == "model_seq1024":
+                phase_model_seq1024(torch, np, summary)
             elif phase == "serve":
                 phase_serve(torch, np, summary)
             elif phase in TRAIN_RUNS:
