@@ -10,13 +10,26 @@ as its plain PyTorch version.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-# The ROADMAP item an option or a data format the pretraining slice lacks
-# names when it is refused.
+# The ROADMAP items an option or a data format the port lacks names when
+# it is refused: what the pretraining and the finetuning slices left out.
 PRETRAIN_GAPS = "ROADMAP.md, queue A: what the pretraining slice left out"
+FINETUNE_GAPS = "ROADMAP.md, queue A: what the finetuning slice left out"
+
+
+def refuse(args, refused: Dict[str, Tuple], gaps: str) -> None:
+    """Refuse what the port does not implement rather than ignore it:
+    raise on a key of `refused` whose value in `args` switches its
+    feature on (its tuple lists the values that leave it off), naming the
+    ROADMAP item `gaps`."""
+    for key, off in refused.items():
+        if hasattr(args, key) and getattr(args, key) not in off:
+            raise NotImplementedError(
+                f"{key}={getattr(args, key)!r} is not ported yet (see "
+                f"{gaps})")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

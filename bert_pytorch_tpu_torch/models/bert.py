@@ -1,5 +1,5 @@
-"""BERT in PyTorch: the encoder, the QA head and the pretraining heads
-(counterpart of bert_pytorch_tpu/models/bert.py).
+"""BERT in PyTorch: the encoder, the QA and token-classification heads
+and the pretraining heads (counterpart of bert_pytorch_tpu/models/bert.py).
 
 Numerics follow the JAX model: parameters stay f32 and are cast to the
 compute dtype at use (bf16 by default); LayerNorm statistics and attention
@@ -16,8 +16,10 @@ order: the embeddings, then for each layer the attention probabilities,
 the attention tail and the MLP tail. Every site uses a counter-hash
 mask: `hash_dropout` at the embeddings and at the attention probabilities
 of plain attention, the flash kernels' own mask at the attention
-probabilities where attention takes the flash route (seq 512), the fused
-residual-dropout-LayerNorm kernel at both residual tails.
+probabilities where attention takes the flash route (seq > 256 and a
+multiple of 128: phase 2's 512, SQuAD's 384), the fused
+residual-dropout-LayerNorm kernel at both residual tails. The token
+classification head adds one site after the encoder (2 + 3L seeds).
 
 `plain=True` builds the same model with every kernel call replaced by the
 kernel's plain PyTorch version, differentiated by autograd: a reference to
@@ -38,7 +40,7 @@ from torch import nn
 from bert_pytorch_tpu_torch.config import BertConfig
 from bert_pytorch_tpu_torch.ops.activations import ACT2FN
 from bert_pytorch_tpu_torch.ops.attention import (dot_product_attention,
-                                                  hash_dropout,
+                                                  hash_dropout, keep_dropout,
                                                   make_attention_bias)
 from bert_pytorch_tpu_torch.ops.layernorm import (add_dropout_layer_norm,
                                                   add_dropout_layer_norm_ref,
@@ -266,7 +268,8 @@ class BertModel(nn.Module):
 
 
 class BertForQuestionAnswering(nn.Module):
-    """Per-token (start, end) logits, f32, each (B, S)."""
+    """Per-token (start, end) logits, f32, each (B, S). `dropout_seeds`
+    (1 + 3L, training) as BertModel takes them."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.bfloat16,
                  plain: bool = False):
@@ -274,17 +277,63 @@ class BertForQuestionAnswering(nn.Module):
         self.config = config
         self.bert = BertModel(config, dtype=dtype, plain=plain)
         self.qa_outputs = nn.Linear(config.hidden_size, 2)
+        self.n_dropout_sites = 1 + 3 * config.num_hidden_layers
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
                 position_ids: Optional[torch.Tensor] = None,
-                segment_ids: Optional[torch.Tensor] = None
+                segment_ids: Optional[torch.Tensor] = None,
+                dropout_seeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         seq = self.bert(input_ids, token_type_ids, attention_mask,
-                        position_ids, segment_ids)
+                        position_ids, segment_ids, dropout_seeds)
         logits = _linear(seq, self.qa_outputs).float()
         return logits[..., 0], logits[..., 1]
+
+
+class BertForTokenClassification(nn.Module):
+    """Per-token logits (B, S, num_labels), f32: sequence output ->
+    dropout -> `classifier` Linear (the NER head).
+
+    Training takes 2 + 3L dropout seeds: BertModel's 1 + 3L, then the
+    head's. The JAX head is flax `nn.Dropout`, a threefry Bernoulli mask;
+    the port draws the head's mask with `hash_dropout` from its seed, or
+    takes it as `head_keep` ((B, S, E) bool), an input as the seeds are,
+    so a test can feed the mask flax drew."""
+
+    def __init__(self, config: BertConfig, num_labels: int = 2,
+                 dtype: torch.dtype = torch.bfloat16, plain: bool = False):
+        super().__init__()
+        self.config = config
+        self.num_labels = num_labels
+        self.bert = BertModel(config, dtype=dtype, plain=plain)
+        self.classifier = nn.Linear(config.hidden_size, num_labels)
+        self.n_dropout_sites = 2 + 3 * config.num_hidden_layers
+
+    def forward(self, input_ids: torch.Tensor,
+                token_type_ids: Optional[torch.Tensor] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                dropout_seeds: Optional[torch.Tensor] = None,
+                head_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        body_seeds = head_seed = None
+        if dropout_seeds is not None:
+            flat = dropout_seeds.reshape(-1)
+            if flat.numel() != self.n_dropout_sites:
+                raise ValueError(
+                    f"dropout_seeds holds {flat.numel()} seeds; this model "
+                    f"has {self.n_dropout_sites} dropout sites (2 + 3L)")
+            body_seeds, head_seed = flat[:-1], int(flat[-1])
+        seq = self.bert(input_ids, token_type_ids, attention_mask,
+                        position_ids, segment_ids, body_seeds)
+        rate = self.config.hidden_dropout_prob
+        if dropout_seeds is not None and rate > 0.0:
+            seq = (keep_dropout(seq, head_keep, rate)
+                   if head_keep is not None
+                   else hash_dropout(seq, head_seed, rate))
+        return _linear(seq, self.classifier).float()
 
 
 class BertMLMHead(nn.Module):
@@ -324,6 +373,7 @@ class BertForPreTraining(nn.Module):
         self.cls_predictions = BertMLMHead(config, plain=plain)
         self.cls_seq_relationship = (nn.Linear(config.hidden_size, 2)
                                      if config.next_sentence else None)
+        self.n_dropout_sites = 1 + 3 * config.num_hidden_layers
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,

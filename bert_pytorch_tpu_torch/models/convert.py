@@ -11,6 +11,7 @@ with "/" between keys it reads, for example,
     cls_predictions/transform/kernel                   (E, E)
     cls_predictions/bias                               (V,)
     cls_seq_relationship/kernel                        (E, 2)
+    classifier/kernel                                  (E, num_labels)
 
 in either encoder layout: stacked (`encoder/layers/layer/...`, one leaf per
 weight with a leading L axis, the JAX default) or unstacked
@@ -57,8 +58,9 @@ def _dense(kernel: np.ndarray) -> np.ndarray:
 
 
 def params_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Flat flax params of BertForQuestionAnswering or BertForPreTraining
-    (either encoder layout) -> the port's state_dict of the same model,
+    """Flat flax params of BertForQuestionAnswering,
+    BertForTokenClassification or BertForPreTraining (either encoder
+    layout) -> the port's state_dict of the same model,
     f32 tensors."""
     flat = unstack_layers({k: np.asarray(v) for k, v in flat.items()})
     sd: Dict[str, np.ndarray] = {}

@@ -1,4 +1,5 @@
-"""Pretraining losses (counterpart of bert_pytorch_tpu/models/losses.py).
+"""Pretraining and finetuning losses (counterpart of
+bert_pytorch_tpu/models/losses.py).
 
 Cross-entropies are f32 with the masked-mean semantics of
 torch.nn.CrossEntropyLoss(ignore_index=...): the sum over valid positions
@@ -37,6 +38,30 @@ def pretraining_loss(mlm_logits: torch.Tensor,
         loss = loss + cross_entropy(nsp_logits, next_sentence_labels,
                                     ignore_index=-1)
     return loss
+
+
+def qa_loss(start_logits: torch.Tensor, end_logits: torch.Tensor,
+            start_positions: torch.Tensor, end_positions: torch.Tensor
+            ) -> torch.Tensor:
+    """(CE(start) + CE(end)) / 2 over (B, S) logits; an answer position
+    outside [0, S) contributes no loss (a window that truncates the
+    answer, or a padded row's -1)."""
+    seq_len = start_logits.shape[-1]
+
+    def in_window(pos):
+        return torch.where((pos >= 0) & (pos < seq_len), pos,
+                           torch.full_like(pos, -1))
+
+    loss_s = cross_entropy(start_logits, in_window(start_positions))
+    loss_e = cross_entropy(end_logits, in_window(end_positions))
+    return (loss_s + loss_e) / 2.0
+
+
+def token_classification_loss(logits: torch.Tensor, labels: torch.Tensor,
+                              ignore_index: int = -100) -> torch.Tensor:
+    """Per-token CE over (B, S, C) logits; -100 ignores [CLS]/[SEP] and
+    padding positions."""
+    return cross_entropy(logits, labels, ignore_index=ignore_index)
 
 
 def mlm_accuracy(mlm_logits: torch.Tensor, labels: torch.Tensor

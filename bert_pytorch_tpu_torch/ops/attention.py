@@ -100,14 +100,20 @@ def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
 
 
+def keep_dropout(x: torch.Tensor, keep: torch.Tensor, rate: float
+                 ) -> torch.Tensor:
+    """x / (1 - rate) where `keep`, else 0, dividing by 1 - rate rounded
+    to x's dtype (0.8984375 in bf16), as jnp.asarray(1.0 - rate, x.dtype)
+    and flax nn.Dropout's `inputs / keep_prob` do."""
+    div = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep.to(x.device), x / div,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def _hash_dropout_apply(x: torch.Tensor, seed: int, rate: float
                         ) -> torch.Tensor:
-    keep = hash_keep_mask(seed, x.shape, rate, x.device)
-    # divide by 1 - rate rounded to x's dtype (0.8984375 in bf16), as
-    # jnp.asarray(1.0 - rate, x.dtype) does
-    div = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
-    return torch.where(keep, x / div, torch.zeros((), dtype=x.dtype,
-                                                  device=x.device))
+    return keep_dropout(x, hash_keep_mask(seed, x.shape, rate, x.device),
+                        rate)
 
 
 class HashDropoutFn(torch.autograd.Function):

@@ -43,10 +43,10 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
-import numpy as np
 import torch
 
 from bert_pytorch_tpu_torch import PRETRAIN_GAPS as _ROADMAP
+from bert_pytorch_tpu_torch.training.pretrain import dropout_seeds
 
 # The JAX entry point's flags (run_pretraining.py, parse_arguments) that
 # this parser does not declare. A run config may still set them (the merge
@@ -226,25 +226,10 @@ class PretrainResult:
 
 
 def _unsupported(args) -> None:
-    """Refuse what the port does not implement rather than ignore it: a
-    key of `_REFUSED` whose value switches its feature on."""
-    for key, off in _REFUSED.items():
-        if hasattr(args, key) and getattr(args, key) not in off:
-            raise NotImplementedError(
-                f"{key}={getattr(args, key)!r} is not ported yet (see "
-                f"{_ROADMAP})")
+    """Refuse a key of `_REFUSED` whose value switches its feature on."""
+    from bert_pytorch_tpu_torch import refuse
 
-
-def dropout_seeds(seed: int, step: int, accum_steps: int, n_sites: int
-                  ) -> torch.Tensor:
-    """(accum_steps, n_sites) int32 dropout seeds of global step `step`
-    (the step being taken, 1-based): a pure function of (seed, step), the
-    port's counterpart of fold_in(PRNGKey(seed + 1000), step), so a
-    resumed run draws the seeds an uninterrupted run draws."""
-    rng = np.random.default_rng([(seed + 1000) % 2 ** 64, step])
-    return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31,
-                                         (accum_steps, n_sites),
-                                         dtype=np.int32))
+    refuse(args, _REFUSED, _ROADMAP)
 
 
 def _config_echo(args) -> Dict:

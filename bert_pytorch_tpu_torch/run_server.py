@@ -9,7 +9,9 @@ Serves `POST /v1/squad` ({"question", "context"} -> answer + n-best) and
 `GET /healthz`, with the JAX server's defaults: buckets 64/128/256/512,
 8 rows per batch, up to 8 packed requests per row, bf16 compute over f32
 parameters. Runs on CUDA unless `--device cpu`. A checkpoint is a `.npz`
-of the flat flax param tree or a `.pt` state_dict (models/convert.py).
+of the flat flax param tree, a `.pt` state_dict, or a finetune run's
+checkpoint directory `<output_dir>/ckpt[@step]` (run_squad's final state:
+pretrain -> finetune -> serve), read by models/convert.py.
 `--port 0` binds an ephemeral port; `--port_file` receives the bound port
 once every bucket has run once.
 """
@@ -32,8 +34,10 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     p.add_argument("--vocab_file", default=None, type=str)
     p.add_argument("--task_checkpoint", action="append", default=None,
                    metavar="TASK=FILE",
-                   help="serve a task from a .npz (flat flax tree) or .pt "
-                        "(state_dict) checkpoint; tasks: " + ", ".join(TASKS))
+                   help="serve a task from a .npz (flat flax tree), a .pt "
+                        "(state_dict) or a finetune checkpoint directory "
+                        "<output_dir>/ckpt[@step]; tasks: "
+                        + ", ".join(TASKS))
     p.add_argument("--port", type=int, default=8000,
                    help="HTTP port (0 = ephemeral)")
     p.add_argument("--host", type=str, default="0.0.0.0")
@@ -101,6 +105,21 @@ class ServerHandle:
         self.scheduler.close()
 
 
+def load_task_params(path: str, log: Callable[[str], None] = print):
+    """A --task_checkpoint path -> the served model's state_dict: a
+    finetune checkpoint directory `<dir>[@step]` through the training
+    checkpoints, a .npz or .pt file through models/convert."""
+    import os
+
+    from bert_pytorch_tpu_torch.models.convert import load_serving_params
+    from bert_pytorch_tpu_torch.training.checkpoint import (
+        load_params, parse_init_checkpoint)
+
+    if os.path.isdir(parse_init_checkpoint(path)[0]):
+        return load_params(path, log=log)[0]
+    return load_serving_params(path)
+
+
 def serve(args, log: Callable[[str], None] = print) -> ServerHandle:
     """Build the stack and return a live ServerHandle: the port is open and
     every (task, bucket) has run once when this returns."""
@@ -111,7 +130,6 @@ def serve(args, log: Callable[[str], None] = print) -> ServerHandle:
     from bert_pytorch_tpu_torch.data.tokenization import (
         get_wordpiece_tokenizer)
     from bert_pytorch_tpu_torch.models.bert import BertForQuestionAnswering
-    from bert_pytorch_tpu_torch.models.convert import load_serving_params
     from bert_pytorch_tpu_torch.serving.batcher import Scheduler
     from bert_pytorch_tpu_torch.serving.engine import TorchServingEngine
     from bert_pytorch_tpu_torch.serving.frontend import (ServingFrontend,
@@ -147,7 +165,7 @@ def serve(args, log: Callable[[str], None] = print) -> ServerHandle:
         model = BertForQuestionAnswering(config, dtype=dtype)
         # strict: a head or layer silently left at random init is an
         # outage, not a warning
-        model.load_state_dict(load_serving_params(path), strict=True)
+        model.load_state_dict(load_task_params(path, log), strict=True)
         models[task] = model.to(device).eval()
         forwards[task] = predict.build_qa_forward(models[task])
         log(f"serving: {task} <- {path} "

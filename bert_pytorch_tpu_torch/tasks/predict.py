@@ -1,10 +1,11 @@
-"""SQuAD forward + postprocess as pure functions (counterpart of
-bert_pytorch_tpu/tasks/predict.py, the QA part).
+"""Task forwards + postprocess as pure functions (counterpart of
+bert_pytorch_tpu/tasks/predict.py, the QA and NER parts).
 
 `build_qa_forward` is the deterministic model application the serving
-engine runs per bucket; the rest is host-side: request featurization
-through tasks/squad and the n-best decode through squad.get_answers, the
-same code the eval path of the JAX package runs.
+engine runs per bucket and SQuAD's eval runs per length bucket;
+`build_ner_forward` the NER eval's; the rest is host-side: request
+featurization through tasks/squad and the n-best decode through
+squad.get_answers, the same code the eval path of the JAX package runs.
 """
 
 from __future__ import annotations
@@ -28,6 +29,18 @@ def build_qa_forward(model: torch.nn.Module) -> Callable:
 
     def forward(batch: Dict[str, torch.Tensor]):
         return model(batch["input_ids"], batch["token_type_ids"],
+                     batch["attention_mask"],
+                     **{k: batch[k] for k in PACKED_FIELDS if k in batch})
+
+    return forward
+
+
+def build_ner_forward(model: torch.nn.Module) -> Callable:
+    """fwd(batch) -> (B, S, num_labels) f32 logits, deterministic; the
+    NER eval computes its loss and macro F1 from them."""
+
+    def forward(batch: Dict[str, torch.Tensor]):
+        return model(batch["input_ids"], batch.get("token_type_ids"),
                      batch["attention_mask"],
                      **{k: batch[k] for k in PACKED_FIELDS if k in batch})
 

@@ -1,15 +1,22 @@
-"""SQuAD inference: sliding-window featurization and n-best answer
-extraction with original-text realignment (counterpart of
-bert_pytorch_tpu/tasks/squad.py, the inference half: the canonical
-Google-BERT pipeline).
+"""SQuAD v1.1/v2.0: example reading, sliding-window featurization (with
+training targets), n-best answer extraction with original-text
+realignment, and the in-process v1.1 / v2.0 evaluation (counterpart of
+bert_pytorch_tpu/tasks/squad.py: the canonical Google-BERT pipeline).
 """
 
 from __future__ import annotations
 
 import collections
+import json
 import math
+import os
+import pickle
+import re
+import string
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from bert_pytorch_tpu_torch.data.tokenization import BasicTokenizer
 
@@ -19,6 +26,10 @@ class SquadExample:
     qas_id: str
     question_text: str
     doc_tokens: List[str]
+    orig_answer_text: Optional[str] = None
+    start_position: Optional[int] = None
+    end_position: Optional[int] = None
+    is_impossible: bool = False
 
 
 @dataclass
@@ -32,6 +43,9 @@ class InputFeatures:
     input_ids: List[int]
     input_mask: List[int]
     segment_ids: List[int]
+    start_position: Optional[int] = None
+    end_position: Optional[int] = None
+    is_impossible: bool = False
 
 
 RawResult = collections.namedtuple(
@@ -62,6 +76,65 @@ def text_to_doc_tokens(context: str) -> Tuple[List[str], List[int]]:
     return doc_tokens, char_to_word
 
 
+def read_squad_examples(input_file: str, is_training: bool,
+                        version_2_with_negative: bool = False
+                        ) -> List[SquadExample]:
+    """SQuAD JSON -> SquadExamples with the answer's word span. A
+    training question needs exactly one answer (or, in v2, is_impossible:
+    span -1, -1); one whose answer text cannot be recovered from the
+    context's words is skipped."""
+    with open(input_file, "r", encoding="utf-8") as f:
+        data = json.load(f)["data"]
+
+    examples: List[SquadExample] = []
+    for entry in data:
+        for paragraph in entry["paragraphs"]:
+            doc_tokens, char_to_word = text_to_doc_tokens(
+                paragraph["context"])
+            for qa in paragraph["qas"]:
+                start = end = None
+                answer_text = None
+                impossible = False
+                if is_training:
+                    if version_2_with_negative:
+                        impossible = qa["is_impossible"]
+                    if len(qa["answers"]) != 1 and not impossible:
+                        raise ValueError(
+                            "training questions need exactly 1 answer")
+                    if impossible:
+                        start, end, answer_text = -1, -1, ""
+                    else:
+                        ans = qa["answers"][0]
+                        answer_text = ans["text"]
+                        off = ans["answer_start"]
+                        start = char_to_word[off]
+                        end = char_to_word[off + len(answer_text) - 1]
+                        recovered = " ".join(doc_tokens[start:end + 1])
+                        cleaned = " ".join(answer_text.split())
+                        if recovered.find(cleaned) == -1:
+                            continue
+                examples.append(SquadExample(
+                    qas_id=qa["id"], question_text=qa["question"],
+                    doc_tokens=doc_tokens, orig_answer_text=answer_text,
+                    start_position=start, end_position=end,
+                    is_impossible=impossible))
+    return examples
+
+
+def improve_answer_span(doc_tokens: List[str], start: int, end: int,
+                        tokenizer, orig_answer_text: str
+                        ) -> Tuple[int, int]:
+    """The sub-span of [start, end] whose word pieces spell the tokenized
+    answer exactly, else [start, end]."""
+    tok_answer = " ".join(
+        tokenizer.encode(orig_answer_text, add_special_tokens=False).tokens)
+    for new_start in range(start, end + 1):
+        for new_end in range(end, new_start - 1, -1):
+            if " ".join(doc_tokens[new_start:new_end + 1]) == tok_answer:
+                return new_start, new_end
+    return start, end
+
+
 def check_is_max_context(doc_spans, cur_index: int, position: int) -> bool:
     """True iff this span gives `position` its maximal min(left,right)
     context among all spans containing it (reference :386-420)."""
@@ -83,10 +156,13 @@ _DocSpan = collections.namedtuple("DocSpan", ["start", "length"])
 
 def convert_examples_to_features(
     examples: List[SquadExample], tokenizer, max_seq_length: int,
-    doc_stride: int, max_query_length: int,
+    doc_stride: int, max_query_length: int, is_training: bool = False,
 ) -> List[InputFeatures]:
-    """Sliding-window featurization for inference: [CLS] query [SEP] doc
-    window [SEP], padded to max_seq_length, one feature per window."""
+    """Sliding-window featurization: [CLS] query [SEP] doc window [SEP],
+    padded to max_seq_length, one feature per window. Training features
+    carry the answer's token span in the window; a window without the
+    answer, and every window of an impossible (v2) question, targets
+    (0, 0), the [CLS] position."""
     features: List[InputFeatures] = []
     unique_id = 1_000_000_000
 
@@ -98,12 +174,25 @@ def convert_examples_to_features(
         query = query[:max_query_length]
 
         tok_to_orig: List[int] = []
+        orig_to_tok: List[int] = []
         all_doc_tokens: List[str] = []
         for i, word in enumerate(ex.doc_tokens):
+            orig_to_tok.append(len(all_doc_tokens))
             for sub in tokenizer.encode(word,
                                         add_special_tokens=False).tokens:
                 tok_to_orig.append(i)
                 all_doc_tokens.append(sub)
+
+        tok_start = tok_end = None
+        if is_training and not ex.is_impossible:
+            tok_start = orig_to_tok[ex.start_position]
+            if ex.end_position < len(ex.doc_tokens) - 1:
+                tok_end = orig_to_tok[ex.end_position + 1] - 1
+            else:
+                tok_end = len(all_doc_tokens) - 1
+            tok_start, tok_end = improve_answer_span(
+                all_doc_tokens, tok_start, tok_end, tokenizer,
+                ex.orig_answer_text)
 
         max_doc = max_seq_length - len(query) - 3  # [CLS] q [SEP] d [SEP]
         spans: List[_DocSpan] = []
@@ -138,14 +227,57 @@ def convert_examples_to_features(
             mask += [0] * pad
             segment_ids += [0] * pad
 
+            start_pos = end_pos = None
+            if is_training:
+                start_pos = end_pos = 0
+                if (not ex.is_impossible and tok_start >= span.start
+                        and tok_end <= span.start + span.length - 1):
+                    shift = len(query) + 2 - span.start
+                    start_pos, end_pos = tok_start + shift, tok_end + shift
+
             features.append(InputFeatures(
                 unique_id=unique_id, example_index=ex_idx,
                 doc_span_index=span_idx, tokens=tokens,
                 token_to_orig_map=token_to_orig_map,
                 token_is_max_context=token_is_max_context,
-                input_ids=ids, input_mask=mask, segment_ids=segment_ids))
+                input_ids=ids, input_mask=mask, segment_ids=segment_ids,
+                start_position=start_pos, end_position=end_pos,
+                is_impossible=ex.is_impossible))
             unique_id += 1
     return features
+
+
+def cached_features(cache_path: str, builder) -> List[InputFeatures]:
+    """A pickle cache around featurization: read `cache_path` if it
+    exists, else build and write it."""
+    if os.path.exists(cache_path):
+        with open(cache_path, "rb") as f:
+            return pickle.load(f)
+    feats = builder()
+    with open(cache_path, "wb") as f:
+        pickle.dump(feats, f)
+    return feats
+
+
+def features_to_arrays(features: List[InputFeatures], is_training: bool
+                       ) -> Dict[str, np.ndarray]:
+    """Features -> int32 (N, S) arrays (input_ids, token_type_ids,
+    attention_mask), int64 unique_ids and, training, int32 start/end
+    positions."""
+    out = {
+        "input_ids": np.array([f.input_ids for f in features], np.int32),
+        "token_type_ids": np.array([f.segment_ids for f in features],
+                                   np.int32),
+        "attention_mask": np.array([f.input_mask for f in features],
+                                   np.int32),
+        "unique_ids": np.array([f.unique_id for f in features], np.int64),
+    }
+    if is_training:
+        out["start_positions"] = np.array(
+            [f.start_position for f in features], np.int32)
+        out["end_positions"] = np.array(
+            [f.end_position for f in features], np.int32)
+    return out
 
 
 @dataclass
@@ -322,3 +454,91 @@ def get_final_text(pred_text: str, orig_text: str, do_lower_case: bool,
     if o_start is None or o_end is None:
         return orig_text
     return orig_text[o_start:o_end + 1]
+
+
+# -- evaluation (the official SQuAD v1.1 / v2.0 metric math, in-process) -----
+
+def _normalize_answer(s: str) -> str:
+    s = s.lower()
+    s = "".join(c for c in s if c not in set(string.punctuation))
+    s = re.sub(r"\b(a|an|the)\b", " ", s)
+    return " ".join(s.split())
+
+
+def _f1(pred: str, gold: str) -> float:
+    pred_toks = _normalize_answer(pred).split()
+    gold_toks = _normalize_answer(gold).split()
+    common = collections.Counter(pred_toks) & collections.Counter(gold_toks)
+    overlap = sum(common.values())
+    if overlap == 0:
+        return 0.0
+    precision = overlap / len(pred_toks)
+    recall = overlap / len(gold_toks)
+    return 2 * precision * recall / (precision + recall)
+
+
+def evaluate_v1(dataset_file: str, predictions: Dict[str, str]
+                ) -> Dict[str, float]:
+    """exact_match / f1 (percent) over the dev set, the official v1.1
+    math; a question without a prediction scores 0."""
+    with open(dataset_file, "r", encoding="utf-8") as f:
+        dataset = json.load(f)["data"]
+    em_total = f1_total = count = 0.0
+    for entry in dataset:
+        for paragraph in entry["paragraphs"]:
+            for qa in paragraph["qas"]:
+                count += 1
+                if qa["id"] not in predictions:
+                    continue
+                pred = predictions[qa["id"]]
+                golds = [a["text"] for a in qa["answers"]] or [""]
+                em_total += max(
+                    float(_normalize_answer(pred) == _normalize_answer(g))
+                    for g in golds)
+                f1_total += max(_f1(pred, g) for g in golds)
+    return {"exact_match": 100.0 * em_total / max(count, 1),
+            "f1": 100.0 * f1_total / max(count, 1)}
+
+
+def evaluate_v2(dataset_file: str, predictions: Dict[str, str]
+                ) -> Dict[str, float]:
+    """exact_match / f1 with no-answer handling (the official v2.0 math),
+    plus HasAns_* / NoAns_* splits. A no-answer gold scores 1 iff the
+    prediction is empty; a missing prediction scores 0 and is counted in
+    `missing_predictions` (present only when nonzero)."""
+    with open(dataset_file, "r", encoding="utf-8") as f:
+        dataset = json.load(f)["data"]
+    em = collections.defaultdict(float)
+    f1 = collections.defaultdict(float)
+    n = collections.Counter()
+    for entry in dataset:
+        for paragraph in entry["paragraphs"]:
+            for qa in paragraph["qas"]:
+                golds = [a["text"] for a in qa["answers"]
+                         if _normalize_answer(a["text"])]
+                kind = "HasAns" if golds else "NoAns"
+                n["total"] += 1
+                n[kind] += 1
+                if not golds:
+                    golds = [""]
+                if qa["id"] not in predictions:
+                    n["missing"] += 1
+                    continue
+                pred = predictions[qa["id"]]
+                q_em = max(float(_normalize_answer(pred)
+                                 == _normalize_answer(g)) for g in golds)
+                q_f1 = max((q_em if not _normalize_answer(g)
+                            or not _normalize_answer(pred)
+                            else _f1(pred, g)) for g in golds)
+                for d, v in ((em, q_em), (f1, q_f1)):
+                    d["total"] += v
+                    d[kind] += v
+    out = {"exact_match": 100.0 * em["total"] / max(n["total"], 1),
+           "f1": 100.0 * f1["total"] / max(n["total"], 1)}
+    for kind in ("HasAns", "NoAns"):
+        if n[kind]:
+            out[f"{kind}_exact"] = 100.0 * em[kind] / n[kind]
+            out[f"{kind}_f1"] = 100.0 * f1[kind] / n[kind]
+    if n["missing"]:
+        out["missing_predictions"] = float(n["missing"])
+    return out

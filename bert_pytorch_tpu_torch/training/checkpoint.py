@@ -86,11 +86,13 @@ class CheckpointManager:
         return verify_step_dir(step_dir_path(self.directory, step))
 
     def restore(self, step: Optional[int] = None,
-                map_location: Any = "cpu"
+                map_location: Any = "cpu", mmap: bool = False
                 ) -> Tuple[Dict[str, Any], Dict[str, Any], int]:
         """(state_dict, extra, step) of `step` (default the newest).
         Digests are verified before anything is deserialised: a corrupt
-        step raises CorruptCheckpointError naming the failed item."""
+        step raises CorruptCheckpointError naming the failed item.
+        `mmap`: the tensors map the state file and are read only where
+        they are used."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -99,16 +101,17 @@ class CheckpointManager:
         errors = self.verify(step)
         if errors:
             raise CorruptCheckpointError(step, errors)
-        return self._load(step, map_location)
+        return self._load(step, map_location, mmap)
 
-    def _load(self, step: int, map_location: Any
+    def _load(self, step: int, map_location: Any, mmap: bool = False
               ) -> Tuple[Dict[str, Any], Dict[str, Any], int]:
         sd = step_dir_path(self.directory, step)
         if not os.path.isdir(sd):
             raise FileNotFoundError(f"no checkpoint step {step} under "
                                     f"{self.directory}")
         state = torch.load(os.path.join(sd, STATE_FILE),
-                           map_location=map_location, weights_only=True)
+                           map_location=map_location, weights_only=True,
+                           mmap=mmap)
         with open(os.path.join(sd, EXTRA_FILE), encoding="utf-8") as f:
             extra = json.load(f)
         return state, extra, step
@@ -152,6 +155,18 @@ def parse_init_checkpoint(spec: str) -> Tuple[str, Optional[int]]:
     return spec, None
 
 
+def load_params(spec: str, log: Callable[[str], None] = print
+                ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """(the parameters by name, the step) of a port checkpoint
+    `<checkpoint dir>[@step]` (default the newest step), on the CPU. The
+    state file is mapped: the optimizer moments beside the parameters are
+    never read into memory."""
+    directory, step = parse_init_checkpoint(spec)
+    state, _, step = CheckpointManager(directory, log=log).restore(
+        step, map_location="cpu", mmap=True)
+    return state["params"], step
+
+
 def load_init_params(spec: str, params: Dict[str, torch.Tensor],
                      log: Callable[[str], None] = print) -> int:
     """Seed `params` in place from the parameters of a port checkpoint,
@@ -160,10 +175,8 @@ def load_init_params(spec: str, params: Dict[str, torch.Tensor],
     optimizer state stay fresh. Every parameter that is not loaded
     (absent from the checkpoint, or of another shape) is reported; raises
     when none matches. Returns the checkpoint's step."""
-    directory, step = parse_init_checkpoint(spec)
-    src, _, step = CheckpointManager(directory, log=log).restore(
-        step, map_location="cpu")
-    src = src["params"]
+    directory = parse_init_checkpoint(spec)[0]
+    src, step = load_params(spec, log=log)
     loaded, fresh = [], []
     with torch.no_grad():
         for k, p in params.items():

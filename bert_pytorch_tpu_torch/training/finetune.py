@@ -1,0 +1,367 @@
+"""The finetune loop: one for every registered task (counterpart of
+bert_pytorch_tpu/training/finetune.py, without telemetry, watchdog,
+preemption guard or packing, which ROADMAP queue A lists).
+
+A task contributes what is task-shaped (model head, loss, featurizer,
+eval and predict) through the `TaskRun` its `TaskSpec.setup` returns; the
+loop owns the rest:
+
+- the weights: random from --seed (`init_weights`, the config's
+  initializer_range), then --init_checkpoint, a port checkpoint directory
+  `<dir>[@step]` (pretraining's `<output_dir>/pretrain_ckpts`), read
+  through `training/checkpoint.load_init_params`: the `bert.*` names of
+  BertForPreTraining are the task heads' too;
+- the steps: shuffled fixed-shape batches (`plain_train_batches`, the
+  rows JAX draws from the same seed), `build_pretrain_step` with the
+  task's loss and its optimizer (f32 gradients), dropout seeds a pure
+  function of (--seed, step) (`training.pretrain.dropout_seeds`);
+- length-bucketed eval batches (`bucketed_eval_batches`): each example
+  rides the smallest bucket that holds it;
+- the final state saved with `CheckpointManager` under
+  `<output_dir>/ckpt/<step>/`, which `run_server --task_checkpoint
+  <task>=<output_dir>/ckpt` serves;
+- one JSON record a logged step in `<output_dir>/<log_prefix>.jsonl`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from bert_pytorch_tpu_torch import FINETUNE_GAPS, resolve_device
+from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+from bert_pytorch_tpu_torch.models.bert import init_weights
+from bert_pytorch_tpu_torch.training.checkpoint import (
+    STATE_FILE, CheckpointManager, load_init_params, parse_init_checkpoint)
+from bert_pytorch_tpu_torch.training.pretrain import (build_pretrain_step,
+                                                      dropout_seeds)
+from bert_pytorch_tpu_torch.training.state import make_train_state
+
+# the ROADMAP item an --init_checkpoint / --model_checkpoint the port
+# cannot read yet names
+_INIT_GAPS = "ROADMAP.md, queue A: --init_checkpoint from other sources"
+# The JAX finetune flags every task's parser carries whose feature the
+# port lacks: flag -> the values that leave it off (`refuse`), and the
+# flags that only tune such a feature (any value: the feature is off).
+COMMON_REFUSED = {"packing": (False,), "perf_artifact": (None,),
+                  "metrics_port": (None,), "watchdog_timeout": (0, 0.0)}
+COMMON_TUNING = {"packing_max_segments": "packing",
+                 "watchdog_action": "watchdog_timeout"}
+
+
+def eval_buckets(max_seq_len: int, floor: int = 32) -> Tuple[int, ...]:
+    """Length buckets for eval batching: 32/64/128/... up to (and always
+    including) max_seq_len."""
+    out = []
+    b = int(floor)
+    while b < max_seq_len:
+        out.append(b)
+        b *= 2
+    out.append(int(max_seq_len))
+    return tuple(sorted(set(out)))
+
+
+def epoch_steps(train: Optional[Dict[str, np.ndarray]], args
+                ) -> Tuple[int, int]:
+    """(steps_per_epoch, total_steps) of --epochs over --batch_size, the
+    --max_steps cap applied where the parser has it."""
+    if train is None:
+        return 0, 0
+    steps_per_epoch = max(1, -(-len(train["input_ids"]) // args.batch_size))
+    total_steps = steps_per_epoch * args.epochs
+    max_steps = getattr(args, "max_steps", None)
+    if max_steps and max_steps > 0:
+        total_steps = min(total_steps, int(max_steps))
+    return steps_per_epoch, total_steps
+
+
+def stack_microbatches(batch: Dict[str, np.ndarray], accum_steps: int
+                       ) -> Dict[str, np.ndarray]:
+    """(B, ...) numpy batch -> (accum, B / accum, ...)."""
+    out = {}
+    for k, x in batch.items():
+        x = np.asarray(x)
+        if x.shape[0] % accum_steps:
+            raise ValueError(f"batch dim {x.shape[0]} not divisible by "
+                             f"accum {accum_steps}")
+        out[k] = x.reshape(accum_steps, x.shape[0] // accum_steps,
+                           *x.shape[1:])
+    return out
+
+
+def plain_train_batches(arrays: Dict[str, np.ndarray], batch_per_step: int,
+                        accum_steps: int, shuffle: bool, seed: int,
+                        label_ignore: Optional[Dict[str, int]] = None):
+    """Fixed-shape per-step batches in the order of
+    RandomState(seed).permutation, the tail padded to full by repeating
+    index 0 with its labels set to the ignore value (zero loss). Yields
+    ((accum, micro, ...) stacked batch, real_token_count,
+    real_example_count)."""
+    n = len(arrays["input_ids"])
+    order = (np.random.RandomState(seed).permutation(n) if shuffle
+             else np.arange(n))
+    for lo in range(0, n, batch_per_step):
+        idx = order[lo:lo + batch_per_step]
+        pad = batch_per_step - len(idx)
+        full = (np.concatenate([idx, np.zeros(pad, np.int64)]) if pad
+                else idx)
+        batch = {k: np.asarray(v[full]).copy() for k, v in arrays.items()}
+        if pad:
+            for fld, ign in (label_ignore or {}).items():
+                batch[fld][len(idx):] = ign
+        real = int(np.asarray(arrays["attention_mask"][idx], np.int64).sum())
+        yield stack_microbatches(batch, accum_steps), real, len(idx)
+
+
+def bucketed_eval_batches(arrays: Dict[str, np.ndarray], batch_size: int,
+                          buckets: Sequence[int],
+                          label_ignore: Optional[Dict[str, int]] = None):
+    """Examples grouped by the smallest bucket that holds their real
+    length, every sequence-shaped field trimmed to the bucket, tails
+    padded to batch_size by repeating index 0 with ignored labels. Pad
+    keys carry an exact-zero attention weight either way, so trimming
+    changes the work, not the answers. Yields (np_batch, real_indices,
+    bucket)."""
+    mask = np.asarray(arrays["attention_mask"], np.int64)
+    sub_len = mask.sum(axis=-1)
+    max_len = sub_len.max(axis=-1) if sub_len.ndim > 1 else sub_len
+    buckets = sorted(set(int(b) for b in buckets))
+    by_bucket: Dict[int, List[int]] = {}
+    for i, ln in enumerate(max_len):
+        for b in buckets:
+            if ln <= b:
+                by_bucket.setdefault(b, []).append(i)
+                break
+        else:
+            by_bucket.setdefault(buckets[-1], []).append(i)
+    seq_fields = {k for k, v in arrays.items()
+                  if np.asarray(v).ndim >= 2
+                  and np.asarray(v).shape[-1] == mask.shape[-1]}
+    for bucket in sorted(by_bucket):
+        idx_all = by_bucket[bucket]
+        for lo in range(0, len(idx_all), batch_size):
+            idx = np.asarray(idx_all[lo:lo + batch_size])
+            pad = batch_size - len(idx)
+            full = (np.concatenate([idx, np.zeros(pad, np.int64)]) if pad
+                    else idx)
+            batch = {}
+            for k, v in arrays.items():
+                picked = np.asarray(v[full]).copy()
+                if k in seq_fields:
+                    picked = picked[..., :bucket].copy()
+                batch[k] = picked
+            if pad:
+                for fld, ign in (label_ignore or {}).items():
+                    batch[fld][len(idx):] = ign
+            yield batch, idx, bucket
+
+
+def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
+                                                            torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+@dataclasses.dataclass
+class TaskRun:
+    """Everything task-shaped the loop needs, built by a
+    TaskSpec.setup(args, config, device, log). `train_arrays=None` skips
+    training (predict / eval-only runs). The model holds the weights the
+    loop trains (its parameters are the train state's), so
+    `epoch_eval(epoch)` and `finalize(results)` read them from it."""
+
+    model: torch.nn.Module
+    tx: Any
+    schedule: Callable[[int], float]
+    seq_len: int
+    batch_size: int                       # examples per optimizer step
+    accum_steps: int = 1
+    total_steps: int = 0
+    epochs: Optional[int] = None          # None: loop until total_steps
+    train_arrays: Optional[Dict[str, np.ndarray]] = None
+    loss_builder: Optional[Callable] = None
+    label_ignore: Dict[str, int] = dataclasses.field(default_factory=dict)
+    log_every: int = 50
+    init_checkpoint: Optional[str] = None
+    epoch_eval: Optional[Callable[[int], Optional[Dict]]] = None
+    finalize: Optional[Callable[[Dict], Optional[Dict]]] = None
+    log_epoch_metrics: bool = False
+
+
+def _is_external_source(path: str) -> bool:
+    """A Google TF release (registry name, URL, zip, extracted directory,
+    bare ckpt prefix) or a reference torch save (ckpt_*.pt)?"""
+    if "://" in path or path.endswith((".zip", ".ckpt", ".pt", ".pth",
+                                       ".bin")):
+        return True
+    if os.path.isdir(path):
+        for _root, _dirs, files in os.walk(path):
+            if "bert_config.json" in files or any(
+                    f.endswith(".ckpt.index") for f in files):
+                return True
+        return False
+    return os.path.exists(path + ".index")
+
+
+def check_init_checkpoint(spec: str) -> None:
+    """Refuse an --init_checkpoint the port cannot read: a TF release, a
+    reference `ckpt_*.pt`, a registry name, or a directory that holds no
+    port checkpoint step (an orbax checkpoint of the JAX package)."""
+    directory, step = parse_init_checkpoint(spec)
+    if _is_external_source(directory) or not os.path.isdir(directory):
+        raise NotImplementedError(
+            f"--init_checkpoint {spec!r} is not a port checkpoint "
+            "directory: a TF release, a reference torch save and a "
+            f"registry name are not read yet (see {_INIT_GAPS}); pass "
+            "<dir>[@step] of the port's checkpoint steps")
+    steps = CheckpointManager(directory).all_steps()
+    pick = step if step is not None else (steps[-1] if steps else None)
+    if pick not in steps or not os.path.isfile(
+            os.path.join(directory, str(pick), STATE_FILE)):
+        raise NotImplementedError(
+            f"--init_checkpoint {spec!r} holds no port checkpoint step "
+            f"(an orbax checkpoint of the JAX package is not read yet: see "
+            f"{_INIT_GAPS})")
+
+
+def add_common_finetune_flags(p) -> None:
+    """The JAX finetune parsers' common flags (packing, its segment cap,
+    the perf artifact) and the metrics / watchdog flags, declared with the
+    JAX defaults so a run that switches one on is refused by name; and
+    --device, the port's own."""
+    off = f"not ported: refused unless off ({FINETUNE_GAPS})"
+    p.add_argument("--packing", action="store_true", help=off)
+    p.add_argument("--packing_max_segments", type=int, default=8,
+                   help="tunes --packing (off)")
+    p.add_argument("--perf_artifact", type=str, default=None, help=off)
+    p.add_argument("--metrics_port", type=int, default=None, help=off)
+    p.add_argument("--watchdog_timeout", type=float, default=0.0, help=off)
+    p.add_argument("--watchdog_action", type=str, default="abort",
+                   choices=["abort", "warn"],
+                   help="tunes --watchdog_timeout (off)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu")
+
+
+class _JsonlLog:
+    """`<output_dir>/<log_prefix>.jsonl`: one {"tag", "step", "time",
+    ...} record a line, and a text line to `log`."""
+
+    def __init__(self, path: str, log: Callable[[str], None]):
+        self.file = open(path, "a", encoding="utf-8")
+        self.out = log
+
+    def __call__(self, tag: str, step: int, **metrics: Any) -> None:
+        self.out(f"[{tag}] step {step} " + " ".join(
+            f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in metrics.items()))
+        self.file.write(json.dumps({"tag": tag, "step": step,
+                                    "time": time.time(), **metrics}) + "\n")
+        self.file.flush()
+
+    def close(self) -> None:
+        self.file.close()
+
+
+def run_task(spec, args, log: Callable[[str], None] = print,
+             trace: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """The finetune entry body for any registered TaskSpec: setup, train,
+    checkpoint, eval. Returns the results (the JAX run_task's keys:
+    e2e_train_time, training_sequences_per_second and the task's own).
+    `trace`, when given, receives the run's internals for a caller that
+    checks them: `history` (per step: loss, grad_norm, learning_rate),
+    `state` (the final TrainState), `run` (the TaskRun), `device`."""
+    if not getattr(args, "output_dir", None):
+        raise SystemExit("--output_dir is required")
+    device = resolve_device(getattr(args, "device", None))
+    init_spec = getattr(args, "init_checkpoint", None) or getattr(
+        args, "model_checkpoint", None)
+    if init_spec:
+        check_init_checkpoint(init_spec)
+    os.makedirs(args.output_dir, exist_ok=True)
+    config = BertConfig.from_json_file(args.model_config_file)
+    config = config.replace(vocab_size=pad_vocab_size(config.vocab_size, 8))
+    prefix = getattr(args, "log_prefix", None) or f"{spec.name}_log"
+    record = _JsonlLog(os.path.join(args.output_dir, prefix + ".jsonl"), log)
+    try:
+        run: TaskRun = spec.setup(args, config, device, log)
+        init_weights(run.model, torch.Generator(device=device).manual_seed(
+            args.seed), std=config.initializer_range)
+        state = make_train_state(run.model, run.tx)
+        if run.init_checkpoint:
+            load_init_params(run.init_checkpoint, state.params, log=log)
+        results: Dict[str, Any] = {}
+        history: List[Dict[str, Any]] = []
+        if trace is not None:
+            trace.update(run=run, state=state, history=history,
+                         device=device)
+        if run.train_arrays is not None and run.total_steps > 0:
+            _train(spec, args, run, state, config, device, record, results,
+                   history, log)
+            CheckpointManager(os.path.join(args.output_dir, "ckpt"),
+                              log=log).save(
+                state.step, state.state_dict(),
+                extra={"task": spec.name,
+                       "config": dataclasses.asdict(config)})
+        if run.finalize is not None:
+            results.update(run.finalize(results) or {})
+        numbers = {k: v for k, v in results.items()
+                   if isinstance(v, (int, float))}
+        if numbers:
+            record("final", 0, **numbers)
+        log(json.dumps(results, default=str))
+        return results
+    finally:
+        record.close()
+
+
+def _train(spec, args, run, state, config, device, record, results,
+           history, log) -> None:
+    accum = run.accum_steps
+    step_fn = build_pretrain_step(run.model, run.tx, schedule=run.schedule,
+                                  accum_steps=accum,
+                                  loss_fn_builder=run.loss_builder)
+    n_sites = run.model.n_dropout_sites
+    log(f"finetune[{spec.name}]: {run.total_steps} step(s), batch "
+        f"{run.batch_size} x accum {accum}, seq {run.seq_len}, device "
+        f"{device}, layers {config.num_hidden_layers}")
+    t0 = time.perf_counter()
+    step = epoch = examples_done = 0
+    metrics = None
+    while step < run.total_steps:
+        for batch_np, _real, n_examples in plain_train_batches(
+                run.train_arrays, run.batch_size * accum, accum,
+                shuffle=True, seed=args.seed + epoch,
+                label_ignore=run.label_ignore):
+            if step >= run.total_steps:
+                break
+            seeds = dropout_seeds(args.seed, step + 1, accum, n_sites)
+            metrics = step_fn(state, to_device(batch_np, device), seeds)
+            step += 1
+            examples_done += n_examples
+            history.append(metrics)
+            if not run.log_epoch_metrics and (
+                    step % run.log_every == 0 or step == run.total_steps):
+                record("train", step, loss=float(metrics["loss"]),
+                       learning_rate=float(metrics["learning_rate"]))
+        if run.log_epoch_metrics and metrics is not None:
+            record("train", step, epoch=epoch, loss=float(metrics["loss"]),
+                   learning_rate=float(metrics["learning_rate"]))
+        if run.epoch_eval is not None and step > 0:
+            results.update(run.epoch_eval(epoch) or {})
+        epoch += 1
+        if run.epochs is not None and epoch >= run.epochs:
+            break
+    for i, m in enumerate(history):   # reading a loss waits for the card
+        history[i] = {k: (v.item() if torch.is_tensor(v) else v)
+                      for k, v in m.items()}
+    train_time = time.perf_counter() - t0
+    results["e2e_train_time"] = train_time
+    results["training_sequences_per_second"] = (
+        examples_done / max(train_time, 1e-9))

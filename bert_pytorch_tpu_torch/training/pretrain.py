@@ -1,10 +1,15 @@
-"""The pretraining step: forward, loss, gradients, accumulation, LAMB
-(counterpart of bert_pytorch_tpu/training/pretrain.py, one device).
+"""The training step: forward, loss, gradients, accumulation, the
+optimizer (counterpart of bert_pytorch_tpu/training/pretrain.py, one
+device). One step serves pretraining (the default loss: MLM + NSP, LAMB)
+and finetuning (`loss_fn_builder`, the task's loss; FusedAdam), as in the
+JAX package.
 
 Batch layout: every tensor arrives shaped (accum_steps, micro_batch, ...)
 on the step's device, and `seeds` is an int32 host tensor of shape
-(accum_steps, 1 + 3L), one row of dropout seeds per microbatch (None: no
-dropout). The loss is the mean over microbatches.
+(accum_steps, n_sites), one row of dropout seeds per microbatch (None: no
+dropout; n_sites is the model's `n_dropout_sites`, 1 + 3L for the
+encoder). The loss is the mean over microbatches. A parameter the loss
+does not reach (the pooler under a task head) gets a zero gradient.
 
 `grad_dtype` (bf16 under --grad_dtype auto with bf16 compute): the
 forward and backward run against a copy of every float parameter cast to
@@ -18,17 +23,33 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
 
 from bert_pytorch_tpu_torch.models import losses
-from bert_pytorch_tpu_torch.optim.lamb import Lamb, global_norm_f32
+from bert_pytorch_tpu_torch.optim.lamb import global_norm_f32
 from bert_pytorch_tpu_torch.telemetry.health import (HealthConfig,
                                                      health_signals)
 from bert_pytorch_tpu_torch.training.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
+# loss_fn(params by name, microbatch, seeds or None) -> (loss, aux counts)
+LossFn = Callable[[Dict[str, torch.Tensor], Batch, Optional[torch.Tensor]],
+                  Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+
+def dropout_seeds(seed: int, step: int, accum_steps: int, n_sites: int
+                  ) -> torch.Tensor:
+    """(accum_steps, n_sites) int32 dropout seeds of global step `step`
+    (the step being taken, 1-based): a pure function of (seed, step), the
+    port's counterpart of fold_in(PRNGKey(seed + 1000), step), so a
+    resumed run draws the seeds an uninterrupted run draws."""
+    rng = np.random.default_rng([(seed + 1000) % 2 ** 64, step])
+    return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31,
+                                         (accum_steps, n_sites),
+                                         dtype=np.int32))
 
 
 def gather_masked_labels(masked_lm_labels: torch.Tensor,
@@ -60,60 +81,89 @@ def compute_params(params: Dict[str, torch.Tensor],
     return out
 
 
+def pretrain_loss_fn(model: nn.Module,
+                     max_predictions: Optional[int] = None) -> LossFn:
+    """The pretraining loss (MLM + NSP) of `model` as a LossFn, with the
+    masked-token counts as aux. `max_predictions` turns on the gathered
+    MLM head: logits for at most that many masked positions per row."""
+
+    def loss_fn(params, micro, seeds):
+        labels = micro["masked_lm_labels"]
+        positions = None
+        dropped = torch.zeros((), dtype=torch.int64, device=labels.device)
+        if max_predictions is not None:
+            dense_total = (labels != -1).sum()
+            positions, labels = gather_masked_labels(labels, max_predictions)
+            # rows with more than max_predictions masks lose the excess
+            dropped = dense_total - (labels != -1).sum()
+        mlm_logits, nsp_logits = functional_call(
+            model, params, (micro["input_ids"],),
+            {"token_type_ids": micro.get("token_type_ids"),
+             "attention_mask": micro.get("attention_mask"),
+             "masked_positions": positions, "dropout_seeds": seeds})
+        loss = losses.pretraining_loss(mlm_logits, labels, nsp_logits,
+                                       micro.get("next_sentence_labels"))
+        with torch.no_grad():
+            correct, total = losses.mlm_accuracy(mlm_logits, labels)
+        return loss, {"mlm_correct": correct, "mlm_total": total,
+                      "mlm_dropped": dropped}
+
+    return loss_fn
+
+
+def loss_and_grads(loss_fn: LossFn, gparams: Dict[str, torch.Tensor],
+                   micro: Batch, seeds: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Dict, Dict]:
+    """One microbatch: (loss, aux, grads by parameter name); a parameter
+    the loss does not reach gets zeros."""
+    loss, aux = loss_fn(gparams, micro, seeds)
+    names = list(gparams)
+    grads = torch.autograd.grad(loss, [gparams[k] for k in names],
+                                allow_unused=True)
+    grads = [torch.zeros_like(gparams[k]) if g is None else g
+             for k, g in zip(names, grads)]
+    return loss.detach(), aux, dict(zip(names, grads))
+
+
 def pretrain_loss_and_grads(model: nn.Module,
                             gparams: Dict[str, torch.Tensor], micro: Batch,
                             seeds: Optional[torch.Tensor],
                             max_predictions: Optional[int] = None
                             ) -> Tuple[torch.Tensor, Dict, Dict]:
-    """One microbatch: (loss, aux counts, grads by parameter name).
-    `max_predictions` turns on the gathered MLM head: logits for at most
-    that many masked positions per row."""
-    labels = micro["masked_lm_labels"]
-    positions = None
-    dropped = torch.zeros((), dtype=torch.int64, device=labels.device)
-    if max_predictions is not None:
-        dense_total = (labels != -1).sum()
-        positions, labels = gather_masked_labels(labels, max_predictions)
-        # rows with more than max_predictions masks lose the excess
-        dropped = dense_total - (labels != -1).sum()
-    mlm_logits, nsp_logits = functional_call(
-        model, gparams, (micro["input_ids"],),
-        {"token_type_ids": micro.get("token_type_ids"),
-         "attention_mask": micro.get("attention_mask"),
-         "masked_positions": positions, "dropout_seeds": seeds})
-    loss = losses.pretraining_loss(mlm_logits, labels, nsp_logits,
-                                   micro.get("next_sentence_labels"))
-    names = list(gparams)
-    grads = torch.autograd.grad(loss, [gparams[k] for k in names])
-    with torch.no_grad():
-        correct, total = losses.mlm_accuracy(mlm_logits, labels)
-    aux = {"mlm_correct": correct, "mlm_total": total,
-           "mlm_dropped": dropped}
-    return loss.detach(), aux, dict(zip(names, grads))
+    """One pretraining microbatch: (loss, aux counts, grads by name)."""
+    return loss_and_grads(pretrain_loss_fn(model, max_predictions), gparams,
+                          micro, seeds)
 
 
-def build_pretrain_step(model: nn.Module, tx: Lamb,
+def build_pretrain_step(model: nn.Module, tx,
                         schedule: Optional[Callable[[int], float]] = None,
                         accum_steps: int = 1,
+                        loss_fn_builder: Optional[
+                            Callable[[nn.Module], LossFn]] = None,
                         max_predictions: Optional[int] = None,
                         grad_dtype: Optional[torch.dtype] = None,
                         health: Optional[HealthConfig] = None
                         ) -> Callable[[TrainState, Batch,
                                        Optional[torch.Tensor]], Dict]:
     """Returns train_step(state, batch, seeds) -> metrics, which updates
-    `state` in place. Metrics: loss, grad_norm, mlm_accuracy,
-    mlm_dropped (tensors on the card), learning_rate (`schedule` at the
-    step before the update) and, with `health`, the non-finite counts
-    (plus skipped_nonfinite under action "skip")."""
+    `state` in place. `tx` is any optimizer with Lamb's interface (`Lamb`,
+    `FusedAdam`); `loss_fn_builder(model)` gives the loss (default: the
+    pretraining loss; `max_predictions` applies to that one only).
+    Metrics: loss, grad_norm (before any clip), with the pretraining loss
+    mlm_accuracy and mlm_dropped (tensors on the card), learning_rate
+    (`schedule` at the step before the update) and, with `health`, the
+    non-finite counts (plus skipped_nonfinite under action "skip")."""
+    loss_fn = (pretrain_loss_fn(model, max_predictions)
+               if loss_fn_builder is None else loss_fn_builder(model))
 
     def train_step(state: TrainState, batch: Batch,
                    seeds: Optional[torch.Tensor]) -> Dict:
         gparams = compute_params(state.params, grad_dtype)
 
         def micro(i):
-            return pretrain_loss_and_grads(
-                model, gparams, {k: v[i] for k, v in batch.items()},
-                None if seeds is None else seeds[i], max_predictions)
+            return loss_and_grads(
+                loss_fn, gparams, {k: v[i] for k, v in batch.items()},
+                None if seeds is None else seeds[i])
 
         if accum_steps == 1:
             loss, aux, grads = micro(0)
@@ -147,9 +197,10 @@ def build_pretrain_step(model: nn.Module, tx: Lamb,
         if not skip:
             tx.update(grads, state.opt_state, state.params,
                       grad_norm=grad_norm)
-        metrics["mlm_accuracy"] = (aux["mlm_correct"]
-                                   / aux["mlm_total"].clamp_min(1))
-        metrics["mlm_dropped"] = aux["mlm_dropped"]
+        if "mlm_total" in aux:
+            metrics["mlm_accuracy"] = (aux["mlm_correct"]
+                                       / aux["mlm_total"].clamp_min(1))
+            metrics["mlm_dropped"] = aux["mlm_dropped"]
         if schedule is not None:
             metrics["learning_rate"] = schedule(state.step)
         state.step += 1

@@ -1,5 +1,6 @@
 """Train state (counterpart of bert_pytorch_tpu/training/state.py,
-trimmed): the global step, the f32 master parameters and the LAMB state.
+trimmed): the global step, the f32 master parameters and the optimizer
+state (LAMB's or FusedAdam's: a count and one mu and one nu per name).
 
 `params` are the model's own parameter tensors (detached views of them),
 so the model and the state always hold the same weights; the step updates
@@ -7,25 +8,27 @@ them in place, and `load_state_dict` copies a checkpoint into them.
 
 `state_dict()` is what a checkpoint carries: {"step", "params" by name,
 "opt_state": {"count", "mu" by name, "nu" by name}}. Both LAMB routes
-keep that layout, so a state saved under one resumes under the other.
+and FusedAdam keep that layout, so a state saved under one LAMB route
+resumes under the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Union
 
 import torch
 from torch import nn
 
-from bert_pytorch_tpu_torch.optim.lamb import Lamb, LambState
+from bert_pytorch_tpu_torch.optim.adam import AdamState
+from bert_pytorch_tpu_torch.optim.lamb import LambState
 
 
 @dataclasses.dataclass
 class TrainState:
     step: int
     params: Dict[str, torch.Tensor]
-    opt_state: LambState
+    opt_state: Union[LambState, AdamState]
 
     def state_dict(self) -> Dict:
         return {"step": int(self.step), "params": dict(self.params),
@@ -36,7 +39,7 @@ class TrainState:
     def load_state_dict(self, sd: Dict) -> None:
         """Copy a state_dict() in place: every tensor by name, of the same
         shape (a missing, extra or reshaped entry raises before anything
-        is copied), then the step and LAMB's count."""
+        is copied), then the step and the optimizer's count."""
         opt = sd["opt_state"]
         pairs = []
         for what, have, got in (("params", self.params, sd["params"]),
@@ -61,8 +64,9 @@ class TrainState:
         self.opt_state.count = int(opt["count"])
 
 
-def make_train_state(model: nn.Module, tx: Lamb) -> TrainState:
-    """A fresh state over `model`'s parameters, which must be f32."""
+def make_train_state(model: nn.Module, tx) -> TrainState:
+    """A fresh state over `model`'s parameters, which must be f32; `tx`
+    is a Lamb or a FusedAdam."""
     params = {k: p.detach() for k, p in model.named_parameters()}
     bad = [k for k, p in params.items() if p.dtype != torch.float32]
     if bad:
