@@ -1,5 +1,6 @@
-"""BERT in PyTorch: the encoder, the QA and token-classification heads
-and the pretraining heads (counterpart of bert_pytorch_tpu/models/bert.py).
+"""BERT in PyTorch: the encoder, the task heads (QA, token and sequence
+classification, multiple choice, sentence embedding) and the pretraining
+heads (counterpart of bert_pytorch_tpu/models/bert.py).
 
 Numerics follow the JAX model: parameters stay f32 and are cast to the
 compute dtype at use (bf16 by default); LayerNorm statistics and attention
@@ -19,14 +20,16 @@ of plain attention, the flash kernels' own mask at the attention
 probabilities where attention takes the flash route (seq > 256 and a
 multiple of 128: phase 2's 512, SQuAD's 384), the fused
 residual-dropout-LayerNorm kernel at both residual tails. The token
-classification head adds one site after the encoder (2 + 3L seeds).
+and sequence classification and the multiple-choice heads add one site
+after the encoder (2 + 3L seeds); the embedding head adds none.
 
 `plain=True` builds the same model with every kernel call replaced by the
 kernel's plain PyTorch version, differentiated by autograd: a reference to
 hold the kernels against on the card, never a route a run takes.
 
 Shape glossary: B batch, S sequence, H heads, D head_dim, E hidden,
-P masked positions per row, V vocab.
+P masked positions per row, V vocab, G packed segments per row, C
+choices.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bert_pytorch_tpu_torch.config import BertConfig
+from bert_pytorch_tpu_torch.models.losses import segment_onehot
 from bert_pytorch_tpu_torch.ops.activations import ACT2FN
 from bert_pytorch_tpu_torch.ops.attention import (dot_product_attention,
                                                   hash_dropout, keep_dropout,
@@ -199,14 +203,22 @@ class BertEncoder(nn.Module):
 
 
 class BertPooler(nn.Module):
-    """tanh(dense([CLS])) in the compute dtype."""
+    """tanh(dense([CLS])) in the compute dtype. `positions` (B, G) gathers
+    G tokens a row instead of row position 0 (each packed segment's
+    [CLS]), so the pooled output is (B, G, E)."""
 
     def __init__(self, config: BertConfig):
         super().__init__()
         self.dense = nn.Linear(config.hidden_size, config.hidden_size)
 
-    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
-        return torch.tanh(_linear(hidden[:, 0], self.dense))
+    def forward(self, hidden: torch.Tensor,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if positions is None:
+            cls = hidden[:, 0]
+        else:
+            cls = torch.take_along_dim(hidden, positions.long()[..., None],
+                                       dim=1)
+        return torch.tanh(_linear(cls, self.dense))
 
 
 def dropout_seed_list(config: BertConfig,
@@ -292,6 +304,40 @@ class BertForQuestionAnswering(nn.Module):
         return logits[..., 0], logits[..., 1]
 
 
+def _head_seeds(dropout_seeds: Optional[torch.Tensor], n_sites: int
+                ) -> Tuple[Optional[torch.Tensor], Optional[int]]:
+    """(BertModel's 1 + 3L seeds, the head's seed) of a head model's
+    2 + 3L seeds; (None, None) for the deterministic forward."""
+    if dropout_seeds is None:
+        return None, None
+    flat = dropout_seeds.reshape(-1)
+    if flat.numel() != n_sites:
+        raise ValueError(f"dropout_seeds holds {flat.numel()} seeds; this "
+                         f"model has {n_sites} dropout sites (2 + 3L)")
+    return flat[:-1], int(flat[-1])
+
+
+def _head_dropout(x: torch.Tensor, seed: Optional[int],
+                  keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """The head's dropout site (flax nn.Dropout in the JAX heads): the mask
+    `keep` when given, else `hash_dropout` from `seed`; the identity in
+    the deterministic forward."""
+    if seed is None or rate == 0.0:
+        return x
+    return (keep_dropout(x, keep, rate) if keep is not None
+            else hash_dropout(x, seed, rate))
+
+
+def positions_from_segment_ids(segment_ids: torch.Tensor,
+                               max_segments: int) -> torch.Tensor:
+    """(B, S) packed segment ids (1..G, 0 = pad) -> (B, G) row position of
+    each segment's first token, the [CLS] a pooled head gathers. argmax
+    takes the first maximal index, as jnp.argmax does; an empty slot
+    resolves to position 0 (its output is never read)."""
+    hits = segment_onehot(segment_ids, max_segments).to(torch.int32)
+    return torch.argmax(hits, dim=-1).to(torch.int32)
+
+
 class BertForTokenClassification(nn.Module):
     """Per-token logits (B, S, num_labels), f32: sequence output ->
     dropout -> `classifier` Linear (the NER head).
@@ -318,22 +364,148 @@ class BertForTokenClassification(nn.Module):
                 segment_ids: Optional[torch.Tensor] = None,
                 dropout_seeds: Optional[torch.Tensor] = None,
                 head_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-        body_seeds = head_seed = None
-        if dropout_seeds is not None:
-            flat = dropout_seeds.reshape(-1)
-            if flat.numel() != self.n_dropout_sites:
-                raise ValueError(
-                    f"dropout_seeds holds {flat.numel()} seeds; this model "
-                    f"has {self.n_dropout_sites} dropout sites (2 + 3L)")
-            body_seeds, head_seed = flat[:-1], int(flat[-1])
+        body_seeds, head_seed = _head_seeds(dropout_seeds,
+                                            self.n_dropout_sites)
         seq = self.bert(input_ids, token_type_ids, attention_mask,
                         position_ids, segment_ids, body_seeds)
-        rate = self.config.hidden_dropout_prob
-        if dropout_seeds is not None and rate > 0.0:
-            seq = (keep_dropout(seq, head_keep, rate)
-                   if head_keep is not None
-                   else hash_dropout(seq, head_seed, rate))
+        seq = _head_dropout(seq, head_seed, head_keep,
+                            self.config.hidden_dropout_prob)
         return _linear(seq, self.classifier).float()
+
+
+class BertForSequenceClassification(nn.Module):
+    """Pooled [CLS] -> dropout -> `classifier` Linear: f32 logits
+    (B, num_labels), or (B, G, num_labels) for packed rows, whose pooler
+    gathers every segment's first token (`positions_from_segment_ids`).
+    The pooler is always built (`next_sentence` forced on). Dropout
+    seeds and `head_keep` ((B, E) or (B, G, E) bool) as
+    BertForTokenClassification takes them."""
+
+    def __init__(self, config: BertConfig, num_labels: int = 2,
+                 max_segments: int = 8,
+                 dtype: torch.dtype = torch.bfloat16, plain: bool = False):
+        super().__init__()
+        self.config = config.replace(next_sentence=True)
+        self.num_labels = num_labels
+        self.max_segments = max_segments
+        self.bert = BertModel(self.config, dtype=dtype, plain=plain)
+        self.classifier = nn.Linear(config.hidden_size, num_labels)
+        self.n_dropout_sites = 2 + 3 * config.num_hidden_layers
+
+    def pooled(self, input_ids, token_type_ids, attention_mask,
+               position_ids, segment_ids, dropout_seeds, head_keep
+               ) -> torch.Tensor:
+        """The pooled output after the head's dropout."""
+        body_seeds, head_seed = _head_seeds(dropout_seeds,
+                                            self.n_dropout_sites)
+        seq = self.bert(input_ids, token_type_ids, attention_mask,
+                        position_ids, segment_ids, body_seeds)
+        positions = (None if segment_ids is None else
+                     positions_from_segment_ids(segment_ids,
+                                                self.max_segments))
+        return _head_dropout(self.bert.pooler(seq, positions), head_seed,
+                             head_keep, self.config.hidden_dropout_prob)
+
+    def forward(self, input_ids: torch.Tensor,
+                token_type_ids: Optional[torch.Tensor] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                dropout_seeds: Optional[torch.Tensor] = None,
+                head_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        pooled = self.pooled(input_ids, token_type_ids, attention_mask,
+                             position_ids, segment_ids, dropout_seeds,
+                             head_keep)
+        return _linear(pooled, self.classifier).float()
+
+
+class BertForMultipleChoice(BertForSequenceClassification):
+    """One f32 score per (question, choice) row from the pooled [CLS] and a
+    1-wide `classifier`. The reference-shaped (B, C, S) input is scored as
+    B * C rows and comes back (B, C) (`head_keep` then (B * C, E)); a 2-D
+    input gives (B,) scores, or (B, G) for packed rows, one per segment
+    (serving sends one segment per choice). The same parameters either
+    way."""
+
+    def __init__(self, config: BertConfig, max_segments: int = 8,
+                 dtype: torch.dtype = torch.bfloat16, plain: bool = False):
+        super().__init__(config, num_labels=1, max_segments=max_segments,
+                         dtype=dtype, plain=plain)
+
+    def forward(self, input_ids: torch.Tensor,
+                token_type_ids: Optional[torch.Tensor] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                dropout_seeds: Optional[torch.Tensor] = None,
+                head_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        shape = input_ids.shape
+        if input_ids.dim() == 3:
+            b, c, s = shape
+
+            def flat(t):
+                return None if t is None else t.reshape(b * c, s)
+
+            input_ids, token_type_ids, attention_mask = (
+                flat(input_ids), flat(token_type_ids), flat(attention_mask))
+            position_ids = segment_ids = None
+        pooled = self.pooled(input_ids, token_type_ids, attention_mask,
+                             position_ids, segment_ids, dropout_seeds,
+                             head_keep)
+        scores = _linear(pooled, self.classifier)[..., 0].float()
+        return scores.reshape(shape[:2]) if len(shape) == 3 else scores
+
+
+class BertForSentenceEmbedding(nn.Module):
+    """Mean-pooled sentence embeddings and a linear probe. The f32 mean of
+    the sequence output over each example's real tokens (a mask-weighted
+    f32 einsum: one (B, 1, S) mask a row, or `segment_onehot` for packed
+    rows), L2-normalised with a 1e-12 floor on the squared norm; the probe
+    `classifier` reads the unnormalised mean cast to the compute dtype.
+    Returns (embeddings, logits): (B, E) and (B, num_labels) f32, or
+    (B, G, E) and (B, G, num_labels) packed. No pooler (`next_sentence`
+    forced off, so no token-type table either) and no head dropout:
+    training takes BertModel's 1 + 3L seeds."""
+
+    def __init__(self, config: BertConfig, num_labels: int = 2,
+                 max_segments: int = 8, normalize: bool = True,
+                 dtype: torch.dtype = torch.bfloat16, plain: bool = False):
+        super().__init__()
+        self.config = config.replace(next_sentence=False)
+        self.num_labels = num_labels
+        self.max_segments = max_segments
+        self.normalize = normalize
+        self.dtype = dtype
+        self.bert = BertModel(self.config, dtype=dtype, plain=plain)
+        self.classifier = nn.Linear(config.hidden_size, num_labels)
+        self.n_dropout_sites = 1 + 3 * config.num_hidden_layers
+
+    def forward(self, input_ids: torch.Tensor,
+                token_type_ids: Optional[torch.Tensor] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                dropout_seeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if attention_mask is None:
+            attention_mask = (segment_ids > 0 if segment_ids is not None
+                              else torch.ones_like(input_ids))
+        seq = self.bert(input_ids, token_type_ids, attention_mask,
+                        position_ids, segment_ids, dropout_seeds)
+        packed = segment_ids is not None
+        onehot = (segment_onehot(segment_ids, self.max_segments) if packed
+                  else (attention_mask > 0)[:, None, :]).float()
+        # pad and other segments' tokens weigh exactly 0 in the sum
+        sums = torch.einsum("bgs,bse->bge", onehot, seq.float())
+        mean = sums / onehot.sum(-1)[..., None].clamp_min(1.0)
+        emb = mean
+        if self.normalize:
+            emb = emb / torch.sqrt(torch.sum(emb * emb, dim=-1,
+                                             keepdim=True).clamp_min(1e-12))
+        logits = _linear(mean.to(self.dtype), self.classifier).float()
+        if not packed:
+            emb, logits = emb[:, 0], logits[:, 0]
+        return emb, logits
 
 
 class BertMLMHead(nn.Module):

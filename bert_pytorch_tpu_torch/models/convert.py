@@ -12,6 +12,7 @@ with "/" between keys it reads, for example,
     cls_predictions/bias                               (V,)
     cls_seq_relationship/kernel                        (E, 2)
     classifier/kernel                                  (E, num_labels)
+                                                       or (E, 1)
 
 in either encoder layout: stacked (`encoder/layers/layer/...`, one leaf per
 weight with a leading L axis, the JAX default) or unstacked
@@ -19,10 +20,12 @@ weight with a leading L axis, the JAX default) or unstacked
 numpy arrays, unstacks it with numpy where needed, and returns the
 state_dict of the port's model (models/bert.py): Linear weights transposed
 to PyTorch's (out, in), the QKV kernel's (3, H, D) features flattened in
-that order. The map is only transposes and reshapes, so it turns a
-flat JAX gradient tree into the port's layout as well. `load_serving_params`
-reads a serving checkpoint: a `.npz` of that flat tree, or a `.pt`
-state_dict.
+that order. The sequence-classification and multiple-choice heads keep
+the pooler (`bert/pooler/dense/*`) beside their `classifier`; the
+sentence-embedding head has no pooler and a `classifier` probe. The map
+is only transposes and reshapes, so it turns a flat JAX gradient tree
+into the port's layout as well. `load_serving_params` reads a serving
+checkpoint: a `.npz` of that flat tree, or a `.pt` state_dict.
 """
 
 from __future__ import annotations
@@ -58,10 +61,10 @@ def _dense(kernel: np.ndarray) -> np.ndarray:
 
 
 def params_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Flat flax params of BertForQuestionAnswering,
-    BertForTokenClassification or BertForPreTraining (either encoder
-    layout) -> the port's state_dict of the same model,
-    f32 tensors."""
+    """Flat flax params of any model of models/bert.py (the QA, token
+    and sequence classification, multiple-choice, sentence-embedding and
+    pretraining heads; either encoder layout) -> the port's state_dict of
+    the same model, f32 tensors."""
     flat = unstack_layers({k: np.asarray(v) for k, v in flat.items()})
     sd: Dict[str, np.ndarray] = {}
     for key, value in flat.items():

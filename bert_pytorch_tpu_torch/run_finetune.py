@@ -7,10 +7,17 @@
         --init_checkpoint <pretraining output_dir>/pretrain_ckpts \\
         --output_dir out [--device cpu]
 
+    python -m bert_pytorch_tpu_torch.run_finetune --task classify \\
+        --model_config_file configs/bert_large_uncased_config.json \\
+        --vocab_file vocab.txt --train_file train.tsv --val_file dev.tsv \\
+        --labels negative positive --output_dir out
+
 `--task` names a task of the registry (tasks/registry.py; `--list_tasks`
-prints them: squad, ner); the rest of the CLI is the task's own parser,
-the JAX entry point's flags (run_squad / run_ner are aliases of this
-entry point). The loop is training/finetune.run_task; the final state lands in
+prints them: choice, classify, embed, ner, squad); the rest of the CLI
+is the task's own parser: the JAX entry point's flags for squad and ner
+(run_squad / run_ner are aliases of this entry point), the JAX base
+finetune parser's for classify, choice and embed. The loop is
+training/finetune.run_task; the final state lands in
 <output_dir>/ckpt/<step>/, which run_server serves. Runs on CUDA unless
 --device cpu.
 """

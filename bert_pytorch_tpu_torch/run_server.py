@@ -1,19 +1,23 @@
-"""Inference server entry point of the port: a SQuAD checkpoint -> HTTP.
+"""Inference server entry point of the port: task checkpoints -> HTTP.
 
     python -m bert_pytorch_tpu_torch.run_server \\
         --model_config_file configs/bert_large_uncased_config.json \\
         --vocab_file vocab.txt --task_checkpoint squad=qa_params.pt \\
-        --port 8000
+        --task_checkpoint ner=results/ner/ckpt --labels O B-PER ... \\
+        --task_checkpoint classify=results/classify/ckpt --port 8000
 
-Serves `POST /v1/squad` ({"question", "context"} -> answer + n-best) and
-`GET /healthz`, with the JAX server's defaults: buckets 64/128/256/512,
-8 rows per batch, up to 8 packed requests per row, bf16 compute over f32
-parameters. Runs on CUDA unless `--device cpu`. A checkpoint is a `.npz`
-of the flat flax param tree, a `.pt` state_dict, or a finetune run's
-checkpoint directory `<output_dir>/ckpt[@step]` (run_squad's final state:
-pretrain -> finetune -> serve), read by models/convert.py.
-`--port 0` binds an ephemeral port; `--port_file` receives the bound port
-once every bucket has run once.
+Serves one `POST /v1/<task>` for each task named by `--task_checkpoint`
+(any registered task: squad, ner, classify, choice, embed; their request
+bodies are the registry's `request_schema`, listed on `GET /healthz`),
+with the JAX server's defaults: buckets 64/128/256/512, 8 rows per batch,
+up to 8 packed requests per row, bf16 compute over f32 parameters. Runs
+on CUDA unless `--device cpu`. A checkpoint is a `.npz` of the flat flax
+param tree, a `.pt` state_dict, or a finetune run's checkpoint directory
+`<output_dir>/ckpt[@step]` (pretrain -> finetune -> serve), read by
+models/convert.py or training/checkpoint.py. NER needs `--labels`;
+`--class_names` and `--embed_labels` size the classify and embed heads
+(`--num_choices` is accepted, as the JAX server takes it, and ignored). `--port 0` binds an ephemeral port; `--port_file` receives the
+bound port once every bucket has run once.
 """
 
 from __future__ import annotations
@@ -25,8 +29,6 @@ import sys
 import threading
 from typing import Callable, Dict
 
-TASKS = ("squad",)
-
 
 def parse_arguments(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -34,10 +36,23 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     p.add_argument("--vocab_file", default=None, type=str)
     p.add_argument("--task_checkpoint", action="append", default=None,
                    metavar="TASK=FILE",
-                   help="serve a task from a .npz (flat flax tree), a .pt "
-                        "(state_dict) or a finetune checkpoint directory "
-                        "<output_dir>/ckpt[@step]; tasks: "
-                        + ", ".join(TASKS))
+                   help="serve a registered task from a .npz (flat flax "
+                        "tree), a .pt (state_dict) or a finetune checkpoint "
+                        "directory <output_dir>/ckpt[@step]; repeatable")
+    p.add_argument("--labels", type=str, nargs="+", default=None,
+                   help="NER label names (ids start at 1, 0 is the "
+                        "padding class); required to serve ner")
+    p.add_argument("--class_names", type=str, nargs="+",
+                   default=["negative", "positive"],
+                   help="classify's class names in label-id order (sets "
+                        "the served head's width)")
+    p.add_argument("--num_choices", type=int, default=4,
+                   help="accepted for the JAX server's CLI and ignored: "
+                        "a /v1/choice request carries its own 2..16 "
+                        "choices, and the head scores each alone")
+    p.add_argument("--embed_labels", type=int, default=2,
+                   help="embed's probe width (must match the checkpoint; "
+                        "serving returns embeddings, not probe logits)")
     p.add_argument("--port", type=int, default=8000,
                    help="HTTP port (0 = ephemeral)")
     p.add_argument("--host", type=str, default="0.0.0.0")
@@ -71,6 +86,10 @@ def parse_arguments(argv=None) -> argparse.Namespace:
 
 
 def task_checkpoints(args) -> Dict[str, str]:
+    """{task: checkpoint} of --task_checkpoint; an unknown task raises
+    with the registered names."""
+    from bert_pytorch_tpu_torch.tasks import registry
+
     out = {}
     for entry in args.task_checkpoint or []:
         task, sep, path = entry.partition("=")
@@ -78,13 +97,16 @@ def task_checkpoints(args) -> Dict[str, str]:
             raise SystemExit(f"--task_checkpoint wants TASK=FILE, got "
                              f"{entry!r}")
         out[task] = path
-    unknown = sorted(set(out) - set(TASKS))
+    unknown = sorted(set(out) - set(registry.all_tasks()))
     if unknown:
-        raise SystemExit(f"unknown task(s) {unknown}; this server serves: "
-                         + ", ".join(TASKS))
+        raise SystemExit(f"unknown task(s) {unknown}; registered: "
+                         + ", ".join(registry.all_tasks()))
     if not out:
         raise SystemExit("nothing to serve: pass --task_checkpoint "
-                         "squad=FILE")
+                         "TASK=FILE (tasks: "
+                         + ", ".join(registry.all_tasks()) + ")")
+    if "ner" in out and not args.labels:
+        raise SystemExit("serving ner requires --labels")
     return out
 
 
@@ -129,12 +151,10 @@ def serve(args, log: Callable[[str], None] = print) -> ServerHandle:
     from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
     from bert_pytorch_tpu_torch.data.tokenization import (
         get_wordpiece_tokenizer)
-    from bert_pytorch_tpu_torch.models.bert import BertForQuestionAnswering
     from bert_pytorch_tpu_torch.serving.batcher import Scheduler
     from bert_pytorch_tpu_torch.serving.engine import TorchServingEngine
-    from bert_pytorch_tpu_torch.serving.frontend import (ServingFrontend,
-                                                         SquadService)
-    from bert_pytorch_tpu_torch.tasks import predict, squad
+    from bert_pytorch_tpu_torch.serving.frontend import ServingFrontend
+    from bert_pytorch_tpu_torch.tasks import registry, squad
 
     device = resolve_device(args.device)
     checkpoints = task_checkpoints(args)
@@ -159,23 +179,40 @@ def serve(args, log: Callable[[str], None] = print) -> ServerHandle:
     if not usable:
         raise SystemExit("no usable bucket <= max_position_embeddings")
 
-    models = {}
-    forwards = {}
+    # the per-task options the registry's builders read; one tokenizer
+    # serves every task, so every service shares one lock
+    serve_opts = {
+        "tok_lock": threading.Lock(),
+        "labels": args.labels,
+        "class_names": args.class_names,
+        "embed_labels": args.embed_labels,
+        "max_segments": args.max_segments,
+        "doc_stride": args.doc_stride,
+        "max_query_length": args.max_query_length,
+        "answer_cfg": squad.AnswerConfig(
+            n_best_size=args.n_best_size,
+            max_answer_length=args.max_answer_length,
+            do_lower_case=config.lowercase),
+    }
+    models, forwards, output_kinds, n_params = {}, {}, {}, {}
     for task, path in sorted(checkpoints.items()):
-        model = BertForQuestionAnswering(config, dtype=dtype)
+        spec = registry.get(task)
+        model = spec.build_serving_model(config, dtype, serve_opts, device)
         # strict: a head or layer silently left at random init is an
         # outage, not a warning
         model.load_state_dict(load_task_params(path, log), strict=True)
-        models[task] = model.to(device).eval()
-        forwards[task] = predict.build_qa_forward(models[task])
-        log(f"serving: {task} <- {path} "
-            f"({sum(p.numel() for p in model.parameters())} params, "
-            f"{config.num_hidden_layers} layers, {device}, "
+        models[task] = model.eval()
+        forwards[task] = spec.forward_builder(model)
+        output_kinds[task] = spec.output_kind
+        n_params[task] = sum(p.numel() for p in model.parameters())
+        log(f"serving: {task} <- {path} ({spec.head}, {n_params[task]} "
+            f"params, {config.num_hidden_layers} layers, {device}, "
             f"{args.serve_dtype})")
 
     engine = TorchServingEngine(forwards, device, buckets=usable,
                                 batch_rows=args.batch_rows,
-                                max_segments=args.max_segments)
+                                max_segments=args.max_segments,
+                                output_kinds=output_kinds)
     n = engine.warmup(log=log)
     log(f"serving: {n} (task, bucket) forward(s) warm (buckets "
         f"{engine.buckets}, batch_rows {engine.batch_rows}, packing "
@@ -184,24 +221,28 @@ def serve(args, log: Callable[[str], None] = print) -> ServerHandle:
                           admission_timeout_s=args.admission_timeout,
                           batch_wait_ms=args.batch_wait_ms,
                           packing=(args.packing == "on")).start()
-    answer_cfg = squad.AnswerConfig(n_best_size=args.n_best_size,
-                                    max_answer_length=args.max_answer_length,
-                                    do_lower_case=config.lowercase)
-    services = {"squad": SquadService(
-        scheduler, tokenizer, answer_cfg, doc_stride=args.doc_stride,
-        max_query_length=args.max_query_length)}
+    services = {task: registry.get(task).make_service(scheduler, tokenizer,
+                                                      serve_opts)
+                for task in sorted(checkpoints)}
 
     def healthz():
         return {"status": "ok", "device": str(device),
-                "tasks": sorted(services), "buckets": list(engine.buckets),
+                "tasks": {t: {"checkpoint": checkpoints[t],
+                              "head": registry.get(t).head,
+                              "model_params": n_params[t],
+                              "request_schema": dict(
+                                  registry.get(t).request_schema)}
+                          for t in sorted(services)},
+                "buckets": list(engine.buckets),
                 "packing": args.packing == "on",
                 "serve_dtype": args.serve_dtype,
                 "scheduler": scheduler.stats()}
 
     frontend = ServingFrontend(services, healthz_fn=healthz, port=args.port,
                                host=args.host)
-    log(f"serving: listening on {frontend.url} (POST /v1/squad, "
-        "GET /healthz)")
+    log(f"serving: listening on {frontend.url} ("
+        + ", ".join(f"POST /v1/{t}" for t in sorted(services))
+        + ", GET /healthz)")
     return ServerHandle(frontend, scheduler, engine, models)
 
 

@@ -3,8 +3,10 @@
 request tracing or cost accounting).
 
 Several short requests share one (bucket,) row; segment-aware attention
-keeps them apart, and every head served is token-local, so a request's
-outputs are a plain slice of its row.
+keeps them apart. A token-local head's outputs for a request are a slice
+of its row (`[row, offset:offset+len]`); a pooled head gives one output
+per packed segment, and the request's is `[row, segment]` (the engine's
+`output_kind`).
 
 Flow control, in order:
 
@@ -14,9 +16,9 @@ Flow control, in order:
   admission timeout (`RequestTimeout`, HTTP 504), takes the head request's
   task and natural bucket, first-fits every pending request of that task
   that fits the bucket into `batch_rows` rows, runs the batch on the
-  engine and resolves each request with its token span of every output
-  (the served heads are token-local). Packing off is the same first_fit
-  with one segment per row.
+  engine and resolves each request with its part of every output (its
+  token span, or its segment's pooled output). Packing off is the same
+  first_fit with one segment per row.
 - requests that do not fit the current batch stay pending in arrival
   order for the next one.
 """
@@ -75,7 +77,8 @@ class InferenceRequest:
         self.done.set()
 
 
-Placement = Tuple[InferenceRequest, int, int]  # (request, row, offset)
+# (request, row, offset, segment index in the row: 0-based)
+Placement = Tuple[InferenceRequest, int, int, int]
 
 
 def pack_requests(reqs: List[InferenceRequest], bins: List[List[int]],
@@ -83,7 +86,7 @@ def pack_requests(reqs: List[InferenceRequest], bins: List[List[int]],
                   ) -> Tuple[Dict[str, np.ndarray], List[Placement]]:
     """A first_fit bin layout -> the packed (rows, bucket) batch (segments
     1..n per row, positions reset per segment, 0 = pad) plus each
-    request's (request, row, offset) placement."""
+    request's (request, row, offset, segment) placement."""
     batch = zero_batch(rows, bucket)
     placements: List[Placement] = []
     for row, members in enumerate(bins):
@@ -97,7 +100,7 @@ def pack_requests(reqs: List[InferenceRequest], bins: List[List[int]],
             batch["attention_mask"][row, sl] = 1
             batch["segment_ids"][row, sl] = seg + 1
             batch["position_ids"][row, sl] = np.arange(ln, dtype=np.int32)
-            placements.append((req, row, cursor))
+            placements.append((req, row, cursor, seg))
             cursor += ln
     return batch, placements
 
@@ -261,13 +264,31 @@ class Scheduler:
         except Exception as e:
             # fail only the requests that rode this batch, keep serving
             _log.exception("serving batch for task %r failed", task)
-            for req, _, _ in placements:
+            for req, *_ in placements:
                 req.resolve(error=e)
         else:
             with self._stats_lock:
                 self.batches[(task, bucket)] += 1
-            for req, row, offset in placements:
-                req.resolve(result=tuple(
-                    np.asarray(o)[row, offset:offset + req.length].copy()
-                    for o in outputs))
-        return set(id(req) for req, _, _ in placements)
+            kind = self.engine.output_kind(task)
+            for req, row, offset, seg in placements:
+                req.resolve(result=self._demux(outputs, row, offset,
+                                               req.length, seg, kind))
+        return set(id(req) for req, *_ in placements)
+
+    @staticmethod
+    def _demux(outputs: Any, row: int, offset: int, length: int, seg: int,
+               kind: str) -> Any:
+        """One request's part of the batch outputs (a tuple of arrays or
+        one array): kind 'token', its tokens `[row, offset:offset+length]`
+        (QA span logits, NER token logits); kind 'segment', its segment's
+        pooled output `[row, seg]` (classify logits, a choice score, an
+        embedding)."""
+        def part(o):
+            o = np.asarray(o)
+            if kind == "segment":
+                return o[row, seg].copy()
+            return o[row, offset:offset + length].copy()
+
+        if isinstance(outputs, tuple):
+            return tuple(part(o) for o in outputs)
+        return part(outputs)

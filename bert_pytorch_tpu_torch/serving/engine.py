@@ -53,7 +53,14 @@ class TorchServingEngine:
                  device: torch.device,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  batch_rows: int = 8,
-                 max_segments: int = 8):
+                 max_segments: int = 8,
+                 output_kinds: Optional[Dict[str, str]] = None):
+        self._output_kinds = dict(output_kinds or {})
+        bad = {t: k for t, k in self._output_kinds.items()
+               if k not in ("token", "segment")}
+        if bad:
+            raise ValueError(f"unknown output kind(s): {bad} "
+                             "(want 'token' or 'segment')")
         self._forwards = dict(forwards)
         self.tasks = tuple(sorted(forwards))
         self.buckets = tuple(sorted(int(b) for b in buckets))
@@ -73,9 +80,10 @@ class TorchServingEngine:
 
     def output_kind(self, task: str) -> str:
         """How a request's outputs come out of its row: 'token' (its token
-        span). The QA head is token-local; pooled heads ('segment', one
-        output per packed segment) come with the tasks that have them."""
-        return "token"
+        span: the QA and NER heads) or 'segment' (one pooled output per
+        packed segment: classify, choice, embed), as the task's
+        TaskSpec.output_kind says."""
+        return self._output_kinds.get(task, "token")
 
     def select_bucket(self, length: int) -> Optional[int]:
         return select_bucket(length, self.buckets)
@@ -102,8 +110,9 @@ class TorchServingEngine:
 
     def forward(self, task: str, batch: Dict[str, np.ndarray]):
         """Run one (batch_rows, bucket) batch; returns the forward's outputs
-        as a tuple of host numpy arrays (QA: (start, end), each (B, S)
-        f32)."""
+        as host f32 numpy arrays, a tuple where the forward returns one
+        (QA: (start, end), each (B, S)) and one array otherwise (NER
+        (B, S, C); classify (B, G, C); choice (B, G); embed (B, G, E))."""
         bucket = int(np.shape(batch["input_ids"])[1])
         if (task, bucket) not in self.forward_counts:
             raise KeyError(f"no forward for task={task!r} bucket={bucket} "
@@ -111,4 +120,6 @@ class TorchServingEngine:
         with torch.inference_mode():
             out = self._forwards[task](self._device_batch(batch))
             self.forward_counts[(task, bucket)] += 1
-            return tuple(o.float().cpu().numpy() for o in out)
+            if isinstance(out, tuple):
+                return tuple(o.float().cpu().numpy() for o in out)
+            return out.float().cpu().numpy()

@@ -1,13 +1,18 @@
-"""Stdlib HTTP frontend: POST /v1/squad and GET /healthz (counterpart of
-bert_pytorch_tpu/serving/frontend.py, the SQuAD service).
+"""Stdlib HTTP frontend: POST /v1/<task> and GET /healthz (counterpart of
+bert_pytorch_tpu/serving/frontend.py, without /metrics, traces or the
+SLO plane).
 
-Each handler thread featurizes its request (tasks/predict), submits one
-segment per sliding window to the continuous-batching scheduler, blocks on
-the results and decodes the answer.
+One service per registered task: squad, ner, classify, choice and embed.
+Each handler thread featurizes its request (tasks/predict), submits its
+segments to the continuous-batching scheduler (a SQuAD request one per
+sliding window, a choice request one per choice, an embed request one
+per text), blocks on the results and decodes the answer. The request
+bodies, response keys and status codes are the JAX services'.
 
 Status mapping: 400 malformed JSON or missing fields, 404 unknown route,
-413 longer than the largest bucket, 503 queue full (with Retry-After),
-504 admission or result timeout, 500 engine error.
+413 longer than the largest bucket (or too many choices or texts), 503
+queue full (with Retry-After), 504 admission or result timeout, 500
+engine error.
 """
 
 from __future__ import annotations
@@ -36,19 +41,48 @@ class HTTPError(Exception):
         self.retry_after = retry_after
 
 
-class SquadService:
+class _TaskService:
+    """What every task's service shares: the scheduler, the tokenizer and
+    its lock (run_server builds one tokenizer for every task, so every
+    service serializes on one lock), and `_submit_all`."""
+
+    def __init__(self, scheduler, tokenizer,
+                 tok_lock: Optional[threading.Lock] = None):
+        self.scheduler = scheduler
+        self.tokenizer = tokenizer
+        self._tok_lock = tok_lock if tok_lock is not None \
+            else threading.Lock()
+
+    def _submit_all(self, submits) -> list:
+        """Submit a request of several parts (an iterable of
+        scheduler.submit argument tuples). When a part is shed, the parts
+        already queued will still be computed: wait them out, so none is
+        orphaned without its outcome counted, then raise the shed."""
+        reqs = []
+        try:
+            for args in submits:
+                reqs.append(self.scheduler.submit(*args))
+        except Exception:
+            for req in reqs:
+                try:
+                    self.scheduler.result(req)
+                except Exception:
+                    pass
+            raise
+        return reqs
+
+
+class SquadService(_TaskService):
     """Featurize -> submit (one request per sliding window) -> n-best
     decode."""
 
     def __init__(self, scheduler, tokenizer, answer_cfg=None,
-                 doc_stride: int = 128, max_query_length: int = 64):
-        self.scheduler = scheduler
-        self.tokenizer = tokenizer
+                 doc_stride: int = 128, max_query_length: int = 64,
+                 tok_lock: Optional[threading.Lock] = None):
+        super().__init__(scheduler, tokenizer, tok_lock=tok_lock)
         self.answer_cfg = answer_cfg or squad.AnswerConfig()
         self.doc_stride = int(doc_stride)
         self.max_query_length = int(max_query_length)
-        # the tokenizer is shared by every handler thread
-        self._tok_lock = threading.Lock()
 
     def __call__(self, body: Dict[str, Any]) -> Dict[str, Any]:
         question = body.get("question")
@@ -67,19 +101,11 @@ class SquadService:
                     max_query_length=self.max_query_length)
         except ValueError as e:
             raise HTTPError(400, f"featurization failed: {e}")
-        reqs = []
-        try:
-            for feat in feats:
-                ln = predict.feature_length(feat)
-                reqs.append(self.scheduler.submit(
-                    "squad", np.asarray(feat.input_ids[:ln], np.int32),
-                    np.asarray(feat.segment_ids[:ln], np.int32)))
-        except (TooLong, Overloaded):
-            # windows already queued will be computed; wait them out so
-            # none is orphaned, then report the shed
-            for req in reqs:
-                req.done.wait(self.scheduler.admission_timeout_s + 30.0)
-            raise
+        reqs = self._submit_all(
+            ("squad", np.asarray(feat.input_ids[:ln], np.int32),
+             np.asarray(feat.segment_ids[:ln], np.int32))
+            for feat, ln in ((f, predict.feature_length(f))
+                             for f in feats))
         raws = []
         for feat, req in zip(feats, reqs):
             start, end = self.scheduler.result(req)
@@ -89,6 +115,154 @@ class SquadService:
         out = predict.qa_decode(example, feats, raws, self.answer_cfg)
         out["n_windows"] = len(feats)
         out["real_tokens"] = sum(predict.feature_length(f) for f in feats)
+        return out
+
+
+class NerService(_TaskService):
+    """Pre-split words (or whitespace-split text) -> one segment -> a label
+    per word."""
+
+    def __init__(self, scheduler, tokenizer, id_to_label: Dict[int, str],
+                 tok_lock: Optional[threading.Lock] = None):
+        super().__init__(scheduler, tokenizer, tok_lock=tok_lock)
+        self.id_to_label = dict(id_to_label)
+
+    def __call__(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        tokens = body.get("tokens")
+        if isinstance(body.get("text"), str) and tokens is None:
+            tokens = body["text"].split()
+        if not isinstance(tokens, list) or not tokens \
+                or not all(isinstance(t, str) for t in tokens):
+            raise HTTPError(400, "body must carry 'tokens' (list of "
+                                 "strings) or 'text'")
+        try:
+            with self._tok_lock:
+                ids, piece_word = predict.ner_encode_tokens(
+                    tokens, self.tokenizer,
+                    max_pieces=self.scheduler.engine.max_bucket)
+        except ValueError as e:
+            raise HTTPError(413, str(e))
+        req = self.scheduler.submit("ner", np.asarray(ids, np.int32))
+        logits = self.scheduler.result(req)
+        labels = predict.ner_decode(logits, piece_word, self.id_to_label,
+                                    n_words=len(tokens))
+        return {"tokens": tokens, "labels": labels,
+                "real_tokens": len(ids)}
+
+
+class ClassifyService(_TaskService):
+    """GLUE-style pair classification: ([CLS] text [SEP] text_pair [SEP])
+    by `encode_pair`, the training featurizer, as one segment; its pooled
+    logits decode to a label and the softmax."""
+
+    def __init__(self, scheduler, tokenizer, class_names,
+                 tok_lock: Optional[threading.Lock] = None):
+        super().__init__(scheduler, tokenizer, tok_lock=tok_lock)
+        self.class_names = list(class_names)
+
+    def __call__(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        text = body.get("text")
+        pair = body.get("text_pair")
+        if not isinstance(text, str) or not text.strip():
+            raise HTTPError(400, "body must carry non-empty string 'text' "
+                                 "(optional 'text_pair')")
+        if pair is not None and not isinstance(pair, str):
+            raise HTTPError(400, "'text_pair' must be a string")
+        try:
+            with self._tok_lock:
+                ids, types = predict.encode_pair(
+                    self.tokenizer, text, pair or None,
+                    max_pieces=self.scheduler.engine.max_bucket)
+        except ValueError as e:
+            raise HTTPError(400, f"featurization failed: {e}")
+        req = self.scheduler.submit("classify", np.asarray(ids, np.int32),
+                                    np.asarray(types, np.int32))
+        out = predict.classify_decode(self.scheduler.result(req),
+                                      self.class_names)
+        out["real_tokens"] = len(ids)
+        return out
+
+
+class ChoiceService(_TaskService):
+    """Multiple choice: one segment per (question, choice) pair, the
+    scores softmaxed across the choices on the host."""
+
+    MAX_CHOICES = 16
+
+    def __call__(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        question = body.get("question") or ""
+        choices = body.get("choices")
+        if not isinstance(question, str):
+            raise HTTPError(400, "'question' must be a string")
+        if not isinstance(choices, list) or len(choices) < 2 \
+                or not all(isinstance(c, str) and c.strip()
+                           for c in choices):
+            raise HTTPError(400, "body must carry 'choices': a list of "
+                                 ">=2 non-empty strings")
+        if len(choices) > self.MAX_CHOICES:
+            raise HTTPError(413, f"{len(choices)} choices > "
+                                 f"{self.MAX_CHOICES}")
+        encoded = []
+        try:
+            with self._tok_lock:
+                for choice in choices:
+                    encoded.append(predict.encode_pair(
+                        self.tokenizer, question or choice,
+                        choice if question else None,
+                        max_pieces=self.scheduler.engine.max_bucket))
+        except ValueError as e:
+            raise HTTPError(400, f"featurization failed: {e}")
+        reqs = self._submit_all(
+            ("choice", np.asarray(ids, np.int32),
+             np.asarray(types, np.int32))
+            for ids, types in encoded)
+        scores = [float(np.asarray(self.scheduler.result(req)))
+                  for req in reqs]
+        out = predict.choice_decode(scores)
+        out["real_tokens"] = sum(len(ids) for ids, _ in encoded)
+        return out
+
+
+class EmbedService(_TaskService):
+    """Batch embedding: one segment per text, each answered with its
+    L2-normalised mean-pooled embedding ('texts' for a batch, 'text' for
+    one)."""
+
+    MAX_TEXTS = 32
+
+    def __call__(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        texts = body.get("texts")
+        single = body.get("text")
+        if texts is None and isinstance(single, str):
+            texts = [single]
+        if not isinstance(texts, list) or not texts \
+                or not all(isinstance(t, str) and t.strip()
+                           for t in texts):
+            raise HTTPError(400, "body must carry 'text' (string) or "
+                                 "'texts' (list of non-empty strings)")
+        if len(texts) > self.MAX_TEXTS:
+            raise HTTPError(413, f"{len(texts)} texts > {self.MAX_TEXTS} "
+                                 "per request; batch client-side")
+        encoded = []
+        try:
+            with self._tok_lock:
+                for text in texts:
+                    ids, _types = predict.encode_pair(
+                        self.tokenizer, text,
+                        max_pieces=self.scheduler.engine.max_bucket)
+                    encoded.append(ids)
+        except ValueError as e:
+            raise HTTPError(400, f"featurization failed: {e}")
+        reqs = self._submit_all(("embed", np.asarray(ids, np.int32))
+                                for ids in encoded)
+        embs = [np.asarray(self.scheduler.result(req), np.float32)
+                for req in reqs]
+        out = {"embeddings": [[round(float(x), 6) for x in e]
+                              for e in embs],
+               "dim": int(embs[0].shape[-1]),
+               "real_tokens": sum(len(ids) for ids in encoded)}
+        if isinstance(single, str) and body.get("texts") is None:
+            out["embedding"] = out["embeddings"][0]
         return out
 
 

@@ -18,7 +18,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from bert_pytorch_tpu_torch.tasks import registry
+from bert_pytorch_tpu_torch.tasks import predict, registry
 from bert_pytorch_tpu_torch.training.finetune import (COMMON_REFUSED,
                                                       COMMON_TUNING)
 
@@ -87,15 +87,14 @@ def _loss_builder(model):
     return loss_fn
 
 
-def setup(args, config, device, log):
+def setup(args, config, device, log, record):
     from bert_pytorch_tpu_torch.data import ner
     from bert_pytorch_tpu_torch.data.tokenization import (
         get_wordpiece_tokenizer)
     from bert_pytorch_tpu_torch.models.bert import BertForTokenClassification
-    from bert_pytorch_tpu_torch.optim.adam import FusedAdam
-    from bert_pytorch_tpu_torch.tasks import predict
     from bert_pytorch_tpu_torch.training.finetune import (
-        TaskRun, bucketed_eval_batches, epoch_steps, eval_buckets, to_device)
+        TaskRun, bucketed_eval_batches, epoch_steps, eval_buckets,
+        finetune_adam, to_device)
 
     vocab_file = args.vocab_file or config.vocab_file
     if not vocab_file:
@@ -121,8 +120,7 @@ def setup(args, config, device, log):
         # per-epoch decay, the reference's LambdaLR
         return args.lr / (1.0 + 0.05 * (step // steps_per_epoch))
 
-    tx = FusedAdam(schedule, weight_decay=0.01, bias_correction=False,
-                   max_grad_norm=args.clip_grad)
+    tx = finetune_adam(schedule, args.clip_grad)
     forward = predict.build_ner_forward(model)
     buckets = eval_buckets(args.max_seq_len)
 
@@ -189,7 +187,31 @@ def setup(args, config, device, log):
         finalize=finalize)
 
 
+def build_serving_model(config, dtype, opts: Dict[str, Any], device):
+    from bert_pytorch_tpu_torch.models.bert import BertForTokenClassification
+
+    with torch.device(device):
+        return BertForTokenClassification(
+            config, num_labels=len(opts.get("labels") or []) + 1,
+            dtype=dtype)
+
+
+def make_service(scheduler, tokenizer, opts: Dict[str, Any]):
+    from bert_pytorch_tpu_torch.serving.frontend import NerService
+
+    # label ids start at 1: 0 is the padding class
+    id_to_label = dict(enumerate(opts.get("labels") or [], start=1))
+    return NerService(scheduler, tokenizer, id_to_label,
+                      tok_lock=opts.get("tok_lock"))
+
+
 registry.register(registry.TaskSpec(
     name="ner", title="CoNLL named-entity recognition",
-    head="BertForTokenClassification", metric="macro_f1",
-    parse_arguments=parse_arguments, setup=setup))
+    head="BertForTokenClassification", output_kind="token",
+    metric="macro_f1",
+    request_schema={"tokens": "list[str] (pre-split words)",
+                    "text": "str (whitespace-split alternative)"},
+    parse_arguments=parse_arguments, setup=setup,
+    build_serving_model=build_serving_model,
+    forward_builder=predict.build_ner_forward,
+    make_service=make_service))

@@ -1,16 +1,19 @@
 """Task forwards + postprocess as pure functions (counterpart of
-bert_pytorch_tpu/tasks/predict.py, the QA and NER parts).
+bert_pytorch_tpu/tasks/predict.py).
 
-`build_qa_forward` is the deterministic model application the serving
-engine runs per bucket and SQuAD's eval runs per length bucket;
-`build_ner_forward` the NER eval's; the rest is host-side: request
-featurization through tasks/squad and the n-best decode through
-squad.get_answers, the same code the eval path of the JAX package runs.
+The `build_*_forward` builders are the deterministic model applications
+the serving engine runs per bucket and the eval loops run per length
+bucket, one for each registered task's head; the rest is host-side:
+request featurization (SQuAD windows through tasks/squad, NER word
+pieces, GLUE-style pairs through `encode_pair`, which data/glue.py
+featurizes training data with too) and the decodes (the n-best answers
+through squad.get_answers, NER's per-word labels, the classify and
+choice softmaxes).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,16 +38,44 @@ def build_qa_forward(model: torch.nn.Module) -> Callable:
     return forward
 
 
-def build_ner_forward(model: torch.nn.Module) -> Callable:
-    """fwd(batch) -> (B, S, num_labels) f32 logits, deterministic; the
-    NER eval computes its loss and macro F1 from them."""
+def _packed_forward(model: torch.nn.Module) -> Callable:
+    """fwd(batch) -> the model's deterministic outputs on input_ids /
+    token_type_ids / attention_mask (+ the packed fields when present)."""
 
     def forward(batch: Dict[str, torch.Tensor]):
         return model(batch["input_ids"], batch.get("token_type_ids"),
-                     batch["attention_mask"],
+                     batch.get("attention_mask"),
                      **{k: batch[k] for k in PACKED_FIELDS if k in batch})
 
     return forward
+
+
+def build_ner_forward(model: torch.nn.Module) -> Callable:
+    """fwd(batch) -> (B, S, num_labels) f32 logits, deterministic; the
+    NER eval computes its loss and macro F1 from them, and /v1/ner
+    slices each request's tokens."""
+    return _packed_forward(model)
+
+
+def build_classify_forward(model: torch.nn.Module) -> Callable:
+    """fwd(batch) -> f32 classification logits, (B, num_labels), or
+    (B, G, num_labels) for packed rows (one per segment): the classify
+    eval's and the /v1/classify engine's forward."""
+    return _packed_forward(model)
+
+
+def build_choice_forward(model: torch.nn.Module) -> Callable:
+    """fwd(batch) -> f32 choice scores: (B, G) for packed rows (serving
+    sends one segment per choice and softmaxes on the host), (B,) for
+    plain 2-D rows, (B, C) for a (B, C, S) eval batch."""
+    return _packed_forward(model)
+
+
+def build_embed_forward(model: torch.nn.Module) -> Callable:
+    """fwd(batch) -> L2-normalised f32 embeddings, (B, E), or (B, G, E)
+    for packed rows; the training probe's logits are dropped."""
+    forward = _packed_forward(model)
+    return lambda batch: forward(batch)[0]
 
 
 def qa_raw_results(unique_ids: Sequence[int], start_logits: np.ndarray,
@@ -96,3 +127,98 @@ def qa_decode(example: squad.SquadExample,
     answers, nbest = squad.get_answers([example], features, raw_results, cfg)
     return {"answer": answers.get(example.qas_id, ""),
             "nbest": nbest.get(example.qas_id, [])[:n_best]}
+
+
+# -- NER, classify and choice: request featurization and decodes -------------
+
+
+def ner_encode_tokens(tokens: Sequence[str], tokenizer, max_pieces: int
+                      ) -> Tuple[List[int], List[int]]:
+    """Pre-split words -> ([CLS] pieces [SEP] ids, piece -> word map), the
+    pieces as data/ner.py expands words; `max_pieces` ([CLS] and [SEP]
+    included) rejects an over-long request before it is queued."""
+    pieces: List[str] = []
+    piece_word: List[int] = []
+    for wi, word in enumerate(tokens):
+        for sub in tokenizer.encode(word, add_special_tokens=False).tokens:
+            pieces.append(sub)
+            piece_word.append(wi)
+    if len(pieces) > max_pieces - 2:
+        raise ValueError(
+            f"request tokenizes to {len(pieces)} pieces, exceeding the "
+            f"largest bucket ({max_pieces} incl. [CLS]/[SEP])")
+    unk = tokenizer.token_to_id("[UNK]") or 0
+    ids = [tokenizer.token_to_id(t) if tokenizer.token_to_id(t) is not None
+           else unk for t in ["[CLS]"] + pieces + ["[SEP]"]]
+    return ids, piece_word
+
+
+def encode_pair(tokenizer, text: str, text_pair: Optional[str] = None,
+                max_pieces: int = 128) -> Tuple[List[int], List[int]]:
+    """(text, optional pair) -> ([CLS] A [SEP] (B [SEP]) ids, type ids),
+    truncated longest first into `max_pieces`: the GLUE-style encoding of
+    the classify, choice and embed datasets and of their requests."""
+    a = list(tokenizer.encode(text, add_special_tokens=False).tokens)
+    b = (list(tokenizer.encode(text_pair, add_special_tokens=False).tokens)
+         if text_pair else [])
+    budget = max_pieces - (3 if b else 2)
+    if budget < 1:
+        raise ValueError(f"max_pieces {max_pieces} leaves no room for "
+                         "content tokens")
+    while len(a) + len(b) > budget:  # the reference's _truncate_seq_pair
+        (a if len(a) >= len(b) else b).pop()
+    if not a:
+        raise ValueError("empty text after tokenization")
+    tokens = ["[CLS]"] + a + ["[SEP]"]
+    types = [0] * len(tokens)
+    if b:
+        tokens += b + ["[SEP]"]
+        types += [1] * (len(b) + 1)
+    unk = tokenizer.token_to_id("[UNK]") or 0
+    ids = [tokenizer.token_to_id(t) if tokenizer.token_to_id(t) is not None
+           else unk for t in tokens]
+    return ids, types
+
+
+def _softmax_np(x: np.ndarray) -> np.ndarray:
+    x = np.asarray(x, np.float64)
+    x = x - x.max()
+    e = np.exp(x)
+    return e / e.sum()
+
+
+def classify_decode(logits: np.ndarray,
+                    class_names: Sequence[str]) -> Dict[str, Any]:
+    """(num_labels,) logits -> {'label': the argmax class, 'scores': the
+    softmax by class name}."""
+    probs = _softmax_np(np.asarray(logits).reshape(-1))
+    idx = int(np.argmax(probs))
+    names = [class_names[i] if i < len(class_names) else str(i)
+             for i in range(len(probs))]
+    return {"label": names[idx],
+            "scores": {n: round(float(p), 6)
+                       for n, p in zip(names, probs)}}
+
+
+def choice_decode(scores: Sequence[float]) -> Dict[str, Any]:
+    """One score a choice -> {'choice': the argmax, 'scores': the softmax
+    across the choices}."""
+    probs = _softmax_np(np.asarray(scores, np.float64))
+    return {"choice": int(np.argmax(probs)),
+            "scores": [round(float(p), 6) for p in probs]}
+
+
+def ner_decode(logits: np.ndarray, piece_word: Sequence[int],
+               id_to_label: Dict[int, str], n_words: int) -> List[str]:
+    """(L, num_labels) logits of one request -> a label per word: piece i
+    sits at position i + 1 (after [CLS]), each word takes its first
+    piece's argmax, and class 0 (padding) decodes to 'O'."""
+    preds = np.argmax(np.asarray(logits), axis=-1)
+    out = ["O"] * n_words
+    seen = set()
+    for i, wi in enumerate(piece_word):
+        if wi in seen:
+            continue
+        seen.add(wi)
+        out[wi] = id_to_label.get(int(preds[i + 1]), "O")
+    return out

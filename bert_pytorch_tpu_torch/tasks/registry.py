@@ -1,18 +1,19 @@
-"""Task registry: one declarative TaskSpec per finetuning scenario
-(counterpart of bert_pytorch_tpu/tasks/registry.py, trimmed to the
-fields the port's finetune loop reads).
+"""Task registry: one declarative TaskSpec per scenario, every task
+served (counterpart of bert_pytorch_tpu/tasks/registry.py).
 
 A TaskSpec is data: the task's CLI parser and its `setup(args, config,
-device, log) -> training.finetune.TaskRun`. `run_finetune --task <name>`
-(and the run_squad / run_ner aliases) look the task up here. The port
-registers squad and ner; classify, choice and embed, and the serving
-fields of the JAX TaskSpec, are ROADMAP queue A item 2.
+device, log, record) -> training.finetune.TaskRun` for the finetune loop
+(`run_finetune --task <name>`, and the run_squad / run_ner aliases), and
+what `run_server` needs to serve it on `POST /v1/<name>`: the model head,
+the engine's forward, the HTTP service and the batcher's demux kind. The
+port registers the JAX package's five tasks: squad, ner, classify,
+choice and embed.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Mapping, Tuple
 
 _REGISTRY: Dict[str, "TaskSpec"] = {}
 _LOADED = False
@@ -20,20 +21,41 @@ _LOADED = False
 
 @dataclass(frozen=True)
 class TaskSpec:
-    """One registered scenario: `parse_arguments(argv) -> args` (the JAX
-    entry point's flags), `setup(args, config, device, log) -> TaskRun`,
-    and for `--list_tasks` its title, head (the models/bert.py class) and
+    """One registered scenario.
+
+    finetuning: `parse_arguments(argv) -> args` (the JAX entry point's
+    flags), `setup(args, config, device, log, record) -> TaskRun`.
+
+    serving: `build_serving_model(config, dtype, opts, device)` the head
+    on `device` (`opts`: run_server's per-task options, such as labels,
+    class_names, embed_labels, max_segments, the shared
+    tokenizer lock); `forward_builder(model)` the forward the engine runs
+    per bucket (tasks/predict.py); `make_service(scheduler, tokenizer,
+    opts)` the HTTP handler; `output_kind` the batcher's demux: "token"
+    heads slice `[row, offset:offset+len]`, "segment" heads index
+    `[row, segment]` of one pooled output a packed segment;
+    `request_schema` the POST body (served on /healthz).
+
+    bookkeeping: `head`, the models/bert.py class; `metric`, the
     headline eval metric."""
 
     name: str
     title: str
     head: str
+    output_kind: str                     # "token" | "segment"
     metric: str
+    request_schema: Mapping[str, str]
     parse_arguments: Callable[..., Any]
     setup: Callable[..., Any]
+    build_serving_model: Callable[..., Any]
+    forward_builder: Callable[[Any], Callable]
+    make_service: Callable[..., Callable]
 
 
 def register(spec: TaskSpec) -> TaskSpec:
+    if spec.output_kind not in ("token", "segment"):
+        raise ValueError(f"task '{spec.name}': output_kind "
+                         f"{spec.output_kind!r} not in ('token', 'segment')")
     if spec.name in _REGISTRY:
         raise ValueError(f"task '{spec.name}' already registered")
     _REGISTRY[spec.name] = spec
@@ -47,7 +69,8 @@ def _ensure_loaded() -> None:
     global _LOADED
     if _LOADED:
         return
-    from bert_pytorch_tpu_torch.tasks import ner_task, squad_task  # noqa: F401
+    from bert_pytorch_tpu_torch.tasks import (choice, classify,  # noqa: F401
+                                              embed, ner_task, squad_task)
     _LOADED = True
 
 
@@ -64,3 +87,9 @@ def all_tasks() -> Tuple[str, ...]:
     """Sorted names of every registered task."""
     _ensure_loaded()
     return tuple(sorted(_REGISTRY))
+
+
+def specs() -> Tuple[TaskSpec, ...]:
+    """Every registered TaskSpec, in `all_tasks()` order."""
+    _ensure_loaded()
+    return tuple(_REGISTRY[n] for n in all_tasks())

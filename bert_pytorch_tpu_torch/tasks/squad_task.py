@@ -21,7 +21,7 @@ from typing import Any, Dict
 
 import torch
 
-from bert_pytorch_tpu_torch.tasks import registry
+from bert_pytorch_tpu_torch.tasks import predict, registry
 from bert_pytorch_tpu_torch.training.finetune import (COMMON_REFUSED,
                                                       COMMON_TUNING)
 
@@ -113,16 +113,16 @@ def _loss_builder(model):
     return loss_fn
 
 
-def setup(args, config, device, log):
+def setup(args, config, device, log, record):
     from bert_pytorch_tpu_torch.data.tokenization import (
         get_wordpiece_tokenizer)
     from bert_pytorch_tpu_torch.models.bert import BertForQuestionAnswering
-    from bert_pytorch_tpu_torch.optim.adam import FusedAdam
     from bert_pytorch_tpu_torch.optim.schedulers import (
         linear_warmup_schedule)
-    from bert_pytorch_tpu_torch.tasks import predict, squad
+    from bert_pytorch_tpu_torch.tasks import squad
     from bert_pytorch_tpu_torch.training.finetune import (
-        TaskRun, bucketed_eval_batches, eval_buckets, to_device)
+        TaskRun, bucketed_eval_batches, eval_buckets, finetune_adam,
+        to_device)
 
     vocab_file = args.vocab_file or config.vocab_file
     if not vocab_file:
@@ -159,9 +159,7 @@ def setup(args, config, device, log):
 
     sched = linear_warmup_schedule(args.learning_rate, max(total_steps, 1),
                                    warmup=args.warmup_proportion)
-    # two groups: wd 0.01 except biases and LayerNorms; the clip first
-    tx = FusedAdam(sched, weight_decay=0.01, bias_correction=False,
-                   max_grad_norm=args.max_grad_norm)
+    tx = finetune_adam(sched, args.max_grad_norm)
 
     def finalize(results):
         out: Dict[str, Any] = {}
@@ -223,7 +221,30 @@ def setup(args, config, device, log):
         finalize=finalize)
 
 
+def build_serving_model(config, dtype, opts: Dict[str, Any], device):
+    from bert_pytorch_tpu_torch.models.bert import BertForQuestionAnswering
+
+    with torch.device(device):
+        return BertForQuestionAnswering(config, dtype=dtype)
+
+
+def make_service(scheduler, tokenizer, opts: Dict[str, Any]):
+    from bert_pytorch_tpu_torch.serving.frontend import SquadService
+    from bert_pytorch_tpu_torch.tasks import squad
+
+    return SquadService(
+        scheduler, tokenizer,
+        answer_cfg=opts.get("answer_cfg") or squad.AnswerConfig(),
+        doc_stride=int(opts.get("doc_stride", 128)),
+        max_query_length=int(opts.get("max_query_length", 64)),
+        tok_lock=opts.get("tok_lock"))
+
+
 registry.register(registry.TaskSpec(
     name="squad", title="SQuAD v1.1/v2.0 extractive question answering",
-    head="BertForQuestionAnswering", metric="f1",
-    parse_arguments=parse_arguments, setup=setup))
+    head="BertForQuestionAnswering", output_kind="token", metric="f1",
+    request_schema={"question": "str (required)",
+                    "context": "str (required)"},
+    parse_arguments=parse_arguments, setup=setup,
+    build_serving_model=build_serving_model,
+    forward_builder=predict.build_qa_forward, make_service=make_service))

@@ -20,7 +20,14 @@ loop owns the rest:
 - the final state saved with `CheckpointManager` under
   `<output_dir>/ckpt/<step>/`, which `run_server --task_checkpoint
   <task>=<output_dir>/ckpt` serves;
-- one JSON record a logged step in `<output_dir>/<log_prefix>.jsonl`.
+- one JSON record a logged step in `<output_dir>/<log_prefix>.jsonl`
+  (`_JsonlLog`, handed to the task's setup as `record`).
+
+The tasks without an entry point of their own (classify, choice, embed)
+share the JAX base parser's CLI and recipe: `base_finetune_parser`,
+`resolve_tokenizer`, `dataset_splits`, `finetune_optimizer` (linear
+warmup, `finetune_adam`, the optimizer of every task), and their val /
+test accuracy (`accuracy_evals`, `eval_closures`).
 """
 
 from __future__ import annotations
@@ -162,6 +169,141 @@ def bucketed_eval_batches(arrays: Dict[str, np.ndarray], batch_size: int,
             yield batch, idx, bucket
 
 
+def base_finetune_parser(description: str):
+    """The CLI of the tasks without an entry point of their own (classify,
+    choice, embed): the JAX base parser's flags and defaults, and the
+    common ones (`add_common_finetune_flags`)."""
+    import argparse
+
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--train_file", type=str, default=None)
+    p.add_argument("--val_file", type=str, default=None)
+    p.add_argument("--test_file", type=str, default=None)
+    p.add_argument("--model_config_file", type=str, required=True)
+    p.add_argument("--init_checkpoint", type=str, default=None,
+                   help="a port checkpoint directory <dir>[@step] "
+                        "(pretraining's <output_dir>/pretrain_ckpts)")
+    p.add_argument("--vocab_file", default=None, type=str)
+    p.add_argument("--uppercase", action="store_true", default=None,
+                   help="cased tokenization (default: the model config's "
+                        "`lowercase`, as the server tokenizes)")
+    p.add_argument("--epochs", type=int, default=3)
+    p.add_argument("--lr", type=float, default=3e-5)
+    p.add_argument("--warmup_proportion", type=float, default=0.1)
+    p.add_argument("--clip_grad", type=float, default=1.0)
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--max_seq_len", type=int, default=128)
+    p.add_argument("--max_steps", type=int, default=-1,
+                   help="cap on optimizer steps (benchmarking)")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--output_dir", type=str, required=True)
+    p.add_argument("--log_prefix", type=str, default=None)
+    p.add_argument("--dtype", type=str, default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    add_common_finetune_flags(p)
+    return p
+
+
+def resolve_tokenizer(args, config):
+    """The WordPiece tokenizer of a task run, cased as the server cases it
+    (`uppercase=not config.lowercase`) unless --uppercase is given."""
+    from bert_pytorch_tpu_torch.data.tokenization import (
+        get_wordpiece_tokenizer)
+
+    vocab_file = args.vocab_file or config.vocab_file
+    if not vocab_file:
+        raise SystemExit("vocab_file required (CLI or model config)")
+    upper = getattr(args, "uppercase", None)
+    if upper is None:
+        upper = not config.lowercase
+    return get_wordpiece_tokenizer(vocab_file, uppercase=upper)
+
+
+def dataset_splits(args, build) -> Dict[str, Dict[str, np.ndarray]]:
+    """{split: build(path)} over the --train_file / --val_file /
+    --test_file given."""
+    return {split: build(path)
+            for split, path in (("train", args.train_file),
+                                ("val", args.val_file),
+                                ("test", args.test_file)) if path}
+
+
+def finetune_adam(schedule: Callable[[int], float],
+                  max_grad_norm: Optional[float]):
+    """The optimizer of every finetune recipe: FusedAdam without bias
+    correction, weight decay 0.01 except biases and LayerNorms, the
+    global-norm clip at `max_grad_norm` first (None or <= 0: off)."""
+    from bert_pytorch_tpu_torch.optim.adam import FusedAdam
+
+    return FusedAdam(schedule, weight_decay=0.01, bias_correction=False,
+                     max_grad_norm=max_grad_norm)
+
+
+def finetune_optimizer(args, total_steps: int):
+    """(schedule, tx) of the base parser's recipe: linear warmup over
+    --warmup_proportion of the steps and linear decay from --lr, and
+    `finetune_adam` with the clip at --clip_grad."""
+    from bert_pytorch_tpu_torch.optim.schedulers import (
+        linear_warmup_schedule)
+
+    sched = linear_warmup_schedule(args.lr, max(total_steps, 1),
+                                   warmup=args.warmup_proportion)
+    return sched, finetune_adam(sched, args.clip_grad)
+
+
+def accuracy_evals(datasets: Dict[str, Dict[str, np.ndarray]],
+                   batch_size: int, buckets: Sequence[int],
+                   logits_fn: Callable, device) -> Dict[str, Callable]:
+    """{split: run() -> accuracy} for the val and test splits present:
+    `logits_fn(feats)` scores a length-bucketed batch of device tensors,
+    argmaxed against the split's 'labels'."""
+    from bert_pytorch_tpu_torch.data import glue
+
+    def make(split):
+        arrays = datasets[split]
+
+        def run() -> float:
+            outs, labels = [], []
+            with torch.no_grad():
+                for batch, idx, _bucket in bucketed_eval_batches(
+                        arrays, batch_size, buckets,
+                        label_ignore={"labels": -1}):
+                    feats = {k: v for k, v in batch.items() if k != "labels"}
+                    out = logits_fn(to_device(feats, device))
+                    outs.append(out.float().cpu().numpy()[:len(idx)])
+                    labels.append(arrays["labels"][idx])
+            return glue.accuracy(np.concatenate(outs),
+                                 np.concatenate(labels))
+
+        return run
+
+    return {s: make(s) for s in ("val", "test") if s in datasets}
+
+
+def eval_closures(evals: Dict[str, Callable], record,
+                  metric: str = "accuracy"
+                  ) -> Tuple[Optional[Callable], Callable]:
+    """(epoch_eval, finalize) over `accuracy_evals`' runners: epoch_eval
+    records the val accuracy each epoch (None without a val split),
+    finalize the test accuracy; both through `record` (the run's
+    _JsonlLog) under `metric`."""
+
+    def epoch_eval(epoch: int) -> Dict[str, float]:
+        acc = evals["val"]()
+        record("val", epoch, epoch=epoch, **{metric: acc})
+        return {"val_accuracy": acc}
+
+    def finalize(results: Dict) -> Dict[str, float]:
+        out = {}
+        if "test" in evals:
+            acc = evals["test"]()
+            record("test", 0, **{metric: acc})
+            out["test_accuracy"] = acc
+        return out
+
+    return (epoch_eval if "val" in evals else None), finalize
+
+
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
                                                             torch.Tensor]:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
@@ -171,9 +313,9 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str,
 @dataclasses.dataclass
 class TaskRun:
     """Everything task-shaped the loop needs, built by a
-    TaskSpec.setup(args, config, device, log). `train_arrays=None` skips
-    training (predict / eval-only runs). The model holds the weights the
-    loop trains (its parameters are the train state's), so
+    TaskSpec.setup(args, config, device, log, record). `train_arrays=None`
+    skips training (predict / eval-only runs). The model holds the weights
+    the loop trains (its parameters are the train state's), so
     `epoch_eval(epoch)` and `finalize(results)` read them from it."""
 
     model: torch.nn.Module
@@ -290,7 +432,7 @@ def run_task(spec, args, log: Callable[[str], None] = print,
     prefix = getattr(args, "log_prefix", None) or f"{spec.name}_log"
     record = _JsonlLog(os.path.join(args.output_dir, prefix + ".jsonl"), log)
     try:
-        run: TaskRun = spec.setup(args, config, device, log)
+        run: TaskRun = spec.setup(args, config, device, log, record)
         init_weights(run.model, torch.Generator(device=device).manual_seed(
             args.seed), std=config.initializer_range)
         state = make_train_state(run.model, run.tx)

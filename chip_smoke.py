@@ -22,7 +22,8 @@ Phases, each of which must pass:
             and packed segments, and at S = 1024; the LayerNorm backward
             and the fused residual-dropout-LayerNorm forward and backward
             at phase 1's (12288, 1024) and (1920, 1024), phase 2's
-            (8192, 1024) and a tail of 1003 rows, rates 0 and 0.1, a
+            (8192, 1024), NER's (4096, 1024), classify's and embed's
+            (2048, 1024) and a tail of 1003 rows, rates 0 and 0.1, a
             negative and a positive seed, and the backward's generic
             kernel at widths 768 and 1022), with the tolerances below;
             the segment tile skip must fire as often as the layout
@@ -44,14 +45,21 @@ Phases, each of which must pass:
             kernels (the flash backward by the dq and dk/dv pair, each
             launched once a layer, the fused backward never) against the
             plain versions;
-6. serve    a seeded random BERT-Large QA checkpoint (24 layers, full
-            width) served by bert_pytorch_tpu_torch.run_server.serve with
-            the default buckets 64/128/256/512, 8 rows, 8 segments, packing
-            on, bf16: SQuAD requests over HTTP, one of them in the 512
-            bucket, each answered 200 with a span of its context; the launch
-            counts, zeroed just before, show every forward went through the
+6. serve    seeded random BERT-Large checkpoints (24 layers, full width)
+            of the five registered tasks served by one
+            bert_pytorch_tpu_torch.run_server.serve with the default
+            buckets 64/128/256/512, 8 rows, 8 segments, packing on, bf16:
+            SQuAD requests over HTTP, one of them in the 512 bucket, each
+            answered 200 with a span of its context; the launch counts,
+            zeroed just before, show every forward went through the
             kernels; one packed 512 batch of the engine is held against the
-            same weights run with the plain versions;
+            same weights run with the plain versions; then /healthz lists
+            the five tasks, POST /v1/{ner,classify,choice,embed} answer
+            requests in every bucket, well formed, with exact launch
+            counts, and each new service's 400 and 413 paths; per task,
+            answers with packing on held against packing off, and one
+            packed 512 forward's exact launches (49 LayerNorm forwards, 24
+            flash forwards) and device time;
 7. train    a seeded random BERT-Large (24 layers, full width, vocab 30528)
             trained for 3 phase-1 steps (the run config's microbatch of
             96 x 128, accumulation 2) by the entry point's trainer
@@ -85,7 +93,15 @@ Phases, each of which must pass:
 10. finetune_ner  CoNLL NER finetuning, 3 steps of 32 x 128 (plain
             attention, the LayerNorm kernels) on a synthetic CoNLL-2003
             file, val and test macro F1, the checkpoint, exact launch
-            counts, one step profiled and timed.
+            counts, one step profiled and timed;
+11. finetune_tasks  classify, choice and embed finetuning, one after the
+            other: BERT-Large from phase 2's last checkpoint, 3 steps of
+            16 x 128 (choice 16 x 4 x 128) at the JAX base parser's recipe
+            on synthetic TSV / JSONL files, val and test accuracy, embed's
+            embedding norms, exact launch counts, the checkpoint answered
+            by the server and deleted, one step profiled and timed, and a
+            classify and a choice microbatch through the kernels against
+            the plain versions.
 
 The kernels phase also holds the flash kernels of training at phase 2's
 (16, 512, 16, 64): the forward's dropout arm, the dropout mask read out of
@@ -120,6 +136,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -161,11 +178,17 @@ TRAIN_ROWS = (96 * 128, 96 * 20)
 PHASE2_LN_ROWS = 16 * 512
 # NER finetuning's microbatch (B, S): its (B * S, E) rows take #1-#4
 NER_TRAIN = (32, 128)
+# the classify / embed microbatch (B, S) (the JAX base finetune parser's
+# defaults) and choice's choices an example: choice's (B * C * S, E) rows
+# are phase 2's 8192
+TASK_TRAIN = (16, 128)
+TASK_CHOICES = 4
 # the rows the kernels phase holds #1-#4 at: both pretraining phases',
-# NER finetuning's (SQuAD's 32 x 384 is phase 1's 12288) and a tail that
-# fills no CTA of either backward kernel
+# NER finetuning's, classify's and embed's (SQuAD's 32 x 384 is phase 1's
+# 12288, choice's phase 2's 8192) and a tail that fills no CTA of either
+# backward kernel
 TRAIN_CHECK_ROWS = TRAIN_ROWS + (PHASE2_LN_ROWS, NER_TRAIN[0] * NER_TRAIN[1],
-                                 1003)
+                                 TASK_TRAIN[0] * TASK_TRAIN[1], 1003)
 TRAIN_TOL = {"float32": {"dx": 1e-5, "sums": 1e-5},
              "bfloat16": {"dx": 2 ** -7, "sums": 1e-5}}
 # Flash in training (#5/#6 dropout arm, #7-#10) at phase 2's microbatch
@@ -680,7 +703,8 @@ def _rel(a, b) -> float:
 def check_training_kernels(torch, np, results):
     """Kernels #1-#4 against their plain versions at the training paths'
     shapes ((B * S, E) and (B * P, E) of phase 1, (B * S, E) of phase 2
-    and of NER finetuning) and a tail row count, f32 and bf16, rates 0
+    and of NER, classify and embed finetuning) and a tail row count (the
+    worst error at each under `max_abs_err_by_rows`), f32 and bf16, rates 0
     and 0.1, a negative and a positive seed; dropped positions compared
     exactly (dx is 0 exactly where the plain mask drops), and every
     backward run twice with bit-identical results. bf16 takes the
@@ -698,11 +722,16 @@ def check_training_kernels(torch, np, results):
              "layer_norm_bwd": {}, "add_dropout_layer_norm_fwd": {},
              "add_dropout_layer_norm_bwd": {}}
 
-    def note(kernel, name, got, want):
-        """worst max |a - b| over the kernel's activation-shaped outputs"""
+    by_rows = {kernel: {} for kernel in worst}
+
+    def note(kernel, name, got, want, rows):
+        """worst max |a - b| over the kernel's activation-shaped outputs,
+        over every row count and at each"""
         err = max((a.float() - b.float()).abs().max().item()
                   for a, b in zip(got, want))
         worst[kernel][name] = max(worst[kernel].get(name, 0.0), err)
+        at = by_rows[kernel].setdefault(str(rows), {})
+        at[name] = max(at.get(name, 0.0), err)
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
@@ -727,7 +756,7 @@ def check_training_kernels(torch, np, results):
                        ((rstd - rr).abs() / rr).max().item())
             check(yerr <= LN_TOL[name] and serr <= 1e-5,
                   f"layer_norm {name} ({rows}): y error {yerr}, stats {serr}")
-            note("layer_norm_fwd", name, [y], [yr])
+            note("layer_norm_fwd", name, [y], [yr], rows)
             got = layer_norm_bwd(x, scale, mean, rstd, g)
             again = layer_norm_bwd(x, scale, mean, rstd, g)
             want = layer_norm_bwd_ref(x, scale, mean, rstd, g)
@@ -743,7 +772,7 @@ def check_training_kernels(torch, np, results):
                 "bit-identical")
             check(errs[0] <= tol["dx"] and max(errs[1:]) <= tol["sums"],
                   f"layer_norm_bwd {name} ({rows}): errors {errs}")
-            note("layer_norm_bwd", name, got[:1], want[:1])
+            note("layer_norm_bwd", name, got[:1], want[:1], rows)
 
             for rate in (0.0, 0.1):
                 for seed in (-1640531527, 12345):
@@ -759,7 +788,8 @@ def check_training_kernels(torch, np, results):
                     check(yerr <= LN_TOL[name] and serr <= 1e-5,
                           f"add_dropout_layer_norm_fwd {name} ({rows}) rate "
                           f"{rate} seed {seed}: y error {yerr}, stats {serr}")
-                    note("add_dropout_layer_norm_fwd", name, [y], [yr])
+                    note("add_dropout_layer_norm_fwd", name, [y], [yr],
+                         rows)
                     # 4: the fused backward, from the plain statistics
                     got = add_dropout_layer_norm_bwd(x, res, scale, mr, rr,
                                                      g, seed, rate)
@@ -792,9 +822,10 @@ def check_training_kernels(torch, np, results):
                           f"add_dropout_layer_norm_bwd {name} ({rows}) rate "
                           f"{rate} seed {seed}: errors {errs}")
                     note("add_dropout_layer_norm_bwd", name, got[:2],
-                         want[:2])
+                         want[:2], rows)
     for kernel, errs in worst.items():
-        results[kernel] = {"max_abs_err": errs}
+        results[kernel] = {"max_abs_err": errs,
+                           "max_abs_err_by_rows": by_rows[kernel]}
     check_generic_layer_norm_bwd(torch, results)
 
 
@@ -1960,21 +1991,26 @@ def serve_vocab(path: str) -> str:
     return path
 
 
-def _post(url: str, body: dict, timeout: float = 300.0):
-    req = urllib.request.Request(url + "/v1/squad",
+def _post(url: str, body: dict, timeout: float = 300.0,
+          route: str = "squad"):
+    """(status, JSON reply) of POST /v1/<route>, an error status too."""
+    req = urllib.request.Request(url + f"/v1/{route}",
                                  data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=timeout) as r:
-        return r.status, json.loads(r.read())
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
 
 
-def _profile_forward(torch, engine, batch):
+def _profile_forward(torch, engine, batch, task="squad"):
     """Device time of one 512 forward by kernel class (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        engine.forward("squad", batch)
+        engine.forward(task, batch)
     classes = {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
@@ -2003,9 +2039,9 @@ def _profile_forward(torch, engine, batch):
 def phase_serve(torch, np, summary, device="cuda",
                 cfg_path=os.path.join(HERE, "configs",
                                       "bert_large_uncased_config.json")):
-    """The serving run. `device` and `cfg_path` exist so the phase can be
-    rehearsed on the CPU at a tiny size; the script itself always runs
-    BERT-Large on CUDA."""
+    """The serving run: one server for the five registered tasks. `device`
+    and `cfg_path` exist so the phase can be rehearsed on the CPU at a tiny
+    size; the script itself always runs BERT-Large on CUDA."""
     import shutil
 
     from bert_pytorch_tpu_torch import run_server
@@ -2018,7 +2054,7 @@ def phase_serve(torch, np, summary, device="cuda",
     from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from bert_pytorch_tpu_torch.serving.batcher import (InferenceRequest,
                                                         pack_requests)
-    from bert_pytorch_tpu_torch.tasks import predict
+    from bert_pytorch_tpu_torch.tasks import predict, registry
 
     config = BertConfig.from_json_file(cfg_path)
     config = config.replace(vocab_size=pad_vocab_size(config.vocab_size, 8))
@@ -2030,27 +2066,36 @@ def phase_serve(torch, np, summary, device="cuda",
     handle = None
     try:
         vocab = serve_vocab(os.path.join(tmp, "vocab.txt"))
+        # a seeded random BERT-Large checkpoint for each registered task,
+        # read by the server and then deleted
         t0 = time.perf_counter()
-        with torch.device(device):
-            model = BertForQuestionAnswering(config)
-        init_weights(model, torch.Generator(device=device).manual_seed(0),
-                     std=config.initializer_range)
-        ckpt = os.path.join(tmp, "squad_large.pt")
-        torch.save(model.state_dict(), ckpt)
-        n_params = sum(p.numel() for p in model.parameters())
-        del model
-        log(f"serve: seeded random BERT-Large QA checkpoint ({n_params} "
-            f"params, {layers} layers) written in "
-            f"{time.perf_counter() - t0:.1f} s")
+        opts = dict(SERVE_OPTS, labels=list(CONLL_TAGS))
+        ckpts = {}
+        for task in registry.all_tasks():
+            model = registry.get(task).build_serving_model(
+                config, torch.bfloat16, opts, device)
+            init_weights(model, torch.Generator(device=device).manual_seed(0),
+                         std=config.initializer_range)
+            ckpts[task] = os.path.join(tmp, f"{task}_large.pt")
+            torch.save(model.state_dict(), ckpts[task])
+            del model
+        log(f"serve: seeded random BERT-Large checkpoints ({layers} layers) "
+            f"of {sorted(ckpts)} written in {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
-        args = run_server.parse_arguments([
-            "--model_config_file", cfg_path, "--vocab_file", vocab,
-            "--task_checkpoint", f"squad={ckpt}", "--port", "0",
-            "--host", "127.0.0.1", "--device", device])
+        args = run_server.parse_arguments(
+            ["--model_config_file", cfg_path, "--vocab_file", vocab,
+             "--port", "0", "--host", "127.0.0.1", "--device", device,
+             "--labels", *CONLL_TAGS]
+            + [a for task in sorted(ckpts)
+               for a in ("--task_checkpoint", f"{task}={ckpts[task]}")])
         handle = run_server.serve(args, log=lambda m: log("serve: " + m))
+        for path in ckpts.values():
+            os.remove(path)
         engine = handle.engine
         summary["serve_start_s"] = time.perf_counter() - t0
+        check(engine.tasks == registry.all_tasks(),
+              f"served tasks {engine.tasks}")
         check(engine.buckets == BUCKETS and engine.batch_rows == BATCH_ROWS
               and engine.max_segments == 8, "server defaults changed")
 
@@ -2172,10 +2217,319 @@ def phase_serve(torch, np, summary, device="cuda",
         log(f"serve: 512-bucket forward {statistics.median(times):.2f} ms "
             f"(median of 5, host clock); device ms by class "
             f"{summary['serve']['forward512_device_ms']}")
+
+        summary["serve"]["routes"] = serve_routes(
+            torch, np, handle, config, tokenizer, batch, reqs, device)
+        summary["launches"]["serve_routes"] = (
+            summary["serve"]["routes"]["launches"])
     finally:
         if handle is not None:
             handle.close()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# The head widths of the seeded checkpoints: run_server's defaults (2
+# classes, a 2-wide embedding probe; NER's labels are CONLL_TAGS).
+SERVE_OPTS = {"class_names": ["negative", "positive"], "embed_labels": 2}
+# Packed against one request a row, on the same engine (bf16): the (8,
+# bucket) batches have the same shapes either way, so only the order in
+# which attention sums a segment's keys among its row's masked ones
+# moves, which can shift an output by an ulp of bf16. Every output of a
+# task (logits, scores, embedding elements) is held within PACK_REL of
+# the task's largest |output| (between one and two ulps of it). Measured
+# on the card (PERF.md): 0 on the pooled heads and NER, 2^-7 (one ulp at
+# |logit| in [1, 2)) on SQuAD. Each run also plants a demux fault (a
+# request read at its row-mate's segment or offset), which must read
+# above the limit: on the card 0.078 (embed) to 2.7 (NER).
+PACK_REL = 2 ** -7
+
+
+def route_bodies(np, seed: int = 1) -> dict:
+    """Requests of the four routes beside squad, each route's in ascending
+    length so each rides its natural bucket: NER word lists, classify
+    pairs and choice requests (a question and 4 choices) of ~35, ~100,
+    ~200 and ~440 pieces (64, 128, 256, 512), and one embed request of 8
+    texts from 10 to 450 words."""
+    rng = np.random.RandomState(seed)
+    words = (30, 90, 200, 400)
+    return {
+        "ner": [{"tokens": _context(rng, n).split()} for n in words],
+        "classify": [{"text": _context(rng, n // 2),
+                      "text_pair": _context(rng, n // 2)} for n in words],
+        "choice": [{"question": QUESTIONS[i],
+                    "choices": [_context(rng, n - 10 + 3 * c)
+                                for c in range(4)]}
+                   for i, n in enumerate((30, 70, 160, 400))],
+        "embed": [{"texts": [_context(rng, n) for n in
+                             (10, 30, 50, 80, 120, 200, 300, 450)]}]}
+
+
+def pack_bodies(np, seed: int = 2) -> dict:
+    """Short requests of every task, several of which share a 64-token
+    row when packed: NER word lists and classify pairs of 4 to 14 words,
+    choice requests of 4 choices of 3 to 6 words, one embed request of 6
+    short texts, and squad (question, context) pairs of 8 to 14 words."""
+    rng = np.random.RandomState(seed)
+    return {
+        "ner": [{"tokens": _context(rng, n).split()}
+                for n in (4, 6, 8, 10, 12, 14)],
+        "classify": [{"text": _context(rng, n), "text_pair": _context(
+            rng, n)} for n in (2, 3, 4, 5, 6, 7)],
+        "choice": [{"question": QUESTIONS[i],
+                    "choices": [_context(rng, 3 + c) for c in range(4)]}
+                   for i in range(2)],
+        "embed": [{"texts": [_context(rng, n)
+                             for n in (3, 5, 7, 9, 11, 13)]}],
+        "squad": [{"question": QUESTIONS[i], "context": _context(rng, n)}
+                  for i, n in enumerate((8, 10, 12, 14))]}
+
+
+def _route_parts(task: str, body: dict, tokenizer, max_bucket: int):
+    """The (input ids, type ids) segments a service submits for `body`."""
+    from bert_pytorch_tpu_torch.tasks import predict
+
+    if task == "ner":
+        ids, _ = predict.ner_encode_tokens(body["tokens"], tokenizer,
+                                           max_bucket)
+        return [(ids, [0] * len(ids))]
+    if task == "classify":
+        return [predict.encode_pair(tokenizer, body["text"],
+                                    body["text_pair"], max_bucket)]
+    if task == "choice":
+        return [predict.encode_pair(tokenizer, body["question"], c,
+                                    max_bucket) for c in body["choices"]]
+    if task == "squad":
+        return [predict.encode_pair(tokenizer, body["question"],
+                                    body["context"], max_bucket)]
+    return [predict.encode_pair(tokenizer, t, None, max_bucket)
+            for t in body["texts"]]
+
+
+def _post_oversized(url: str, route: str) -> int:
+    """The status of a POST /v1/<route> whose Content-Length exceeds the
+    frontend's body limit (1 MiB): sent as headers alone, so the reply
+    is read before the server drops the connection."""
+    import http.client
+    import urllib.parse
+
+    host = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(host.hostname, host.port, timeout=60)
+    try:
+        conn.putrequest("POST", f"/v1/{route}")
+        conn.putheader("Content-Length", str((1 << 20) + 1))
+        conn.endheaders()
+        return conn.getresponse().status
+    finally:
+        conn.close()
+
+
+def _check_reply(np, task: str, body: dict, code: int, out: dict,
+                 hidden: int) -> None:
+    """A 200 reply of `task` is well formed: NER one label a word from the
+    tag set; classify a label of its class names and probabilities that
+    sum to 1; choice an index among its choices and probabilities that sum
+    to 1; embed one unit-norm embedding of the hidden width a text."""
+    check(code == 200, f"{task}: HTTP {code} {out}")
+    if task == "ner":
+        check(len(out["labels"]) == len(body["tokens"])
+              and set(out["labels"]) <= set(CONLL_TAGS),
+              f"ner: {len(out['labels'])} labels for "
+              f"{len(body['tokens'])} words")
+    elif task == "classify":
+        check(out["label"] in SERVE_OPTS["class_names"]
+              and set(out["scores"]) == set(SERVE_OPTS["class_names"])
+              and abs(sum(out["scores"].values()) - 1.0) <= 1e-5,
+              f"classify: {out}")
+    elif task == "choice":
+        n = len(body["choices"])
+        check(0 <= out["choice"] < n and len(out["scores"]) == n
+              and abs(sum(out["scores"]) - 1.0) <= 1e-5, f"choice: {out}")
+    else:
+        emb = np.asarray(out["embeddings"], np.float64)
+        norms = np.linalg.norm(emb, axis=-1)
+        check(emb.shape == (len(body["texts"]), hidden)
+              and out["dim"] == hidden
+              and np.abs(norms - 1.0).max() <= 1e-4,
+              f"embed: shape {emb.shape}, norms {norms}")
+
+
+def _engine_answers(np, engine, task: str, reqs, max_segments: int):
+    """Each request's outputs from the engine: first-fit into
+    (BATCH_ROWS, bucket) batches, `max_segments` a row (1: packing off),
+    run, demuxed as the scheduler demuxes. Also, for a request that
+    shares its row, its outputs under a planted demux fault: read at the
+    next row-mate's segment and offset (None for a request alone in its
+    row)."""
+    from bert_pytorch_tpu_torch.data.packing import first_fit
+    from bert_pytorch_tpu_torch.serving.batcher import (Scheduler,
+                                                        pack_requests)
+
+    kind = engine.output_kind(task)
+    out, shifted, pending = {}, {}, list(reqs)
+    while pending:
+        bucket = engine.select_bucket(pending[0].length)
+        wave = [r for r in pending if r.length <= bucket]
+        bins = first_fit([r.length for r in wave], engine.batch_rows,
+                         bucket, max_segments)
+        batch, placements = pack_requests(wave, bins, engine.batch_rows,
+                                          bucket)
+        result = engine.forward(task, batch)
+        rows = {}
+        for p in placements:
+            rows.setdefault(p[1], []).append(p)
+        for req, row, offset, seg in placements:
+            out[id(req)] = Scheduler._demux(result, row, offset, req.length,
+                                            seg, kind)
+            mates = rows[row]
+            i = [id(m[0]) for m in mates].index(id(req))
+            _, _, m_offset, m_seg = mates[(i + 1) % len(mates)]
+            shifted[id(req)] = (None if len(mates) < 2 else
+                                Scheduler._demux(result, row, m_offset,
+                                                 req.length, m_seg, kind))
+        pending = [r for r in pending if id(r) not in out]
+    return [out[id(r)] for r in reqs], [shifted[id(r)] for r in reqs]
+
+
+def serve_routes(torch, np, handle, config, tokenizer, batch512, squad_reqs,
+                 device):
+    """The five-task server's other routes: /healthz lists the five tasks;
+    ner, classify, choice and embed answer requests in every bucket
+    (counts zeroed just before, read just after: every forward through
+    the kernels), each reply well formed; each new service's 400 and 413
+    paths (classify's 413 is the frontend's body limit: it truncates long
+    texts); per task (squad's on `squad_reqs`), answers with packing on
+    against packing off on the engine, and one packed 512 forward
+    (`batch512`): its exact launch counts and its time."""
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from bert_pytorch_tpu_torch.serving.batcher import InferenceRequest
+
+    on_card = torch.device(device).type == "cuda"
+    engine = handle.engine
+    layers, hidden = config.num_hidden_layers, config.hidden_size
+    with urllib.request.urlopen(handle.url + "/healthz", timeout=60) as r:
+        health = json.loads(r.read())
+    check(sorted(health["tasks"]) == list(engine.tasks)
+          and all({"head", "request_schema"} <= set(v)
+                  for v in health["tasks"].values()),
+          f"/healthz tasks {health.get('tasks')}")
+    out = {"healthz_tasks": sorted(health["tasks"])}
+
+    bodies = route_bodies(np)
+    for key in engine.forward_counts:
+        engine.forward_counts[key] = 0
+    reset_launches()
+    t0 = time.perf_counter()
+    replies = {task: [_post(handle.url, b, route=task) for b in bs]
+               for task, bs in bodies.items()}
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    forwards = dict(engine.forward_counts)
+    for task, bs in bodies.items():
+        for body, (code, reply) in zip(bs, replies[task]):
+            _check_reply(np, task, body, code, reply, hidden)
+        rode = {b: forwards[(task, b)] for b in engine.buckets}
+        check(all(rode.values()), f"{task}: forwards by bucket {rode}: "
+              "want every bucket")
+    n_fwd = sum(forwards.values())
+    n_512 = sum(n for (t, b), n in forwards.items() if b == engine.max_bucket)
+    check(not on_card or (launches["layer_norm_fwd"] == (2 * layers + 1)
+                          * n_fwd and launches["flash_attention_fwd"]
+                          == layers * n_512),
+          f"routes: launches {launches} for {n_fwd} forwards, {n_512} in "
+          "the 512 bucket")
+    log(f"serve: routes {sorted(bodies)}: {sum(map(len, bodies.values()))} "
+        f"requests in {wall:.2f} s; forwards "
+        f"{ {f'{t}/{b}': n for (t, b), n in forwards.items() if n} }; "
+        f"launches {launches}")
+    out.update(wall_s=wall, launches=launches, replies={
+        t: [r for _, r in rs] for t, rs in replies.items()},
+        forwards={f"{t}/{b}": n for (t, b), n in forwards.items()})
+
+    # the 400 and 413 paths of each new service
+    bad = {"ner": ({"tokens": []}, {"tokens": ["the"] * 600}),
+           "classify": ({"text": " "}, None),
+           "choice": ({"choices": ["the cat"]},
+                      {"choices": ["the cat"] * 17}),
+           "embed": ({"texts": []}, {"texts": ["the cat"] * 33})}
+    codes = {t: [_post(handle.url, b, route=t)[0] if b is not None
+                 else _post_oversized(handle.url, t) for b in pair]
+             for t, pair in bad.items()}
+    check(all(c == [400, 413] for c in codes.values()),
+          f"error paths {codes}: want [400, 413] each")
+    out["error_codes"] = codes
+
+    # per task: packing on against packing off, on the engine, over the
+    # route requests and short ones that share rows when packed
+    out["packed_vs_padded"] = {}
+    short = pack_bodies(np)
+    segments = {task: [InferenceRequest(task, np.asarray(ids, np.int32),
+                                        np.asarray(types, np.int32))
+                       for b in bodies.get(task, []) + short[task]
+                       for ids, types in _route_parts(
+                           task, b, tokenizer, engine.max_bucket)]
+                for task in short}
+    segments["squad"] = list(squad_reqs) + segments["squad"]
+
+    def parts(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    def max_diff(xs, ys):
+        # over the common length: a token request read at a row-mate's
+        # offset may run past the row's end
+        pairs = [(np.atleast_1d(a), np.atleast_1d(b))
+                 for x, y in zip(xs, ys) if x is not None
+                 for a, b in zip(parts(x), parts(y))]
+        return max(float(np.abs(a[:len(b)] - b[:len(a)]).max())
+                   for a, b in pairs)
+
+    for task, reqs in sorted(segments.items()):
+        packed, shifted = _engine_answers(np, engine, task, reqs,
+                                          engine.max_segments)
+        alone, _ = _engine_answers(np, engine, task, reqs, 1)
+        shared = sum(s is not None for s in shifted)
+        err = max_diff(packed, alone)
+        fault = max_diff(shifted, alone) if shared else 0.0
+        tol = PACK_REL * max(float(np.abs(a).max()) for x in alone
+                             for a in parts(x))
+        log(f"serve: {task}: {len(reqs)} segments, {shared} sharing a row "
+            f"when packed: packed vs one a row max |diff| {err:.4g} (tol "
+            f"{tol:.4g}, 2^-7 of the largest |output|); a planted demux "
+            f"fault (a row-mate's segment) reads {fault:.4g}")
+        check(shared >= 2, f"{task}: only {shared} segments share a row "
+              "when packed: the comparison would hold nothing")
+        check(err <= tol, f"{task} packed vs one a row: {err} > {tol}")
+        check(fault > tol, f"{task}: the planted demux fault reads "
+              f"{fault}, inside {tol}")
+        out["packed_vs_padded"][task] = {
+            "segments": len(reqs), "sharing_a_row": shared,
+            "max_abs_err": err, "tol": tol,
+            "planted_demux_fault_err": fault}
+
+    # per task: one packed 512 forward (the squad phase's batch): exact
+    # launches, host clock and device time by class
+    out["forward512"] = {}
+    want = dict({k: 0 for k in LAUNCHES}, layer_norm_fwd=2 * layers + 1,
+                flash_attention_fwd=layers)
+    for task in engine.tasks:
+        reset_launches()
+        engine.forward(task, batch512)
+        got = dict(LAUNCHES)
+        check(not on_card or got == want,
+              f"{task} 512 forward launches {got}, want {want}")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            engine.forward(task, batch512)
+            times.append((time.perf_counter() - t0) * 1e3)
+        classes = (_profile_forward(torch, engine, batch512, task)
+                   if on_card else {})
+        out["forward512"][task] = {
+            "launches": got, "host_ms": statistics.median(times),
+            "device_ms": classes, "device_total_ms": sum(classes.values())}
+        log(f"serve: {task} 512-bucket forward: launches {got}; "
+            f"{statistics.median(times):.2f} ms (median of 5, host clock); "
+            f"device {sum(classes.values()):.3f} ms by class {classes}")
+    return out
 
 
 # -- training -----------------------------------------------------------------
@@ -2775,6 +3129,28 @@ FINETUNE_STEPS = 3
 FINETUNE_MODEL_TOL = {"float32": {"loss": 1e-5, "grad": 2e-4},
                       "bfloat16": {"loss": 1e-3, "grad": 5.2e-2}}
 FINETUNE_NOISE = 6e-4
+# The pooled heads' (classify, choice) microbatch: the loss averages 16
+# examples' logits, not thousands of tokens', so the bf16 noise of each
+# logit (24 layers apart; the serve phase reads 3e-2 on a packed 512
+# batch) averages out less. Measured on the card (PERF.md, NVIDIA H100
+# 80GB HBM3, 700 W): bf16 loss 1.15e-3 relative (classify from random
+# weights, two calls) and 5.09e-4 (from phase 2's checkpoint, three
+# calls), choice 5.4e-4 and 3.48e-4, over the token heads' 1e-3; the
+# loss tolerance leaves 2.6x. Gradients as FINETUNE_MODEL_TOL (measured
+# 1.6e-2 and 2.6e-2). Every run plants a fault, the head's dropout seed
+# off by one, which the check must catch: its loss alone reads 3.6e-3 to
+# 1.0e-2 (classify) and 1.3e-2 to 1.4e-2 (choice), so the gradients,
+# which that fault moves directly, carry the check.
+POOLED_MODEL_TOL = {"float32": FINETUNE_MODEL_TOL["float32"],
+                    "bfloat16": {"loss": 3e-3, "grad": 5.2e-2}}
+# choice's classifier.bias: its gradient is zero in exact arithmetic (the
+# softmax across an example's choices ignores a shift of every score).
+# Each of the n <= 64 score gradients g_i (summing to 0) is rounded once
+# to the compute dtype (unit roundoff u: 2^-8 in bf16, 2^-24 in f32), and
+# the f32 softmax and bias sums add at most n 2^-24 of sum |g_i|, which
+# is at most 2 (sum_c |p_c - y_c| <= 2 an example, the mean over B): so
+# |bias gradient| <= 2 (u + 64 * 2^-24), an absolute bound at any width.
+CHOICE_BIAS_NOISE = {"bfloat16": 2 ** -7 + 2 ** -17, "float32": 2 ** -17}
 CONLL_TAGS = ("O", "B-PER", "I-PER", "B-ORG", "I-ORG", "B-LOC", "I-LOC",
               "B-MISC", "I-MISC")
 
@@ -2818,15 +3194,22 @@ def _task_loss_and_grads(torch, make_model, loss_builder, dtype, plain,
 
 
 def _hold_microbatch(torch, np, what, make_model, loss_builder, weights,
-                     batch_np, seeds, device, shift_invariant=()):
+                     batch_np, seeds, device, shift_invariant=(),
+                     tols=FINETUNE_MODEL_TOL, noise_abs=None,
+                     plant_head_seed=False):
     """One microbatch of a finished run through the kernels against the
     plain versions, bf16 (the whole microbatch) and f32 (a quarter of its
-    rows), at FINETUNE_MODEL_TOL: the loss relative, every gradient leaf
-    by relative L2, except `shift_invariant` leaves (zero in exact
-    arithmetic), whose noise on either side stays under FINETUNE_NOISE of
-    the largest leaf norm. Returns the readings by dtype."""
+    rows), at `tols`: the loss relative, every gradient leaf by relative
+    L2, except `shift_invariant` leaves (zero in exact arithmetic), whose
+    noise on either side stays under FINETUNE_NOISE of the largest leaf
+    norm, or, given `noise_abs` (by dtype), under that absolute norm.
+    With `plant_head_seed`, the kernels' loss and gradients again with a
+    planted fault, the head's dropout seed off by one (a mask stream out
+    of step), which the check must tell apart from the plain versions:
+    its loss or its worst gradient beyond `tols`.
+    Returns the readings by dtype."""
     on_card = torch.device(device).type == "cuda"
-    batch, seq = batch_np["input_ids"].shape[1:3]
+    batch, seq = (batch_np["input_ids"].shape[i] for i in (1, -1))
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
@@ -2846,32 +3229,57 @@ def _hold_microbatch(torch, np, what, make_model, loss_builder, weights,
         largest = max(torch.linalg.vector_norm(w).item()
                       for w in want[1].values())
         worst, worst_name, noise = 0.0, None, {}
+        noise_bound = (FINETUNE_NOISE if noise_abs is None
+                       else noise_abs[name])
         for k, w in want[1].items():
             if k in shift_invariant:
                 noise[k] = max(torch.linalg.vector_norm(g).item()
-                               for g in (got[1][k], w)) / largest
+                               for g in (got[1][k], w)) / (
+                                   largest if noise_abs is None else 1.0)
                 continue
             rel = (torch.linalg.vector_norm(got[1][k] - w)
                    / torch.linalg.vector_norm(w).clamp_min(1e-30)).item()
             if rel > worst:
                 worst, worst_name = rel, k
-        tol = FINETUNE_MODEL_TOL[name]
+        tol = tols[name]
         log(f"{what}: one microbatch ({rows} x {seq}) {name}, kernels vs "
             f"plain: loss {got[0]:.6f} vs {want[0]:.6f} (rel {loss_rel:.3g}, "
             f"tol {tol['loss']:g}); worst gradient rel L2 {worst:.3g} at "
             f"{worst_name} (tol {tol['grad']:g}); the zero-in-exact-"
-            f"arithmetic leaves' noise {noise} of the largest leaf (bound "
-            f"{FINETUNE_NOISE:g}); peak memory {peak} GiB")
+            f"arithmetic leaves' noise {noise} "
+            + ("of the largest leaf" if noise_abs is None else "absolute")
+            + f" (bound {noise_bound:g}); peak memory {peak} GiB")
         check(np.isfinite(got[0]) and loss_rel <= tol["loss"],
               f"{what} {name} loss kernels {got[0]} vs plain {want[0]}")
         check(worst <= tol["grad"], f"{what} {name} gradient {worst_name}: "
               f"rel L2 {worst} > {tol['grad']}")
-        check(max(noise.values(), default=0.0) <= FINETUNE_NOISE,
+        check(max(noise.values(), default=0.0) <= noise_bound,
               f"{what} {name}: zero-gradient leaves' noise {noise}")
         out[name] = {"rows": rows, "loss": got[0], "plain_loss": want[0],
                      "loss_rel": loss_rel, "max_grad_rel_l2": worst,
                      "worst_leaf": worst_name, "zero_leaf_noise": noise,
                      "peak_memory_gib": peak}
+        if plant_head_seed:
+            planted = seeds.clone()
+            planted[-1] += 1
+            bad = _task_loss_and_grads(torch, make_model, loss_builder,
+                                       dtype, False, weights, one, planted,
+                                       device)
+            bad_rel = abs(bad[0] - want[0]) / abs(want[0])
+            bad_worst = max(
+                (torch.linalg.vector_norm(bad[1][k] - w)
+                 / torch.linalg.vector_norm(w).clamp_min(1e-30)).item()
+                for k, w in want[1].items() if k not in shift_invariant)
+            log(f"{what}: {name} planted fault (head dropout seed + 1): "
+                f"loss {bad[0]:.6f} vs plain {want[0]:.6f} (rel "
+                f"{bad_rel:.3g}, tol {tol['loss']:g}); worst gradient rel "
+                f"L2 {bad_worst:.3g} (tol {tol['grad']:g})")
+            check(bad_rel > tol["loss"] or bad_worst > tol["grad"],
+                  f"{what} {name}: the planted head seed fault reads loss "
+                  f"{bad_rel}, gradient {bad_worst}: inside {tol}")
+            out[name].update(planted_head_seed_loss_rel=bad_rel,
+                             planted_head_seed_max_grad_rel_l2=bad_worst)
+            del bad
         del got, want
     return out
 
@@ -3263,6 +3671,251 @@ def phase_finetune_ner(torch, np, summary, device="cuda",
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- classify, choice and embed finetuning -------------------------------------
+
+GLUE_LABELS = ("negative", "positive")
+# the replies the phase's own server call checks, one a task
+TASK_BODIES = {
+    "classify": {"text": "the film was fast", "text_pair": "a slow report"},
+    "choice": {"question": QUESTIONS[0],
+               "choices": ["the cat", "a dog", "red mat", "old train"]},
+    "embed": {"texts": ["the cat sat on a mat", "people walked across"]}}
+
+
+def glue_file(np, path: str, task: str, n: int, seed: int) -> str:
+    """A synthetic file of `task`'s format, `n` examples of the serve
+    phase's words: classify TSV label<TAB>text_a<TAB>text_b (5-80 words
+    each, so pairs land in every eval bucket up to 128 and some are
+    truncated), embed TSV label<TAB>text (4-150 words), choice JSONL
+    {"question", "choices", "label"} (TASK_CHOICES choices of 3-60 words,
+    a question on three records in four)."""
+    rng = np.random.RandomState(seed)
+    rows = []
+    for i in range(n):
+        label = GLUE_LABELS[rng.randint(2)]
+        if task == "classify":
+            rows.append("\t".join((label, _context(rng, rng.randint(5, 80)),
+                                   _context(rng, rng.randint(5, 80)))))
+        elif task == "embed":
+            rows.append(f"{label}\t{_context(rng, rng.randint(4, 150))}")
+        else:
+            rec = {"choices": [_context(rng, rng.randint(3, 60))
+                               for _ in range(TASK_CHOICES)],
+                   "label": int(rng.randint(TASK_CHOICES))}
+            if i % 4:
+                rec["question"] = QUESTIONS[i % len(QUESTIONS)]
+            rows.append(json.dumps(rec))
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return path
+
+
+def phase_finetune_tasks(torch, np, summary, device="cuda",
+                         cfg_path=os.path.join(
+                             HERE, "configs",
+                             "bert_large_uncased_config.json"),
+                         ckpt_dir=None, batch=TASK_TRAIN[0]):
+    """classify, choice and embed finetuning of `cfg_path`'s model
+    (BERT-Large, 24 layers, full width, vocab padded to 30528) by the
+    entry point's run_task, one after the other: seeded from
+    train_phase2's last checkpoint when that phase ran (else random
+    weights from the seed), FINETUNE_STEPS steps of `batch` x 128 at the
+    JAX base parser's recipe (lr 3e-5, 10% warmup, clip 1.0, bf16,
+    dropout 0.1; choice at TASK_CHOICES choices, `batch` x 4 rows), on
+    synthetic train, val and test files; val and test accuracy, embed's
+    embedding norms, the checkpoint; exact launch counts of each run
+    (reset just before, read just after); the checkpoint answered by its
+    own server call, then deleted; the step profiled and timed; one
+    classify and one choice microbatch through the kernels against the
+    plain versions. `device`, `cfg_path` and `batch` exist so the phase
+    can be rehearsed on the CPU at a tiny size."""
+    import shutil
+
+    from bert_pytorch_tpu_torch import run_server
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.data import glue
+    from bert_pytorch_tpu_torch.data.tokenization import (
+        get_wordpiece_tokenizer)
+    from bert_pytorch_tpu_torch.models.bert import (
+        BertForMultipleChoice, BertForSequenceClassification)
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from bert_pytorch_tpu_torch.tasks import choice, classify, registry
+    from bert_pytorch_tpu_torch.training.finetune import (
+        eval_buckets, plain_train_batches, run_task, to_device)
+    from bert_pytorch_tpu_torch.training.pretrain import dropout_seeds
+
+    on_card = torch.device(device).type == "cuda"
+    seq = TASK_TRAIN[1]
+    config = BertConfig.from_json_file(cfg_path)
+    config = config.replace(vocab_size=pad_vocab_size(config.vocab_size, 8))
+    layers = config.num_hidden_layers
+    prev = summary.get("train_phase2", {}).get("checkpoint")
+    pretrain = (None if prev is None or ckpt_dir is None
+                else os.path.join(ckpt_dir, "pretrain_ckpts"))
+    init = [] if pretrain is None else [
+        "--init_checkpoint", f"{pretrain}@{prev['step']}"]
+    per_step = {"layer_norm_fwd": 1, "layer_norm_bwd": 1,
+                "add_dropout_layer_norm_fwd": 2 * layers,
+                "add_dropout_layer_norm_bwd": 2 * layers}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tasks_")
+    try:
+        vocab = serve_vocab(os.path.join(tmp, "vocab.txt"))
+        tokenizer = get_wordpiece_tokenizer(vocab)
+        for task in ("classify", "choice", "embed"):
+            what = f"finetune_{task}"
+            ext = "jsonl" if task == "choice" else "tsv"
+            files = {split: glue_file(np, os.path.join(
+                tmp, f"{task}_{split}.{ext}"), task, n, seed)
+                for split, n, seed in (("train", FINETUNE_STEPS * batch, 0),
+                                       ("val", batch, 1), ("test", batch, 2))}
+            out = os.path.join(tmp, f"{task}_out")
+            args = registry.get(task).parse_arguments(
+                ["--train_file", files["train"], "--val_file", files["val"],
+                 "--test_file", files["test"], "--model_config_file",
+                 cfg_path, "--vocab_file", vocab, "--output_dir", out,
+                 "--batch_size", str(batch), "--max_seq_len", str(seq),
+                 "--epochs", "1", "--seed", "0", "--device", device]
+                + init + (["--num_choices", str(TASK_CHOICES)]
+                          if task == "choice" else []))
+            # what eval will run: the val and test batches by bucket, and
+            # embed's one batch of embeddings
+            n_eval = sum(sum(_eval_batches_by_bucket(
+                (glue.MultipleChoiceDataset(files[s], tokenizer,
+                                            TASK_CHOICES, seq)
+                 if task == "choice" else glue.PairClassificationDataset(
+                     files[s], tokenizer, GLUE_LABELS, seq)).arrays(),
+                batch, eval_buckets(seq)).values()) for s in ("val", "test"))
+            if task == "embed":
+                n_eval += 1
+            lines, trace = [], {}
+
+            def note(msg, what=what):
+                lines.append(msg)
+                log(f"{what}: {msg}")
+
+            # the main path: counts zeroed just before, read just after
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            results = run_task(registry.get(task), args, log=note,
+                               trace=trace)
+            wall = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            peak_gb = (torch.cuda.max_memory_allocated() / 2 ** 30
+                       if on_card else None)
+            summary.setdefault("launches", {})[what] = launches
+            history, state, run = (trace["history"], trace["state"],
+                                   trace["run"])
+            losses = [h["loss"] for h in history]
+            norms = [h["grad_norm"] for h in history]
+            if pretrain is not None:
+                loaded = [ln for ln in lines
+                          if ln.startswith("init_checkpoint: loaded")]
+                check(loaded == [f"init_checkpoint: loaded "
+                                 f"{len(state.params) - 2} parameters from "
+                                 f"{pretrain} step {prev['step']}"],
+                      f"{what} init checkpoint: {loaded}, want every "
+                      "parameter but the classifier's two")
+            check(len(history) == FINETUNE_STEPS
+                  and all(np.isfinite(losses)) and all(np.isfinite(norms)),
+                  f"{what}: {len(history)} steps, losses {losses}, grad "
+                  f"norms {norms}")
+            check(all(0.0 <= results[k] <= 1.0
+                      for k in ("val_accuracy", "test_accuracy")),
+                  f"{what} accuracy {results}")
+            if task == "embed":
+                check(results["embedding_dim"] == config.hidden_size
+                      and results["embedding_norm_err"] < 1e-3,
+                      f"{what} embeddings {results}")
+            ckpt_steps = sorted(int(d) for d in os.listdir(
+                os.path.join(out, "ckpt")) if d.isdigit())
+            check(ckpt_steps == [FINETUNE_STEPS], f"{what} checkpoints "
+                  f"{ckpt_steps}")
+            # per step the embedding LN and 48 residual tails, forward and
+            # backward; per eval forward 49 LayerNorms; no flash at 128
+            want = dict({k: 0 for k in LAUNCHES},
+                        **{k: n * FINETUNE_STEPS for k, n in per_step.items()})
+            want["layer_norm_fwd"] += (2 * layers + 1) * n_eval
+            if on_card:
+                check(launches == want, f"{what} launch counts {launches}, "
+                      f"want {want}")
+            rows = batch * (TASK_CHOICES if task == "choice" else 1)
+            log(f"{what}: {FINETUNE_STEPS} steps of {batch} x {seq} ({rows} "
+                f"rows) from {init or 'random weights'}: losses {losses}, "
+                f"grad norms {norms}; results {json.dumps(results)}; "
+                f"{n_eval} eval forwards; run_task {wall:.1f} s; peak memory "
+                f"{peak_gb} GiB; launches {launches} (predicted {want})")
+            res = {"steps": len(history), "batch": batch, "seq": seq,
+                   "rows": rows, "init_step": None if prev is None
+                   else prev["step"], "losses": losses, "grad_norms": norms,
+                   "val_accuracy": results["val_accuracy"],
+                   "test_accuracy": results["test_accuracy"],
+                   "checkpoint_steps": ckpt_steps, "run_task_s": wall,
+                   "peak_memory_gib": peak_gb, "launches": launches,
+                   "launches_predicted": want, "launches_per_step": per_step,
+                   "output_dir": out}
+            if task == "embed":
+                res.update({k: results[k] for k in ("embedding_dim",
+                                                    "embedding_norm_err")})
+            summary[what] = res
+
+            # the checkpoint answered by its own server call, then deleted
+            handle = run_server.serve(run_server.parse_arguments([
+                "--model_config_file", cfg_path, "--vocab_file", vocab,
+                "--task_checkpoint", f"{task}={os.path.join(out, 'ckpt')}",
+                "--port", "0", "--host", "127.0.0.1", "--device", device]),
+                log=lambda m, what=what: log(f"{what}: serve: {m}"))
+            try:
+                code, reply = _post(handle.url, TASK_BODIES[task],
+                                    route=task)
+            finally:
+                handle.close()
+            _check_reply(np, task, TASK_BODIES[task], code, reply,
+                         config.hidden_size)
+            res["serve"] = {"code": code, "reply": reply}
+            shutil.rmtree(out)
+            log(f"{what}: the server on its checkpoint answered {code}; "
+                f"{out} deleted")
+
+            # the step again, profiled and timed, on the run's state
+            batch_np, _, _ = next(plain_train_batches(
+                run.train_arrays, batch, 1, True, 1, run.label_ignore))
+            seeds = dropout_seeds(7, 1, 1, run.model.n_dropout_sites)
+            res.update(_finetune_step_numbers(
+                torch, run, state, to_device(batch_np, device), seeds,
+                on_card, what))
+            if "step_ms" in res:
+                res["train_examples_per_s"] = batch / res["step_ms"] * 1e3
+            weights = {k: v.detach().clone()
+                       for k, v in run.model.state_dict().items()}
+            del run, state, trace, history
+
+            # one microbatch: kernels against the plain versions
+            if task == "classify":
+                res["kernels_vs_plain"] = _hold_microbatch(
+                    torch, np, what,
+                    lambda dtype, plain: BertForSequenceClassification(
+                        config, num_labels=len(GLUE_LABELS), dtype=dtype,
+                        plain=plain),
+                    classify._loss_builder, weights, batch_np, seeds[0],
+                    device, tols=POOLED_MODEL_TOL, plant_head_seed=True)
+            elif task == "choice":
+                res["kernels_vs_plain"] = _hold_microbatch(
+                    torch, np, what,
+                    lambda dtype, plain: BertForMultipleChoice(
+                        config, dtype=dtype, plain=plain),
+                    choice.make_loss_builder(TASK_CHOICES), weights,
+                    batch_np, seeds[0], device,
+                    shift_invariant=("classifier.bias",),
+                    tols=POOLED_MODEL_TOL, noise_abs=CHOICE_BIAS_NOISE,
+                    plant_head_seed=True)
+            del weights
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 KERNEL_ROWS = {
     "layer_norm_fwd": {
         "route": "cuda",
@@ -3324,7 +3977,7 @@ KERNEL_ROWS = {
 _LINE_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "shape", "rate")
 _EXTRA_KEYS = ("rate0_ms", "rate0_plain_ms", "pair_ms", "row_ms",
-               "column_ms", "pair_by_shape")
+               "column_ms", "pair_by_shape", "max_abs_err_by_rows")
 # the backward pair's other measurements: the longer sequences and f32
 _PAIR_VARIANTS = ("seq1024", "seq2048", "float32")
 
@@ -3389,7 +4042,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="device,build,kernels,timing,model_seq1024,"
                             "serve,train,train_phase2,finetune_squad,"
-                            "finetune_ner",
+                            "finetune_ner,finetune_tasks",
                     help="comma-separated subset, in order (development)")
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke.json")
@@ -3494,6 +4147,8 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
                 phase_finetune_squad(torch, np, summary, ckpt_dir=ckpt_dir)
             elif phase == "finetune_ner":
                 phase_finetune_ner(torch, np, summary)
+            elif phase == "finetune_tasks":
+                phase_finetune_tasks(torch, np, summary, ckpt_dir=ckpt_dir)
             else:
                 raise PhaseError(f"unknown phase {phase!r}")
             torch.cuda.synchronize()

@@ -212,6 +212,9 @@ class _StubEngine:
     def select_bucket(self, length):
         return 16 if length <= 16 else None
 
+    def output_kind(self, task):
+        return "token"
+
     def forward(self, task, batch):
         import time
 
