@@ -18,18 +18,22 @@ import torch
 # it is refused: what the pretraining and the finetuning slices left out.
 PRETRAIN_GAPS = "ROADMAP.md, queue A: what the pretraining slice left out"
 FINETUNE_GAPS = "ROADMAP.md, queue A: what the finetuning slice left out"
+SERVE_GAPS = ("ROADMAP.md, queue A item 1: the serving engine and the "
+              "serving planes")
 
 
-def refuse(args, refused: Dict[str, Tuple], gaps: str) -> None:
+def refuse(args, refused: Dict[str, Tuple], gaps: str,
+           hints: Optional[Dict[str, str]] = None) -> None:
     """Refuse what the port does not implement rather than ignore it:
     raise on a key of `refused` whose value in `args` switches its
     feature on (its tuple lists the values that leave it off), naming the
-    ROADMAP item `gaps`."""
+    ROADMAP item `gaps` and the key's entry of `hints`, if any."""
     for key, off in refused.items():
         if hasattr(args, key) and getattr(args, key) not in off:
+            hint = (hints or {}).get(key)
             raise NotImplementedError(
                 f"{key}={getattr(args, key)!r} is not ported yet (see "
-                f"{gaps})")
+                f"{gaps})" + (f"; {hint}" if hint else ""))
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

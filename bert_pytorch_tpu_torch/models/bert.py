@@ -52,8 +52,39 @@ from bert_pytorch_tpu_torch.ops.layernorm import (add_dropout_layer_norm,
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """A Linear in x's dtype with f32 parameters cast at use."""
+    """A Linear in x's dtype with f32 parameters cast at use (a no-op cast
+    for the weights `cast_for_serving` already holds in x's dtype)."""
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+
+
+def _row_linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """`_linear` for a head of a few outputs, as one f32 product-sum a
+    output over the last axis (plus the bias, rounded once to x's dtype,
+    as the GEMM's epilogue rounds): each row's sum runs in the same order
+    wherever the row sits in the batch. cuBLAS's GEMM at N = 2 does not:
+    the same row read one bf16 ulp apart packed and alone on the card
+    (PERF.md, ROADMAP queue C item 2), so the QA head takes this route."""
+    w = layer.weight.to(x.dtype).float()
+    xf = x.float()
+    out = torch.stack([(xf * w[i]).sum(-1) for i in range(w.shape[0])], -1)
+    return (out + layer.bias.to(x.dtype).float()).to(x.dtype)
+
+
+def cast_for_serving(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Hold every Linear weight and bias and every Embedding table of a
+    served model in `dtype`, cast once: the same values the casts at use
+    give (`_linear`, the embedding gathers), so the outputs are the same
+    bits, without a cast of each weight in every forward. LayerNorm
+    scales and biases stay f32, as the LayerNorm kernels take them. A
+    no-op for f32."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Linear, nn.Embedding)):
+                for name, p in list(mod.named_parameters(recurse=False)):
+                    if p.dtype != dtype:
+                        setattr(mod, name, nn.Parameter(
+                            p.to(dtype), requires_grad=False))
+    return model
 
 
 class LayerNorm(nn.Module):
@@ -92,6 +123,19 @@ class ResidualDropoutLayerNorm(LayerNorm):
                   self.eps)
 
 
+def _select_rows(table: torch.Tensor, ids: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """`table[ids]` in `dtype`, as a one-hot product: the same values as
+    the gather (one exact product a position), and a backward that is a
+    matmul summed in a fixed order. The embedding backward on the card
+    sums the thousands of tokens each row of a 2-row table receives in an
+    order that changes from run to run (PERF.md, ROADMAP queue C item 1),
+    so the token-type table takes this route."""
+    onehot = ids.long()[..., None] == torch.arange(
+        table.shape[0], device=ids.device)
+    return torch.matmul(onehot.to(dtype), table.to(dtype))
+
+
 class BertEmbeddings(nn.Module):
     """word + position (+ token-type iff next_sentence) embeddings, then
     LayerNorm and (training) hash dropout. `position_ids` resets positions
@@ -123,7 +167,8 @@ class BertEmbeddings(nn.Module):
         if self.token_type_embeddings is not None:
             if token_type_ids is None:
                 token_type_ids = torch.zeros_like(input_ids)
-            x = x + self.token_type_embeddings(token_type_ids).to(dtype)
+            x = x + _select_rows(self.token_type_embeddings.weight,
+                                 token_type_ids, dtype)
         x = self.layer_norm(x)
         if seed is not None and self.rate > 0.0:
             x = hash_dropout(x, seed, self.rate)
@@ -300,7 +345,7 @@ class BertForQuestionAnswering(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         seq = self.bert(input_ids, token_type_ids, attention_mask,
                         position_ids, segment_ids, dropout_seeds)
-        logits = _linear(seq, self.qa_outputs).float()
+        logits = _row_linear(seq, self.qa_outputs).float()
         return logits[..., 0], logits[..., 1]
 
 

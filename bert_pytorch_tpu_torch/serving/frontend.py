@@ -1,6 +1,6 @@
-"""Stdlib HTTP frontend: POST /v1/<task> and GET /healthz (counterpart of
-bert_pytorch_tpu/serving/frontend.py, without /metrics, traces or the
-SLO plane).
+"""Stdlib HTTP frontend: POST /v1/<task>, GET /metrics, GET /healthz and
+GET /v1/traces (counterpart of bert_pytorch_tpu/serving/frontend.py,
+without the SLO plane's /v1/alerts and /v1/slo).
 
 One service per registered task: squad, ner, classify, choice and embed.
 Each handler thread featurizes its request (tasks/predict), submits its
@@ -11,8 +11,17 @@ bodies, response keys and status codes are the JAX services'.
 
 Status mapping: 400 malformed JSON or missing fields, 404 unknown route,
 413 longer than the largest bucket (or too many choices or texts), 503
-queue full (with Retry-After), 504 admission or result timeout, 500
-engine error.
+queue full or draining (with Retry-After), 504 admission or result
+timeout, 500 engine error.
+
+/metrics renders the server's registry (the scheduler's `bert_serve_*`
+families) in the Prometheus text format. Every POST reply carries an
+`X-Trace-Id` header naming the trace ids the scheduler minted for it (one
+a submitted segment, comma-joined), and `GET /v1/traces[?id=a,b][&n=K]`
+serves the trace ring as one strict Chrome-trace JSON document. The
+graceful drain: `begin_drain()` stops admission (503 + Retry-After) while
+/metrics, /healthz (`draining`, `inflight`) and the requests already
+admitted carry on, and `wait_idle()` blocks until those have finished.
 """
 
 from __future__ import annotations
@@ -22,12 +31,15 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, Optional
+from urllib.parse import parse_qs
 
 import numpy as np
 
 from bert_pytorch_tpu_torch.serving.batcher import (Overloaded,
                                                     RequestTimeout, TooLong)
+from bert_pytorch_tpu_torch.serving.request_trace import collect_trace_ids
 from bert_pytorch_tpu_torch.tasks import predict, squad
+from bert_pytorch_tpu_torch.telemetry.registry import CONTENT_TYPE_PROM
 
 MAX_BODY_BYTES = 1 << 20
 
@@ -269,45 +281,98 @@ class EmbedService(_TaskService):
 class ServingFrontend:
     """One HTTP server: `services` maps task name to a
     callable(body_dict) -> response_dict, routed at POST /v1/<task>;
-    GET /healthz answers `healthz_fn()`."""
+    GET /metrics renders `registry`, GET /healthz answers `healthz_fn()`
+    (plus `draining` and `inflight`), GET /v1/traces exports `trace_ring`
+    (404 when tracing is off)."""
 
-    def __init__(self, services: Dict[str, Callable],
+    def __init__(self, services: Dict[str, Callable], registry,
                  healthz_fn: Optional[Callable[[], Dict[str, Any]]] = None,
-                 port: int = 0, host: str = "0.0.0.0"):
+                 port: int = 0, host: str = "0.0.0.0", trace_ring=None):
         self.services = dict(services)
+        self.registry = registry
         self.healthz_fn = healthz_fn
+        self.trace_ring = trace_ring
+        self._draining = False
+        self._inflight = 0
+        self._inflight_cv = threading.Condition()
         server = self
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
 
-            def _send_json(self, code: int, obj: Dict[str, Any],
-                           extra: Optional[Dict[str, str]] = None) -> None:
-                payload = json.dumps(obj, sort_keys=True,
-                                     default=str).encode("utf-8")
+            def _send(self, code: int, body: str, ctype: str,
+                      extra: Optional[Dict[str, str]] = None) -> None:
+                payload = body.encode("utf-8")
                 self.send_response(code)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(payload)))
                 for k, v in (extra or {}).items():
                     self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(payload)
 
+            def _send_json(self, code: int, obj: Dict[str, Any],
+                           extra: Optional[Dict[str, str]] = None) -> None:
+                self._send(code, json.dumps(obj, sort_keys=True,
+                                            default=str),
+                           "application/json", extra)
+
             def do_GET(self):  # noqa: N802 (http.server API)
                 path = self.path.split("?", 1)[0]
                 try:
-                    if path == "/healthz":
-                        self._send_json(200, server.healthz_fn()
-                                        if server.healthz_fn else {})
+                    if path == "/metrics":
+                        self._send(200, server.registry.render_prometheus(),
+                                   CONTENT_TYPE_PROM)
+                    elif path == "/healthz":
+                        h = server.healthz_fn() if server.healthz_fn else {}
+                        h["draining"] = server.draining
+                        h["inflight"] = server.inflight
+                        self._send_json(200, h)
+                    elif path == "/v1/traces":
+                        self._traces()
                     else:
                         self._send_json(404, {"error": "not found; try "
-                                              "/healthz or POST /v1/<task>"})
+                                              "/metrics, /healthz, "
+                                              "/v1/traces or POST "
+                                              "/v1/<task>"})
                 except BrokenPipeError:
                     pass
+
+            def _traces(self):
+                if server.trace_ring is None:
+                    self._send_json(404, {"error": "request tracing is "
+                                          "disabled"})
+                    return
+                q = parse_qs(self.path.partition("?")[2])
+                ids = ([t for part in q["id"] for t in part.split(",") if t]
+                       if q.get("id") else None)
+                limit = None
+                try:
+                    if q.get("n"):
+                        limit = max(1, int(q["n"][0]))
+                except ValueError:
+                    pass
+                doc = server.trace_ring.snapshot_events(ids=ids, limit=limit)
+                # strict JSON: a NaN here would be a span attribute bug
+                self._send(200, json.dumps(doc, sort_keys=True,
+                                           allow_nan=False),
+                           "application/json")
 
             def do_POST(self):  # noqa: N802 (http.server API)
                 path = self.path.split("?", 1)[0]
                 t0 = time.perf_counter()
+                # every scheduler.submit on this thread notes its trace id
+                # here; the reply, success or error, carries them
+                with collect_trace_ids() as trace_ids:
+                    self._do_post(path, t0, trace_ids)
+
+            def _do_post(self, path, t0, trace_ids):
+                def hdr(extra=None):
+                    if trace_ids:
+                        extra = dict(extra or {})
+                        extra["X-Trace-Id"] = ",".join(trace_ids)
+                    return extra
+
                 try:
                     # consume the body before any reply: unread bytes on a
                     # keep-alive connection would parse as the next request
@@ -331,26 +396,39 @@ class ServingFrontend:
                         raise HTTPError(400, f"malformed JSON: {e}")
                     if not isinstance(body, dict):
                         raise HTTPError(400, "body must be a JSON object")
-                    out = service(body)
+                    with server._inflight_cv:
+                        if server._draining:
+                            # admission stopped; requests admitted before
+                            # the drain still finish
+                            raise HTTPError(503, "draining: this server is "
+                                            "shutting down", retry_after=5)
+                        server._inflight += 1
+                    try:
+                        out = service(body)
+                    finally:
+                        with server._inflight_cv:
+                            server._inflight -= 1
+                            server._inflight_cv.notify_all()
                     out["latency_ms"] = round(
                         (time.perf_counter() - t0) * 1e3, 3)
-                    self._send_json(200, out)
+                    self._send_json(200, out, hdr())
                 except HTTPError as e:
                     extra = ({"Retry-After": str(e.retry_after)}
                              if e.retry_after else None)
-                    self._send_json(e.code, {"error": e.message}, extra)
+                    self._send_json(e.code, {"error": e.message},
+                                    hdr(extra))
                 except TooLong as e:
-                    self._send_json(413, {"error": str(e)})
+                    self._send_json(413, {"error": str(e)}, hdr())
                 except Overloaded as e:
                     self._send_json(503, {"error": str(e)},
-                                    {"Retry-After": "1"})
+                                    hdr({"Retry-After": "1"}))
                 except RequestTimeout as e:
-                    self._send_json(504, {"error": str(e)})
+                    self._send_json(504, {"error": str(e)}, hdr())
                 except BrokenPipeError:
                     pass
                 except Exception as e:
                     self._send_json(500, {"error": f"{type(e).__name__}: "
-                                                   f"{e}"})
+                                                   f"{e}"}, hdr())
 
             def log_message(self, fmt, *args):
                 pass
@@ -369,6 +447,35 @@ class ServingFrontend:
     def url(self) -> str:
         host = "127.0.0.1" if self.host in ("0.0.0.0", "") else self.host
         return f"http://{host}:{self.port}"
+
+    @property
+    def inflight(self) -> int:
+        with self._inflight_cv:
+            return self._inflight
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def begin_drain(self) -> None:
+        """Stop admitting task requests (503 + Retry-After); /metrics,
+        /healthz and the requests already admitted carry on."""
+        with self._inflight_cv:
+            self._draining = True
+
+    def wait_idle(self, timeout: Optional[float] = None) -> bool:
+        """Block until every admitted request has finished; False when
+        `timeout` passed first."""
+        deadline = (None if timeout is None
+                    else time.monotonic() + float(timeout))
+        with self._inflight_cv:
+            while self._inflight > 0:
+                remaining = (None if deadline is None
+                             else deadline - time.monotonic())
+                if remaining is not None and remaining <= 0:
+                    return False
+                self._inflight_cv.wait(timeout=remaining)
+        return True
 
     def close(self) -> None:
         if self._closed:

@@ -59,8 +59,29 @@ Phases, each of which must pass:
             counts, and each new service's 400 and 413 paths; per task,
             answers with packing on held against packing off, and one
             packed 512 forward's exact launches (49 LayerNorm forwards, 24
-            flash forwards) and device time;
-7. train    a seeded random BERT-Large (24 layers, full width, vocab 30528)
+            flash forwards) and device time; the server runs one CUDA
+            graph a (task, bucket), so those counts are each graph's
+            capture times its replays, and `captures` must stay flat under
+            all of the phase's traffic; every (task, bucket) replay is held
+            bit-equal to the eager forward and each task's bf16 weight copy
+            bit-equal to its f32-master model, with the resident weights
+            and the 512 forward's host clock and device time (replay and
+            eager); the short SQuAD requests are traced op by op packed and
+            alone (the first op that differs, ROADMAP queue C item 2);
+            /metrics carries the twelve bert_serve_* families and a reply's
+            X-Trace-Id finds its spans in /v1/traces; a fixed offered load
+            (bert_pytorch_tpu_torch/tools/serve_load.py in its own process:
+            Poisson arrivals at 100 requests/s for 30 s, the five routes
+            evenly, then a ramp to where p99 passes 1 s); a drain drill
+            (503 + Retry-After, the admitted request answered); then a
+            second server with --serve_dtype int8 on the same checkpoints:
+            the decode gate on the five tasks, the resident weights, the
+            512 forward, and corrupted scales refused;
+7. train_order  ROADMAP queue C item 1: one phase-1 microbatch's loss,
+            layer outputs and gradients (digests) in two fresh processes
+            (`--grad_probe`) and in this one after the phases before it,
+            compared leaf by leaf; a difference is recorded, not failed;
+8. train    a seeded random BERT-Large (24 layers, full width, vocab 30528)
             trained for 3 phase-1 steps (the run config's microbatch of
             96 x 128, accumulation 2) by the entry point's trainer
             (run_pretraining.train, --fused_optim auto) over synthetic
@@ -72,14 +93,14 @@ Phases, each of which must pass:
             the kernels and on route off; one microbatch through the
             kernels held against the plain versions (f32 and bf16 loss and
             gradients);
-8. train_phase2  the same for phase 2: 3 steps under the phase-2 run
+9. train_phase2  the same for phase 2: 3 steps under the phase-2 run
             config (microbatch 16 x 512, 80 predictions, accumulation 2),
             where attention runs the flash forward with dropout and the
             fused flash backward (no launch of the split pair); it
             auto-resumes phase 1's last checkpoint
             (previous_phase_end_step set to 3 for it) and must continue
             from step 3 with phase 1's LAMB state;
-9. finetune_squad  SQuAD v1.1 finetuning by the entry point's run_task
+10. finetune_squad  SQuAD v1.1 finetuning by the entry point's run_task
             (bert_pytorch_tpu_torch.run_squad's body): BERT-Large seeded
             from phase 2's last checkpoint, 3 steps of 32 x 384 (flash
             forward with dropout and the fused backward in every layer),
@@ -90,11 +111,11 @@ Phases, each of which must pass:
             run_server serving the finetuned checkpoint; one step profiled
             and timed, the optimizer update timed; one microbatch through
             the kernels against the plain versions;
-10. finetune_ner  CoNLL NER finetuning, 3 steps of 32 x 128 (plain
+11. finetune_ner  CoNLL NER finetuning, 3 steps of 32 x 128 (plain
             attention, the LayerNorm kernels) on a synthetic CoNLL-2003
             file, val and test macro F1, the checkpoint, exact launch
             counts, one step profiled and timed;
-11. finetune_tasks  classify, choice and embed finetuning, one after the
+12. finetune_tasks  classify, choice and embed finetuning, one after the
             other: BERT-Large from phase 2's last checkpoint, 3 steps of
             16 x 128 (choice 16 x 4 x 128) at the JAX base parser's recipe
             on synthetic TSV / JSONL files, val and test accuracy, embed's
@@ -2083,21 +2104,24 @@ def phase_serve(torch, np, summary, device="cuda",
             f"of {sorted(ckpts)} written in {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
-        args = run_server.parse_arguments(
-            ["--model_config_file", cfg_path, "--vocab_file", vocab,
-             "--port", "0", "--host", "127.0.0.1", "--device", device,
-             "--labels", *CONLL_TAGS]
-            + [a for task in sorted(ckpts)
-               for a in ("--task_checkpoint", f"{task}={ckpts[task]}")])
-        handle = run_server.serve(args, log=lambda m: log("serve: " + m))
-        for path in ckpts.values():
-            os.remove(path)
+        argv = (["--model_config_file", cfg_path, "--vocab_file", vocab,
+                 "--port", "0", "--host", "127.0.0.1", "--device", device,
+                 "--labels", *CONLL_TAGS]
+                + [a for task in sorted(ckpts)
+                   for a in ("--task_checkpoint", f"{task}={ckpts[task]}")])
+        handle = run_server.serve(run_server.parse_arguments(argv),
+                                  log=lambda m: log("serve: " + m))
         engine = handle.engine
         summary["serve_start_s"] = time.perf_counter() - t0
         check(engine.tasks == registry.all_tasks(),
               f"served tasks {engine.tasks}")
         check(engine.buckets == BUCKETS and engine.batch_rows == BATCH_ROWS
               and engine.max_segments == 8, "server defaults changed")
+        # one CUDA graph a (task, bucket) on the card; traffic adds none
+        warm_captures = engine.captures
+        check(warm_captures == len(engine.tasks) * len(engine.buckets)
+              and engine.graphs_on == (torch.device(device).type == "cuda"),
+              f"captures after warmup {warm_captures}")
 
         # the main path: launch counts zeroed just before, read just after
         for key in engine.forward_counts:
@@ -2222,6 +2246,21 @@ def phase_serve(torch, np, summary, device="cuda",
             torch, np, handle, config, tokenizer, batch, reqs, device)
         summary["launches"]["serve_routes"] = (
             summary["serve"]["routes"]["launches"])
+        sv = summary["serve"]
+        sv["graphs"] = serve_graph_checks(
+            torch, np, handle, config, ckpts, batch,
+            dict(opts, max_segments=engine.max_segments), device)
+        sv["queue_c_item2"] = packed_span_diagnosis(
+            torch, np, handle, sv["routes"].pop("squad_segments"), device)
+        sv["planes"] = serve_planes(np, handle)
+        sv["load"] = serve_load(np, handle, vocab,
+                                torch.device(device).type == "cuda")
+        check(engine.captures == warm_captures, f"captures moved under "
+              f"traffic: {warm_captures} after warmup, {engine.captures} now")
+        sv["captures"] = engine.captures
+        sv["drain"] = drain_drill(np, handle)
+        handle = None
+        sv["int8"] = serve_int8(torch, np, argv, ckpts, batch, device)
     finally:
         if handle is not None:
             handle.close()
@@ -2237,10 +2276,12 @@ SERVE_OPTS = {"class_names": ["negative", "positive"], "embed_labels": 2}
 # moves, which can shift an output by an ulp of bf16. Every output of a
 # task (logits, scores, embedding elements) is held within PACK_REL of
 # the task's largest |output| (between one and two ulps of it). Measured
-# on the card (PERF.md): 0 on the pooled heads and NER, 2^-7 (one ulp at
-# |logit| in [1, 2)) on SQuAD. Each run also plants a demux fault (a
-# request read at its row-mate's segment or offset), which must read
-# above the limit: on the card 0.078 (embed) to 2.7 (NER).
+# on the card (PERF.md): 0 on the pooled heads and NER; SQuAD read 2^-7
+# (one ulp at |logit| in [1, 2)) while its head was one cuBLAS GEMM at
+# N = 2, and is now held at 0 (models/bert._row_linear). Each run
+# also plants a demux fault (a request read at its row-mate's segment or
+# offset), which must read above the limit: on the card 0.078 (embed) to
+# 2.7 (NER).
 PACK_REL = 2 ** -7
 
 
@@ -2469,6 +2510,7 @@ def serve_routes(torch, np, handle, config, tokenizer, batch512, squad_reqs,
                            task, b, tokenizer, engine.max_bucket)]
                 for task in short}
     segments["squad"] = list(squad_reqs) + segments["squad"]
+    out["squad_segments"] = segments["squad"]
 
     def parts(x):
         return x if isinstance(x, tuple) else (x,)
@@ -2500,6 +2542,8 @@ def serve_routes(torch, np, handle, config, tokenizer, batch512, squad_reqs,
         check(err <= tol, f"{task} packed vs one a row: {err} > {tol}")
         check(fault > tol, f"{task}: the planted demux fault reads "
               f"{fault}, inside {tol}")
+        check(task != "squad" or err == 0.0, f"squad packed vs one a row: "
+              f"{err}, want 0 (the QA head's row products)")
         out["packed_vs_padded"][task] = {
             "segments": len(reqs), "sharing_a_row": shared,
             "max_abs_err": err, "tol": tol,
@@ -2529,6 +2573,504 @@ def serve_routes(torch, np, handle, config, tokenizer, batch512, squad_reqs,
         log(f"serve: {task} 512-bucket forward: launches {got}; "
             f"{statistics.median(times):.2f} ms (median of 5, host clock); "
             f"device {sum(classes.values()):.3f} ms by class {classes}")
+    return out
+
+
+# -- serving: the graphs, the weight copies, the planes -----------------------
+
+# the rate and length of the fixed-load run, the ramp after it (each rate
+# for LOAD_RAMP_S seconds, stopping where p99 passes LOAD_BOUND_MS), and the
+# client: bert_pytorch_tpu_torch/tools/serve_load.py in its own process
+LOAD_RATE, LOAD_S = 100.0, 30.0
+LOAD_RAMP = (40, 60, 80, 100, 120, 140, 160, 200)
+LOAD_RAMP_S, LOAD_BOUND_MS = 6.0, 1000.0
+# the int8 accuracy gate, run_server's default --int8_max_delta
+INT8_MAX_DELTA = 0.1
+SERVE_LOAD = os.path.join(HERE, "bert_pytorch_tpu_torch", "tools",
+                          "serve_load.py")
+
+
+def bucket_batch(np, rng, rows: int, bucket: int, vocab: int,
+                 max_segments: int = 8):
+    """A (rows, bucket) packed batch of random tokens: each row holds 1 to
+    `max_segments` segments of random lengths and a pad tail."""
+    from bert_pytorch_tpu_torch.serving.engine import zero_batch
+
+    batch = zero_batch(rows, bucket)
+    for row in range(rows):
+        n = int(rng.randint(1, max_segments + 1))
+        cursor = 0
+        for seg in range(n):
+            ln = int(rng.randint(2, max(3, bucket // n)))
+            if cursor + ln > bucket:
+                break
+            sl = slice(cursor, cursor + ln)
+            batch["input_ids"][row, sl] = rng.randint(5, vocab, ln)
+            batch["token_type_ids"][row, sl] = np.arange(ln) >= ln // 2
+            batch["attention_mask"][row, sl] = 1
+            batch["segment_ids"][row, sl] = seg + 1
+            batch["position_ids"][row, sl] = np.arange(ln)
+            cursor += ln
+    return batch
+
+
+def _same(np, a, b) -> bool:
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype and np.array_equal(x, y)
+        for x, y in zip(a, b))
+
+
+def _event_ms(torch, fn, reps: int) -> float:
+    """Median device ms of fn() by CUDA events around each call."""
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def _forward_times(torch, np, engine, model, spec, task, batch, on_card):
+    """The 512 forward of `task`: host clock of engine.forward (the
+    replay, the copies in and out), device ms of the replay alone and of
+    the eager forward alone (CUDA events, median of 20)."""
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        engine.forward(task, batch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = {"host_ms": statistics.median(times)}
+    if on_card:
+        graph = engine.graph(task, engine.max_bucket)
+        out["replay_device_ms"] = _event_ms(torch, graph.replay, 20)
+        tb = {k: torch.from_numpy(v).to(engine.device)
+              for k, v in batch.items()}
+        fwd = spec.forward_builder(model)
+        with torch.inference_mode():
+            out["eager_device_ms"] = _event_ms(torch, lambda: fwd(tb), 20)
+    return out
+
+
+def serve_graph_checks(torch, np, handle, config, ckpts, batch512, opts,
+                       device):
+    """The bf16 server's graphs and weights: every (task, bucket) replay
+    bit-equal to the eager forward on a packed batch; each task's bf16
+    copy bit-equal to its f32-master model (the checkpoint's f32 weights,
+    cast at use) at the 512 bucket; the resident weights of both; the 512
+    forward's host clock and device time (replay and eager)."""
+    from bert_pytorch_tpu_torch.serving.quantize import resident_bytes
+    from bert_pytorch_tpu_torch.tasks import registry
+
+    on_card = torch.device(device).type == "cuda"
+    engine = handle.engine
+    rng = np.random.RandomState(5)
+    mismatched = []
+    for task in engine.tasks:
+        for bucket in engine.buckets:
+            b = bucket_batch(np, rng, engine.batch_rows, bucket,
+                             config.vocab_size)
+            if not _same(np, engine.forward(task, b),
+                         engine.forward_eager(task, b)):
+                mismatched.append(f"{task}/{bucket}")
+    log(f"serve: graphs: {len(engine.tasks) * len(engine.buckets)} (task, "
+        f"bucket) replays against the eager forward: "
+        f"{'bit-equal' if not mismatched else 'DIFFER at ' + str(mismatched)}")
+    check(not mismatched, f"graph replay differs from the eager forward at "
+          f"{mismatched}")
+    out = {"replay_vs_eager": "bit-equal", "resident_weight_bytes": {},
+           "forward512": {}}
+    master_differs = []
+    for task in engine.tasks:
+        spec = registry.get(task)
+        master = spec.build_serving_model(config, torch.bfloat16, opts,
+                                          device)
+        master.load_state_dict(torch.load(ckpts[task], map_location=device,
+                                          weights_only=True), strict=True)
+        master.eval()
+        tb = {k: torch.from_numpy(v).to(device) for k, v in batch512.items()}
+        with torch.inference_mode():
+            want = spec.forward_builder(master)(tb)
+        want = tuple(t.float().cpu().numpy() for t in
+                     (want if isinstance(want, tuple) else (want,)))
+        got = engine.forward_eager(task, batch512)
+        if not _same(np, got if isinstance(got, tuple) else (got,), want):
+            master_differs.append(task)
+        out["resident_weight_bytes"][task] = {
+            "bfloat16": resident_bytes(handle.models[task]),
+            "float32": resident_bytes(master)}
+        del master
+        out["forward512"][task] = _forward_times(
+            torch, np, engine, handle.models[task], spec, task, batch512,
+            on_card)
+    if on_card:
+        torch.cuda.empty_cache()
+    check(not master_differs, f"the bf16 copy differs from the f32-master "
+          f"model at {master_differs}")
+    out["bf16_copy_vs_f32_master"] = "bit-equal"
+    log(f"serve: bf16 weight copy bit-equal to the f32-master model on "
+        f"{list(engine.tasks)}; resident weights {out['resident_weight_bytes']}"
+        f"; 512 forward {out['forward512']}")
+    return out
+
+
+def _trace_squad(torch, model, batch):
+    """The SQuAD model's forward op by op on `batch` (eager, the served
+    weights), every intermediate kept: the embeddings; per layer the QKV
+    projection, attention (plain attention split into the f32 scores, the
+    softmax and P.V; the flash route as the kernel's output), the output
+    projection, the first LayerNorm, the MLP's two products, its
+    activation and the second LayerNorm; the logits as one cuBLAS GEMM
+    and as the model's row products."""
+    from bert_pytorch_tpu_torch.models.bert import _linear, _row_linear
+    from bert_pytorch_tpu_torch.ops.attention import (
+        _scores, dot_product_attention, make_attention_bias,
+        make_segment_attention_bias, takes_flash)
+
+    bert = model.bert
+    ops = {}
+    with torch.inference_mode():
+        seg = batch["segment_ids"]
+        bias = make_attention_bias(batch["attention_mask"]).contiguous()
+        x = bert.embeddings(batch["input_ids"], batch["token_type_ids"],
+                            batch["position_ids"], bert.dtype)
+        ops["embeddings"] = x
+        for i, layer in enumerate(bert.encoder.layers):
+            att = layer.attention
+            b, s, _ = x.shape
+            qkv = _linear(x, att.qkv)
+            ops[f"{i}.qkv"] = qkv
+            qkv = qkv.view(b, s, 3, att.n_heads, att.head_dim)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            if takes_flash(q, k):
+                ctx = dot_product_attention(q, k, v, bias,
+                                            seg.to(torch.int32).contiguous())
+                ops[f"{i}.flash"] = ctx
+            else:
+                scores = (_scores(q, k) + bias.float()
+                          + make_segment_attention_bias(seg))
+                ops[f"{i}.scores"] = scores
+                probs = torch.softmax(scores, dim=-1)
+                ops[f"{i}.softmax"] = probs
+                ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
+                ops[f"{i}.pv"] = ctx
+                ctx = ctx * (seg > 0).to(ctx.dtype)[:, :, None, None]
+            attn = _linear(ctx.reshape(b, s, -1), att.output)
+            ops[f"{i}.attn_out"] = attn
+            x = layer.attention_layer_norm(attn, x)
+            ops[f"{i}.ln1"] = x
+            inter = _linear(x, layer.intermediate)
+            ops[f"{i}.intermediate"] = inter
+            inter = layer.act(inter)
+            ops[f"{i}.act"] = inter
+            mlp = _linear(inter, layer.mlp_output)
+            ops[f"{i}.mlp_out"] = mlp
+            x = layer.output_layer_norm(mlp, x)
+            ops[f"{i}.ln2"] = x
+        # the QA head as one cuBLAS GEMM at N = 2 (its former route), and
+        # as the model computes it (row products: models/bert.py)
+        ops["qa_gemm"] = _linear(x, model.qa_outputs).float()
+        ops["qa_logits"] = _row_linear(x, model.qa_outputs).float()
+    return ops
+
+
+def packed_span_diagnosis(torch, np, handle, reqs, device):
+    """ROADMAP queue C item 2: the SQuAD segments of the packed check
+    (`reqs`), packed (8 a row) and one a row into the engine's batches as
+    the check forms them, run op by op through the served SQuAD model;
+    for each op, the largest difference over each request's own token
+    span (its own keys for the scores and the softmax), by bucket. Names
+    the first op that differs in each bucket."""
+    from bert_pytorch_tpu_torch.data.packing import first_fit
+    from bert_pytorch_tpu_torch.serving.batcher import pack_requests
+
+    engine = handle.engine
+    model = handle.models["squad"]
+    spans = {"packed": {}, "alone": {}}
+    for mode, segs in (("packed", engine.max_segments), ("alone", 1)):
+        pending = list(reqs)
+        while pending:
+            bucket = engine.select_bucket(pending[0].length)
+            wave = [r for r in pending if r.length <= bucket]
+            bins = first_fit([r.length for r in wave], engine.batch_rows,
+                             bucket, segs)
+            batch, placements = pack_requests(wave, bins, engine.batch_rows,
+                                              bucket)
+            tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+            ops = _trace_squad(torch, model, tb)
+            rows = {}
+            for _, row, _, _ in placements:
+                rows[row] = rows.get(row, 0) + 1
+            for r, row, off, _ in placements:
+                n = r.length
+                cut = {}
+                for name, t in ops.items():
+                    t = t[row]
+                    cut[name] = (t[:, off:off + n, off:off + n]
+                                 if name.endswith(("scores", "softmax"))
+                                 else t[off:off + n]).float().cpu()
+                spans[mode][id(r)] = (bucket, rows[row] > 1, cut)
+            del ops
+            placed = {id(p[0]) for p in placements}
+            pending = [r for r in pending if id(r) not in placed]
+    by_bucket = {}
+    for r in reqs:
+        bucket, shared, got = spans["packed"][id(r)]
+        want = spans["alone"][id(r)][2]
+        d = by_bucket.setdefault(str(bucket), {"segments": 0, "shared": 0,
+                                               "ops": {}})
+        d["segments"] += 1
+        d["shared"] += int(shared)
+        for name, t in got.items():
+            diff = float((t - want[name]).abs().max())
+            d["ops"][name] = max(d["ops"].get(name, 0.0), diff)
+    for d in by_bucket.values():
+        d["first_differing_op"] = next((k for k, v in d["ops"].items()
+                                        if v > 0), None)
+    log("serve: queue C item 2: SQuAD segments packed vs alone, by bucket: "
+        + "; ".join(f"{b}: {d['segments']} segments ({d['shared']} sharing "
+                    f"a row), first op that differs {d['first_differing_op']}"
+                    f" ({d['ops'].get(d['first_differing_op'])}), the "
+                    f"head as one GEMM {d['ops']['qa_gemm']:.4g}, as row "
+                    f"products {d['ops']['qa_logits']:.4g}"
+                    for b, d in sorted(by_bucket.items(),
+                                       key=lambda kv: int(kv[0]))))
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return by_bucket
+
+
+_SERVE_FAMILIES = (
+    "bert_serve_requests_total", "bert_serve_request_latency_ms",
+    "bert_serve_queue_depth", "bert_serve_batches_total",
+    "bert_serve_real_tokens_total", "bert_serve_slot_tokens_total",
+    "bert_serve_batch_occupancy", "bert_serve_batch_segments",
+    "bert_serve_device_seconds_total", "bert_serve_cost_per_1k_tokens",
+    "bert_serve_cost_per_device_hour", "bert_serve_model_params")
+
+
+def serve_planes(np, handle):
+    """GET /metrics carries the twelve bert_serve_* families with the
+    requests served so far; a POST's X-Trace-Id finds its spans, admit to
+    respond, in GET /v1/traces (strict JSON)."""
+    from bert_pytorch_tpu_torch.telemetry.registry import parse_prometheus
+
+    with urllib.request.urlopen(handle.url + "/metrics", timeout=60) as r:
+        text = r.read().decode()
+    fams = {line.split()[2] for line in text.splitlines()
+            if line.startswith("# TYPE bert_serve_")}
+    series = parse_prometheus(text)
+    ok = sum(v for k, v in series["bert_serve_requests_total"].items()
+             if 'outcome="ok"' in k)
+    real = sum(series["bert_serve_real_tokens_total"].values())
+    slots = sum(series["bert_serve_slot_tokens_total"].values())
+    check(fams == set(_SERVE_FAMILIES), f"/metrics families {sorted(fams)}")
+    check(ok > 0 and 0 < real <= slots, f"/metrics: ok {ok}, real tokens "
+          f"{real}, slots {slots}")
+    req = urllib.request.Request(
+        handle.url + "/v1/squad", data=json.dumps(
+            {"question": QUESTIONS[0], "context": "the cat sat on a mat ."}
+        ).encode(), headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        header = r.headers["X-Trace-Id"]
+    check(bool(header) and header.startswith("squad-"),
+          f"X-Trace-Id {header!r}")
+
+    def strict(token):
+        raise ValueError(f"non-strict JSON token {token}")
+
+    def traces(query):
+        with urllib.request.urlopen(handle.url + "/v1/traces" + query,
+                                    timeout=60) as r:
+            return json.loads(r.read(), parse_constant=strict)
+
+    # the ring keeps the slowest traces and every K-th: look one of those
+    # up by its id
+    slowest = traces("?n=1")
+    trace_id = slowest["traceEvents"][0]["args"]["trace_id"]
+    doc = traces("?id=" + trace_id)
+    spans = [e["name"] for e in doc["traceEvents"]]
+    want = ["req/" + s for s in ("admit", "queue_wait", "pack", "dispatch",
+                                 "compute", "demux", "respond")]
+    check(spans == want, f"/v1/traces?id={trace_id}: spans {spans}")
+    compute = [e for e in doc["traceEvents"] if e["name"] == "req/compute"]
+    log(f"serve: /metrics: {len(fams)} bert_serve_* families, {ok:g} ok "
+        f"requests, {real:g} real of {slots:g} slot tokens; /v1/traces: "
+        f"{trace_id} spans {spans}")
+    return {"families": sorted(fams), "ok_requests": ok,
+            "real_tokens": real, "slot_tokens": slots, "trace_id": trace_id,
+            "spans": spans, "retained": slowest["metadata"],
+            "compute_device_seconds": compute[0]["args"]["device_seconds"],
+            "cost_per_1k_tokens": series.get(
+                "bert_serve_cost_per_1k_tokens")}
+
+
+def serve_load(np, handle, vocab, on_card):
+    """The fixed offered load: tools/serve_load.py, in a process of its
+    own, sends Poisson arrivals at LOAD_RATE for LOAD_S seconds, an even
+    mix of the five routes over this script's synthetic requests, then
+    the ramp. A CPU rehearsal sends 20 requests/s for 1 s, no ramp."""
+    rate, secs = (LOAD_RATE, LOAD_S) if on_card else (20.0, 1.0)
+    ramp = ",".join(str(r) for r in LOAD_RAMP) if on_card else ""
+    proc = subprocess.run(
+        [sys.executable, SERVE_LOAD, "--url", handle.url, "--rate",
+         str(rate), "--duration", str(secs), "--ramp", ramp,
+         "--ramp_duration", str(LOAD_RAMP_S), "--bound_ms",
+         str(LOAD_BOUND_MS), "--vocab", vocab], capture_output=True,
+        text=True, timeout=900)
+    check(proc.returncode == 0, f"serve_load exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    fixed = res["fixed"]
+    check(fixed["ok"] == fixed["sent"] > 0, f"fixed load: {fixed['ok']} of "
+          f"{fixed['sent']} answered 200 ({fixed['codes']})")
+    log(f"serve: load {rate:g} req/s for {secs:g} s: {fixed['sent']} sent, "
+        f"p50 {fixed['p50_ms']:.2f} ms, p99 {fixed['p99_ms']:.2f} ms (by "
+        f"route {fixed['by_route']}; the slowest traces' spans "
+        f"{fixed['slowest_traces']}; featurization ms a request, one "
+        f"thread {res.get('featurize_ms')}); ramp "
+        + ", ".join(f"{r['rate']:g}: p99 {r['p99_ms']}" for r in res["ramp"])
+        + f"; p99 passes {LOAD_BOUND_MS:g} ms at "
+        f"{res['p99_passes_bound_at']} req/s")
+    return res
+
+
+def drain_drill(np, handle):
+    """The graceful drain: with a request in flight (the engine held 1 s
+    by a host-side delay), admission stops: a new request gets 503 with
+    Retry-After, /healthz reads draining, the admitted one gets 200, and
+    the drain finishes within its deadline."""
+    engine = handle.engine
+    forward = engine.forward
+    started = threading.Event()
+
+    def held(task, batch):
+        started.set()
+        time.sleep(1.0)
+        return forward(task, batch)
+
+    engine.forward = held
+    body = {"question": QUESTIONS[1], "context": "the dog ran in the park ."}
+    got = {}
+    th = threading.Thread(target=lambda: got.setdefault(
+        "reply", _post(handle.url, body)))
+    try:
+        th.start()
+        check(started.wait(60), "drain: the held request never reached the "
+              "engine")
+        handle.frontend.begin_drain()
+        req = urllib.request.Request(
+            handle.url + "/v1/squad", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(req, timeout=60)
+            code, retry = 200, None
+        except urllib.error.HTTPError as e:
+            code, retry = e.code, e.headers.get("Retry-After")
+        with urllib.request.urlopen(handle.url + "/healthz",
+                                    timeout=60) as r:
+            health = json.loads(r.read())
+        th.join(120)
+    finally:
+        engine.forward = forward
+    t0 = time.perf_counter()
+    drained = handle.drain(30.0, log=lambda m: log("serve: " + m))
+    drain_s = time.perf_counter() - t0
+    check(code == 503 and retry == "5", f"drain: new request got {code} "
+          f"(Retry-After {retry})")
+    check(health["draining"] is True and health["inflight"] == 1,
+          f"drain: /healthz draining {health.get('draining')}, inflight "
+          f"{health.get('inflight')}")
+    check(got.get("reply", (None,))[0] == 200, f"drain: the admitted "
+          f"request got {got.get('reply', (None,))[0]}")
+    check(drained, "drain: admitted requests still in flight at the "
+          "deadline")
+    log(f"serve: drain drill: new request 503 (Retry-After {retry}), "
+        f"admitted one 200, drained in {drain_s:.3f} s")
+    return {"new_request": code, "retry_after": retry,
+            "admitted_request": 200, "drain_s": drain_s}
+
+
+def serve_int8(torch, np, argv, ckpts, batch512, device):
+    """A second server with --serve_dtype int8 on the same checkpoints:
+    the decode gate passes on the five tasks at INT8_MAX_DELTA (rel_delta,
+    argmax_agreement), the resident weights, each task's 512 forward
+    (exact launches, host clock, device time); then corrupted scales
+    (quantize.corrupt_scales) must make the server refuse to start."""
+    from bert_pytorch_tpu_torch import run_server
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from bert_pytorch_tpu_torch.serving import quantize as quant_lib
+    from bert_pytorch_tpu_torch.tasks import registry
+
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    handle = run_server.serve(
+        run_server.parse_arguments(argv + ["--serve_dtype", "int8",
+                                           "--int8_max_delta",
+                                           str(INT8_MAX_DELTA)]),
+        log=lambda m: log("serve: int8: " + m))
+    out = {"start_s": time.perf_counter() - t0, "gate": INT8_MAX_DELTA}
+    try:
+        engine = handle.engine
+        deltas = handle.int8_deltas
+        check(sorted(deltas) == sorted(engine.tasks)
+              and all(d["rel_delta"] <= INT8_MAX_DELTA
+                      for d in deltas.values()), f"int8 gate: {deltas}")
+        out["deltas"] = deltas
+        out["resident_weight_bytes"] = {
+            t: quant_lib.resident_bytes(m) for t, m in handle.models.items()}
+        layers = handle.models["squad"].bert.config.num_hidden_layers
+        want = dict({k: 0 for k in LAUNCHES}, layer_norm_fwd=2 * layers + 1,
+                    flash_attention_fwd=layers)
+        out["forward512"] = {}
+        for task in engine.tasks:
+            reset_launches()
+            engine.forward(task, batch512)
+            got = dict(LAUNCHES)
+            check(not on_card or got == want,
+                  f"int8 {task} 512 forward launches {got}, want {want}")
+            out["forward512"][task] = dict(
+                _forward_times(torch, np, engine, handle.models[task],
+                               registry.get(task), task, batch512, on_card),
+                launches=got)
+        log(f"serve: int8: gate {INT8_MAX_DELTA}: " + ", ".join(
+            f"{t} rel_delta {d['rel_delta']:.4g} argmax "
+            f"{d['argmax_agreement']:.4g}" for t, d in sorted(deltas.items()))
+            + f"; resident weights {out['resident_weight_bytes']}; 512 "
+            f"forward {out['forward512']}")
+    finally:
+        handle.close()
+    del handle
+    # corrupted scales: the gate must refuse to serve
+    real = quant_lib.quantize_tree
+
+    def corrupted(*a, **kw):
+        qstate, stats = real(*a, **kw)
+        return quant_lib.corrupt_scales(qstate), stats
+
+    squad_only = [a for i, a in enumerate(argv)
+                  if not (a == "--task_checkpoint"
+                          and not argv[i + 1].startswith("squad="))
+                  and not (i and argv[i - 1] == "--task_checkpoint"
+                           and not a.startswith("squad="))]
+    quant_lib.quantize_tree = corrupted
+    try:
+        run_server.serve(run_server.parse_arguments(
+            squad_only + ["--serve_dtype", "int8"]), log=lambda m: None)
+        refused = None
+    except SystemExit as e:
+        refused = str(e)
+    finally:
+        quant_lib.quantize_tree = real
+    check(refused is not None and "int8 accuracy gate" in refused,
+          f"int8: corrupted scales were served ({refused!r})")
+    out["corrupt_scales"] = refused
+    log(f"serve: int8: corrupted scales refused: {refused}")
+    if on_card:
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2820,6 +3362,176 @@ def phase_model_seq1024(torch, np, summary, device="cuda",
         "max_grad_rel_l2": worst, "worst_leaf": worst_name,
         "launches": launches, "launches_predicted": predicted,
         "peak_memory_gib": peak}
+
+# ROADMAP queue C item 1: step 1's gradients of phase 1 in two fresh
+# processes and in this one after the phases before it (serve, by default)
+def grad_probe(torch, np, device="cuda",
+               cfg_path=os.path.join(HERE, "configs",
+                                     "bert_large_uncased_config.json"),
+               micro=96, seq=128, max_pred=20):
+    """One phase-1 microbatch (seeded random BERT-Large, seeded data and
+    dropout seeds) through the kernels: the loss, a digest of each
+    layer's forward output, and a digest of each f32 gradient leaf."""
+    import hashlib
+
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.data.sharded import (HostShardSampler,
+                                                     PretrainingDataLoader)
+    from bert_pytorch_tpu_torch.models.bert import (BertForPreTraining,
+                                                    init_weights)
+    from bert_pytorch_tpu_torch.training.pretrain import (
+        compute_params, pretrain_loss_and_grads)
+
+    def digest(t):
+        t = t.detach().contiguous()
+        return hashlib.sha256(t.view(torch.uint8).cpu().numpy().tobytes()
+                              ).hexdigest()[:16]
+
+    config = BertConfig.from_json_file(cfg_path)
+    config = config.replace(vocab_size=pad_vocab_size(config.vocab_size, 8))
+    index = array_index([pretraining_arrays(np, 2 * micro, seq,
+                                            config.vocab_size, 3)])
+    loader = PretrainingDataLoader(
+        index, HostShardSampler(len(index), seed=1), batch_size=micro,
+        mask_token_index=103, max_pred_per_seq=max_pred,
+        masked_lm_prob=0.15, vocab_size=config.vocab_size, seed=1)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in next(loader).items()}
+    loader.close()
+    with torch.device(device):
+        model = BertForPreTraining(config, dtype=torch.bfloat16)
+    init_weights(model, torch.Generator(device=device).manual_seed(2),
+                 std=config.initializer_range)
+    seeds = torch.randint(-2 ** 31, 2 ** 31,
+                          (1 + 3 * config.num_hidden_layers,),
+                          dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(8))
+    forward = {}
+    hooks = [layer.register_forward_hook(
+        lambda mod, args, out, i=i: forward.__setitem__(f"layer_{i}",
+                                                         digest(out)))
+        for i, layer in enumerate(model.bert.encoder.layers)]
+    hooks.append(model.bert.embeddings.register_forward_hook(
+        lambda mod, args, out: forward.__setitem__("embeddings",
+                                                   digest(out))))
+    gparams = compute_params(dict(model.named_parameters()), torch.bfloat16)
+    loss, _, grads = pretrain_loss_and_grads(model, gparams, batch, seeds,
+                                             max_pred)
+    for h in hooks:
+        h.remove()
+    norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads.values()))
+    out = {"loss": float(loss.item()), "grad_norm": float(norm.item()),
+           "forward": forward,
+           "grads": {k: digest(g.float()) for k, g in grads.items()},
+           "order": [k for k, _ in model.named_parameters()]}
+    del model, gparams, grads
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_order(torch, np, summary, device="cuda"):
+    """ROADMAP queue C item 1: `grad_probe` in two fresh processes and in
+    this one after the phases that ran before it; compares the forward
+    digests and the gradients leaf by leaf, and names the first forward
+    output and the first gradient (in backward order: the heads, the last
+    layer first, the embeddings last) that differ. A difference is
+    recorded, not failed: it is the measurement."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("fresh_a", "fresh_b"):
+            path = os.path.join(tmp, name + ".json")
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                   "--grad_probe", path],
+                                  capture_output=True, text=True,
+                                  timeout=900)
+            check(proc.returncode == 0, f"train_order: {name} exited "
+                  f"{proc.returncode}: {proc.stderr[-2000:]}")
+            with open(path) as f:
+                runs[name] = json.load(f)
+    runs["after_" + "_".join(p for p in summary["phases"]
+                             if p not in ("device", "build"))] = grad_probe(
+        torch, np, device)
+    repeats = embedding_backward_repeats(torch, np, device)
+    names = list(runs)
+    ref = runs[names[0]]
+    backward = list(reversed(ref["order"]))
+    out = {"runs": {n: {"loss": r["loss"], "grad_norm": r["grad_norm"]}
+                    for n, r in runs.items()}}
+    for n in names[1:]:
+        r = runs[n]
+        fwd = [k for k in ref["forward"] if r["forward"][k]
+               != ref["forward"][k]]
+        leaves = [k for k in backward if k in ref["grads"]
+                  and r["grads"][k] != ref["grads"][k]]
+        out[f"{n}_vs_{names[0]}"] = {
+            "loss_equal": r["loss"] == ref["loss"],
+            "forward_outputs_differ": fwd,
+            "grad_leaves_differ": len(leaves),
+            "first_grad_leaf_differs": leaves[0] if leaves else None,
+            "grad_leaves": leaves[:8]}
+    out["embedding_backward_repeats"] = repeats
+    log("train_order: " + json.dumps(out))
+    summary["train_order"] = out
+
+
+def embedding_backward_repeats(torch, np, device, reps=5, tokens=96 * 128,
+                               hidden=1024):
+    """The two routes of an embedding row's gradient, each run `reps`
+    times on the same seeded bf16 gradient of `tokens` positions: the
+    embedding backward (aten.embedding_dense_backward) of a 2-row
+    token-type table, of a 512-row position table and of the word table
+    (back to back, and with freed memory refilled between calls), and the
+    one-hot product (models/bert._select_rows) the token-type table
+    takes; the number of distinct results of each (1: the same bits
+    every time)."""
+    import hashlib
+
+    from bert_pytorch_tpu_torch.models.bert import _select_rows
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    g = torch.randn(tokens, hidden, generator=gen, device=device
+                    ).to(torch.bfloat16)
+    rng = np.random.RandomState(4)
+    ids = {"token_type (2 rows)": rng.randint(0, 2, tokens),
+           "position (512 rows)": np.tile(np.arange(128), tokens // 128),
+           "word (30528 rows)": rng.randint(0, 30528, tokens)}
+    sizes = {"token_type (2 rows)": 2, "position (512 rows)": 512,
+             "word (30528 rows)": 30528}
+
+    def digest(t):
+        return hashlib.sha256(t.float().cpu().numpy().tobytes()).hexdigest()
+
+    def poison(k):
+        # fill freed memory with other bits before the next call, so a
+        # result that reads memory it never wrote changes
+        junk = torch.full((64 << 20,), float(k + 1), device=device)
+        del junk
+
+    out = {}
+    for name, idx in ids.items():
+        i = torch.from_numpy(idx).to(device)
+        out["embedding_backward: " + name] = len({digest(
+            torch.ops.aten.embedding_dense_backward(g, i, sizes[name], -1,
+                                                    False))
+            for _ in range(reps)})
+        seen = set()
+        for k in range(reps):
+            poison(k)
+            seen.add(digest(torch.ops.aten.embedding_dense_backward(
+                g, i, sizes[name], -1, False)))
+        out["embedding_backward, memory refilled between calls: "
+            + name] = len(seen)
+    i = torch.from_numpy(ids["token_type (2 rows)"]).to(device)
+    table = torch.zeros(2, hidden, device=device, requires_grad=True)
+    seen = set()
+    for _ in range(reps):
+        table.grad = None
+        _select_rows(table, i, torch.bfloat16).backward(g)
+        seen.add(digest(table.grad))
+    out["one-hot product: token_type (2 rows)"] = len(seen)
+    return out
+
 
 def phase_train(torch, np, summary, device="cuda",
                 cfg_path=os.path.join(HERE, "configs",
@@ -4041,11 +4753,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="device,build,kernels,timing,model_seq1024,"
-                            "serve,train,train_phase2,finetune_squad,"
-                            "finetune_ner,finetune_tasks",
+                            "serve,train_order,train,train_phase2,"
+                            "finetune_squad,finetune_ner,finetune_tasks",
                     help="comma-separated subset, in order (development)")
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke.json")
+    ap.add_argument("--grad_probe", default=None, metavar="PATH",
+                    help="only run the train_order phase's gradient probe "
+                         "and write its JSON to PATH")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
 
@@ -4062,6 +4777,13 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.grad_probe:
+        from bert_pytorch_tpu_torch.ops.kernels.build import load_kernels
+
+        load_kernels()
+        with open(args.grad_probe, "w") as f:
+            json.dump(grad_probe(torch, np), f)
+        return 0
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     peaks = card_peaks(kind)
@@ -4141,6 +4863,8 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
                 phase_model_seq1024(torch, np, summary)
             elif phase == "serve":
                 phase_serve(torch, np, summary)
+            elif phase == "train_order":
+                phase_train_order(torch, np, summary)
             elif phase in TRAIN_RUNS:
                 phase_train(torch, np, summary, run=phase, ckpt_dir=ckpt_dir)
             elif phase == "finetune_squad":
