@@ -5,8 +5,10 @@ Cross-entropies are f32 with the masked-mean semantics of
 torch.nn.CrossEntropyLoss(ignore_index=...): the sum over valid positions
 divided by their count, and 0.0 (not NaN) when no position is valid. The
 pooled heads' losses (classification over one logit vector a segment,
-multiple choice) reduce with a strict left-to-right sum, so a packed
-batch and the same examples one a row give the same bits.
+multiple choice) and the packed token and span losses reduce
+segment first, then with a strict left-to-right sum over (B, G), so a
+packed batch and the same examples one a row sum the same values in the
+same order.
 """
 
 from __future__ import annotations
@@ -87,7 +89,14 @@ def _ordered_sum(x: torch.Tensor) -> torch.Tensor:
     order, starting from 0 (JAX's lax.scan over the flattened array): one
     add per element, so the partial sums, and the result's bits, depend
     only on the values in that order, never on x's shape. Used only on
-    (B, G)-sized per-segment aggregates, where a loop of adds is cheap."""
+    (B, G)-sized per-segment aggregates.
+
+    On the card it is one `sum` launch instead: the loop is a launch an
+    element, forward and backward (~2 x 512 for a packed SQuAD loss),
+    and the card's GEMMs already give packed and one-a-row rows other
+    bits, so the order would keep no equality there."""
+    if x.is_cuda:
+        return x.sum()
     total = torch.zeros((), dtype=x.dtype, device=x.device)
     for v in x.reshape(-1).unbind():
         total = total + v
@@ -136,3 +145,42 @@ def choice_loss(scores: torch.Tensor, labels: torch.Tensor,
     if labels.dim() == scores.dim():
         scores = scores.reshape(*scores.shape[:-1], -1, num_choices)
     return segment_classification_loss(scores, labels)
+
+
+def packed_token_loss(logits: torch.Tensor, labels: torch.Tensor,
+                      segment_ids: torch.Tensor, max_segments: int,
+                      ignore_index: int = -100) -> torch.Tensor:
+    """Per-token CE over packed rows, reduced segment first: the per-token
+    nll contracted against the segment one-hot ((B, G, S) x (B, S) ->
+    (B, G), whose other-segment terms are exact zeros), then
+    `_ordered_sum` over (B, G), over the valid count."""
+    nll, valid = _nll(logits, labels, ignore_index)
+    onehot = segment_onehot(segment_ids, max_segments).to(torch.float32)
+    seg_nll = torch.einsum("bgs,bs->bg", onehot, nll)
+    return _ordered_sum(seg_nll) / valid.sum().clamp_min(1)
+
+
+def packed_qa_loss(start_logits: torch.Tensor, end_logits: torch.Tensor,
+                   start_positions: torch.Tensor, end_positions: torch.Tensor,
+                   segment_ids: torch.Tensor, max_segments: int
+                   ) -> torch.Tensor:
+    """Per-segment span CE over packed rows: each segment's softmax runs
+    over its own positions only (the others, and pad, masked to -inf:
+    exp(-inf) is exactly 0), so co-packed examples never share a
+    denominator. start/end_positions are (B, G) absolute row positions,
+    -1 for an empty slot or an answer outside the window."""
+    seg_mask = segment_onehot(segment_ids, max_segments)       # (B, G, S)
+    minus_inf = torch.tensor(float("-inf"), device=seg_mask.device)
+
+    def seg_ce(logits, positions):
+        masked = torch.where(seg_mask, logits.float()[:, None, :], minus_inf)
+        logp = torch.log_softmax(masked, dim=-1)
+        valid = positions >= 0
+        safe = torch.where(valid, positions,
+                           torch.zeros_like(positions)).long()
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+        nll = torch.where(valid, nll, torch.zeros_like(nll))
+        return _ordered_sum(nll) / valid.sum().clamp_min(1)
+
+    return (seg_ce(start_logits, start_positions)
+            + seg_ce(end_logits, end_positions)) / 2.0

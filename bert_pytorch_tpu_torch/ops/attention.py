@@ -43,8 +43,9 @@ padding bias, packed-sequence `segment_ids` (B, S) with 1..n per row and
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -503,6 +504,31 @@ def fused_bwd_takes(q: torch.Tensor) -> bool:
             and seq <= FUSED_BWD_MAX_SEQ)
 
 
+# While `counting_skips()` is open: one-element int32 CUDA tensors, by
+# kernel, that gain the (q-tile, k-tile) pairs FlashAttentionFn's kernels
+# skip by the segment test (a caller reads how much packing saved).
+_SKIPS: Optional[Dict[str, torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def counting_skips(device) -> Iterator[Dict[str, torch.Tensor]]:
+    """Count the tiles the model path's flash kernels skip, by kernel name
+    (flash_attention_fwd, flash_attention_bwd, flash_attention_bwd_dq,
+    flash_attention_bwd_dkv), in the yielded dict's tensors."""
+    global _SKIPS
+    _SKIPS = {k: torch.zeros(1, dtype=torch.int32, device=device)
+              for k in ("flash_attention_fwd", "flash_attention_bwd",
+                        "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+    try:
+        yield _SKIPS
+    finally:
+        _SKIPS = None
+
+
+def _skips(name: str, q: torch.Tensor) -> Optional[torch.Tensor]:
+    return _SKIPS[name] if _SKIPS is not None and q.is_cuda else None
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention whose forward is the forward kernel (#5/#6) and
     whose backward is the fused dq/dk/dv kernel (#7/#8) where
@@ -514,7 +540,8 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, segment_ids, seed, rate):
-        out, lse = flash_attention(q, k, v, bias, segment_ids, seed, rate)
+        out, lse = flash_attention(q, k, v, bias, segment_ids, seed, rate,
+                                   _skips("flash_attention_fwd", q))
         ctx.save_for_backward(q, k, v, bias, segment_ids, out, lse)
         ctx.seed, ctx.rate = seed, rate
         return out
@@ -524,13 +551,16 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, bias, seg, out, lse = ctx.saved_tensors
         g = g.contiguous()
         if fused_bwd_takes(q):
-            dq, dk, dv = flash_attention_bwd(q, k, v, bias, seg, out, lse, g,
-                                             ctx.seed, ctx.rate)
+            dq, dk, dv = flash_attention_bwd(
+                q, k, v, bias, seg, out, lse, g, ctx.seed, ctx.rate,
+                _skips("flash_attention_bwd", q))
         else:
-            dq, delta = flash_attention_bwd_dq(q, k, v, bias, seg, out, lse,
-                                               g, ctx.seed, ctx.rate)
-            dk, dv = flash_attention_bwd_dkv(q, k, v, bias, seg, lse, delta,
-                                             g, ctx.seed, ctx.rate)
+            dq, delta = flash_attention_bwd_dq(
+                q, k, v, bias, seg, out, lse, g, ctx.seed, ctx.rate,
+                _skips("flash_attention_bwd_dq", q))
+            dk, dv = flash_attention_bwd_dkv(
+                q, k, v, bias, seg, lse, delta, g, ctx.seed, ctx.rate,
+                _skips("flash_attention_bwd_dkv", q))
         return dq, dk, dv, None, None, None, None
 
 

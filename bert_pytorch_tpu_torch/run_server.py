@@ -32,10 +32,24 @@ GET /v1/traces and the X-Trace-Id header (`--request_tracing`, the
 the BERT_COST_PER_DEVICE_HOUR environment variable, else 1.0) and
 /healthz share the port. SIGTERM or SIGINT drains: admission stops (503 +
 Retry-After), admitted requests get `--drain_timeout` seconds to finish,
-and the process exits 0. The JAX server's flags for replicas, a serving
-mesh, the SLO plane, the prober, a log directory and `--force_cpu` are
+and the process exits 0.
+
+The SLO plane (`--slo_config`, telemetry/slo.py): a burn-rate engine over
+the scheduler's families, evaluated every `--slo_eval_interval_s`, served
+as GET /v1/alerts and GET /v1/slo and folded into /healthz's `status`
+(ok | degraded | failing). `--prober on` runs the canary prober
+(serving/prober.py) against the bound port every `--probe_interval_s`;
+its failing tasks page through the SLO engine and its block rides
+/healthz. `--slo_inject {error_burst,latency_burst,corrupt_answers}`
+installs the fault injector on the engine's forward after warmup (the
+CUDA graphs are untouched), armed `--slo_inject_after_s` later or by
+`handle.injector.force()`. `--output_dir` writes `serve_log.txt`,
+`serve_log.jsonl` (a provenance header first: the commit, torch, CUDA,
+the card and its power limit) and `serve_log_metrics.csv` (a `serve`
+record of the scheduler's counts when the server closes). The JAX
+server's flags for replicas, a serving mesh and `--force_cpu` are
 accepted and refused by name unless they leave their feature off
-(`_REFUSED`, `_TUNING`).
+(`_REFUSED`).
 """
 
 from __future__ import annotations
@@ -52,19 +66,10 @@ from typing import Callable, Dict
 _REFUSED = {
     "serve_replicas": (1,),
     "serve_mesh": (None, ""),
-    "slo_config": (None,),
-    "slo_inject": (None,),
-    "prober": ("off",),
-    "output_dir": (None,),
     "force_cpu": (False,),
 }
 # Flags that only tune a feature refused above: accepted with any value.
-_TUNING = {
-    "slo_eval_interval_s": "slo_config",
-    "probe_interval_s": "prober", "probe_timeout_s": "prober",
-    "slo_inject_after_s": "slo_inject", "slo_inject_task": "slo_inject",
-    "slo_inject_latency_ms": "slo_inject",
-}
+_TUNING: Dict[str, str] = {}
 _HINTS = {"force_cpu": "pass --device cpu to serve on the CPU"}
 
 
@@ -151,22 +156,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vocab_pad_multiple", type=int, default=8,
                    help="pad the vocab like the training entry points: "
                         "checkpoints carry the padded table")
-    # the JAX server's flags of features not ported yet (_REFUSED/_TUNING)
-    p.add_argument("--serve_replicas", type=int, default=1)
-    p.add_argument("--serve_mesh", type=str, default=None)
-    p.add_argument("--slo_config", type=str, default=None)
-    p.add_argument("--slo_eval_interval_s", type=float, default=1.0)
+    p.add_argument("--slo_config", type=str, default=None,
+                   help="SLO specs (e.g. configs/slo.json): burn-rate "
+                        "alerts on GET /v1/alerts and GET /v1/slo, and "
+                        "/healthz status ok|degraded|failing")
+    p.add_argument("--slo_eval_interval_s", type=float, default=1.0,
+                   help="seconds between SLO evaluations")
     p.add_argument("--prober", type=str, default="off",
-                   choices=["on", "off"])
+                   choices=["on", "off"],
+                   help="canary prober: known-answer requests through "
+                        "the live frontend, pinned and verified per task")
     p.add_argument("--probe_interval_s", type=float, default=5.0)
     p.add_argument("--probe_timeout_s", type=float, default=30.0)
     p.add_argument("--slo_inject", type=str, default=None,
                    choices=["error_burst", "latency_burst",
-                            "corrupt_answers"])
+                            "corrupt_answers"],
+                   help="chaos drill: a host-side fault on the engine's "
+                        "forward, armed --slo_inject_after_s after warmup")
     p.add_argument("--slo_inject_after_s", type=float, default=2.0)
-    p.add_argument("--slo_inject_task", type=str, default=None)
+    p.add_argument("--slo_inject_task", type=str, default=None,
+                   help="corrupt_answers' task (default: every task)")
     p.add_argument("--slo_inject_latency_ms", type=float, default=400.0)
-    p.add_argument("--output_dir", type=str, default=None)
+    p.add_argument("--output_dir", type=str, default=None,
+                   help="write serve_log.txt / .jsonl / _metrics.csv here")
+    # the JAX server's flags of features not ported yet (_REFUSED)
+    p.add_argument("--serve_replicas", type=int, default=1)
+    p.add_argument("--serve_mesh", type=str, default=None)
     p.add_argument("--force_cpu", action="store_true")
     return p
 
@@ -214,29 +229,56 @@ def task_checkpoints(args) -> Dict[str, str]:
 
 
 class ServerHandle:
-    """Everything `serve()` started, closable in one call (frontend first,
-    so no request lands on a closing scheduler)."""
+    """Everything `serve()` started, closable in one call: the prober
+    first (its probes would otherwise fail against a closing port), then
+    the frontend (no request lands on a closing scheduler), the SLO
+    evaluator, the scheduler and the log."""
 
-    def __init__(self, frontend, scheduler, engine, models, registry,
-                 int8_deltas):
+    def __init__(self, frontend, scheduler, engine, models, tel,
+                 int8_deltas, slo=None, prober=None, evaluator=None,
+                 injector=None):
         self.frontend = frontend
         self.scheduler = scheduler
         self.engine = engine
         self.models = models
-        self.registry = registry
+        self.tel = tel
+        self.registry = tel.registry
         self.int8_deltas = int8_deltas
+        self.slo = slo
+        self.prober = prober
+        self.evaluator = evaluator
+        self.injector = injector
         self.url = frontend.url
         self.port = frontend.port
+        self._closed = False
 
     def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        if self.prober is not None:
+            self.prober.close()
         self.frontend.close()
+        if self.evaluator is not None:
+            self.evaluator.close()
         self.scheduler.close()
+        stats = self.scheduler.stats()
+        self.tel.logger.log(
+            "serve", sum(stats["batches"].values()),
+            **{f"requests_{k}": v for k, v in
+               sorted(stats["outcomes"].items())},
+            **{f"batches_{k}": v for k, v in sorted(stats["batches"].items())},
+            captures=self.engine.captures)
+        self.tel.close()
 
     def drain(self, timeout: float, log: Callable[[str], None] = print
               ) -> bool:
-        """The graceful drain: stop admission (503 + Retry-After), give
-        the admitted requests `timeout` seconds to finish, close. True
-        when every admitted request finished in time."""
+        """The graceful drain: close the prober, stop admission (503 +
+        Retry-After), give the admitted requests `timeout` seconds to
+        finish, close the rest. True when every admitted request finished
+        in time."""
+        if self.prober is not None:
+            self.prober.close()
         self.frontend.begin_drain()
         log(f"drain: admission stopped (503 + Retry-After); waiting up to "
             f"{timeout:g}s for {self.frontend.inflight} in-flight "
@@ -291,11 +333,24 @@ def serve(args, log: Callable[[str], None] = print) -> ServerHandle:
     from bert_pytorch_tpu_torch.serving.frontend import ServingFrontend
     from bert_pytorch_tpu_torch.serving.request_trace import TraceRing
     from bert_pytorch_tpu_torch.tasks import registry, squad
-    from bert_pytorch_tpu_torch.telemetry.registry import MetricsRegistry
+    from bert_pytorch_tpu_torch.telemetry.provenance import (
+        collect_provenance)
+    from bert_pytorch_tpu_torch.telemetry.run import init_run
 
     refuse_unported(args)
     device = resolve_device(args.device)
     checkpoints = task_checkpoints(args)
+    slo_cfg = None
+    if args.slo_config:
+        from bert_pytorch_tpu_torch.telemetry.slo import load_slo_config
+
+        slo_cfg = load_slo_config(args.slo_config)
+    # the serve log (--output_dir) receives every line `log` gets
+    tel = init_run("serve", log_prefix=(
+        os.path.join(args.output_dir, "serve_log") if args.output_dir
+        else None), echo=log)
+    log = tel.logger.info
+    tel.log_header(**collect_provenance(device))
     config = BertConfig.from_json_file(args.model_config_file)
     config = config.replace(vocab_size=pad_vocab_size(
         config.vocab_size, args.vocab_pad_multiple))
@@ -332,7 +387,7 @@ def serve(args, log: Callable[[str], None] = print) -> ServerHandle:
             max_answer_length=args.max_answer_length,
             do_lower_case=config.lowercase),
     }
-    metrics = MetricsRegistry(constant_labels={"phase": "serve"})
+    metrics = tel.registry
     params_gauge = metrics.gauge(
         "bert_serve_model_params", "parameters served per task (model "
         "size)", labels=("task",))
@@ -400,6 +455,21 @@ def serve(args, log: Callable[[str], None] = print) -> ServerHandle:
         f"{engine.captures} {'CUDA graphs' if engine.graphs_on else 'eager'}"
         f" (buckets {engine.buckets}, batch_rows {engine.batch_rows}, "
         f"packing {args.packing})")
+    injector = None
+    if args.slo_inject:
+        # after warmup: the fault wraps the host-side forward, never a
+        # captured graph
+        from bert_pytorch_tpu_torch.telemetry.slo import FaultInjector
+
+        injector = FaultInjector(args.slo_inject,
+                                 after_s=args.slo_inject_after_s,
+                                 task=args.slo_inject_task,
+                                 latency_ms=args.slo_inject_latency_ms)
+        injector.install(engine)
+        log(f"slo_inject: {args.slo_inject} arms "
+            f"{args.slo_inject_after_s:g}s after warmup"
+            + (f" (task {args.slo_inject_task})" if args.slo_inject_task
+               else ""))
     tracing = args.request_tracing == "on"
     scheduler = Scheduler(
         engine, queue_size=args.queue_size,
@@ -415,40 +485,82 @@ def serve(args, log: Callable[[str], None] = print) -> ServerHandle:
                                                       serve_opts)
                 for task in sorted(checkpoints)}
 
+    slo_engine = None
+    if slo_cfg is not None:
+        from bert_pytorch_tpu_torch.telemetry.slo import SLOEngine
+
+        slo_engine = SLOEngine(slo_cfg.specs_for("serve"), slo_cfg.windows,
+                               metrics, phase="serve",
+                               trace_ring=scheduler.trace_ring, log=log)
+        tel.attach_slo(slo_engine)
+        log(f"slo: {len(slo_cfg.specs_for('serve'))} serve spec(s) from "
+            f"{args.slo_config}: GET /v1/alerts, GET /v1/slo; /healthz "
+            "status is the burn-rate engine's verdict")
+    # the prober needs the bound port, which exists once the frontend is
+    # up: /healthz reads it through this holder
+    prober_holder = {}
+
     def healthz():
-        return {"status": "ok", "device": str(device),
-                "tasks": {t: {"checkpoint": checkpoints[t],
-                              "head": registry.get(t).head,
-                              "model_params": n_params[t],
-                              "resident_weight_bytes": resident[t],
-                              "request_schema": dict(
-                                  registry.get(t).request_schema)}
-                          for t in sorted(services)},
-                "buckets": list(engine.buckets),
-                "packing": args.packing == "on",
-                "serve_dtype": args.serve_dtype,
-                "cuda_graphs": engine.graphs_on,
-                "captures": engine.captures,
-                "queue_depth": int(metrics.gauge(
-                    "bert_serve_queue_depth").value()),
-                "int8_deltas": {t: {k: round(float(v), 6)
-                                    for k, v in d.items()}
-                                for t, d in sorted(int8_deltas.items())},
-                "request_tracing": (
-                    dict(scheduler.trace_ring.stats(),
-                         cost_per_device_hour=scheduler.cost_per_device_hour)
-                    if scheduler.trace_ring is not None else None),
-                "scheduler": scheduler.stats()}
+        h = tel.healthz()
+        if prober_holder.get("prober") is not None:
+            h["prober"] = prober_holder["prober"].status()
+        h.update({
+            "device": str(device),
+            "tasks": {t: {"checkpoint": checkpoints[t],
+                          "head": registry.get(t).head,
+                          "model_params": n_params[t],
+                          "resident_weight_bytes": resident[t],
+                          "request_schema": dict(
+                              registry.get(t).request_schema)}
+                      for t in sorted(services)},
+            "buckets": list(engine.buckets),
+            "packing": args.packing == "on",
+            "serve_dtype": args.serve_dtype,
+            "cuda_graphs": engine.graphs_on,
+            "captures": engine.captures,
+            "queue_depth": int(metrics.gauge(
+                "bert_serve_queue_depth").value()),
+            "int8_deltas": {t: {k: round(float(v), 6)
+                                for k, v in d.items()}
+                            for t, d in sorted(int8_deltas.items())},
+            "request_tracing": (
+                dict(scheduler.trace_ring.stats(),
+                     cost_per_device_hour=scheduler.cost_per_device_hour)
+                if scheduler.trace_ring is not None else None),
+            "scheduler": scheduler.stats()})
+        return h
 
     frontend = ServingFrontend(services, metrics, healthz_fn=healthz,
                                port=args.port, host=args.host,
-                               trace_ring=scheduler.trace_ring)
+                               trace_ring=scheduler.trace_ring,
+                               slo_engine=slo_engine)
+    prober = None
+    if args.prober == "on":
+        from bert_pytorch_tpu_torch.serving.prober import CanaryProber
+
+        prober = CanaryProber(frontend.url, sorted(services), metrics, log,
+                              interval_s=args.probe_interval_s,
+                              timeout_s=args.probe_timeout_s).start()
+        prober_holder["prober"] = prober
+        if slo_engine is not None:
+            slo_engine.add_alert_source(prober.alerts)
+        log(f"prober: probing {{{','.join(sorted(services))}}} every "
+            f"{args.probe_interval_s:g}s through {frontend.url}")
+    evaluator = None
+    if slo_engine is not None:
+        from bert_pytorch_tpu_torch.telemetry.slo import SLOEvaluator
+
+        evaluator = SLOEvaluator(
+            slo_engine, interval_s=args.slo_eval_interval_s).start()
     log(f"serving: listening on {frontend.url} ("
         + ", ".join(f"POST /v1/{t}" for t in sorted(services))
         + ", GET /metrics, GET /healthz"
-        + (", GET /v1/traces" if tracing else "") + ")")
-    return ServerHandle(frontend, scheduler, engine, models, metrics,
-                        int8_deltas)
+        + (", GET /v1/traces" if tracing else "")
+        + (", GET /v1/alerts, GET /v1/slo" if slo_engine is not None
+           else "") + ")")
+    return ServerHandle(frontend, scheduler, engine, models, tel,
+                        int8_deltas, slo=slo_engine, prober=prober,
+                        evaluator=evaluator, injector=injector)
 
 
 def main(argv=None) -> int:

@@ -14,13 +14,21 @@ Flow control, in order:
   (HTTP 413) and `Overloaded` when the bounded queue is full (HTTP 503).
 - the dispatcher thread drains the queue, expires requests older than the
   admission timeout (`RequestTimeout`, HTTP 504), takes the head request's
-  task and natural bucket, first-fits every pending request of that task
-  that fits the bucket into `batch_rows` rows, runs the batch on the
+  task and natural bucket (the smallest that holds it), first-fits every
+  pending request of that task whose natural bucket it is into
+  `batch_rows` rows, runs the batch on the
   engine and resolves each request with its part of every output (its
   token span, or its segment's pooled output). Packing off is the same
   first_fit with one segment per row.
 - requests that do not fit the current batch stay pending in arrival
   order for the next one.
+
+A request rides its natural bucket whatever else is queued (the JAX
+batcher lets a short request ride a longer head's bucket). A bucket
+changes the kernels (flash attention from 512) and the GEMMs' shapes, and
+so a bf16 answer's bits; within one bucket a request's outputs do not
+depend on its row or its row-mates. So a request's answer is a function
+of the request alone, which the canary prober's pinned answers rely on.
 
 Every signal lands in the server's metrics registry (the JAX server's
 `bert_serve_*` families, names, types and labels): requests by task and
@@ -406,12 +414,13 @@ class Scheduler:
             self._update_depth()
 
     def _run(self, task: str, wave: List[InferenceRequest]) -> set:
-        """Pack one batch in the head request's bucket, run it, resolve its
-        requests (with the engine's error if the forward failed). Returns
-        the ids of the requests placed."""
+        """Pack one batch of the requests whose natural bucket is the head
+        request's, run it, resolve its requests (with the engine's error
+        if the forward failed). Returns the ids of the requests placed."""
         t_pack0 = time.perf_counter()
         bucket = self.engine.select_bucket(wave[0].length)
-        wave = [r for r in wave if r.length <= bucket]
+        wave = [r for r in wave
+                if self.engine.select_bucket(r.length) == bucket]
         max_segments = self.engine.max_segments if self.packing else 1
         bins = first_fit([r.length for r in wave],
                          n_bins=self.engine.batch_rows,

@@ -1,6 +1,6 @@
-"""Stdlib HTTP frontend: POST /v1/<task>, GET /metrics, GET /healthz and
-GET /v1/traces (counterpart of bert_pytorch_tpu/serving/frontend.py,
-without the SLO plane's /v1/alerts and /v1/slo).
+"""Stdlib HTTP frontend: POST /v1/<task>, GET /metrics, GET /healthz,
+GET /v1/traces, GET /v1/alerts and GET /v1/slo (counterpart of
+bert_pytorch_tpu/serving/frontend.py).
 
 One service per registered task: squad, ner, classify, choice and embed.
 Each handler thread featurizes its request (tasks/predict), submits its
@@ -22,6 +22,9 @@ serves the trace ring as one strict Chrome-trace JSON document. The
 graceful drain: `begin_drain()` stops admission (503 + Retry-After) while
 /metrics, /healthz (`draining`, `inflight`) and the requests already
 admitted carry on, and `wait_idle()` blocks until those have finished.
+With the SLO plane on (`slo_engine`, telemetry/slo.py), GET /v1/alerts
+serves its firing and recently resolved alerts and GET /v1/slo its
+per-SLO budget view; without it both answer 404 naming --slo_config.
 """
 
 from __future__ import annotations
@@ -283,15 +286,18 @@ class ServingFrontend:
     callable(body_dict) -> response_dict, routed at POST /v1/<task>;
     GET /metrics renders `registry`, GET /healthz answers `healthz_fn()`
     (plus `draining` and `inflight`), GET /v1/traces exports `trace_ring`
-    (404 when tracing is off)."""
+    (404 when tracing is off), GET /v1/alerts and GET /v1/slo serve
+    `slo_engine`'s views (404 when the SLO plane is off)."""
 
     def __init__(self, services: Dict[str, Callable], registry,
                  healthz_fn: Optional[Callable[[], Dict[str, Any]]] = None,
-                 port: int = 0, host: str = "0.0.0.0", trace_ring=None):
+                 port: int = 0, host: str = "0.0.0.0", trace_ring=None,
+                 slo_engine=None):
         self.services = dict(services)
         self.registry = registry
         self.healthz_fn = healthz_fn
         self.trace_ring = trace_ring
+        self.slo_engine = slo_engine
         self._draining = False
         self._inflight = 0
         self._inflight_cv = threading.Condition()
@@ -330,10 +336,22 @@ class ServingFrontend:
                         self._send_json(200, h)
                     elif path == "/v1/traces":
                         self._traces()
+                    elif path in ("/v1/alerts", "/v1/slo"):
+                        if server.slo_engine is None:
+                            self._send_json(404, {
+                                "error": "SLO plane is off (start with "
+                                         "--slo_config)"})
+                        elif path == "/v1/alerts":
+                            self._send_json(
+                                200, server.slo_engine.alerts_view())
+                        else:
+                            self._send_json(200,
+                                            server.slo_engine.slo_view())
                     else:
                         self._send_json(404, {"error": "not found; try "
                                               "/metrics, /healthz, "
-                                              "/v1/traces or POST "
+                                              "/v1/traces, /v1/alerts, "
+                                              "/v1/slo, or POST "
                                               "/v1/<task>"})
                 except BrokenPipeError:
                     pass

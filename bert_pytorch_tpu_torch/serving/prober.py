@@ -1,0 +1,324 @@
+"""Synthetic canary prober (counterpart of
+bert_pytorch_tpu/serving/prober.py): known-answer requests through the
+live HTTP frontend, decoded-answer verification, per-task health.
+
+Latency metrics cannot see a model that answers wrongly and fast. The
+prober is a client: it POSTs one fixed payload per task
+(`KNOWN_ANSWER_PAYLOADS`) every `interval_s`, through routing,
+featurization, admission, packing, the forward and the decode. The first
+verified answer of a task is pinned as its reference; every later probe
+must pass the task's schema check (`VERIFIERS`) and equal the reference
+after `canonicalize` (volatile keys dropped, floats rounded to 4
+digits). A mismatch flips that task alone unhealthy, which localizes a
+one-task corruption (`--slo_inject corrupt_answers`).
+
+Health reaches three places: the `bert_probe_total` /
+`bert_probe_healthy` families, the `prober` block of /healthz, and
+page-severity alerts merged into the SLO engine's /v1/alerts through
+`alerts()`. `wait_healthy()` blocks until every task has a verified probe.
+A stdlib HTTP client on a daemon thread; it never raises into the server.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+import urllib.error
+import urllib.request
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+# Fixed payloads drawn from the serving fixture's vocab so the canary
+# exercises real tokens everywhere (unknown pieces would probe only the
+# [UNK] path); any server with a richer vocab still round-trips them.
+KNOWN_ANSWER_PAYLOADS: Dict[str, Dict[str, Any]] = {
+    "squad": {"question": "who sat on the mat ?",
+              "context": "the cat sat on the mat . a dog did run in "
+                         "the park"},
+    "ner": {"tokens": ["the", "cat", "sat", "on", "the", "mat"]},
+    "classify": {"text": "the cat sat on the mat",
+                 "text_pair": "a dog did run in the park"},
+    "choice": {"question": "who sat on the mat ?",
+               "choices": ["the cat", "a dog"]},
+    "embed": {"text": "the cat sat on the mat"},
+}
+
+# reply fields that legitimately vary probe-to-probe and must not count
+# as drift
+VOLATILE_KEYS = ("latency_ms",)
+
+
+def canonicalize(obj: Any, ndigits: int = 4) -> Any:
+    """Stable comparable form of a decoded reply: volatile fields
+    dropped, floats rounded (bit-identical forwards survive rounding;
+    a corrupted forward moves answers far past 1e-4)."""
+    if isinstance(obj, dict):
+        return {k: canonicalize(v, ndigits) for k, v in sorted(obj.items())
+                if k not in VOLATILE_KEYS}
+    if isinstance(obj, (list, tuple)):
+        return [canonicalize(v, ndigits) for v in obj]
+    if isinstance(obj, bool):
+        return obj
+    if isinstance(obj, float):
+        return round(obj, ndigits)
+    return obj
+
+
+def _verify_squad(payload, out) -> Optional[str]:
+    if not isinstance(out.get("answer"), str):
+        return "answer is not a string"
+    if not isinstance(out.get("nbest"), list) or not out["nbest"]:
+        return "nbest missing/empty"
+    if not out.get("n_windows", 0) >= 1:
+        return "n_windows < 1"
+    return None
+
+
+def _verify_ner(payload, out) -> Optional[str]:
+    labels = out.get("labels")
+    if not isinstance(labels, list) \
+            or len(labels) != len(payload["tokens"]):
+        return (f"labels count {len(labels or [])} != "
+                f"{len(payload['tokens'])} tokens")
+    if not all(isinstance(l, str) and l for l in labels):
+        return "non-string label"
+    return None
+
+
+def _verify_classify(payload, out) -> Optional[str]:
+    scores = out.get("scores")
+    if not isinstance(out.get("label"), str):
+        return "label is not a string"
+    if not isinstance(scores, dict) or not scores:
+        return "scores missing"
+    total = sum(float(v) for v in scores.values())
+    if abs(total - 1.0) > 1e-3:
+        return f"scores sum {total:.4f} != 1"
+    if out["label"] not in scores:
+        return f"label {out['label']!r} not in scores"
+    return None
+
+
+def _verify_choice(payload, out) -> Optional[str]:
+    n = len(payload["choices"])
+    if not isinstance(out.get("choice"), int) \
+            or not 0 <= out["choice"] < n:
+        return f"choice {out.get('choice')!r} not in [0, {n})"
+    scores = out.get("scores")
+    if not isinstance(scores, list) or len(scores) != n:
+        return "scores count != choices"
+    if abs(sum(float(s) for s in scores) - 1.0) > 1e-3:
+        return "scores do not sum to 1"
+    return None
+
+
+def _verify_embed(payload, out) -> Optional[str]:
+    emb = out.get("embedding") or (out.get("embeddings") or [None])[0]
+    if not isinstance(emb, list) or not emb:
+        return "embedding missing"
+    if out.get("dim") != len(emb):
+        return f"dim {out.get('dim')} != len(embedding) {len(emb)}"
+    norm = sum(float(x) ** 2 for x in emb) ** 0.5
+    if abs(norm - 1.0) > 1e-2:
+        return f"embedding norm {norm:.4f} != 1 (not L2-normalized)"
+    return None
+
+
+VERIFIERS: Dict[str, Callable[[Dict[str, Any], Dict[str, Any]],
+                              Optional[str]]] = {
+    "squad": _verify_squad,
+    "ner": _verify_ner,
+    "classify": _verify_classify,
+    "choice": _verify_choice,
+    "embed": _verify_embed,
+}
+
+
+class CanaryProber:
+    """Probe every served task through the live frontend; hold per-task
+    health. `start()` launches the daemon loop; `probe_all()` is one
+    synchronous round."""
+
+    def __init__(self, url: str, tasks, registry,
+                 log: Callable[[str], None], interval_s: float = 5.0,
+                 timeout_s: float = 30.0):
+        self.url = url.rstrip("/")
+        self.tasks = sorted(tasks)
+        unknown = [t for t in self.tasks
+                   if t not in KNOWN_ANSWER_PAYLOADS]
+        if unknown:
+            raise ValueError(
+                f"no known-answer payload for task(s) {unknown} — "
+                "extend serving/prober.py KNOWN_ANSWER_PAYLOADS when "
+                "registering a task")
+        self.interval_s = max(0.05, float(interval_s))
+        self.timeout_s = float(timeout_s)
+        self.log = log
+        self._lock = threading.Lock()
+        self._state: Dict[str, Dict[str, Any]] = {
+            t: {"healthy": None, "probes": 0, "mismatches": 0,
+                "errors": 0, "last_result": None, "last_error": None,
+                "baseline_set": False, "last_probe_unix": None,
+                "unhealthy_since_unix": None}
+            for t in self.tasks}
+        self._baseline: Dict[str, Any] = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run,
+                                        name="canary-prober", daemon=True)
+        self._m_total = registry.counter(
+            "bert_probe_total",
+            "canary probes by task and result "
+            "(ok/mismatch/error)", labels=("task", "result"))
+        self._m_healthy = registry.gauge(
+            "bert_probe_healthy",
+            "1 when the task's last canary probe verified, else 0",
+            labels=("task",))
+
+    # -- one probe ------------------------------------------------------------
+
+    def _post(self, task: str,
+              payload: Dict[str, Any]) -> Tuple[int, Dict[str, Any]]:
+        data = json.dumps(payload).encode("utf-8")
+        req = urllib.request.Request(
+            f"{self.url}/v1/{task}", data=data,
+            headers={"Content-Type": "application/json",
+                     "User-Agent": "bert-canary-prober"})
+        try:
+            with urllib.request.urlopen(req,
+                                        timeout=self.timeout_s) as r:
+                return r.status, json.loads(r.read().decode("utf-8"))
+        except urllib.error.HTTPError as e:
+            try:
+                body = json.loads(e.read().decode("utf-8"))
+            except Exception:
+                body = {}
+            return e.code, body
+
+    def probe_once(self, task: str) -> Tuple[str, Optional[str]]:
+        """One probe of one task -> (result, detail); result is
+        ok | mismatch | error. Updates state/metrics."""
+        payload = KNOWN_ANSWER_PAYLOADS[task]
+        result, detail = "ok", None
+        try:
+            code, out = self._post(task, payload)
+            if code != 200:
+                result = "error"
+                detail = (f"HTTP {code}: "
+                          f"{out.get('error', '')}"[:200] or
+                          f"HTTP {code}")
+            else:
+                detail = VERIFIERS[task](payload, out)
+                if detail is not None:
+                    result, detail = "mismatch", f"schema: {detail}"
+                else:
+                    canon = canonicalize(out)
+                    ref = self._baseline.get(task)
+                    if ref is None:
+                        self._baseline[task] = canon
+                    elif canon != ref:
+                        result = "mismatch"
+                        detail = ("decoded answer drifted from the "
+                                  "pinned reference (silent model "
+                                  "corruption?)")
+        except Exception as e:  # timeouts, refused connections, ...
+            result, detail = "error", f"{type(e).__name__}: {e}"
+        self._note(task, result, detail)
+        return result, detail
+
+    def _note(self, task: str, result: str,
+              detail: Optional[str]) -> None:
+        now = time.time()
+        with self._lock:
+            st = self._state[task]
+            st["probes"] += 1
+            st["last_result"] = result
+            st["last_probe_unix"] = round(now, 3)
+            was_healthy = st["healthy"]
+            st["healthy"] = result == "ok"
+            if result == "ok":
+                st["last_error"] = None
+                st["unhealthy_since_unix"] = None
+                st["baseline_set"] = task in self._baseline
+            else:
+                st["mismatches" if result == "mismatch"
+                   else "errors"] += 1
+                st["last_error"] = detail
+                if st["unhealthy_since_unix"] is None:
+                    st["unhealthy_since_unix"] = round(now, 3)
+        self._m_total.inc(task=task, result=result)
+        self._m_healthy.set(1.0 if result == "ok" else 0.0, task=task)
+        if result != "ok":
+            self.log(f"PROBE {result} [{task}]: {detail}")
+        elif was_healthy is False:
+            self.log(f"probe recovered [{task}]")
+
+    def probe_all(self) -> Dict[str, str]:
+        """One synchronous round over every task -> {task: result}."""
+        return {t: self.probe_once(t)[0] for t in self.tasks}
+
+    # -- background loop ------------------------------------------------------
+
+    def start(self) -> "CanaryProber":
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        # first round immediately: it pins the baselines while the
+        # server is provably fresh (a drill's --slo_inject_after_s head
+        # start exists exactly for this)
+        while True:
+            try:
+                self.probe_all()
+            except Exception:
+                pass  # the canary must outlive a bad round
+            if self._stop.wait(self.interval_s):
+                return
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+    # -- views ----------------------------------------------------------------
+
+    def status(self) -> Dict[str, Any]:
+        """The /healthz `prober` block."""
+        with self._lock:
+            tasks = {t: dict(st) for t, st in self._state.items()}
+        unhealthy = sorted(t for t, st in tasks.items()
+                           if st["healthy"] is False)
+        return {"tasks": tasks, "interval_s": self.interval_s,
+                "healthy": not unhealthy,
+                "unhealthy_tasks": unhealthy}
+
+    def alerts(self) -> List[Dict[str, Any]]:
+        """Page-severity alerts for unhealthy tasks — wired into
+        SLOEngine.add_alert_source so a failed canary flips /healthz to
+        `failing` like any other page."""
+        out = []
+        with self._lock:
+            for task, st in self._state.items():
+                if st["healthy"] is False:
+                    out.append({
+                        "slo": f"probe_{task}", "severity": "page",
+                        "source": "prober", "task": task,
+                        "phase": "serve",
+                        "since_unix": st["unhealthy_since_unix"],
+                        "description": st["last_error"] or
+                        "canary probe failing",
+                        "mismatches": st["mismatches"],
+                        "errors": st["errors"],
+                    })
+        return out
+
+    def wait_healthy(self, timeout: float = 60.0) -> bool:
+        """Block until EVERY task's last probe verified; False when the
+        deadline passes first."""
+        deadline = time.monotonic() + float(timeout)
+        while time.monotonic() < deadline:
+            with self._lock:
+                ready = all(st["healthy"] is True
+                            for st in self._state.values())
+            if ready:
+                return True
+            time.sleep(0.05)
+        return False

@@ -6,15 +6,21 @@ Linear). Data: JSONL ``{"question", "choices", "label"}`` with
 --num_choices choices a record (data/glue.py). Training scores each
 (B, C, S) batch as B * C rows and takes the CE across each example's C
 scores, with the base finetune recipe; accuracy on val every epoch and
-on test at the end. Serving: `POST /v1/choice` with {"question",
-"choices"}, one packed segment a choice (2 to 16 of them), softmaxed on
-the host: the same head parameters and math.
+on test at the end. Packed training (--packing) places an example's C
+choices as C consecutive segments of one row (one packing unit, so
+--packing_max_segments is rounded down to a multiple of C), scores every
+segment through the per-segment pooled gather and softmaxes within each
+C-group (`make_pack_labels`: (B, G / C) labels). Serving: `POST
+/v1/choice` with {"question", "choices"}, one packed segment a choice (2
+to 16 of them), softmaxed on the host: the same head parameters and
+math.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from bert_pytorch_tpu_torch.tasks import predict, registry
@@ -22,7 +28,7 @@ from bert_pytorch_tpu_torch.training.finetune import (COMMON_REFUSED,
                                                       COMMON_TUNING)
 
 # The JAX base parser's flags whose feature the port lacks (see
-# squad_task): packing, the perf artifact, metrics and the watchdog.
+# squad_task): the perf artifact, metrics and the watchdog.
 _REFUSED = dict(COMMON_REFUSED)
 _TUNING = dict(COMMON_TUNING)
 
@@ -60,10 +66,26 @@ def make_service(scheduler, tokenizer, opts: Dict[str, Any]):
                          tok_lock=opts.get("tok_lock"))
 
 
+def make_pack_labels(num_choices: int):
+    """Per-group labels: (n_rows, G // C) chosen-choice indices, -1 for
+    an empty group. A unit fills C consecutive segments, so its group is
+    seg0 // C."""
+
+    def pack_labels(arrays, placements, n_rows, seq_len, max_segments):
+        labels = np.full((n_rows, max_segments // num_choices), -1,
+                         np.int32)
+        for p in placements:
+            labels[p.row, p.seg0 // num_choices] = arrays["labels"][p.unit]
+        return {"labels": labels}
+
+    return pack_labels
+
+
 def make_loss_builder(num_choices: int):
-    """The choice loss over (B, C, S) microbatches; a microbatch may carry
-    `head_keep` ((B * C, E)), the head's dropout mask given as an
-    input."""
+    """The choice loss over (B, C, S) microbatches, or packed (B, S) ones
+    with `position_ids` and `segment_ids` ((B, G) scores regrouped by
+    C); a microbatch may carry `head_keep` ((B * C, E), or (B, G, E)
+    packed), the head's dropout mask given as an input."""
 
     def loss_builder(model):
         from torch.func import functional_call
@@ -75,6 +97,8 @@ def make_loss_builder(num_choices: int):
                 model, params, (micro["input_ids"],),
                 {"token_type_ids": micro.get("token_type_ids"),
                  "attention_mask": micro["attention_mask"],
+                 "position_ids": micro.get("position_ids"),
+                 "segment_ids": micro.get("segment_ids"),
                  "dropout_seeds": seeds,
                  "head_keep": micro.get("head_keep")})
             return losses.choice_loss(scores, micro["labels"],
@@ -93,16 +117,21 @@ def setup(args, config, device, log, record):
         eval_closures, finetune_optimizer, resolve_tokenizer)
 
     c = int(args.num_choices)
+    # packed groups need C consecutive segment slots: round G down to a
+    # multiple of C (and at least one whole group)
+    args.packing_max_segments = max(c, (args.packing_max_segments // c) * c)
     tokenizer = resolve_tokenizer(args, config)
     compute_dtype = (torch.bfloat16 if args.dtype == "bfloat16"
                      else torch.float32)
     with torch.device(device):
-        model = BertForMultipleChoice(config, dtype=compute_dtype)
+        model = BertForMultipleChoice(
+            config, max_segments=args.packing_max_segments,
+            dtype=compute_dtype)
 
     datasets = dataset_splits(args, lambda path: glue.MultipleChoiceDataset(
         path, tokenizer, c, max_seq_len=args.max_seq_len).arrays())
     train = datasets.get("train")
-    steps_per_epoch, total_steps = epoch_steps(train, args)
+    steps_per_epoch, total_steps = epoch_steps(train, args, group_size=c)
     sched, tx = finetune_optimizer(args, total_steps)
     evals = accuracy_evals(datasets, args.batch_size,
                            eval_buckets(args.max_seq_len),
@@ -113,7 +142,10 @@ def setup(args, config, device, log, record):
         model=model, tx=tx, schedule=sched, seq_len=args.max_seq_len,
         batch_size=args.batch_size, total_steps=total_steps,
         epochs=args.epochs, train_arrays=train,
-        loss_builder=make_loss_builder(c), label_ignore={"labels": -1},
+        loss_builder=make_loss_builder(c),
+        packed_loss_builder=make_loss_builder(c),
+        pack_labels=make_pack_labels(c), group_size=c,
+        label_ignore={"labels": -1},
         log_every=max(1, steps_per_epoch),
         init_checkpoint=args.init_checkpoint, epoch_eval=epoch_eval,
         finalize=finalize)

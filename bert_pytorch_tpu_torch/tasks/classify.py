@@ -5,7 +5,10 @@ Head: BertForSequenceClassification (the pooled [CLS], dropout, a
 Linear over --labels). Data: TSV ``label<TAB>text_a[<TAB>text_b]``
 (data/glue.py). Training: the base finetune recipe (linear warmup and
 decay from --lr, FusedAdam with the clip at --clip_grad), accuracy on
-the val split every epoch and on the test split at the end. Serving:
+the val split every epoch and on the test split at the end. Packed
+training (--packing) gathers every segment's [CLS] through the pooler:
+(B, G, C) logits against (B, G) labels (`segment_scalar_pack_labels`).
+Serving:
 `POST /v1/classify` with {"text", "text_pair"}, one packed segment a
 request, whose pooled logits come back as its label and softmax.
 """
@@ -17,11 +20,11 @@ from typing import Any, Dict
 import torch
 
 from bert_pytorch_tpu_torch.tasks import predict, registry
-from bert_pytorch_tpu_torch.training.finetune import (COMMON_REFUSED,
-                                                      COMMON_TUNING)
+from bert_pytorch_tpu_torch.training.finetune import (
+    COMMON_REFUSED, COMMON_TUNING, segment_scalar_pack_labels as pack_labels)
 
 # The JAX base parser's flags whose feature the port lacks (see
-# squad_task): packing, the perf artifact, metrics and the watchdog.
+# squad_task): the perf artifact, metrics and the watchdog.
 _REFUSED = dict(COMMON_REFUSED)
 _TUNING = dict(COMMON_TUNING)
 
@@ -65,7 +68,8 @@ def make_service(scheduler, tokenizer, opts: Dict[str, Any]):
 
 def _loss_builder(model):
     """The classification loss; a microbatch may carry `head_keep`, the
-    head's dropout mask given as an input."""
+    head's dropout mask given as an input, and a packed one
+    `position_ids` and `segment_ids` (per-segment logits)."""
     from torch.func import functional_call
 
     from bert_pytorch_tpu_torch.models import losses
@@ -75,6 +79,8 @@ def _loss_builder(model):
             model, params, (micro["input_ids"],),
             {"token_type_ids": micro.get("token_type_ids"),
              "attention_mask": micro["attention_mask"],
+             "position_ids": micro.get("position_ids"),
+             "segment_ids": micro.get("segment_ids"),
              "dropout_seeds": seeds, "head_keep": micro.get("head_keep")})
         return losses.segment_classification_loss(logits,
                                                   micro["labels"]), {}
@@ -112,6 +118,7 @@ def setup(args, config, device, log, record):
         model=model, tx=tx, schedule=sched, seq_len=args.max_seq_len,
         batch_size=args.batch_size, total_steps=total_steps,
         epochs=args.epochs, train_arrays=train, loss_builder=_loss_builder,
+        packed_loss_builder=_loss_builder, pack_labels=pack_labels,
         label_ignore={"labels": -1}, log_every=max(1, steps_per_epoch),
         init_checkpoint=args.init_checkpoint, epoch_eval=epoch_eval,
         finalize=finalize)

@@ -7,7 +7,9 @@ encoder through a linear probe on that mean (classification CE over
 proxy labels of TSV ``label<TAB>text`` rows, data/glue.py) with the base
 finetune recipe; the probe's accuracy on val every epoch and on test at
 the end, and the embeddings' dimension and worst distance from unit norm
-on one eval batch. Serving drops the probe: `POST /v1/embed` with
+on one eval batch. Packed training (--packing) means each segment's own
+tokens, (B, G) labels (`segment_scalar_pack_labels`). Serving drops the
+probe: `POST /v1/embed` with
 {"text"} or {"texts"} (up to 32) returns one embedding a text, each text
 one packed segment.
 """
@@ -20,11 +22,11 @@ import numpy as np
 import torch
 
 from bert_pytorch_tpu_torch.tasks import predict, registry
-from bert_pytorch_tpu_torch.training.finetune import (COMMON_REFUSED,
-                                                      COMMON_TUNING)
+from bert_pytorch_tpu_torch.training.finetune import (
+    COMMON_REFUSED, COMMON_TUNING, segment_scalar_pack_labels as pack_labels)
 
 # The JAX base parser's flags whose feature the port lacks (see
-# squad_task): packing, the perf artifact, metrics and the watchdog.
+# squad_task): the perf artifact, metrics and the watchdog.
 _REFUSED = dict(COMMON_REFUSED)
 _TUNING = dict(COMMON_TUNING)
 
@@ -64,7 +66,8 @@ def make_service(scheduler, tokenizer, opts: Dict[str, Any]):
 
 
 def _loss_builder(model):
-    """The probe's classification loss on the mean-pooled output."""
+    """The probe's classification loss on the mean-pooled output (each
+    segment's own mean when the microbatch is packed)."""
     from torch.func import functional_call
 
     from bert_pytorch_tpu_torch.models import losses
@@ -74,6 +77,8 @@ def _loss_builder(model):
             model, params, (micro["input_ids"],),
             {"token_type_ids": micro.get("token_type_ids"),
              "attention_mask": micro["attention_mask"],
+             "position_ids": micro.get("position_ids"),
+             "segment_ids": micro.get("segment_ids"),
              "dropout_seeds": seeds})
         return losses.segment_classification_loss(logits,
                                                   micro["labels"]), {}
@@ -131,6 +136,7 @@ def setup(args, config, device, log, record):
         model=model, tx=tx, schedule=sched, seq_len=args.max_seq_len,
         batch_size=args.batch_size, total_steps=total_steps,
         epochs=args.epochs, train_arrays=train, loss_builder=_loss_builder,
+        packed_loss_builder=_loss_builder, pack_labels=pack_labels,
         label_ignore={"labels": -1}, log_every=max(1, steps_per_epoch),
         init_checkpoint=args.init_checkpoint, epoch_eval=epoch_eval,
         finalize=finalize)

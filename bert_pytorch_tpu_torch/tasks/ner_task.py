@@ -7,7 +7,10 @@ without bias correction (weight decay 0.01 except biases and
 LayerNorms), a per-epoch decay lr / (1 + 0.05 epoch), a global-norm clip
 at --clip_grad (5.0), and the loss and macro F1 on the val split every
 epoch and on the test split at the end, over length-bucketed batches.
-The loop is training/finetune.run_task.
+Packed training (--packing) places each example's token labels at its
+segment's offset (IGNORE elsewhere) and reduces the loss segment first
+(`losses.packed_token_loss`); its steps are the packed stream's. The
+loop is training/finetune.run_task.
 """
 
 from __future__ import annotations
@@ -26,6 +29,17 @@ from bert_pytorch_tpu_torch.training.finetune import (COMMON_REFUSED,
 # squad_task): the BPE tokenizer besides the common ones.
 _REFUSED = dict(COMMON_REFUSED, tokenizer=(None, "wordpiece"))
 _TUNING = dict(COMMON_TUNING)
+
+
+def pack_labels(arrays, placements, n_rows, seq_len, max_segments):
+    """Token labels at each segment's packing offset, IGNORE elsewhere."""
+    from bert_pytorch_tpu_torch.data.ner import IGNORE_LABEL
+
+    labels = np.full((n_rows, seq_len), IGNORE_LABEL, np.int32)
+    for p in placements:
+        ln, off = p.lengths[0], p.offsets[0]
+        labels[p.row, off:off + ln] = arrays["labels"][p.unit, :ln]
+    return {"labels": labels}
 
 
 def build_parser():
@@ -85,6 +99,32 @@ def _loss_builder(model):
             logits, micro["labels"], ignore_index=IGNORE_LABEL), {}
 
     return loss_fn
+
+
+def _packed_loss_builder(max_segments: int):
+    """The token loss of packed microbatches, reduced segment first."""
+
+    def loss_builder(model):
+        from torch.func import functional_call
+
+        from bert_pytorch_tpu_torch.data.ner import IGNORE_LABEL
+        from bert_pytorch_tpu_torch.models import losses
+
+        def loss_fn(params, micro, seeds):
+            logits = functional_call(
+                model, params, (micro["input_ids"],),
+                {"attention_mask": micro["attention_mask"],
+                 "position_ids": micro["position_ids"],
+                 "segment_ids": micro["segment_ids"],
+                 "dropout_seeds": seeds,
+                 "head_keep": micro.get("head_keep")})
+            return losses.packed_token_loss(
+                logits, micro["labels"], micro["segment_ids"], max_segments,
+                ignore_index=IGNORE_LABEL), {}
+
+        return loss_fn
+
+    return loss_builder
 
 
 def setup(args, config, device, log, record):
@@ -180,7 +220,9 @@ def setup(args, config, device, log, record):
         model=model, tx=tx, schedule=schedule, seq_len=args.max_seq_len,
         batch_size=args.batch_size, total_steps=total_steps,
         epochs=args.epochs, train_arrays=train_arrays,
-        loss_builder=_loss_builder, label_ignore={"labels": -100},
+        loss_builder=_loss_builder,
+        packed_loss_builder=_packed_loss_builder(args.packing_max_segments),
+        pack_labels=pack_labels, label_ignore={"labels": -100},
         log_every=max(1, steps_per_epoch), log_epoch_metrics=True,
         init_checkpoint=args.model_checkpoint,
         epoch_eval=epoch_eval if "val" in datasets else None,

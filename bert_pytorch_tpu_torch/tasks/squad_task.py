@@ -8,8 +8,11 @@ clip at --max_grad_norm, linear warmup over --warmup_proportion),
 predict over length-bucketed eval batches (each window in the smallest of
 32/64/128/.../--max_seq_length that holds it: the 384 bucket through the
 flash kernels, the shorter ones through plain attention), the n-best
-answers and the v1.1 / v2.0 evaluation. The loop is
-training/finetune.run_task.
+answers and the v1.1 / v2.0 evaluation. Packed training (--packing)
+shifts each window's span by its segment's packing offset (-1 when the
+answer is outside the window) and softmaxes per segment
+(`losses.packed_qa_loss`): a full-row softmax would mix denominators
+across co-packed windows. The loop is training/finetune.run_task.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import os
 import time
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from bert_pytorch_tpu_torch.tasks import predict, registry
@@ -30,6 +34,21 @@ from bert_pytorch_tpu_torch.training.finetune import (COMMON_REFUSED,
 # and the flags that only tune such a feature.
 _REFUSED = dict(COMMON_REFUSED, eval_script=(None,))
 _TUNING = dict(COMMON_TUNING)
+
+
+def pack_labels(arrays, placements, n_rows, seq_len, max_segments):
+    """Per-segment absolute span positions: (n_rows, G) start / end, -1 for
+    an empty slot and for an answer outside its window (qa_loss's
+    convention)."""
+    out = {k: np.full((n_rows, max_segments), -1, np.int32)
+           for k in ("start_positions", "end_positions")}
+    for p in placements:
+        ln, off = p.lengths[0], p.offsets[0]
+        for k in ("start_positions", "end_positions"):
+            pos = int(arrays[k][p.unit])
+            if 0 <= pos < ln:
+                out[k][p.row, p.seg0] = pos + off
+    return out
 
 
 def build_parser():
@@ -113,6 +132,32 @@ def _loss_builder(model):
     return loss_fn
 
 
+def _packed_loss_builder(max_segments: int):
+    """The span loss of packed microbatches, a softmax per segment."""
+
+    def loss_builder(model):
+        from torch.func import functional_call
+
+        from bert_pytorch_tpu_torch.models import losses
+
+        def loss_fn(params, micro, seeds):
+            start, end = functional_call(
+                model, params, (micro["input_ids"],),
+                {"token_type_ids": micro["token_type_ids"],
+                 "attention_mask": micro["attention_mask"],
+                 "position_ids": micro["position_ids"],
+                 "segment_ids": micro["segment_ids"],
+                 "dropout_seeds": seeds})
+            return losses.packed_qa_loss(
+                start, end, micro["start_positions"],
+                micro["end_positions"], micro["segment_ids"],
+                max_segments), {}
+
+        return loss_fn
+
+    return loss_builder
+
+
 def setup(args, config, device, log, record):
     from bert_pytorch_tpu_torch.data.tokenization import (
         get_wordpiece_tokenizer)
@@ -149,11 +194,24 @@ def setup(args, config, device, log, record):
                 args.max_query_length, is_training=True)))
         train_arrays = squad.features_to_arrays(feats, is_training=True)
         train_arrays.pop("unique_ids", None)
-        # optimizer steps an epoch: each consumes batch x accum examples
-        examples_per_step = (args.train_batch_size
-                             * args.gradient_accumulation_steps)
-        total_steps = int(len(feats) // examples_per_step
-                          * args.num_train_epochs)
+        if args.packing:
+            # a packed step takes a data-dependent number of windows:
+            # count the packed stream's steps over num_train_epochs
+            from bert_pytorch_tpu_torch.training.finetune import (
+                packed_epoch_step_counts)
+
+            total_steps = sum(packed_epoch_step_counts(
+                train_arrays, n_rows=args.train_batch_size,
+                seq_len=args.max_seq_length,
+                max_segments=args.packing_max_segments, seed=args.seed,
+                epochs=args.num_train_epochs))
+        else:
+            # optimizer steps an epoch: each consumes batch x accum
+            # examples
+            examples_per_step = (args.train_batch_size
+                                 * args.gradient_accumulation_steps)
+            total_steps = int(len(feats) // examples_per_step
+                              * args.num_train_epochs)
         if args.max_steps > 0:
             total_steps = min(total_steps, int(args.max_steps))
 
@@ -216,6 +274,8 @@ def setup(args, config, device, log, record):
         accum_steps=args.gradient_accumulation_steps,
         total_steps=total_steps, epochs=None, train_arrays=train_arrays,
         loss_builder=_loss_builder,
+        packed_loss_builder=_packed_loss_builder(args.packing_max_segments),
+        pack_labels=pack_labels,
         label_ignore={"start_positions": -1, "end_positions": -1},
         log_every=50, init_checkpoint=args.init_checkpoint,
         finalize=finalize)

@@ -1,6 +1,6 @@
 """The finetune loop: one for every registered task (counterpart of
-bert_pytorch_tpu/training/finetune.py, without telemetry, watchdog,
-preemption guard or packing, which ROADMAP queue A lists).
+bert_pytorch_tpu/training/finetune.py, without telemetry, watchdog or
+preemption guard, which ROADMAP queue A lists).
 
 A task contributes what is task-shaped (model head, loss, featurizer,
 eval and predict) through the `TaskRun` its `TaskSpec.setup` returns; the
@@ -15,6 +15,17 @@ loop owns the rest:
   rows JAX draws from the same seed), `build_pretrain_step` with the
   task's loss and its optimizer (f32 gradients), dropout seeds a pure
   function of (--seed, step) (`training.pretrain.dropout_seeds`);
+- packed training (--packing, --packing_max_segments): the first-fit
+  packer (data/packing.first_fit, multi-segment units for multiple
+  choice) fills each (--batch_size, seq) step with several short
+  examples, in arrival order, the ones that do not fit leading the next
+  step (`packed_train_batches`); each task's `pack_labels` places its
+  labels at the segments' offsets and its `packed_loss_builder` reduces
+  per segment. `packed_epoch_step_counts` counts the same stream
+  (`_packed_steps`, the one place the packing is decided) before
+  training, so total_steps and the LR schedule count the packed steps.
+  Each logged step carries its real and slot tokens and
+  `packing_efficiency` (real / slot);
 - length-bucketed eval batches (`bucketed_eval_batches`): each example
   rides the smallest bucket that holds it;
 - the final state saved with `CheckpointManager` under
@@ -43,6 +54,7 @@ import torch
 
 from bert_pytorch_tpu_torch import FINETUNE_GAPS, resolve_device
 from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+from bert_pytorch_tpu_torch.data.packing import first_fit
 from bert_pytorch_tpu_torch.models.bert import init_weights
 from bert_pytorch_tpu_torch.training.checkpoint import (
     STATE_FILE, CheckpointManager, load_init_params, parse_init_checkpoint)
@@ -56,10 +68,9 @@ _INIT_GAPS = "ROADMAP.md, queue A: --init_checkpoint from other sources"
 # The JAX finetune flags every task's parser carries whose feature the
 # port lacks: flag -> the values that leave it off (`refuse`), and the
 # flags that only tune such a feature (any value: the feature is off).
-COMMON_REFUSED = {"packing": (False,), "perf_artifact": (None,),
-                  "metrics_port": (None,), "watchdog_timeout": (0, 0.0)}
-COMMON_TUNING = {"packing_max_segments": "packing",
-                 "watchdog_action": "watchdog_timeout"}
+COMMON_REFUSED = {"perf_artifact": (None,), "metrics_port": (None,),
+                  "watchdog_timeout": (0, 0.0)}
+COMMON_TUNING = {"watchdog_action": "watchdog_timeout"}
 
 
 def eval_buckets(max_seq_len: int, floor: int = 32) -> Tuple[int, ...]:
@@ -74,14 +85,25 @@ def eval_buckets(max_seq_len: int, floor: int = 32) -> Tuple[int, ...]:
     return tuple(sorted(set(out)))
 
 
-def epoch_steps(train: Optional[Dict[str, np.ndarray]], args
-                ) -> Tuple[int, int]:
+def epoch_steps(train: Optional[Dict[str, np.ndarray]], args,
+                group_size: int = 1) -> Tuple[int, int]:
     """(steps_per_epoch, total_steps) of --epochs over --batch_size, the
-    --max_steps cap applied where the parser has it."""
+    --max_steps cap applied where the parser has it. Under --packing the
+    steps are the packed stream's (`packed_epoch_step_counts`), which the
+    loop dispatches exactly."""
     if train is None:
         return 0, 0
-    steps_per_epoch = max(1, -(-len(train["input_ids"]) // args.batch_size))
-    total_steps = steps_per_epoch * args.epochs
+    if getattr(args, "packing", False):
+        counts = packed_epoch_step_counts(
+            train, n_rows=args.batch_size, seq_len=args.max_seq_len,
+            max_segments=args.packing_max_segments, seed=args.seed,
+            epochs=args.epochs, group_size=group_size)
+        steps_per_epoch = counts[0] if counts else 0
+        total_steps = sum(counts)
+    else:
+        steps_per_epoch = max(1, -(-len(train["input_ids"])
+                                   // args.batch_size))
+        total_steps = steps_per_epoch * args.epochs
     max_steps = getattr(args, "max_steps", None)
     if max_steps and max_steps > 0:
         total_steps = min(total_steps, int(max_steps))
@@ -124,6 +146,177 @@ def plain_train_batches(arrays: Dict[str, np.ndarray], batch_per_step: int,
                 batch[fld][len(idx):] = ign
         real = int(np.asarray(arrays["attention_mask"][idx], np.int64).sum())
         yield stack_microbatches(batch, accum_steps), real, len(idx)
+
+
+@dataclasses.dataclass(frozen=True)
+class UnitPlacement:
+    """Where one training unit landed in a packed batch. A unit is one
+    example: `group_size` sub-rows (1, or C for multiple choice, whose C
+    choices must be consecutive segments of one row so the loss can
+    regroup (B, G) as (B, G / C, C))."""
+
+    unit: int                 # index into the per-example arrays
+    row: int                  # packed batch row
+    seg0: int                 # first segment slot (0-based)
+    offsets: Tuple[int, ...]  # each sub-row's token offset within the row
+    lengths: Tuple[int, ...]  # each sub-row's real token count
+
+
+def _unit_lengths(attention_mask: np.ndarray) -> np.ndarray:
+    """(N, S) or (N, C, S) masks -> (N,) real tokens a unit."""
+    mask = np.asarray(attention_mask, np.int64)
+    return mask.sum(axis=tuple(range(1, mask.ndim)))
+
+
+def segment_scalar_pack_labels(arrays: Dict[str, np.ndarray],
+                               placements: Sequence[UnitPlacement],
+                               n_rows: int, seq_len: int,
+                               max_segments: int) -> Dict[str, np.ndarray]:
+    """Per-segment scalar labels for the pooled heads: (n_rows, G), -1 an
+    empty slot (the `pack_labels` of classify and embed)."""
+    labels = np.full((n_rows, max_segments), -1, np.int32)
+    for p in placements:
+        labels[p.row, p.seg0] = arrays["labels"][p.unit]
+    return {"labels": labels}
+
+
+def pack_finetune_batch(arrays: Dict[str, np.ndarray],
+                        unit_indices: Sequence[int], n_rows: int,
+                        seq_len: int, max_segments: int,
+                        group_size: int = 1
+                        ) -> Tuple[Dict[str, np.ndarray],
+                                   List[UnitPlacement]]:
+    """First-fit `unit_indices` (in arrival order) into one (n_rows,
+    seq_len) packed batch: input_ids, token_type_ids, attention_mask,
+    segment_ids (1..n a row, 0 pad) and position_ids (reset a segment),
+    and the placements a task's `pack_labels` reads. Units that do not
+    fit are not placed (they stay pending with the caller)."""
+    lengths = _unit_lengths(arrays["attention_mask"])
+    bins = first_fit([lengths[i] for i in unit_indices], n_bins=n_rows,
+                     capacity=seq_len, max_segments=max_segments,
+                     segs_per_unit=group_size)
+    return _fill_packed_batch(arrays, unit_indices, bins, n_rows, seq_len,
+                              group_size)
+
+
+def _fill_packed_batch(arrays: Dict[str, np.ndarray],
+                       unit_indices: Sequence[int], bins, n_rows: int,
+                       seq_len: int, group_size: int
+                       ) -> Tuple[Dict[str, np.ndarray],
+                                  List[UnitPlacement]]:
+    """The packed batch of one first_fit layout (`bins` of indices into
+    `unit_indices`) and its placements."""
+    ids = arrays["input_ids"]
+    types = arrays.get("token_type_ids")
+    sub_lengths = np.asarray(arrays["attention_mask"], np.int64).sum(axis=-1)
+    batch = {k: np.zeros((n_rows, seq_len), np.int32)
+             for k in ("input_ids", "token_type_ids", "attention_mask",
+                       "segment_ids", "position_ids")}
+    placements: List[UnitPlacement] = []
+    for row, members in enumerate(bins):
+        cursor, seg = 0, 0
+        for local in members:
+            unit = int(unit_indices[local])
+            offsets, lens = [], []
+            for c in range(group_size):
+                at = (unit,) if group_size == 1 else (unit, c)
+                ln = int(sub_lengths[at])
+                sl = slice(cursor, cursor + ln)
+                batch["input_ids"][row, sl] = ids[at][:ln]
+                if types is not None:
+                    batch["token_type_ids"][row, sl] = types[at][:ln]
+                batch["attention_mask"][row, sl] = 1
+                batch["segment_ids"][row, sl] = seg + 1
+                batch["position_ids"][row, sl] = np.arange(ln,
+                                                           dtype=np.int32)
+                offsets.append(cursor)
+                lens.append(ln)
+                cursor += ln
+                seg += 1
+            placements.append(UnitPlacement(
+                unit=unit, row=row, seg0=seg - group_size,
+                offsets=tuple(offsets), lengths=tuple(lens)))
+    return batch, placements
+
+
+def _packable_lengths(arrays: Dict[str, np.ndarray],
+                      seq_len: int) -> np.ndarray:
+    """(N,) real tokens a unit, each checked to fit one packed row."""
+    lengths = _unit_lengths(arrays["attention_mask"])
+    too_long = [int(i) for i in np.nonzero(lengths > seq_len)[0]]
+    if too_long:
+        raise ValueError(
+            f"{len(too_long)} unit(s) exceed seq_len {seq_len} (e.g. unit "
+            f"{too_long[0]}: {int(lengths[too_long[0]])} tokens) — a "
+            "multi-choice group must fit one row to pack; raise "
+            "--max_seq_len or disable --packing")
+    return lengths
+
+
+def _packed_steps(lengths: np.ndarray, order: Sequence[int], n_rows: int,
+                  seq_len: int, max_segments: int, group_size: int):
+    """The one packing decision of an epoch: first-fit the pending units
+    in arrival order, a window of them at a time; units that do not fit a
+    step stay pending and lead the next one. Yields each step's (window,
+    first_fit bins of indices into the window)."""
+    pending: List[int] = [int(i) for i in order]
+    window = max(1, n_rows * max_segments * 2)
+    while pending:
+        head = pending[:window]
+        bins = first_fit([lengths[i] for i in head], n_bins=n_rows,
+                         capacity=seq_len, max_segments=max_segments,
+                         segs_per_unit=group_size)
+        placed = {head[local] for b in bins for local in b}
+        if not placed:  # the head unit always fits an empty row
+            raise RuntimeError("packer failed to place the head unit")
+        pending = [i for i in pending if i not in placed]
+        yield head, bins
+
+
+def packed_epoch_step_counts(arrays: Dict[str, np.ndarray], n_rows: int,
+                             seq_len: int, max_segments: int, seed: int,
+                             epochs: float, group_size: int = 1
+                             ) -> List[int]:
+    """The steps `packed_train_batches` dispatches in each epoch (epoch
+    e's order is a pure function of seed + e), counted over the same
+    `_packed_steps` stream without building a batch: the run's
+    total_steps, and so its LR schedule, count packed steps. A fractional
+    last epoch counts round(fraction x its steps)."""
+    n = len(arrays["input_ids"])
+    if n == 0 or epochs <= 0:
+        return []
+    lengths = _packable_lengths(arrays, seq_len)
+    full = int(epochs)
+    frac = float(epochs) - full
+    counts = [sum(1 for _ in _packed_steps(
+        lengths, np.random.RandomState(seed + e).permutation(n), n_rows,
+        seq_len, max_segments, group_size))
+        for e in range(full + (1 if frac > 0 else 0))]
+    if frac > 0:
+        counts[-1] = max(1, int(round(frac * counts[-1])))
+    return counts
+
+
+def packed_train_batches(arrays: Dict[str, np.ndarray], n_rows: int,
+                         seq_len: int, max_segments: int,
+                         pack_labels: Callable, shuffle: bool, seed: int,
+                         group_size: int = 1):
+    """Packed steps: shuffle once, then fill each step of the
+    `_packed_steps` stream. Yields ((1, n_rows, ...) stacked packed batch,
+    real token count, placed example count)."""
+    n = len(arrays["input_ids"])
+    lengths = _packable_lengths(arrays, seq_len)
+    order = (np.random.RandomState(seed).permutation(n) if shuffle
+             else np.arange(n))
+    for head, bins in _packed_steps(lengths, order, n_rows, seq_len,
+                                    max_segments, group_size):
+        batch, placements = _fill_packed_batch(arrays, head, bins, n_rows,
+                                               seq_len, group_size)
+        batch.update(pack_labels(arrays, placements, n_rows, seq_len,
+                                 max_segments))
+        real = int(sum(sum(p.lengths) for p in placements))
+        yield ({k: v[None] for k, v in batch.items()}, real,
+               len(placements))
 
 
 def bucketed_eval_batches(arrays: Dict[str, np.ndarray], batch_size: int,
@@ -328,6 +521,9 @@ class TaskRun:
     epochs: Optional[int] = None          # None: loop until total_steps
     train_arrays: Optional[Dict[str, np.ndarray]] = None
     loss_builder: Optional[Callable] = None
+    packed_loss_builder: Optional[Callable] = None   # --packing batches
+    pack_labels: Optional[Callable] = None
+    group_size: int = 1                   # sub-rows a unit (choice: C)
     label_ignore: Dict[str, int] = dataclasses.field(default_factory=dict)
     log_every: int = 50
     init_checkpoint: Optional[str] = None
@@ -374,13 +570,16 @@ def check_init_checkpoint(spec: str) -> None:
 
 def add_common_finetune_flags(p) -> None:
     """The JAX finetune parsers' common flags (packing, its segment cap,
-    the perf artifact) and the metrics / watchdog flags, declared with the
-    JAX defaults so a run that switches one on is refused by name; and
-    --device, the port's own."""
+    the perf artifact) and the metrics / watchdog flags, with the JAX
+    defaults: the ones whose feature the port lacks are refused by name
+    when switched on; and --device, the port's own."""
     off = f"not ported: refused unless off ({FINETUNE_GAPS})"
-    p.add_argument("--packing", action="store_true", help=off)
+    p.add_argument("--packing", action="store_true",
+                   help="pack several short examples into each row "
+                        "(first-fit, per-segment losses)")
     p.add_argument("--packing_max_segments", type=int, default=8,
-                   help="tunes --packing (off)")
+                   help="examples a packed row holds at most (choice: "
+                        "rounded to a multiple of --num_choices)")
     p.add_argument("--perf_artifact", type=str, default=None, help=off)
     p.add_argument("--metrics_port", type=int, default=None, help=off)
     p.add_argument("--watchdog_timeout", type=float, default=0.0, help=off)
@@ -433,6 +632,17 @@ def run_task(spec, args, log: Callable[[str], None] = print,
     record = _JsonlLog(os.path.join(args.output_dir, prefix + ".jsonl"), log)
     try:
         run: TaskRun = spec.setup(args, config, device, log, record)
+        packing = bool(getattr(args, "packing", False))
+        if packing and run.pack_labels is None:
+            raise SystemExit(f"task '{spec.name}' does not support "
+                             "--packing")
+        if packing and run.accum_steps > 1:
+            raise SystemExit(
+                "--packing is incompatible with gradient accumulation "
+                f"(accum_steps={run.accum_steps}): the packer owns the "
+                "per-step example budget, so accumulation would silently "
+                "change the effective batch and LR-schedule basis. Drop "
+                "one of the two flags.")
         init_weights(run.model, torch.Generator(device=device).manual_seed(
             args.seed), std=config.initializer_range)
         state = make_train_state(run.model, run.tx)
@@ -466,35 +676,63 @@ def run_task(spec, args, log: Callable[[str], None] = print,
 def _train(spec, args, run, state, config, device, record, results,
            history, log) -> None:
     accum = run.accum_steps
-    step_fn = build_pretrain_step(run.model, run.tx, schedule=run.schedule,
-                                  accum_steps=accum,
-                                  loss_fn_builder=run.loss_builder)
+    packing = bool(getattr(args, "packing", False))
+    step_fn = build_pretrain_step(
+        run.model, run.tx, schedule=run.schedule, accum_steps=accum,
+        loss_fn_builder=(run.packed_loss_builder if packing
+                         else run.loss_builder))
     n_sites = run.model.n_dropout_sites
+    # token slots a step computes: the packed (batch, seq) rows, or
+    # batch x accum examples of group_size rows each
+    slots = run.batch_size * run.seq_len * (
+        1 if packing else accum * run.group_size)
     log(f"finetune[{spec.name}]: {run.total_steps} step(s), batch "
         f"{run.batch_size} x accum {accum}, seq {run.seq_len}, device "
-        f"{device}, layers {config.num_hidden_layers}")
+        f"{device}, layers {config.num_hidden_layers}, packing "
+        + (f"on (max_segments {args.packing_max_segments})" if packing
+           else "off"))
     t0 = time.perf_counter()
     step = epoch = examples_done = 0
     metrics = None
     while step < run.total_steps:
-        for batch_np, _real, n_examples in plain_train_batches(
+        epoch_real = epoch_steps_done = 0
+        if packing:
+            batches = packed_train_batches(
+                run.train_arrays, n_rows=run.batch_size,
+                seq_len=run.seq_len, max_segments=args.packing_max_segments,
+                pack_labels=run.pack_labels, shuffle=True,
+                seed=args.seed + epoch, group_size=run.group_size)
+        else:
+            batches = plain_train_batches(
                 run.train_arrays, run.batch_size * accum, accum,
                 shuffle=True, seed=args.seed + epoch,
-                label_ignore=run.label_ignore):
+                label_ignore=run.label_ignore)
+        for batch_np, real, n_examples in batches:
             if step >= run.total_steps:
                 break
             seeds = dropout_seeds(args.seed, step + 1, accum, n_sites)
             metrics = step_fn(state, to_device(batch_np, device), seeds)
             step += 1
             examples_done += n_examples
+            epoch_real += real
+            epoch_steps_done += 1
+            metrics.update(examples=n_examples, real_tokens=real,
+                           slot_tokens=slots,
+                           packing_efficiency=real / slots)
             history.append(metrics)
             if not run.log_epoch_metrics and (
                     step % run.log_every == 0 or step == run.total_steps):
                 record("train", step, loss=float(metrics["loss"]),
-                       learning_rate=float(metrics["learning_rate"]))
+                       learning_rate=float(metrics["learning_rate"]),
+                       real_tokens=real, slot_tokens=slots,
+                       packing_efficiency=real / slots)
         if run.log_epoch_metrics and metrics is not None:
+            # the epoch's mean real tokens a step
+            n = max(epoch_steps_done, 1)
             record("train", step, epoch=epoch, loss=float(metrics["loss"]),
-                   learning_rate=float(metrics["learning_rate"]))
+                   learning_rate=float(metrics["learning_rate"]),
+                   real_tokens=epoch_real / n, slot_tokens=slots,
+                   packing_efficiency=epoch_real / (slots * n))
         if run.epoch_eval is not None and step > 0:
             results.update(run.epoch_eval(epoch) or {})
         epoch += 1

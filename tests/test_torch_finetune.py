@@ -639,19 +639,22 @@ def test_refused_tables_account_for_every_jax_flag(task):
             assert flag.default in refused[dest], dest
 
 
+# --packing is served: tests/test_torch_finetune_packing.py
 @pytest.mark.parametrize("task,flag", [
-    ("squad", ["--packing"]), ("squad", ["--perf_artifact", "x.json"]),
+    ("ner", ["--metrics_port", "9100"]),
+    ("squad", ["--perf_artifact", "x.json"]),
     ("squad", ["--metrics_port", "9100"]),
     ("squad", ["--watchdog_timeout", "30"]),
     ("squad", ["--eval_script", "evaluate-v1.1.py"]),
-    ("ner", ["--tokenizer", "bpe"]), ("ner", ["--packing"])])
+    ("ner", ["--tokenizer", "bpe"]), ("ner", ["--perf_artifact", "x.json"])])
 def test_switching_on_a_refused_flag_raises(task, flag):
     from bert_pytorch_tpu_torch.tasks import ner_task, squad_task
 
     base = {"squad": [], "ner": ["--train_file", "t", "--labels", "O",
                                  "--model_config_file", "c"]}[task]
     mod = {"squad": squad_task, "ner": ner_task}[task]
-    mod.parse_arguments(base + ["--packing_max_segments", "4"])  # tuning
+    mod.parse_arguments(base + ["--packing", "--packing_max_segments",
+                                "4"])                      # served
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):
         mod.parse_arguments(base + flag)
 

@@ -225,6 +225,30 @@ class _StubEngine:
         return ids, -ids
 
 
+class _TwoBucketEngine(_StubEngine):
+    buckets = (16, 32)
+    max_bucket = 32
+
+    def select_bucket(self, length):
+        return next((b for b in self.buckets if length <= b), None)
+
+
+def test_scheduler_runs_each_request_in_its_natural_bucket():
+    """A short request queued behind a long head rides its own bucket, not
+    the head's: its answer cannot depend on what else is queued."""
+    from bert_pytorch_tpu_torch.serving.batcher import Scheduler
+
+    sch = Scheduler(_TwoBucketEngine(), batch_wait_ms=200).start()
+    try:
+        reqs = [sch.submit("squad", np.arange(ln) + 1) for ln in (20, 5, 3)]
+        for req, ln in zip(reqs, (20, 5, 3)):
+            np.testing.assert_array_equal(sch.result(req, timeout=30)[0],
+                                          np.arange(ln) + 1)
+        assert sch.stats()["batches"] == {"squad/32": 1, "squad/16": 1}
+    finally:
+        sch.close()
+
+
 def test_scheduler_packs_sheds_and_expires():
     from bert_pytorch_tpu_torch.serving.batcher import (
         Overloaded, RequestTimeout, Scheduler, TooLong)

@@ -16,8 +16,8 @@ JAX-initialised parameters (the JAX server's checkpoints, the port's
   flight gets 200, /healthz reads draining; the entry point exits 0 on
   SIGTERM;
 - the flags: every flag of the JAX server's parser is declared, and is
-  served or listed in `_REFUSED` / `_TUNING`; each refused flag raises
-  when it switches its feature on;
+  served or listed in `_REFUSED`; each refused flag (replicas, the mesh,
+  --force_cpu) raises when it switches its feature on;
 - the price per device-hour: flag, then environment, then 1.0.
 """
 
@@ -43,8 +43,8 @@ CFG = {"vocab_size": len(VOCAB), "hidden_size": 64, "num_hidden_layers": 2,
        "max_position_embeddings": 64, "next_sentence": True,
        "hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": 0.0}
 TASKS = ("classify", "squad")
-# the JAX families of one engine; replicas, steals and the prober come with
-# the features the port has not served yet
+# the JAX families of one engine; replicas and steals come with the
+# features the port has not served yet
 JAX_ONLY = ("bert_serve_replica_", "bert_serve_steals_total")
 REQUESTS = [
     ("squad", {"question": "who sat ?", "context": "the cat sat on a mat ."}),
@@ -356,12 +356,10 @@ def test_every_jax_server_flag_is_served_or_refused():
         assert jax_flags[dest].default in off, dest
 
 
+# the SLO plane, the prober, the injector and --output_dir are served
+# (tests/test_torch_slo.py::test_lifted_serve_flag_is_served)
 ON = {"serve_replicas": ["--serve_replicas", "2"],
       "serve_mesh": ["--serve_mesh", "model=2"],
-      "slo_config": ["--slo_config", "configs/slo.json"],
-      "slo_inject": ["--slo_inject", "error_burst"],
-      "prober": ["--prober", "on"],
-      "output_dir": ["--output_dir", "out"],
       "force_cpu": ["--force_cpu"]}
 
 
@@ -378,9 +376,10 @@ def test_refused_flag_raises_naming_queue_a_item_1(dest):
         run_server.serve(args, log=lambda m: None)
     if dest == "force_cpu":
         assert "--device cpu" in str(e.value)
-    # tuning flags of an off feature are accepted
+    # the flags of the ported planes are accepted
     run_server.refuse_unported(run_server.parse_arguments(
-        base + ["--probe_interval_s", "3", "--slo_inject_latency_ms", "9"]))
+        base + ["--probe_interval_s", "3", "--slo_inject_latency_ms", "9",
+                "--prober", "on", "--output_dir", "out"]))
 
 
 def test_cost_per_device_hour_flag_then_env_then_one(monkeypatch):

@@ -677,8 +677,9 @@ def test_refused_tables_account_for_every_jax_flag(task):
     refused, tuning = pmod._REFUSED, pmod._TUNING
     assert not set(refused) & set(tuning)
     assert set(tuning.values()) <= set(refused)
-    assert {"packing", "perf_artifact", "metrics_port",
+    assert {"perf_artifact", "metrics_port",
             "watchdog_timeout"} <= set(refused)
+    assert "packing" not in refused and "packing_max_segments" not in tuning
     for dest, flag in jax_flags.items():
         mine = port_flags[dest]
         assert mine.default == flag.default, dest
@@ -687,8 +688,11 @@ def test_refused_tables_account_for_every_jax_flag(task):
             assert flag.default in refused[dest], dest
 
 
+# --packing is served (tests/test_torch_finetune_packing.py): its case
+# here became classify's --perf_artifact
 @pytest.mark.parametrize("task,flag", [
-    ("classify", ["--packing"]), ("choice", ["--perf_artifact", "x.json"]),
+    ("classify", ["--perf_artifact", "x.json"]),
+    ("choice", ["--perf_artifact", "x.json"]),
     ("embed", ["--metrics_port", "9100"]),
     ("classify", ["--watchdog_timeout", "30"])])
 def test_switching_on_a_refused_flag_raises(task, flag):
@@ -696,15 +700,16 @@ def test_switching_on_a_refused_flag_raises(task, flag):
 
     base = ["--model_config_file", "c", "--output_dir", "o"]
     parse = registry.get(task).parse_arguments
-    parse(base + ["--packing_max_segments", "4"])      # tuning alone
+    parse(base + ["--packing", "--packing_max_segments", "4"])  # served
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):
         parse(base + flag)
 
 
 def test_choice_setup_runs_reference_shaped_batches(tmp_path):
     """choice trains on (N, C, S) arrays, a step of --batch_size examples;
-    --packing_max_segments, a tuning flag of the refused packing, changes
-    neither the model nor the step count."""
+    without --packing, --packing_max_segments changes only the model's
+    segment count (rounded down to a multiple of C, as JAX's setup
+    rounds it), never the step count."""
     from bert_pytorch_tpu_torch.tasks import choice
 
     cfg, files = task_files(tmp_path, "choice")
@@ -720,7 +725,8 @@ def test_choice_setup_runs_reference_shaped_batches(tmp_path):
         n, c, s = run.train_arrays["input_ids"].shape
         assert (c, s) == (C, run.seq_len) and run.batch_size == 4
         assert run.total_steps == runs[0].total_steps == 2 * -(-n // 4)
-        assert run.model.max_segments == 8
+    assert [run.model.max_segments for run in runs] == [
+        max(C, given // C * C) for given in (3, 8, 10)]
 
 
 def test_registry_matches_jax():
