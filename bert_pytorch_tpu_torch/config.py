@@ -13,6 +13,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import re
 from typing import Any, Dict, Optional
 
 
@@ -40,6 +41,10 @@ class BertConfig:
     # regenerate their hash masks in the backward pass. False (the JAX
     # package's nn.Dropout stream) is not ported: training raises.
     fused_dropout_ln: bool = True
+    # Written into a model config for parity with the JAX package, where
+    # it sows the per-layer taps; the port's task heads return the taps
+    # when called with return_taps=True, whatever this says.
+    debug_taps: bool = False
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "BertConfig":
@@ -51,6 +56,12 @@ class BertConfig:
         with open(path, "r", encoding="utf-8") as f:
             return cls.from_dict(json.load(f))
 
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json_string(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True) + "\n"
+
     def replace(self, **kw: Any) -> "BertConfig":
         return dataclasses.replace(self, **kw)
 
@@ -61,6 +72,40 @@ class BertConfig:
                 f"hidden_size ({self.hidden_size}) must be a multiple of "
                 f"num_attention_heads ({self.num_attention_heads})")
         return self.hidden_size // self.num_attention_heads
+
+
+# student presets: `student_<L>l_<H>` names a depth-L, width-H student of
+# whatever teacher config it is derived from (training/distill.py), by
+# rule, so any size is nameable: student_6l_768 is BERT-Base's width at
+# half BERT-Large's depth.
+_STUDENT_PRESET = re.compile(r"^student_(\d+)l_(\d+)$")
+
+
+def is_student_preset(name: str) -> bool:
+    return bool(_STUDENT_PRESET.match(name or ""))
+
+
+def student_config(preset: str, teacher: BertConfig) -> BertConfig:
+    """A student architecture derived from `teacher` by preset name:
+    `student_<L>l_<H>` -> L layers, width H, intermediate 4H, H // 64
+    heads lowered until they divide H. Every other field is the
+    teacher's, so a student trains and serves through the teacher's
+    code paths."""
+    m = _STUDENT_PRESET.match(preset or "")
+    if not m:
+        raise ValueError(
+            f"unknown student preset {preset!r}; expected student_<L>l_<H> "
+            "(e.g. student_6l_768, student_4l_512)")
+    layers, hidden = int(m.group(1)), int(m.group(2))
+    if layers < 1 or hidden < 1:
+        raise ValueError(f"student preset {preset!r}: depth and width "
+                         "must be >= 1")
+    heads = max(1, hidden // 64)
+    while hidden % heads:
+        heads -= 1
+    return teacher.replace(num_hidden_layers=layers, hidden_size=hidden,
+                           num_attention_heads=heads,
+                           intermediate_size=4 * hidden)
 
 
 def pad_vocab_size(vocab_size: int, multiple: int = 8) -> int:

@@ -23,6 +23,13 @@ residual-dropout-LayerNorm kernel at both residual tails. The token
 and sequence classification and the multiple-choice heads add one site
 after the encoder (2 + 3L seeds); the embedding head adds none.
 
+Taps (distillation's layer-matched losses, training/distill.py): a task
+head called with `return_taps=True` returns `(outputs, taps)`, `taps` a
+list of one dict a layer, {"attention_out": the attention residual tail's
+LayerNorm output, "mlp_out": the layer's output}, each (B, S, E) in the
+compute dtype: the two points the JAX model sows under `debug_taps`.
+Without the flag the forward is unchanged.
+
 `plain=True` builds the same model with every kernel call replaced by the
 kernel's plain PyTorch version, differentiated by autograd: a reference to
 hold the kernels against on the card, never a route a run takes.
@@ -34,7 +41,7 @@ choices.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -220,14 +227,19 @@ class BertLayer(nn.Module):
 
     def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor,
                 segment_ids: Optional[torch.Tensor],
-                seeds: Sequence[Optional[int]] = (None, None, None)
+                seeds: Sequence[Optional[int]] = (None, None, None),
+                taps: Optional[List[Dict[str, torch.Tensor]]] = None
                 ) -> torch.Tensor:
-        """`seeds`: (attention probabilities, attention tail, MLP tail)."""
+        """`seeds`: (attention probabilities, attention tail, MLP tail).
+        `taps`, when given, receives this layer's tap dict."""
         attn = self.attention(hidden, attention_bias, segment_ids, seeds[0])
         hidden = self.attention_layer_norm(attn, hidden, seeds[1])
         inter = self.act(_linear(hidden, self.intermediate))
-        return self.output_layer_norm(_linear(inter, self.mlp_output),
-                                      hidden, seeds[2])
+        out = self.output_layer_norm(_linear(inter, self.mlp_output),
+                                     hidden, seeds[2])
+        if taps is not None:
+            taps.append({"attention_out": hidden, "mlp_out": out})
+        return out
 
 
 class BertEncoder(nn.Module):
@@ -239,11 +251,14 @@ class BertEncoder(nn.Module):
 
     def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor,
                 segment_ids: Optional[torch.Tensor],
-                seeds: Optional[List[int]] = None) -> torch.Tensor:
+                seeds: Optional[List[int]] = None,
+                taps: Optional[List[Dict[str, torch.Tensor]]] = None
+                ) -> torch.Tensor:
         for i, layer in enumerate(self.layers):
             layer_seeds = ((None, None, None) if seeds is None
                            else seeds[3 * i:3 * i + 3])
-            hidden = layer(hidden, attention_bias, segment_ids, layer_seeds)
+            hidden = layer(hidden, attention_bias, segment_ids, layer_seeds,
+                           taps)
         return hidden
 
 
@@ -308,9 +323,11 @@ class BertModel(nn.Module):
                 attention_mask: Optional[torch.Tensor] = None,
                 position_ids: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
-                dropout_seeds: Optional[torch.Tensor] = None
+                dropout_seeds: Optional[torch.Tensor] = None,
+                taps: Optional[List[Dict[str, torch.Tensor]]] = None
                 ) -> torch.Tensor:
-        """(B, S, E) sequence output in the compute dtype."""
+        """(B, S, E) sequence output in the compute dtype; `taps`, when
+        given, receives one tap dict a layer."""
         seeds = dropout_seed_list(self.config, dropout_seeds)
         if attention_mask is None:
             attention_mask = (segment_ids > 0 if segment_ids is not None
@@ -321,7 +338,7 @@ class BertModel(nn.Module):
         x = self.embeddings(input_ids, token_type_ids, position_ids,
                             self.dtype, None if seeds is None else seeds[0])
         return self.encoder(x, bias, segment_ids,
-                            None if seeds is None else seeds[1:])
+                            None if seeds is None else seeds[1:], taps)
 
 
 class BertForQuestionAnswering(nn.Module):
@@ -341,12 +358,18 @@ class BertForQuestionAnswering(nn.Module):
                 attention_mask: Optional[torch.Tensor] = None,
                 position_ids: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
-                dropout_seeds: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                dropout_seeds: Optional[torch.Tensor] = None,
+                return_taps: bool = False):
+        taps = [] if return_taps else None
         seq = self.bert(input_ids, token_type_ids, attention_mask,
-                        position_ids, segment_ids, dropout_seeds)
+                        position_ids, segment_ids, dropout_seeds, taps)
         logits = _row_linear(seq, self.qa_outputs).float()
-        return logits[..., 0], logits[..., 1]
+        return _with_taps((logits[..., 0], logits[..., 1]), taps)
+
+
+def _with_taps(out, taps: Optional[list]):
+    """A head's output, or (output, taps) when the taps were asked for."""
+    return out if taps is None else (out, taps)
 
 
 def _head_seeds(dropout_seeds: Optional[torch.Tensor], n_sites: int
@@ -408,14 +431,16 @@ class BertForTokenClassification(nn.Module):
                 position_ids: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
                 dropout_seeds: Optional[torch.Tensor] = None,
-                head_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                head_keep: Optional[torch.Tensor] = None,
+                return_taps: bool = False):
         body_seeds, head_seed = _head_seeds(dropout_seeds,
                                             self.n_dropout_sites)
+        taps = [] if return_taps else None
         seq = self.bert(input_ids, token_type_ids, attention_mask,
-                        position_ids, segment_ids, body_seeds)
+                        position_ids, segment_ids, body_seeds, taps)
         seq = _head_dropout(seq, head_seed, head_keep,
                             self.config.hidden_dropout_prob)
-        return _linear(seq, self.classifier).float()
+        return _with_taps(_linear(seq, self.classifier).float(), taps)
 
 
 class BertForSequenceClassification(nn.Module):
@@ -438,13 +463,13 @@ class BertForSequenceClassification(nn.Module):
         self.n_dropout_sites = 2 + 3 * config.num_hidden_layers
 
     def pooled(self, input_ids, token_type_ids, attention_mask,
-               position_ids, segment_ids, dropout_seeds, head_keep
-               ) -> torch.Tensor:
+               position_ids, segment_ids, dropout_seeds, head_keep,
+               taps=None) -> torch.Tensor:
         """The pooled output after the head's dropout."""
         body_seeds, head_seed = _head_seeds(dropout_seeds,
                                             self.n_dropout_sites)
         seq = self.bert(input_ids, token_type_ids, attention_mask,
-                        position_ids, segment_ids, body_seeds)
+                        position_ids, segment_ids, body_seeds, taps)
         positions = (None if segment_ids is None else
                      positions_from_segment_ids(segment_ids,
                                                 self.max_segments))
@@ -457,11 +482,13 @@ class BertForSequenceClassification(nn.Module):
                 position_ids: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
                 dropout_seeds: Optional[torch.Tensor] = None,
-                head_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                head_keep: Optional[torch.Tensor] = None,
+                return_taps: bool = False):
+        taps = [] if return_taps else None
         pooled = self.pooled(input_ids, token_type_ids, attention_mask,
                              position_ids, segment_ids, dropout_seeds,
-                             head_keep)
-        return _linear(pooled, self.classifier).float()
+                             head_keep, taps)
+        return _with_taps(_linear(pooled, self.classifier).float(), taps)
 
 
 class BertForMultipleChoice(BertForSequenceClassification):
@@ -483,7 +510,8 @@ class BertForMultipleChoice(BertForSequenceClassification):
                 position_ids: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
                 dropout_seeds: Optional[torch.Tensor] = None,
-                head_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                head_keep: Optional[torch.Tensor] = None,
+                return_taps: bool = False):
         shape = input_ids.shape
         if input_ids.dim() == 3:
             b, c, s = shape
@@ -494,11 +522,13 @@ class BertForMultipleChoice(BertForSequenceClassification):
             input_ids, token_type_ids, attention_mask = (
                 flat(input_ids), flat(token_type_ids), flat(attention_mask))
             position_ids = segment_ids = None
+        taps = [] if return_taps else None
         pooled = self.pooled(input_ids, token_type_ids, attention_mask,
                              position_ids, segment_ids, dropout_seeds,
-                             head_keep)
+                             head_keep, taps)
         scores = _linear(pooled, self.classifier)[..., 0].float()
-        return scores.reshape(shape[:2]) if len(shape) == 3 else scores
+        return _with_taps(
+            scores.reshape(shape[:2]) if len(shape) == 3 else scores, taps)
 
 
 class BertForSentenceEmbedding(nn.Module):
@@ -530,13 +560,14 @@ class BertForSentenceEmbedding(nn.Module):
                 attention_mask: Optional[torch.Tensor] = None,
                 position_ids: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
-                dropout_seeds: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                dropout_seeds: Optional[torch.Tensor] = None,
+                return_taps: bool = False):
         if attention_mask is None:
             attention_mask = (segment_ids > 0 if segment_ids is not None
                               else torch.ones_like(input_ids))
+        taps = [] if return_taps else None
         seq = self.bert(input_ids, token_type_ids, attention_mask,
-                        position_ids, segment_ids, dropout_seeds)
+                        position_ids, segment_ids, dropout_seeds, taps)
         packed = segment_ids is not None
         onehot = (segment_onehot(segment_ids, self.max_segments) if packed
                   else (attention_mask > 0)[:, None, :]).float()
@@ -550,7 +581,7 @@ class BertForSentenceEmbedding(nn.Module):
         logits = _linear(mean.to(self.dtype), self.classifier).float()
         if not packed:
             emb, logits = emb[:, 0], logits[:, 0]
-        return emb, logits
+        return _with_taps((emb, logits), taps)
 
 
 class BertMLMHead(nn.Module):

@@ -22,7 +22,10 @@ state_dict of the port's model (models/bert.py): Linear weights transposed
 to PyTorch's (out, in), the QKV kernel's (3, H, D) features flattened in
 that order. The sequence-classification and multiple-choice heads keep
 the pooler (`bert/pooler/dense/*`) beside their `classifier`; the
-sentence-embedding head has no pooler and a `classifier` probe. The map
+sentence-embedding head has no pooler and a `classifier` probe. A
+distillation run's `distill_proj/layer_<i>/<kind>/kernel` matrices (H_s,
+H_t) ride beside the student's parameters as
+`distill_proj.layer_<i>.<kind>.kernel`, untransposed. The map
 is only transposes and reshapes, so it turns a flat JAX gradient tree
 into the port's layout as well. `load_serving_params` reads a serving
 checkpoint: a `.npz` of that flat tree, or a `.pt` state_dict.
@@ -69,7 +72,11 @@ def params_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     sd: Dict[str, np.ndarray] = {}
     for key, value in flat.items():
         m = _UNSTACKED.match(key)
-        if m:
+        if key.startswith("distill_proj/"):
+            # distillation's student -> teacher projections, (H_s, H_t),
+            # applied as s @ kernel: kept as they are (training/distill.py)
+            sd[key.replace("/", ".")] = value
+        elif m:
             i, rest = m.group(1), m.group(2)
             prefix = f"bert.encoder.layers.{i}."
             if rest == "attention/qkv/kernel":      # (E, 3, H, D)

@@ -1,6 +1,6 @@
-"""Adam for finetuning (counterpart of bert_pytorch_tpu/optim/adam.py,
+"""Adam for finetuning (counterpart of bert_pytorch_tpu/optim/adam.py:
 `fused_adam`, chained after optax.clip_by_global_norm as the SQuAD and
-NER tasks chain it).
+NER tasks chain it, and `bert_adam`, BertAdam, which no recipe selects).
 
 apex-FusedAdam semantics as the JAX package implements them:
 
@@ -126,3 +126,51 @@ class FusedAdam:
             denom = torch._foreach_sqrt(nu)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_addcdiv_(p, mu, denom, value=-lr / c1)
+
+
+class BertAdam:
+    """The reference's BertAdam (counterpart of the JAX package's
+    `bert_adam`): Adam without bias correction, u = mu / (sqrt(nu) + eps)
+    + wd p, p <- p - lr u with lr = schedule(count - 1), after a
+    global-norm clip that divides every gradient by max(1, ||g|| /
+    max_norm). `weight_decay_mask(name) -> bool` picks the decayed
+    parameters (None: all of them, as in JAX). No finetune recipe selects
+    it and the JAX package has no kernel for it: plain torch ops. The
+    interface and the state are FusedAdam's."""
+
+    def __init__(self, learning_rate: Union[float, Callable[[int], float]],
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
+                 weight_decay: float = 0.01,
+                 weight_decay_mask: Optional[Callable[[str], bool]] = None,
+                 max_grad_norm: Optional[float] = 1.0):
+        self.learning_rate = learning_rate
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+        self.weight_decay_mask = weight_decay_mask
+        self.max_grad_norm = max_grad_norm
+
+    init = FusedAdam.init
+    lr = FusedAdam.lr
+
+    @torch.no_grad()
+    def update(self, grads: Params, state: AdamState, params: Params,
+               grad_norm: Optional[torch.Tensor] = None) -> None:
+        names = list(params)
+        g = [grads[k].float() for k in names]
+        if self.max_grad_norm is not None:
+            norm = global_norm_f32(g) if grad_norm is None else grad_norm
+            denom = torch.clamp_min(norm.float() / self.max_grad_norm, 1.0)
+            g = [t / denom for t in g]
+        state.count += 1
+        lr = self.lr(state.count - 1)
+        for k, gk in zip(names, g):
+            mu, nu, p = state.mu[k], state.nu[k], params[k]
+            mu.mul_(self.b1).add_((1 - self.b1) * gk)
+            nu.mul_(self.b2).add_((1 - self.b2) * gk * gk)
+            wd = (self.weight_decay if self.weight_decay_mask is None
+                  or self.weight_decay_mask(k) else 0.0)
+            p.add_(-lr * (mu / (torch.sqrt(nu) + self.eps) + wd * p))
+
+
+# the JAX package's name for it
+bert_adam = BertAdam

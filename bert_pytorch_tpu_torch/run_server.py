@@ -49,7 +49,8 @@ the card and its power limit) and `serve_log_metrics.csv` (a `serve`
 record of the scheduler's counts when the server closes). The JAX
 server's flags for replicas, a serving mesh and `--force_cpu` are
 accepted and refused by name unless they leave their feature off
-(`_REFUSED`).
+(`_REFUSED`). On a card, featurization (tokenizing the requests) runs in
+FEATURIZE_WORKERS processes of its own (serving/frontend.Featurizer).
 """
 
 from __future__ import annotations
@@ -71,6 +72,11 @@ _REFUSED = {
 # Flags that only tune a feature refused above: accepted with any value.
 _TUNING: Dict[str, str] = {}
 _HINTS = {"force_cpu": "pass --device cpu to serve on the CPU"}
+# Featurization's worker processes on a card: tokenizing then runs off the
+# interpreter lock that the scheduler, the HTTP threads and the decoders
+# share. On the CPU the forward itself needs the cores, and it runs in the
+# handler threads.
+FEATURIZE_WORKERS = 4
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -236,8 +242,9 @@ class ServerHandle:
 
     def __init__(self, frontend, scheduler, engine, models, tel,
                  int8_deltas, slo=None, prober=None, evaluator=None,
-                 injector=None):
+                 injector=None, featurizer=None):
         self.frontend = frontend
+        self.featurizer = featurizer
         self.scheduler = scheduler
         self.engine = engine
         self.models = models
@@ -259,6 +266,8 @@ class ServerHandle:
         if self.prober is not None:
             self.prober.close()
         self.frontend.close()
+        if self.featurizer is not None:
+            self.featurizer.close()
         if self.evaluator is not None:
             self.evaluator.close()
         self.scheduler.close()
@@ -298,10 +307,11 @@ def load_task_params(path: str, log: Callable[[str], None] = print):
     checkpoints, a .npz or .pt file through models/convert."""
     from bert_pytorch_tpu_torch.models.convert import load_serving_params
     from bert_pytorch_tpu_torch.training.checkpoint import (
-        load_params, parse_init_checkpoint)
+        load_params, model_params_only, parse_init_checkpoint)
 
     if os.path.isdir(parse_init_checkpoint(path)[0]):
-        return load_params(path, log=log)[0]
+        # a distillation run's projections are training-only
+        return model_params_only(load_params(path, log=log)[0])
     return load_serving_params(path)
 
 
@@ -330,12 +340,14 @@ def serve(args, log: Callable[[str], None] = print) -> ServerHandle:
     from bert_pytorch_tpu_torch.serving import quantize as quant_lib
     from bert_pytorch_tpu_torch.serving.batcher import Scheduler
     from bert_pytorch_tpu_torch.serving.engine import TorchServingEngine
-    from bert_pytorch_tpu_torch.serving.frontend import ServingFrontend
+    from bert_pytorch_tpu_torch.serving.frontend import (Featurizer,
+                                                         ServingFrontend)
     from bert_pytorch_tpu_torch.serving.request_trace import TraceRing
     from bert_pytorch_tpu_torch.tasks import registry, squad
     from bert_pytorch_tpu_torch.telemetry.provenance import (
         collect_provenance)
     from bert_pytorch_tpu_torch.telemetry.run import init_run
+    from bert_pytorch_tpu_torch.training.checkpoint import strict_load_state
 
     refuse_unported(args)
     device = resolve_device(args.device)
@@ -372,10 +384,8 @@ def serve(args, log: Callable[[str], None] = print) -> ServerHandle:
     if not usable:
         raise SystemExit("no usable bucket <= max_position_embeddings")
 
-    # the per-task options the registry's builders read; one tokenizer
-    # serves every task, so every service shares one lock
+    # the per-task options the registry's builders read
     serve_opts = {
-        "tok_lock": threading.Lock(),
         "labels": args.labels,
         "class_names": args.class_names,
         "embed_labels": args.embed_labels,
@@ -409,7 +419,7 @@ def serve(args, log: Callable[[str], None] = print) -> ServerHandle:
             # request is admitted: a broken quantization is an outage
             ref = spec.build_serving_model(config, torch.float32,
                                            serve_opts, device)
-            ref.load_state_dict(state, strict=True)
+            strict_load_state(ref, state)
             qstate, stats = quant_lib.quantize_tree(
                 state, config.head_dim, stacked=stacked)
             model = quant_lib.apply_int8(
@@ -435,7 +445,7 @@ def serve(args, log: Callable[[str], None] = print) -> ServerHandle:
                                              device)
             # strict: a head or layer silently left at random init is an
             # outage, not a warning
-            model.load_state_dict(state, strict=True)
+            strict_load_state(model, state)
             cast_for_serving(model, dtype)
         del state
         models[task] = model.eval()
@@ -481,7 +491,11 @@ def serve(args, log: Callable[[str], None] = print) -> ServerHandle:
                               window_s=args.trace_ring_window_s)
                     if tracing else None),
         cost_per_device_hour=args.cost_per_device_hour).start()
-    services = {task: registry.get(task).make_service(scheduler, tokenizer,
+    featurizer = Featurizer(tokenizer, workers=(
+        FEATURIZE_WORKERS if device.type == "cuda" else 0))
+    log(f"featurize: {featurizer.workers} worker process(es)"
+        if featurizer.workers else "featurize: in the handler threads")
+    services = {task: registry.get(task).make_service(scheduler, featurizer,
                                                       serve_opts)
                 for task in sorted(checkpoints)}
 
@@ -560,7 +574,8 @@ def serve(args, log: Callable[[str], None] = print) -> ServerHandle:
            else "") + ")")
     return ServerHandle(frontend, scheduler, engine, models, tel,
                         int8_deltas, slo=slo_engine, prober=prober,
-                        evaluator=evaluator, injector=injector)
+                        evaluator=evaluator, injector=injector,
+                        featurizer=featurizer)
 
 
 def main(argv=None) -> int:

@@ -12,7 +12,9 @@ Flow control, in order:
 
 - `submit()` raises `TooLong` when the request exceeds the largest bucket
   (HTTP 413) and `Overloaded` when the bounded queue is full (HTTP 503).
-- the dispatcher thread drains the queue, expires requests older than the
+- the dispatcher thread drains the queue (when it found nothing left
+  over from the last batch, after one batching window for stragglers;
+  a backlog runs at once), expires requests older than the
   admission timeout (`RequestTimeout`, HTTP 504), takes the head request's
   task and natural bucket (the smallest that holds it), first-fits every
   pending request of that task whose natural bucket it is into
@@ -379,7 +381,10 @@ class Scheduler:
 
     def _loop(self) -> None:
         while not self._closed.is_set():
-            if not self._pending:
+            # requests the last batch left behind have waited a batch
+            # already: they run without a batching window
+            backlog = bool(self._pending)
+            if not backlog:
                 try:
                     self._pending.append(self._q.get(timeout=0.05))
                 except queue.Empty:
@@ -387,7 +392,7 @@ class Scheduler:
                     continue
             # drain what arrived, then give stragglers one batching window
             self._drain_into_pending()
-            if self.batch_wait_s > 0:
+            if self.batch_wait_s > 0 and not backlog:
                 time.sleep(self.batch_wait_s)
                 self._drain_into_pending()
             self._expire(time.perf_counter())

@@ -3,11 +3,13 @@ GET /v1/traces, GET /v1/alerts and GET /v1/slo (counterpart of
 bert_pytorch_tpu/serving/frontend.py).
 
 One service per registered task: squad, ner, classify, choice and embed.
-Each handler thread featurizes its request (tasks/predict), submits its
-segments to the continuous-batching scheduler (a SQuAD request one per
-sliding window, a choice request one per choice, an embed request one
-per text), blocks on the results and decodes the answer. The request
-bodies, response keys and status codes are the JAX services'.
+Each handler thread featurizes its request (tasks/predict, through the
+server's `Featurizer`: on a card in worker processes of its own, off this
+process's interpreter lock), submits its segments to the
+continuous-batching scheduler (a SQuAD request one per sliding window, a
+choice request one per choice, an embed request one per text), blocks on
+the results and decodes the answer. The request bodies, response keys and
+status codes are the JAX services'.
 
 Status mapping: 400 malformed JSON or missing fields, 404 unknown route,
 413 longer than the largest bucket (or too many choices or texts), 503
@@ -29,7 +31,9 @@ per-SLO budget view; without it both answer 404 naming --slo_config.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import multiprocessing
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -56,17 +60,88 @@ class HTTPError(Exception):
         self.retry_after = retry_after
 
 
-class _TaskService:
-    """What every task's service shares: the scheduler, the tokenizer and
-    its lock (run_server builds one tokenizer for every task, so every
-    service serializes on one lock), and `_submit_all`."""
+# -- featurization: fn(tokenizer, *args), in the caller or in a worker -------
 
-    def __init__(self, scheduler, tokenizer,
-                 tok_lock: Optional[threading.Lock] = None):
-        self.scheduler = scheduler
+_worker_tokenizer = None
+
+
+def _init_worker(tokenizer) -> None:
+    global _worker_tokenizer
+    _worker_tokenizer = tokenizer
+
+
+def _in_worker(fn, args):
+    return fn(_worker_tokenizer, *args)
+
+
+def _squad_features(tokenizer, question: str, context: str,
+                    max_seq_length: int, doc_stride: int,
+                    max_query_length: int):
+    example = predict.make_squad_example("serve", question, context)
+    return example, predict.qa_featurize(
+        example, tokenizer, max_seq_length=max_seq_length,
+        doc_stride=doc_stride, max_query_length=max_query_length)
+
+
+def _ner_features(tokenizer, tokens, max_pieces: int):
+    return predict.ner_encode_tokens(tokens, tokenizer,
+                                     max_pieces=max_pieces)
+
+
+def _pair_features(tokenizer, pairs, max_pieces: int):
+    return [predict.encode_pair(tokenizer, a, b, max_pieces=max_pieces)
+            for a, b in pairs]
+
+
+class Featurizer:
+    """Runs the services' featurization, `fn(tokenizer, *args)`, for
+    every task. With `workers` > 0 it runs in that many processes of its
+    own (spawned, each holding a copy of the tokenizer): a handler thread
+    waits for its features without holding this process's interpreter
+    lock, which the scheduler, the HTTP threads and the decoders share,
+    and several requests tokenize at once. With `workers` 0 it runs in
+    the calling thread under one lock (one tokenizer serves every task).
+    A worker's exception re-raises in the caller. Spawning re-imports the
+    main script in each worker, so a script that builds a Featurizer with
+    workers guards its entry with `if __name__ == "__main__"`."""
+
+    def __init__(self, tokenizer, workers: int = 0):
         self.tokenizer = tokenizer
-        self._tok_lock = tok_lock if tok_lock is not None \
-            else threading.Lock()
+        self.workers = int(workers)
+        self._lock = threading.Lock()
+        self._pool = None
+        if self.workers > 0:
+            self._pool = concurrent.futures.ProcessPoolExecutor(
+                max_workers=self.workers,
+                mp_context=multiprocessing.get_context("spawn"),
+                initializer=_init_worker, initargs=(tokenizer,))
+            # the pool starts a process a submit while none is idle: start
+            # them all now, so that no request waits for one to import
+            warm = [self._pool.submit(_in_worker, _pair_features,
+                                      ([("warm", None)], 8))
+                    for _ in range(self.workers)]
+            for f in warm:
+                f.result()
+
+    def __call__(self, fn, *args):
+        if self._pool is None:
+            with self._lock:
+                return fn(self.tokenizer, *args)
+        return self._pool.submit(_in_worker, fn, args).result()
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
+
+
+class _TaskService:
+    """What every task's service shares: the scheduler, the server's
+    Featurizer (`featurize`) and `_submit_all`."""
+
+    def __init__(self, scheduler, featurize: Featurizer):
+        self.scheduler = scheduler
+        self.featurize = featurize
 
     def _submit_all(self, submits) -> list:
         """Submit a request of several parts (an iterable of
@@ -91,10 +166,9 @@ class SquadService(_TaskService):
     """Featurize -> submit (one request per sliding window) -> n-best
     decode."""
 
-    def __init__(self, scheduler, tokenizer, answer_cfg=None,
-                 doc_stride: int = 128, max_query_length: int = 64,
-                 tok_lock: Optional[threading.Lock] = None):
-        super().__init__(scheduler, tokenizer, tok_lock=tok_lock)
+    def __init__(self, scheduler, featurize: Featurizer, answer_cfg=None,
+                 doc_stride: int = 128, max_query_length: int = 64):
+        super().__init__(scheduler, featurize)
         self.answer_cfg = answer_cfg or squad.AnswerConfig()
         self.doc_stride = int(doc_stride)
         self.max_query_length = int(max_query_length)
@@ -107,13 +181,10 @@ class SquadService(_TaskService):
             raise HTTPError(400, "body must carry non-empty string "
                                  "'question' and 'context'")
         try:
-            example = predict.make_squad_example("serve", question, context)
-            with self._tok_lock:
-                feats = predict.qa_featurize(
-                    example, self.tokenizer,
-                    max_seq_length=self.scheduler.engine.max_bucket,
-                    doc_stride=self.doc_stride,
-                    max_query_length=self.max_query_length)
+            example, feats = self.featurize(
+                _squad_features, question, context,
+                self.scheduler.engine.max_bucket, self.doc_stride,
+                self.max_query_length)
         except ValueError as e:
             raise HTTPError(400, f"featurization failed: {e}")
         reqs = self._submit_all(
@@ -137,9 +208,9 @@ class NerService(_TaskService):
     """Pre-split words (or whitespace-split text) -> one segment -> a label
     per word."""
 
-    def __init__(self, scheduler, tokenizer, id_to_label: Dict[int, str],
-                 tok_lock: Optional[threading.Lock] = None):
-        super().__init__(scheduler, tokenizer, tok_lock=tok_lock)
+    def __init__(self, scheduler, featurize: Featurizer,
+                 id_to_label: Dict[int, str]):
+        super().__init__(scheduler, featurize)
         self.id_to_label = dict(id_to_label)
 
     def __call__(self, body: Dict[str, Any]) -> Dict[str, Any]:
@@ -151,10 +222,8 @@ class NerService(_TaskService):
             raise HTTPError(400, "body must carry 'tokens' (list of "
                                  "strings) or 'text'")
         try:
-            with self._tok_lock:
-                ids, piece_word = predict.ner_encode_tokens(
-                    tokens, self.tokenizer,
-                    max_pieces=self.scheduler.engine.max_bucket)
+            ids, piece_word = self.featurize(
+                _ner_features, tokens, self.scheduler.engine.max_bucket)
         except ValueError as e:
             raise HTTPError(413, str(e))
         req = self.scheduler.submit("ner", np.asarray(ids, np.int32))
@@ -170,9 +239,8 @@ class ClassifyService(_TaskService):
     by `encode_pair`, the training featurizer, as one segment; its pooled
     logits decode to a label and the softmax."""
 
-    def __init__(self, scheduler, tokenizer, class_names,
-                 tok_lock: Optional[threading.Lock] = None):
-        super().__init__(scheduler, tokenizer, tok_lock=tok_lock)
+    def __init__(self, scheduler, featurize: Featurizer, class_names):
+        super().__init__(scheduler, featurize)
         self.class_names = list(class_names)
 
     def __call__(self, body: Dict[str, Any]) -> Dict[str, Any]:
@@ -184,10 +252,9 @@ class ClassifyService(_TaskService):
         if pair is not None and not isinstance(pair, str):
             raise HTTPError(400, "'text_pair' must be a string")
         try:
-            with self._tok_lock:
-                ids, types = predict.encode_pair(
-                    self.tokenizer, text, pair or None,
-                    max_pieces=self.scheduler.engine.max_bucket)
+            (ids, types), = self.featurize(
+                _pair_features, [(text, pair or None)],
+                self.scheduler.engine.max_bucket)
         except ValueError as e:
             raise HTTPError(400, f"featurization failed: {e}")
         req = self.scheduler.submit("classify", np.asarray(ids, np.int32),
@@ -217,14 +284,11 @@ class ChoiceService(_TaskService):
         if len(choices) > self.MAX_CHOICES:
             raise HTTPError(413, f"{len(choices)} choices > "
                                  f"{self.MAX_CHOICES}")
-        encoded = []
         try:
-            with self._tok_lock:
-                for choice in choices:
-                    encoded.append(predict.encode_pair(
-                        self.tokenizer, question or choice,
-                        choice if question else None,
-                        max_pieces=self.scheduler.engine.max_bucket))
+            encoded = self.featurize(
+                _pair_features,
+                [(question or choice, choice if question else None)
+                 for choice in choices], self.scheduler.engine.max_bucket)
         except ValueError as e:
             raise HTTPError(400, f"featurization failed: {e}")
         reqs = self._submit_all(
@@ -258,14 +322,10 @@ class EmbedService(_TaskService):
         if len(texts) > self.MAX_TEXTS:
             raise HTTPError(413, f"{len(texts)} texts > {self.MAX_TEXTS} "
                                  "per request; batch client-side")
-        encoded = []
         try:
-            with self._tok_lock:
-                for text in texts:
-                    ids, _types = predict.encode_pair(
-                        self.tokenizer, text,
-                        max_pieces=self.scheduler.engine.max_bucket)
-                    encoded.append(ids)
+            encoded = [ids for ids, _types in self.featurize(
+                _pair_features, [(text, None) for text in texts],
+                self.scheduler.engine.max_bucket)]
         except ValueError as e:
             raise HTTPError(400, f"featurization failed: {e}")
         reqs = self._submit_all(("embed", np.asarray(ids, np.int32))

@@ -59,11 +59,10 @@ def build_serving_model(config, dtype, opts: Dict[str, Any], device):
             dtype=dtype)
 
 
-def make_service(scheduler, tokenizer, opts: Dict[str, Any]):
+def make_service(scheduler, featurize, opts: Dict[str, Any]):
     from bert_pytorch_tpu_torch.serving.frontend import ChoiceService
 
-    return ChoiceService(scheduler, tokenizer,
-                         tok_lock=opts.get("tok_lock"))
+    return ChoiceService(scheduler, featurize)
 
 
 def make_pack_labels(num_choices: int):

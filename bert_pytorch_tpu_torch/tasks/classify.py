@@ -57,13 +57,12 @@ def build_serving_model(config, dtype, opts: Dict[str, Any], device):
             max_segments=int(opts.get("max_segments", 8)), dtype=dtype)
 
 
-def make_service(scheduler, tokenizer, opts: Dict[str, Any]):
+def make_service(scheduler, featurize, opts: Dict[str, Any]):
     from bert_pytorch_tpu_torch.serving.frontend import ClassifyService
 
-    return ClassifyService(scheduler, tokenizer,
+    return ClassifyService(scheduler, featurize,
                            class_names=list(opts.get("class_names")
-                                            or ["0", "1"]),
-                           tok_lock=opts.get("tok_lock"))
+                                            or ["0", "1"]))
 
 
 def _loss_builder(model):

@@ -59,10 +59,10 @@ def build_serving_model(config, dtype, opts: Dict[str, Any], device):
             max_segments=int(opts.get("max_segments", 8)), dtype=dtype)
 
 
-def make_service(scheduler, tokenizer, opts: Dict[str, Any]):
+def make_service(scheduler, featurize, opts: Dict[str, Any]):
     from bert_pytorch_tpu_torch.serving.frontend import EmbedService
 
-    return EmbedService(scheduler, tokenizer, tok_lock=opts.get("tok_lock"))
+    return EmbedService(scheduler, featurize)
 
 
 def _loss_builder(model):

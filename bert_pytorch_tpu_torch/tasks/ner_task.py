@@ -7,6 +7,8 @@ without bias correction (weight decay 0.01 except biases and
 LayerNorms), a per-epoch decay lr / (1 + 0.05 epoch), a global-norm clip
 at --clip_grad (5.0), and the loss and macro F1 on the val split every
 epoch and on the test split at the end, over length-bucketed batches.
+The val and test loss and macro F1 go to the run's jsonl as JAX's `val`
+(at the epoch's last step) and `test` (at the last step) records.
 Packed training (--packing) places each example's token labels at its
 segment's offset (IGNORE elsewhere) and reduces the loss segment first
 (`losses.packed_token_loss`); its steps are the packed stream's. The
@@ -202,16 +204,18 @@ def setup(args, config, device, log, record):
 
     def epoch_eval(epoch):
         vloss, vf1, vdiag = run_eval("val")
-        log(f"[val] epoch {epoch} loss={vloss:.6g} macro_f1={vf1:.6g}; "
-            "diagnostics: " + json.dumps(vdiag))
+        # JAX's records: the val record at the epoch's last step
+        record("val", (epoch + 1) * steps_per_epoch, epoch=epoch,
+               loss=vloss, macro_f1=vf1)
+        log("val diagnostics: " + json.dumps(vdiag))
         return {"val_f1": vf1}
 
     def finalize(results):
         out: Dict[str, Any] = {}
         if "test" in datasets:
             tloss, tf1, tdiag = run_eval("test")
-            log(f"[test] loss={tloss:.6g} macro_f1={tf1:.6g}; "
-                "diagnostics: " + json.dumps(tdiag))
+            record("test", total_steps, loss=tloss, macro_f1=tf1)
+            log("test diagnostics: " + json.dumps(tdiag))
             out["test_f1"] = tf1
             out["test_diagnostics"] = tdiag
         return out
@@ -238,13 +242,12 @@ def build_serving_model(config, dtype, opts: Dict[str, Any], device):
             dtype=dtype)
 
 
-def make_service(scheduler, tokenizer, opts: Dict[str, Any]):
+def make_service(scheduler, featurize, opts: Dict[str, Any]):
     from bert_pytorch_tpu_torch.serving.frontend import NerService
 
     # label ids start at 1: 0 is the padding class
     id_to_label = dict(enumerate(opts.get("labels") or [], start=1))
-    return NerService(scheduler, tokenizer, id_to_label,
-                      tok_lock=opts.get("tok_lock"))
+    return NerService(scheduler, featurize, id_to_label)
 
 
 registry.register(registry.TaskSpec(

@@ -28,13 +28,13 @@ class TaskSpec:
 
     serving: `build_serving_model(config, dtype, opts, device)` the head
     on `device` (`opts`: run_server's per-task options, such as labels,
-    class_names, embed_labels, max_segments, the shared
-    tokenizer lock); `forward_builder(model)` the forward the engine runs
-    per bucket (tasks/predict.py); `make_service(scheduler, tokenizer,
-    opts)` the HTTP handler; `output_kind` the batcher's demux: "token"
-    heads slice `[row, offset:offset+len]`, "segment" heads index
-    `[row, segment]` of one pooled output a packed segment;
-    `request_schema` the POST body (served on /healthz).
+    class_names, embed_labels, max_segments); `forward_builder(model)`
+    the forward the engine runs per bucket (tasks/predict.py);
+    `make_service(scheduler, featurize, opts)` the HTTP handler
+    (featurize: the server's serving/frontend.Featurizer); `output_kind`
+    the batcher's demux: "token" heads slice `[row, offset:offset+len]`,
+    "segment" heads index `[row, segment]` of one pooled output a packed
+    segment; `request_schema` the POST body (served on /healthz).
 
     bookkeeping: `head`, the models/bert.py class; `metric`, the
     headline eval metric."""

@@ -32,7 +32,7 @@ from bert_pytorch_tpu_torch.training.finetune import (COMMON_REFUSED,
 # The JAX flags the port declares but whose feature it lacks: flag -> the
 # values that leave it off (refused otherwise, naming ROADMAP queue A),
 # and the flags that only tune such a feature.
-_REFUSED = dict(COMMON_REFUSED, eval_script=(None,))
+_REFUSED = dict(COMMON_REFUSED)
 _TUNING = dict(COMMON_TUNING)
 
 
@@ -98,8 +98,7 @@ def build_parser():
                    choices=["bfloat16", "float32"])
     p.add_argument("--log_prefix", type=str, default="squad_log")
     p.add_argument("--eval_script", default=None, type=str,
-                   help="not ported (evaluation runs in-process): refused "
-                        "unless unset")
+                   help="unused (in-process eval); kept for CLI parity")
     add_common_finetune_flags(p)
     return p
 
@@ -288,16 +287,15 @@ def build_serving_model(config, dtype, opts: Dict[str, Any], device):
         return BertForQuestionAnswering(config, dtype=dtype)
 
 
-def make_service(scheduler, tokenizer, opts: Dict[str, Any]):
+def make_service(scheduler, featurize, opts: Dict[str, Any]):
     from bert_pytorch_tpu_torch.serving.frontend import SquadService
     from bert_pytorch_tpu_torch.tasks import squad
 
     return SquadService(
-        scheduler, tokenizer,
+        scheduler, featurize,
         answer_cfg=opts.get("answer_cfg") or squad.AnswerConfig(),
         doc_stride=int(opts.get("doc_stride", 128)),
-        max_query_length=int(opts.get("max_query_length", 64)),
-        tok_lock=opts.get("tok_lock"))
+        max_query_length=int(opts.get("max_query_length", 64)))
 
 
 registry.register(registry.TaskSpec(

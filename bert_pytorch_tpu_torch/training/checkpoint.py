@@ -197,3 +197,67 @@ def load_init_params(spec: str, params: Dict[str, torch.Tensor],
         log(f"WARNING: init_checkpoint: {len(fresh)} parameters keep their "
             f"fresh initialisation: {fresh}")
     return step
+
+
+# The names of a distillation run's student -> teacher projections
+# (training/distill.py), which its checkpoint carries beside the model's
+# own parameters and a model restore drops, as the JAX serving restore
+# ignores them.
+PROJ_PREFIX = "distill_proj."
+
+
+def model_params_only(state: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+    """`state` without the training-only parameters (the projections)."""
+    return {k: v for k, v in state.items()
+            if not k.startswith(PROJ_PREFIX)}
+
+
+def encoder_layer_count(names) -> Optional[int]:
+    """The encoder depth a set of parameter names holds
+    (`...encoder.layers.<i>....`), None without an encoder."""
+    idx = set()
+    for name in names:
+        head, sep, tail = name.partition("encoder.layers.")
+        if sep and tail.split(".", 1)[0].isdigit():
+            idx.add(int(tail.split(".", 1)[0]))
+    return max(idx) + 1 if idx else None
+
+
+def strict_load_state(model, state: Dict[str, torch.Tensor]) -> None:
+    """Load `state` into `model` requiring every model parameter with its
+    exact shape and no parameter the model lacks (a distillation
+    checkpoint's projections too: `model_params_only` drops them where
+    the checkpoint is read). A mismatch raises naming the parameters;
+    when the two disagree on encoder depth (a distilled student's
+    checkpoint under the teacher's config, or the reverse) the error leads
+    with both layer counts and the student's model_config.json, as the
+    JAX serving restore's does."""
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    missing = [k if k not in state else
+               f"{k} (shape {tuple(state[k].shape)} != {shape})"
+               for k, shape in want.items()
+               if k not in state or tuple(state[k].shape) != shape]
+    unexpected = sorted(set(state) - set(want))
+    if missing or unexpected:
+        msg = ("serving restore is strict — checkpoint is missing "
+               f"{len(missing)} required param leaf/leaves: "
+               + ", ".join(sorted(missing)[:8])
+               + ("..." if len(missing) > 8 else ""))
+        if unexpected:
+            msg += (f"; and carries {len(unexpected)} the model lacks: "
+                    + ", ".join(unexpected[:8])
+                    + ("..." if len(unexpected) > 8 else ""))
+        want_layers = encoder_layer_count(want)
+        have_layers = encoder_layer_count(state)
+        if (want_layers is not None and have_layers is not None
+                and want_layers != have_layers):
+            msg = (f"serving restore: model config expects {want_layers} "
+                   f"encoder layer(s) but the checkpoint carries "
+                   f"{have_layers} — config/checkpoint depth mismatch. "
+                   "If this checkpoint is a distilled student (run_distill "
+                   "--student), point --model_config_file at the "
+                   "student's model_config.json (written beside its "
+                   "ckpt), not the teacher's. " + msg)
+        raise ValueError(msg)
+    model.load_state_dict(state, strict=True)

@@ -1,6 +1,6 @@
 """The finetune loop: one for every registered task (counterpart of
-bert_pytorch_tpu/training/finetune.py, without telemetry, watchdog or
-preemption guard, which ROADMAP queue A lists).
+bert_pytorch_tpu/training/finetune.py, without the metrics exporter and
+the watchdog, which ROADMAP queue A lists).
 
 A task contributes what is task-shaped (model head, loss, featurizer,
 eval and predict) through the `TaskRun` its `TaskSpec.setup` returns; the
@@ -32,7 +32,19 @@ loop owns the rest:
   `<output_dir>/ckpt/<step>/`, which `run_server --task_checkpoint
   <task>=<output_dir>/ckpt` serves;
 - one JSON record a logged step in `<output_dir>/<log_prefix>.jsonl`
-  (`_JsonlLog`, handed to the task's setup as `record`).
+  (`_JsonlLog`, handed to the task's setup as `record`), and a `perf`
+  record a StepWatch interval (telemetry/stepwatch.py: step time, seq/s,
+  real tokens/s, pad fraction, MFU against the card's peak; the card is
+  synchronised at the interval's end only); --perf_artifact merges the
+  last interval into a FINETUNE json (`write_finetune_artifact`);
+- preemption: SIGTERM or SIGINT unwinds the run through
+  resilience/preemption.py's guard, which saves the last completed
+  step's state under `<output_dir>/ckpt/` before the process exits
+  (128 + the signal); each step runs inside `guard.hold()`, so the
+  in-place update is never cut in half;
+- parameters beyond the model's own (`TaskRun.extra_params`, a
+  distillation run's projections) are trained and saved beside the
+  model's.
 
 The tasks without an entry point of their own (classify, choice, embed)
 share the JAX base parser's CLI and recipe: `base_finetune_parser`,
@@ -56,6 +68,11 @@ from bert_pytorch_tpu_torch import FINETUNE_GAPS, resolve_device
 from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
 from bert_pytorch_tpu_torch.data.packing import first_fit
 from bert_pytorch_tpu_torch.models.bert import init_weights
+from bert_pytorch_tpu_torch.resilience.preemption import (
+    PreemptionGuard, finetune_emergency_save)
+from bert_pytorch_tpu_torch.telemetry.stepwatch import (StepWatch,
+                                                        flops_per_seq,
+                                                        lookup_peak_flops)
 from bert_pytorch_tpu_torch.training.checkpoint import (
     STATE_FILE, CheckpointManager, load_init_params, parse_init_checkpoint)
 from bert_pytorch_tpu_torch.training.pretrain import (build_pretrain_step,
@@ -68,8 +85,7 @@ _INIT_GAPS = "ROADMAP.md, queue A: --init_checkpoint from other sources"
 # The JAX finetune flags every task's parser carries whose feature the
 # port lacks: flag -> the values that leave it off (`refuse`), and the
 # flags that only tune such a feature (any value: the feature is off).
-COMMON_REFUSED = {"perf_artifact": (None,), "metrics_port": (None,),
-                  "watchdog_timeout": (0, 0.0)}
+COMMON_REFUSED = {"metrics_port": (None,), "watchdog_timeout": (0, 0.0)}
 COMMON_TUNING = {"watchdog_action": "watchdog_timeout"}
 
 
@@ -526,10 +542,41 @@ class TaskRun:
     group_size: int = 1                   # sub-rows a unit (choice: C)
     label_ignore: Dict[str, int] = dataclasses.field(default_factory=dict)
     log_every: int = 50
+    # FLOPs a step computes per row (None: flops_per_seq of the loaded
+    # config, forward and backward; a distillation adds its teacher's
+    # forward to the student's)
+    flops_per_row: Optional[float] = None
     init_checkpoint: Optional[str] = None
     epoch_eval: Optional[Callable[[int], Optional[Dict]]] = None
     finalize: Optional[Callable[[Dict], Optional[Dict]]] = None
     log_epoch_metrics: bool = False
+    # parameters by name trained and saved beside the model's own
+    extra_params: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
+
+
+def write_finetune_artifact(path: str, task: str,
+                            record: Dict[str, Any]) -> None:
+    """Merge one task's finetune perf summary into a FINETUNE_*.json
+    artifact (several tasks accumulate into one file)."""
+    doc: Dict[str, Any] = {"schema_version": 1, "kind": "finetune",
+                           "tasks": {}}
+    try:
+        with open(path, encoding="utf-8") as f:
+            prev = json.load(f)
+        if isinstance(prev, dict) and isinstance(prev.get("tasks"), dict):
+            doc = prev
+    except (OSError, ValueError):
+        pass
+    doc["schema_version"] = 1
+    doc["kind"] = "finetune"
+    doc["time_unix"] = round(time.time(), 3)
+    doc["tasks"][task] = record
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".",
+                exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(doc, f, indent=1, sort_keys=True, allow_nan=False)
+        f.write("\n")
 
 
 def _is_external_source(path: str) -> bool:
@@ -580,7 +627,9 @@ def add_common_finetune_flags(p) -> None:
     p.add_argument("--packing_max_segments", type=int, default=8,
                    help="examples a packed row holds at most (choice: "
                         "rounded to a multiple of --num_choices)")
-    p.add_argument("--perf_artifact", type=str, default=None, help=off)
+    p.add_argument("--perf_artifact", type=str, default=None,
+                   help="merge this task's last StepWatch interval into "
+                        "this FINETUNE json (several tasks accumulate)")
     p.add_argument("--metrics_port", type=int, default=None, help=off)
     p.add_argument("--watchdog_timeout", type=float, default=0.0, help=off)
     p.add_argument("--watchdog_action", type=str, default="abort",
@@ -630,6 +679,11 @@ def run_task(spec, args, log: Callable[[str], None] = print,
     config = config.replace(vocab_size=pad_vocab_size(config.vocab_size, 8))
     prefix = getattr(args, "log_prefix", None) or f"{spec.name}_log"
     record = _JsonlLog(os.path.join(args.output_dir, prefix + ".jsonl"), log)
+    guard = PreemptionGuard(log=log)
+    guard.install()
+    # the last completed step's state, which a preemption saves
+    survival: Dict[str, Any] = {}
+    ckpt_dir = os.path.join(args.output_dir, "ckpt")
     try:
         run: TaskRun = spec.setup(args, config, device, log, record)
         packing = bool(getattr(args, "packing", False))
@@ -645,7 +699,7 @@ def run_task(spec, args, log: Callable[[str], None] = print,
                 "one of the two flags.")
         init_weights(run.model, torch.Generator(device=device).manual_seed(
             args.seed), std=config.initializer_range)
-        state = make_train_state(run.model, run.tx)
+        state = make_train_state(run.model, run.tx, extra=run.extra_params)
         if run.init_checkpoint:
             load_init_params(run.init_checkpoint, state.params, log=log)
         results: Dict[str, Any] = {}
@@ -654,13 +708,23 @@ def run_task(spec, args, log: Callable[[str], None] = print,
             trace.update(run=run, state=state, history=history,
                          device=device)
         if run.train_arrays is not None and run.total_steps > 0:
-            _train(spec, args, run, state, config, device, record, results,
-                   history, log)
-            CheckpointManager(os.path.join(args.output_dir, "ckpt"),
-                              log=log).save(
+            last_perf = _train(spec, args, run, state, config, device,
+                               record, results, history, log, guard,
+                               survival)
+            CheckpointManager(ckpt_dir, log=log).save(
                 state.step, state.state_dict(),
                 extra={"task": spec.name,
                        "config": dataclasses.asdict(config)})
+            artifact = getattr(args, "perf_artifact", None)
+            if artifact and last_perf is not None:
+                rec = {k: last_perf[k] for k in
+                       ("real_tokens_per_sec", "pad_fraction",
+                        "packing_efficiency", "seq_per_sec",
+                        "step_time_ms", "mfu") if k in last_perf}
+                rec["packing"] = bool(getattr(args, "packing", False))
+                rec["steps"] = state.step
+                write_finetune_artifact(artifact, spec.name, rec)
+                log(f"finetune[{spec.name}]: perf artifact -> {artifact}")
         if run.finalize is not None:
             results.update(run.finalize(results) or {})
         numbers = {k: v for k, v in results.items()
@@ -669,14 +733,46 @@ def run_task(spec, args, log: Callable[[str], None] = print,
             record("final", 0, **numbers)
         log(json.dumps(results, default=str))
         return results
+    except BaseException as exc:
+        # a preemption saves the last completed step before the unwind
+        finetune_emergency_save(guard, exc, survival, ckpt_dir, spec.name,
+                                log=log)
+        raise
     finally:
+        guard.close()
         record.close()
 
 
+def _stepwatch(args, run, config, device, packing: bool) -> StepWatch:
+    """The run's StepWatch on JAX's basis: the rows a step computes (a
+    packed step its batch rows; else batch x accum x group) times
+    flops_per_seq of the loaded config at the run's sequence length, or
+    `run.flops_per_row` where the run sets it (a distillation: JAX counts
+    its teacher's forward and backward instead), against the card's peak
+    at --dtype (none off a card)."""
+    if packing:
+        rows = run.batch_size
+    else:
+        rows = run.batch_size * run.accum_steps * run.group_size
+    on_card = device.type == "cuda"
+    peak = (lookup_peak_flops(torch.cuda.get_device_name(device),
+                              dtype=getattr(args, "dtype", "bfloat16"))
+            if on_card else None)
+    return StepWatch(
+        flops_per_step=(run.flops_per_row or flops_per_seq(
+            config, run.seq_len, config.vocab_size, 0)) * rows,
+        seqs_per_step=rows, seq_len=run.seq_len, peak_flops=peak,
+        log_freq=run.log_every,
+        sync=(lambda: torch.cuda.synchronize(device)) if on_card else None)
+
+
 def _train(spec, args, run, state, config, device, record, results,
-           history, log) -> None:
+           history, log, guard, survival) -> Optional[Dict[str, Any]]:
+    """The steps; returns the last StepWatch record."""
     accum = run.accum_steps
     packing = bool(getattr(args, "packing", False))
+    sw = _stepwatch(args, run, config, device, packing)
+    last_perf = None
     step_fn = build_pretrain_step(
         run.model, run.tx, schedule=run.schedule, accum_steps=accum,
         loss_fn_builder=(run.packed_loss_builder if packing
@@ -710,9 +806,14 @@ def _train(spec, args, run, state, config, device, record, results,
         for batch_np, real, n_examples in batches:
             if step >= run.total_steps:
                 break
-            seeds = dropout_seeds(args.seed, step + 1, accum, n_sites)
-            metrics = step_fn(state, to_device(batch_np, device), seeds)
-            step += 1
+            with sw.phase("data_prep"):
+                seeds = dropout_seeds(args.seed, step + 1, accum, n_sites)
+                batch = to_device(batch_np, device)
+                sw.note_tokens(real)
+            with guard.hold(), sw.phase("dispatch"):
+                metrics = step_fn(state, batch, seeds)
+                step += 1
+                survival["state"], survival["step"] = state, state.step
             examples_done += n_examples
             epoch_real += real
             epoch_steps_done += 1
@@ -726,6 +827,10 @@ def _train(spec, args, run, state, config, device, record, results,
                        learning_rate=float(metrics["learning_rate"]),
                        real_tokens=real, slot_tokens=slots,
                        packing_efficiency=real / slots)
+            perf = sw.step_done()
+            if perf is not None:
+                record("perf", step, **perf)
+                last_perf = perf
         if run.log_epoch_metrics and metrics is not None:
             # the epoch's mean real tokens a step
             n = max(epoch_steps_done, 1)
@@ -734,10 +839,15 @@ def _train(spec, args, run, state, config, device, record, results,
                    real_tokens=epoch_real / n, slot_tokens=slots,
                    packing_efficiency=epoch_real / (slots * n))
         if run.epoch_eval is not None and step > 0:
-            results.update(run.epoch_eval(epoch) or {})
+            with sw.pause():    # eval is no part of a step's time
+                results.update(run.epoch_eval(epoch) or {})
         epoch += 1
         if run.epochs is not None and epoch >= run.epochs:
             break
+    perf = sw.flush()   # the partial interval: a short run still gets one
+    if perf is not None:
+        record("perf", step, **perf)
+        last_perf = perf
     for i, m in enumerate(history):   # reading a loss waits for the card
         history[i] = {k: (v.item() if torch.is_tensor(v) else v)
                       for k, v in m.items()}
@@ -745,3 +855,4 @@ def _train(spec, args, run, state, config, device, record, results,
     results["e2e_train_time"] = train_time
     results["training_sequences_per_second"] = (
         examples_done / max(train_time, 1e-9))
+    return last_perf

@@ -15,7 +15,7 @@ resumes under the other.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -64,10 +64,17 @@ class TrainState:
         self.opt_state.count = int(opt["count"])
 
 
-def make_train_state(model: nn.Module, tx) -> TrainState:
-    """A fresh state over `model`'s parameters, which must be f32; `tx`
-    is a Lamb or a FusedAdam."""
+def make_train_state(model: nn.Module, tx,
+                     extra: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> TrainState:
+    """A fresh state over `model`'s parameters, which must be f32, and
+    `extra`, parameters by name trained beside them (a distillation run's
+    projections); `tx` is a Lamb or a FusedAdam."""
     params = {k: p.detach() for k, p in model.named_parameters()}
+    for k, p in (extra or {}).items():
+        if k in params:
+            raise ValueError(f"extra parameter {k!r} shadows the model's")
+        params[k] = p.detach()
     bad = [k for k, p in params.items() if p.dtype != torch.float32]
     if bad:
         raise ValueError(f"master parameters must be float32: {bad[:3]}")

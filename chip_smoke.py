@@ -147,7 +147,22 @@ Phases, each of which must pass:
             test skipped; 3 steps of run_finetune --task classify and of
             run_squad, packed and not, on the same files (examples/s, a
             step's device time, packing_efficiency, real and slot tokens,
-            peak memory, exact launch counts).
+            peak memory, exact launch counts);
+15. distill  a BERT-Large classify teacher (3 steps through
+            run_finetune, --perf_artifact: its FINETUNE json's mfu on the
+            card's peak) and a SQuAD teacher (one step) distilled into
+            student_6l_768 (6 layers, width 768, 12 heads) by
+            run_distill: classify packed with both tap losses through
+            768 -> 1024 projections, SQuAD at 32 x 384 unpacked; exact
+            launch counts (the teacher forward only); the summary's keys,
+            the teacher's weights bit-unchanged; one distillation
+            microbatch through the kernels against the plain versions (a
+            planted fault must read beyond the tolerance); precomputed
+            teacher logits against the in-step teacher, bit for bit;
+            packed against one a row; the student served with its own
+            config and its checkpoint refused under the teacher's;
+            --inject broken_student; a step's time split beside a plain
+            finetune step of the student.
 
 The kernels phase also holds the flash kernels of training at phase 2's
 (16, 512, 16, 64): the forward's dropout arm, the dropout mask read out of
@@ -159,7 +174,9 @@ lengths where bf16 takes it; and the same training checks at SQuAD's
 a work item), and the forward at predict's (8, 384) at rate 0. The timing
 phase times them (the fused backward at rates 0.1 and 0, at phase 2's
 and at SQuAD's shape) beside their plain versions and
-scaled_dot_product_attention.
+scaled_dot_product_attention. The distilled student's shapes are held
+and timed too: #1-#4 at width 768 ((2048, 768) and (12288, 768), bf16)
+and the flash forward and fused backward at (32, 384, 12, 64).
 The launches the kernels phase makes for its checks are reported apart
 from the main paths' (`launches_in_checks`). It holds the fused LAMB stages
 (#11, #12) against their plain versions bit for bit over BERT-Large's 302
@@ -261,6 +278,11 @@ SQUAD_MIN_LEN = 150
 # the rows the kernels phase holds #1 at first: the serve buckets'
 # batches, SQuAD predict's 32 and 384 buckets' and SQuAD training's
 # microbatch
+# the distilled student (student_6l_768 of BERT-Large): width 768, 12
+# heads; its LayerNorms at classify's (16 x 128) and SQuAD's (32 x 384)
+# rows, its attention at SQuAD's (32, 384, 12, 64)
+STUDENT_HIDDEN, STUDENT_HEADS = 768, 12
+DISTILL_LN_ROWS = (16 * 128, 32 * 384)
 LN_FWD_ROWS = tuple(sorted({BATCH_ROWS * b for b in BUCKETS + (32, 384)}
                            | {SQUAD_ATTN[0] * SQUAD_ATTN[1]}))
 
@@ -486,6 +508,10 @@ def phase_kernels(torch, np, results):
     check_flash_training_kernels(torch, np, results)
     check_flash_training_kernels(torch, np, results, SQUAD_ATTN,
                                  SQUAD_MIN_LEN, "finetune_squad")
+    check_flash_training_kernels(torch, np, results, SQUAD_ATTN,
+                                 SQUAD_MIN_LEN, "distill_squad",
+                                 heads=STUDENT_HEADS)
+    check_student_layer_norm(torch, results)
     check_squad_predict_flash(torch, np, results)
     check_pair_long(torch, np, results)
     check_lamb_kernels(torch, np, results)
@@ -570,6 +596,103 @@ def check_generic_layer_norm(torch, results):
     results["layer_norm_fwd_generic"] = {
         "widths": list(GENERIC_LN_COLS), "launches": launched,
         "max_abs_err": worst}
+
+
+def check_student_layer_norm(torch, results):
+    """#1-#4 at the distilled student's width, 768 (the generic
+    ln_fwd_kernel / ln_bwd_kernel: the row kernels are 1024's), bf16 at
+    DISTILL_LN_ROWS, the residual arms at rates 0 and 0.1 with both
+    seeds: against the plain versions at LN_TOL / TRAIN_TOL, every
+    backward twice with the same bits, dx zeros exactly where the plain
+    mask drops; the worst errors under each kernel's `distill`."""
+    from bert_pytorch_tpu_torch.ops.layernorm import (
+        add_dropout_layer_norm_bwd, add_dropout_layer_norm_bwd_ref,
+        add_dropout_layer_norm_fwd, add_dropout_layer_norm_stats_ref,
+        hash_keep_mask, layer_norm_bwd, layer_norm_bwd_ref, layer_norm_fwd,
+        layer_norm_stats_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    e, name, bf = STUDENT_HIDDEN, "bfloat16", torch.bfloat16
+    tol = TRAIN_TOL[name]
+    worst = {}
+
+    def note(kernel, err):
+        worst[kernel] = max(worst.get(kernel, 0.0), err)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    for rows in DISTILL_LN_ROWS:
+        x = (randn(rows, e) * 2.0 + 0.5).to(bf)
+        res = randn(rows, e).to(bf)
+        g = randn(rows, e).to(bf)
+        scale = 1.0 + 0.2 * randn(e)
+        bias = 0.1 * randn(e)
+        y, mean, rstd = layer_norm_fwd(x, scale, bias)
+        yr, mr, rr = layer_norm_stats_ref(x, scale, bias)
+        got = layer_norm_bwd(x, scale, mean, rstd, g)
+        again = layer_norm_bwd(x, scale, mean, rstd, g)
+        want = layer_norm_bwd_ref(x, scale, mean, rstd, g)
+        torch.cuda.synchronize()
+        yerr = (y.float() - yr.float()).abs().max().item()
+        serr = max((mean - mr).abs().max().item(),
+                   ((rstd - rr).abs() / rr).max().item())
+        errs = [_rel(a, b) for a, b in zip(got, want)]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"kernels: student layer_norm {name} ({rows}, {e}) max|y-ref| "
+            f"{yerr:.3g} (tol {LN_TOL[name]:g}), stats {serr:.3g}; "
+            f"layer_norm_bwd rel err dx {errs[0]:.3g}, dscale {errs[1]:.3g},"
+            f" dbias {errs[2]:.3g} (tol {tol['dx']:g} / {tol['sums']:g}); "
+            f"rerun bit-identical: {same}")
+        check(yerr <= LN_TOL[name] and serr <= 1e-5 and same
+              and errs[0] <= tol["dx"] and max(errs[1:]) <= tol["sums"],
+              f"student layer_norm ({rows}, {e}): y {yerr}, stats {serr}, "
+              f"bwd {errs}, rerun identical {same}")
+        note("layer_norm_fwd", yerr)
+        note("layer_norm_bwd", (got[0].float() - want[0].float()).abs()
+             .max().item())
+        for rate in (0.0, 0.1):
+            for seed in FLASH_SEEDS:
+                y, mean, rstd = add_dropout_layer_norm_fwd(
+                    x, res, scale, bias, seed, rate)
+                yr, mr, rr = add_dropout_layer_norm_stats_ref(
+                    x, res, scale, bias, seed, rate)
+                got = add_dropout_layer_norm_bwd(x, res, scale, mr, rr, g,
+                                                 seed, rate)
+                again = add_dropout_layer_norm_bwd(x, res, scale, mr, rr, g,
+                                                   seed, rate)
+                want = add_dropout_layer_norm_bwd_ref(x, res, scale, mr, rr,
+                                                      g, seed, rate)
+                torch.cuda.synchronize()
+                yerr = (y.float() - yr.float()).abs().max().item()
+                serr = max((mean - mr).abs().max().item(),
+                           ((rstd - rr).abs() / rr).max().item())
+                errs = [_rel(a, b) for a, b in zip(got, want)]
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                zeros = True
+                if rate > 0.0:
+                    keep = hash_keep_mask(seed, x.shape, rate, x.device)
+                    zeros = torch.equal(got[0] == 0, ~keep)
+                log(f"kernels: student add_dropout_layer_norm {name} "
+                    f"({rows}, {e}) rate {rate} seed {seed}: fwd max|y-ref| "
+                    f"{yerr:.3g}, stats {serr:.3g}; bwd rel err dx "
+                    f"{errs[0]:.3g} dres {errs[1]:.3g} dscale {errs[2]:.3g} "
+                    f"dbias {errs[3]:.3g}; dx zeros exact {zeros}; rerun "
+                    f"bit-identical {same}")
+                check(yerr <= LN_TOL[name] and serr <= 1e-5 and same
+                      and zeros and max(errs[:2]) <= tol["dx"]
+                      and max(errs[2:]) <= tol["sums"],
+                      f"student add_dropout_layer_norm ({rows}, {e}) rate "
+                      f"{rate} seed {seed}: y {yerr}, stats {serr}, bwd "
+                      f"{errs}, zeros {zeros}, rerun identical {same}")
+                note("add_dropout_layer_norm_fwd", yerr)
+                note("add_dropout_layer_norm_bwd", max(
+                    (a.float() - b.float()).abs().max().item()
+                    for a, b in zip(got[:2], want[:2])))
+    for kernel, err in worst.items():
+        results[kernel].setdefault("distill", {}).update(
+            max_abs_err={name: err}, rows_checked=list(DISTILL_LN_ROWS),
+            width=e)
 
 
 def fused_backward_build(torch) -> dict:
@@ -971,7 +1094,7 @@ def padding_bias(torch, np, rng, batch: int, seq: int, lo=None):
 
 
 def check_flash_training_kernels(torch, np, results, shape=PHASE2_ATTN,
-                                 lo=None, key="train_phase2"):
+                                 lo=None, key="train_phase2", heads=HEADS):
     """The flash kernels of a training path at `shape` x (16, 64), f32
     and bf16 (phase 2's (16, 512); SQuAD's (32, 384), `key`
     "finetune_squad", with padding from `lo` tokens): the forward's
@@ -983,7 +1106,7 @@ def check_flash_training_kernels(torch, np, results, shape=PHASE2_ATTN,
     segments (pad-row dq exactly 0, skip counts as the layout predicts),
     every backward run twice with bit-identical results (backward_case).
     Phase 2's errors land in the kernels' results, another key's under
-    that key."""
+    that key. `heads`: 16 (BERT-Large), 12 for the distilled student."""
     from bert_pytorch_tpu_torch.ops.attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_dkv,
         flash_attention_bwd_dq, flash_attention_ref, flash_keep_all,
@@ -1000,10 +1123,10 @@ def check_flash_training_kernels(torch, np, results, shape=PHASE2_ATTN,
     fwd_err, bwd_err, bwd_abs, probes = {}, {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        qkv = torch.randn(batch, seq, 3, HEADS, HEAD_DIM, generator=gen,
+        qkv = torch.randn(batch, seq, 3, heads, HEAD_DIM, generator=gen,
                           device="cuda").to(dtype)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        do = torch.randn(batch, seq, HEADS, HEAD_DIM, generator=gen,
+        do = torch.randn(batch, seq, heads, HEAD_DIM, generator=gen,
                          device="cuda").to(dtype)
         _, lse0 = flash_attention(q, k, v, bias)
         # the forward's dropout arm
@@ -1014,7 +1137,7 @@ def check_flash_training_kernels(torch, np, results, shape=PHASE2_ATTN,
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             lerr = (lse - lse_ref).abs().max().item()
-            log(f"kernels: flash_attention {name} ({batch}, {seq}, {HEADS}, "
+            log(f"kernels: flash_attention {name} ({batch}, {seq}, {heads}, "
                 f"{HEAD_DIM}) rate {rate} seed {seed}: max|out-ref| "
                 f"{err:.3g} (tol {FLASH_TOL[name]:g}), max|lse-ref| "
                 f"{lerr:.3g} (tol {LSE_TOL:g}), lse equal to rate 0's: "
@@ -1038,7 +1161,7 @@ def check_flash_training_kernels(torch, np, results, shape=PHASE2_ATTN,
         # one-hot on the queries [qw, qw + 64): dv[b, k, h, d] = p_drop at
         # (qw + d, k), zero exactly where that pair is dropped.
         seed = FLASH_SEEDS[0]
-        zeros = torch.zeros(batch, seq, HEADS, HEAD_DIM, device="cuda",
+        zeros = torch.zeros(batch, seq, heads, HEAD_DIM, device="cuda",
                             dtype=dtype)
         win = [(64 * b) % seq for b in range(batch)]
         allow = torch.zeros(batch, seq, device="cuda")
@@ -1047,7 +1170,7 @@ def check_flash_training_kernels(torch, np, results, shape=PHASE2_ATTN,
         wbias = ((1.0 - allow) * -10000.0)[:, None, None, :].contiguous()
         pos = torch.arange(seq, device="cuda")
         onehot = (pos[:, None] % 64 == torch.arange(HEAD_DIM, device="cuda"))
-        vp = onehot[None, :, None, :].expand(batch, seq, HEADS,
+        vp = onehot[None, :, None, :].expand(batch, seq, heads,
                                              HEAD_DIM).to(dtype).contiguous()
         out, lse = flash_attention(zeros, zeros, vp, wbias, None, seed, rate)
         qw = 128
@@ -1061,7 +1184,7 @@ def check_flash_training_kernels(torch, np, results, shape=PHASE2_ATTN,
         if dtype == torch.bfloat16:
             dvs["fused"] = flash_attention_bwd(zeros, zeros, vp, wbias, None,
                                                out, lse, dop, seed, rate)[2]
-        keep = flash_keep_all(seed, batch, HEADS, seq, rate, "cuda")
+        keep = flash_keep_all(seed, batch, heads, seq, rate, "cuda")
         fwd_ok = True
         dv_ok = {kern: True for kern in dvs}
         dropped = [0, 0]
@@ -1079,9 +1202,9 @@ def check_flash_training_kernels(torch, np, results, shape=PHASE2_ATTN,
             dropped[1] += int((~want_dv).sum().item())
         torch.cuda.synchronize()
         log(f"kernels: flash dropout mask probe {name} seed {seed}: forward "
-            f"reads {dropped[0]} dropped of {batch * HEADS * seq * 64}, "
+            f"reads {dropped[0]} dropped of {batch * heads * seq * 64}, "
             f"equal to flash_keep_mask: {fwd_ok}; dv reads {dropped[1]} "
-            f"dropped of {batch * HEADS * 64 * 64}, equal: {dv_ok}")
+            f"dropped of {batch * heads * 64 * 64}, equal: {dv_ok}")
         check(fwd_ok and all(dv_ok.values()), f"flash {name}: the mask "
               f"read from the kernels differs from flash_keep_mask "
               f"(forward {fwd_ok}, dv {dv_ok})")
@@ -1090,7 +1213,7 @@ def check_flash_training_kernels(torch, np, results, shape=PHASE2_ATTN,
                         "dv_kernels": sorted(dvs)}
     results["flash_attention_fwd"][key] = {
         "max_abs_err": fwd_err, "mask_probes": probes,
-        "shape": [batch, seq, HEADS, HEAD_DIM]}
+        "shape": [batch, seq, heads, HEAD_DIM]}
     for kern in ("dq", "dkv", "fused"):
         name = "flash_attention_bwd" + ("" if kern == "fused" else "_" + kern)
         errs = {"max_abs_err": bwd_abs[kern], "max_rel_err": bwd_err[kern]}
@@ -1306,7 +1429,7 @@ def check_fused_backward(torch, np, args, want, what, seg_np, bwd_err,
     if sg is not None:
         pad_dq = got[0][sg == 0].abs().max().item()
         tile = load_kernels().flash_tiles(True)["flash_attention_bwd"]
-        want_skips = expected_skips(np, seg_np, *tile, HEADS)
+        want_skips = expected_skips(np, seg_np, *tile, q.shape[2])
         got_skips = int(skipped.item())
         line += (f"; pad-row dq max {pad_dq}; tiles {tuple(tile)} skipped "
                  f"{got_skips} (layout predicts {want_skips})")
@@ -1508,6 +1631,10 @@ def phase_timing(torch, np, results, peaks):
     time_flash_training_kernels(torch, np, results, peaks, timer)
     time_flash_training_kernels(torch, np, results, peaks, timer,
                                 SQUAD_ATTN, SQUAD_MIN_LEN, "finetune_squad")
+    time_flash_training_kernels(torch, np, results, peaks, timer,
+                                SQUAD_ATTN, SQUAD_MIN_LEN, "distill_squad",
+                                heads=STUDENT_HEADS)
+    time_student_layer_norm(torch, results, peaks, timer)
     time_pair(torch, np, results, peaks, timer)
     time_lamb_kernels(torch, np, results, peaks, timer)
     for name in KERNEL_ROWS:
@@ -1670,9 +1797,85 @@ def time_training_kernels(torch, results, peaks, timer):
         f"{hd['mask_int64_ms']:.3f} ms (identical masks)")
 
 
+def time_student_layer_norm(torch, results, peaks, timer):
+    """#1-#4 at the distilled student's SQuAD rows, (12288, 768) bf16,
+    rate 0.1 for the residual arms, as the device's time alone beside
+    the plain versions and, for #1 and #2, the library's LayerNorm
+    (F.layer_norm with bf16 scale and bias, its backward); bounds as
+    time_training_kernels' (bytes over the memory rate, or the f32
+    operations over the f32 peak). Under each kernel's `distill`."""
+    import torch.nn.functional as F
+
+    from bert_pytorch_tpu_torch.ops.layernorm import (
+        add_dropout_layer_norm_bwd, add_dropout_layer_norm_bwd_ref,
+        add_dropout_layer_norm_fwd, add_dropout_layer_norm_stats_ref,
+        layer_norm_bwd, layer_norm_bwd_ref, layer_norm_fwd, layer_norm_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    e, rows, seed, rate = STUDENT_HIDDEN, DISTILL_LN_ROWS[-1], \
+        FLASH_SEEDS[0], 0.1
+    bf = torch.bfloat16
+    n, stats, vec = rows * e, 2 * rows * 4, 2 * e * 4
+    x = torch.randn(rows, e, generator=gen, device="cuda").to(bf)
+    res = torch.randn(rows, e, generator=gen, device="cuda").to(bf)
+    g = torch.randn(rows, e, generator=gen, device="cuda").to(bf)
+    scale = 1.0 + 0.1 * torch.randn(e, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(e, generator=gen, device="cuda")
+    scale16, bias16 = scale.to(bf), bias.to(bf)
+    _, mean, rstd = layer_norm_fwd(x, scale, bias)
+
+    def row(nbytes, nops, **kw):
+        t_bytes = nbytes / peaks["bytes_per_s"]
+        t_ops = nops / peaks["f32_flops"]
+        return dict(kw, shape=[rows, e], dtype="bfloat16",
+                    bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bytes=nbytes, operations=nops)
+
+    times = {
+        "layer_norm_fwd": row(
+            2 * n * 2 + vec + stats, 8 * n, rate=0.0,
+            ms=timer(lambda: layer_norm_fwd(x, scale, bias), hide_host=True),
+            plain_ms=timer(lambda: layer_norm_ref(x, scale, bias),
+                           hide_host=True),
+            library_ms=timer(lambda: F.layer_norm(x, (e,), scale16, bias16,
+                                                  1e-12), hide_host=True)),
+        "layer_norm_bwd": row(
+            3 * n * 2 + stats + e * 4 + vec, 11 * n, rate=0.0,
+            ms=timer(lambda: layer_norm_bwd(x, scale, mean, rstd, g),
+                     hide_host=True),
+            plain_ms=timer(lambda: layer_norm_bwd_ref(x, scale, mean, rstd,
+                                                      g), hide_host=True),
+            library_ms=timer(
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    g, x, [e], mean[:, None], rstd[:, None], scale16,
+                    scale16, [True, True, True]), hide_host=True)),
+        "add_dropout_layer_norm_fwd": row(
+            3 * n * 2 + 2 * e * 4 + stats, 20 * n, rate=rate,
+            ms=timer(lambda: add_dropout_layer_norm_fwd(
+                x, res, scale, bias, seed, rate), hide_host=True),
+            plain_ms=timer(lambda: add_dropout_layer_norm_stats_ref(
+                x, res, scale, bias, seed, rate), hide_host=True),
+            library_ms=None),
+        "add_dropout_layer_norm_bwd": row(
+            5 * n * 2 + e * 4 + stats + vec, 28 * n, rate=rate,
+            ms=timer(lambda: add_dropout_layer_norm_bwd(
+                x, res, scale, mean, rstd, g, seed, rate), hide_host=True),
+            plain_ms=timer(lambda: add_dropout_layer_norm_bwd_ref(
+                x, res, scale, mean, rstd, g, seed, rate), hide_host=True),
+            library_ms=None)}
+    for name, r in times.items():
+        results[name].setdefault("distill", {}).update(r)
+        lib = r["library_ms"]
+        log(f"timing: {name} student {r['shape']} bf16 rate {r['rate']}: "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            + (f"{lib:.4f} ms" if lib is not None else "none")
+            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
 def time_flash_training_kernels(torch, np, results, peaks, timer,
                                 shape=PHASE2_ATTN, lo=None,
-                                key="train_phase2"):
+                                key="train_phase2", heads=HEADS):
     """The flash kernels of a training path at `shape` x (16, 64) bf16
     with a padding bias (phase 2's (16, 512); SQuAD's (32, 384), `key`
     "finetune_squad", windows from `lo` tokens): the forward at rates 0.1
@@ -1696,23 +1899,23 @@ def time_flash_training_kernels(torch, np, results, peaks, timer,
     gen = torch.Generator(device="cuda").manual_seed(5)
     bias = padding_bias(torch, np, np.random.RandomState(5), batch, seq, lo)
     bf = torch.bfloat16
-    qkv = torch.randn(batch, seq, 3, HEADS, HEAD_DIM, generator=gen,
+    qkv = torch.randn(batch, seq, 3, heads, HEAD_DIM, generator=gen,
                       device="cuda").to(bf)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    do = torch.randn(batch, seq, HEADS, HEAD_DIM, generator=gen,
+    do = torch.randn(batch, seq, heads, HEAD_DIM, generator=gen,
                      device="cuda").to(bf)
     out, lse = flash_attention(q, k, v, bias, None, seed, rate)
     _, delta = flash_attention_bwd_dq(q, k, v, bias, None, out, lse, do,
                                       seed, rate)
-    tensor = batch * seq * HEADS * HEAD_DIM * 2
-    rows_f32 = batch * HEADS * seq * 4          # lse or delta
+    tensor = batch * seq * heads * HEAD_DIM * 2
+    rows_f32 = batch * heads * seq * 4          # lse or delta
     bias_bytes = batch * seq * 4
-    product = 2 * batch * HEADS * seq * seq * HEAD_DIM
+    product = 2 * batch * heads * seq * seq * HEAD_DIM
 
     def row(nbytes, nops, **kw):
         t_bytes = nbytes / peaks["bytes_per_s"]
         t_ops = nops / peaks["bf16_flops"]
-        return dict(kw, shape=[batch, seq, HEADS, HEAD_DIM],
+        return dict(kw, shape=[batch, seq, heads, HEAD_DIM],
                     dtype="bfloat16", rate=rate,
                     bound_ms=max(t_bytes, t_ops) * 1e3,
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -3182,6 +3385,55 @@ def _device_ms(ev, self_only=False) -> float:
     if us is None:
         us = getattr(ev, key.replace("device", "cuda"), 0)
     return (us or 0) / 1e3
+
+
+def _device_call_ms(torch, fn, reps: int = 3) -> dict:
+    """Device ms of one fn() call, median of `reps`, by CUDA events around
+    the call. A spin queued on the card ahead of the start event outlasts
+    the call's host time (twice its host-clock ms between
+    synchronizations, plus 20 ms), so the card starts the call's work
+    once the host has queued all of it and the events hold device time
+    alone: `host_hidden` says the start event was still pending when the
+    host finished. A call of more launches than the card's queue holds
+    (or one that synchronizes inside) cannot be hidden so; its device_ms
+    is then the profiler's sum of its kernels (`by` names the method, and
+    `events_ms` keeps the events' reading). Fails on a time of 0."""
+    fn()
+    torch.cuda.synchronize()
+    host_ms = _host_ms(torch, fn)
+    cycles = int((2 * host_ms + 20) * Timer.SPIN_CYCLES / 20)
+    times, hidden = [], True
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        hidden = hidden and not start.query()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    out = {"host_ms": host_ms, "events_ms": statistics.median(times),
+           "host_hidden": hidden}
+    out["by"] = "events" if hidden else "profiler"
+    out["device_ms"] = (out["events_ms"] if hidden
+                        else _device_total_ms(torch, fn))
+    check(out["device_ms"] > 0, f"a call's device time read {out}")
+    return out
+
+
+def _device_total_ms(torch, fn) -> float:
+    """Device time of one fn() call: its CUDA kernels' time summed by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(_device_ms(ev) for ev in prof.key_averages()
+               if str(getattr(ev, "device_type", "")).split(".")[-1]
+               == "CUDA")
 
 
 def _profile_step(torch, step_fn, state, batch, seeds):
@@ -5565,6 +5817,602 @@ def phase_finetune_packed(torch, np, summary, device="cuda",
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Distillation on the card (distill): BERT-Large teachers into
+# student_6l_768. The kernels against the plain versions on one
+# distillation microbatch are held at the pooled heads' tiers
+# (POOLED_MODEL_TOL: the loss is a mix of per-example KD and CE terms and
+# per-token tap terms) and must tell a planted fault (the student's head
+# dropout seed off by one) apart; packed against one a row at
+# PACKED_LOSS_LIMIT, a planted fault (positions not reset at each packed
+# segment) at 10x it.
+DISTILL_STUDENT = "student_6l_768"
+DISTILL_STEPS = 3
+DISTILL_SQUAD = (32, 384)
+# the summary keys of the JAX package's run_distill.py (its `shared` and
+# its own), beside the results of the task's finalize
+DISTILL_SUMMARY_KEYS = (
+    "kind", "task", "student", "teacher_checkpoint", "temperature",
+    "alpha_kd", "alpha_ce", "alpha_hidden", "alpha_attn", "inject",
+    "train_losses", "loss_first", "loss_last", "student_config",
+    "student_layers", "student_hidden", "teacher_layers", "teacher_hidden",
+    "layer_map", "projections")
+
+
+def _distill_loss_and_grads(torch, makes, weights, proj, builder_kw, dtype,
+                            plain, micro, seeds, device):
+    """One distillation microbatch's loss and f32 gradients (the student's
+    and the projections') through fresh student and teacher models
+    (`makes`: (make_student, make_teacher), each (dtype, plain) -> model)
+    holding `weights`: the kernels (plain=False) or the plain versions."""
+    from bert_pytorch_tpu_torch.training.distill import (
+        make_distill_loss_builder)
+    from bert_pytorch_tpu_torch.training.pretrain import (compute_params,
+                                                          loss_and_grads)
+
+    with torch.device(device):
+        student, teacher = (make(dtype, plain) for make in makes)
+    student.load_state_dict(weights[0])
+    teacher.load_state_dict(weights[1])
+    teacher.requires_grad_(False).eval()
+    params = dict(student.named_parameters())
+    params.update(proj)
+    gparams = compute_params(params, None)
+    loss, _, grads = loss_and_grads(
+        make_distill_loss_builder(teacher_model=teacher, **builder_kw)(
+            student), gparams, micro, seeds)
+    return loss.item(), {k: g.float() for k, g in grads.items()}
+
+
+def _distill_kernels_vs_plain(torch, np, what, makes, weights, proj,
+                              builder_kw, batch_np, seeds, device):
+    """One distillation microbatch (packed, dropout on) through the kernels
+    against the plain versions: bf16 (the whole microbatch) and f32 (a
+    quarter of its rows) at POOLED_MODEL_TOL, the loss relative and every
+    gradient leaf (the student's and the projections') by relative L2;
+    and the kernels again with the student's head dropout seed off by
+    one, which must read beyond the tolerance."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        rows = len(batch_np["input_ids"])
+        rows = rows if dtype == torch.bfloat16 else max(1, rows // 4)
+        micro = {k: torch.from_numpy(v[:rows]).to(device)
+                 for k, v in batch_np.items()}
+        got = _distill_loss_and_grads(torch, makes, weights, proj,
+                                      builder_kw, dtype, False, micro, seeds,
+                                      device)
+        want = _distill_loss_and_grads(torch, makes, weights, proj,
+                                       builder_kw, dtype, True, micro,
+                                       seeds, device)
+        planted = seeds.clone()
+        planted[-1] += 1
+        bad = _distill_loss_and_grads(torch, makes, weights, proj,
+                                      builder_kw, dtype, False, micro,
+                                      planted, device)
+        tol = POOLED_MODEL_TOL[name]
+        loss_rel = abs(got[0] - want[0]) / abs(want[0])
+        worst, worst_name = _grad_worst(torch, got[1], want[1], ())
+        proj_worst, _ = _grad_worst(
+            torch, {k: v for k, v in got[1].items() if k in proj},
+            {k: v for k, v in want[1].items() if k in proj}, ())
+        bad_rel = abs(bad[0] - want[0]) / abs(want[0])
+        bad_worst, _ = _grad_worst(torch, bad[1], want[1], ())
+        log(f"{what}: one distillation microbatch ({rows} rows) {name}, "
+            f"kernels vs plain: loss {got[0]:.6f} vs {want[0]:.6f} (rel "
+            f"{loss_rel:.3g}, tol {tol['loss']:g}); worst gradient rel L2 "
+            f"{worst:.3g} at {worst_name} (tol {tol['grad']:g}), the "
+            f"projections' worst {proj_worst:.3g}; planted fault (head "
+            f"dropout seed + 1): loss {bad_rel:.3g}, gradient "
+            f"{bad_worst:.3g}")
+        out[name] = {"rows": rows, "loss": got[0], "plain_loss": want[0],
+                     "loss_rel": loss_rel, "max_grad_rel_l2": worst,
+                     "worst_leaf": worst_name,
+                     "projections_max_grad_rel_l2": proj_worst,
+                     "planted_head_seed_loss_rel": bad_rel,
+                     "planted_head_seed_max_grad_rel_l2": bad_worst}
+        check(np.isfinite(got[0]) and loss_rel <= tol["loss"]
+              and worst <= tol["grad"],
+              f"{what} {name}: loss rel {loss_rel}, gradient {worst_name} "
+              f"rel L2 {worst} (tol {tol})")
+        check(bad_rel > tol["loss"] or bad_worst > tol["grad"],
+              f"{what} {name}: the planted head seed fault reads loss "
+              f"{bad_rel}, gradient {bad_worst}: inside {tol}")
+        del got, want, bad
+    return out
+
+
+def phase_distill(torch, np, summary, device="cuda",
+                  cfg_path=os.path.join(HERE, "configs",
+                                        "bert_large_uncased_config.json"),
+                  student=DISTILL_STUDENT, batch=TASK_TRAIN[0],
+                  seq=TASK_TRAIN[1], squad=DISTILL_SQUAD,
+                  steps=DISTILL_STEPS):
+    """Distillation through the entry point (run_distill.main) on one card:
+    `cfg_path`'s model (BERT-Large) as the teacher, `student`
+    (student_6l_768: 6 layers, width 768, 12 heads) as the student.
+
+    1. teachers: `steps` steps of run_finetune --task classify (`batch` x
+       `seq`, --perf_artifact: the FINETUNE json's mfu in (0, 1) on the
+       card's peak) and one of run_squad (`squad`), into checkpoints;
+    2. classify distillation, packed, both tap losses (projections 768 ->
+       1024 on every mapped layer): exact launch counts of the run (the
+       teacher's forward only: no backward of its own), the summary's
+       keys (JAX's), `projections` the six mapped layers, the teacher's
+       parameters bit-unchanged and without .grad;
+    3. one distillation microbatch through the kernels against the plain
+       versions (loss, the student's and the projections' gradients);
+    4. with no tap loss, student gradients from precomputed teacher logits
+       bit-equal to the in-step teacher's;
+    5. a packed batch against the same examples one a row (loss at
+       PACKED_LOSS_LIMIT; a planted fault, positions not reset at each
+       segment, at 10x it);
+    6. SQuAD distillation at `squad`, unpacked: exact flash launches (24
+       teacher forwards, 6 student forwards, 6 fused backwards a step);
+    7. the student served by run_server with its own model_config.json:
+       /healthz counts fewer parameters than the teacher's, one answer
+       equals the student's eager forward; the student's checkpoint under
+       the teacher's config raises the depth-mismatch message;
+       --inject broken_student's accuracy_delta beside the clean run's;
+    8. a distillation step's time split (teacher forward, student forward
+       and backward, Adam; device time and host clock) beside a plain
+       finetune step of the same student.
+
+    `device`, `cfg_path`, `student`, `batch`, `seq`, `squad` exist so the
+    phase can be rehearsed on the CPU at a tiny size."""
+    import dataclasses
+    import shutil
+
+    from bert_pytorch_tpu_torch import run_distill, run_server
+    from bert_pytorch_tpu_torch.config import (BertConfig, pad_vocab_size,
+                                               student_config)
+    from bert_pytorch_tpu_torch.data import glue
+    from bert_pytorch_tpu_torch.data.packing import first_fit
+    from bert_pytorch_tpu_torch.data.tokenization import (
+        get_wordpiece_tokenizer)
+    from bert_pytorch_tpu_torch.models.bert import (
+        BertForSequenceClassification)
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from bert_pytorch_tpu_torch.serving.batcher import (InferenceRequest,
+                                                        Scheduler,
+                                                        pack_requests)
+    from bert_pytorch_tpu_torch.tasks import classify, predict, registry
+    from bert_pytorch_tpu_torch.training import distill
+    from bert_pytorch_tpu_torch.training.checkpoint import (
+        load_params, strict_load_state)
+    from bert_pytorch_tpu_torch.training.finetune import (
+        eval_buckets, packed_train_batches, run_task, to_device)
+    from bert_pytorch_tpu_torch.training.pretrain import (
+        compute_params, dropout_seeds, loss_and_grads)
+    from bert_pytorch_tpu_torch.training.state import make_train_state
+
+    on_card = torch.device(device).type == "cuda"
+    t_cfg = BertConfig.from_json_file(cfg_path)
+    t_cfg = t_cfg.replace(vocab_size=pad_vocab_size(t_cfg.vocab_size, 8))
+    s_cfg = student_config(student, t_cfg)
+    lt, ls = t_cfg.num_hidden_layers, s_cfg.num_hidden_layers
+    res = {"student": student, "teacher_layers": lt, "student_layers": ls,
+           "student_hidden": s_cfg.hidden_size,
+           "student_heads": s_cfg.num_attention_heads}
+    summary["distill"] = res
+    by_path = summary.setdefault("launches", {})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_distill_")
+    try:
+        vocab = serve_vocab(os.path.join(tmp, "vocab.txt"))
+        tokenizer = get_wordpiece_tokenizer(vocab)
+        files = {split: glue_file(np, os.path.join(
+            tmp, f"classify_{split}.tsv"), "classify", n, seed)
+            for split, n, seed in (("train", 4 * steps * batch, 20),
+                                   ("val", batch, 21), ("test", batch, 22))}
+        common = ["--model_config_file", cfg_path, "--vocab_file", vocab,
+                  "--seed", "0", "--device", device]
+        cls_argv = ["--train_file", files["train"], "--val_file",
+                    files["val"], "--test_file", files["test"],
+                    "--batch_size", str(batch), "--max_seq_len", str(seq),
+                    "--epochs", "1", "--max_steps", str(steps)] + common
+
+        # 1. the teachers, through the finetune entry point
+        t_out = os.path.join(tmp, "teacher_classify")
+        artifact = os.path.join(tmp, "FINETUNE_distill.json")
+        t0 = time.perf_counter()
+        t_res = run_task(registry.get("classify"),
+                         registry.get("classify").parse_arguments(
+                             cls_argv + ["--output_dir", t_out,
+                                         "--perf_artifact", artifact]),
+                         log=lambda m: log(f"distill teacher: {m}"))
+        with open(artifact) as f:
+            perf = json.load(f)["tasks"]["classify"]
+        log(f"distill: classify teacher {steps} steps in "
+            f"{time.perf_counter() - t0:.1f} s, test accuracy "
+            f"{t_res.get('test_accuracy')}; FINETUNE json {perf}")
+        check(set(perf) >= {"real_tokens_per_sec", "pad_fraction",
+                            "packing_efficiency", "seq_per_sec",
+                            "step_time_ms", "mfu", "packing", "steps"},
+              f"distill: FINETUNE json keys {sorted(perf)}")
+        check(not on_card or 0.0 < perf["mfu"] < 1.0,
+              f"distill: the FINETUNE json's mfu {perf['mfu']} on the card")
+        res["teacher_perf_artifact"] = perf
+        sq_batch, sq_seq = squad
+        sq_train = squad_file(np, os.path.join(tmp, "squad.json"),
+                              2 * sq_batch, 23,
+                              (sq_seq // 3 - 8, sq_seq - 14))
+        sq_out = os.path.join(tmp, "teacher_squad")
+        sq_common = ["--do_train", "--train_file", sq_train,
+                     "--train_batch_size", str(sq_batch),
+                     "--max_seq_length", str(sq_seq)] + common
+        run_task(registry.get("squad"), registry.get("squad").parse_arguments(
+            sq_common + ["--output_dir", sq_out, "--max_steps", "1"]),
+            log=lambda m: log(f"distill squad teacher: {m}"))
+        t_ckpt = os.path.join(t_out, "ckpt")
+        t_state = load_params(t_ckpt, log=lambda m: None)[0]
+        t_weights = {k: v.clone() for k, v in t_state.items()}
+        del t_state
+
+        # 2. classify distillation, packed, both tap losses
+        s_out = os.path.join(tmp, "student_classify")
+        d_argv = ["--task", "classify", "--student", student,
+                  "--teacher_checkpoint", t_ckpt, "--packing",
+                  "--alpha_hidden", "1.0", "--alpha_attn", "1.0",
+                  "--output_dir", s_out] + cls_argv
+        arrays = {s: glue.PairClassificationDataset(
+            files[s], tokenizer, GLUE_LABELS, seq).arrays()
+            for s in ("val", "test")}
+        n_val, n_test = (sum(_eval_batches_by_bucket(
+            arrays[s], batch, eval_buckets(seq)).values())
+            for s in ("val", "test"))
+        trace = {}
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        d_sum = run_distill.main(d_argv, log=lambda m: log(f"distill: {m}"),
+                                 trace=trace)
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+                if on_card else None)
+        by_path["distill"] = launches
+        history, run, state = trace["history"], trace["run"], trace["state"]
+        teacher = trace["teacher"]
+        # a step: the student's embedding LayerNorm and 2L residual tails
+        # forward and backward, the teacher's 2Lt + 1 LayerNorms forward
+        # only (deterministic: the plain LayerNorm kernel at every site);
+        # eval: the student's val and test batches, the teacher's test
+        per_step = {"layer_norm_fwd": 1 + 2 * lt + 1, "layer_norm_bwd": 1,
+                    "add_dropout_layer_norm_fwd": 2 * ls,
+                    "add_dropout_layer_norm_bwd": 2 * ls}
+        want = dict({k: 0 for k in LAUNCHES},
+                    **{k: n * len(history) for k, n in per_step.items()})
+        want["layer_norm_fwd"] += ((2 * ls + 1) * (n_val + n_test)
+                                   + (2 * lt + 1) * n_test)
+        projections = [f"layer_{i}" for i in range(ls)]
+        changed = [k for k, v in teacher.state_dict().items()
+                   if not torch.equal(v.cpu(), t_weights[k])]
+        grads = [k for k, p in teacher.named_parameters()
+                 if p.grad is not None]
+        losses_ = [h["loss"] for h in history]
+        log(f"distill: classify {len(history)} packed steps of {batch} x "
+            f"{seq}: losses {losses_}; run_distill {wall:.1f} s, peak "
+            f"memory {peak} GiB; launches {launches} (predicted {want}); "
+            f"summary {json.dumps(d_sum)}")
+        res["classify"] = {
+            "steps": len(history), "losses": losses_, "wall_s": wall,
+            "peak_memory_gib": peak, "launches": launches,
+            "launches_predicted": want, "launches_per_step": per_step,
+            "summary": d_sum, "teacher_params_changed": changed,
+            "teacher_grads": grads,
+            "packing_efficiency": [h["packing_efficiency"]
+                                   for h in history]}
+        check(len(history) == steps and all(np.isfinite(losses_)),
+              f"distill: {len(history)} steps, losses {losses_}")
+        check(not on_card or launches == want,
+              f"distill: launch counts {launches}, want {want}")
+        check(set(DISTILL_SUMMARY_KEYS) <= set(d_sum)
+              and {"test_accuracy", "teacher_test_accuracy",
+                   "accuracy_delta", "teacher_checkpoint_step"} <= set(d_sum),
+              f"distill: summary keys {sorted(d_sum)}")
+        check(d_sum["projections"] == projections
+              and d_sum["layer_map"] == [list(p) for p in
+                                         distill.default_layer_map(ls, lt)],
+              f"distill: projections {d_sum['projections']}, layer map "
+              f"{d_sum['layer_map']}")
+        check(not changed and not grads, f"distill: the teacher's "
+              f"parameters changed {changed[:4]} or hold a gradient "
+              f"{grads[:4]}")
+        with open(os.path.join(s_out, "model_config.json")) as f:
+            check(json.load(f)["debug_taps"] is False,
+                  "distill: the student's model_config.json has debug_taps")
+
+        # 3. one distillation microbatch: kernels against plain
+        batch_np, _, _ = next(packed_train_batches(
+            run.train_arrays, batch, seq, PACKED_SEGMENTS, run.pack_labels,
+            True, 1, run.group_size))
+        batch_np = {k: v[0] for k, v in batch_np.items()}
+        seeds = dropout_seeds(7, 1, 1, run.model.n_dropout_sites)[0]
+        proj = {k: v.detach().clone() for k, v in state.params.items()
+                if k.startswith(distill.PROJ_PREFIX)}
+        s_weights = {k: v.detach().clone()
+                     for k, v in run.model.state_dict().items()}
+        dcfg = distill.DistillConfig(
+            alpha_hidden=1.0, alpha_attn=1.0,
+            layer_map=distill.default_layer_map(ls, lt),
+            max_segments=PACKED_SEGMENTS)
+        kw = dict(dcfg=dcfg, output_kind="segment", packed=True,
+                  label_ignore={"labels": -1})
+
+        def make(cfg):
+            return lambda dtype, plain: BertForSequenceClassification(
+                cfg, num_labels=len(GLUE_LABELS),
+                max_segments=PACKED_SEGMENTS, dtype=dtype, plain=plain)
+
+        makes = (make(s_cfg), make(t_cfg))
+        weights = (s_weights, t_weights)
+        res["kernels_vs_plain"] = _distill_kernels_vs_plain(
+            torch, np, "distill", makes, weights, proj, kw, batch_np, seeds,
+            device)
+
+        # 4. precomputed teacher logits, no tap loss: the same gradients
+        no_taps = dict(kw, dcfg=dataclasses.replace(
+            dcfg, alpha_hidden=0.0, alpha_attn=0.0))
+        micro = to_device(batch_np, device)
+        in_step = _distill_loss_and_grads(
+            torch, makes, weights, {}, no_taps, torch.bfloat16, False,
+            micro, seeds, device)
+        with torch.device(device):
+            t_model = makes[1](torch.bfloat16, False)
+        t_model.load_state_dict(t_weights)
+        with torch.no_grad():
+            t_logits = t_model(
+                micro["input_ids"], token_type_ids=micro["token_type_ids"],
+                attention_mask=micro["attention_mask"],
+                position_ids=micro["position_ids"],
+                segment_ids=micro["segment_ids"])
+        del t_model
+        pre = _distill_loss_and_grads(
+            torch, makes, weights, {}, no_taps, torch.bfloat16, False,
+            dict(micro, teacher_logits=t_logits), seeds, device)
+        bit_equal = (in_step[0] == pre[0] and all(
+            torch.equal(in_step[1][k], pre[1][k]) for k in in_step[1]))
+        log(f"distill: no tap loss, precomputed teacher logits against the "
+            f"in-step teacher: loss {pre[0]!r} vs {in_step[0]!r}, student "
+            f"gradients bit-equal: {bit_equal}")
+        check(bit_equal, "distill: gradients from precomputed teacher "
+              "logits differ from the in-step teacher's")
+        res["precomputed_teacher_bit_equal"] = bit_equal
+        del in_step, pre
+
+        # 5. packed against the same examples one a row, dropout off: the
+        # loss at PACKED_LOSS_LIMIT, the gradients at the pooled tier. The
+        # tap terms dominate the loss and move little with any one
+        # example, so the planted fault (positions not reset at each
+        # packed segment: every example after a row's first sees shifted
+        # positions) must read 10x the loss limit or beyond the gradient
+        # tier
+        units = packed_task_arrays(np, "classify", batch * PACKED_SEGMENTS,
+                                   seq, PACKED_TASKS["classify"][2],
+                                   t_cfg.vocab_size, 24)
+        multi, single = _pack_both_rows(units, batch, seq,
+                                        classify.pack_labels, 1)
+        bad = dict(multi, position_ids=np.ascontiguousarray(np.broadcast_to(
+            np.arange(seq, dtype=np.int32), multi["position_ids"].shape)))
+        lm, lsg, lb = (_distill_loss_and_grads(
+            torch, makes, weights, proj, kw, torch.bfloat16, False,
+            to_device(b, device), None, device) for b in (multi, single,
+                                                          bad))
+        rel = abs(lm[0] - lsg[0]) / abs(lsg[0])
+        bad_rel = abs(lb[0] - lsg[0]) / abs(lsg[0])
+        worst, worst_name = _grad_worst(torch, lm[1], lsg[1], ())
+        bad_worst, _ = _grad_worst(torch, lb[1], lsg[1], ())
+        grad_tol = POOLED_MODEL_TOL["bfloat16"]["grad"]
+        log(f"distill: packed ({len(single['input_ids'])} examples in "
+            f"{batch} rows) against one a row, dropout off: loss {lm[0]!r} "
+            f"vs {lsg[0]!r} (rel {rel:.3g}, limit {PACKED_LOSS_LIMIT:g}); "
+            f"worst gradient rel L2 {worst:.3g} at {worst_name} (tol "
+            f"{grad_tol:g}); planted fault (positions not reset at each "
+            f"segment): loss {bad_rel:.3g}, gradient {bad_worst:.3g}")
+        res["packed_vs_single"] = {
+            "loss_packed": lm[0], "loss_single": lsg[0],
+            "loss_rel_diff": rel, "max_grad_rel_l2": worst,
+            "worst_leaf": worst_name, "planted_loss_rel_diff": bad_rel,
+            "planted_max_grad_rel_l2": bad_worst}
+        del lm, lsg, lb
+        check(rel <= PACKED_LOSS_LIMIT and worst <= grad_tol,
+              f"distill: packed against one a row: loss rel {rel}, "
+              f"gradient {worst_name} rel L2 {worst}")
+        check(bad_rel >= 10 * PACKED_LOSS_LIMIT or bad_worst > grad_tol,
+              f"distill: the planted position fault reads loss {bad_rel}, "
+              f"gradient {bad_worst}")
+
+        # 8. a distillation step's time, split, beside a plain finetune
+        # step of the same student
+        step_batch = {k: v[None] for k, v in micro.items()}
+        step_seeds = dropout_seeds(7, 1, 1, run.model.n_dropout_sites)
+        nums = _finetune_step_numbers(torch, run, state, step_batch,
+                                      step_seeds, on_card, "distill",
+                                      packed=True)
+        plain_run = dataclasses.replace(
+            run, packed_loss_builder=classify._loss_builder)
+        plain_state = make_train_state(run.model, run.tx)
+        plain_nums = _finetune_step_numbers(torch, plain_run, plain_state,
+                                            step_batch, step_seeds,
+                                            on_card,
+                                            "distill: the student's plain "
+                                            "finetune step", packed=True)
+        if on_card:
+            from bert_pytorch_tpu_torch.optim.lamb import global_norm_f32
+
+            gparams = compute_params(state.params, None)
+            loss_fn = run.packed_loss_builder(run.model)
+            t_kwargs = distill._head_kwargs(micro, True, None)
+            grads = loss_and_grads(loss_fn, gparams, micro, seeds)[2]
+            norm = global_norm_f32(list(grads.values()))
+            # Adam updates a copy of the parameters, its moments and the
+            # gradients (the clip scales them in place): the run's state
+            # takes no update from the timing
+            a_params = {k: v.detach().clone()
+                        for k, v in state.params.items()}
+            a_opt = run.tx.init(a_params)
+            a_grads = {k: v.clone() for k, v in grads.items()}
+
+            def teacher_fwd():
+                with torch.no_grad():
+                    teacher(micro["input_ids"], return_taps=True, **t_kwargs)
+
+            parts = {
+                "teacher_forward": teacher_fwd,
+                "loss_and_grads": lambda: loss_and_grads(loss_fn, gparams,
+                                                         micro, seeds),
+                "adam": lambda: run.tx.update(a_grads, a_opt, a_params,
+                                              grad_norm=norm)}
+            split = {k: _device_call_ms(torch, fn)
+                     for k, fn in parts.items()}
+            # the difference of two calls timed apart
+            split["student_forward_backward"] = {
+                k: split["loss_and_grads"][k] - split["teacher_forward"][k]
+                for k in ("host_ms", "device_ms")}
+            nums["split"] = split
+            log(f"distill: a step's split (host clock median of 3 between "
+                f"synchronizations; device time by CUDA events around one "
+                f"call, median of 3, or where the host could not be hidden "
+                f"the profiler's kernel sum; student_forward_backward is "
+                f"loss_and_grads less teacher_forward): {split}; "
+                f"the step {nums['step_ms']:.1f} ms host clock, device "
+                f"{nums['profiled_step']['device_total_ms']:.1f} ms; the "
+                f"student's plain finetune step {plain_nums['step_ms']:.1f} "
+                f"ms host clock, device "
+                f"{plain_nums['profiled_step']['device_total_ms']:.1f} ms")
+            del gparams, grads, a_params, a_opt, a_grads
+        res["step"] = nums
+        res["plain_student_step"] = plain_nums
+        del plain_state, plain_run
+
+        # 7. the student served with its own config
+        handle = run_server.serve(run_server.parse_arguments([
+            "--model_config_file", os.path.join(s_out, "model_config.json"),
+            "--vocab_file", vocab, "--task_checkpoint",
+            f"classify={os.path.join(s_out, 'ckpt')}", "--port", "0",
+            "--host", "127.0.0.1", "--device", device]),
+            log=lambda m: log(f"distill: serve: {m}"))
+        try:
+            health = _get_json(handle.url, "/healthz")
+            body = TASK_BODIES["classify"]
+            code, reply = _post(handle.url, body, route="classify")
+            engine = handle.engine
+        finally:
+            handle.close()
+        _check_reply(np, "classify", body, code, reply, s_cfg.hidden_size)
+        served = health["tasks"]["classify"]["model_params"]
+        t_params = sum(int(v.numel()) for v in t_weights.values())
+        ids, types = predict.encode_pair(tokenizer, body["text"],
+                                         body["text_pair"],
+                                         engine.max_bucket)
+        req = InferenceRequest("classify", np.asarray(ids, np.int32),
+                               np.asarray(types, np.int32))
+        bucket = engine.select_bucket(req.length)
+        eb, places = pack_requests([req], first_fit(
+            [req.length], BATCH_ROWS, bucket, engine.max_segments),
+            BATCH_ROWS, bucket)
+        with torch.device(device):
+            eager = make(s_cfg)(torch.bfloat16, False)
+        s_state = run_server.load_task_params(os.path.join(s_out, "ckpt"),
+                                              log=lambda m: None)
+        strict_load_state(eager, s_state)
+        with torch.inference_mode():
+            out = predict.build_classify_forward(eager.eval())(
+                to_device(eb, device)).float().cpu().numpy()
+        _, row, offset, seg = places[0]
+        want_reply = predict.classify_decode(
+            Scheduler._demux(out, row, offset, req.length, seg, "segment"),
+            SERVE_OPTS["class_names"])
+        diff = max(abs(reply["scores"][k] - v)
+                   for k, v in want_reply["scores"].items())
+        log(f"distill: the student served ({served} parameters, the "
+            f"teacher {t_params}): {code} {reply}; its eager forward "
+            f"{want_reply} (max score diff {diff:.3g})")
+        check(served < t_params, f"distill: served {served} parameters, "
+              f"teacher {t_params}")
+        check(reply["label"] == want_reply["label"] and diff <= 1e-5,
+              f"distill: the served answer {reply} is not the eager "
+              f"forward's {want_reply}")
+        with torch.device("meta"):
+            wrong = make(t_cfg)(torch.bfloat16, False)
+        try:
+            strict_load_state(wrong, s_state)
+            mismatch = None
+        except ValueError as e:
+            mismatch = str(e)
+        log(f"distill: the student's checkpoint under the teacher's "
+            f"config: {mismatch[:200] if mismatch else 'NO ERROR'}")
+        check(mismatch is not None
+              and f"expects {lt} encoder layer(s)" in mismatch
+              and f"carries {ls}" in mismatch and "--student" in mismatch
+              and "model_config.json" in mismatch,
+              f"distill: depth mismatch message {mismatch!r}")
+        res["serve"] = {"code": code, "reply": reply, "eager": want_reply,
+                        "max_score_diff": diff, "served_params": served,
+                        "teacher_params": t_params,
+                        "depth_mismatch": mismatch[:300]}
+        del eager, wrong, s_state, run, state, trace, history, teacher
+
+        # --inject broken_student on the same data and teacher
+        broken = run_distill.main(
+            d_argv[:d_argv.index("--output_dir")]
+            + ["--output_dir", os.path.join(tmp, "student_broken"),
+               "--inject", "broken_student"]
+            + d_argv[d_argv.index("--output_dir") + 2:],
+            log=lambda m: log(f"distill broken: {m}"))
+        separated = broken["accuracy_delta"] > d_sum["accuracy_delta"]
+        log(f"distill: accuracy_delta clean {d_sum['accuracy_delta']}, "
+            f"--inject broken_student {broken['accuracy_delta']}: "
+            + ("separated" if separated else
+               "the synthetic data does not separate them (the CPU test "
+               "tests/test_torch_distill.py carries the contrast)"))
+        res["broken_student"] = {"accuracy_delta": broken["accuracy_delta"],
+                                 "clean_accuracy_delta":
+                                     d_sum["accuracy_delta"],
+                                 "separated": separated}
+        shutil.rmtree(os.path.join(tmp, "student_broken"))
+        shutil.rmtree(t_out)
+
+        # 6. SQuAD distillation at seq 384, unpacked
+        sq_s_out = os.path.join(tmp, "student_squad")
+        trace = {}
+        reset_launches()
+        t0 = time.perf_counter()
+        sq_sum = run_distill.main(
+            ["--task", "squad", "--student", student, "--teacher_checkpoint",
+             os.path.join(sq_out, "ckpt"), "--alpha_hidden", "1.0",
+             "--output_dir", sq_s_out, "--max_steps", str(steps)]
+            + sq_common, log=lambda m: log(f"distill squad: {m}"),
+            trace=trace)
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        by_path["distill_squad"] = launches
+        n = len(trace["history"])
+        per_step = {"layer_norm_fwd": 1 + 2 * lt + 1, "layer_norm_bwd": 1,
+                    "add_dropout_layer_norm_fwd": 2 * ls,
+                    "add_dropout_layer_norm_bwd": 2 * ls,
+                    "flash_attention_fwd": lt + ls,
+                    "flash_attention_bwd": ls}
+        want = dict({k: 0 for k in LAUNCHES},
+                    **{k: c * n for k, c in per_step.items()})
+        sq_losses = [h["loss"] for h in trace["history"]]
+        log(f"distill squad: {n} steps of {sq_batch} x {sq_seq}: losses "
+            f"{sq_losses}; run_distill {wall:.1f} s; launches {launches} "
+            f"(predicted {want})")
+        check(n == steps and all(np.isfinite(sq_losses)),
+              f"distill squad: {n} steps, losses {sq_losses}")
+        check(not on_card or launches == want,
+              f"distill squad: launch counts {launches}, want {want}")
+        res["squad"] = {"steps": n, "losses": sq_losses, "wall_s": wall,
+                        "launches": launches, "launches_predicted": want,
+                        "launches_per_step": per_step,
+                        "projections": sq_sum["projections"]}
+        del trace
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 KERNEL_ROWS = {
     "layer_norm_fwd": {
         "route": "cuda",
@@ -5679,6 +6527,12 @@ def kernels_line(results: dict, by_path: dict, in_checks: dict) -> list:
         if "ms" in r.get("finetune_squad", {}):
             variants = variants or {"train_phase2": nums}
             variants["finetune_squad"] = _line_numbers(r["finetune_squad"])
+        # the distilled student's shapes: the LayerNorms at width 768,
+        # the flash kernels at 12 heads
+        for key in ("distill", "distill_squad"):
+            if "ms" in r.get(key, {}):
+                variants = variants or {"main": nums}
+                variants[key] = _line_numbers(r[key])
         line.append(dict(row, name=name, launches=sum(counts.values()),
                          launches_by_path=counts,
                          launches_in_checks=in_checks.get(name), **nums,
@@ -5692,7 +6546,7 @@ def main(argv=None) -> int:
                     default="device,build,kernels,timing,model_seq1024,"
                             "serve,train_order,train,train_phase2,"
                             "finetune_squad,finetune_ner,finetune_tasks,"
-                            "serve_slo,finetune_packed",
+                            "serve_slo,finetune_packed,distill",
                     help="comma-separated subset, in order (development)")
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke.json")
@@ -5815,6 +6669,8 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
                 phase_serve_slo(torch, np, summary)
             elif phase == "finetune_packed":
                 phase_finetune_packed(torch, np, summary)
+            elif phase == "distill":
+                phase_distill(torch, np, summary)
             else:
                 raise PhaseError(f"unknown phase {phase!r}")
             torch.cuda.synchronize()

@@ -639,14 +639,14 @@ def test_refused_tables_account_for_every_jax_flag(task):
             assert flag.default in refused[dest], dest
 
 
-# --packing is served: tests/test_torch_finetune_packing.py
+# --packing is served: tests/test_torch_finetune_packing.py; so are
+# --perf_artifact and squad's --eval_script
+# (tests/test_torch_tasks.py::test_lifted_finetune_flag_is_served)
 @pytest.mark.parametrize("task,flag", [
     ("ner", ["--metrics_port", "9100"]),
-    ("squad", ["--perf_artifact", "x.json"]),
     ("squad", ["--metrics_port", "9100"]),
     ("squad", ["--watchdog_timeout", "30"]),
-    ("squad", ["--eval_script", "evaluate-v1.1.py"]),
-    ("ner", ["--tokenizer", "bpe"]), ("ner", ["--perf_artifact", "x.json"])])
+    ("ner", ["--tokenizer", "bpe"]), ("ner", ["--watchdog_timeout", "30"])])
 def test_switching_on_a_refused_flag_raises(task, flag):
     from bert_pytorch_tpu_torch.tasks import ner_task, squad_task
 

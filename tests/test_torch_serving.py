@@ -16,6 +16,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 import urllib.error
 import urllib.request
 
@@ -247,6 +248,28 @@ def test_scheduler_runs_each_request_in_its_natural_bucket():
         assert sch.stats()["batches"] == {"squad/32": 1, "squad/16": 1}
     finally:
         sch.close()
+
+
+def test_scheduler_runs_a_backlog_without_a_batching_window():
+    """A batch started by a fresh arrival waits one batching window for
+    stragglers; the requests it leaves behind (another bucket) run at
+    once, not after a second window."""
+    from bert_pytorch_tpu_torch.serving.batcher import Scheduler
+
+    sch = Scheduler(_TwoBucketEngine(), batch_wait_ms=1000).start()
+    try:
+        t0 = time.perf_counter()
+        first, second = (sch.submit("squad", np.arange(ln) + 1)
+                         for ln in (20, 5))
+        sch.result(first, timeout=30)
+        t_first = time.perf_counter() - t0
+        sch.result(second, timeout=30)
+        t_second = time.perf_counter() - t0
+        assert sch.stats()["batches"] == {"squad/32": 1, "squad/16": 1}
+    finally:
+        sch.close()
+    assert t_first >= 1.0
+    assert t_second - t_first < 0.5
 
 
 def test_scheduler_packs_sheds_and_expires():

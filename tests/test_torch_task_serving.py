@@ -287,6 +287,34 @@ def test_packed_answers_match_packing_off(fixture_dir, port_exchange):
         _assert_same_answer(route, p, q, 1e-5)
 
 
+def test_featurize_workers_answer_as_the_handler_threads(fixture_dir,
+                                                         port_exchange):
+    """Featurization in worker processes (the card's default): the same
+    answers and status codes as in the handler threads, a featurization
+    error re-raised in the handler, and the workers gone at close."""
+    from bert_pytorch_tpu_torch.serving.frontend import Featurizer
+
+    in_threads, codes, _ = port_exchange
+    handle = _port_serve(fixture_dir)
+    pool = Featurizer(handle.featurizer.tokenizer, workers=2)
+    try:
+        assert handle.featurizer.workers == 0    # the CPU's default
+        for service in handle.frontend.services.values():
+            service.featurize = pool
+        workers = list(pool._pool._processes.values())
+        assert len(workers) == 2
+        answers, worker_codes, _ = _exchange(handle.url)
+    finally:
+        handle.close()
+        pool.close()
+    assert worker_codes == codes
+    assert [c for c, _ in answers] == [200] * len(answers)
+    for (route, _), (_, got), (_, want) in zip(_requests(), answers,
+                                               in_threads):
+        _assert_same_answer(route, got, want, 1e-5)
+    assert not any(p.is_alive() for p in workers)
+
+
 def test_entry_point_refusals(fixture_dir):
     from bert_pytorch_tpu_torch import run_server
 

@@ -677,8 +677,8 @@ def test_refused_tables_account_for_every_jax_flag(task):
     refused, tuning = pmod._REFUSED, pmod._TUNING
     assert not set(refused) & set(tuning)
     assert set(tuning.values()) <= set(refused)
-    assert {"perf_artifact", "metrics_port",
-            "watchdog_timeout"} <= set(refused)
+    assert {"metrics_port", "watchdog_timeout"} <= set(refused)
+    assert "perf_artifact" not in refused
     assert "packing" not in refused and "packing_max_segments" not in tuning
     for dest, flag in jax_flags.items():
         mine = port_flags[dest]
@@ -688,12 +688,14 @@ def test_refused_tables_account_for_every_jax_flag(task):
             assert flag.default in refused[dest], dest
 
 
-# --packing is served (tests/test_torch_finetune_packing.py): its case
-# here became classify's --perf_artifact
+# --packing is served (tests/test_torch_finetune_packing.py), and so is
+# --perf_artifact (test_lifted_finetune_flag_is_served below)
 @pytest.mark.parametrize("task,flag", [
-    ("classify", ["--perf_artifact", "x.json"]),
-    ("choice", ["--perf_artifact", "x.json"]),
+    ("choice", ["--metrics_port", "9100"]),
+    ("classify", ["--metrics_port", "9100"]),
     ("embed", ["--metrics_port", "9100"]),
+    ("embed", ["--watchdog_timeout", "30"]),
+    ("choice", ["--watchdog_timeout", "30"]),
     ("classify", ["--watchdog_timeout", "30"])])
 def test_switching_on_a_refused_flag_raises(task, flag):
     from bert_pytorch_tpu_torch.tasks import registry
@@ -703,6 +705,26 @@ def test_switching_on_a_refused_flag_raises(task, flag):
     parse(base + ["--packing", "--packing_max_segments", "4"])  # served
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):
         parse(base + flag)
+
+
+@pytest.mark.parametrize("task,flag,dest", [
+    ("squad", ["--perf_artifact", "x.json"], "perf_artifact"),
+    ("squad", ["--eval_script", "evaluate-v1.1.py"], "eval_script"),
+    ("ner", ["--perf_artifact", "x.json"], "perf_artifact"),
+    ("classify", ["--perf_artifact", "x.json"], "perf_artifact"),
+    ("choice", ["--perf_artifact", "x.json"], "perf_artifact")])
+def test_lifted_finetune_flag_is_served(task, flag, dest):
+    """The flags the finetuning slice refused and this port serves now:
+    --perf_artifact (the FINETUNE json, tests/test_torch_finetune_survival)
+    and SQuAD's --eval_script, which JAX accepts and ignores (the eval
+    runs in-process)."""
+    from bert_pytorch_tpu_torch.tasks import registry
+
+    base = {"squad": [], "ner": ["--train_file", "t", "--labels", "O",
+                                 "--model_config_file", "c"]}.get(
+        task, ["--model_config_file", "c", "--output_dir", "o"])
+    args = registry.get(task).parse_arguments(base + flag)
+    assert getattr(args, dest) == flag[1]
 
 
 def test_choice_setup_runs_reference_shaped_batches(tmp_path):
