@@ -95,6 +95,12 @@ class ShardIndex:
         with _h5py().File(self.files[fi], "r") as f:
             return {k: np.asarray(f[k][:]) for k in REQUIRED_KEYS}
 
+    def seq_len(self) -> int:
+        """The sequence length of the shards (the first file's), read
+        without loading its arrays."""
+        with _h5py().File(self.files[0], "r") as f:
+            return int(f["input_ids"].shape[1])
+
 
 class HostShardSampler:
     """Contiguous per-host index stream: the global index space padded by

@@ -20,16 +20,28 @@ Checkpoints: every --num_steps_per_checkpoint steps and at the end of the
 run into <output_dir>/pretrain_ckpts/<global step>/, the newest
 --keep_checkpoints kept (--skip_checkpoint turns saving off). A run
 auto-resumes from the newest checkpoint in its output_dir, which takes
-precedence over --init_checkpoint <dir>[@step] (weights only, from a port
-checkpoint directory). So phase 2 run in phase 1's output_dir continues
-from phase 1's last step with its LAMB moments, and its schedule takes
-the run config's previous_phase_end_step as its offset. Each step's
-dropout seeds are a pure function of (--seed, global step), so a resumed
-run draws the masks an uninterrupted run draws.
+precedence over --init_checkpoint (weights only, through
+training/finetune.load_pretrained_params: a port checkpoint directory
+<dir>[@step], a JAX-package orbax directory, a reference ckpt_*.pt or a
+Google TF release). So phase 2 run in phase 1's output_dir continues from
+phase 1's last step with its LAMB moments, and its schedule takes the run
+config's previous_phase_end_step as its offset. Each step's dropout seeds
+are a pure function of (--seed, global step), so a resumed run draws the
+masks an uninterrupted run draws.
 
-Each optimizer step logs one line (loss, grad_norm, lr, step ms, seq/s)
-to stdout and one JSON record to <output_dir>/<log_prefix>.jsonl. Runs on
-CUDA unless --device cpu.
+Telemetry (telemetry/run.py, as the JAX entry point wires it): a header
+record, then each optimizer step a `train` record (epoch, average_loss,
+step_loss and the step's metrics, with the health pack's) and every
+--log_freq steps a StepWatch `perf` record (step time, seq/s, MFU on the
+card's peak, the host phases data_wait / data_prep / h2d / dispatch /
+metric_flush / checkpoint) in <output_dir>/<log_prefix>.{txt,jsonl} and
+<log_prefix>_metrics.csv; --metrics_port serves them as /metrics with a
+/healthz. Survival (resilience/): each step runs inside the preemption
+guard, and SIGTERM saves the last completed step (exit 143);
+--watchdog_timeout arms the hung-step watchdog; --chaos drills the
+deaths; --slo_config evaluates the train SLOs. `_cli` exits 71 on a
+--nonfinite_action=halt trip and 76 on an --slo_action=halt breach.
+Runs on CUDA unless --device cpu.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ import dataclasses
 import json
 import math
 import os
+import sys
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
@@ -76,20 +89,14 @@ _REFUSED = {
     "rng_impl": ("threefry2x32",),
     "packing": (False,),
     "flight_recorder": ("off",),
-    "metrics_port": (None,),
-    "inject_nonfinite_step": (None,),
     "stream_dir": (None,),
     "tensorboard": ("off",),
     # --device cpu is the port's
     "force_cpu": (False,),
-    "watchdog_timeout": (0, 0.0),
-    "chaos": (None,),
-    "slo_config": (None,),
     "stream_inject": (None,),
 }
-# Flags that only tune a feature refused above (or, for log_freq, the
-# metrics plane's StepWatch, which metrics_port stands for): accepted with
-# any value, since their feature is off.
+# Flags that only tune a feature refused above: accepted with any value,
+# since their feature is off.
 _TUNING = {
     "kfac_inv_interval": "kfac", "kfac_factor_interval": "kfac",
     "kfac_stat_decay": "kfac", "kfac_damping": "kfac",
@@ -98,14 +105,9 @@ _TUNING = {
     "kfac_factor_sync_freq": "kfac",
     "packing_max_segments": "packing", "packing_lookahead": "packing",
     "recorder_window": "flight_recorder",
-    "log_freq": "metrics_port",
     "stream_vocab": "stream_dir", "stream_tokenizer": "stream_dir",
     "stream_seq_len": "stream_dir", "stream_workers": "stream_dir",
     "stream_queue_batches": "stream_dir",
-    "watchdog_action": "watchdog_timeout",
-    "chaos_step": "chaos", "chaos_stall_secs": "chaos",
-    "slo_eval_interval_s": "slo_config", "slo_action": "slo_config",
-    "slo_halt_after_s": "slo_config",
 }
 
 
@@ -124,9 +126,10 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     p.add_argument("--masked_token_fraction", type=float, default=0.2)
     p.add_argument("--max_predictions_per_seq", type=int, default=80)
     p.add_argument("--init_checkpoint", type=str, default="",
-                   help="<checkpoint dir>[@step]: seed the weights (only) "
-                        "from a port checkpoint; an auto-resume from "
-                        "output_dir takes precedence")
+                   help="seed the weights (only) from a port checkpoint "
+                        "<dir>[@step], a JAX orbax directory, a reference "
+                        "ckpt_*.pt or a Google TF release; an auto-resume "
+                        "from output_dir takes precedence")
     p.add_argument("--num_steps_per_checkpoint", type=int, default=200)
     p.add_argument("--keep_checkpoints", type=int, default=3,
                    help="rolling window of checkpoints kept")
@@ -167,13 +170,54 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         "plain versions")
     p.add_argument("--prefetch_batches", type=int, default=2,
                    help="host batches assembled ahead on a thread")
+    p.add_argument("--log_freq", type=int, default=10,
+                   help="optimization steps per StepWatch 'perf' record")
     p.add_argument("--health_pack", type=str, default="on",
                    choices=["on", "off"],
-                   help="non-finite counts of the loss and the gradients")
+                   help="non-finite counts of the loss and the gradients, "
+                        "the grad-norm EMA and spike z-score, the param "
+                        "norm and its drift")
     p.add_argument("--nonfinite_action", type=str, default="log",
                    choices=["log", "skip", "halt"],
                    help="on a non-finite step: 'log' warns and trains on, "
-                        "'skip' drops the update, 'halt' stops the run")
+                        "'skip' drops the update, 'halt' stops the run "
+                        "(exit 71)")
+    p.add_argument("--metrics_port", type=int, default=None,
+                   help="serve /metrics and /healthz on this port while "
+                        "the run lives (0: an ephemeral port, logged)")
+    p.add_argument("--inject_nonfinite_step", type=int, default=None,
+                   help="fault drill: a NaN in layer 0's attention output "
+                        "weight at exactly this global step")
+    p.add_argument("--watchdog_timeout", type=float, default=0.0,
+                   help="hung-step watchdog: a host phase longer than this "
+                        "many seconds dumps every thread's stack and acts "
+                        "per --watchdog_action (0: off)")
+    p.add_argument("--watchdog_action", type=str, default="abort",
+                   choices=["abort", "warn"],
+                   help="on a watchdog trip: 'abort' exits 72 (device "
+                        "side) or 73 (data_wait); 'warn' logs once a stall")
+    p.add_argument("--chaos", type=str, default=None,
+                   choices=["sigkill_at_step", "sigterm_at_step",
+                            "corrupt_newest_ckpt", "stall_dispatch"],
+                   help="fault drill at --chaos_step (resilience/chaos.py); "
+                        "fires only in the first supervised incarnation")
+    p.add_argument("--chaos_step", type=int, default=None,
+                   help="global step the --chaos fault fires at")
+    p.add_argument("--chaos_stall_secs", type=float, default=3.0,
+                   help="stall length of --chaos stall_dispatch")
+    p.add_argument("--slo_config", type=str, default=None,
+                   help="SLO spec file (configs/slo.json): evaluate its "
+                        "train specs (step time, checkpoint freshness, "
+                        "non-finite rate) while the run lives")
+    p.add_argument("--slo_eval_interval_s", type=float, default=5.0,
+                   help="burn-rate engine evaluation period")
+    p.add_argument("--slo_action", type=str, default="log",
+                   choices=["log", "halt"],
+                   help="on a sustained page-severity train SLO breach: "
+                        "'log' goes on, 'halt' exits 76 (retryable)")
+    p.add_argument("--slo_halt_after_s", type=float, default=60.0,
+                   help="how long a page alert fires before --slo_action "
+                        "halt stops the run")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     args = merge_args_with_config(p, argv)
@@ -181,10 +225,15 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     # (--optimizer bert_adam is a JAX choice the port lacks)
     for action in p._actions:  # noqa: SLF001
         value = getattr(args, action.dest, None)
+        if value is None and action.default is None:
+            continue
         if action.choices is not None and value not in action.choices:
             raise NotImplementedError(
                 f"{action.dest}={value!r} is not ported yet (choices "
                 f"{list(action.choices)}; see {_ROADMAP})")
+    if args.chaos and args.chaos_step is None:
+        p.error("--chaos requires --chaos_step (the global step the fault "
+                "fires at)")
     return args
 
 
@@ -206,7 +255,14 @@ def find_mask_token_index(args, config) -> int:
 
 
 class NonFiniteHalt(RuntimeError):
-    """--nonfinite_action=halt tripped on a non-finite loss or gradient."""
+    """--nonfinite_action=halt tripped on a non-finite loss or gradient.
+    `_cli` exits EXIT_NONFINITE_HALT (71), which the supervisor does not
+    retry."""
+
+
+class SLOBreachHalt(RuntimeError):
+    """--slo_action=halt: a page-severity train SLO fired for longer than
+    --slo_halt_after_s. `_cli` exits EXIT_SLO_BREACH (76), retryable."""
 
 
 @dataclasses.dataclass
@@ -268,9 +324,20 @@ def train(args: argparse.Namespace, index,
                                                     init_weights)
     from bert_pytorch_tpu_torch.optim.lamb import Lamb
     from bert_pytorch_tpu_torch.optim.schedulers import make_schedule
-    from bert_pytorch_tpu_torch.telemetry.health import HealthConfig
-    from bert_pytorch_tpu_torch.training.checkpoint import (
-        CheckpointManager, load_init_params)
+    from bert_pytorch_tpu_torch.resilience.chaos import ChaosMonkey
+    from bert_pytorch_tpu_torch.resilience.preemption import (
+        PreemptionGuard, emergency_save, is_preemption_exit)
+    from bert_pytorch_tpu_torch.resilience.watchdog import arm_watchdog
+    from bert_pytorch_tpu_torch.telemetry.health import (
+        HealthConfig, init_telemetry_state)
+    from bert_pytorch_tpu_torch.telemetry.provenance import \
+        collect_provenance
+    from bert_pytorch_tpu_torch.telemetry.run import init_run
+    from bert_pytorch_tpu_torch.telemetry.stepwatch import (
+        flops_per_seq, lookup_peak_flops)
+    from bert_pytorch_tpu_torch.training.checkpoint import CheckpointManager
+    from bert_pytorch_tpu_torch.training.finetune import \
+        load_pretrained_params
     from bert_pytorch_tpu_torch.training.pretrain import build_pretrain_step
     from bert_pytorch_tpu_torch.training.state import make_train_state
 
@@ -305,16 +372,35 @@ def train(args: argparse.Namespace, index,
         vocab_size=config.vocab_size, seed=args.seed,
         prefetch_batches=max(0, args.prefetch_batches))
     os.makedirs(args.output_dir, exist_ok=True)
-    log_path = os.path.join(args.output_dir, args.log_prefix + ".jsonl")
     if not args.skip_checkpoint and args.num_steps_per_checkpoint < 1:
         raise SystemExit("--num_steps_per_checkpoint must be >= 1")
     manager = CheckpointManager(
         os.path.join(args.output_dir, "pretrain_ckpts"),
         max_to_keep=args.keep_checkpoints, log=log)
+    # one telemetry wiring path: the logger's sinks, the registry and the
+    # /metrics + /healthz exporter; everything below is closed in the
+    # finally, on the success and the exception paths
+    tel = init_run("pretrain",
+                   log_prefix=os.path.join(args.output_dir, args.log_prefix),
+                   echo=log, metrics_port=args.metrics_port)
+    guard = watchdog = slo_eval = None
+    # (step, sampler cursor, epoch) of the last completed step, taken
+    # inside the step's guard: the loader's live cursor may already cover
+    # the next batch when a signal lands, and resuming from it would skip
+    # that batch
+    survival: Dict = {}
     try:
+        tel.log_header(**collect_provenance(device))
         if len(loader.sampler) < step_batch:
             raise SystemExit(f"the data holds fewer than one step's batch "
                              f"({step_batch} samples)")
+        if device.type == "cuda":
+            # build (or reuse) the kernels before the watchdog's phases
+            # start: the first step's dispatch must not hold the build
+            from bert_pytorch_tpu_torch.ops.kernels.build import \
+                load_kernels
+
+            load_kernels()
         with torch.device(device):
             model = BertForPreTraining(config, dtype=compute_dtype)
         init_weights(model, torch.Generator(device=device).manual_seed(
@@ -328,7 +414,8 @@ def train(args: argparse.Namespace, index,
         step_fn = build_pretrain_step(
             model, tx, schedule=schedule, accum_steps=accum_steps,
             max_predictions=args.max_predictions_per_seq,
-            grad_dtype=grad_dtype, health=health)
+            grad_dtype=grad_dtype, health=health,
+            nan_inject_step=args.inject_nonfinite_step)
         log(f"device={device} accumulation_steps={accum_steps} "
             f"microbatch={micro} global_batch={step_batch} dtype={args.dtype} "
             f"grad_dtype={grad_name} vocab={config.vocab_size} "
@@ -348,13 +435,53 @@ def train(args: argparse.Namespace, index,
             log(f"auto-resumed from step {resumed_from} "
                 f"({restore_s:.1f} s)")
         elif args.init_checkpoint:
-            load_init_params(args.init_checkpoint, state.params, log=log)
+            load_pretrained_params(args.init_checkpoint, state.params,
+                                   log=log)
+        if health is not None:
+            # attached after the restore and never saved: a checkpoint's
+            # structure is the same with the pack on or off
+            state.telemetry = init_telemetry_state(device)
+        tel.attach_checkpoints(manager)
+
+        seq_len = index.seq_len()
+        peak = (lookup_peak_flops(torch.cuda.get_device_name(device),
+                                  dtype=args.dtype)
+                if device.type == "cuda" else None)
+        step_flops = flops_per_seq(config, seq_len, config.vocab_size,
+                                   args.max_predictions_per_seq) * step_batch
+        sw = tel.make_stepwatch(
+            flops_per_step=step_flops, seqs_per_step=step_batch,
+            seq_len=seq_len, peak_flops=peak, log_freq=args.log_freq,
+            sync=((lambda: torch.cuda.synchronize(device))
+                  if device.type == "cuda" else None))
+        log(f"telemetry: {step_flops / 1e9:.2f} GFLOP/step, peak "
+            f"{(peak or 0) / 1e12:.0f} TFLOP/s, health_pack="
+            f"{args.health_pack} nonfinite_action={args.nonfinite_action} "
+            f"log_freq={args.log_freq}")
+
+        guard = PreemptionGuard(log=log)
+        guard.install()
+        watchdog = arm_watchdog(args.watchdog_timeout, args.watchdog_action,
+                                sw, registry=tel.registry, log=log,
+                                out_dir=args.output_dir)
+        chaos = None
+        if args.chaos:
+            chaos = ChaosMonkey(args.chaos, args.chaos_step,
+                                stall_secs=args.chaos_stall_secs, log=log)
+            if chaos.mode:
+                log(f"CHAOS armed: {chaos.mode} at step {chaos.at_step}")
+        slo_engine = None
+        if args.slo_config:
+            slo_engine, slo_eval = _train_slo(args, tel, manager, log)
+
         n_sites = 1 + 3 * config.num_hidden_layers
         target = args.previous_phase_end_step + args.max_steps
         limit = min(target, state.step + args.steps
                     if args.steps is not None else target)
         history: List[Dict] = []
         saves: List[Dict] = []
+        loss_sum, loss_n = 0.0, 0
+        warned_dropped = False
 
         def save():
             rec = manager.save(state.step, state.state_dict(), extra={
@@ -366,20 +493,74 @@ def train(args: argparse.Namespace, index,
                 f" GB in {rec['seconds']:.1f} s)")
 
         train_start = time.perf_counter()
-        with open(log_path, "a", encoding="utf-8") as log_file:
-            # the loop pulls a batch only for a step it takes, so the
-            # loader's cursor is the last batch trained on
-            while state.step < limit:
+        # the loop pulls a batch only for a step it takes
+        while state.step < limit:
+            if slo_engine is not None and args.slo_action == "halt":
+                _check_slo_halt(slo_engine, args, state.step)
+            with sw.phase("data_wait"):
                 batch_np = next(loader, None)
-                if batch_np is None:
-                    loader.reset_epoch()
-                    continue
-                history.append(_one_step(
-                    step_fn, state, batch_np, accum_steps, micro, device,
-                    args.seed, n_sites, health, log, log_file))
-                if (not args.skip_checkpoint
-                        and state.step % args.num_steps_per_checkpoint == 0):
+            if batch_np is None:
+                loader.reset_epoch()
+                continue
+            if chaos is not None:
+                chaos.before_dispatch(state.step + 1)
+            t0 = time.perf_counter()
+            with sw.phase("data_prep"):
+                seeds = dropout_seeds(args.seed, state.step + 1,
+                                      accum_steps, n_sites)
+                sw.note_tokens(float(batch_np["attention_mask"].sum()))
+            # a signal inside the guard is raised when the step, its
+            # record and the survival snapshot are whole
+            with guard.hold():
+                with sw.phase("h2d"):
+                    batch = {k: torch.from_numpy(v.reshape(
+                        accum_steps, micro, *v.shape[1:])).to(device)
+                        for k, v in batch_np.items()}
+                with sw.phase("dispatch"):
+                    if chaos is not None:
+                        chaos.stall(state.step + 1)
+                    metrics = step_fn(state, batch, seeds)
+                survival.update(step=state.step, sampler=loader.state_dict(),
+                                epoch=loader.sampler.epoch)
+                # reading the metrics waits for the card: the step time
+                # below is the whole step, host and device
+                with sw.phase("metric_flush"):
+                    vals = {k: (v.item() if torch.is_tensor(v) else v)
+                            for k, v in metrics.items()}
+                dt = time.perf_counter() - t0
+                rec = dict(vals, step=state.step, step_ms=dt * 1e3,
+                           seq_per_sec=step_batch / dt)
+                history.append(rec)
+                loss = vals.pop("loss")
+                bad = (vals.get("loss_nonfinite", 0) > 0
+                       or vals.get("grad_nonfinite", 0) > 0)
+                if math.isfinite(loss) and not bad:
+                    loss_sum += loss
+                    loss_n += 1
+                log(f"step {state.step}: loss {loss:.4f} grad_norm "
+                    f"{rec['grad_norm']:.4f} lr {rec['learning_rate']:.4e} "
+                    f"step_ms {rec['step_ms']:.1f} seq/s "
+                    f"{rec['seq_per_sec']:.1f} mlm_accuracy "
+                    f"{rec['mlm_accuracy']:.4f}")
+                warned_dropped = _warn_step(args, state.step, loss, vals,
+                                            bad, warned_dropped, log)
+                tel.log_train(state.step, epoch=loader.sampler.epoch,
+                              average_loss=loss_sum / max(loss_n, 1),
+                              step_loss=loss, **vals)
+            if bad and args.nonfinite_action == "halt":
+                raise NonFiniteHalt(
+                    f"non-finite loss/gradients at step {state.step} and "
+                    "--nonfinite_action=halt; last checkpoint is the "
+                    "restart point")
+            perf = sw.step_done()
+            if perf is not None:
+                tel.log_perf(state.step, perf)
+            if (not args.skip_checkpoint
+                    and state.step % args.num_steps_per_checkpoint == 0):
+                with sw.phase("checkpoint"):
                     save()
+                if chaos is not None:
+                    chaos.after_checkpoint(manager.directory, state.step)
         train_time = time.perf_counter() - train_start
         if history and not args.skip_checkpoint and (
                 not saves or saves[-1]["step"] != state.step):
@@ -393,41 +574,146 @@ def train(args: argparse.Namespace, index,
                               seqs_per_step=step_batch, history=history,
                               state=state, resumed_from=resumed_from,
                               restore_s=restore_s, saves=saves)
+    except BaseException as exc:
+        # the partial StepWatch interval lands before the unwind
+        try:
+            rec = sw.flush()
+            if rec is not None:
+                tel.log_perf(survival.get("step", 0), rec)
+        except Exception:
+            pass
+        # preemption: one synchronous save of the last completed step
+        # (never after a halt: the last checkpoint stays the restart point)
+        preempted = ((guard is not None
+                      and guard.preempted_signal is not None)
+                     or is_preemption_exit(exc))
+        if preempted and not args.skip_checkpoint:
+            if not survival:
+                log("preemption: no step completed this session — nothing "
+                    "to emergency-checkpoint")
+            else:
+                try:
+                    t0 = time.perf_counter()
+                    if emergency_save(manager, survival["step"],
+                                      state.state_dict(), extra={
+                                          "sampler": survival["sampler"],
+                                          "epoch": survival["epoch"],
+                                          "config": _config_echo(args)},
+                                      log=log):
+                        log(f"preemption: emergency save of step "
+                            f"{survival['step']} took "
+                            f"{time.perf_counter() - t0:.2f} s")
+                except Exception as e:
+                    log(f"WARNING: emergency checkpoint failed: {e} (the "
+                        "last periodic checkpoint is the restart point)")
+        raise
     finally:
-        loader.close()
+        for closeable in (slo_eval, watchdog, guard, tel, loader):
+            if closeable is not None:
+                try:
+                    closeable.close()
+                except Exception:
+                    pass
 
 
-def _one_step(step_fn, state, batch_np, accum_steps, micro, device,
-              seed, n_sites, health, log, log_file) -> Dict:
-    t0 = time.perf_counter()
-    batch = {k: torch.from_numpy(v.reshape(accum_steps, micro,
-                                           *v.shape[1:])).to(device)
-             for k, v in batch_np.items()}
-    seeds = dropout_seeds(seed, state.step + 1, accum_steps, n_sites)
-    metrics = step_fn(state, batch, seeds)
-    # reading the metrics waits for the card: the step time below is the
-    # whole step, host and device
-    rec = {k: (v.item() if torch.is_tensor(v) else v)
-           for k, v in metrics.items()}
-    dt = time.perf_counter() - t0
-    rec.update(step=state.step, step_ms=dt * 1e3,
-               seq_per_sec=accum_steps * micro / dt)
-    log(f"step {state.step}: loss {rec['loss']:.4f} grad_norm "
-        f"{rec['grad_norm']:.4f} lr {rec['learning_rate']:.4e} step_ms "
-        f"{rec['step_ms']:.1f} seq/s {rec['seq_per_sec']:.1f} mlm_accuracy "
-        f"{rec['mlm_accuracy']:.4f}")
-    log_file.write(json.dumps(rec) + "\n")
-    log_file.flush()
-    if health is not None and (rec["loss_nonfinite"]
-                               or rec["grad_nonfinite"]):
-        log(f"WARNING: non-finite step {state.step}: "
-            + json.dumps({k: v for k, v in rec.items()
-                          if "nonfinite" in k}))
-        if health.action == "halt":
-            raise NonFiniteHalt(f"non-finite loss or gradients at step "
-                                f"{state.step}")
-    return rec
+def _train_slo(args, tel, manager, log):
+    """The train SLO plane (JAX: run_pretraining.py's slo block): the
+    burn-rate engine over configs/slo.json's `train` specs, reading the
+    registry the loop feeds, with checkpoint_age_s from the manager's
+    freshness; its verdict on /healthz. Returns (engine, evaluator)."""
+    from bert_pytorch_tpu_torch.telemetry.slo import (SLOEngine,
+                                                      SLOEvaluator,
+                                                      load_slo_config)
+
+    cfg = load_slo_config(args.slo_config)
+    specs = cfg.specs_for("train")
+    engine = SLOEngine(specs, cfg.windows, tel.registry, phase="train",
+                       log=log)
+
+    def checkpoint_age_s():
+        _, landed = manager.freshness()
+        if landed is None:
+            return None     # nothing saved or restored yet: no sample
+        return max(0.0, time.time() - float(landed))
+
+    engine.set_source("checkpoint_age_s", checkpoint_age_s)
+    tel.attach_slo(engine)
+    evaluator = SLOEvaluator(engine,
+                             interval_s=args.slo_eval_interval_s).start()
+    log(f"slo: {len(specs)} train spec(s) from {args.slo_config}, "
+        f"action={args.slo_action}"
+        + (f" (halt after {args.slo_halt_after_s:g}s of page-severity "
+           "firing)" if args.slo_action == "halt" else ""))
+    return engine, evaluator
+
+
+def _check_slo_halt(engine, args, step: int) -> None:
+    """Raise SLOBreachHalt once a page alert has fired for
+    --slo_halt_after_s."""
+    since = engine.page_firing_since()
+    if since is not None and time.time() - since >= args.slo_halt_after_s:
+        firing = sorted({a["slo"] for a in engine.alerts_view()["firing"]})
+        raise SLOBreachHalt(
+            f"train SLO breach: page alert(s) {firing} firing for "
+            f"{time.time() - since:.0f}s (>= --slo_halt_after_s "
+            f"{args.slo_halt_after_s:g}) at step {step} — exiting "
+            "EXIT_SLO_BREACH(76) for the supervisor to restart")
+
+
+def _warn_step(args, step: int, loss: float, vals: Dict, bad: bool,
+               warned_dropped: bool, log) -> bool:
+    """The JAX loop's warnings of one step: masked positions beyond
+    --max_predictions_per_seq (once), a non-finite step, a grad-norm
+    spike. Returns whether the dropped-positions warning was given."""
+    if vals.get("mlm_dropped", 0) > 0 and not warned_dropped:
+        warned_dropped = True
+        log(f"WARNING: step {step}: {int(vals['mlm_dropped'])} masked "
+            "positions beyond --max_predictions_per_seq lost supervision — "
+            "the data pipeline and step config disagree (raise "
+            "--max_predictions_per_seq or lower --masked_token_fraction)")
+    if bad:
+        groups = ", ".join(
+            f"{k.removeprefix('grad_nonfinite_')}={int(v)}"
+            for k, v in sorted(vals.items())
+            if k.startswith("grad_nonfinite_") and v > 0)
+        handled = {"log": "training on (--nonfinite_action=log)",
+                   "skip": "update was skipped",
+                   "halt": "halting"}[args.nonfinite_action]
+        log(f"WARNING: step {step}: NON-FINITE loss/gradients (step_loss="
+            f"{loss}, nonfinite grads: {groups or 'none'}) — {handled}")
+    elif vals.get("grad_spike", 0) > 0:
+        log(f"WARNING: step {step}: gradient-norm spike (z="
+            f"{vals.get('grad_norm_z', 0):.1f}, norm="
+            f"{vals.get('grad_norm', 0):.3g} vs EMA "
+            f"{vals.get('grad_norm_ema', 0):.3g})")
+    return warned_dropped
+
+
+def exit_code_of(run: Callable[[], object]) -> int:
+    """Run `run()` under the script's exit-code contract: a NonFiniteHalt
+    exits EXIT_NONFINITE_HALT (71) with a one-line FATAL instead of a
+    traceback (the supervisor does not retry it: a restart replays the
+    same blowup), an SLOBreachHalt EXIT_SLO_BREACH (76, retryable);
+    everything else propagates (a traceback for a bug, 128 + signal for
+    a signal). 0 when `run` returns."""
+    from bert_pytorch_tpu_torch.resilience import (EXIT_NONFINITE_HALT,
+                                                   EXIT_SLO_BREACH)
+
+    try:
+        run()
+    except NonFiniteHalt as e:
+        print(f"FATAL: {e}", file=sys.stderr)
+        return EXIT_NONFINITE_HALT
+    except SLOBreachHalt as e:
+        print(f"FATAL: {e}", file=sys.stderr)
+        return EXIT_SLO_BREACH
+    return 0
+
+
+def _cli(argv=None) -> int:
+    """Script entry: `main` under the exit-code contract."""
+    return exit_code_of(lambda: main(argv))
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(_cli())

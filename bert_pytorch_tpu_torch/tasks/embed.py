@@ -26,7 +26,7 @@ from bert_pytorch_tpu_torch.training.finetune import (
     COMMON_REFUSED, COMMON_TUNING, segment_scalar_pack_labels as pack_labels)
 
 # The JAX base parser's flags whose feature the port lacks (see
-# squad_task): the perf artifact, metrics and the watchdog.
+# squad_task): none are left.
 _REFUSED = dict(COMMON_REFUSED)
 _TUNING = dict(COMMON_TUNING)
 

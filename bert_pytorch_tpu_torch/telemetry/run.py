@@ -1,73 +1,224 @@
 """One wiring path for a run's telemetry: `init_run(phase=...)`
-(counterpart of bert_pytorch_tpu/telemetry/run.py, the serve phase's part:
-no StepWatch, CompileWatch or exporter).
+(counterpart of bert_pytorch_tpu/telemetry/run.py, without the
+CompileWatch, which is XLA's, the flight recorder, the streaming plane
+and the multi-host fold).
 
-    tel = init_run(phase="serve", log_prefix=os.path.join(out, "serve_log"))
+    tel = init_run(phase="pretrain", log_prefix=os.path.join(out, "logfile"),
+                   metrics_port=args.metrics_port)
     tel.log_header(**collect_provenance(device))
-    tel.attach_slo(slo_engine)      # /healthz status from the SLO plane
+    sw = tel.make_stepwatch(flops_per_step=..., seqs_per_step=..., ...)
+    tel.attach_checkpoints(manager)
+    ...
+    tel.log_train(step, step_loss=..., loss_nonfinite=..., ...)
+    rec = sw.step_done();  tel.log_perf(step, rec) if rec else None
     ...
     tel.close()
 
 The handle owns the phase-labeled MetricsRegistry every producer
-publishes through (`.registry`), the MetricLogger (`.logger`), and the
-/healthz liveness snapshot (`healthz()`), whose top-level `status` is
-always present: `ok`, or the SLO engine's ok|degraded|failing verdict
-with a compact `slo` block once one is attached.
+publishes through (`.registry`), the MetricLogger (`.logger`), the
+optional /metrics + /healthz exporter (`.server`, `metrics_port`; 0 binds
+an ephemeral port) and the /healthz snapshot (`healthz()`): the last
+step, the last perf interval, the last health-pack flags, the newest
+non-finite step, checkpoint freshness and a top-level `status` that is
+always present (`ok`, or the SLO engine's ok|degraded|failing verdict).
+
+`log_train` / `log_perf` update the registry and /healthz, then fan out
+through the logger. Every value they take is a host number the loop has
+already read, so the exporter's threads never touch a CUDA tensor.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Callable, Dict, Optional
 
 from bert_pytorch_tpu_torch.telemetry.registry import MetricsRegistry
 from bert_pytorch_tpu_torch.training.metrics import MetricLogger
 
+# health-pack keys a train record may carry; those present drive the
+# non-finite counters and the /healthz flags
+HEALTH_FLAG_KEYS = ("loss_nonfinite", "grad_nonfinite",
+                    "skipped_nonfinite", "grad_spike")
+
+# perf-record fields with gauge families of their own (every other
+# numeric field lands in bert_perf{field=...})
+_PERF_GAUGES = {
+    "step_time_ms": ("bert_step_time_ms",
+                     "wall time per optimization step (ms)"),
+    "seq_per_sec": ("bert_seq_per_sec", "sequences per second"),
+    "tokens_per_sec": ("bert_tokens_per_sec",
+                       "slot tokens per second (pad included)"),
+    "mfu": ("bert_mfu", "model FLOPs utilization vs device peak"),
+}
+
 
 class TelemetryRun:
     """The per-run telemetry handle. Construct via `init_run`."""
 
     def __init__(self, phase: str, logger: MetricLogger,
-                 registry: MetricsRegistry):
+                 registry: MetricsRegistry, server=None):
         self.phase = phase
         self.logger = logger
         self.registry = registry
+        self.server = server
+        self.ckpt_manager = None
         self.slo = None
         self._closed = False
-        self.started_unix = round(time.time(), 3)
+        try:
+            self.supervisor_restarts = int(
+                os.environ.get("BERT_SUPERVISOR_RESTARTS", "0"))
+        except ValueError:
+            self.supervisor_restarts = 0
+        self._health: Dict[str, Any] = {
+            "phase": phase,
+            "started_unix": round(time.time(), 3),
+            "last_step": None,
+            "last_perf_step": None,
+            "last_perf": {},
+            "last_health": {},
+            "last_nonfinite_step": None,
+            "nonfinite_flags": {},
+        }
+        # declared up front so /metrics shows the zeros from the first
+        # scrape
+        self._nonfinite_steps = registry.counter(
+            "bert_nonfinite_steps_total",
+            "steps flagged non-finite by the health pack")
+        self._loss_nonfinite = registry.counter(
+            "bert_loss_nonfinite_steps_total",
+            "steps with a non-finite loss")
+        self._grad_nonfinite = registry.counter(
+            "bert_grad_nonfinite_steps_total",
+            "steps with non-finite gradient elements")
+        registry.counter("bert_train_steps_total",
+                         "optimization steps completed")
+        self._perf_g = {k: registry.gauge(name, help)
+                        for k, (name, help) in _PERF_GAUGES.items()}
+        self._perf_other = registry.gauge(
+            "bert_perf", "other StepWatch interval fields",
+            labels=("field",))
+        if self.supervisor_restarts or "BERT_SUPERVISOR_RESTARTS" in \
+                os.environ:
+            registry.gauge(
+                "bert_supervisor_restarts",
+                "restart count of this process under tools/supervise.py"
+            ).set(float(self.supervisor_restarts))
+            self._health["supervisor_restarts"] = self.supervisor_restarts
 
     def log_header(self, **fields: Any) -> None:
         self.logger.log_header(**fields)
+
+    def make_stepwatch(self, **kwargs):
+        """The run's StepWatch, publishing into the registry; kwargs are
+        StepWatch's."""
+        from bert_pytorch_tpu_torch.telemetry.stepwatch import StepWatch
+
+        kwargs.setdefault("registry", self.registry)
+        return StepWatch(**kwargs)
+
+    def attach_checkpoints(self, manager) -> None:
+        """Checkpoint freshness on /healthz (`last_checkpoint_step`,
+        `seconds_since_checkpoint`) from `manager.freshness()`."""
+        self.ckpt_manager = manager
 
     def attach_slo(self, engine) -> None:
         """SLO plane on /healthz: the engine's verdict becomes the
         payload's `status`, with its `health_summary()` as `slo`."""
         self.slo = engine
 
+    def log_train(self, step: int, **vals: Any) -> None:
+        """One per-step `train` record: the non-finite counters and the
+        /healthz flags, then the logger."""
+        step = int(step)
+        self._health["last_step"] = step
+        flags = {k: vals[k] for k in HEALTH_FLAG_KEYS
+                 if isinstance(vals.get(k), (int, float))}
+        if flags:
+            self._health["last_health"] = flags
+        loss_bad = flags.get("loss_nonfinite", 0) > 0
+        grad_bad = flags.get("grad_nonfinite", 0) > 0
+        if loss_bad or grad_bad:
+            self._health["last_nonfinite_step"] = step
+            self._health["nonfinite_flags"] = flags
+            self._nonfinite_steps.inc()
+            if loss_bad:
+                self._loss_nonfinite.inc()
+            if grad_bad:
+                self._grad_nonfinite.inc()
+        self.logger.log("train", step, **vals)
+
+    def log_perf(self, step: int, record: Dict[str, Any]) -> None:
+        """One StepWatch interval `perf` record: the gauges and /healthz,
+        then the logger."""
+        for k, g in self._perf_g.items():
+            if isinstance(record.get(k), (int, float)):
+                g.set(float(record[k]))
+        for k, v in record.items():
+            if k in self._perf_g or isinstance(v, bool) \
+                    or not isinstance(v, (int, float)):
+                continue
+            self._perf_other.set(float(v), field=k)
+        self._health["last_perf_step"] = int(step)
+        self._health["last_perf"] = {
+            k: record[k] for k in ("step_time_ms", "seq_per_sec", "mfu",
+                                   "data_wait_ms")
+            if isinstance(record.get(k), (int, float))}
+        self.logger.log("perf", int(step), **record)
+
     def healthz(self) -> Dict[str, Any]:
-        """The run's part of /healthz: phase, uptime and `status`."""
-        h: Dict[str, Any] = {
-            "phase": self.phase, "started_unix": self.started_unix,
-            "uptime_secs": round(time.time() - self.started_unix, 1)}
+        """The /healthz payload: a snapshot of the run's liveness."""
+        h = dict(self._health)
+        h["uptime_secs"] = round(time.time() - h["started_unix"], 1)
+        h["status"] = "ok"
         if self.slo is not None:
-            h["slo"] = self.slo.health_summary()
-            h["status"] = h["slo"]["status"]
-        else:
-            h["status"] = "ok"
+            try:
+                h["slo"] = self.slo.health_summary()
+                h["status"] = h["slo"]["status"]
+            except Exception:
+                pass  # a probe must never take the run down
+        if self.ckpt_manager is not None:
+            try:
+                step, t = self.ckpt_manager.freshness()
+                h["last_checkpoint_step"] = step
+                h["seconds_since_checkpoint"] = (
+                    round(time.time() - t, 1) if t is not None else None)
+            except Exception:
+                pass
         return h
 
     def close(self) -> None:
-        """Close the logger's sinks. Idempotent."""
-        if not self._closed:
-            self._closed = True
-            self.logger.close()
+        """Close the exporter first (a scrape must not race the logger's
+        teardown), then the logger's sinks. Idempotent."""
+        if self._closed:
+            return
+        self._closed = True
+        for fn in ((self.server.close if self.server is not None
+                    else None), self.logger.close):
+            if fn is None:
+                continue
+            try:
+                fn()
+            except Exception:
+                pass
 
 
 def init_run(phase: str, log_prefix: Optional[str] = None,
-             echo: Callable[[str], None] = print) -> TelemetryRun:
+             echo: Callable[[str], None] = print,
+             metrics_port: Optional[int] = None) -> TelemetryRun:
     """The run's telemetry in one call: a registry with the constant label
-    `phase` and a MetricLogger over `log_prefix`'s sinks (none without
-    it) that echoes through `echo`."""
-    return TelemetryRun(
-        phase, MetricLogger(log_prefix, echo=echo),
-        MetricsRegistry(constant_labels={"phase": phase}))
+    `phase`, a MetricLogger over `log_prefix`'s sinks (none without it)
+    that echoes through `echo` and publishes into the registry, and, with
+    `metrics_port` (0: an ephemeral port, read `tel.server.port`), the
+    /metrics + /healthz exporter."""
+    registry = MetricsRegistry(constant_labels={"phase": phase})
+    tel = TelemetryRun(phase, MetricLogger(log_prefix, echo=echo,
+                                           registry=registry), registry)
+    if metrics_port is not None:
+        from bert_pytorch_tpu_torch.telemetry.exporter import MetricsServer
+
+        tel.server = MetricsServer(registry, healthz_fn=tel.healthz,
+                                   port=metrics_port)
+        tel.logger.info(f"metrics: serving /metrics and /healthz on "
+                        f"{tel.server.url} (phase={phase})")
+    return tel

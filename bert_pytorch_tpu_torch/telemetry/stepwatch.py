@@ -13,8 +13,11 @@ clock of an interval is only the card's time when the queue has drained.
 `sync` (torch.cuda.synchronize for a CUDA run) is called once at each log
 boundary, before the interval's clock is read, and never between.
 
-The port's loop runs on one card and publishes no registry, so the
-record's device-seconds are the interval's wall time. The one deliberate
+The port runs on one card, so the record's device-seconds are the
+interval's wall time. With a `registry`, `bert_train_steps_total` ticks
+at every `step_done` and `bert_step_time_ms_hist` takes each interval's
+step time. `phase_listener`, when set, hears every phase's entry and exit
+(the hung-step watchdog's feed, resilience/watchdog.py). The one deliberate
 difference in the record from the JAX module: the peak table holds
 the NVIDIA cards' published dense tensor-core peaks, and there is no
 default peak. An unknown device (the CPU included) reports `mfu` 0.0 and
@@ -103,7 +106,8 @@ class StepWatch:
                  seq_len: int, peak_flops: Optional[float],
                  log_freq: int = 10,
                  time_fn: Callable[[], float] = time.perf_counter,
-                 sync: Optional[Callable[[], None]] = None):
+                 sync: Optional[Callable[[], None]] = None,
+                 registry=None):
         self.flops_per_step = float(flops_per_step)
         self.seqs_per_step = float(seqs_per_step)
         self.seq_len = int(seq_len)
@@ -113,19 +117,34 @@ class StepWatch:
         self._time = time_fn
         self._sync = sync
         self._phases: Dict[str, float] = {}
+        # fn(name, entering) on every phase entry and exit, or None
+        self.phase_listener: Optional[Callable[[str, bool], None]] = None
         self._steps = 0
         self._interval_start = self._time()
         self._real_tokens = 0.0
         self._noted_tokens = False
+        self._steps_total = self._step_hist = None
+        if registry is not None:
+            self._steps_total = registry.counter(
+                "bert_train_steps_total", "optimization steps completed")
+            self._step_hist = registry.histogram(
+                "bert_step_time_ms_hist",
+                "distribution of per-step wall time (ms), sampled per "
+                "StepWatch interval")
 
     @contextmanager
     def phase(self, name: str):
+        listener = self.phase_listener
+        if listener is not None:
+            listener(name, True)
         t0 = self._time()
         try:
             yield
         finally:
             self._phases[name] = (self._phases.get(name, 0.0)
                                   + self._time() - t0)
+            if listener is not None:
+                listener(name, False)
 
     @contextmanager
     def pause(self):
@@ -149,6 +168,8 @@ class StepWatch:
         """Count n optimization steps; at a log_freq boundary, return the
         interval record and reset."""
         self._steps += n
+        if self._steps_total is not None:
+            self._steps_total.inc(n)
         if self._steps < self.log_freq:
             return None
         return self._emit()
@@ -162,7 +183,8 @@ class StepWatch:
 
     def _emit(self) -> Dict[str, float]:
         if self._sync is not None:
-            self._sync()
+            with self.phase("metric_flush"):    # a wait for the card
+                self._sync()
         now = self._time()
         wall = max(now - self._interval_start, 1e-9)
         steps = self._steps
@@ -191,6 +213,8 @@ class StepWatch:
         cost = device_seconds / 3600.0 * self.cost_per_device_hour
         rec["cost_per_1k_tokens"] = (round(cost / (cost_tokens / 1000.0), 9)
                                      if cost_tokens > 0 else 0.0)
+        if self._step_hist is not None:
+            self._step_hist.observe(rec["step_time_ms"])
         for name, secs in sorted(self._phases.items()):
             rec[f"{name}_ms"] = round(secs / steps * 1e3, 3)
         self._phases = {}

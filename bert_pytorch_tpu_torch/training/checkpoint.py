@@ -18,18 +18,26 @@ package keeps it:
 
 A save writes the data files into `<step>.tmp-<pid>/`, then the sidecar
 (its digests of the complete files), then commits the step with one
-rename: a step directory either is whole or does not exist. Reading the
-JAX package's orbax checkpoints is not supported.
+rename: a step directory either is whole or does not exist.
+`freshness()` (the newest save or restore) feeds /healthz and the train
+SLO `checkpoint_age_s`.
+
+`load_jax_checkpoint` reads the parameters of a JAX-package (orbax)
+checkpoint directory through tensorstore alone, without orbax or jax:
+each leaf of `<dir>/<step>/state` is a zarr array in its OCDBT store,
+named by its tree path joined with ".".
 """
 
 from __future__ import annotations
 
+import ast
 import json
 import os
 import shutil
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from bert_pytorch_tpu_torch.resilience.manifest import (
@@ -50,6 +58,8 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self._log = log
+        # the newest save or restore of this process: (step, unix time)
+        self._fresh: Tuple[Optional[int], Optional[float]] = (None, None)
 
     def all_steps(self) -> List[int]:
         """Every committed step, ascending."""
@@ -79,7 +89,23 @@ class CheckpointManager:
                           ignore_errors=True)
         nbytes = sum(os.path.getsize(os.path.join(final, f))
                      for f in os.listdir(final))
+        self._fresh = (int(step), time.time())
         return {"bytes": nbytes, "seconds": time.perf_counter() - t0}
+
+    def freshness(self) -> Tuple[Optional[int], Optional[float]]:
+        """(step, unix time) of this process's newest save or restore;
+        before either, the newest step on disk and its directory's mtime
+        ((None, None) without one)."""
+        if self._fresh[0] is not None:
+            return self._fresh
+        step = self.latest_step()
+        if step is None:
+            return None, None
+        try:
+            return step, os.path.getmtime(step_dir_path(self.directory,
+                                                        step))
+        except OSError:
+            return step, None
 
     def verify(self, step: int) -> List[str]:
         """[] when the step matches its sidecar, else the errors."""
@@ -114,6 +140,7 @@ class CheckpointManager:
                            mmap=mmap)
         with open(os.path.join(sd, EXTRA_FILE), encoding="utf-8") as f:
             extra = json.load(f)
+        self._fresh = (int(step), time.time())
         return state, extra, step
 
     def restore_with_fallback(self, map_location: Any = "cpu"
@@ -167,36 +194,63 @@ def load_params(spec: str, log: Callable[[str], None] = print
     return state["params"], step
 
 
-def load_init_params(spec: str, params: Dict[str, torch.Tensor],
-                     log: Callable[[str], None] = print) -> int:
-    """Seed `params` in place from the parameters of a port checkpoint,
-    `<checkpoint dir>[@step]` (a directory of step directories, such as
-    `<output_dir>/pretrain_ckpts`): weights only, the step and the
-    optimizer state stay fresh. Every parameter that is not loaded
-    (absent from the checkpoint, or of another shape) is reported; raises
-    when none matches. Returns the checkpoint's step."""
-    directory = parse_init_checkpoint(spec)[0]
-    src, step = load_params(spec, log=log)
-    loaded, fresh = [], []
-    with torch.no_grad():
-        for k, p in params.items():
-            cand = src.get(k)
-            if cand is not None and tuple(cand.shape) == tuple(p.shape):
-                p.copy_(cand)
-                loaded.append(k)
-            else:
-                fresh.append(k if cand is None else
-                             f"{k} (shape {tuple(cand.shape)} != "
-                             f"{tuple(p.shape)})")
-    if not loaded:
-        raise ValueError(f"--init_checkpoint {spec}: no parameter of this "
-                         "model is in the checkpoint")
-    log(f"init_checkpoint: loaded {len(loaded)} parameters from {directory} "
-        f"step {step}")
-    if fresh:
-        log(f"WARNING: init_checkpoint: {len(fresh)} parameters keep their "
-            f"fresh initialisation: {fresh}")
-    return step
+ORBAX_METADATA = os.path.join("state", "_METADATA")
+
+
+def orbax_steps(directory: str) -> List[int]:
+    """The steps of `directory` that hold a JAX-package (orbax)
+    checkpoint (`<step>/state/_METADATA`, where a port step holds
+    `state.pt`), ascending."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(d) for d in os.listdir(directory) if d.isdigit()
+                  and os.path.isfile(os.path.join(directory, d,
+                                                  ORBAX_METADATA)))
+
+
+def load_jax_checkpoint(spec: str) -> Tuple[Dict[str, np.ndarray], int]:
+    """(the flat flax parameter tree, keys joined with "/", as numpy; the
+    step) of a JAX-package checkpoint directory `<dir>[@step]` (default
+    the newest step), read through tensorstore without orbax or jax. Both
+    encoder layouts come back as saved (a scan-stacked checkpoint's
+    leaves carry the layer axis first); bf16 leaves come back as
+    ml_dtypes.bfloat16. Raises ImportError naming tensorstore when it is
+    not installed."""
+    directory, step = parse_init_checkpoint(spec)
+    steps = orbax_steps(directory)
+    if step is None:
+        if not steps:
+            raise FileNotFoundError(f"no orbax checkpoint step under "
+                                    f"{directory}")
+        step = steps[-1]
+    elif step not in steps:
+        raise FileNotFoundError(f"no orbax checkpoint step {step} under "
+                                f"{directory} (found {steps})")
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(
+            "reading a JAX (orbax) checkpoint needs the tensorstore "
+            "package, which is not installed") from e
+    step_dir = step_dir_path(directory, step)
+    state_dir = os.path.join(step_dir, "state")
+    with open(os.path.join(state_dir, "_METADATA"), encoding="utf-8") as f:
+        meta = json.load(f)
+    driver = "zarr3" if meta.get("use_zarr3") else "zarr"
+    out: Dict[str, np.ndarray] = {}
+    for key, leaf in meta["tree_metadata"].items():
+        names = ([k["key"] for k in leaf["key_metadata"]]
+                 if "key_metadata" in leaf else list(ast.literal_eval(key)))
+        if not names or names[0] != "params":
+            continue
+        arr = ts.open({"driver": driver,
+                       "kvstore": {"driver": "ocdbt",
+                                   "base": f"file://{state_dir}"},
+                       "path": ".".join(names)}, read=True).result()
+        out["/".join(names[1:])] = np.asarray(arr.read().result())
+    if not out:
+        raise ValueError(f"orbax checkpoint {step_dir} holds no params")
+    return out, step
 
 
 # The names of a distillation run's student -> teacher projections

@@ -1,16 +1,17 @@
 """The finetune loop: one for every registered task (counterpart of
-bert_pytorch_tpu/training/finetune.py, without the metrics exporter and
-the watchdog, which ROADMAP queue A lists).
+bert_pytorch_tpu/training/finetune.py).
 
 A task contributes what is task-shaped (model head, loss, featurizer,
 eval and predict) through the `TaskRun` its `TaskSpec.setup` returns; the
 loop owns the rest:
 
 - the weights: random from --seed (`init_weights`, the config's
-  initializer_range), then --init_checkpoint, a port checkpoint directory
-  `<dir>[@step]` (pretraining's `<output_dir>/pretrain_ckpts`), read
-  through `training/checkpoint.load_init_params`: the `bert.*` names of
-  BertForPreTraining are the task heads' too;
+  initializer_range), then --init_checkpoint through
+  `load_pretrained_params`: a port checkpoint directory `<dir>[@step]`
+  (pretraining's `<output_dir>/pretrain_ckpts`), a JAX-package (orbax)
+  checkpoint directory, a reference torch save (`ckpt_*.pt`) or a Google
+  TF release (`.zip`, extracted directory, `.ckpt` prefix); the `bert.*`
+  names of BertForPreTraining are the task heads' too;
 - the steps: shuffled fixed-shape batches (`plain_train_batches`, the
   rows JAX draws from the same seed), `build_pretrain_step` with the
   task's loss and its optimizer (f32 gradients), dropout seeds a pure
@@ -31,11 +32,13 @@ loop owns the rest:
 - the final state saved with `CheckpointManager` under
   `<output_dir>/ckpt/<step>/`, which `run_server --task_checkpoint
   <task>=<output_dir>/ckpt` serves;
-- one JSON record a logged step in `<output_dir>/<log_prefix>.jsonl`
-  (`_JsonlLog`, handed to the task's setup as `record`), and a `perf`
-  record a StepWatch interval (telemetry/stepwatch.py: step time, seq/s,
-  real tokens/s, pad fraction, MFU against the card's peak; the card is
-  synchronised at the interval's end only); --perf_artifact merges the
+- one record a logged step through the run's MetricLogger
+  (telemetry/run.init_run: `<output_dir>/<log_prefix>.{txt,jsonl}` and
+  `_metrics.csv`; its `log` is handed to the task's setup as `record`),
+  and a `perf` record a StepWatch interval (telemetry/stepwatch.py:
+  step time, seq/s, real tokens/s, pad fraction, MFU against the card's
+  peak; the card is synchronised at the interval's end only);
+  --perf_artifact merges the
   last interval into a FINETUNE json (`write_finetune_artifact`);
 - preemption: SIGTERM or SIGINT unwinds the run through
   resilience/preemption.py's guard, which saves the last completed
@@ -44,7 +47,12 @@ loop owns the rest:
   in-place update is never cut in half;
 - parameters beyond the model's own (`TaskRun.extra_params`, a
   distillation run's projections) are trained and saved beside the
-  model's.
+  model's;
+- --metrics_port serves /metrics and /healthz while the run lives
+  (the step counter, the StepWatch gauges), and --watchdog_timeout arms
+  the hung-step watchdog on the StepWatch's phases (resilience/
+  watchdog.py): the two waits for the card, the batch's copy (`h2d`)
+  and the loss's readback (`metric_flush`), are watched phases.
 
 The tasks without an entry point of their own (classify, choice, embed)
 share the JAX base parser's CLI and recipe: `base_finetune_parser`,
@@ -64,29 +72,29 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from bert_pytorch_tpu_torch import FINETUNE_GAPS, resolve_device
+from bert_pytorch_tpu_torch import resolve_device
 from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
 from bert_pytorch_tpu_torch.data.packing import first_fit
 from bert_pytorch_tpu_torch.models.bert import init_weights
 from bert_pytorch_tpu_torch.resilience.preemption import (
     PreemptionGuard, finetune_emergency_save)
+from bert_pytorch_tpu_torch.resilience.watchdog import arm_watchdog
+from bert_pytorch_tpu_torch.telemetry.run import init_run
 from bert_pytorch_tpu_torch.telemetry.stepwatch import (StepWatch,
                                                         flops_per_seq,
                                                         lookup_peak_flops)
 from bert_pytorch_tpu_torch.training.checkpoint import (
-    STATE_FILE, CheckpointManager, load_init_params, parse_init_checkpoint)
+    CheckpointManager, load_jax_checkpoint, load_params, orbax_steps,
+    parse_init_checkpoint)
 from bert_pytorch_tpu_torch.training.pretrain import (build_pretrain_step,
                                                       dropout_seeds)
 from bert_pytorch_tpu_torch.training.state import make_train_state
 
-# the ROADMAP item an --init_checkpoint / --model_checkpoint the port
-# cannot read yet names
-_INIT_GAPS = "ROADMAP.md, queue A: --init_checkpoint from other sources"
 # The JAX finetune flags every task's parser carries whose feature the
 # port lacks: flag -> the values that leave it off (`refuse`), and the
-# flags that only tune such a feature (any value: the feature is off).
-COMMON_REFUSED = {"metrics_port": (None,), "watchdog_timeout": (0, 0.0)}
-COMMON_TUNING = {"watchdog_action": "watchdog_timeout"}
+# flags that only tune such a feature. Every common flag is served.
+COMMON_REFUSED: Dict[str, Tuple] = {}
+COMMON_TUNING: Dict[str, str] = {}
 
 
 def eval_buckets(max_seq_len: int, floor: int = 32) -> Tuple[int, ...]:
@@ -495,7 +503,7 @@ def eval_closures(evals: Dict[str, Callable], record,
     """(epoch_eval, finalize) over `accuracy_evals`' runners: epoch_eval
     records the val accuracy each epoch (None without a val split),
     finalize the test accuracy; both through `record` (the run's
-    _JsonlLog) under `metric`."""
+    MetricLogger.log) under `metric`."""
 
     def epoch_eval(epoch: int) -> Dict[str, float]:
         acc = evals["val"]()
@@ -579,11 +587,14 @@ def write_finetune_artifact(path: str, task: str,
         f.write("\n")
 
 
-def _is_external_source(path: str) -> bool:
-    """A Google TF release (registry name, URL, zip, extracted directory,
-    bare ckpt prefix) or a reference torch save (ckpt_*.pt)?"""
-    if "://" in path or path.endswith((".zip", ".ckpt", ".pt", ".pth",
-                                       ".bin")):
+def _is_tf_source(path: str) -> bool:
+    """Does `path` name an outside weight source (a Google TF release:
+    registry name, URL, zip, extracted directory, bare ckpt prefix; or a
+    reference torch save) rather than a checkpoint directory?"""
+    from bert_pytorch_tpu_torch.models.pretrained import RELEASE_NAMES
+
+    if path in RELEASE_NAMES or "://" in path or path.endswith(
+            (".zip", ".ckpt", ".pt", ".pth", ".bin")):
         return True
     if os.path.isdir(path):
         for _root, _dirs, files in os.walk(path):
@@ -594,33 +605,73 @@ def _is_external_source(path: str) -> bool:
     return os.path.exists(path + ".index")
 
 
-def check_init_checkpoint(spec: str) -> None:
-    """Refuse an --init_checkpoint the port cannot read: a TF release, a
-    reference `ckpt_*.pt`, a registry name, or a directory that holds no
-    port checkpoint step (an orbax checkpoint of the JAX package)."""
-    directory, step = parse_init_checkpoint(spec)
-    if _is_external_source(directory) or not os.path.isdir(directory):
-        raise NotImplementedError(
-            f"--init_checkpoint {spec!r} is not a port checkpoint "
-            "directory: a TF release, a reference torch save and a "
-            f"registry name are not read yet (see {_INIT_GAPS}); pass "
-            "<dir>[@step] of the port's checkpoint steps")
-    steps = CheckpointManager(directory).all_steps()
-    pick = step if step is not None else (steps[-1] if steps else None)
-    if pick not in steps or not os.path.isfile(
-            os.path.join(directory, str(pick), STATE_FILE)):
-        raise NotImplementedError(
-            f"--init_checkpoint {spec!r} holds no port checkpoint step "
-            f"(an orbax checkpoint of the JAX package is not read yet: see "
-            f"{_INIT_GAPS})")
+def load_pretrained_params(spec: str, params: Dict[str, torch.Tensor],
+                           log: Callable[[str], None] = print) -> None:
+    """Seed `params` (by name, in place) from --init_checkpoint `spec`:
+    weights only, the step and the optimizer state stay fresh. The source
+    is, in this order (the JAX package's `load_pretrained_params`):
+
+    - a Google TF release or a reference torch save (`_is_tf_source`):
+      `models/pretrained.from_pretrained`, its vocab re-padded to this
+      model's padded size (embedding rows 0, MLM bias PADDED_VOCAB_BIAS);
+      a registry name or a URL is refused (it needs the network);
+    - a JAX-package (orbax) checkpoint directory `<dir>[@step]` (its
+      steps hold `state/_METADATA`): `training/checkpoint.
+      load_jax_checkpoint`, either encoder layout;
+    - else a port checkpoint directory `<dir>[@step]`.
+
+    Everything lands on the port's names through `params_from_flax`. A
+    parameter that is not loaded (absent, or of another shape) keeps its
+    fresh initialisation and is reported; raises when none matches."""
+    from bert_pytorch_tpu_torch.models.convert import params_from_flax
+
+    if _is_tf_source(spec):
+        from bert_pytorch_tpu_torch.models.pretrained import (
+            PADDED_VOCAB_BIAS, _pad_vocab, from_pretrained)
+
+        _, flat = from_pretrained(spec, vocab_pad_multiple=1,
+                                  next_sentence=True)
+        vocab = params["bert.embeddings.word_embeddings.weight"].shape[0]
+        emb = "bert/embeddings/word_embeddings/embedding"
+        if flat[emb].shape[0] < vocab:
+            flat[emb] = _pad_vocab(flat[emb], vocab, 0.0)
+            if "cls_predictions/bias" in flat:
+                flat["cls_predictions/bias"] = _pad_vocab(
+                    flat["cls_predictions/bias"], vocab, PADDED_VOCAB_BIAS)
+        src = params_from_flax(flat)
+        step = ("torch-ckpt" if spec.endswith((".pt", ".pth", ".bin"))
+                else "tf-release")
+    elif orbax_steps(parse_init_checkpoint(spec)[0]):
+        flat, step = load_jax_checkpoint(spec)
+        src = params_from_flax(flat)
+    else:
+        src, step = load_params(spec, log=log)
+    loaded, fresh = [], []
+    with torch.no_grad():
+        for k, p in params.items():
+            cand = src.get(k)
+            if cand is not None and tuple(cand.shape) == tuple(p.shape):
+                p.copy_(cand)
+                loaded.append(k)
+            else:
+                fresh.append(k if cand is None else
+                             f"{k} (shape {tuple(cand.shape)} != "
+                             f"{tuple(p.shape)})")
+    log(f"init_checkpoint step {step}: loaded {len(loaded)} param leaves, "
+        f"{len(fresh)} fresh-initialized")
+    if fresh:
+        log("WARNING: fresh-initialized (not found in checkpoint or shape "
+            "mismatch): " + ", ".join(sorted(fresh)))
+    if not loaded:
+        raise ValueError(f"checkpoint {spec} (step {step}) shares no "
+                         "same-shaped parameters with this model — wrong "
+                         "checkpoint?")
 
 
 def add_common_finetune_flags(p) -> None:
     """The JAX finetune parsers' common flags (packing, its segment cap,
-    the perf artifact) and the metrics / watchdog flags, with the JAX
-    defaults: the ones whose feature the port lacks are refused by name
-    when switched on; and --device, the port's own."""
-    off = f"not ported: refused unless off ({FINETUNE_GAPS})"
+    the perf artifact, the metrics exporter and the watchdog), with the
+    JAX defaults; and --device, the port's own."""
     p.add_argument("--packing", action="store_true",
                    help="pack several short examples into each row "
                         "(first-fit, per-segment losses)")
@@ -630,33 +681,19 @@ def add_common_finetune_flags(p) -> None:
     p.add_argument("--perf_artifact", type=str, default=None,
                    help="merge this task's last StepWatch interval into "
                         "this FINETUNE json (several tasks accumulate)")
-    p.add_argument("--metrics_port", type=int, default=None, help=off)
-    p.add_argument("--watchdog_timeout", type=float, default=0.0, help=off)
+    p.add_argument("--metrics_port", type=int, default=None,
+                   help="serve /metrics and /healthz on this port while "
+                        "the run lives (0: an ephemeral port, logged)")
+    p.add_argument("--watchdog_timeout", type=float, default=0.0,
+                   help="hung-step watchdog: a host phase longer than this "
+                        "many seconds dumps every thread's stack and acts "
+                        "per --watchdog_action (0: off)")
     p.add_argument("--watchdog_action", type=str, default="abort",
                    choices=["abort", "warn"],
-                   help="tunes --watchdog_timeout (off)")
+                   help="on a watchdog trip: 'abort' exits 72 (device) or "
+                        "73 (input); 'warn' logs once a stall")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
-
-
-class _JsonlLog:
-    """`<output_dir>/<log_prefix>.jsonl`: one {"tag", "step", "time",
-    ...} record a line, and a text line to `log`."""
-
-    def __init__(self, path: str, log: Callable[[str], None]):
-        self.file = open(path, "a", encoding="utf-8")
-        self.out = log
-
-    def __call__(self, tag: str, step: int, **metrics: Any) -> None:
-        self.out(f"[{tag}] step {step} " + " ".join(
-            f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
-            for k, v in metrics.items()))
-        self.file.write(json.dumps({"tag": tag, "step": step,
-                                    "time": time.time(), **metrics}) + "\n")
-        self.file.flush()
-
-    def close(self) -> None:
-        self.file.close()
 
 
 def run_task(spec, args, log: Callable[[str], None] = print,
@@ -670,17 +707,16 @@ def run_task(spec, args, log: Callable[[str], None] = print,
     if not getattr(args, "output_dir", None):
         raise SystemExit("--output_dir is required")
     device = resolve_device(getattr(args, "device", None))
-    init_spec = getattr(args, "init_checkpoint", None) or getattr(
-        args, "model_checkpoint", None)
-    if init_spec:
-        check_init_checkpoint(init_spec)
     os.makedirs(args.output_dir, exist_ok=True)
     config = BertConfig.from_json_file(args.model_config_file)
     config = config.replace(vocab_size=pad_vocab_size(config.vocab_size, 8))
     prefix = getattr(args, "log_prefix", None) or f"{spec.name}_log"
-    record = _JsonlLog(os.path.join(args.output_dir, prefix + ".jsonl"), log)
+    tel = init_run(spec.name, log_prefix=os.path.join(args.output_dir, prefix),
+                   echo=log, metrics_port=getattr(args, "metrics_port", None))
+    record = tel.logger.log
     guard = PreemptionGuard(log=log)
     guard.install()
+    watchdog = None
     # the last completed step's state, which a preemption saves
     survival: Dict[str, Any] = {}
     ckpt_dir = os.path.join(args.output_dir, "ckpt")
@@ -701,16 +737,22 @@ def run_task(spec, args, log: Callable[[str], None] = print,
             args.seed), std=config.initializer_range)
         state = make_train_state(run.model, run.tx, extra=run.extra_params)
         if run.init_checkpoint:
-            load_init_params(run.init_checkpoint, state.params, log=log)
+            load_pretrained_params(run.init_checkpoint, state.params,
+                                   log=log)
         results: Dict[str, Any] = {}
         history: List[Dict[str, Any]] = []
         if trace is not None:
             trace.update(run=run, state=state, history=history,
                          device=device)
         if run.train_arrays is not None and run.total_steps > 0:
+            sw = _stepwatch(args, run, config, device, packing, tel)
+            watchdog = arm_watchdog(
+                getattr(args, "watchdog_timeout", 0.0),
+                getattr(args, "watchdog_action", "abort"), sw,
+                registry=tel.registry, log=log, out_dir=args.output_dir)
             last_perf = _train(spec, args, run, state, config, device,
-                               record, results, history, log, guard,
-                               survival)
+                               results, history, log, guard,
+                               survival, sw, tel)
             CheckpointManager(ckpt_dir, log=log).save(
                 state.step, state.state_dict(),
                 extra={"task": spec.name,
@@ -739,11 +781,13 @@ def run_task(spec, args, log: Callable[[str], None] = print,
                                 log=log)
         raise
     finally:
-        guard.close()
-        record.close()
+        for closeable in (watchdog, guard, tel):
+            if closeable is not None:
+                closeable.close()
 
 
-def _stepwatch(args, run, config, device, packing: bool) -> StepWatch:
+def _stepwatch(args, run, config, device, packing: bool,
+               tel) -> StepWatch:
     """The run's StepWatch on JAX's basis: the rows a step computes (a
     packed step its batch rows; else batch x accum x group) times
     flops_per_seq of the loaded config at the run's sequence length, or
@@ -758,7 +802,7 @@ def _stepwatch(args, run, config, device, packing: bool) -> StepWatch:
     peak = (lookup_peak_flops(torch.cuda.get_device_name(device),
                               dtype=getattr(args, "dtype", "bfloat16"))
             if on_card else None)
-    return StepWatch(
+    return tel.make_stepwatch(
         flops_per_step=(run.flops_per_row or flops_per_seq(
             config, run.seq_len, config.vocab_size, 0)) * rows,
         seqs_per_step=rows, seq_len=run.seq_len, peak_flops=peak,
@@ -766,12 +810,12 @@ def _stepwatch(args, run, config, device, packing: bool) -> StepWatch:
         sync=(lambda: torch.cuda.synchronize(device)) if on_card else None)
 
 
-def _train(spec, args, run, state, config, device, record, results,
-           history, log, guard, survival) -> Optional[Dict[str, Any]]:
+def _train(spec, args, run, state, config, device, results,
+           history, log, guard, survival, sw, tel
+           ) -> Optional[Dict[str, Any]]:
     """The steps; returns the last StepWatch record."""
     accum = run.accum_steps
     packing = bool(getattr(args, "packing", False))
-    sw = _stepwatch(args, run, config, device, packing)
     last_perf = None
     step_fn = build_pretrain_step(
         run.model, run.tx, schedule=run.schedule, accum_steps=accum,
@@ -808,8 +852,9 @@ def _train(spec, args, run, state, config, device, record, results,
                 break
             with sw.phase("data_prep"):
                 seeds = dropout_seeds(args.seed, step + 1, accum, n_sites)
-                batch = to_device(batch_np, device)
                 sw.note_tokens(real)
+            with sw.phase("h2d"):    # a pageable copy waits for the card
+                batch = to_device(batch_np, device)
             with guard.hold(), sw.phase("dispatch"):
                 metrics = step_fn(state, batch, seeds)
                 step += 1
@@ -823,21 +868,25 @@ def _train(spec, args, run, state, config, device, record, results,
             history.append(metrics)
             if not run.log_epoch_metrics and (
                     step % run.log_every == 0 or step == run.total_steps):
-                record("train", step, loss=float(metrics["loss"]),
-                       learning_rate=float(metrics["learning_rate"]),
-                       real_tokens=real, slot_tokens=slots,
-                       packing_efficiency=real / slots)
+                with sw.phase("metric_flush"):   # reading waits for the card
+                    tel.log_train(step, loss=float(metrics["loss"]),
+                                  learning_rate=float(
+                                      metrics["learning_rate"]),
+                                  real_tokens=real, slot_tokens=slots,
+                                  packing_efficiency=real / slots)
             perf = sw.step_done()
             if perf is not None:
-                record("perf", step, **perf)
+                tel.log_perf(step, perf)
                 last_perf = perf
         if run.log_epoch_metrics and metrics is not None:
             # the epoch's mean real tokens a step
             n = max(epoch_steps_done, 1)
-            record("train", step, epoch=epoch, loss=float(metrics["loss"]),
-                   learning_rate=float(metrics["learning_rate"]),
-                   real_tokens=epoch_real / n, slot_tokens=slots,
-                   packing_efficiency=epoch_real / (slots * n))
+            with sw.phase("metric_flush"):
+                tel.log_train(step, epoch=epoch,
+                              loss=float(metrics["loss"]),
+                              learning_rate=float(metrics["learning_rate"]),
+                              real_tokens=epoch_real / n, slot_tokens=slots,
+                              packing_efficiency=epoch_real / (slots * n))
         if run.epoch_eval is not None and step > 0:
             with sw.pause():    # eval is no part of a step's time
                 results.update(run.epoch_eval(epoch) or {})
@@ -846,7 +895,7 @@ def _train(spec, args, run, state, config, device, record, results,
             break
     perf = sw.flush()   # the partial interval: a short run still gets one
     if perf is not None:
-        record("perf", step, **perf)
+        tel.log_perf(step, perf)
         last_perf = perf
     for i, m in enumerate(history):   # reading a loss waits for the card
         history[i] = {k: (v.item() if torch.is_tensor(v) else v)

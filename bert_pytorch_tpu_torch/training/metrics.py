@@ -1,14 +1,22 @@
 """Metric logging with several sinks (counterpart of
-bert_pytorch_tpu/training/metrics.py, trimmed: no TensorBoard sink and no
-registry publication).
+bert_pytorch_tpu/training/metrics.py; no TensorBoard sink, which the
+port refuses).
 
 `logger.log(tag, step, **metrics)` fans one record out to every sink: a
 text line to `echo` (print by default) and to `<log_prefix>.txt`, a JSON
-object to `<log_prefix>.jsonl`, and a row to `<log_prefix>_metrics.csv`
-(whose header widens when a record brings a new key). `log_header` writes
-one `{"tag": "header", ...}` record (the run's provenance) to the text
-and jsonl sinks; `info` writes free text to the text sinks. Without a
-`log_prefix` only `echo` is written.
+object `{"tag", "step", "time", ...}` to `<log_prefix>.jsonl`, and a row
+to `<log_prefix>_metrics.csv` (whose header widens, rows rewritten, when
+a record brings a new key; a resumed run adopts the existing header).
+With a `registry`, every numeric value also lands in the gauges
+`bert_metric{tag, name}` and `bert_last_logged_step{tag}`, so a /metrics
+scrape sees what the sinks see.
+
+`log_header` writes one `{"tag": "header", ...}` record (the run's
+provenance) to the text and jsonl sinks, unless the last header already
+in the jsonl covers it (equal, or a subset of it, wall-clock stamps
+aside): a resumed run does not append the same header again. `info`
+writes free text to the text sinks. Without a `log_prefix` only `echo`
+is written.
 """
 
 from __future__ import annotations
@@ -21,21 +29,35 @@ from typing import Any, Callable, Dict, Optional, TextIO
 
 
 class MetricLogger:
+    # header fields that differ between a run and its resume by nature
+    VOLATILE_HEADER_KEYS = ("time", "time_unix")
+
     def __init__(self, log_prefix: Optional[str] = None,
-                 echo: Callable[[str], None] = print):
+                 echo: Callable[[str], None] = print, registry=None):
         self._echo = echo
         self._closed = False
         self._file: Optional[TextIO] = None
         self._jsonl: Optional[TextIO] = None
+        self.jsonl_path: Optional[str] = None
         self._csv_path: Optional[str] = None
         self._csv_fields: Optional[list] = None
         self._csv_file: Optional[TextIO] = None
+        self._reg_gauge = self._reg_step = None
+        if registry is not None:
+            self._reg_gauge = registry.gauge(
+                "bert_metric", "last logged value per record tag + key",
+                labels=("tag", "name"))
+            self._reg_step = registry.gauge(
+                "bert_last_logged_step", "last step logged per record tag",
+                labels=("tag",))
+        self._last_header = None    # seeded from the jsonl sink on first use
         if log_prefix:
             os.makedirs(os.path.dirname(os.path.abspath(log_prefix)),
                         exist_ok=True)
             self._file = open(f"{log_prefix}.txt", "a", encoding="utf-8")
             self._csv_path = f"{log_prefix}_metrics.csv"
-            self._jsonl = open(f"{log_prefix}.jsonl", "a", encoding="utf-8")
+            self.jsonl_path = f"{log_prefix}.jsonl"
+            self._jsonl = open(self.jsonl_path, "a", encoding="utf-8")
 
     def _line(self, line: str) -> None:
         self._echo(line)
@@ -45,6 +67,12 @@ class MetricLogger:
     def log(self, tag: str, step: int, **metrics: Any) -> None:
         if self._closed:
             return
+        if self._reg_gauge is not None:
+            self._reg_step.set(step, tag=tag)
+            for k, v in metrics.items():
+                if isinstance(v, bool) or not isinstance(v, (int, float)):
+                    continue
+                self._reg_gauge.set(float(v), tag=tag, name=k)
         record = {"tag": tag, "step": step, "time": time.time(), **metrics}
         self._line(f"[{tag}] step {step} " + " ".join(
             f"{k}={_fmt(v)}" for k, v in metrics.items()))
@@ -82,15 +110,66 @@ class MetricLogger:
         if self._csv_file is None:
             self._csv_file = open(self._csv_path, "a", newline="",
                                   encoding="utf-8")
+            if self._csv_file.tell() == 0 and self._csv_fields:
+                csv.writer(self._csv_file).writerow(self._csv_fields)
         csv.DictWriter(self._csv_file, fieldnames=self._csv_fields).writerow(
             {k: record.get(k, "") for k in self._csv_fields})
         self._csv_file.flush()
 
+    @classmethod
+    def _header_norm(cls, fields: Dict[str, Any]) -> Dict[str, str]:
+        """A header's identity: wall-clock stamps left out, values
+        JSON-canonicalised (so a tuple logged now equals the list read
+        back from the jsonl)."""
+        return {k: json.dumps(v, sort_keys=True, default=str)
+                for k, v in fields.items()
+                if k not in cls.VOLATILE_HEADER_KEYS}
+
+    @staticmethod
+    def _header_covered(new: Dict[str, str],
+                        last: Optional[Dict[str, str]]) -> bool:
+        """True when `new` carries nothing the LAST header lacks: equal,
+        or an item-subset of it. Judged against the last header only, so
+        a flip-back (A -> B -> A across resumes) is still recorded."""
+        if last is None:
+            return False
+        return all(last.get(k) == v for k, v in new.items())
+
+    def _existing_last_header(self) -> Optional[Dict[str, str]]:
+        """The normalised fields of the last header already in the jsonl
+        sink (None without one): the resume-append case."""
+        if not self.jsonl_path or not os.path.exists(self.jsonl_path):
+            return None
+        last = None
+        try:
+            with open(self.jsonl_path, encoding="utf-8") as f:
+                for line in f:
+                    try:
+                        rec = json.loads(line)
+                    except ValueError:
+                        continue
+                    if isinstance(rec, dict) and rec.get("tag") == "header":
+                        last = rec
+        except OSError:
+            return None
+        if last is None:
+            return None
+        return self._header_norm({k: v for k, v in last.items()
+                                  if k != "tag"})
+
     def log_header(self, **fields: Any) -> None:
         """One self-describing record at the top of a run (provenance:
-        telemetry/provenance.py), to the text and jsonl sinks."""
+        telemetry/provenance.py), to the text and jsonl sinks; skipped
+        when the last header in the jsonl covers it."""
         if self._closed:
             return
+        norm = self._header_norm(fields)
+        if self._last_header is None:
+            self._last_header = self._existing_last_header()
+        if self._header_covered(norm, self._last_header):
+            self._echo("[header] unchanged on resume (not re-appended)")
+            return
+        self._last_header = norm
         self._line("[header] " + " ".join(
             f"{k}={_fmt(v)}" for k, v in fields.items()))
         if self._jsonl:
@@ -110,6 +189,7 @@ class MetricLogger:
             if f:
                 f.close()
         self._file = self._jsonl = self._csv_file = None
+        self._csv_path = None
 
 
 def _fmt(v: Any) -> str:

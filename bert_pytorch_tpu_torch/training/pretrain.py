@@ -31,7 +31,8 @@ from torch.func import functional_call
 from bert_pytorch_tpu_torch.models import losses
 from bert_pytorch_tpu_torch.optim.lamb import global_norm_f32
 from bert_pytorch_tpu_torch.telemetry.health import (HealthConfig,
-                                                     health_signals)
+                                                     health_signals,
+                                                     health_update)
 from bert_pytorch_tpu_torch.training.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -78,6 +79,27 @@ def compute_params(params: Dict[str, torch.Tensor],
         if grad_dtype is not None and leaf.is_floating_point():
             leaf = leaf.to(grad_dtype)
         out[name] = leaf.requires_grad_()
+    return out
+
+
+# The parameter --inject_nonfinite_step poisons: the first encoder kernel
+# in the JAX tree's sorted-path order, layer 0's attention output
+# projection (its flax kernel's element [0, 0, 0] is this weight's [0, 0]).
+NAN_INJECT_PARAM = "bert.encoder.layers.0.attention.output.weight"
+
+
+def inject_nonfinite(gparams: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """Fault-injection drill (--inject_nonfinite_step): the compute leaves
+    with element [0, 0] of NAN_INJECT_PARAM set to NaN in a copy (the
+    f32 master is untouched), so a real NaN runs attention -> loss ->
+    gradients as a hardware or data blowup would (the JAX package's
+    `inject_nonfinite`)."""
+    out = dict(gparams)
+    leaf = gparams[NAN_INJECT_PARAM].detach().clone()
+    with torch.no_grad():
+        leaf.view(-1)[0] = float("nan")
+    out[NAN_INJECT_PARAM] = leaf.requires_grad_()
     return out
 
 
@@ -142,7 +164,8 @@ def build_pretrain_step(model: nn.Module, tx,
                             Callable[[nn.Module], LossFn]] = None,
                         max_predictions: Optional[int] = None,
                         grad_dtype: Optional[torch.dtype] = None,
-                        health: Optional[HealthConfig] = None
+                        health: Optional[HealthConfig] = None,
+                        nan_inject_step: Optional[int] = None
                         ) -> Callable[[TrainState, Batch,
                                        Optional[torch.Tensor]], Dict]:
     """Returns train_step(state, batch, seeds) -> metrics, which updates
@@ -152,13 +175,20 @@ def build_pretrain_step(model: nn.Module, tx,
     Metrics: loss, grad_norm (before any clip), with the pretraining loss
     mlm_accuracy and mlm_dropped (tensors on the card), learning_rate
     (`schedule` at the step before the update) and, with `health`, the
-    non-finite counts (plus skipped_nonfinite under action "skip")."""
+    non-finite counts (plus skipped_nonfinite under action "skip") and
+    the EMA pack of `health_update` (grad_norm_ema, grad_norm_z,
+    grad_spike, param_norm, param_norm_drift), whose carry the step keeps
+    on `state.telemetry`. `nan_inject_step`: at that global step (the
+    step being taken, 1-based) layer 0's attention output weight carries
+    a NaN in the forward (`inject_nonfinite`)."""
     loss_fn = (pretrain_loss_fn(model, max_predictions)
                if loss_fn_builder is None else loss_fn_builder(model))
 
     def train_step(state: TrainState, batch: Batch,
                    seeds: Optional[torch.Tensor]) -> Dict:
         gparams = compute_params(state.params, grad_dtype)
+        if nan_inject_step is not None and state.step + 1 == nan_inject_step:
+            gparams = inject_nonfinite(gparams)
 
         def micro(i):
             return loss_and_grads(
@@ -188,6 +218,7 @@ def build_pretrain_step(model: nn.Module, tx,
         grad_norm = global_norm_f32(grads.values())
         metrics: Dict = {"loss": loss, "grad_norm": grad_norm}
         skip = False
+        bad = None
         if health is not None:
             hmetrics, bad = health_signals(loss, grads, grad_norm)
             metrics.update(hmetrics)
@@ -197,6 +228,11 @@ def build_pretrain_step(model: nn.Module, tx,
         if not skip:
             tx.update(grads, state.opt_state, state.params,
                       grad_norm=grad_norm)
+        if health is not None:
+            state.telemetry, ema_metrics = health_update(
+                health, state.telemetry, grad_norm, bad,
+                state.params.values())
+            metrics.update(ema_metrics)
         if "mlm_total" in aux:
             metrics["mlm_accuracy"] = (aux["mlm_correct"]
                                        / aux["mlm_total"].clamp_min(1))

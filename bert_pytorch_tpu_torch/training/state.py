@@ -7,7 +7,10 @@ so the model and the state always hold the same weights; the step updates
 them in place, and `load_state_dict` copies a checkpoint into them.
 
 `state_dict()` is what a checkpoint carries: {"step", "params" by name,
-"opt_state": {"count", "mu" by name, "nu" by name}}. Both LAMB routes
+"opt_state": {"count", "mu" by name, "nu" by name}}. `telemetry`, the
+health pack's carry (telemetry/health.TelemetryState), is attached after
+a restore and never saved, so a checkpoint's structure is the same with
+the pack on or off. Both LAMB routes
 and FusedAdam keep that layout, so a state saved under one LAMB route
 resumes under the other.
 """
@@ -15,7 +18,7 @@ resumes under the other.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -29,6 +32,7 @@ class TrainState:
     step: int
     params: Dict[str, torch.Tensor]
     opt_state: Union[LambState, AdamState]
+    telemetry: Optional[Any] = None
 
     def state_dict(self) -> Dict:
         return {"step": int(self.step), "params": dict(self.params),

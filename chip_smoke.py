@@ -162,7 +162,36 @@ Phases, each of which must pass:
             packed against one a row; the student served with its own
             config and its checkpoint refused under the teacher's;
             --inject broken_student; a step's time split beside a plain
-            finetune step of the student.
+            finetune step of the student;
+16. init_sources  --init_checkpoint from other sources at BERT-Large
+            width: random weights from a seed written as the reference's
+            ckpt_1.pt (its src/modeling.py names, `module.` prefixes,
+            30522 vocab rows); a fresh QA model seeded from it holds
+            every bert.* parameter bit-equal to the source and the report
+            names the QA head alone; run_squad (run_task) from it, 2
+            steps of 32 x 384, exact launch counts, its first loss
+            bit-equal to the same run seeded from a port checkpoint of
+            the same weights, which runs with the hung-step watchdog
+            armed (warn) and a spin kernel queued behind each step: the
+            watchdog trips in both waits for the card (the next batch's
+            copy, the loss's readback) as a device hang; a TF release
+            and a JAX orbax directory raise the ImportError naming
+            tensorflow / tensorstore, which the chip machine lacks;
+17. survival  pretraining's survival and metrics planes, phase 1 (96 x
+            128, accumulation 2, health pack on) through the entry
+            point's trainer over in-memory shards: a clean 4-step run
+            with /metrics scraped mid-run and StepWatch perf records
+            (mfu on the card's peak), exact launch counts; SIGTERM before
+            step 3 in a process of its own (chip_smoke.py
+            --pretrain_child, the entry point under `_cli`'s exit codes):
+            exit 143 and an emergency checkpoint of step 2 that verifies,
+            then a resume bit-equal to the clean run (losses and every
+            parameter) whose state holds the checkpoint's keys with the
+            pack off; a stalled dispatch under --watchdog_action warn
+            (one device_hang trip on /metrics, a stacks file) with a NaN
+            step skipped (parameters unchanged); a halt child exits 71;
+            the emergency save's, the restore's and the health pack's
+            times.
 
 The kernels phase also holds the flash kernels of training at phase 2's
 (16, 512, 16, 64): the forward's dropout arm, the dropout mask read out of
@@ -3375,6 +3404,9 @@ def array_index(shards):
         def load(self, fi):
             return dict(shards[fi])
 
+        def seq_len(self):
+            return int(shards[0]["input_ids"].shape[1])
+
     return ArrayIndex()
 
 
@@ -4419,11 +4451,9 @@ def phase_finetune_squad(torch, np, summary, device="cuda",
         losses = [h["loss"] for h in history]
         norms = [h["grad_norm"] for h in history]
         n_params = len(state.params)
-        loaded = [ln for ln in lines if ln.startswith("init_checkpoint: "
-                                                      "loaded")]
-        check(loaded == [f"init_checkpoint: loaded {n_params - 2} parameters"
-                         f" from {os.path.join(ckpt_dir, 'pretrain_ckpts')} "
-                         f"step {prev['step']}"],
+        loaded = [ln for ln in lines if ln.startswith("init_checkpoint ")]
+        check(loaded == [f"init_checkpoint step {prev['step']}: loaded "
+                         f"{n_params - 2} param leaves, 2 fresh-initialized"],
               f"init checkpoint: {loaded}, want every parameter but "
               "qa_outputs' two from the pretraining checkpoint")
         check(len(history) == FINETUNE_STEPS and state.step == FINETUNE_STEPS
@@ -4804,10 +4834,10 @@ def phase_finetune_tasks(torch, np, summary, device="cuda",
             norms = [h["grad_norm"] for h in history]
             if pretrain is not None:
                 loaded = [ln for ln in lines
-                          if ln.startswith("init_checkpoint: loaded")]
-                check(loaded == [f"init_checkpoint: loaded "
-                                 f"{len(state.params) - 2} parameters from "
-                                 f"{pretrain} step {prev['step']}"],
+                          if ln.startswith("init_checkpoint ")]
+                check(loaded == [f"init_checkpoint step {prev['step']}: "
+                                 f"loaded {len(state.params) - 2} param "
+                                 "leaves, 2 fresh-initialized"],
                       f"{what} init checkpoint: {loaded}, want every "
                       "parameter but the classifier's two")
             check(len(history) == FINETUNE_STEPS
@@ -6479,6 +6509,621 @@ _EXTRA_KEYS = ("rate0_ms", "rate0_plain_ms", "pair_ms", "row_ms",
 _PAIR_VARIANTS = ("seq1024", "seq2048", "float32")
 
 
+# -- --init_checkpoint from other sources ------------------------------------
+
+SOURCES_STEPS = 2
+SOURCES_WATCHDOG_S = 2.0        # above any phase of a warm SQuAD step
+SOURCES_STALL_S = 4.0           # the spin queued behind each step, at least
+H100_MAX_CLOCK_HZ = 1.98e9      # the SM clock the spin counts, at most
+
+
+def spinning_steps(torch, build_pretrain_step, secs: float):
+    """`build_pretrain_step` whose steps each queue a spin kernel of at
+    least `secs` seconds behind their own kernels, as a wedged card would
+    hold them: the loop's next wait for the card stalls (the next batch's
+    copy from pageable memory, or the loss's readback). The numbers are
+    the real step's."""
+    cycles = int(secs * H100_MAX_CLOCK_HZ)
+
+    def build(*a, **kw):
+        step_fn = build_pretrain_step(*a, **kw)
+
+        def step(*args):
+            metrics = step_fn(*args)
+            torch.cuda._sleep(cycles)
+            return metrics
+        return step
+    return build
+
+
+def reference_state_dict(sd: dict, vocab: int) -> dict:
+    """The port's BertForPreTraining state_dict in the reference's naming
+    (src/modeling.py, what its ckpt_*.pt holds under 'model'): the fused
+    QKV split into query / key / value, LayerNorm scale/bias as
+    weight/bias, the vocab rows cut to the release's `vocab`, and the
+    tied decoder weight stored beside the embedding as the reference
+    stores it. Linear weights keep their (out, in) layout."""
+    tail = {"attention.output.weight": "attention.output.dense.weight",
+            "attention.output.bias": "attention.output.dense.bias",
+            "attention_layer_norm.scale": "attention.output.LayerNorm.weight",
+            "attention_layer_norm.bias": "attention.output.LayerNorm.bias",
+            "intermediate.weight": "intermediate.dense.weight",
+            "intermediate.bias": "intermediate.dense.bias",
+            "mlp_output.weight": "output.dense.weight",
+            "mlp_output.bias": "output.dense.bias",
+            "output_layer_norm.scale": "output.LayerNorm.weight",
+            "output_layer_norm.bias": "output.LayerNorm.bias"}
+    heads = {"bert.embeddings.layer_norm.scale":
+             "bert.embeddings.LayerNorm.weight",
+             "bert.embeddings.layer_norm.bias":
+             "bert.embeddings.LayerNorm.bias",
+             "cls_predictions.transform.weight":
+             "cls.predictions.transform.dense.weight",
+             "cls_predictions.transform.bias":
+             "cls.predictions.transform.dense.bias",
+             "cls_predictions.layer_norm.scale":
+             "cls.predictions.transform.LayerNorm.weight",
+             "cls_predictions.layer_norm.bias":
+             "cls.predictions.transform.LayerNorm.bias",
+             "cls_seq_relationship.weight": "cls.seq_relationship.weight",
+             "cls_seq_relationship.bias": "cls.seq_relationship.bias"}
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("bert.encoder.layers."):
+            i, rest = k[len("bert.encoder.layers."):].split(".", 1)
+            p = f"bert.encoder.layer.{i}."
+            if rest.startswith("attention.qkv."):
+                leaf = rest.rsplit(".", 1)[1]
+                for n, part in zip(("query", "key", "value"),
+                                   v.chunk(3, dim=0)):
+                    out[f"{p}attention.self.{n}.{leaf}"] = part
+            else:
+                out[p + tail[rest]] = v
+        elif k == "bert.embeddings.word_embeddings.weight":
+            out[k] = v[:vocab]
+            out["cls.predictions.decoder.weight"] = v[:vocab]
+        elif k == "cls_predictions.bias":
+            out["cls.predictions.bias"] = v[:vocab]
+        else:
+            out[heads.get(k, k)] = v
+    return out
+
+
+def _missing_package_error(spec: str, pkg: str, load) -> dict:
+    """`load(spec)` where `pkg` cannot be imported: it must raise an
+    ImportError naming `pkg` (no fresh-initialised fallback). Where the
+    package is installed, the case is recorded and not run."""
+    import importlib
+
+    try:
+        importlib.import_module(pkg)
+        return {"package": pkg, "installed": True}
+    except ImportError:
+        pass
+    try:
+        load(spec)
+    except ImportError as e:
+        check(pkg in str(e), f"{spec}: ImportError {e} does not name {pkg}")
+        return {"package": pkg, "installed": False, "error": str(e)}
+    raise PhaseError(f"{spec}: read without {pkg} installed")
+
+
+def phase_init_sources(torch, np, summary, device="cuda",
+                       cfg_path=os.path.join(
+                           HERE, "configs",
+                           "bert_large_uncased_config.json"),
+                       batch=SQUAD_ATTN[0]):
+    """--init_checkpoint from another source, at `cfg_path`'s width
+    (BERT-Large): random weights from a seed written as the reference's
+    `ckpt_1.pt` ({'model': state_dict} in src/modeling.py naming, each
+    name `module.`-prefixed, the release's 30522 vocab rows; the padded
+    rows are zero in the source) and as a port checkpoint. A fresh QA
+    model seeded from the .pt must hold every bert.* parameter bit-equal
+    to the source, with the report naming the QA head alone fresh; then
+    run_squad (run_task) trains SOURCES_STEPS steps of `batch` x 384 from
+    the .pt (exact launch counts) and one step from the port checkpoint,
+    and the two first losses must be bit-equal. A TF release and a JAX
+    orbax directory must raise the ImportError naming tensorflow /
+    tensorstore where those are not installed (the chip machine has
+    neither). `device`, `cfg_path` and `batch` exist so the phase can be
+    rehearsed on the CPU at a tiny size."""
+    import shutil
+
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.models.bert import (BertForPreTraining,
+                                                    BertForQuestionAnswering,
+                                                    init_weights)
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from bert_pytorch_tpu_torch.tasks import registry
+    from bert_pytorch_tpu_torch.tasks.squad_task import parse_arguments
+    from bert_pytorch_tpu_torch.training.checkpoint import CheckpointManager
+    from bert_pytorch_tpu_torch.training import finetune
+    from bert_pytorch_tpu_torch.training.finetune import (
+        load_pretrained_params, run_task)
+
+    on_card = torch.device(device).type == "cuda"
+    seq = SQUAD_ATTN[1]
+    config = BertConfig.from_json_file(cfg_path)
+    vocab = config.vocab_size
+    config = config.replace(vocab_size=pad_vocab_size(vocab, 8))
+    layers = config.num_hidden_layers
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sources_")
+    res = {}
+    summary["init_sources"] = res
+    try:
+        with torch.device(device):
+            src = BertForPreTraining(config.replace(next_sentence=True),
+                                     dtype=torch.float32)
+        init_weights(src, torch.Generator(device=device).manual_seed(3),
+                     std=config.initializer_range)
+        sd = {k: v.detach() for k, v in src.state_dict().items()}
+        with torch.no_grad():
+            sd["bert.embeddings.word_embeddings.weight"][vocab:] = 0
+        t0 = time.perf_counter()
+        ref_dir = os.path.join(tmp, "reference")
+        os.makedirs(ref_dir)
+        pt = os.path.join(ref_dir, "ckpt_1.pt")
+        torch.save({"model": {f"module.{k}": v.cpu() for k, v in
+                              reference_state_dict(sd, vocab).items()},
+                    "optimizer": {}, "epoch": 1}, pt)
+        shutil.copy(cfg_path, os.path.join(ref_dir, "bert_config.json"))
+        res["write_pt_s"] = time.perf_counter() - t0
+        res["pt_bytes"] = os.path.getsize(pt)
+        t0 = time.perf_counter()
+        port_dir = os.path.join(tmp, "port")
+        CheckpointManager(port_dir).save(1, {"step": 1, "params": sd})
+        res["write_port_s"] = time.perf_counter() - t0
+        del src
+
+        # the conversion: a fresh QA model from the .pt, bit for bit
+        with torch.device(device):
+            qa = BertForQuestionAnswering(config, dtype=torch.float32)
+        params = {k: p.detach() for k, p in qa.named_parameters()}
+        lines = []
+        t0 = time.perf_counter()
+        load_pretrained_params(pt, params, log=lines.append)
+        res["load_s"] = time.perf_counter() - t0
+        bert = [k for k in params if k.startswith("bert.")]
+        differ = [k for k in bert if not torch.equal(params[k], sd[k])]
+        check(len(bert) == len(params) - 2 and not differ,
+              f"parameters not bit-equal to the source: {differ[:5]}")
+        want_lines = [
+            f"init_checkpoint step torch-ckpt: loaded {len(bert)} param "
+            "leaves, 2 fresh-initialized",
+            "WARNING: fresh-initialized (not found in checkpoint or shape "
+            "mismatch): qa_outputs.bias, qa_outputs.weight"]
+        check(lines == want_lines, f"report {lines}, want {want_lines}")
+        res["bit_equal_params"] = len(bert)
+        del qa, params, sd
+        log(f"init_sources: {len(bert)} bert.* parameters from {pt} "
+            f"({res['pt_bytes'] / 1e9:.3f} GB written in "
+            f"{res['write_pt_s']:.1f} s) bit-equal to the source; read in "
+            f"{res['load_s']:.1f} s; the report names the QA head alone")
+
+        # run_squad from the .pt and from the port checkpoint
+        vocab_file = serve_vocab(os.path.join(tmp, "vocab.txt"))
+        train = squad_file(np, os.path.join(tmp, "train.json"),
+                           (SOURCES_STEPS + 1) * batch, 0, (60, 330))
+
+        def squad(init, steps, name, extra=(), lines=None):
+            args = parse_arguments([
+                "--do_train", "--train_file", train, "--model_config_file",
+                cfg_path, "--vocab_file", vocab_file, "--output_dir",
+                os.path.join(tmp, name), "--init_checkpoint", init,
+                "--max_seq_length", str(seq), "--train_batch_size",
+                str(batch), "--max_steps", str(steps), "--seed", "0",
+                "--device", device, *extra])
+            trace = {}
+            reset_launches()
+
+            def out(m):
+                log(f"init_sources: {name}: {m}")
+                if lines is not None:
+                    lines.append(m)
+            t0 = time.perf_counter()
+            run_task(registry.get("squad"), args, log=out, trace=trace)
+            wall = time.perf_counter() - t0
+            return trace["history"], dict(LAUNCHES), wall
+
+        hist, launches, wall = squad(pt, SOURCES_STEPS, "from_pt")
+        summary.setdefault("launches", {})["init_sources"] = launches
+        want = {"layer_norm_fwd": SOURCES_STEPS,
+                "layer_norm_bwd": SOURCES_STEPS,
+                "add_dropout_layer_norm_fwd": 2 * layers * SOURCES_STEPS,
+                "add_dropout_layer_norm_bwd": 2 * layers * SOURCES_STEPS,
+                "flash_attention_fwd": layers * SOURCES_STEPS,
+                "flash_attention_bwd": layers * SOURCES_STEPS,
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                "lamb_stage1": 0, "lamb_stage2": 0}
+        if on_card:
+            check(launches == want, f"launch counts {launches}, want {want}")
+        losses = [h["loss"] for h in hist]
+        check(len(hist) == SOURCES_STEPS and all(np.isfinite(losses)),
+              f"run_squad from the .pt: losses {losses}")
+        # from the port checkpoint; on the card with the watchdog armed
+        # and a spin behind each step, so that it trips in the second
+        # batch's copy and in the last step's readback
+        lines = []
+        drill = (["--watchdog_timeout", str(SOURCES_WATCHDOG_S),
+                  "--watchdog_action", "warn"] if on_card else [])
+        real_build = finetune.build_pretrain_step
+        if on_card:
+            finetune.build_pretrain_step = spinning_steps(
+                torch, real_build, SOURCES_STALL_S)
+        try:
+            hist_port, _, wall_port = squad(
+                f"{port_dir}@1", SOURCES_STEPS if on_card else 1,
+                "from_port", extra=drill, lines=lines)
+        finally:
+            finetune.build_pretrain_step = real_build
+        check(hist_port[0]["loss"] == losses[0],
+              f"first loss from the .pt {losses[0]!r} != from the port "
+              f"checkpoint {hist_port[0]['loss']!r}")
+        res.update(squad_steps=SOURCES_STEPS, batch=batch, seq=seq,
+                   losses=losses, first_loss_from_port=hist_port[0]["loss"],
+                   run_task_s=wall, run_task_port_s=wall_port,
+                   launches=launches, launches_predicted=want)
+        if on_card:
+            trips = [ln for ln in lines if ln.startswith("WATCHDOG:")]
+            phases = [ln.split("'")[1] for ln in trips]
+            stacks = [f for f in os.listdir(os.path.join(tmp, "from_port"))
+                      if f.startswith("watchdog_stacks_")
+                      and f.endswith("_device_hang.txt")]
+            check(phases == ["h2d", "metric_flush"] and len(stacks) >= 1
+                  and all("device_hang" in ln for ln in trips),
+                  f"finetune watchdog: trips {trips}, stacks {stacks}")
+            res["finetune_watchdog"] = {
+                "timeout_s": SOURCES_WATCHDOG_S,
+                "spin_s_at_least": SOURCES_STALL_S, "phases": phases,
+                "ages_s": [float(ln.split("stalled for ")[1].split("s")[0])
+                           for ln in trips]}
+        log(f"init_sources: run_squad from the .pt: losses {losses} "
+            f"({wall:.1f} s), first loss bit-equal to the port "
+            f"checkpoint's ({wall_port:.1f} s); launches {launches}; "
+            f"finetune watchdog {res.get('finetune_watchdog')}")
+
+        # a TF release and an orbax directory without their packages
+        release = os.path.join(tmp, "release")
+        os.makedirs(release)
+        shutil.copy(cfg_path, os.path.join(release, "bert_config.json"))
+        open(os.path.join(release, "bert_model.ckpt.index"), "w").close()
+        orbax = os.path.join(tmp, "orbax", "1", "state")
+        os.makedirs(orbax)
+        with open(os.path.join(orbax, "_METADATA"), "w") as f:
+            json.dump({"tree_metadata": {}, "use_zarr3": False}, f)
+        small = {"bert.embeddings.word_embeddings.weight":
+                 torch.zeros(8, 4)}
+
+        def load(spec):
+            load_pretrained_params(spec, small, log=lambda m: None)
+
+        res["missing_packages"] = [
+            _missing_package_error(release, "tensorflow", load),
+            _missing_package_error(os.path.dirname(os.path.dirname(orbax)),
+                                   "tensorstore", load)]
+        log(f"init_sources: without their packages: "
+            f"{res['missing_packages']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- pretraining's survival and metrics planes -------------------------------
+
+SURVIVAL_STEPS = 4
+SURVIVAL_MICRO = 96             # phase 1's microbatch, accumulation 2
+SURVIVAL_SAMPLES = 400          # a shard; two shards hold 4 steps of 192
+SURVIVAL_WATCHDOG_S = 5.0       # above any phase of a normal step
+SURVIVAL_STALL_S = 8.0
+
+
+def survival_index(np, vocab: int, micro: int):
+    """The in-memory phase-1 shards of the survival runs (seq 128): two,
+    each a little over two steps of 2 x `micro`."""
+    n = SURVIVAL_SAMPLES * micro // SURVIVAL_MICRO
+    return array_index([pretraining_arrays(np, n, 128, vocab, seed)
+                        for seed in (0, 1)])
+
+
+def _survival_argv(cfg_path, out, device, micro, *extra):
+    return ["--config_file", PHASE1_CONFIG, "--model_config_file", cfg_path,
+            "--output_dir", out, "--local_batch_size", str(micro),
+            "--global_batch_size", str(2 * micro),
+            "--max_steps", str(SURVIVAL_STEPS), "--fused_optim", "auto",
+            "--vocab_pad_multiple", "8", "--seed", "0", "--log_freq", "1",
+            "--health_pack", "on", "--device", device, *extra]
+
+
+def pretrain_child(argv) -> int:
+    """`chip_smoke.py --pretrain_child -- <run_pretraining flags>`: the
+    entry point's run in a process of its own, under its exit-code
+    contract (`run_pretraining.exit_code_of`, which `_cli` is), over the
+    survival phase's in-memory shards: the chip machine has no h5py, so
+    only the file read differs from `python -m
+    bert_pytorch_tpu_torch.run_pretraining`."""
+    import numpy as np
+
+    sys.path.insert(0, HERE)
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+
+    args = run_pretraining.parse_arguments(argv)
+    vocab = pad_vocab_size(BertConfig.from_json_file(
+        args.model_config_file).vocab_size, args.vocab_pad_multiple)
+    index = survival_index(np, vocab, args.local_batch_size)
+    return run_pretraining.exit_code_of(
+        lambda: run_pretraining.train(args, index))
+
+
+def _child(argv, timeout: float = 600.0):
+    """(exit code, output) of a pretrain_child process."""
+    r = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                        "--pretrain_child", "--", *argv], cwd=HERE,
+                       capture_output=True, text=True, timeout=timeout)
+    return r.returncode, r.stdout + r.stderr
+
+
+def _params_digest(torch, params: dict) -> dict:
+    import hashlib
+
+    return {k: hashlib.sha256(v.detach().contiguous().cpu().numpy()
+                              .tobytes()).hexdigest()
+            for k, v in params.items()}
+
+
+def _scrape(url: str) -> dict:
+    from bert_pytorch_tpu_torch.telemetry.registry import parse_prometheus
+
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+        return parse_prometheus(r.read().decode())
+
+
+def phase_survival(torch, np, summary, device="cuda",
+                   cfg_path=os.path.join(HERE, "configs",
+                                         "bert_large_uncased_config.json"),
+                   watchdog_s=SURVIVAL_WATCHDOG_S,
+                   stall_s=SURVIVAL_STALL_S, micro=SURVIVAL_MICRO):
+    """Pretraining's survival and metrics planes at `cfg_path`'s width
+    (BERT-Large), phase 1's 96 x 128 microbatch at accumulation 2, the
+    health pack on, through the entry point's trainer over in-memory
+    shards (runs that must die run in a process of their own,
+    `pretrain_child`):
+
+    - a clean SURVIVAL_STEPS-step run with --metrics_port 0 and
+      --log_freq 1 (exact launch counts; /metrics scraped mid-run shows
+      the bert_* families; each perf record's mfu in (0, 1) on the card's
+      peak): its losses and final parameters are the reference;
+    - --chaos sigterm_at_step at step 3 in a child: exit 143 and an
+      emergency checkpoint of step 2 that verifies; the resume (health
+      pack off) to step 4 is bit-equal to the clean run (losses and every
+      parameter); the checkpoint's keys are the pack-off state's;
+    - --chaos stall_dispatch at step 3 under --watchdog_action warn, with
+      --inject_nonfinite_step 2 --nonfinite_action skip: one device_hang
+      trip, counted on /metrics, and a stacks file; step 2 dropped, the
+      parameters unchanged (its param_norm equal to step 1's, drift 0);
+    - --inject_nonfinite_step 2 --nonfinite_action halt in a child: exit
+      71;
+    - the health pack's host and device time on the clean run's state,
+      and the emergency save's and the resume's seconds.
+
+    `device`, `cfg_path`, the watchdog's seconds and `micro` exist so
+    the phase can be rehearsed on the CPU at a tiny size."""
+    import shutil
+
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from bert_pytorch_tpu_torch.telemetry.health import (HealthConfig,
+                                                         health_update)
+    from bert_pytorch_tpu_torch.training.checkpoint import (STATE_FILE,
+                                                            CheckpointManager)
+
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_survival_")
+    res = {}
+    summary["survival"] = res
+    try:
+        args = run_pretraining.parse_arguments(
+            _survival_argv(cfg_path, os.path.join(tmp, "clean"), device, micro,
+                           "--skip_checkpoint", "--metrics_port", "0"))
+        from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+
+        config = BertConfig.from_json_file(cfg_path)
+        vocab = pad_vocab_size(config.vocab_size, 8)
+        layers = config.num_hidden_layers
+        index = survival_index(np, vocab, micro)
+        scraped = {}
+
+        # the stall run's watchdog trips, by the step in flight
+        trips = []
+
+        def note(run):
+            def out(msg):
+                log(f"survival: {run}: {msg}")
+                if run == "stall" and msg.startswith("step "):
+                    scraped["last_step"] = int(msg.split()[1][:-1])
+                if msg.startswith("WATCHDOG: phase"):
+                    trips.append((scraped.get("last_step", 0) + 1, msg))
+                if msg.startswith("metrics: serving /metrics"):
+                    scraped["url"] = msg.split(" on ")[1].split(" ")[0]
+                # the step's log line comes before its StepWatch count:
+                # at step 3's, two steps are counted
+                if msg.startswith("step 3:") and run != "resume":
+                    scraped[run] = _scrape(scraped["url"])
+            return out
+
+        # the clean run: the main path, counts zeroed just before
+        reset_launches()
+        t0 = time.perf_counter()
+        clean = run_pretraining.train(args, index, log=note("clean"))
+        res["clean_s"] = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        summary.setdefault("launches", {})["survival"] = launches
+        accum = 2
+        # per microbatch the embedding and MLM-transform LayerNorms
+        # (#1/#2) and every layer's two residual tails (#3/#4); per step
+        # one fused LAMB update (#11/#12); the health pack launches none
+        per_step = {"layer_norm_fwd": 2 * accum,
+                    "layer_norm_bwd": 2 * accum,
+                    "add_dropout_layer_norm_fwd": 2 * layers * accum,
+                    "add_dropout_layer_norm_bwd": 2 * layers * accum,
+                    "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                    "flash_attention_bwd_dq": 0,
+                    "flash_attention_bwd_dkv": 0,
+                    "lamb_stage1": 1, "lamb_stage2": 1}
+        want = {k: v * SURVIVAL_STEPS for k, v in per_step.items()}
+        if on_card:
+            check(launches == want, f"launch counts {launches}, want {want}")
+        losses = [h["loss"] for h in clean.history]
+        check(len(losses) == SURVIVAL_STEPS and all(np.isfinite(losses)),
+              f"clean run losses {losses}")
+        fams = scraped.get("clean", {})
+        check(fams.get("bert_train_steps_total", {}).get(
+            '{phase="pretrain"}') == 2 and "bert_step_time_ms" in fams
+            and "bert_nonfinite_steps_total" in fams,
+            f"/metrics mid-run: {sorted(fams)}")
+        with open(os.path.join(tmp, "clean",
+                               args.log_prefix + ".jsonl")) as f:
+            perf = [r for r in map(json.loads, f) if r["tag"] == "perf"]
+        mfus = [r["mfu"] for r in perf]
+        check(len(perf) == SURVIVAL_STEPS and (
+            not on_card or all(0 < m < 1 for m in mfus)),
+            f"perf records' mfu {mfus}")
+        digest = _params_digest(torch, clean.state.params)
+        # the health pack's cost a step, on the clean run's state
+        state = clean.state
+        hcfg = HealthConfig()
+        gn = torch.ones((), device=device)
+        bad = torch.zeros((), dtype=torch.bool, device=device)
+
+        def pack():
+            return health_update(hcfg, state.telemetry, gn, bad,
+                                 state.params.values())
+
+        host = []
+        for _ in range(5):
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pack()
+            host.append((time.perf_counter() - t0) * 1e3)
+        res["health_pack"] = {"host_ms": statistics.median(host),
+                              "tensors": len(state.params)}
+        if on_card:
+            res["health_pack"].update(_device_call_ms(torch, pack))
+        del clean, state
+        if on_card:
+            torch.cuda.empty_cache()
+        res.update(losses=losses, launches=launches,
+                   launches_predicted=want, mfu=mfus,
+                   metrics_families=sorted(f for f in fams
+                                           if f.startswith("bert_")))
+        log(f"survival: clean: {SURVIVAL_STEPS} steps, losses {losses}, "
+            f"mfu {mfus}, {len(res['metrics_families'])} bert_* families "
+            f"on /metrics mid-run, health pack {res['health_pack']}")
+
+        # SIGTERM before step 3, in a process of its own
+        out_s = os.path.join(tmp, "sigterm")
+        t0 = time.perf_counter()
+        rc, text = _child(_survival_argv(
+            cfg_path, out_s, device, micro, "--chaos", "sigterm_at_step",
+            "--chaos_step", "3"))
+        res["sigterm_child_s"] = time.perf_counter() - t0
+        check(rc == 143, f"sigterm child exited {rc}: {text[-3000:]}")
+        took = [ln for ln in text.splitlines()
+                if ln.startswith("preemption: emergency save of step 2")]
+        check(len(took) == 1, f"no emergency save line: {text[-3000:]}")
+        res["emergency_save_s"] = float(took[0].split(" took ")[1].split()[0])
+        mgr = CheckpointManager(os.path.join(out_s, "pretrain_ckpts"))
+        check(mgr.all_steps() == [2] and mgr.verify(2) == [],
+              f"emergency checkpoint steps {mgr.all_steps()}")
+        saved = torch.load(os.path.join(mgr.directory, "2", STATE_FILE),
+                           map_location="cpu", weights_only=True, mmap=True)
+        # the resume, health pack off, to step 4
+        t0 = time.perf_counter()
+        resumed = run_pretraining.train(run_pretraining.parse_arguments(
+            _survival_argv(cfg_path, out_s, device, micro,
+                           "--skip_checkpoint",
+                           "--health_pack", "off")), index,
+            log=note("resume"))
+        res["resume_run_s"] = time.perf_counter() - t0
+        res["restore_s"] = resumed.restore_s
+        check(resumed.resumed_from == 2 and resumed.step == SURVIVAL_STEPS,
+              f"resumed from {resumed.resumed_from} to {resumed.step}")
+        got = [h["loss"] for h in resumed.history]
+        check(got == losses[2:], f"resumed losses {got} != {losses[2:]}")
+        differ = [k for k, v in _params_digest(torch, resumed.state.params)
+                  .items() if digest[k] != v]
+        check(not differ, f"resumed parameters differ: {differ[:5]}")
+        off = resumed.state.state_dict()
+        check(set(saved) == set(off) and set(saved["params"]) ==
+              set(off["params"]) and set(saved["opt_state"]) ==
+              set(off["opt_state"]), "checkpoint keys with the pack on and "
+              "off differ")
+        del resumed, off, saved
+        shutil.rmtree(out_s, ignore_errors=True)
+        if on_card:
+            torch.cuda.empty_cache()
+        log(f"survival: SIGTERM at step 3: exit 143, emergency save of step "
+            f"2 in {res['emergency_save_s']:.2f} s, restore "
+            f"{res['restore_s']:.1f} s, resumed steps 3-4 bit-equal to the "
+            "clean run")
+
+        # a stalled dispatch under warn, and a skipped non-finite step
+        t0 = time.perf_counter()
+        out_w = os.path.join(tmp, "stall")
+        stall = run_pretraining.train(run_pretraining.parse_arguments(
+            _survival_argv(
+                cfg_path, out_w, device, micro, "--skip_checkpoint",
+                "--max_steps", "3", "--metrics_port", "0",
+                "--chaos", "stall_dispatch", "--chaos_step", "3",
+                "--chaos_stall_secs", str(stall_s),
+                "--watchdog_timeout", str(watchdog_s),
+                "--watchdog_action", "warn", "--inject_nonfinite_step", "2",
+                "--nonfinite_action", "skip")), index, log=note("stall"))
+        res["stall_run_s"] = time.perf_counter() - t0
+        stalls = scraped.get("stall", {}).get("bert_watchdog_stalls_total",
+                                              {})
+        # one trip, in step 3's dispatch (on the CPU a slow step may trip
+        # too: every trip must then be on /metrics)
+        check(any(step == 3 and "'dispatch'" in msg and "device_hang" in msg
+                  for step, msg in trips) and (len(trips) == 1
+                                               or not on_card)
+              and stalls == {'{phase="pretrain",kind="device_hang"}':
+                             float(len(trips))},
+              f"watchdog trips {trips}, /metrics {stalls}")
+        check(any(f.startswith("watchdog_stacks_")
+                  for f in os.listdir(out_w)), "no watchdog stacks file")
+        h = stall.history
+        check(h[1]["skipped_nonfinite"] == 1 and h[1]["loss_nonfinite"] == 1
+              and h[1]["param_norm"] == h[0]["param_norm"]
+              and h[1]["param_norm_drift"] == 0.0
+              and h[2]["skipped_nonfinite"] == 0
+              and np.isfinite(h[2]["loss"]),
+              f"skip: {[{k: r[k] for k in ('loss', 'skipped_nonfinite', 'param_norm')} for r in h]}")
+        res["stall"] = {"watchdog_timeout_s": watchdog_s,
+                        "stall_s": stall_s, "trips": len(trips),
+                        "stalls_on_metrics": stalls,
+                        "skipped_step": 2,
+                        "param_norm": [r["param_norm"] for r in h]}
+        del stall
+        log(f"survival: stall_dispatch at step 3: one device_hang trip on "
+            f"/metrics, stacks written; step 2's NaN skipped with the "
+            f"parameters unchanged ({res['stall_run_s']:.1f} s)")
+
+        # a halt in a process of its own
+        t0 = time.perf_counter()
+        rc, text = _child(_survival_argv(
+            cfg_path, os.path.join(tmp, "halt"), device, micro,
+            "--skip_checkpoint",
+            "--inject_nonfinite_step", "2", "--nonfinite_action", "halt"))
+        res["halt_child_s"] = time.perf_counter() - t0
+        check(rc == 71 and "FATAL: non-finite loss/gradients at step 2"
+              in text, f"halt child exited {rc}: {text[-3000:]}")
+        log(f"survival: --nonfinite_action halt: exit 71 "
+            f"({res['halt_child_s']:.1f} s)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _line_numbers(r: dict) -> dict:
     out = {k: r.get(k) for k in _LINE_KEYS}
     out.update({k: r[k] for k in _EXTRA_KEYS if k in r})
@@ -6541,12 +7186,16 @@ def kernels_line(results: dict, by_path: dict, in_checks: dict) -> list:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:2] == ["--pretrain_child", "--"]:
+        return pretrain_child(argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="device,build,kernels,timing,model_seq1024,"
                             "serve,train_order,train,train_phase2,"
                             "finetune_squad,finetune_ner,finetune_tasks,"
-                            "serve_slo,finetune_packed,distill",
+                            "serve_slo,finetune_packed,distill,"
+                            "init_sources,survival",
                     help="comma-separated subset, in order (development)")
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke.json")
@@ -6671,6 +7320,10 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
                 phase_finetune_packed(torch, np, summary)
             elif phase == "distill":
                 phase_distill(torch, np, summary)
+            elif phase == "init_sources":
+                phase_init_sources(torch, np, summary)
+            elif phase == "survival":
+                phase_survival(torch, np, summary)
             else:
                 raise PhaseError(f"unknown phase {phase!r}")
             torch.cuda.synchronize()

@@ -89,9 +89,12 @@ def _assert_states_equal(a, b):
             assert torch.equal(x[k], y[k]), (what, k)
 
 
-def _logged(out, key="loss"):
+def _logged(out, key="step_loss"):
+    """`key` of every train record of the run's jsonl (the header and the
+    perf records left out)."""
     with open(os.path.join(out, "phase1_log.jsonl")) as f:
-        return [json.loads(line)[key] for line in f]
+        return [rec[key] for rec in map(json.loads, f)
+                if rec["tag"] == "train"]
 
 
 _UNINTERRUPTED = {}
@@ -249,13 +252,14 @@ def test_init_checkpoint_seeds_weights_only(files, tmp_path):
          "--output_dir", str(tmp_path / "b"), "--local_batch_size", "4",
          "--global_batch_size", "8", "--device", "cpu", "--steps", "0",
          "--init_checkpoint", str(tmp_path / "part")], log=lines.append)
-    report = [ln for ln in lines if "fresh initialisation" in ln]
+    report = [ln for ln in lines if "fresh-initialized (" in ln]
     assert len(report) == 1 and "cls_seq_relationship.bias" in report[0]
     assert "cls_seq_relationship.weight (shape (3, 3)" in report[0]
     assert dropped.shape == (2,)
     alien = CheckpointManager(str(tmp_path / "alien"))
     alien.save(1, {"params": {"nothing.weight": torch.zeros(2)}})
-    with pytest.raises(ValueError, match="no parameter"):
+    with pytest.raises(ValueError,
+                       match="shares no same-shaped parameters"):
         _run(files, tmp_path / "c", "--init_checkpoint",
              f"{tmp_path / 'alien'}@1", "--steps", "0")
 

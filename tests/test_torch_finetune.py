@@ -640,13 +640,10 @@ def test_refused_tables_account_for_every_jax_flag(task):
 
 
 # --packing is served: tests/test_torch_finetune_packing.py; so are
-# --perf_artifact and squad's --eval_script
+# --perf_artifact, squad's --eval_script, --metrics_port and
+# --watchdog_timeout
 # (tests/test_torch_tasks.py::test_lifted_finetune_flag_is_served)
-@pytest.mark.parametrize("task,flag", [
-    ("ner", ["--metrics_port", "9100"]),
-    ("squad", ["--metrics_port", "9100"]),
-    ("squad", ["--watchdog_timeout", "30"]),
-    ("ner", ["--tokenizer", "bpe"]), ("ner", ["--watchdog_timeout", "30"])])
+@pytest.mark.parametrize("task,flag", [("ner", ["--tokenizer", "bpe"])])
 def test_switching_on_a_refused_flag_raises(task, flag):
     from bert_pytorch_tpu_torch.tasks import ner_task, squad_task
 
@@ -659,23 +656,47 @@ def test_switching_on_a_refused_flag_raises(task, flag):
         mod.parse_arguments(base + flag)
 
 
-@pytest.mark.parametrize("kind", ["tf_release", "torch_save", "name",
-                                  "orbax"])
-def test_init_checkpoint_from_another_source_is_refused(tmp_path, kind):
-    if kind == "tf_release":
-        spec = tmp_path / "uncased_L-2_H-64"
-        spec.mkdir()
-        (spec / "bert_config.json").write_text("{}")
-    elif kind == "torch_save":
-        spec = tmp_path / "ckpt_1000.pt"
-        spec.write_bytes(b"")
-    elif kind == "name":
-        spec = "bert-large-uncased"
-    else:
-        spec = tmp_path / "orbax"
-        (spec / "7" / "default").mkdir(parents=True)
+@pytest.mark.parametrize("kind", ["name", "url"])
+def test_init_checkpoint_from_another_source_is_refused(kind):
+    """A registry name and a URL need the network: refused, naming the
+    ROADMAP item (the local sources are read:
+    test_init_checkpoint_from_another_source_is_read)."""
+    spec = {"name": "bert-large-uncased",
+            "url": "https://storage.googleapis.com/bert_models/x.zip"}[kind]
+    params = {"bert.embeddings.word_embeddings.weight": torch.zeros(8, 4)}
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):
-        tft.check_init_checkpoint(str(spec))
+        tft.load_pretrained_params(spec, params, log=lambda m: None)
+
+
+@pytest.mark.parametrize("kind", ["tf_release", "torch_save", "orbax"])
+def test_init_checkpoint_from_another_source_is_read(tmp_path, kind):
+    """A Google TF release, a reference ckpt_*.pt and a JAX-package orbax
+    directory each seed a SQuAD model's encoder through
+    load_pretrained_params: every encoder and embedding parameter equals
+    the source's converted tree (tests/test_torch_pretrained.py holds the
+    trees against JAX's), and the report names the fresh QA head."""
+    from bert_pytorch_tpu_torch.models.bert import BertForQuestionAnswering
+    from bert_pytorch_tpu_torch.models.convert import params_from_flax
+    from tests import test_torch_pretrained as tpre
+
+    spec, flat = tpre.make_source(tmp_path, kind)
+    config = tpre.port_config()
+    model = BertForQuestionAnswering(config, dtype=torch.float32)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    lines = []
+    tft.load_pretrained_params(spec, params, log=lines.append)
+    want = params_from_flax(flat)
+    fresh = sorted(k for k in params if not k.startswith("bert."))
+    assert fresh == ["qa_outputs.bias", "qa_outputs.weight"]
+    for k, p in params.items():
+        if k.startswith("bert.") and "pooler" not in k:
+            assert torch.equal(p, want[k]), k
+    step = {"tf_release": "tf-release", "torch_save": "torch-ckpt",
+            "orbax": "3"}[kind]
+    assert lines[0] == (f"init_checkpoint step {step}: loaded "
+                        f"{len(params) - 2} param leaves, 2 "
+                        "fresh-initialized")
+    assert lines[1].endswith("qa_outputs.bias, qa_outputs.weight")
 
 
 def test_chip_smoke_finetune_squad_rehearses_on_cpu(tmp_path):

@@ -86,8 +86,8 @@ def test_sigterm_saves_the_last_completed_step(tmp_path):
                        "--init_checkpoint", str(out / "ckpt")]
                       + _task_argv("classify", cfg, files, tmp_path / "o2"),
                       log=lines.append)
-    assert any(ln.startswith("init_checkpoint: loaded ") and
-               f"step {steps[0]}" in ln for ln in lines), lines
+    assert any(ln.startswith(f"init_checkpoint step {steps[0]}: loaded ")
+               for ln in lines), lines
 
 
 def test_a_failure_that_is_no_preemption_saves_nothing(tmp_path):

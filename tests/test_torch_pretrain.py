@@ -432,9 +432,11 @@ def test_run_pretraining_main_on_cpu(tmp_path):
     assert result.history[1]["learning_rate"] == pytest.approx(
         6e-3 / (0.2843 * 7038), rel=1e-5)
     assert sum("loss" in ln and "seq/s" in ln for ln in lines) == 2
-    # the run config's log_prefix names the log
-    logged = (out / "phase1_log.jsonl").read_text().splitlines()
-    assert len(logged) == 2
+    # the run config's log_prefix names the log: a header, then a train
+    # record a step (a perf record every --log_freq steps)
+    logged = [json.loads(ln) for ln in
+              (out / "phase1_log.jsonl").read_text().splitlines()]
+    assert [r["tag"] for r in logged] == ["header", "train", "train"]
     # without --skip_checkpoint the run saves its last step (it used to
     # refuse to start before checkpointing was ported)
     again = run_pretraining.main(

@@ -187,6 +187,11 @@ def test_refused_table_accounts_for_every_jax_flag():
     port_flags = _parser_of(run_pretraining, port_config)
     refused, tuning = run_pretraining._REFUSED, run_pretraining._TUNING
     declared = set(port_flags) - {"device"}
+    # the survival and metrics planes' flags are served
+    assert {"metrics_port", "log_freq", "inject_nonfinite_step",
+            "watchdog_timeout", "watchdog_action", "chaos", "chaos_step",
+            "chaos_stall_secs", "slo_config", "slo_eval_interval_s",
+            "slo_action", "slo_halt_after_s"} <= declared
     # each JAX flag in exactly one place
     for dest in jax_flags:
         places = [dest in declared, dest in refused, dest in tuning]

@@ -677,7 +677,7 @@ def test_refused_tables_account_for_every_jax_flag(task):
     refused, tuning = pmod._REFUSED, pmod._TUNING
     assert not set(refused) & set(tuning)
     assert set(tuning.values()) <= set(refused)
-    assert {"metrics_port", "watchdog_timeout"} <= set(refused)
+    assert not {"metrics_port", "watchdog_timeout"} & set(refused)
     assert "perf_artifact" not in refused
     assert "packing" not in refused and "packing_max_segments" not in tuning
     for dest, flag in jax_flags.items():
@@ -688,43 +688,36 @@ def test_refused_tables_account_for_every_jax_flag(task):
             assert flag.default in refused[dest], dest
 
 
-# --packing is served (tests/test_torch_finetune_packing.py), and so is
-# --perf_artifact (test_lifted_finetune_flag_is_served below)
-@pytest.mark.parametrize("task,flag", [
-    ("choice", ["--metrics_port", "9100"]),
-    ("classify", ["--metrics_port", "9100"]),
-    ("embed", ["--metrics_port", "9100"]),
-    ("embed", ["--watchdog_timeout", "30"]),
-    ("choice", ["--watchdog_timeout", "30"]),
-    ("classify", ["--watchdog_timeout", "30"])])
-def test_switching_on_a_refused_flag_raises(task, flag):
-    from bert_pytorch_tpu_torch.tasks import registry
-
-    base = ["--model_config_file", "c", "--output_dir", "o"]
-    parse = registry.get(task).parse_arguments
-    parse(base + ["--packing", "--packing_max_segments", "4"])  # served
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):
-        parse(base + flag)
-
-
 @pytest.mark.parametrize("task,flag,dest", [
     ("squad", ["--perf_artifact", "x.json"], "perf_artifact"),
     ("squad", ["--eval_script", "evaluate-v1.1.py"], "eval_script"),
     ("ner", ["--perf_artifact", "x.json"], "perf_artifact"),
     ("classify", ["--perf_artifact", "x.json"], "perf_artifact"),
-    ("choice", ["--perf_artifact", "x.json"], "perf_artifact")])
+    ("choice", ["--perf_artifact", "x.json"], "perf_artifact"),
+    ("choice", ["--metrics_port", "9100"], "metrics_port"),
+    ("classify", ["--metrics_port", "9100"], "metrics_port"),
+    ("embed", ["--metrics_port", "9100"], "metrics_port"),
+    ("embed", ["--watchdog_timeout", "30"], "watchdog_timeout"),
+    ("choice", ["--watchdog_timeout", "30"], "watchdog_timeout"),
+    ("classify", ["--watchdog_timeout", "30"], "watchdog_timeout"),
+    ("ner", ["--metrics_port", "9100"], "metrics_port"),
+    ("squad", ["--metrics_port", "9100"], "metrics_port"),
+    ("squad", ["--watchdog_timeout", "30"], "watchdog_timeout"),
+    ("ner", ["--watchdog_timeout", "30"], "watchdog_timeout")])
 def test_lifted_finetune_flag_is_served(task, flag, dest):
     """The flags the finetuning slice refused and this port serves now:
-    --perf_artifact (the FINETUNE json, tests/test_torch_finetune_survival)
-    and SQuAD's --eval_script, which JAX accepts and ignores (the eval
-    runs in-process)."""
+    --perf_artifact (the FINETUNE json, tests/test_torch_finetune_survival),
+    SQuAD's --eval_script, which JAX accepts and ignores (the eval runs
+    in-process), and --metrics_port / --watchdog_timeout (the exporter
+    and the watchdog, tests/test_torch_pretrain_survival.py)."""
     from bert_pytorch_tpu_torch.tasks import registry
 
     base = {"squad": [], "ner": ["--train_file", "t", "--labels", "O",
                                  "--model_config_file", "c"]}.get(
         task, ["--model_config_file", "c", "--output_dir", "o"])
     args = registry.get(task).parse_arguments(base + flag)
-    assert getattr(args, dest) == flag[1]
+    got = getattr(args, dest)
+    assert got == type(got)(flag[1])
 
 
 def test_choice_setup_runs_reference_shaped_batches(tmp_path):
