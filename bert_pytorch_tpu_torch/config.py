@@ -17,6 +17,9 @@ import re
 from typing import Any, Dict, Optional
 
 
+REMAT_POLICIES = ("nothing", "dots", "mlp_only")
+
+
 @dataclasses.dataclass(frozen=True)
 class BertConfig:
     vocab_size: int = 30522
@@ -45,6 +48,19 @@ class BertConfig:
     # it sows the per-layer taps; the port's task heads return the taps
     # when called with return_taps=True, whatever this says.
     debug_taps: bool = False
+    # Activation checkpointing of every encoder layer in training
+    # (models/bert.BertEncoder): the layer's activations are recomputed in
+    # the backward pass instead of kept, under `remat_policy`: "nothing"
+    # keeps none of the layer's (recomputes it whole), "dots" keeps the
+    # matmul outputs and recomputes the rest, "mlp_only" recomputes only
+    # the (B, S, I) up-projection and its activation.
+    checkpoint_activations: bool = False
+    remat_policy: str = "nothing"
+
+    def __post_init__(self):
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {self.remat_policy!r}: want one "
+                             f"of {REMAT_POLICIES}")
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "BertConfig":

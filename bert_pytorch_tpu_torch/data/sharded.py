@@ -1,6 +1,5 @@
 """Sharded-HDF5 pretraining input pipeline (a copy of
-bert_pytorch_tpu/data/sharded.py, trimmed: dynamic-masking shards only,
-no sequence packing).
+bert_pytorch_tpu/data/sharded.py, trimmed to dynamic-masking shards).
 
 The shards are gzip'd HDF5 files with the keys input_ids,
 special_token_positions and next_sentence_labels. The loader slices
@@ -9,6 +8,12 @@ vectorized call (data/masking.py). Masks are a pure function of
 (seed, epoch, global sample index), so they do not depend on how samples
 were grouped into batches. Each host takes a contiguous chunk of the
 global index space, padded by wraparound to world_size * num_samples.
+
+With `packing=True` each batch row is assembled from several short
+examples by the first-fit packer of data/packing.py (segment ids,
+per-segment positions and per-segment NSP fields); the examples fetched
+but not yet placed in a row ride in the loader's state as global sample
+indices, so a resume lays out the same rows with the same masks.
 """
 
 from __future__ import annotations
@@ -16,12 +21,14 @@ from __future__ import annotations
 import bisect
 import warnings
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 
 from bert_pytorch_tpu_torch import PRETRAIN_GAPS
 from bert_pytorch_tpu_torch.data import masking
+from bert_pytorch_tpu_torch.data import packing as packing_lib
 
 REQUIRED_KEYS = ("input_ids", "special_token_positions",
                  "next_sentence_labels")
@@ -162,27 +169,37 @@ class HostShardSampler:
 class PretrainingDataLoader:
     """Iterator of numpy batches shaped (batch, seq): input_ids,
     token_type_ids, attention_mask, masked_lm_labels, plus
-    next_sentence_labels (batch,); all int32.
+    next_sentence_labels (batch,); all int32. Under `packing` the batch
+    is data/packing.py's packed batch (segment_ids, position_ids, and
+    per-segment next_sentence_labels and nsp_positions, (batch, G)).
 
     prefetch_batches > 0 assembles batches (shard reads, row gather,
-    masking) on one executor thread that many batches ahead of the
-    consumer, so the next batch is ready while the card runs this one.
-    `state_dict()` is the sampler's cursor as of the last batch the loader
-    YIELDED, so a checkpoint taken with assembly running ahead resumes
-    without skipping or replaying a batch."""
+    masking, packing) on one executor thread that many batches ahead of
+    the consumer, so the next batch is ready while the card runs this
+    one. `state_dict()` is the loader's state as of the last batch it
+    YIELDED (the sampler's cursor and, under packing, the pending
+    examples), so a checkpoint taken with assembly running ahead resumes
+    without skipping or replaying a batch. `batch_tap(batch)`, when set,
+    is called with every batch the loader yields, on the consumer's
+    thread (the flight recorder's capture point)."""
 
     def __init__(self, index: ShardIndex, sampler: HostShardSampler,
                  batch_size: int, mask_token_index: int,
                  max_pred_per_seq: int, masked_lm_prob: float,
                  vocab_size: int, original_token_prob: float = 0.1,
                  random_token_prob: float = 0.1, seed: Optional[int] = None,
-                 prefetch_batches: int = 0):
+                 prefetch_batches: int = 0, packing: bool = False,
+                 packing_max_segments: int = 8, packing_lookahead: int = 4,
+                 batch_tap: Optional[Callable[[Dict[str, np.ndarray]],
+                                              None]] = None):
         if not 0 <= masked_lm_prob <= 1:
             raise ValueError("masked_lm_prob must be in [0,1]")
         if original_token_prob + random_token_prob > 1:
             raise ValueError("original_token_prob + random_token_prob > 1")
         if max_pred_per_seq < 0:
             raise ValueError("max_pred_per_seq must be >= 0")
+        if packing and packing_max_segments < 1:
+            raise ValueError("packing_max_segments must be >= 1")
         self.index = index
         self.sampler = sampler
         self.batch_size = batch_size
@@ -195,12 +212,22 @@ class PretrainingDataLoader:
         self._mask_seed = int(seed if seed is not None else sampler.seed)
         self._resident_fi: Optional[int] = None
         self._resident: Optional[Dict[str, np.ndarray]] = None
+        self.packing = bool(packing)
+        self.packing_max_segments = int(packing_max_segments)
+        self.packing_lookahead = max(1, int(packing_lookahead))
+        # examples fetched but not yet placed in a row (global indices),
+        # and their built rows: each example is gathered and masked once,
+        # however many batches it waits through (None: rebuild from the
+        # indices, as after a restore)
+        self._pending_examples: List[int] = []
+        self._pending_built: Optional[Dict[str, np.ndarray]] = None
+        self.batch_tap = batch_tap
         self.prefetch_batches = int(prefetch_batches)
         self._assembler = (ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="batch-assemble")
             if self.prefetch_batches > 0 else None)
         self._queue: List[Future] = []
-        self._last_state = sampler.state_dict()
+        self._last_state = self._state_snapshot()
 
     def _ensure_resident(self, fi: int) -> Dict[str, np.ndarray]:
         if fi != self._resident_fi:
@@ -227,6 +254,9 @@ class PretrainingDataLoader:
         return {k: np.concatenate(v, axis=0) for k, v in out.items()}
 
     def _build(self, indices: np.ndarray) -> Dict[str, np.ndarray]:
+        """The masked examples of `indices`, one a row: each example's
+        masking draws come from its own generator of (seed, epoch, global
+        index), so they do not depend on how examples were grouped."""
         raw = self._gather_rows(indices)
         input_ids = raw["input_ids"].astype(np.int32)
         specials = raw["special_token_positions"]
@@ -251,12 +281,58 @@ class PretrainingDataLoader:
                 raw["next_sentence_labels"].reshape(-1).astype(np.int32),
         }
 
+    def _assemble_packed(self) -> Optional[Dict[str, np.ndarray]]:
+        """One packed batch: top the pending examples up to batch_size x
+        packing_lookahead, first-fit their real lengths into batch_size
+        rows, pack them; the unplaced stay pending with their built rows.
+        At the epoch's end a batch is emitted only if every row holds an
+        example (the unpacked loader's dropped partial tail)."""
+        if self._pending_built is None and self._pending_examples:
+            self._pending_built = self._build(
+                np.asarray(self._pending_examples, np.int64))
+        target = self.batch_size * self.packing_lookahead
+        exhausted = False
+        while len(self._pending_examples) < target:
+            idx = self.sampler.next_indices(self.batch_size)
+            if idx is None:
+                exhausted = True
+                break
+            self._pending_examples.extend(int(i) for i in idx)
+            built = self._build(idx)
+            self._pending_built = (built if self._pending_built is None else
+                                   {k: np.concatenate(
+                                       [self._pending_built[k], built[k]])
+                                    for k in built})
+        if not self._pending_examples:
+            return None
+        examples = self._pending_built
+        seq_len = examples["input_ids"].shape[1]
+        bins = packing_lib.first_fit(
+            packing_lib.example_lengths(examples["attention_mask"]),
+            self.batch_size, seq_len, self.packing_max_segments)
+        if exhausted and any(not members for members in bins):
+            self._pending_examples, self._pending_built = [], None
+            return None
+        batch = packing_lib.pack_examples(examples, bins, seq_len,
+                                          self.packing_max_segments)
+        placed = {i for members in bins for i in members}
+        keep = [pos for pos in range(len(self._pending_examples))
+                if pos not in placed]
+        self._pending_examples = [self._pending_examples[pos]
+                                  for pos in keep]
+        self._pending_built = ({k: v[keep] for k, v in examples.items()}
+                               if keep else None)
+        return batch
+
     def _assemble(self) -> Tuple[Optional[Dict[str, np.ndarray]],
-                                 Dict[str, int]]:
-        """(batch or None at epoch end, the sampler's cursor after it)."""
-        indices = self.sampler.next_indices(self.batch_size)
-        batch = None if indices is None else self._build(indices)
-        return batch, self.sampler.state_dict()
+                                 Dict[str, Any]]:
+        """(batch or None at epoch end, the loader's state after it)."""
+        if self.packing:
+            batch = self._assemble_packed()
+        else:
+            indices = self.sampler.next_indices(self.batch_size)
+            batch = None if indices is None else self._build(indices)
+        return batch, self._state_snapshot()
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         return self
@@ -275,18 +351,34 @@ class PretrainingDataLoader:
             self._drain_queue()
             raise StopIteration
         self._last_state = state
+        if self.batch_tap is not None:
+            self.batch_tap(batch)
         return batch
 
-    def state_dict(self) -> Dict[str, int]:
+    def _state_snapshot(self) -> Dict[str, Any]:
+        """The sampler's cursor plus, under packing, the pending examples'
+        global indices (JSON-serialisable)."""
+        state: Dict[str, Any] = self.sampler.state_dict()
+        if self.packing:
+            state["pending"] = list(self._pending_examples)
+        return state
+
+    def state_dict(self) -> Dict[str, Any]:
         return dict(self._last_state)
 
-    def load_state_dict(self, state: Dict[str, int]) -> None:
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Restore the sampler's cursor (or warn and keep it, see
-        HostShardSampler.load_state_dict); batches assembled ahead are
-        dropped."""
+        HostShardSampler.load_state_dict) and the pending examples, which
+        are dropped with a cursor the sampler refused (they belong to the
+        old index space); batches assembled ahead are dropped."""
         self._drain_queue()
         self.sampler.load_state_dict(state)
-        self._last_state = self.sampler.state_dict()
+        restored = (state.get("total_size") == self.sampler.total_size
+                    and state.get("world_size") == self.sampler.world_size)
+        self._pending_examples = ([int(i) for i in state.get("pending", [])]
+                                  if restored else [])
+        self._pending_built = None
+        self._last_state = self._state_snapshot()
 
     def _drain_queue(self) -> None:
         """Wait out in-flight assemblies; their results (end-of-epoch
@@ -299,7 +391,8 @@ class PretrainingDataLoader:
     def reset_epoch(self) -> None:
         self._drain_queue()
         self.sampler.reset_epoch()
-        self._last_state = self.sampler.state_dict()
+        self._pending_examples, self._pending_built = [], None
+        self._last_state = self._state_snapshot()
 
     def close(self) -> None:
         if self._assembler is not None:

@@ -30,6 +30,19 @@ LayerNorm output, "mlp_out": the layer's output}, each (B, S, E) in the
 compute dtype: the two points the JAX model sows under `debug_taps`.
 Without the flag the forward is unchanged.
 
+Activation checkpointing (`config.checkpoint_activations`, training
+only: a forward under grad): each encoder layer runs under
+`torch.utils.checkpoint` (non-reentrant), by `config.remat_policy` as the
+JAX model's nn.remat policies: "nothing" recomputes the whole layer in the
+backward pass, "dots" keeps the cuBLAS products' outputs and recomputes
+the rest (selective checkpointing, whose policy sees dispatcher ops: the
+hand-written kernels are recomputed with everything else), "mlp_only"
+recomputes only the (B, S, I) up-projection and its activation. The
+recomputed forward takes the same parameter tensors and the same dropout
+seeds, so it draws the same masks and the gradients are the bits of the
+run without it; each kernel launch of the recompute counts in
+`ops/kernels.LAUNCHES` as any other.
+
 `plain=True` builds the same model with every kernel call replaced by the
 kernel's plain PyTorch version, differentiated by autograd: a reference to
 hold the kernels against on the card, never a route a run takes.
@@ -41,11 +54,15 @@ choices.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from bert_pytorch_tpu_torch.config import BertConfig
 from bert_pytorch_tpu_torch.models.losses import segment_onehot
@@ -209,10 +226,50 @@ class BertSelfAttention(nn.Module):
         return _linear(ctx.reshape(b, s, -1), self.output)
 
 
-class BertLayer(nn.Module):
-    """attention -> add&LN -> MLP -> add&LN."""
+def _mlp(act, hidden: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
+         w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+    """The MLP's up-projection, activation and down-projection from its
+    four parameter tensors (`_linear`'s casts at use)."""
+    dt = hidden.dtype
+    inter = act(F.linear(hidden, w_in.to(dt), b_in.to(dt)))
+    return F.linear(inter, w_out.to(dt), b_out.to(dt))
 
-    def __init__(self, config: BertConfig, plain: bool = False):
+
+# The dispatcher ops whose outputs remat_policy "dots" keeps: the cuBLAS
+# products (F.linear and einsum reach these); every other op, the
+# hand-written kernels' launches included, is recomputed.
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                      torch.ops.aten.bmm.default,
+                      torch.ops.aten.baddbmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, *tensors: torch.Tensor, policy: str = "nothing"):
+    """fn(*tensors) under non-reentrant activation checkpointing. `fn`
+    must reach every tensor it uses through its arguments: the recompute
+    runs in the backward pass, after `functional_call` has put the
+    module's own parameters back."""
+    kw: Dict[str, Any] = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    # the dropout masks are counter hashes of explicit seeds: no RNG state
+    # to stash
+    return checkpoint(fn, *tensors, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
+class BertLayer(nn.Module):
+    """attention -> add&LN -> MLP -> add&LN. `remat_mlp` (remat_policy
+    "mlp_only"): in training the MLP runs under activation checkpointing,
+    so its (B, S, I) activations are recomputed, not kept."""
+
+    def __init__(self, config: BertConfig, plain: bool = False,
+                 remat_mlp: bool = False):
         super().__init__()
         e = config.hidden_size
         rate = config.hidden_dropout_prob
@@ -224,6 +281,7 @@ class BertLayer(nn.Module):
         self.output_layer_norm = ResidualDropoutLayerNorm(e, rate,
                                                           plain=plain)
         self.act = ACT2FN[config.hidden_act]
+        self.remat_mlp = remat_mlp
 
     def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor,
                 segment_ids: Optional[torch.Tensor],
@@ -234,19 +292,30 @@ class BertLayer(nn.Module):
         `taps`, when given, receives this layer's tap dict."""
         attn = self.attention(hidden, attention_bias, segment_ids, seeds[0])
         hidden = self.attention_layer_norm(attn, hidden, seeds[1])
-        inter = self.act(_linear(hidden, self.intermediate))
-        out = self.output_layer_norm(_linear(inter, self.mlp_output),
-                                     hidden, seeds[2])
+        weights = (self.intermediate.weight, self.intermediate.bias,
+                   self.mlp_output.weight, self.mlp_output.bias)
+        if self.remat_mlp and torch.is_grad_enabled():
+            mlp = _remat(functools.partial(_mlp, self.act), hidden, *weights)
+        else:
+            mlp = _mlp(self.act, hidden, *weights)
+        out = self.output_layer_norm(mlp, hidden, seeds[2])
         if taps is not None:
             taps.append({"attention_out": hidden, "mlp_out": out})
         return out
 
 
 class BertEncoder(nn.Module):
+    """The layers in turn; under `config.checkpoint_activations` with the
+    policy "nothing" or "dots", each layer in training runs as one
+    checkpointed region (module docstring)."""
+
     def __init__(self, config: BertConfig, plain: bool = False):
         super().__init__()
+        remat = config.checkpoint_activations
+        self.remat_policy = config.remat_policy if remat else None
         self.layers = nn.ModuleList(
-            BertLayer(config, plain=plain)
+            BertLayer(config, plain=plain,
+                      remat_mlp=self.remat_policy == "mlp_only")
             for _ in range(config.num_hidden_layers))
 
     def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor,
@@ -254,12 +323,42 @@ class BertEncoder(nn.Module):
                 seeds: Optional[List[int]] = None,
                 taps: Optional[List[Dict[str, torch.Tensor]]] = None
                 ) -> torch.Tensor:
+        whole = (self.remat_policy in ("nothing", "dots")
+                 and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
             layer_seeds = ((None, None, None) if seeds is None
                            else seeds[3 * i:3 * i + 3])
-            hidden = layer(hidden, attention_bias, segment_ids, layer_seeds,
-                           taps)
+            if whole:
+                hidden = self._remat_layer(layer, hidden, attention_bias,
+                                           segment_ids, layer_seeds, taps)
+            else:
+                hidden = layer(hidden, attention_bias, segment_ids,
+                               layer_seeds, taps)
         return hidden
+
+    def _remat_layer(self, layer: BertLayer, hidden, attention_bias,
+                     segment_ids, seeds, taps):
+        """One layer as a checkpointed region. Its parameters (under
+        `functional_call`, the step's compute copies) enter as inputs and
+        are put back into the layer for the recompute; a tap dict comes
+        out as the region's outputs, so the recompute adds none."""
+        names, params = zip(*layer.named_parameters())
+
+        def run(h, *flat):
+            local = [] if taps is not None else None
+            out = functional_call(layer, dict(zip(names, flat)),
+                                  (h, attention_bias, segment_ids, seeds),
+                                  {"taps": local})
+            if local is None:
+                return out
+            return out, local[0]["attention_out"]
+
+        res = _remat(run, hidden, *params, policy=self.remat_policy)
+        if taps is None:
+            return res
+        out, attention_out = res
+        taps.append({"attention_out": attention_out, "mlp_out": out})
+        return out
 
 
 class BertPooler(nn.Module):
@@ -324,10 +423,12 @@ class BertModel(nn.Module):
                 position_ids: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
                 dropout_seeds: Optional[torch.Tensor] = None,
-                taps: Optional[List[Dict[str, torch.Tensor]]] = None
+                taps: Optional[List[Dict[str, torch.Tensor]]] = None,
+                embeddings_tap: Optional[List[torch.Tensor]] = None
                 ) -> torch.Tensor:
         """(B, S, E) sequence output in the compute dtype; `taps`, when
-        given, receives one tap dict a layer."""
+        given, receives one tap dict a layer, and `embeddings_tap` the
+        embeddings' output."""
         seeds = dropout_seed_list(self.config, dropout_seeds)
         if attention_mask is None:
             attention_mask = (segment_ids > 0 if segment_ids is not None
@@ -337,6 +438,8 @@ class BertModel(nn.Module):
             segment_ids = segment_ids.to(torch.int32).contiguous()
         x = self.embeddings(input_ids, token_type_ids, position_ids,
                             self.dtype, None if seeds is None else seeds[0])
+        if embeddings_tap is not None:
+            embeddings_tap.append(x)
         return self.encoder(x, bias, segment_ids,
                             None if seeds is None else seeds[1:], taps)
 
@@ -611,7 +714,15 @@ class BertForPreTraining(nn.Module):
     """MLM + NSP heads. `masked_positions` (B, P) gathers the hidden
     states at those positions before the MLM head, so the logits are
     (B, P, V) f32 and the (B, S, V) tensor never exists; None scores every
-    position. Returns (mlm_logits, nsp_logits (B, 2) f32 or None)."""
+    position. Returns (mlm_logits, nsp_logits (B, 2) f32 or None).
+
+    Packed rows (data/packing.py) pass `position_ids`, `segment_ids` and
+    `nsp_positions` (B, G): the pooler gathers each segment's [CLS], so
+    the NSP logits are (B, G, 2). `return_taps=True` returns
+    ((mlm_logits, nsp_logits), taps) with the bisect's tap points, taps =
+    {"embeddings": (B, S, E), "layers": one {"attention_out", "mlp_out"}
+    a layer, "pooler", "mlm_head", "nsp_head"}: the points the JAX model
+    sows under `debug_taps`, read by tools/replay.py --bisect."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.bfloat16,
                  plain: bool = False):
@@ -627,10 +738,16 @@ class BertForPreTraining(nn.Module):
                 token_type_ids: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
                 masked_positions: Optional[torch.Tensor] = None,
-                dropout_seeds: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                dropout_seeds: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                nsp_positions: Optional[torch.Tensor] = None,
+                return_taps: bool = False):
+        layer_taps = [] if return_taps else None
+        emb_tap = [] if return_taps else None
         seq = self.bert(input_ids, token_type_ids, attention_mask,
-                        dropout_seeds=dropout_seeds)
+                        position_ids, segment_ids, dropout_seeds,
+                        layer_taps, emb_tap)
         hidden = seq
         if masked_positions is not None:
             index = masked_positions.long()[..., None].expand(
@@ -638,11 +755,16 @@ class BertForPreTraining(nn.Module):
             hidden = torch.gather(seq, 1, index)
         mlm_logits = self.cls_predictions(
             hidden, self.bert.embeddings.word_embeddings.weight)
-        nsp_logits = None
+        nsp_logits = pooled = None
         if self.cls_seq_relationship is not None:
-            nsp_logits = _linear(self.bert.pooler(seq),
-                                 self.cls_seq_relationship).float()
-        return mlm_logits, nsp_logits
+            pooled = self.bert.pooler(seq, nsp_positions)
+            nsp_logits = _linear(pooled, self.cls_seq_relationship).float()
+        if not return_taps:
+            return mlm_logits, nsp_logits
+        return (mlm_logits, nsp_logits), {
+            "embeddings": emb_tap[0], "layers": layer_taps,
+            "pooler": pooled, "mlm_head": mlm_logits,
+            "nsp_head": nsp_logits}
 
 
 def init_weights(model: nn.Module, generator: torch.Generator,

@@ -37,7 +37,10 @@ def pretraining_loss(mlm_logits: torch.Tensor,
                      nsp_logits: Optional[torch.Tensor] = None,
                      next_sentence_labels: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
-    """MLM + NSP cross-entropies summed, ignore_index -1."""
+    """MLM + NSP cross-entropies summed, ignore_index -1. Packed rows
+    bring per-segment NSP terms, (B, G, 2) logits against (B, G) labels
+    with -1 for an empty slot: the masked mean weights every real segment
+    equally, so a packed batch's loss is its examples' one a row."""
     loss = cross_entropy(mlm_logits, masked_lm_labels, ignore_index=-1)
     if nsp_logits is not None and next_sentence_labels is not None:
         loss = loss + cross_entropy(nsp_logits, next_sentence_labels,

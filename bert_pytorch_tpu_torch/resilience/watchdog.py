@@ -18,9 +18,9 @@ for how long; when a watched phase exceeds `timeout_s` it
 
 The card runs asynchronously: `dispatch` queues the step's kernels and
 returns, and the wait for them sits in `metric_flush` (the `.item()` that
-reads the step's metrics), so both count as device-side. The JAX
-watchdog also dumps a flight-recorder bundle; the port has no flight
-recorder yet (ROADMAP queue A), so a trip leaves the stacks alone.
+reads the step's metrics), so both count as device-side. With a flight
+recorder (`recorder`), a trip also dumps a `watchdog_<kind>` bundle and
+names it in the message.
 
 `os._exit` is deliberate: the main thread is wedged inside a blocking
 call, so raising into it is not available; the stacks are the orderly
@@ -59,7 +59,7 @@ class HungStepWatchdog:
 
     def __init__(self, timeout_s: float, action: str = "abort",
                  registry=None, log: Callable[[str], None] = print,
-                 out_dir: Optional[str] = None,
+                 out_dir: Optional[str] = None, recorder=None,
                  time_fn: Callable[[], float] = time.monotonic,
                  exit_fn: Callable[[int], None] = os._exit):
         if action not in ("abort", "warn"):
@@ -68,6 +68,7 @@ class HungStepWatchdog:
         self.action = action
         self._log = log
         self.out_dir = out_dir
+        self.recorder = recorder
         self._time = time_fn
         self._exit = exit_fn
         self._lock = threading.Lock()
@@ -129,11 +130,18 @@ class HungStepWatchdog:
         if self._stalls_total is not None:
             self._stalls_total.inc(kind=kind)
         stacks_path = self._dump_stacks(phase, kind)
+        bundle = None
+        if self.recorder is not None:
+            try:
+                bundle = self.recorder.dump(f"watchdog_{kind}")
+            except Exception:
+                pass    # the alarm must not die on a full disk
         self._log(
             f"WATCHDOG: phase '{phase}' stalled for {age:.1f}s "
             f"(> --watchdog_timeout {self.timeout_s:g}s) — classified "
             f"{kind}"
             + (f"; thread stacks: {stacks_path}" if stacks_path else "")
+            + (f"; flight-recorder bundle: {bundle}" if bundle else "")
             + (f"; aborting with exit code {code}"
                if self.action == "abort" else "; action=warn, training on"))
         if self.action == "abort":
@@ -169,15 +177,15 @@ class HungStepWatchdog:
 
 def arm_watchdog(timeout_s: float, action: str, stepwatch,
                  registry=None, log: Callable[[str], None] = print,
-                 out_dir: Optional[str] = None
+                 out_dir: Optional[str] = None, recorder=None
                  ) -> Optional[HungStepWatchdog]:
     """Build, start and hook a watchdog into `stepwatch`; None (off) when
     timeout_s <= 0."""
     if timeout_s <= 0:
         return None
     wd = HungStepWatchdog(timeout_s=timeout_s, action=action,
-                          registry=registry, log=log,
-                          out_dir=out_dir).start()
+                          registry=registry, log=log, out_dir=out_dir,
+                          recorder=recorder).start()
     stepwatch.phase_listener = wd.on_phase
     log(f"watchdog: armed at {timeout_s:g}s per host phase, "
         f"action={action} (device hang -> exit "

@@ -14,7 +14,12 @@ sharded-HDF5 data, the gathered MLM head, gradient accumulation up to
 --global_batch_size, bf16 compute with bf16 gradients over f32 masters,
 LAMB with a warmup schedule (--fused_optim: "off" and "xla" tensor by
 tensor, "auto"/"pallas" the fused multi-tensor kernels on the card), and
-the non-finite health checks.
+the non-finite health checks. --packing packs several short examples into
+each row (data/packing.py: segment-masked attention, positions reset per
+segment, NSP per segment; the gathered MLM head's budget grows to a
+row's); --checkpoint_activations recomputes each encoder layer in the
+backward pass under the model config's remat_policy (nothing, dots,
+mlp_only).
 
 Checkpoints: every --num_steps_per_checkpoint steps and at the end of the
 run into <output_dir>/pretrain_ckpts/<global step>/, the newest
@@ -36,8 +41,12 @@ step_loss and the step's metrics, with the health pack's) and every
 card's peak, the host phases data_wait / data_prep / h2d / dispatch /
 metric_flush / checkpoint) in <output_dir>/<log_prefix>.{txt,jsonl} and
 <log_prefix>_metrics.csv; --metrics_port serves them as /metrics with a
-/healthz. Survival (resilience/): each step runs inside the preemption
-guard, and SIGTERM saves the last completed step (exit 143);
+/healthz. The flight recorder (--flight_recorder, on by default) keeps
+the last --recorder_window steps' batches and dropout seeds and dumps a
+repro bundle under <output_dir>/repro_bundles on a non-finite step, a
+watchdog trip or a crash; tools/replay.py reproduces and bisects it.
+Survival (resilience/): each step runs inside the preemption guard, and
+SIGTERM saves the last completed step (exit 143);
 --watchdog_timeout arms the hung-step watchdog; --chaos drills the
 deaths; --slo_config evaluates the train SLOs. `_cli` exits 71 on a
 --nonfinite_action=halt trip and 76 on an --slo_action=halt breach.
@@ -68,7 +77,6 @@ from bert_pytorch_tpu_torch.training.pretrain import dropout_seeds
 # flags itself.)
 _REFUSED = {
     "steps_per_loop": (1,),
-    "checkpoint_activations": (False,),
     "kfac": (False,),
     "mesh": ("",),
     "profile_steps": (None,),
@@ -87,8 +95,6 @@ _REFUSED = {
     "overlap_flags": ("off",),
     # the port's dropout seeds come from numpy (dropout_seeds)
     "rng_impl": ("threefry2x32",),
-    "packing": (False,),
-    "flight_recorder": ("off",),
     "stream_dir": (None,),
     "tensorboard": ("off",),
     # --device cpu is the port's
@@ -103,8 +109,6 @@ _TUNING = {
     "kfac_kl_clip": "kfac", "kfac_stats_dtype": "kfac",
     "kfac_skip_layers": "kfac", "kfac_bucket_mb": "kfac",
     "kfac_factor_sync_freq": "kfac",
-    "packing_max_segments": "packing", "packing_lookahead": "packing",
-    "recorder_window": "flight_recorder",
     "stream_vocab": "stream_dir", "stream_tokenizer": "stream_dir",
     "stream_seq_len": "stream_dir", "stream_workers": "stream_dir",
     "stream_queue_batches": "stream_dir",
@@ -168,6 +172,32 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         "'auto' and 'pallas' the fused multi-tensor kernels "
                         "on CUDA tensors. On the CPU every choice runs the "
                         "plain versions")
+    p.add_argument("--checkpoint_activations", action="store_true",
+                   help="recompute each encoder layer in the backward pass "
+                        "(the model config's remat_policy: nothing, dots "
+                        "or mlp_only)")
+    p.add_argument("--packing", action="store_true",
+                   help="sequence packing: each row holds several short "
+                        "examples (segment-masked attention, positions and "
+                        "NSP per segment); resumes with the packer's "
+                        "pending examples")
+    p.add_argument("--packing_max_segments", type=int, default=8,
+                   help="most examples packed into one row")
+    p.add_argument("--packing_lookahead", type=int, default=4,
+                   help="batches of examples the packer may look ahead "
+                        "when filling rows")
+    p.add_argument("--flight_recorder", type=str, default="on",
+                   choices=["on", "off"],
+                   help="ring of the last --recorder_window steps' batches, "
+                        "dropout seeds and metric records; dumps a repro "
+                        "bundle under <output_dir>/repro_bundles on a "
+                        "non-finite step, a watchdog trip or a crash "
+                        "(bert_pytorch_tpu_torch/tools/replay.py replays "
+                        "it)")
+    p.add_argument("--recorder_window", type=int, default=8,
+                   help="steps the flight recorder holds (host memory: "
+                        "window x batch bytes); a replay needs a "
+                        "checkpoint at most this many steps back")
     p.add_argument("--prefetch_batches", type=int, default=2,
                    help="host batches assembled ahead on a thread")
     p.add_argument("--log_freq", type=int, default=10,
@@ -328,6 +358,8 @@ def train(args: argparse.Namespace, index,
     from bert_pytorch_tpu_torch.resilience.preemption import (
         PreemptionGuard, emergency_save, is_preemption_exit)
     from bert_pytorch_tpu_torch.resilience.watchdog import arm_watchdog
+    from bert_pytorch_tpu_torch.telemetry.flight_recorder import (
+        FlightRecorder, per_host_dir)
     from bert_pytorch_tpu_torch.telemetry.health import (
         HealthConfig, init_telemetry_state)
     from bert_pytorch_tpu_torch.telemetry.provenance import \
@@ -356,8 +388,10 @@ def train(args: argparse.Namespace, index,
     step_batch = accum_steps * micro
 
     config = BertConfig.from_json_file(args.model_config_file)
-    config = config.replace(vocab_size=pad_vocab_size(
-        config.vocab_size, args.vocab_pad_multiple))
+    config = config.replace(
+        vocab_size=pad_vocab_size(config.vocab_size,
+                                  args.vocab_pad_multiple),
+        checkpoint_activations=args.checkpoint_activations)
     compute_dtype = (torch.bfloat16 if args.dtype == "bfloat16"
                      else torch.float32)
     grad_name = args.dtype if args.grad_dtype == "auto" else args.grad_dtype
@@ -370,7 +404,10 @@ def train(args: argparse.Namespace, index,
         max_pred_per_seq=args.max_predictions_per_seq,
         masked_lm_prob=args.masked_token_fraction,
         vocab_size=config.vocab_size, seed=args.seed,
-        prefetch_batches=max(0, args.prefetch_batches))
+        prefetch_batches=max(0, args.prefetch_batches),
+        packing=args.packing,
+        packing_max_segments=args.packing_max_segments,
+        packing_lookahead=args.packing_lookahead)
     os.makedirs(args.output_dir, exist_ok=True)
     if not args.skip_checkpoint and args.num_steps_per_checkpoint < 1:
         raise SystemExit("--num_steps_per_checkpoint must be >= 1")
@@ -383,14 +420,15 @@ def train(args: argparse.Namespace, index,
     tel = init_run("pretrain",
                    log_prefix=os.path.join(args.output_dir, args.log_prefix),
                    echo=log, metrics_port=args.metrics_port)
-    guard = watchdog = slo_eval = None
+    guard = watchdog = slo_eval = recorder = None
     # (step, sampler cursor, epoch) of the last completed step, taken
     # inside the step's guard: the loader's live cursor may already cover
     # the next batch when a signal lands, and resuming from it would skip
     # that batch
     survival: Dict = {}
     try:
-        tel.log_header(**collect_provenance(device))
+        prov = collect_provenance(device)
+        tel.log_header(**prov)
         if len(loader.sampler) < step_batch:
             raise SystemExit(f"the data holds fewer than one step's batch "
                              f"({step_batch} samples)")
@@ -411,9 +449,11 @@ def train(args: argparse.Namespace, index,
                                  offset=args.previous_phase_end_step)
         tx = Lamb(schedule, weight_decay=0.01, fused=args.fused_optim)
         state = make_train_state(model, tx)
+        seq_len = index.seq_len()
+        max_pred_row = packed_prediction_budget(args, seq_len)
         step_fn = build_pretrain_step(
             model, tx, schedule=schedule, accum_steps=accum_steps,
-            max_predictions=args.max_predictions_per_seq,
+            max_predictions=max_pred_row,
             grad_dtype=grad_dtype, health=health,
             nan_inject_step=args.inject_nonfinite_step)
         log(f"device={device} accumulation_steps={accum_steps} "
@@ -421,7 +461,16 @@ def train(args: argparse.Namespace, index,
             f"grad_dtype={grad_name} vocab={config.vocab_size} "
             f"layers={config.num_hidden_layers} shards={len(index.files)} "
             f"samples={len(index)} [MASK]={mask_id} "
-            f"fused_optim={args.fused_optim}")
+            f"fused_optim={args.fused_optim}"
+            + (f"; packing on (<= {args.packing_max_segments} segments/row)"
+               if args.packing else "")
+            + (f"; checkpoint_activations on (remat_policy="
+               f"{config.remat_policy})" if config.checkpoint_activations
+               else ""))
+        if args.packing:
+            log(f"packing: gathered MLM head scores up to {max_pred_row} "
+                f"positions/row (per-example cap "
+                f"{args.max_predictions_per_seq})")
         resumed_from = restore_s = None
         if manager.latest_step() is not None:
             t0 = time.perf_counter()
@@ -443,7 +492,6 @@ def train(args: argparse.Namespace, index,
             state.telemetry = init_telemetry_state(device)
         tel.attach_checkpoints(manager)
 
-        seq_len = index.seq_len()
         peak = (lookup_peak_flops(torch.cuda.get_device_name(device),
                                   dtype=args.dtype)
                 if device.type == "cuda" else None)
@@ -459,11 +507,31 @@ def train(args: argparse.Namespace, index,
             f"{args.health_pack} nonfinite_action={args.nonfinite_action} "
             f"log_freq={args.log_freq}")
 
+        n_sites = 1 + 3 * config.num_hidden_layers
+        if args.flight_recorder == "on":
+            recorder = FlightRecorder(
+                per_host_dir(os.path.join(args.output_dir, "repro_bundles")),
+                window=args.recorder_window,
+                run_info=_recorder_run_info(args, accum_steps, max_pred_row,
+                                            grad_name, seq_len),
+                model_config=config.to_dict(),
+                checkpoint_dir=manager.directory,
+                provenance=prov,
+                checkpoint_step_fn=manager.latest_step)
+            tel.attach_recorder(recorder)
+            loader.batch_tap = recorder.capture_batch
+            recorder.install_crash_handlers()
+            recorder.arm()
+            log(f"flight recorder: on, window={recorder.window} steps, "
+                f"bundles under {recorder.out_dir}")
+        # the guard layers over the recorder's handlers: SIGTERM walks
+        # guard -> recorder -> SystemExit(143), and the except-path below
+        # dumps the bundle and the emergency checkpoint
         guard = PreemptionGuard(log=log)
         guard.install()
         watchdog = arm_watchdog(args.watchdog_timeout, args.watchdog_action,
                                 sw, registry=tel.registry, log=log,
-                                out_dir=args.output_dir)
+                                out_dir=args.output_dir, recorder=recorder)
         chaos = None
         if args.chaos:
             chaos = ChaosMonkey(args.chaos, args.chaos_step,
@@ -474,7 +542,6 @@ def train(args: argparse.Namespace, index,
         if args.slo_config:
             slo_engine, slo_eval = _train_slo(args, tel, manager, log)
 
-        n_sites = 1 + 3 * config.num_hidden_layers
         target = args.previous_phase_end_step + args.max_steps
         limit = min(target, state.step + args.steps
                     if args.steps is not None else target)
@@ -508,7 +575,9 @@ def train(args: argparse.Namespace, index,
             with sw.phase("data_prep"):
                 seeds = dropout_seeds(args.seed, state.step + 1,
                                       accum_steps, n_sites)
-                sw.note_tokens(float(batch_np["attention_mask"].sum()))
+                real = batch_np.get("segment_ids",
+                                    batch_np["attention_mask"])
+                real_tokens = float((real > 0).sum())
             # a signal inside the guard is raised when the step, its
             # record and the survival snapshot are whole
             with guard.hold():
@@ -520,6 +589,8 @@ def train(args: argparse.Namespace, index,
                     if chaos is not None:
                         chaos.stall(state.step + 1)
                     metrics = step_fn(state, batch, seeds)
+                if recorder is not None:
+                    recorder.record_dispatch(state.step, 1, seeds.numpy())
                 survival.update(step=state.step, sampler=loader.state_dict(),
                                 epoch=loader.sampler.epoch)
                 # reading the metrics waits for the card: the step time
@@ -527,9 +598,12 @@ def train(args: argparse.Namespace, index,
                 with sw.phase("metric_flush"):
                     vals = {k: (v.item() if torch.is_tensor(v) else v)
                             for k, v in metrics.items()}
+                if recorder is not None:
+                    recorder.note_metrics(state.step, vals)
                 dt = time.perf_counter() - t0
+                examples = int((batch_np["next_sentence_labels"] >= 0).sum())
                 rec = dict(vals, step=state.step, step_ms=dt * 1e3,
-                           seq_per_sec=step_batch / dt)
+                           seq_per_sec=step_batch / dt, examples=examples)
                 history.append(rec)
                 loss = vals.pop("loss")
                 bad = (vals.get("loss_nonfinite", 0) > 0
@@ -541,17 +615,31 @@ def train(args: argparse.Namespace, index,
                     f"{rec['grad_norm']:.4f} lr {rec['learning_rate']:.4e} "
                     f"step_ms {rec['step_ms']:.1f} seq/s "
                     f"{rec['seq_per_sec']:.1f} mlm_accuracy "
-                    f"{rec['mlm_accuracy']:.4f}")
+                    f"{rec['mlm_accuracy']:.4f}"
+                    + (f" examples {examples}" if args.packing else ""))
                 warned_dropped = _warn_step(args, state.step, loss, vals,
                                             bad, warned_dropped, log)
                 tel.log_train(state.step, epoch=loader.sampler.epoch,
                               average_loss=loss_sum / max(loss_n, 1),
                               step_loss=loss, **vals)
+            bundle = None
+            if bad and recorder is not None:
+                # every action dumps: a log or skip run wants the repro of
+                # what the health pack flagged too
+                bundle = recorder.dump("nonfinite", trigger_step=state.step)
+                log(f"flight recorder: repro bundle for step {state.step} "
+                    f"dumped to {bundle} (replay: python -m "
+                    "bert_pytorch_tpu_torch.tools.replay --bundle "
+                    f"{bundle} --bisect)")
             if bad and args.nonfinite_action == "halt":
                 raise NonFiniteHalt(
                     f"non-finite loss/gradients at step {state.step} and "
                     "--nonfinite_action=halt; last checkpoint is the "
-                    "restart point")
+                    "restart point"
+                    + (f"; repro bundle: {bundle}" if bundle else ""))
+            # counted with its step: a crash flush's interval holds the
+            # tokens of the steps it counts
+            sw.note_tokens(real_tokens)
             perf = sw.step_done()
             if perf is not None:
                 tel.log_perf(state.step, perf)
@@ -569,19 +657,29 @@ def train(args: argparse.Namespace, index,
             log(f"training_seq_per_sec = "
                 f"{step_batch * len(history) / train_time:.2f} "
                 f"({len(history)} steps in {train_time:.1f}s)")
+        if recorder is not None:
+            recorder.disarm()   # a clean exit: the atexit backstop stands down
         return PretrainResult(step=state.step, train_time_s=train_time,
                               accum_steps=accum_steps,
                               seqs_per_step=step_batch, history=history,
                               state=state, resumed_from=resumed_from,
                               restore_s=restore_s, saves=saves)
     except BaseException as exc:
-        # the partial StepWatch interval lands before the unwind
+        # the partial StepWatch interval and the black box land before the
+        # unwind (the bundle before the emergency save, which may fail)
         try:
             rec = sw.flush()
             if rec is not None:
                 tel.log_perf(survival.get("step", 0), rec)
         except Exception:
             pass
+        if recorder is not None and recorder.last_dump is None:
+            try:
+                path = recorder.dump(type(exc).__name__.lower(),
+                                     trigger_step=survival.get("step", 0))
+                log(f"flight recorder: crash bundle dumped to {path}")
+            except Exception:
+                pass
         # preemption: one synchronous save of the last completed step
         # (never after a halt: the last checkpoint stays the restart point)
         preempted = ((guard is not None
@@ -608,12 +706,58 @@ def train(args: argparse.Namespace, index,
                         "last periodic checkpoint is the restart point)")
         raise
     finally:
-        for closeable in (slo_eval, watchdog, guard, tel, loader):
+        # the guard closes before the recorder: it restores the recorder's
+        # handlers, which the recorder then restores to the original
+        for closeable in (slo_eval, watchdog, guard, recorder, tel, loader):
             if closeable is not None:
                 try:
                     closeable.close()
                 except Exception:
                     pass
+
+
+def packed_prediction_budget(args, seq_len: int) -> int:
+    """The gathered MLM head's positions a row. Unpacked: the per-example
+    --max_predictions_per_seq. Packed, a row pools its segments' masks:
+    each example adds at most min(cap, floor(len x fraction)) + 1 (the
+    masker's floor of one), so a row holds at most floor(S x fraction) +
+    segments, and at most segments x cap (JAX: run_pretraining.py's
+    max_pred_row); mlm_dropped reports any excess."""
+    if not args.packing:
+        return args.max_predictions_per_seq
+    return min(seq_len,
+               args.packing_max_segments * args.max_predictions_per_seq,
+               int(seq_len * args.masked_token_fraction)
+               + args.packing_max_segments)
+
+
+def _recorder_run_info(args, accum_steps: int, max_pred_row: int,
+                       grad_name: str, seq_len: int) -> Dict:
+    """The bundle manifest's run block: what tools/replay.py rebuilds the
+    step from. The JAX run block's keys, with the port's one-card truth:
+    a record's "rng" holds the step's int32 dropout seeds, drawn from
+    numpy's PCG64 of (seed + 1000, step) (`rng_impl`); one card, so no
+    mesh axis beyond data=1 and no ZeRO-1 sharding."""
+    return {
+        "accum_steps": accum_steps, "steps_per_loop": 1, "seed": args.seed,
+        "max_pred_row": max_pred_row, "grad_dtype": grad_name,
+        "dtype": args.dtype, "optimizer": args.optimizer,
+        "learning_rate": args.learning_rate, "lr_decay": args.lr_decay,
+        "warmup_proportion": args.warmup_proportion,
+        "max_steps": args.max_steps,
+        "previous_phase_end_step": args.previous_phase_end_step,
+        "rng_impl": "pcg64_int32_seeds",
+        "health_pack": args.health_pack,
+        "nonfinite_action": args.nonfinite_action, "zero1": False,
+        "zero1_overlap": False, "zero1_rs": False,
+        "fused_optim": args.fused_optim, "mesh": {"data": 1},
+        "seq_len": seq_len, "local_batch_size": args.local_batch_size,
+        "global_batch_size": args.global_batch_size,
+        "packing": args.packing,
+        "packing_max_segments": args.packing_max_segments,
+        "inject_nonfinite_step": args.inject_nonfinite_step,
+        "stream": False,
+    }
 
 
 def _train_slo(args, tel, manager, log):

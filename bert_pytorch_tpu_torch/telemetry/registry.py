@@ -251,6 +251,33 @@ class MetricsRegistry:
                                  f"{_fmt_value(value)}")
         return "\n".join(lines) + "\n"
 
+    def snapshot(self) -> Dict[str, Any]:
+        """Every family as strict JSON (a non-finite value as its repr
+        string), for a flight-recorder bundle's manifest."""
+
+        def clean(v):
+            if isinstance(v, float) and not math.isfinite(v):
+                return repr(v)
+            return v
+
+        out: Dict[str, Any] = {}
+        for m in self.families():
+            series = []
+            for labels, value in m.labeled_series():
+                if isinstance(m, Histogram):
+                    val: Any = {
+                        "count": value.count, "sum": clean(value.sum),
+                        "buckets": {_fmt_value(b): c for b, c in
+                                    zip(m.buckets, value.counts)},
+                        "overflow": value.counts[-1]}
+                else:
+                    val = clean(value)
+                series.append({"labels": {**self.constant_labels,
+                                          **labels}, "value": val})
+            out[m.name] = {"type": m.kind, "help": m.help,
+                           "series": series}
+        return out
+
 
 def parse_prometheus(text: str) -> Dict[str, Dict[str, float]]:
     """Minimal parser of the exposition format — enough for tests and the

@@ -1,13 +1,14 @@
 """One wiring path for a run's telemetry: `init_run(phase=...)`
 (counterpart of bert_pytorch_tpu/telemetry/run.py, without the
-CompileWatch, which is XLA's, the flight recorder, the streaming plane
-and the multi-host fold).
+CompileWatch, which is XLA's, the streaming plane and the multi-host
+fold).
 
     tel = init_run(phase="pretrain", log_prefix=os.path.join(out, "logfile"),
                    metrics_port=args.metrics_port)
     tel.log_header(**collect_provenance(device))
     sw = tel.make_stepwatch(flops_per_step=..., seqs_per_step=..., ...)
     tel.attach_checkpoints(manager)
+    tel.attach_recorder(recorder)
     ...
     tel.log_train(step, step_loss=..., loss_nonfinite=..., ...)
     rec = sw.step_done();  tel.log_perf(step, rec) if rec else None
@@ -20,7 +21,8 @@ optional /metrics + /healthz exporter (`.server`, `metrics_port`; 0 binds
 an ephemeral port) and the /healthz snapshot (`healthz()`): the last
 step, the last perf interval, the last health-pack flags, the newest
 non-finite step, checkpoint freshness and a top-level `status` that is
-always present (`ok`, or the SLO engine's ok|degraded|failing verdict).
+always present (`ok`, or the SLO engine's ok|degraded|failing verdict);
+with a flight recorder attached, its window, ring bytes and last bundle.
 
 `log_train` / `log_perf` update the registry and /healthz, then fan out
 through the logger. Every value they take is a host number the loop has
@@ -64,6 +66,7 @@ class TelemetryRun:
         self.server = server
         self.ckpt_manager = None
         self.slo = None
+        self.recorder = None
         self._closed = False
         try:
             self.supervisor_restarts = int(
@@ -122,6 +125,15 @@ class TelemetryRun:
         `seconds_since_checkpoint`) from `manager.freshness()`."""
         self.ckpt_manager = manager
 
+    def attach_recorder(self, recorder) -> None:
+        """Cross-wire the flight recorder: its manifests gain the
+        registry's snapshot at dump time and `metrics_tail_source`, the
+        jsonl whose records the tail mirrors; /healthz gains its state."""
+        self.recorder = recorder
+        recorder.registry = self.registry
+        if self.logger.jsonl_path:
+            recorder.metrics_tail_source = self.logger.jsonl_path
+
     def attach_slo(self, engine) -> None:
         """SLO plane on /healthz: the engine's verdict becomes the
         payload's `status`, with its `health_summary()` as `slo`."""
@@ -177,6 +189,14 @@ class TelemetryRun:
                 h["status"] = h["slo"]["status"]
             except Exception:
                 pass  # a probe must never take the run down
+        if self.recorder is not None:
+            try:
+                h["flight_recorder"] = {
+                    "window": self.recorder.window,
+                    "ring_bytes": self.recorder.nbytes(),
+                    "last_bundle": self.recorder.last_dump}
+            except Exception:
+                pass
         if self.ckpt_manager is not None:
             try:
                 step, t = self.ckpt_manager.freshness()

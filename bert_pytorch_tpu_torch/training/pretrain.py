@@ -103,11 +103,28 @@ def inject_nonfinite(gparams: Dict[str, torch.Tensor]
     return out
 
 
+# The packed-batch fields (data/packing.py) the model takes when the
+# loader emits them; an unpacked batch runs the model without them.
+PACKED_FIELDS = ("position_ids", "segment_ids", "nsp_positions")
+
+
+def _model_inputs(micro: Batch, positions: Optional[torch.Tensor],
+                  seeds: Optional[torch.Tensor]) -> Dict:
+    """The pretraining model's keyword inputs of one microbatch."""
+    kw = {"token_type_ids": micro.get("token_type_ids"),
+          "attention_mask": micro.get("attention_mask"),
+          "masked_positions": positions, "dropout_seeds": seeds}
+    kw.update({k: micro[k] for k in PACKED_FIELDS if k in micro})
+    return kw
+
+
 def pretrain_loss_fn(model: nn.Module,
                      max_predictions: Optional[int] = None) -> LossFn:
     """The pretraining loss (MLM + NSP) of `model` as a LossFn, with the
     masked-token counts as aux. `max_predictions` turns on the gathered
-    MLM head: logits for at most that many masked positions per row."""
+    MLM head: logits for at most that many masked positions per row (a
+    packed row's budget covers all of its segments). A packed microbatch
+    scores NSP per segment: (B, G) labels, -1 for an empty slot."""
 
     def loss_fn(params, micro, seeds):
         labels = micro["masked_lm_labels"]
@@ -120,9 +137,7 @@ def pretrain_loss_fn(model: nn.Module,
             dropped = dense_total - (labels != -1).sum()
         mlm_logits, nsp_logits = functional_call(
             model, params, (micro["input_ids"],),
-            {"token_type_ids": micro.get("token_type_ids"),
-             "attention_mask": micro.get("attention_mask"),
-             "masked_positions": positions, "dropout_seeds": seeds})
+            _model_inputs(micro, positions, seeds))
         loss = losses.pretraining_loss(mlm_logits, labels, nsp_logits,
                                        micro.get("next_sentence_labels"))
         with torch.no_grad():
@@ -131,6 +146,26 @@ def pretrain_loss_fn(model: nn.Module,
                       "mlm_dropped": dropped}
 
     return loss_fn
+
+
+def debug_forward(model: nn.Module, params: Dict[str, torch.Tensor],
+                  micro: Batch, seeds: Optional[torch.Tensor],
+                  max_predictions: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """tools/replay.py --bisect's probe: one microbatch's forward as the
+    step's loss runs it (the same masked-position gather, packed fields
+    and seeds) under no_grad, returning (loss, the model's taps)."""
+    labels = micro["masked_lm_labels"]
+    positions = None
+    if max_predictions is not None:
+        positions, labels = gather_masked_labels(labels, max_predictions)
+    kw = dict(_model_inputs(micro, positions, seeds), return_taps=True)
+    with torch.no_grad():
+        (mlm_logits, nsp_logits), taps = functional_call(
+            model, params, (micro["input_ids"],), kw)
+        loss = losses.pretraining_loss(mlm_logits, labels, nsp_logits,
+                                       micro.get("next_sentence_labels"))
+    return loss, taps
 
 
 def loss_and_grads(loss_fn: LossFn, gparams: Dict[str, torch.Tensor],

@@ -100,7 +100,28 @@ Phases, each of which must pass:
             auto-resumes phase 1's last checkpoint
             (previous_phase_end_step set to 3 for it) and must continue
             from step 3 with phase 1's LAMB state;
-10. finetune_squad  SQuAD v1.1 finetuning by the entry point's run_task
+10. train_packed  packed pretraining, phase 1: 3 steps of the entry
+            point's trainer with --packing (8 segments a row, lookahead
+            4) over in-memory shards whose real lengths are uniform over
+            16-128 tokens: exact launch counts, examples a step and the
+            perf record's packing_efficiency; one optimizer step of the
+            same data packed and unpacked (host clock, device time,
+            examples/s); one packed microbatch through the kernels
+            against the plain versions; at rate 0 the packed microbatch
+            against its examples one a row;
+11. train_packed_phase2  the same at phase 2 (16 x 512, lengths
+            64-512), where the packed segments reach the flash forward's
+            dropout arm and the fused backward: also one packed
+            microbatch's flash launches and the tiles their segment test
+            skipped, as the layout predicts;
+12. remat   --checkpoint_activations at phase 2's packed 16 x 512: 2
+            trainer steps under the model config's policy ("nothing"),
+            exact launch counts (each layer's residual tails and flash
+            forward twice); per policy (nothing, dots, mlp_only) one
+            packed microbatch's loss and all 302 gradients bit-equal to
+            remat off, and one optimizer step's launches, peak memory and
+            host and device time against remat off;
+13. finetune_squad  SQuAD v1.1 finetuning by the entry point's run_task
             (bert_pytorch_tpu_torch.run_squad's body): BERT-Large seeded
             from phase 2's last checkpoint, 3 steps of 32 x 384 (flash
             forward with dropout and the fused backward in every layer),
@@ -111,11 +132,11 @@ Phases, each of which must pass:
             run_server serving the finetuned checkpoint; one step profiled
             and timed, the optimizer update timed; one microbatch through
             the kernels against the plain versions;
-11. finetune_ner  CoNLL NER finetuning, 3 steps of 32 x 128 (plain
+14. finetune_ner  CoNLL NER finetuning, 3 steps of 32 x 128 (plain
             attention, the LayerNorm kernels) on a synthetic CoNLL-2003
             file, val and test macro F1, the checkpoint, exact launch
             counts, one step profiled and timed;
-12. finetune_tasks  classify, choice and embed finetuning, one after the
+15. finetune_tasks  classify, choice and embed finetuning, one after the
             other: BERT-Large from phase 2's last checkpoint, 3 steps of
             16 x 128 (choice 16 x 4 x 128) at the JAX base parser's recipe
             on synthetic TSV / JSONL files, val and test accuracy, embed's
@@ -123,7 +144,7 @@ Phases, each of which must pass:
             by the server and deleted, one step profiled and timed, and a
             classify and a choice microbatch through the kernels against
             the plain versions;
-13. serve_slo  the SLO plane, the canary prober and the fault injector on
+16. serve_slo  the SLO plane, the canary prober and the fault injector on
             the five-task server (seeded random BERT-Large checkpoints,
             buckets 128 and 512, bf16), with scripts/check_slo.sh's
             miniature windows: a clean leg of 20 s at 20 requests/s fires
@@ -137,20 +158,21 @@ Phases, each of which must pass:
             (configs/slo.json) and the prober on, and again with both
             off: p50 / p99, evaluate()'s host time a tick, the
             latency_p99 burn;
-14. finetune_packed  packed finetuning of the five tasks at BERT-Large
-            width (bf16, seeded random init, synthetic lengths): a packed
+17. finetune_packed  packed finetuning of the five tasks at BERT-Large
+            width, 12 layers (bf16, seeded random init, synthetic
+            lengths): a packed
             batch against the same examples one to a row through the
             kernels, dropout off (a planted label shift must read 10x the
             loss limit); the packed microbatch, dropout on, against the
-            plain versions; SQuAD's 24 flash forwards and 24 fused
-            backwards a packed microbatch and the tiles their segment
+            plain versions; SQuAD's flash forward and fused backward,
+            once a layer a packed microbatch, and the tiles their segment
             test skipped; 3 steps of run_finetune --task classify and of
             run_squad, packed and not, on the same files (examples/s, a
             step's device time, packing_efficiency, real and slot tokens,
             peak memory, exact launch counts);
-15. distill  a BERT-Large classify teacher (3 steps through
-            run_finetune, --perf_artifact: its FINETUNE json's mfu on the
-            card's peak) and a SQuAD teacher (one step) distilled into
+18. distill  a BERT-Large-width classify teacher of 12 layers (3 steps
+            through run_finetune, --perf_artifact: its FINETUNE json's mfu
+            on the card's peak) and a SQuAD teacher (one step) distilled into
             student_6l_768 (6 layers, width 768, 12 heads) by
             run_distill: classify packed with both tap losses through
             768 -> 1024 projections, SQuAD at 32 x 384 unpacked; exact
@@ -163,10 +185,10 @@ Phases, each of which must pass:
             config and its checkpoint refused under the teacher's;
             --inject broken_student; a step's time split beside a plain
             finetune step of the student;
-16. init_sources  --init_checkpoint from other sources at BERT-Large
-            width: random weights from a seed written as the reference's
-            ckpt_1.pt (its src/modeling.py names, `module.` prefixes,
-            30522 vocab rows); a fresh QA model seeded from it holds
+19. init_sources  --init_checkpoint from other sources at BERT-Large
+            width, 12 layers: random weights from a seed written as the
+            reference's ckpt_1.pt (its src/modeling.py names, `module.`
+            prefixes, 30522 vocab rows); a fresh QA model seeded from it holds
             every bert.* parameter bit-equal to the source and the report
             names the QA head alone; run_squad (run_task) from it, 2
             steps of 32 x 384, exact launch counts, its first loss
@@ -177,21 +199,26 @@ Phases, each of which must pass:
             copy, the loss's readback) as a device hang; a TF release
             and a JAX orbax directory raise the ImportError naming
             tensorflow / tensorstore, which the chip machine lacks;
-17. survival  pretraining's survival and metrics planes, phase 1 (96 x
-            128, accumulation 2, health pack on) through the entry
+20. survival  pretraining's survival and metrics planes, BERT-Large
+            width at 12 layers, phase 1 (96 x 128, accumulation 2,
+            health pack on) through the entry
             point's trainer over in-memory shards: a clean 4-step run
             with /metrics scraped mid-run and StepWatch perf records
             (mfu on the card's peak), exact launch counts; SIGTERM before
             step 3 in a process of its own (chip_smoke.py
             --pretrain_child, the entry point under `_cli`'s exit codes):
-            exit 143 and an emergency checkpoint of step 2 that verifies,
-            then a resume bit-equal to the clean run (losses and every
-            parameter) whose state holds the checkpoint's keys with the
-            pack off; a stalled dispatch under --watchdog_action warn
-            (one device_hang trip on /metrics, a stacks file) with a NaN
-            step skipped (parameters unchanged); a halt child exits 71;
-            the emergency save's, the restore's and the health pack's
-            times.
+            exit 143, an emergency checkpoint of step 2 that verifies and
+            the flight recorder's crash bundle, then a resume bit-equal
+            to the clean run (losses and every parameter) whose state
+            holds the checkpoint's keys with the pack off; a stalled
+            dispatch under --watchdog_action warn (one device_hang trip
+            on /metrics, a stacks file, a watchdog bundle) with a NaN step
+            skipped (parameters unchanged); the recorder drill: a halt
+            child (a checkpoint at step 1, a NaN at step 2) exits 71
+            naming its bundle, which validates, and
+            bert_pytorch_tpu_torch.tools.replay --bisect reproduces step
+            2 bit-identically and names layer 0's attention; the
+            emergency save's, the restore's and the health pack's times.
 
 The kernels phase also holds the flash kernels of training at phase 2's
 (16, 512, 16, 64): the forward's dropout arm, the dropout mask read out of
@@ -211,6 +238,9 @@ from the main paths' (`launches_in_checks`). It holds the fused LAMB stages
 (#11, #12) against their plain versions bit for bit over BERT-Large's 302
 parameter tensors and a list of odd sizes and misaligned views, and the
 timing phase times them over the 302 tensors.
+
+Phases 17-20 run at CUT_LAYERS (12) layers: their checks hold at any
+depth, and their checkpoints (4 GB each at 24 layers) dominate them.
 
 It prints a `kernels` JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits 2 and prints
@@ -3456,11 +3486,12 @@ def _device_call_ms(torch, fn, reps: int = 3) -> dict:
 
 def _device_total_ms(torch, fn) -> float:
     """Device time of one fn() call: its CUDA kernels' time summed by
-    torch.profiler."""
+    torch.profiler tracing the card alone (without the CPU's op events
+    the same sum, 118.95 against 118.99 ms on a phase-2 step, in 2-3 s of
+    profiling instead of 7: PERF.md)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return sum(_device_ms(ev) for ev in prof.key_averages()
@@ -3545,17 +3576,11 @@ def _loss_and_grads(torch, config, dtype, plain, weights, micro, seeds,
     """One microbatch's loss and f32 gradients through a fresh model
     holding `weights`: the kernels (plain=False) or the plain versions."""
     from bert_pytorch_tpu_torch.models.bert import BertForPreTraining
-    from bert_pytorch_tpu_torch.training.pretrain import (
-        compute_params, pretrain_loss_and_grads)
 
     with torch.device(device):
         model = BertForPreTraining(config, dtype=dtype, plain=plain)
     model.load_state_dict(weights)
-    grad_dtype = torch.bfloat16 if dtype == torch.bfloat16 else None
-    gparams = compute_params(dict(model.named_parameters()), grad_dtype)
-    loss, _, grads = pretrain_loss_and_grads(model, gparams, micro, seeds,
-                                             max_pred)
-    return loss.item(), {k: g.float() for k, g in grads.items()}
+    return _model_loss_and_grads(torch, model, micro, seeds, max_pred)
 
 
 def _check_state_dicts_equal(torch, a, b, what):
@@ -4128,6 +4153,581 @@ def phase_train(torch, np, summary, device="cuda",
                 "loss_rel": loss_rel, "max_grad_rel_l2": worst,
                 "worst_leaf": worst_name, "peak_memory_gib": peak}
             del got, want_
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- pretraining: sequence packing and activation checkpointing --------------
+
+PACKED_STEPS = 3
+# The packed pretraining runs: the run config, its microbatch and
+# sequence, the length draw (each sample's real length, through its
+# second [SEP], uniform over [lo, seq]), the synthetic samples a shard
+# (two shards: the packer's lookahead of 4 batches and 3 steps' examples),
+# and whether attention takes the flash kernels.
+PACKED_RUNS = {
+    "train_packed": {"config": PHASE1_CONFIG, "micro": 96, "seq": 128,
+                     "lo": 16, "samples": 1200, "flash": False,
+                     "tol": TRAIN_MODEL_TOL},
+    "train_packed_phase2": {"config": PHASE2_CONFIG, "micro": 16,
+                            "seq": 512, "lo": 64, "samples": 200,
+                            "flash": True, "tol": TRAIN2_MODEL_TOL},
+}
+REMAT_POLICIES = ("nothing", "dots", "mlp_only")
+REMAT_STEPS = 2
+
+
+def varied_pretraining_arrays(np, n: int, seq: int, lo: int, vocab: int,
+                              seed: int):
+    """`n` synthetic pretraining samples in the shard schema whose real
+    lengths (through the second [SEP]) are uniform over [lo, seq]: [CLS] a
+    [SEP] b [SEP], the first [SEP] uniform over the positions that leave
+    each segment a token, then padding; the loader masks them
+    dynamically."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(5, vocab, (n, seq)).astype(np.int32)
+    specials = np.zeros((n, 3), np.int32)
+    for i in range(n):
+        last = int(rng.randint(lo, seq + 1)) - 1
+        sep1 = int(rng.randint(2, last - 1))
+        ids[i, 0], ids[i, sep1], ids[i, last] = 101, 102, 102
+        ids[i, last + 1:] = 0
+        specials[i] = (0, sep1, last)
+    nsp = rng.randint(0, 2, n).astype(np.int8)
+    return {"input_ids": ids, "special_token_positions": specials,
+            "next_sentence_labels": nsp}
+
+
+def one_a_row(np, packed: dict) -> dict:
+    """A packed pretraining batch's examples one a row at its sequence
+    length: each segment's tokens, types and labels from position 0 (its
+    packed positions restart at 0 too), its NSP label."""
+    seg = packed["segment_ids"]
+    parts = [(b, g, np.nonzero(seg[b] == g)[0])
+             for b in range(seg.shape[0])
+             for g in range(1, int(seg[b].max()) + 1)]
+    n, s = len(parts), seg.shape[1]
+    out = {"input_ids": np.zeros((n, s), np.int32),
+           "token_type_ids": np.zeros((n, s), np.int32),
+           "attention_mask": np.zeros((n, s), np.int32),
+           "masked_lm_labels": np.full((n, s), -1, np.int32),
+           "next_sentence_labels": np.zeros((n,), np.int32)}
+    for i, (b, g, idx) in enumerate(parts):
+        ln = len(idx)
+        for k in ("input_ids", "token_type_ids", "attention_mask",
+                  "masked_lm_labels"):
+            out[k][i, :ln] = packed[k][b, idx]
+        out["next_sentence_labels"][i] = packed["next_sentence_labels"][
+            b, g - 1]
+    return out
+
+
+def _packed_args(run_pretraining, spec, cfg_path, out, device, steps,
+                 *extra):
+    return run_pretraining.parse_arguments([
+        "--config_file", spec["config"], "--model_config_file", cfg_path,
+        "--output_dir", out, "--local_batch_size", str(spec["micro"]),
+        "--global_batch_size", str(2 * spec["micro"]),
+        "--steps", str(steps), "--fused_optim", "auto",
+        "--skip_checkpoint", "--packing", "--log_freq", str(steps),
+        "--vocab_pad_multiple", "8", "--seed", "0", "--device", device,
+        *extra])
+
+
+def _pretrain_step_launches(layers: int, steps: int, flash: bool,
+                            recompute: bool) -> dict:
+    """The twelve kernels' launches of `steps` pretraining steps at
+    accumulation 2: per microbatch the embedding and MLM-transform
+    LayerNorms (#1/#2), each layer's two residual tails (#3/#4) and, at
+    seq > 256, its flash forward and fused backward; a recomputing remat
+    policy runs each layer's forward twice (#3 and the flash forward
+    double); one fused LAMB update a step."""
+    micro = 2 * steps
+    fwd = 2 if recompute else 1
+    return {"layer_norm_fwd": 2 * micro, "layer_norm_bwd": 2 * micro,
+            "add_dropout_layer_norm_fwd": 2 * layers * micro * fwd,
+            "add_dropout_layer_norm_bwd": 2 * layers * micro,
+            "flash_attention_fwd": layers * micro * fwd if flash else 0,
+            "flash_attention_bwd": layers * micro if flash else 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "lamb_stage1": steps, "lamb_stage2": steps}
+
+
+def _first_batch(index, args, vocab: int, micro: int, packed: bool):
+    """The first batch of a loader over `index` (seed 1), packed or not."""
+    from bert_pytorch_tpu_torch.data.sharded import (HostShardSampler,
+                                                     PretrainingDataLoader)
+
+    loader = PretrainingDataLoader(
+        index, HostShardSampler(len(index), seed=1), batch_size=2 * micro,
+        mask_token_index=103, max_pred_per_seq=args.max_predictions_per_seq,
+        masked_lm_prob=args.masked_token_fraction, vocab_size=vocab, seed=1,
+        packing=packed, packing_max_segments=args.packing_max_segments,
+        packing_lookahead=args.packing_lookahead)
+    try:
+        return next(loader)
+    finally:
+        loader.close()
+
+
+def _to_steps(torch, batch_np, micro: int, device):
+    return {k: torch.from_numpy(v.reshape(-1, micro, *v.shape[1:]))
+            .to(device) for k, v in batch_np.items()}
+
+
+def _model_loss_and_grads(torch, model, micro, seeds, max_pred):
+    """One microbatch's loss and f32 gradients through `model` as it is
+    (its compute copies at the model's dtype: bf16 gradients for a bf16
+    model)."""
+    from bert_pytorch_tpu_torch.training.pretrain import (
+        compute_params, pretrain_loss_and_grads)
+
+    grad_dtype = (torch.bfloat16 if model.bert.dtype == torch.bfloat16
+                  else None)
+    gparams = compute_params(dict(model.named_parameters()), grad_dtype)
+    loss, _, grads = pretrain_loss_and_grads(model, gparams, micro, seeds,
+                                             max_pred)
+    return loss.item(), {k: g.float() for k, g in grads.items()}
+
+
+# The NSP head's bias gradient is the mean over a microbatch's segments of
+# softmax(logits) - onehot(label), two entries of opposite sign, from
+# logits rounded to bf16; with balanced labels the mean nearly cancels, so
+# its relative error is ill-conditioned (a packed phase-2 microbatch of 31
+# segments read 6.0e-2 relative, 2.5 bf16 logit steps apart). It is held
+# to one bf16 step of a logit near 1, absolute, instead (bf16 only).
+NSP_BIAS = "cls_seq_relationship.bias"
+NSP_BIAS_NOISE = 2 ** -7
+
+
+def _step_times(torch, fn) -> dict:
+    """Host clock (median of 2, between synchronizations) and device time
+    (`_device_total_ms`) of one fn() call, with the profiler's seconds."""
+    fn()
+    host = _host_ms(torch, fn, reps=2)
+    t0 = time.perf_counter()
+    device = _device_total_ms(torch, fn)
+    check(device > 0, f"a step's device time read {device}")
+    return {"host_ms": host, "device_ms": device,
+            "profiler_s": time.perf_counter() - t0}
+
+
+def _marks():
+    """A phase's seconds by part: `mark(name)` notes the time since the
+    previous mark."""
+    marks, t = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        marks[name] = round(now - t[0], 2)
+        t[0] = now
+    return marks, mark
+
+
+def phase_train_packed(torch, np, summary, device="cuda",
+                       cfg_path=os.path.join(HERE, "configs",
+                                             "bert_large_uncased_config.json"),
+                       run="train_packed", samples=None):
+    """Packed pretraining (`run` of PACKED_RUNS: phase 1, or phase 2 with
+    the flash kernels) at `cfg_path`'s width (BERT-Large, bf16), over
+    in-memory shards of varied lengths (`varied_pretraining_arrays`):
+
+    - the main path: PACKED_STEPS steps of the entry point's trainer with
+      --packing (8 segments a row, lookahead 4; launch counts zeroed just
+      before, read just after, exact); its examples a step and the perf
+      record's packing_efficiency;
+    - one packed microbatch, dropout on, through the kernels against the
+      plain versions (the run's bf16 tolerance; the NSP bias at
+      NSP_BIAS_NOISE), and at phase 2 its flash launches (one forward
+      and one fused backward a layer) and the tiles their segment test
+      skipped, as the layout predicts;
+    - at rate 0 (no seeds), in f32, the packed microbatch against its
+      examples one a row through the kernels, at the run's f32
+      tolerances;
+    - one optimizer step of the data's first batch, packed and unpacked,
+      on one model and LAMB state: host clock and device time, examples
+      a step and examples/s.
+
+    `device`, `cfg_path` and `samples` exist so the phase can be
+    rehearsed on the CPU at a tiny size."""
+    import shutil
+
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.models.bert import (BertForPreTraining,
+                                                    init_weights)
+    from bert_pytorch_tpu_torch.ops.attention import counting_skips
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from bert_pytorch_tpu_torch.optim.lamb import Lamb
+    from bert_pytorch_tpu_torch.optim.schedulers import make_schedule
+    from bert_pytorch_tpu_torch.telemetry.health import HealthConfig
+    from bert_pytorch_tpu_torch.training.pretrain import build_pretrain_step
+    from bert_pytorch_tpu_torch.training.state import make_train_state
+
+    spec = PACKED_RUNS[run]
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_packed_pretrain_")
+    marks, mark = _marks()
+    res = {"seconds": marks}
+    summary[run] = res
+    try:
+        args = _packed_args(run_pretraining, spec, cfg_path,
+                            os.path.join(tmp, "out"), device, PACKED_STEPS)
+        config = BertConfig.from_json_file(cfg_path)
+        config = config.replace(vocab_size=pad_vocab_size(config.vocab_size,
+                                                          8))
+        layers, micro, seq = (config.num_hidden_layers, spec["micro"],
+                              spec["seq"])
+        index = array_index([varied_pretraining_arrays(
+            np, samples or spec["samples"], seq, spec["lo"],
+            config.vocab_size, s) for s in (0, 1)])
+        p_row = run_pretraining.packed_prediction_budget(args, seq)
+        mark("data")
+
+        # the main path: counts zeroed just before, read just after
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        result = run_pretraining.train(args, index,
+                                       log=lambda m: log(f"{run}: {m}"))
+        launches = dict(LAUNCHES)
+        mark("trainer")
+        summary.setdefault("launches", {})[run] = launches
+        h = result.history
+        losses = [r["loss"] for r in h]
+        want = _pretrain_step_launches(layers, PACKED_STEPS, spec["flash"],
+                                       False)
+        check(result.step == PACKED_STEPS and len(h) == PACKED_STEPS
+              and all(np.isfinite(losses)), f"{run}: {len(h)} steps, "
+              f"losses {losses}")
+        check(all(r["mlm_dropped"] == 0 for r in h),
+              f"{run}: masked positions beyond the row budget {p_row}: "
+              f"{[r['mlm_dropped'] for r in h]}")
+        if on_card:
+            check(launches == want, f"{run}: launch counts {launches}, "
+                  f"want {want}")
+        with open(os.path.join(args.output_dir,
+                               args.log_prefix + ".jsonl")) as f:
+            perf = [r for r in map(json.loads, f) if r["tag"] == "perf"]
+        res.update(steps=len(h), micro_batch=micro, seq=seq,
+                   lengths=[spec["lo"], seq], row_budget=p_row,
+                   losses=losses, examples=[r["examples"] for r in h],
+                   step_ms=[r["step_ms"] for r in h], launches=launches,
+                   launches_predicted=want,
+                   peak_memory_gib=(torch.cuda.max_memory_allocated()
+                                    / 2 ** 30 if on_card else None),
+                   perf={k: perf[-1].get(k) for k in (
+                       "packing_efficiency", "pad_fraction",
+                       "real_tokens_per_sec", "seq_per_sec",
+                       "step_time_ms")} if perf else None)
+        log(f"{run}: {PACKED_STEPS} packed steps of 2 x {micro} x {seq} "
+            f"(lengths uniform over [{spec['lo']}, {seq}]): losses "
+            f"{losses}, examples a step {res['examples']}, step ms "
+            f"{res['step_ms']}, perf {res['perf']}; launches {launches} "
+            f"(predicted {want})")
+        del result
+
+        with torch.device(device):
+            model = BertForPreTraining(config, dtype=torch.bfloat16)
+        init_weights(model, torch.Generator(device=device).manual_seed(1),
+                     std=config.initializer_range)
+        weights = {k: v.detach().clone() for k, v in
+                   model.state_dict().items()}
+        batches = {name: _first_batch(index, args, config.vocab_size, micro,
+                                      name == "packed")
+                   for name in ("unpacked", "packed")}
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (2, 1 + 3 * layers),
+                              dtype=torch.int32,
+                              generator=torch.Generator().manual_seed(7))
+        one_np = {k: v[:micro] for k, v in batches["packed"].items()}
+        one = {k: torch.from_numpy(v).to(device) for k, v in one_np.items()}
+        mark("model_and_batches")
+
+        # one packed microbatch, dropout on: the kernels (counting the
+        # flash launches and skipped tiles) against the plain versions
+        reset_launches()
+        with counting_skips(device) as skips:
+            got = _model_loss_and_grads(torch, model, one, seeds[0], p_row)
+            skipped = {k: int(v.item()) for k, v in skips.items()}
+        mb = {k: LAUNCHES[k] for k in skipped}
+        plain = _loss_and_grads(torch, config, torch.bfloat16, True,
+                                weights, one, seeds[0], p_row, device)
+        tol = spec["tol"]["bfloat16"]
+        loss_rel = abs(got[0] - plain[0]) / abs(plain[0])
+        worst, worst_name = _grad_worst(torch, got[1], plain[1],
+                                        (NSP_BIAS,))
+        nsp = torch.linalg.vector_norm(got[1][NSP_BIAS]
+                                       - plain[1][NSP_BIAS]).item()
+        res["kernels_vs_plain"] = {
+            "loss": got[0], "plain_loss": plain[0], "loss_rel": loss_rel,
+            "max_grad_rel_l2": worst, "worst_leaf": worst_name,
+            "nsp_bias_abs": nsp, "nsp_bias_norm": torch.linalg.vector_norm(
+                plain[1][NSP_BIAS]).item()}
+        log(f"{run}: one packed microbatch ({micro} x {seq}) bf16, kernels "
+            f"vs plain: loss {got[0]:.6f} vs {plain[0]:.6f} (rel "
+            f"{loss_rel:.3g}, tol {tol['loss']:g}); worst gradient rel L2 "
+            f"{worst:.3g} at {worst_name} (tol {tol['grad']:g}); the NSP "
+            f"bias {nsp:.3g} apart (norm "
+            f"{res['kernels_vs_plain']['nsp_bias_norm']:.3g}, bound "
+            f"{NSP_BIAS_NOISE:g})")
+        check(np.isfinite(got[0]) and loss_rel <= tol["loss"],
+              f"{run}: packed loss kernels {got[0]} vs plain {plain[0]}")
+        check(worst <= tol["grad"], f"{run}: packed gradient {worst_name} "
+              f"rel L2 {worst} > {tol['grad']}")
+        check(nsp <= NSP_BIAS_NOISE, f"{run}: the NSP bias gradients "
+              f"{nsp} apart")
+        del got, plain
+        if spec["flash"]:
+            res["microbatch_flash"] = {"launches": mb,
+                                       "tiles_skipped": skipped}
+            if on_card:
+                from bert_pytorch_tpu_torch.ops.kernels.build import \
+                    load_kernels
+
+                tiles = load_kernels().flash_tiles(True)
+                predicted = {k: layers * expected_skips(
+                    np, one_np["segment_ids"], *tiles[k],
+                    config.num_attention_heads)
+                    for k in ("flash_attention_fwd", "flash_attention_bwd")}
+                res["microbatch_flash"]["tiles_predicted"] = predicted
+                log(f"{run}: one packed microbatch: flash launches {mb}, "
+                    f"tiles skipped {skipped} (layout predicts {predicted})")
+                check(mb == {"flash_attention_fwd": layers,
+                             "flash_attention_bwd": layers,
+                             "flash_attention_bwd_dq": 0,
+                             "flash_attention_bwd_dkv": 0},
+                      f"{run}: packed microbatch flash launches {mb}")
+                check(all(skipped[k] == n > 0 for k, n in predicted.items()),
+                      f"{run}: tiles skipped {skipped}, predicted "
+                      f"{predicted}")
+        mark("kernels_vs_plain")
+
+        # rate 0, f32: the packed microbatch against its examples one a
+        # row (in bf16 the rows' other GEMM shapes and the bf16 gradient
+        # sums move the bits by more than the packing does)
+        single_np = one_a_row(np, one_np)
+        single = {k: torch.from_numpy(v).to(device)
+                  for k, v in single_np.items()}
+        tol = spec["tol"]["float32"]
+        with torch.device(device):
+            model32 = BertForPreTraining(config, dtype=torch.float32)
+        model32.load_state_dict(weights)
+        lp, gp = _model_loss_and_grads(torch, model32, one, None, p_row)
+        ls, gs = _model_loss_and_grads(torch, model32, single, None, p_row)
+        del model32
+        worst, worst_name = _grad_worst(torch, gp, gs, ())
+        res["packed_vs_one_a_row"] = {
+            "examples": len(single_np["input_ids"]), "rows": micro,
+            "loss_packed": lp, "loss_single": ls,
+            "loss_rel_diff": abs(lp - ls) / abs(ls),
+            "max_grad_rel_l2": worst, "worst_leaf": worst_name}
+        log(f"{run}: rate 0, {len(single_np['input_ids'])} examples in "
+            f"{micro} packed rows against one a row: loss {lp!r} vs {ls!r} "
+            f"(rel {abs(lp - ls) / abs(ls):.3g}, tol {tol['loss']:g}); "
+            f"worst gradient rel L2 {worst:.3g} at {worst_name} (tol "
+            f"{tol['grad']:g}), f32")
+        check(abs(lp - ls) / abs(ls) <= tol["loss"],
+              f"{run}: packed loss {lp!r} vs one a row {ls!r}")
+        check(worst <= tol["grad"], f"{run}: packed vs one a row gradient "
+              f"{worst_name} rel L2 {worst}")
+        del gp, gs
+        mark("packed_vs_one_a_row")
+
+        # one step of the same data, packed and one a row (the step
+        # updates the model's parameters: last)
+        schedule = make_schedule("poly", args.learning_rate, args.max_steps,
+                                 warmup=args.warmup_proportion)
+        tx = Lamb(schedule, fused="auto")
+        state = make_train_state(model, tx)
+        step = {}
+        for name, b in batches.items():
+            fn = build_pretrain_step(
+                model, tx, schedule=schedule, accum_steps=2,
+                max_predictions=(p_row if name == "packed"
+                                 else args.max_predictions_per_seq),
+                grad_dtype=torch.bfloat16, health=HealthConfig())
+            dev = _to_steps(torch, b, micro, device)
+            row = {"examples": int((b["next_sentence_labels"] >= 0).sum()),
+                   "packing_efficiency": float((b["attention_mask"] > 0)
+                                               .mean())}
+            if on_card:
+                t = _step_times(
+                    torch, lambda: fn(state, dev, seeds)["loss"].item())
+                row.update(t, examples_per_s_host=row["examples"]
+                           / t["host_ms"] * 1e3,
+                           examples_per_s_device=row["examples"]
+                           / t["device_ms"] * 1e3)
+            else:
+                fn(state, dev, seeds)
+            step[name] = row
+        res["step"] = step
+        mark("step_timing")
+        log(f"{run}: one optimizer step (2 x {micro} x {seq}), unpacked "
+            f"vs packed: {step}; seconds by part {marks}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _set_remat(model, policy: str) -> None:
+    """Switch a built pretraining model's activation checkpointing to
+    `policy` ("off" or a remat policy) in place: the attributes its
+    encoder and layers read at each forward (models/bert.py)."""
+    encoder = model.bert.encoder
+    encoder.remat_policy = None if policy == "off" else policy
+    for layer in encoder.layers:
+        layer.remat_mlp = policy == "mlp_only"
+
+
+def phase_remat(torch, np, summary, device="cuda",
+                cfg_path=os.path.join(HERE, "configs",
+                                      "bert_large_uncased_config.json"),
+                samples=None):
+    """--checkpoint_activations at phase 2's packed 16 x 512 (BERT-Large,
+    bf16):
+
+    - the main path: REMAT_STEPS steps of the entry point's trainer with
+      --packing --checkpoint_activations under the model config's policy
+      ("nothing"): exact launch counts (each layer's residual tails and
+      flash forward twice a microbatch);
+    - per policy (off, nothing, dots, mlp_only), on one model switched
+      between them (`_set_remat`): one packed microbatch's loss and all
+      302 gradients, dropout on, bit-equal to remat off; then one
+      optimizer step's exact launches, its peak memory
+      (torch.cuda.max_memory_allocated, and above the resident state)
+      and its host clock and device time.
+
+    `device`, `cfg_path` and `samples` exist so the phase can be
+    rehearsed on the CPU at a tiny size."""
+    import shutil
+
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.models.bert import (BertForPreTraining,
+                                                    init_weights)
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from bert_pytorch_tpu_torch.optim.lamb import Lamb
+    from bert_pytorch_tpu_torch.optim.schedulers import make_schedule
+    from bert_pytorch_tpu_torch.telemetry.health import HealthConfig
+    from bert_pytorch_tpu_torch.training.pretrain import (
+        build_pretrain_step, compute_params, pretrain_loss_and_grads)
+    from bert_pytorch_tpu_torch.training.state import make_train_state
+
+    spec = PACKED_RUNS["train_packed_phase2"]
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_remat_")
+    marks, mark = _marks()
+    res = {"policies": {}, "seconds": marks}
+    summary["remat"] = res
+    try:
+        args = _packed_args(run_pretraining, spec, cfg_path,
+                            os.path.join(tmp, "out"), device, REMAT_STEPS,
+                            "--checkpoint_activations")
+        config = BertConfig.from_json_file(cfg_path)
+        config = config.replace(vocab_size=pad_vocab_size(config.vocab_size,
+                                                          8))
+        check(config.remat_policy == "nothing",
+              f"remat: the model config's policy is {config.remat_policy}")
+        layers, micro, seq = (config.num_hidden_layers, spec["micro"],
+                              spec["seq"])
+        index = array_index([varied_pretraining_arrays(
+            np, samples or spec["samples"], seq, spec["lo"],
+            config.vocab_size, s) for s in (0, 1)])
+        p_row = run_pretraining.packed_prediction_budget(args, seq)
+
+        reset_launches()
+        result = run_pretraining.train(args, index,
+                                       log=lambda m: log(f"remat: {m}"))
+        launches = dict(LAUNCHES)
+        summary.setdefault("launches", {})["remat"] = launches
+        losses = [r["loss"] for r in result.history]
+        want = _pretrain_step_launches(layers, REMAT_STEPS, True, True)
+        check(len(losses) == REMAT_STEPS and all(np.isfinite(losses)),
+              f"remat: trainer losses {losses}")
+        if on_card:
+            check(launches == want, f"remat: launch counts {launches}, "
+                  f"want {want}")
+        res.update(run_losses=losses, launches=launches,
+                   launches_predicted=want)
+        log(f"remat: {REMAT_STEPS} steps of the trainer with "
+            f"--checkpoint_activations: losses {losses}, launches "
+            f"{launches} (predicted {want})")
+        del result
+        mark("trainer")
+
+        with torch.device(device):
+            model = BertForPreTraining(config, dtype=torch.bfloat16)
+        init_weights(model, torch.Generator(device=device).manual_seed(1),
+                     std=config.initializer_range)
+        batch = _to_steps(torch, _first_batch(index, args, config.vocab_size,
+                                              micro, True), micro, device)
+        micro0 = {k: v[0] for k, v in batch.items()}
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (2, 1 + 3 * layers),
+                              dtype=torch.int32,
+                              generator=torch.Generator().manual_seed(7))
+        policies = ("off",) + REMAT_POLICIES
+        ref = None
+        for policy in policies:
+            _set_remat(model, policy)
+            gparams = compute_params(dict(model.named_parameters()),
+                                     torch.bfloat16)
+            loss, _, grads = pretrain_loss_and_grads(model, gparams, micro0,
+                                                     seeds[0], p_row)
+            del gparams
+            row = res["policies"].setdefault(policy, {})
+            if ref is None:
+                ref = (loss, grads)
+                check(len(grads) == 302 or not on_card,
+                      f"remat: {len(grads)} gradients, want 302")
+                continue
+            differ = [k for k, g in ref[1].items()
+                      if not torch.equal(grads[k], g)]
+            row.update(loss_equal=bool(torch.equal(loss, ref[0])),
+                       grads_compared=len(grads), grads_differ=differ)
+            check(row["loss_equal"] and not differ
+                  and set(grads) == set(ref[1]),
+                  f"remat {policy}: loss {loss.item()!r} vs "
+                  f"{ref[0].item()!r}; gradients differ at {differ[:5]}")
+            del grads, loss
+        del ref
+        mark("bit_equality")
+
+        # one optimizer step a policy (the step updates the parameters)
+        schedule = make_schedule("poly", args.learning_rate, args.max_steps,
+                                 warmup=args.warmup_proportion)
+        tx = Lamb(schedule, fused="auto")
+        state = make_train_state(model, tx)
+        step_fn = build_pretrain_step(
+            model, tx, schedule=schedule, accum_steps=2,
+            max_predictions=p_row, grad_dtype=torch.bfloat16,
+            health=HealthConfig())
+        step_fn(state, batch, seeds)["loss"].item()      # warm
+        for policy in policies:
+            _set_remat(model, policy)
+            row = res["policies"][policy]
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            step_fn(state, batch, seeds)["loss"].item()
+            row["launches"] = dict(LAUNCHES)
+            want_step = _pretrain_step_launches(
+                layers, 1, True, policy in ("nothing", "dots"))
+            if on_card:
+                peak = torch.cuda.max_memory_allocated()
+                row.update(peak_memory_gib=peak / 2 ** 30,
+                           peak_above_resident_gib=(peak - resident)
+                           / 2 ** 30)
+                row.update(_step_times(
+                    torch, lambda: step_fn(state, batch, seeds)[
+                        "loss"].item()))
+                check(row["launches"] == want_step,
+                      f"remat {policy}: a step's launches "
+                      f"{row['launches']}, want {want_step}")
+            log(f"remat {policy}: {row}")
+        mark("steps")
+        log(f"remat: seconds by part {marks}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -6877,6 +7477,20 @@ def _scrape(url: str) -> dict:
         return parse_prometheus(r.read().decode())
 
 
+def _valid_bundles(root: str, want) -> list:
+    """The bundle directories under `root`; each of `want` must be there
+    and pass the port's validator (a failure names it and its errors)."""
+    from bert_pytorch_tpu_torch.telemetry.flight_recorder import \
+        validate_bundle
+
+    names = sorted(os.listdir(root)) if os.path.isdir(root) else []
+    for name in want:
+        check(name in names, f"no bundle {name} under {root}: {names}")
+        errors = validate_bundle(os.path.join(root, name))
+        check(not errors, f"bundle {name}: {errors}")
+    return names
+
+
 def phase_survival(torch, np, summary, device="cuda",
                    cfg_path=os.path.join(HERE, "configs",
                                          "bert_large_uncased_config.json"),
@@ -6892,16 +7506,22 @@ def phase_survival(torch, np, summary, device="cuda",
       --log_freq 1 (exact launch counts; /metrics scraped mid-run shows
       the bert_* families; each perf record's mfu in (0, 1) on the card's
       peak): its losses and final parameters are the reference;
-    - --chaos sigterm_at_step at step 3 in a child: exit 143 and an
-      emergency checkpoint of step 2 that verifies; the resume (health
-      pack off) to step 4 is bit-equal to the clean run (losses and every
-      parameter); the checkpoint's keys are the pack-off state's;
+    - --chaos sigterm_at_step at step 3 in a child: exit 143, an
+      emergency checkpoint of step 2 that verifies and the flight
+      recorder's crash bundle beside it; the resume (health pack off) to
+      step 4 is bit-equal to the clean run (losses and every parameter);
+      the checkpoint's keys are the pack-off state's;
     - --chaos stall_dispatch at step 3 under --watchdog_action warn, with
       --inject_nonfinite_step 2 --nonfinite_action skip: one device_hang
-      trip, counted on /metrics, and a stacks file; step 2 dropped, the
+      trip, counted on /metrics, a stacks file and a watchdog_device_hang
+      bundle; step 2 dropped (its non-finite bundle dumped), the
       parameters unchanged (its param_norm equal to step 1's, drift 0);
-    - --inject_nonfinite_step 2 --nonfinite_action halt in a child: exit
-      71;
+    - the recorder drill: --inject_nonfinite_step 2 --nonfinite_action
+      halt in a child with a checkpoint at step 1: exit 71 naming its
+      bundle, which validates; `python -m
+      bert_pytorch_tpu_torch.tools.replay --bundle <it> --bisect` in a
+      process of its own reproduces step 2 bit-identically and names
+      layer 0's attention;
     - the health pack's host and device time on the clean run's state,
       and the emergency save's and the resume's seconds.
 
@@ -7037,6 +7657,11 @@ def phase_survival(torch, np, summary, device="cuda",
               f"emergency checkpoint steps {mgr.all_steps()}")
         saved = torch.load(os.path.join(mgr.directory, "2", STATE_FILE),
                            map_location="cpu", weights_only=True, mmap=True)
+        # the recorder's crash bundle beside the emergency save
+        res["sigterm_bundles"] = _valid_bundles(os.path.join(
+            out_s, "repro_bundles"), ["step00000002_systemexit"])
+        check(res["sigterm_bundles"] == ["step00000002_systemexit"],
+              f"SIGTERM child's bundles {res['sigterm_bundles']}")
         # the resume, health pack off, to step 4
         t0 = time.perf_counter()
         resumed = run_pretraining.train(run_pretraining.parse_arguments(
@@ -7092,6 +7717,14 @@ def phase_survival(torch, np, summary, device="cuda",
               f"watchdog trips {trips}, /metrics {stalls}")
         check(any(f.startswith("watchdog_stacks_")
                   for f in os.listdir(out_w)), "no watchdog stacks file")
+        # the skipped step's bundle and the trip's (on the CPU a slow
+        # step may trip before any step is recorded: an empty ring)
+        want_b = ["step00000002_nonfinite",
+                  "step00000002_watchdog_device_hang"]
+        res["stall"] = {"bundles": _valid_bundles(os.path.join(
+            out_w, "repro_bundles"), want_b)}
+        check(res["stall"]["bundles"] == want_b or not on_card,
+              f"stall run's bundles {res['stall']['bundles']}")
         h = stall.history
         check(h[1]["skipped_nonfinite"] == 1 and h[1]["loss_nonfinite"] == 1
               and h[1]["param_norm"] == h[0]["param_norm"]
@@ -7099,27 +7732,51 @@ def phase_survival(torch, np, summary, device="cuda",
               and h[2]["skipped_nonfinite"] == 0
               and np.isfinite(h[2]["loss"]),
               f"skip: {[{k: r[k] for k in ('loss', 'skipped_nonfinite', 'param_norm')} for r in h]}")
-        res["stall"] = {"watchdog_timeout_s": watchdog_s,
-                        "stall_s": stall_s, "trips": len(trips),
-                        "stalls_on_metrics": stalls,
-                        "skipped_step": 2,
-                        "param_norm": [r["param_norm"] for r in h]}
+        res["stall"].update(watchdog_timeout_s=watchdog_s,
+                            stall_s=stall_s, trips=len(trips),
+                            stalls_on_metrics=stalls, skipped_step=2,
+                            param_norm=[r["param_norm"] for r in h])
         del stall
         log(f"survival: stall_dispatch at step 3: one device_hang trip on "
             f"/metrics, stacks written; step 2's NaN skipped with the "
             f"parameters unchanged ({res['stall_run_s']:.1f} s)")
 
-        # a halt in a process of its own
+        # the recorder drill: a halt in a process of its own, with a
+        # checkpoint at step 1; its bundle validates, replays step 2 and
+        # bisects it in a process of its own
         t0 = time.perf_counter()
         rc, text = _child(_survival_argv(
             cfg_path, os.path.join(tmp, "halt"), device, micro,
-            "--skip_checkpoint",
+            "--num_steps_per_checkpoint", "1",
             "--inject_nonfinite_step", "2", "--nonfinite_action", "halt"))
         res["halt_child_s"] = time.perf_counter() - t0
         check(rc == 71 and "FATAL: non-finite loss/gradients at step 2"
-              in text, f"halt child exited {rc}: {text[-3000:]}")
+              in text and "; repro bundle: " in text,
+              f"halt child exited {rc}: {text[-3000:]}")
+        bundle = text.split("; repro bundle: ")[1].split()[0]
+        res["halt_bundle"] = os.path.basename(bundle)
+        check(_valid_bundles(os.path.dirname(bundle),
+                             ["step00000002_nonfinite"])
+              == ["step00000002_nonfinite"], f"halt bundle {bundle}")
         log(f"survival: --nonfinite_action halt: exit 71 "
-            f"({res['halt_child_s']:.1f} s)")
+            f"({res['halt_child_s']:.1f} s), bundle {bundle} validates")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m",
+                            "bert_pytorch_tpu_torch.tools.replay",
+                            "--bundle", bundle, "--bisect", "--device",
+                            device], cwd=HERE, capture_output=True,
+                           text=True, timeout=600)
+        res["replay_s"] = time.perf_counter() - t0
+        out = r.stdout + r.stderr
+        res["replay"] = [ln for ln in out.splitlines()
+                         if ln.startswith(("step ", "bisect:"))]
+        log(f"survival: replay --bisect: exit {r.returncode} "
+            f"({res['replay_s']:.1f} s): {res['replay']}")
+        check(r.returncode == 0 and "step 2 (from checkpoint 1): "
+              "REPRODUCED bit-identically" in out
+              and "bisect: first non-finite tensor in scope "
+              "'layer_0/attention' (microbatch 0)" in out,
+              f"replay exited {r.returncode}: {out[-3000:]}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -7193,6 +7850,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="device,build,kernels,timing,model_seq1024,"
                             "serve,train_order,train,train_phase2,"
+                            "train_packed,train_packed_phase2,remat,"
                             "finetune_squad,finetune_ner,finetune_tasks,"
                             "serve_slo,finetune_packed,distill,"
                             "init_sources,survival",
@@ -7269,9 +7927,32 @@ def main(argv=None) -> int:
     return 0
 
 
+# finetune_packed, distill, init_sources and survival, whose checks hold
+# at any depth, run BERT-Large's width at CUT_LAYERS layers (the
+# checkpoints they write and read, 4 GB each at 24 layers, dominate
+# them), so that the whole script stays well inside its time limit on a
+# slow host: every phase took 1157 s in one call and 971 s in another
+# with them at 24 layers (PERF.md).
+CUT_LAYERS = 12
+
+
+def cut_config(directory: str) -> str:
+    """BERT-Large's model config at CUT_LAYERS layers, written into
+    `directory`; returns its path."""
+    with open(os.path.join(HERE, "configs",
+                           "bert_large_uncased_config.json")) as f:
+        cfg = json.load(f)
+    cfg["num_hidden_layers"] = CUT_LAYERS
+    path = os.path.join(directory, f"bert_large_{CUT_LAYERS}l_config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
 def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
     """Run each phase in order, report each; False if any failed."""
     ok = True
+    cut = {"cfg_path": cut_config(ckpt_dir)}
     for phase in phases:
         t0 = time.perf_counter()
         try:
@@ -7308,6 +7989,10 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
                 phase_train_order(torch, np, summary)
             elif phase in TRAIN_RUNS:
                 phase_train(torch, np, summary, run=phase, ckpt_dir=ckpt_dir)
+            elif phase in PACKED_RUNS:
+                phase_train_packed(torch, np, summary, run=phase)
+            elif phase == "remat":
+                phase_remat(torch, np, summary)
             elif phase == "finetune_squad":
                 phase_finetune_squad(torch, np, summary, ckpt_dir=ckpt_dir)
             elif phase == "finetune_ner":
@@ -7317,13 +8002,13 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
             elif phase == "serve_slo":
                 phase_serve_slo(torch, np, summary)
             elif phase == "finetune_packed":
-                phase_finetune_packed(torch, np, summary)
+                phase_finetune_packed(torch, np, summary, **cut)
             elif phase == "distill":
-                phase_distill(torch, np, summary)
+                phase_distill(torch, np, summary, **cut)
             elif phase == "init_sources":
-                phase_init_sources(torch, np, summary)
+                phase_init_sources(torch, np, summary, **cut)
             elif phase == "survival":
-                phase_survival(torch, np, summary)
+                phase_survival(torch, np, summary, **cut)
             else:
                 raise PhaseError(f"unknown phase {phase!r}")
             torch.cuda.synchronize()

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: E402,F401  (the cores shared among xdist workers)
 
 from bert_pytorch_tpu.ops.attention import _xla_attention
 from bert_pytorch_tpu.ops.pallas.flash_attention import _flash_fwd

@@ -19,6 +19,7 @@ import sys
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: E402,F401  (the cores shared among xdist workers)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)

@@ -27,6 +27,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_threads  # noqa: E402,F401  (the cores shared among xdist workers)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 

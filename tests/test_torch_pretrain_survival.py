@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: E402,F401  (the cores shared among xdist workers)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -581,8 +582,10 @@ def test_run_finetune_watchdog_trips_on_a_stalled_device_wait(
 def test_chip_smoke_survival_phase_rehearses_on_cpu(tmp_path):
     """chip_smoke.py's survival phase at a tiny width on the CPU: the
     clean run with /metrics scraped mid-run, the SIGTERM child and the
-    bit-equal resume, the stall under warn with the skipped NaN step,
-    the halt child (the launch counts apply on the card only)."""
+    bit-equal resume with its crash bundle, the stall under warn with the
+    skipped NaN step and the watchdog's bundle, the recorder drill (the
+    halt child's bundle replayed and bisected in a process of its own;
+    the launch counts apply on the card only)."""
     import chip_smoke
 
     cfg = tmp_path / "tiny.json"
@@ -603,3 +606,10 @@ def test_chip_smoke_survival_phase_rehearses_on_cpu(tmp_path):
     assert "bert_watchdog_stalls_total" not in res["metrics_families"]
     assert {"bert_train_steps_total", "bert_mfu",
             "bert_nonfinite_steps_total"} <= set(res["metrics_families"])
+    assert res["sigterm_bundles"] == ["step00000002_systemexit"]
+    assert "step00000002_watchdog_device_hang" in res["stall"]["bundles"]
+    assert res["halt_bundle"] == "step00000002_nonfinite"
+    assert res["replay"][0].startswith(
+        "step 2 (from checkpoint 1): REPRODUCED bit-identically")
+    assert res["replay"][1] == ("bisect: first non-finite tensor in scope "
+                                "'layer_0/attention' (microbatch 0)")

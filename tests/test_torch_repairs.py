@@ -20,6 +20,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: E402,F401  (the cores shared among xdist workers)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -126,9 +127,9 @@ def _run_config(tmp_path, **over):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("checkpoint_activations", True), ("zero1", "true"),
+    ("stacked_params", "true"), ("zero1", "true"),
     ("steps_per_loop", 4), ("profile_steps", "2,4"), ("mesh", "data=2"),
-    ("fsdp_overlap", True), ("stream_dir", "corpus"), ("packing", True),
+    ("fsdp_overlap", True), ("stream_dir", "corpus"), ("rng_impl", "rbg"),
     ("kfac", True), ("h2d_prefetch", 1), ("optimizer", "bert_adam")])
 def test_run_config_enabling_a_missing_feature_is_refused(tmp_path, key,
                                                           value):
@@ -152,7 +153,7 @@ def test_checked_in_run_configs_are_accepted(phase):
 
 def test_tuning_keys_of_an_off_feature_are_accepted(tmp_path):
     args = run_pretraining.parse_arguments([
-        "--config_file", _run_config(tmp_path, packing_max_segments=4,
+        "--config_file", _run_config(tmp_path, kfac_damping=0.01,
                                      stream_workers=8, zero1="auto",
                                      tensorboard="off", log_freq=5)])
     run_pretraining._unsupported(args)
@@ -192,6 +193,10 @@ def test_refused_table_accounts_for_every_jax_flag():
             "watchdog_timeout", "watchdog_action", "chaos", "chaos_step",
             "chaos_stall_secs", "slo_config", "slo_eval_interval_s",
             "slo_action", "slo_halt_after_s"} <= declared
+    # and packing, the flight recorder and activation checkpointing's
+    assert {"packing", "packing_max_segments", "packing_lookahead",
+            "flight_recorder", "recorder_window",
+            "checkpoint_activations"} <= declared
     # each JAX flag in exactly one place
     for dest in jax_flags:
         places = [dest in declared, dest in refused, dest in tuning]

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: E402,F401  (the cores shared among xdist workers)
 from flax import traverse_util
 
 from bert_pytorch_tpu.config import BertConfig as JaxBertConfig

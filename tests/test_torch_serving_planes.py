@@ -33,6 +33,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: E402,F401  (the cores shared among xdist workers)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORDS = ("the cat sat on a mat while dog ran in park and red blue green "

@@ -5,6 +5,7 @@ identical results on the same inputs."""
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: E402,F401  (the cores shared among xdist workers)
 
 from bert_pytorch_tpu.data import packing as jpacking
 from bert_pytorch_tpu.data import tokenization as jtok

@@ -26,6 +26,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: E402,F401  (the cores shared among xdist workers)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TASKS = ("choice", "classify", "embed", "ner", "squad")

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: E402,F401  (the cores shared among xdist workers)
 
 from bert_pytorch_tpu.ops.attention import hash_dropout as jax_hash_dropout
 from bert_pytorch_tpu.ops.layernorm import _hash_keep_mask
