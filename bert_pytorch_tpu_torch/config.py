@@ -38,6 +38,9 @@ class BertConfig:
     model_name: Optional[str] = None
     vocab_file: Optional[str] = None
     lowercase: bool = True
+    # the tokenizer family of vocab_file (data/tokenization.TOKENIZERS):
+    # "wordpiece" or "bpe"; NER builds it unless --tokenizer names one
+    tokenizer: str = "wordpiece"
     # Counter-hash dropout at every training dropout site: each residual
     # tail is one fused residual-dropout-LayerNorm (mask evaluated in the
     # kernel), and the embeddings and attention-probability sites

@@ -14,6 +14,10 @@ examples by the first-fit packer of data/packing.py (segment ids,
 per-segment positions and per-segment NSP fields); the examples fetched
 but not yet placed in a row ride in the loader's state as global sample
 indices, so a resume lays out the same rows with the same masks.
+
+`DevicePrefetcher` stages batches on the card ahead of the step that
+reads them (run_pretraining's --h2d_prefetch); `cuda_put` is its copy on
+a side CUDA stream.
 """
 
 from __future__ import annotations
@@ -363,6 +367,11 @@ class PretrainingDataLoader:
             state["pending"] = list(self._pending_examples)
         return state
 
+    @property
+    def epoch(self) -> int:
+        """The epoch being read (the streaming loader's attribute)."""
+        return self.sampler.epoch
+
     def state_dict(self) -> Dict[str, Any]:
         return dict(self._last_state)
 
@@ -399,3 +408,123 @@ class PretrainingDataLoader:
             self._assembler.shutdown(wait=True, cancel_futures=True)
             self._assembler = None
         self._queue = []
+
+
+class DevicePrefetcher:
+    """Batches staged on the device ahead of the step that reads them
+    (JAX: data/sharded.py's DevicePrefetcher).
+
+    Wraps an iterator of numpy batches; `put_fn` turns one into its
+    device form (`cuda_put` on a card: a non-blocking copy on a side
+    stream). Iteration yields (numpy_batch, device_batch) pairs, so the
+    consumer keeps its host-side uses without a device-to-host trip.
+
+    `next()` pulls a batch only when none is staged; `fill()` stages
+    batches until `depth` wait. The train loop calls `fill()` after it has
+    dispatched a step and before it reads the step's metrics, so the next
+    batch's pull, stacking and copy run while the card computes (the loop
+    ends each step with a host sync, which would otherwise stage the next
+    batch while the card idles). With depth 0 `fill()` does nothing and
+    the class is a synchronous map. A consumer that calls `fill()` right
+    after each `next()` pulls exactly when JAX's class does.
+
+    `state_dict()` is `state_fn()` (the loader's state) as of the last
+    pair yielded, not of the batches staged ahead, so a checkpoint taken
+    with batches staged resumes without skipping one. `batch_tap` fires
+    at each yield, in dispatch order (the flight recorder's capture
+    point). A device batch that carries an `event` (cuda_put's) is waited
+    on by the consumer's current stream at its yield, before the step can
+    read it."""
+
+    def __init__(self, source, put_fn, depth: int = 1, state_fn=None,
+                 batch_tap=None):
+        self._source = iter(source)
+        self._put = put_fn
+        self.depth = max(0, int(depth))
+        self._state_fn = state_fn
+        self.batch_tap = batch_tap
+        self._buf: List[tuple] = []     # (np_batch, staged, state)
+        self._last_state = state_fn() if state_fn is not None else None
+        self._exhausted = False
+
+    def _pull(self) -> bool:
+        if self._exhausted:
+            return False
+        try:
+            batch = next(self._source)
+        except StopIteration:
+            self._exhausted = True
+            return False
+        state = self._state_fn() if self._state_fn is not None else None
+        self._buf.append((batch, self._put(batch), state))
+        return True
+
+    def fill(self) -> None:
+        """Stage batches until `depth` wait (or the source ends)."""
+        while len(self._buf) < self.depth and self._pull():
+            pass
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if not self._buf and not self._pull():
+            raise StopIteration
+        batch, staged, state = self._buf.pop(0)
+        self._last_state = state
+        if isinstance(staged, StagedBatch):
+            staged = staged.ready()
+        if self.batch_tap is not None:
+            self.batch_tap(batch)
+        return batch, staged
+
+    def state_dict(self):
+        """Upstream state as of the last yielded pair (None without a
+        state_fn)."""
+        return self._last_state
+
+
+class StagedBatch:
+    """A batch copied to the card on a side stream (`cuda_put`): its
+    device tensors and the event recorded after the copies. The pinned
+    host tensors the copies read need no keeping here: PyTorch's caching
+    host allocator records an event on the copying stream for a
+    non-blocking copy out of pinned memory, and reuses the block only
+    once that event has completed."""
+
+    def __init__(self, tensors, event):
+        self.tensors, self.event = tensors, event
+
+    def ready(self):
+        """The device tensors, ordered after their copy on the caller's
+        current stream: the stream waits on the event, and each tensor
+        (allocated on the side stream) is recorded as used there, so the
+        allocator does not reuse it before the step is done."""
+        import torch
+
+        stream = torch.cuda.current_stream()
+        stream.wait_event(self.event)
+        for t in self.tensors.values():
+            t.record_stream(stream)
+        return self.tensors
+
+
+def cuda_put(torch, accum_steps: int, micro: int, device, side_stream):
+    """`DevicePrefetcher`'s put on a card: each array reshaped to
+    (accum_steps, micro, ...), copied into pinned host memory and from
+    there to the card with non_blocking=True on `side_stream`, into
+    tensors allocated on that stream; an event recorded after the copies.
+    Returns put(numpy_batch) -> StagedBatch."""
+
+    def put(batch_np):
+        pinned = {k: torch.from_numpy(np.ascontiguousarray(
+            v.reshape(accum_steps, micro, *v.shape[1:]))).pin_memory()
+            for k, v in batch_np.items()}
+        with torch.cuda.stream(side_stream):
+            tensors = {k: v.to(device, non_blocking=True)
+                       for k, v in pinned.items()}
+            event = torch.cuda.Event()
+            event.record(side_stream)
+        return StagedBatch(tensors, event)
+
+    return put

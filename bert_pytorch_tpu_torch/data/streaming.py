@@ -1,0 +1,953 @@
+"""Streaming data plane: raw text tokenized on the fly into pretraining
+batches, with resumable cursors (counterpart of
+bert_pytorch_tpu/data/streaming.py, the same loader).
+
+- Sources (`StreamSource`) enumerate (record_idx, text) pairs in a stable
+  order; `FileSource` reads blank-line-delimited documents from a text
+  file (one sentence a line, a blank line between documents).
+- Records are numbered globally across the sorted source list; host r
+  owns the records with ``global_seq % world_size == rank``.
+- A reader thread walks this host's records and fans the tokenizing out
+  to a thread pool; results are consumed in submission order, so the
+  worker count and the queue sizes change pacing only, never the stream.
+  Each record chunks into fixed-length examples ([CLS] chunk [SEP], one
+  segment, NSP label 0).
+- Masks are a pure function of the example's cursor: data/masking.py's
+  80/10/10 masking draws from a generator seeded with ``(seed, epoch,
+  global_seq, example_idx)``, so every epoch remasks and a resume draws
+  the masks an unbroken run draws.
+- ``state_dict()`` holds the cursor of the last example consumed, lagged
+  to the last yielded batch under assembly prefetch, and under packing
+  the cursors of the examples pending in the packer; a resume re-reads
+  from the earliest pending record and drops what was consumed, so the
+  resumed stream is bit-identical to an unbroken run. A state of another
+  plane, corpus (`sources_fingerprint`), shard layout, sequence length or
+  seed is refused with a warning and the stream starts over.
+- The example queue is bounded: a full queue stalls the workers, an
+  empty one shows as the train loop's ``data_wait``. With a
+  MetricsRegistry (``registry=``) the plane exports
+  ``bert_stream_queue_depth``, ``bert_stream_tokens_total``,
+  ``bert_stream_records_total``, ``bert_stream_records_dropped_total``,
+  ``bert_stream_worker_restarts_total``, ``bert_stream_examples_total``
+  and ``bert_stream_worker_tokens_per_sec{worker=...}``.
+- Fault drills (``inject=``): ``slow_producer`` sleeps in the worker,
+  ``corrupt_record`` poisons every 7th owned record (dropped and
+  counted), ``worker_crash`` kills the tokenize task of every 5th record
+  once (re-submitted with its cursor intact: the stream is unchanged);
+  each is deterministic by record id.
+
+The reader and the pool are threads: the reader is a daemon that
+``close()`` stops without waiting on a full queue, and ``close()`` never
+waits on an in-flight tokenize. run_pretraining's --stream_dir is the
+entry point.
+"""
+
+from __future__ import annotations
+
+import glob as glob_lib
+import hashlib
+import os
+import queue as queue_lib
+import threading
+import time
+import warnings
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from bert_pytorch_tpu_torch.data import masking
+from bert_pytorch_tpu_torch.data import packing as packing_lib
+
+STREAM_STATE_VERSION = 1
+
+# fault-injection constants (deterministic by record id, so an injected run's
+# *surviving* stream is still a pure function of the cursor)
+INJECT_SLOW_SLEEP_S = 0.05
+INJECT_CORRUPT_EVERY, INJECT_CORRUPT_PHASE = 7, 3
+INJECT_CRASH_EVERY, INJECT_CRASH_PHASE = 5, 2
+INJECT_MODES = ("slow_producer", "corrupt_record", "worker_crash")
+
+_MAX_TASK_RETRIES = 2  # re-submissions before a record is dropped as corrupt
+
+
+class CorruptRecordError(RuntimeError):
+    """A record that cannot be tokenized; skipped-and-counted, never fatal."""
+
+
+class StreamSource:
+    """One ordered record stream. Records must enumerate identically on every
+    pass — that stability is what the whole cursor contract rests on."""
+
+    name: str
+
+    def iter_records(self, start: int = 0) -> Iterator[Tuple[int, str]]:
+        raise NotImplementedError
+
+
+class FileSource(StreamSource):
+    """Blank-line-delimited documents in one local text file (the
+    pipeline/format.py corpus contract: one sentence per line, blank line
+    between documents). ``start`` skips records without tokenizing them —
+    resume seeks by scanning document boundaries, not by re-encoding."""
+
+    def __init__(self, path: str):
+        self.name = str(path)
+
+    def iter_records(self, start: int = 0) -> Iterator[Tuple[int, str]]:
+        idx = 0
+        buf: List[str] = []
+        # errors="replace": a torn byte sequence becomes U+FFFD and flows to
+        # the tokenizer as [UNK] rather than killing the plane mid-epoch
+        with open(self.name, "r", encoding="utf-8", errors="replace") as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    buf.append(line)
+                    continue
+                if buf:
+                    if idx >= start:
+                        yield idx, "\n".join(buf)
+                    idx += 1
+                    buf = []
+        if buf and idx >= start:
+            yield idx, "\n".join(buf)
+
+
+def discover_sources(path_or_glob: str) -> List[FileSource]:
+    """Directory -> every *.txt under it (recursive); otherwise treated as a
+    glob pattern; a plain file path is its own one-element glob. Sorted, so
+    the global record enumeration is stable across hosts and sessions."""
+    if os.path.isdir(path_or_glob):
+        paths = glob_lib.glob(os.path.join(path_or_glob, "**", "*.txt"),
+                              recursive=True)
+    else:
+        paths = glob_lib.glob(path_or_glob)
+    return [FileSource(p) for p in sorted(paths)]
+
+
+def sources_fingerprint(sources: Sequence[StreamSource]) -> str:
+    """Identity of the source LIST (names + sizes + mtimes when stat-able).
+    A resume against a different corpus must be detected and refused — the
+    checkpointed cursor indexes into this enumeration and no other. mtime
+    is included so a same-length in-place edit cannot silently shift the
+    enumeration; the cost is that a benign touch/copy also refuses (with
+    the loud warning) and restarts the stream — the safe direction."""
+    h = hashlib.sha256()
+    for s in sources:
+        h.update(s.name.encode("utf-8", errors="replace"))
+        try:
+            stat = os.stat(s.name)
+            h.update(f"{stat.st_size}:{stat.st_mtime_ns}".encode())
+        except OSError:
+            h.update(b"?")
+        h.update(b"\0")
+    return h.hexdigest()[:16]
+
+
+# [CLS]/[SEP] naming differs by tokenizer family: WordPiece vocabs use the
+# BERT names, the repo's BPE trainer emits RoBERTa-style <s>/</s>
+# (pipeline/vocab.py). The loader accepts either.
+_CLS_TOKENS = ("[CLS]", "<s>")
+_SEP_TOKENS = ("[SEP]", "</s>")
+MASK_TOKENS = ("[MASK]", "<mask>")
+
+
+def _first_id(tokenizer, candidates: Sequence[str]) -> Optional[int]:
+    for tok in candidates:
+        tid = tokenizer.token_to_id(tok)
+        if tid is not None:
+            return int(tid)
+    return None
+
+
+def resolve_mask_id(tokenizer) -> Optional[int]:
+    """The [MASK]/<mask> id straight from the stream tokenizer — the
+    authoritative lookup for stream mode (line-parsing a BPE .json vocab
+    with load_vocab would silently miss)."""
+    return _first_id(tokenizer, MASK_TOKENS)
+
+
+def _example_rng(seed: int, epoch: int, global_seq: int,
+                 example_idx: int) -> np.random.Generator:
+    """THE masking rng: a pure function of the example's cursor. This single
+    line is what upgrades resume from 'rng-independent fields match' (the
+    offline loader's contract) to full bit-identity, masks included."""
+    return np.random.default_rng(
+        (int(seed), int(epoch), int(global_seq), int(example_idx)))
+
+
+def tokenize_record(
+    text: str,
+    tokenizer,
+    seq_len: int,
+    cls_id: int,
+    sep_id: int,
+    mask_token_index: int,
+    max_pred_per_seq: int,
+    masked_lm_prob: float,
+    vocab_size: int,
+    seed: int,
+    epoch: int,
+    global_seq: int,
+    original_token_prob: float = 0.1,
+    random_token_prob: float = 0.1,
+) -> List[Dict[str, np.ndarray]]:
+    """One record -> its masked examples, deterministically.
+
+    Chunking: the record's token ids split into runs of (seq_len - 2), each
+    framed [CLS] ... [SEP] and zero-padded. Single segment (token_type_ids
+    all 0, next_sentence_labels 0 — RoBERTa mode; the NSP head trains on a
+    constant 'is next' and contributes nothing, same as next_seq_prob=0
+    offline shards). Masking via data/masking.dynamic_mask_batch with the
+    cursor-derived rng."""
+    enc = tokenizer.encode(text, add_special_tokens=False)
+    ids = list(enc.ids)
+    out: List[Dict[str, np.ndarray]] = []
+    body = max(1, seq_len - 2)
+    for j in range(0, len(ids), body):
+        chunk = ids[j:j + body]
+        example_idx = j // body
+        row = np.zeros((1, seq_len), np.int32)
+        row[0, 0] = cls_id
+        row[0, 1:1 + len(chunk)] = chunk
+        row[0, 1 + len(chunk)] = sep_id
+        specials = np.array([[0, 1 + len(chunk)]], np.int32)
+        attention_mask = masking.input_mask_from_specials(row, specials)
+        # one generator drawn as a 1-row batch: per_row_mask_draws' order
+        # (scores, action, random tokens) is dynamic_mask_batch(rng=...)'s
+        rng = _example_rng(seed, epoch, global_seq, example_idx)
+        masked, labels = masking.dynamic_mask_batch(
+            row, specials,
+            mask_token_index=mask_token_index,
+            max_pred_per_seq=max_pred_per_seq,
+            masked_lm_prob=masked_lm_prob,
+            draws=masking.per_row_mask_draws([rng], seq_len, vocab_size),
+            original_token_prob=original_token_prob,
+            random_token_prob=random_token_prob)
+        out.append({
+            "input_ids": masked[0].astype(np.int32),
+            "token_type_ids": np.zeros((seq_len,), np.int32),
+            "attention_mask": attention_mask[0].astype(np.int32),
+            "masked_lm_labels": labels[0].astype(np.int32),
+            "next_sentence_labels": np.int32(0),
+        })
+    return out
+
+
+class _WorkerStats:
+    """Per-worker tokenize accounting, updated from the pool threads and
+    read by the producer when it refreshes the registry gauges.
+
+    Rates are computed over ~2 s wall-clock windows, not as a lifetime
+    average: a worker that stalls must read 0 on the gauge within a
+    window, not keep reporting its historical healthy rate forever (the
+    'flat-lined worker' diagnostic docs/OBSERVABILITY.md teaches). Until
+    the first window completes, the running busy-time average is
+    reported so short-lived runs still export a number."""
+
+    WINDOW_S = 2.0
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._win: Dict[str, List[float]] = {}  # name -> [tokens, secs]
+        self._win_start = time.perf_counter()
+        self._last: Dict[str, float] = {}
+
+    def note(self, tokens: int, secs: float) -> None:
+        name = threading.current_thread().name
+        with self._lock:
+            acc = self._win.setdefault(name, [0.0, 0.0])
+            acc[0] += tokens
+            acc[1] += secs
+
+    def rates(self) -> Dict[str, float]:
+        with self._lock:
+            now = time.perf_counter()
+            wall = now - self._win_start
+            if wall >= self.WINDOW_S:
+                known = set(self._last) | set(self._win)
+                self._last = {
+                    name: self._win.get(name, (0.0, 0.0))[0] / wall
+                    for name in known}
+                self._win = {}
+                self._win_start = now
+            if not self._last:  # first window still filling
+                return {name: (acc[0] / acc[1] if acc[1] > 0 else 0.0)
+                        for name, acc in self._win.items()}
+            return dict(self._last)
+
+
+class StreamingPretrainingLoader:
+    """Iterator of ready-to-device batches tokenized on the fly.
+
+    Same surface as data/sharded.PretrainingDataLoader — ``__next__`` yields
+    the identical batch dict contract (packed fields included when
+    ``packing=True``), ``state_dict``/``load_state_dict`` checkpoint the
+    cursor, ``reset_epoch`` rolls the epoch, ``batch_tap`` fires at the yield
+    boundary, ``prefetch_batches`` runs batch assembly on an executor — so
+    run_pretraining's train loop, DevicePrefetcher staging and flight
+    recorder compose without knowing which plane feeds them.
+    """
+
+    def __init__(
+        self,
+        sources: Sequence[StreamSource],
+        tokenizer,
+        batch_size: int,
+        seq_len: int,
+        mask_token_index: int,
+        max_pred_per_seq: int,
+        masked_lm_prob: float,
+        vocab_size: int,
+        seed: int = 0,
+        world_size: int = 1,
+        rank: int = 0,
+        num_workers: int = 2,
+        queue_batches: int = 4,
+        prefetch_batches: int = 0,
+        packing: bool = False,
+        packing_max_segments: int = 8,
+        packing_lookahead: int = 4,
+        original_token_prob: float = 0.1,
+        random_token_prob: float = 0.1,
+        registry=None,
+        inject: Optional[str] = None,
+        batch_tap=None,
+    ):
+        if not sources:
+            raise ValueError("no stream sources")
+        if not 0 <= rank < world_size:
+            raise ValueError(f"rank {rank} out of range for world "
+                             f"{world_size}")
+        if not 0 <= masked_lm_prob <= 1:
+            raise ValueError("masked_lm_prob must be in [0,1]")
+        if original_token_prob + random_token_prob > 1:
+            raise ValueError("original_token_prob + random_token_prob > 1")
+        if seq_len < 3:
+            raise ValueError("seq_len must fit [CLS] + 1 token + [SEP]")
+        if inject is not None and inject not in INJECT_MODES:
+            raise ValueError(f"inject must be one of {INJECT_MODES}")
+        self.sources = list(sources)
+        self.sources_hash = sources_fingerprint(self.sources)
+        self.tokenizer = tokenizer
+        cls_id = _first_id(tokenizer, _CLS_TOKENS)
+        sep_id = _first_id(tokenizer, _SEP_TOKENS)
+        if cls_id is None or sep_id is None:
+            raise ValueError(
+                f"tokenizer vocab has none of {_CLS_TOKENS} / none of "
+                f"{_SEP_TOKENS} — cannot frame examples")
+        self._cls_id, self._sep_id = cls_id, sep_id
+        self.batch_size = int(batch_size)
+        self.seq_len = int(seq_len)
+        self.mask_token_index = int(mask_token_index)
+        self.max_pred_per_seq = int(max_pred_per_seq)
+        self.masked_lm_prob = float(masked_lm_prob)
+        self.vocab_size = int(vocab_size)
+        self.seed = int(seed)
+        self.world_size = int(world_size)
+        self.rank = int(rank)
+        self.num_workers = max(1, int(num_workers))
+        self.queue_examples = max(
+            self.batch_size, self.batch_size * max(1, int(queue_batches)))
+        self.original_token_prob = float(original_token_prob)
+        self.random_token_prob = float(random_token_prob)
+        self.inject = inject
+        self.packing = bool(packing)
+        if self.packing and packing_max_segments < 1:
+            raise ValueError("packing_max_segments must be >= 1")
+        self.packing_max_segments = int(packing_max_segments)
+        self.packing_lookahead = max(1, int(packing_lookahead))
+        # batch_tap(batch) fires for every YIELDED batch on the consumer
+        # thread — the flight recorder's capture point, identical contract
+        # to the offline loader (and to DevicePrefetcher under h2d prefetch)
+        self.batch_tap = batch_tap
+
+        # -- cursor state (the resume contract) -----------------------------
+        self.epoch = 0
+        self._batches = 0  # batches yielded this epoch (bookkeeping)
+        # cursor of the last example CONSUMED from the stream: (source_idx,
+        # record_in_source, record global_seq, next-example skip). Fresh
+        # loaders start one-before-the-beginning.
+        self._cursor = (0, 0, 0, 0)
+        # packing carry-over: [(source, record, global_seq, example_idx,
+        # example_dict)] — metas checkpoint, payloads rebuild on resume
+        self._pending: List[Tuple[Tuple[int, int, int, int],
+                                  Dict[str, np.ndarray]]] = []
+        # resume replay filter: re-derived examples at-or-before the feed
+        # cursor are kept only if their meta is in the pending set
+        self._resume_keep: Optional[set] = None
+        self._resume_until: Optional[Tuple[int, int]] = None
+        # per-source record counts as discovered (None = not yet finished);
+        # the flight-recorder manifest's "per-source offsets"
+        self._source_records: List[Optional[int]] = [None] * len(self.sources)
+        # record range feeding each recent yielded batch, for the manifest
+        self.recent_windows: deque = deque(maxlen=32)
+
+        # -- plumbing --------------------------------------------------------
+        self._pool = ThreadPoolExecutor(
+            max_workers=self.num_workers,
+            thread_name_prefix="stream-tokenize")
+        self._stats = _WorkerStats()
+        self._queue: Optional[queue_lib.Queue] = None
+        self._producer: Optional[threading.Thread] = None
+        self._producer_stop = threading.Event()
+        self._epoch_done = False  # end sentinel seen; sticky until reset
+        self._window_snapshot: Optional[Dict[str, int]] = None
+        self._crashed_once: set = set()
+        self._closed = False
+
+        # batch-assembly prefetch: same separate single-worker executor
+        # discipline as the offline loader (one consumer of the example
+        # queue at a time, assembly serialized in order)
+        self.prefetch_batches = max(0, int(prefetch_batches))
+        self._assembler: Optional[ThreadPoolExecutor] = None
+        self._assembly_queue: List = []
+        if self.prefetch_batches > 0:
+            self._assembler = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="stream-assemble")
+
+        # -- registry instruments -------------------------------------------
+        self._g_depth = self._c_tokens = self._c_records = None
+        self._c_dropped = self._c_restarts = self._c_examples = None
+        self._g_worker_rate = None
+        if registry is not None:
+            self._g_depth = registry.gauge(
+                "bert_stream_queue_depth",
+                "tokenized examples buffered between the stream workers "
+                "and the train loop (0 under producer starvation, full "
+                "under consumer backpressure)")
+            self._c_tokens = registry.counter(
+                "bert_stream_tokens_total",
+                "raw tokens tokenized by the streaming plane")
+            self._c_records = registry.counter(
+                "bert_stream_records_total",
+                "source records tokenized (this host's shard)")
+            self._c_dropped = registry.counter(
+                "bert_stream_records_dropped_total",
+                "corrupt source records skipped-and-counted")
+            self._c_restarts = registry.counter(
+                "bert_stream_worker_restarts_total",
+                "tokenize tasks that died and were re-submitted with "
+                "their cursor intact")
+            self._c_examples = registry.counter(
+                "bert_stream_examples_total",
+                "fixed-length examples emitted by the tokenize workers")
+            self._g_worker_rate = registry.gauge(
+                "bert_stream_worker_tokens_per_sec",
+                "per-worker tokenize throughput (tokens/sec over ~2s "
+                "windows; 0 = stalled or idle worker)",
+                labels=("worker",))
+        self._last_state = self._state_snapshot()
+
+    # -- record enumeration ---------------------------------------------------
+
+    def _owned_records(self, start_source: int, start_record: int,
+                       start_seq: int, stop: threading.Event
+                       ) -> Iterator[Tuple[int, int, int, str]]:
+        """(source_idx, record_idx, global_seq, text) for every record this
+        host owns, from the given cursor. global_seq numbers ALL records
+        (owned or not) so masking seeds and ownership stay host-invariant."""
+        gs = start_seq
+        for si in range(start_source, len(self.sources)):
+            first = start_record if si == start_source else 0
+            n_seen = first
+            for ri, text in self.sources[si].iter_records(start=first):
+                if stop.is_set():
+                    return
+                n_seen = ri + 1
+                if gs % self.world_size == self.rank:
+                    yield si, ri, gs, text
+                gs += 1
+            self._source_records[si] = n_seen
+
+    # -- producer -------------------------------------------------------------
+
+    def _tokenize_task(self, text: str, epoch: int, global_seq: int
+                       ) -> List[Dict[str, np.ndarray]]:
+        """Pool-thread work unit: injection hooks + timed tokenize."""
+        if self.inject == "slow_producer":
+            time.sleep(INJECT_SLOW_SLEEP_S)
+        if (self.inject == "corrupt_record"
+                and global_seq % INJECT_CORRUPT_EVERY
+                == INJECT_CORRUPT_PHASE):
+            raise CorruptRecordError(
+                f"injected corrupt record (global_seq={global_seq})")
+        if (self.inject == "worker_crash"
+                and global_seq % INJECT_CRASH_EVERY == INJECT_CRASH_PHASE
+                and (epoch, global_seq) not in self._crashed_once):
+            self._crashed_once.add((epoch, global_seq))
+            raise RuntimeError(
+                f"injected worker crash (global_seq={global_seq})")
+        t0 = time.perf_counter()
+        try:
+            examples = tokenize_record(
+                text, self.tokenizer, self.seq_len, self._cls_id,
+                self._sep_id, self.mask_token_index, self.max_pred_per_seq,
+                self.masked_lm_prob, self.vocab_size, self.seed, epoch,
+                global_seq, self.original_token_prob,
+                self.random_token_prob)
+        except (CorruptRecordError, RuntimeError):
+            raise
+        except Exception as e:
+            # anything the tokenizer chokes on is a corrupt record, not a
+            # dead plane
+            raise CorruptRecordError(f"tokenize failed: {e}") from e
+        n_tokens = sum(int(ex["attention_mask"].sum()) for ex in examples)
+        self._stats.note(n_tokens, time.perf_counter() - t0)
+        if self._c_tokens is not None:
+            self._c_tokens.inc(n_tokens)
+        return examples
+
+    def _produce(self, epoch: int, start_source: int, start_record: int,
+                 start_seq: int, skip_first: int, q: queue_lib.Queue,
+                 stop: threading.Event) -> None:
+        """Reader thread: submit records to the pool in order, consume
+        futures in order, push examples through the bounded queue. Ordering
+        by submission index is the determinism guarantee — worker count and
+        finish order cannot reorder the stream."""
+        inflight: deque = deque()  # (si, ri, gs, text, future, retries)
+        records = self._owned_records(start_source, start_record, start_seq,
+                                      stop)
+        exhausted = False
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue_lib.Full:
+                    continue
+            return False
+
+        try:
+            while not stop.is_set():
+                while not exhausted and len(inflight) < 2 * self.num_workers:
+                    try:
+                        si, ri, gs, text = next(records)
+                    except StopIteration:
+                        exhausted = True
+                        break
+                    fut = self._pool.submit(self._tokenize_task, text,
+                                            epoch, gs)
+                    inflight.append((si, ri, gs, text, fut, 0))
+                if not inflight:
+                    break
+                si, ri, gs, text, fut, retries = inflight.popleft()
+                try:
+                    examples = fut.result()
+                except CorruptRecordError as e:
+                    warnings.warn(
+                        f"stream: DROPPING corrupt record {ri} of "
+                        f"{self.sources[si].name} (global_seq={gs}): {e}")
+                    if self._c_dropped is not None:
+                        self._c_dropped.inc()
+                    continue
+                except Exception as e:
+                    if retries < _MAX_TASK_RETRIES:
+                        warnings.warn(
+                            f"stream: tokenize worker died on record {ri} "
+                            f"of {self.sources[si].name} "
+                            f"(global_seq={gs}): {e} — restarting with "
+                            "its cursor intact "
+                            f"(retry {retries + 1}/{_MAX_TASK_RETRIES})")
+                        if self._c_restarts is not None:
+                            self._c_restarts.inc()
+                        fut = self._pool.submit(self._tokenize_task, text,
+                                                epoch, gs)
+                        inflight.appendleft((si, ri, gs, text, fut,
+                                             retries + 1))
+                        continue
+                    # persistent failure: drop the one record loudly (the
+                    # corrupt path) rather than take the training run down
+                    warnings.warn(
+                        f"stream: DROPPING record {ri} of "
+                        f"{self.sources[si].name} (global_seq={gs}) after "
+                        f"{_MAX_TASK_RETRIES} failed restarts: {e}")
+                    if self._c_dropped is not None:
+                        self._c_dropped.inc()
+                    continue
+                if self._c_records is not None:
+                    self._c_records.inc()
+                if self._c_examples is not None:
+                    self._c_examples.inc(len(examples))
+                if self._g_worker_rate is not None:
+                    for worker, rate in self._stats.rates().items():
+                        self._g_worker_rate.set(rate, worker=worker)
+                first_j = skip_first if (si, ri) == (start_source,
+                                                     start_record) else 0
+                for j, ex in enumerate(examples):
+                    if j < first_j:
+                        continue  # consumed before the checkpoint
+                    if not put(("ex", (si, ri, gs, j), ex)):
+                        return
+            put(("end",))
+        except BaseException as e:  # pragma: no cover - defensive
+            put(("err", e))
+
+    def _start_producer(self) -> None:
+        if self._producer is not None or self._closed:
+            return
+        si, ri, gs, skip = self._resume_start()
+        self._queue = queue_lib.Queue(maxsize=self.queue_examples)
+        self._epoch_done = False
+        self._producer_stop = threading.Event()
+        self._producer = threading.Thread(
+            target=self._produce,
+            args=(self.epoch, si, ri, gs, skip, self._queue,
+                  self._producer_stop),
+            name="stream-reader", daemon=True)
+        self._producer.start()
+
+    def _resume_start(self) -> Tuple[int, int, int, int]:
+        """Where the producer must (re)start: the consumed cursor's next
+        example — or, under packing, the earliest record still holding a
+        pending example (the replay filter then drops what was consumed)."""
+        si, ri, gs, skip = self._cursor
+        starts = [(si, ri, gs, skip)]
+        starts += [(m[0], m[1], m[2], m[3]) for m in self._resume_pending()]
+        si, ri, gs, skip = min(starts, key=lambda c: (c[2], c[3]))
+        return si, ri, gs, skip
+
+    def _resume_pending(self) -> List[Tuple[int, int, int, int]]:
+        return [meta for meta, _ in self._pending] \
+            if self._pending and all(ex is None for _, ex in self._pending) \
+            else []
+
+    def _stop_producer(self) -> None:
+        if self._producer is None:
+            return
+        self._producer_stop.set()
+        # unblock a producer stalled on a full queue
+        q = self._queue
+        if q is not None:
+            try:
+                while True:
+                    q.get_nowait()
+            except queue_lib.Empty:
+                pass
+        self._producer.join(timeout=10.0)
+        self._producer = None
+        self._queue = None
+
+    # -- consumer -------------------------------------------------------------
+
+    def _next_example(self):
+        """One (meta, example) off the queue, honoring the resume replay
+        filter; None at epoch end. The blocking get — the caller's time
+        here IS the data_wait signal."""
+        if self._epoch_done or self._closed:
+            # sticky: assemblies queued ahead at epoch end (or during
+            # teardown) must all see the end, not block on an empty queue
+            return None
+        self._start_producer()
+        while True:
+            try:
+                item = self._queue.get(timeout=0.2)
+            except queue_lib.Empty:
+                if self._closed:
+                    return None
+                if self._producer is not None \
+                        and not self._producer.is_alive() \
+                        and self._queue.empty():
+                    # defensive: a producer that died without its sentinel
+                    # must not strand the consumer
+                    raise RuntimeError("stream producer thread died")
+                continue
+            if self._g_depth is not None:
+                self._g_depth.set(self._queue.qsize())
+            kind = item[0]
+            if kind == "end":
+                self._epoch_done = True
+                return None
+            if kind == "err":
+                raise RuntimeError(
+                    "stream producer failed after retries") from item[1]
+            _, meta, ex = item
+            if self._resume_until is not None:
+                key = (meta[2], meta[3])  # (global_seq, example_idx)
+                if key <= self._resume_until:
+                    if meta in self._resume_keep:
+                        # a pending packer example: re-materialized
+                        for i, (m, old) in enumerate(self._pending):
+                            if m == meta:
+                                self._pending[i] = (m, ex)
+                        continue
+                    continue  # consumed before the checkpoint: drop
+                self._resume_until = None
+                self._resume_keep = None
+            return meta, ex
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        if self._assembler is not None:
+            if not self._assembly_queue:
+                self._assembly_queue.append(
+                    self._assembler.submit(self._assemble_one))
+            head = self._assembly_queue.pop(0)
+            while len(self._assembly_queue) < self.prefetch_batches:
+                self._assembly_queue.append(
+                    self._assembler.submit(self._assemble_one))
+            batch, state, window = head.result()
+            if batch is None:
+                self._drain_assembly()
+                raise StopIteration
+            self._last_state = state
+        else:
+            batch = self._assemble_sync()
+            if batch is None:
+                raise StopIteration
+            self._last_state = self._state_snapshot()
+            window = self._window_snapshot
+        self._batches += 1
+        if window is not None:
+            self.recent_windows.append(dict(window, batch=self._batches))
+        if self.batch_tap is not None:
+            self.batch_tap(batch)
+        return batch
+
+    def _assemble_one(self):
+        batch = self._assemble_sync()
+        return batch, self._state_snapshot(), self._window_snapshot
+
+    def _assemble_sync(self) -> Optional[Dict[str, np.ndarray]]:
+        self._window_snapshot = None
+        if self.packing:
+            return self._assemble_packed()
+        rows: List[Tuple[Tuple[int, int, int, int],
+                         Dict[str, np.ndarray]]] = []
+        while len(rows) < self.batch_size:
+            nxt = self._next_example()
+            if nxt is None:
+                return None  # partial tail dropped (static shapes)
+            rows.append(nxt)
+            self._cursor = (nxt[0][0], nxt[0][1], nxt[0][2], nxt[0][3] + 1)
+        self._window_snapshot = self._window_of([m for m, _ in rows])
+        return self._stack([ex for _, ex in rows])
+
+    def _assemble_packed(self) -> Optional[Dict[str, np.ndarray]]:
+        """Packed batch via the SAME greedy first-fit as the offline plane
+        (data/packing.py): top pending up to batch_size * lookahead
+        examples, first-fit, emit; unplaced examples stay pending with
+        their payloads cached. Epoch end emits only full-coverage batches
+        (every row holds >= 1 example), like the offline packer."""
+        target = self.batch_size * self.packing_lookahead
+        exhausted = False
+        # the second clause drives the resume replay filter to completion
+        # even when the restored pending buffer alone meets the target
+        # (e.g. a smaller lookahead on resume) — its payloads are not
+        # materialized until the filter has run
+        while len(self._pending) < target or self._resume_until is not None:
+            nxt = self._next_example()
+            if nxt is None:
+                exhausted = True
+                break
+            self._pending.append(nxt)
+            self._cursor = (nxt[0][0], nxt[0][1], nxt[0][2], nxt[0][3] + 1)
+        if not self._pending:
+            return None
+        missing = [m for m, ex in self._pending if ex is None]
+        if missing:
+            # a checkpointed pending example never came back from the
+            # resume replay (its record now drops or fails tokenization):
+            # name it loudly instead of dying in np.stack
+            raise RuntimeError(
+                "stream resume: checkpointed pending example(s) "
+                f"{missing} (source, record, global_seq, example_idx) "
+                "vanished from the stream — the corpus or the injection "
+                "config changed since the checkpoint")
+        examples = self._stack([ex for _, ex in self._pending])
+        lengths = packing_lib.example_lengths(examples["attention_mask"])
+        bins = packing_lib.first_fit(lengths, self.batch_size, self.seq_len,
+                                     self.packing_max_segments)
+        if exhausted and any(not members for members in bins):
+            self._pending = []  # dropped tail
+            return None
+        batch = packing_lib.pack_examples(examples, bins, self.seq_len,
+                                          self.packing_max_segments)
+        placed = {i for members in bins for i in members}
+        self._window_snapshot = self._window_of(
+            [self._pending[i][0] for i in sorted(placed)])
+        self._pending = [self._pending[i]
+                         for i in range(len(self._pending))
+                         if i not in placed]
+        return batch
+
+    @staticmethod
+    def _stack(examples: List[Dict[str, np.ndarray]]
+               ) -> Dict[str, np.ndarray]:
+        out = {k: np.stack([ex[k] for ex in examples])
+               for k in examples[0]}
+        out["next_sentence_labels"] = \
+            out["next_sentence_labels"].reshape(-1).astype(np.int32)
+        return out
+
+    @staticmethod
+    def _window_of(metas) -> Optional[Dict[str, int]]:
+        if not metas:
+            return None
+        seqs = [m[2] for m in metas]
+        return {"record_lo": int(min(seqs)), "record_hi": int(max(seqs))}
+
+    # -- state ----------------------------------------------------------------
+
+    def _state_snapshot(self) -> Dict:
+        si, ri, gs, skip = self._cursor
+        state = {
+            "stream": STREAM_STATE_VERSION,
+            "epoch": self.epoch,
+            "seed": self.seed,
+            "world_size": self.world_size,
+            "rank": self.rank,
+            "sources_hash": self.sources_hash,
+            "seq_len": self.seq_len,
+            "source": si, "record": ri, "global_seq": gs, "skip": skip,
+            "batches": self._batches,
+        }
+        if self.packing:
+            state["pending"] = [list(meta) for meta, _ in self._pending]
+        return state
+
+    def initial_state(self) -> Dict:
+        """The fresh-loader state: load_state_dict(initial_state()) rewinds
+        to the epoch start (run_pretraining's peek-for-shapes rewind)."""
+        return {
+            "stream": STREAM_STATE_VERSION, "epoch": 0, "seed": self.seed,
+            "world_size": self.world_size, "rank": self.rank,
+            "sources_hash": self.sources_hash, "seq_len": self.seq_len,
+            "source": 0, "record": 0, "global_seq": 0, "skip": 0,
+            "batches": 0, "pending": [],
+        }
+
+    def state_dict(self) -> Dict:
+        """Cursor as of the last YIELDED batch — safe to checkpoint with
+        assembly running ahead (prefetch_batches > 0), same lag contract as
+        the offline loader."""
+        if self._assembler is None:
+            return self._state_snapshot()
+        return dict(self._last_state)
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore the cursor (stopping any live producer). Refused — with
+        a loud warning and a fresh start — when the state belongs to a
+        different plane, corpus, shard layout, or sequence length: a cursor
+        indexes one enumeration and no other."""
+        self._drain_assembly()
+        self._stop_producer()
+        self._epoch_done = False
+        self._pending = []
+        self._resume_keep = self._resume_until = None
+        refuse = None
+        if not isinstance(state, dict) or "stream" not in state:
+            refuse = "not a streaming-plane state (offline sampler state?)"
+        elif state.get("sources_hash") != self.sources_hash:
+            refuse = (f"source list changed ({state.get('sources_hash')} "
+                      f"-> {self.sources_hash})")
+        elif state.get("world_size") != self.world_size \
+                or state.get("rank") != self.rank:
+            refuse = "world size / rank changed"
+        elif state.get("seq_len") != self.seq_len:
+            refuse = (f"seq_len changed ({state.get('seq_len')} -> "
+                      f"{self.seq_len})")
+        elif state.get("seed") != self.seed:
+            # the masking rng is f(seed, cursor): a different seed would
+            # silently break the bit-identical-resume contract mid-stream
+            refuse = (f"seed changed ({state.get('seed')} -> {self.seed})")
+        elif state.get("pending") and not self.packing:
+            # a packed checkpoint's carry-over examples have nowhere to go
+            # in an unpacked loader — dropping them silently would lose
+            # training data
+            refuse = ("checkpoint carries packed pending examples but "
+                      "packing is off")
+        if refuse is not None:
+            warnings.warn(f"stream: not restoring cursor state: {refuse}; "
+                          "starting from the beginning")
+            self.epoch = 0
+            self._batches = 0
+            self._cursor = (0, 0, 0, 0)
+            self._last_state = self._state_snapshot()
+            return
+        self.epoch = int(state["epoch"])
+        self._batches = int(state.get("batches", 0))
+        self._cursor = (int(state["source"]), int(state["record"]),
+                        int(state["global_seq"]), int(state["skip"]))
+        pending_meta = [tuple(int(x) for x in m)
+                        for m in state.get("pending", [])]
+        if pending_meta:
+            # payloads rebuild on the next assembly: the producer restarts
+            # at the earliest pending record and the replay filter keeps
+            # exactly these examples (everything else consumed pre-ckpt)
+            self._pending = [(m, None) for m in pending_meta]
+            self._resume_keep = set(pending_meta)
+        if pending_meta or self._cursor[3] or self._cursor[2]:
+            gs, skip = self._cursor[2], self._cursor[3]
+            self._resume_until = (gs, skip - 1) if skip else (gs - 1, 1 << 60)
+            self._resume_keep = set(pending_meta)
+        self._last_state = self._state_snapshot()
+
+    def reset_epoch(self) -> None:
+        self._drain_assembly()
+        self._stop_producer()
+        self._epoch_done = False
+        self.epoch += 1
+        self._batches = 0
+        self._cursor = (0, 0, 0, 0)
+        self._pending = []
+        self._resume_keep = self._resume_until = None
+        self._last_state = self._state_snapshot()
+
+    def _drain_assembly(self) -> None:
+        for f in self._assembly_queue:
+            try:
+                f.result()
+            except Exception:
+                pass
+        self._assembly_queue.clear()
+
+    # -- flight-recorder manifest hook ---------------------------------------
+
+    def stream_info(self) -> Dict:
+        """The manifest's optional 'stream' key: enough for replay to name
+        the exact records in the recorded window and for an operator to
+        re-point the plane at the same corpus position."""
+        si = self._cursor[0]
+        offsets = []
+        for i, n in enumerate(self._source_records):
+            if n is not None:
+                offsets.append(int(n))
+            elif i == si:
+                offsets.append(int(self._cursor[1]))
+            elif i < si:
+                offsets.append(-1)  # passed but count unseen (resumed past)
+            else:
+                offsets.append(0)
+        return {
+            "sources_hash": self.sources_hash,
+            "sources": [s.name for s in self.sources],
+            "source_offsets": offsets,
+            "cursor": self.state_dict(),
+            "recent_batches": list(self.recent_windows),
+        }
+
+    # -- teardown -------------------------------------------------------------
+
+    def close(self) -> None:
+        """Idempotent shutdown of producer + pool + assembler; never waits
+        on an in-flight tokenize."""
+        if self._closed:
+            return
+        self._closed = True
+        if self._assembler is not None:
+            self._assembler.shutdown(wait=False, cancel_futures=True)
+        self._assembly_queue.clear()
+        self._stop_producer()
+        self._pool.shutdown(wait=False, cancel_futures=True)
+
+    def __del__(self):  # pragma: no cover - GC timing dependent
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -1,17 +1,22 @@
-"""WordPiece tokenization in pure Python (counterpart of
-bert_pytorch_tpu/data/tokenization.py, WordPiece only).
+"""WordPiece and byte-level BPE tokenization in pure Python (counterpart
+of bert_pytorch_tpu/data/tokenization.py).
 
 The canonical Google-BERT algorithms: BasicTokenizer (control-character
 cleanup, CJK spacing, optional lowercase + NFD accent stripping,
 punctuation splitting) and WordpieceTokenizer (greedy longest-match-first
 over '##' continuations), with an end-to-end `BertWordPieceTokenizer` that
-frames [CLS]/[SEP] and keeps character offsets. The JAX package's native
-C++ encoder gives the same output and is not ported yet.
+frames [CLS]/[SEP] and keeps character offsets; and RoBERTa's byte-level
+BPE (`ByteLevelBPETokenizer`: GPT-2's byte-to-unicode table, its
+pre-tokenizer scanned by hand because `re` lacks \\p{L}, ranked merges).
+`TOKENIZERS` maps "wordpiece" and "bpe" to their factories. The JAX
+package's native C++ encoders give the same ids and are not ported yet.
 """
 
 from __future__ import annotations
 
 import collections
+import json
+import os
 import unicodedata
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -257,3 +262,172 @@ def get_wordpiece_tokenizer(vocab, uppercase: bool = False
                             ) -> BertWordPieceTokenizer:
     """WordPiece tokenizer from a vocab file or dict."""
     return BertWordPieceTokenizer(vocab, lowercase=not uppercase)
+
+
+# ---------------------------------------------------------------------------
+# byte-level BPE (the RoBERTa path)
+# ---------------------------------------------------------------------------
+
+def bytes_to_unicode() -> Dict[int, str]:
+    """GPT-2's bijection of the 256 bytes onto printable characters."""
+    bs = (list(range(ord("!"), ord("~") + 1))
+          + list(range(ord("\xa1"), ord("\xac") + 1))
+          + list(range(ord("\xae"), ord("\xff") + 1)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, [chr(c) for c in cs]))
+
+
+class ByteLevelBPETokenizer:
+    """Byte-level BPE encoder (tokenizers.ByteLevelBPETokenizer's
+    output). `vocab`: token -> id, or a .json file of it; `merges`: the
+    ranked merge pairs, or a merges.txt (one "a b" pair a line, '#' lines
+    skipped). add_prefix_space matches the reference factory's default."""
+
+    _CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
+
+    def __init__(self, vocab, merges, lowercase: bool = False,
+                 add_prefix_space: bool = True, unk_token: str = "<unk>"):
+        if isinstance(vocab, str):
+            with open(vocab, "r", encoding="utf-8") as f:
+                vocab = json.load(f)
+        self.vocab: Dict[str, int] = dict(vocab)
+        self.ids_to_tokens = {i: t for t, i in self.vocab.items()}
+        if isinstance(merges, str):
+            with open(merges, "r", encoding="utf-8") as f:
+                lines = [ln.rstrip("\n") for ln in f
+                         if ln.strip() and not ln.startswith("#")]
+            merges = [tuple(ln.split()) for ln in lines]
+        self.bpe_ranks = {tuple(m): i for i, m in enumerate(merges)}
+        self.byte_encoder = bytes_to_unicode()
+        self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
+        self.lowercase = lowercase
+        self.add_prefix_space = add_prefix_space
+        self.unk_token = unk_token
+        self._cache: Dict[str, List[str]] = {}
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        return self.vocab.get(token)
+
+    def id_to_token(self, idx: int) -> Optional[str]:
+        return self.ids_to_tokens.get(idx)
+
+    def get_vocab_size(self) -> int:
+        return len(self.vocab)
+
+    def _bpe(self, token: str) -> List[str]:
+        """Merge the lowest-ranked adjacent pair until none is ranked."""
+        if token in self._cache:
+            return self._cache[token]
+        word: List[str] = list(token)
+        while len(word) > 1:
+            pairs = {(word[i], word[i + 1]) for i in range(len(word) - 1)}
+            best = min(pairs, key=lambda p: self.bpe_ranks.get(p, 1 << 30))
+            if best not in self.bpe_ranks:
+                break
+            merged: List[str] = []
+            i = 0
+            while i < len(word):
+                if i < len(word) - 1 and (word[i], word[i + 1]) == best:
+                    merged.append(word[i] + word[i + 1])
+                    i += 2
+                else:
+                    merged.append(word[i])
+                    i += 1
+            word = merged
+        self._cache[token] = word
+        return word
+
+    def _pretokenize(self, text: str) -> List[str]:
+        """GPT-2's pre-tokenization: contractions, letter runs, number
+        runs and runs of other characters, each with an optional single
+        leading space, and whitespace runs."""
+        out: List[str] = []
+        i, n = 0, len(text)
+        while i < n:
+            if text[i] == "'":
+                for c in self._CONTRACTIONS:
+                    if text.startswith(c, i):
+                        out.append(c)
+                        i += len(c)
+                        break
+                else:
+                    j = i + 1
+                    while j < n and not (text[j].isspace()
+                                         or text[j].isalpha()
+                                         or text[j].isnumeric()):
+                        j += 1
+                    out.append(text[i:j])
+                    i = j
+                continue
+            start = i
+            lead_space = False
+            if text[i] == " " and i + 1 < n and not text[i + 1].isspace():
+                lead_space = True
+                i += 1
+            if i < n and text[i].isalpha():
+                while i < n and text[i].isalpha():
+                    i += 1
+            elif i < n and text[i].isnumeric():
+                while i < n and text[i].isnumeric():
+                    i += 1
+            elif i < n and text[i].isspace():
+                while i < n and text[i].isspace():
+                    i += 1
+            else:
+                while i < n and not (text[i].isspace() or text[i].isalpha()
+                                     or text[i].isnumeric()
+                                     or text[i] == "'"):
+                    i += 1
+                if i == start + (1 if lead_space else 0):
+                    i += 1      # a lone character that matched no run
+            out.append(text[start:i])
+        return [c for c in out if c]
+
+    def encode(self, text: str, add_special_tokens: bool = True
+               ) -> Encoding:
+        """Pieces and ids of `text` (no specials are added either way;
+        offsets are (0, 0))."""
+        if self.lowercase:
+            text = text.lower()
+        if self.add_prefix_space and text and not text.startswith(" "):
+            text = " " + text
+        enc = Encoding()
+        unk = self.vocab.get(self.unk_token, 0)
+        for chunk in self._pretokenize(text):
+            if chunk.isspace() and chunk != " ":
+                chunk = " "
+            mapped = "".join(self.byte_encoder[b]
+                             for b in chunk.encode("utf-8"))
+            for piece in self._bpe(mapped):
+                tid = self.vocab.get(piece)
+                enc.tokens.append(piece)
+                enc.ids.append(unk if tid is None else tid)
+                enc.offsets.append((0, 0))
+                enc.type_ids.append(0)
+        return enc
+
+    def decode(self, ids: Sequence[int]) -> str:
+        text = "".join(self.ids_to_tokens.get(i, "") for i in ids)
+        raw = bytearray(self.byte_decoder.get(ch, 32) for ch in text)
+        return raw.decode("utf-8", errors="replace")
+
+
+def get_bpe_tokenizer(vocab, merges=None, uppercase: bool = False
+                      ) -> ByteLevelBPETokenizer:
+    """Byte-level BPE tokenizer; `vocab` may be a .json path, and then
+    `merges` defaults to the merges.txt beside it."""
+    if merges is None and isinstance(vocab, str):
+        merges = os.path.join(os.path.dirname(vocab), "merges.txt")
+    return ByteLevelBPETokenizer(vocab, merges, lowercase=not uppercase)
+
+
+TOKENIZERS = {
+    "wordpiece": get_wordpiece_tokenizer,
+    "bpe": get_bpe_tokenizer,
+}

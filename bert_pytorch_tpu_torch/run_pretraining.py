@@ -1,11 +1,14 @@
 """Pretraining entry point of the port: BERT pretraining on one card,
 phase 1 (seq 128) or phase 2 (seq 512, attention through the flash
-kernels), the sequence length taken from the shards.
+kernels), the sequence length taken from the shards (or --stream_seq_len).
 
     python -m bert_pytorch_tpu_torch.run_pretraining \\
         --config_file configs/bert_pretraining_phase{1,2}_config.json \\
         --input_dir <dir of .hdf5 shards> --output_dir <dir> \\
         [--fused_optim auto] [--device cuda|cpu] [--steps N]
+    python -m bert_pytorch_tpu_torch.run_pretraining ... \\
+        --stream_dir <dir of raw .txt> --stream_vocab <vocab> \\
+        [--stream_tokenizer wordpiece|bpe] --output_dir <dir>
 
 Flags, defaults and precedence (CLI > JSON run config > defaults) are the
 JAX entry point's (run_pretraining.py), trimmed to what the port
@@ -14,12 +17,20 @@ sharded-HDF5 data, the gathered MLM head, gradient accumulation up to
 --global_batch_size, bf16 compute with bf16 gradients over f32 masters,
 LAMB with a warmup schedule (--fused_optim: "off" and "xla" tensor by
 tensor, "auto"/"pallas" the fused multi-tensor kernels on the card), and
-the non-finite health checks. --packing packs several short examples into
-each row (data/packing.py: segment-masked attention, positions reset per
-segment, NSP per segment; the gathered MLM head's budget grows to a
-row's); --checkpoint_activations recomputes each encoder layer in the
-backward pass under the model config's remat_policy (nothing, dots,
-mlp_only).
+the non-finite health checks. --stream_dir reads raw text instead of
+shards, tokenized on the fly by a thread pool (data/streaming.py: the
+same batches as the JAX package's loader, its cursor in every checkpoint,
+a resume bit-identical, masks included; --stream_tokenizer bpe reads a
+byte-level BPE vocab, its <mask> the mask id; --stream_inject drills the
+plane's faults); the two planes' flags conflict at parse time. Batches
+reach the card through data/sharded.DevicePrefetcher: at --h2d_prefetch N
+(default 1) the next batch is pulled, pinned and copied on a side CUDA
+stream while the card runs the step. --packing packs several short
+examples into each row (data/packing.py: segment-masked attention,
+positions reset per segment, NSP per segment; the gathered MLM head's
+budget grows to a row's); --checkpoint_activations recomputes each
+encoder layer in the backward pass under the model config's remat_policy
+(nothing, dots, mlp_only).
 
 Checkpoints: every --num_steps_per_checkpoint steps and at the end of the
 run into <output_dir>/pretrain_ckpts/<global step>/, the newest
@@ -40,9 +51,11 @@ step_loss and the step's metrics, with the health pack's) and every
 --log_freq steps a StepWatch `perf` record (step time, seq/s, MFU on the
 card's peak, the host phases data_wait / data_prep / h2d / dispatch /
 metric_flush / checkpoint) in <output_dir>/<log_prefix>.{txt,jsonl} and
-<log_prefix>_metrics.csv; --metrics_port serves them as /metrics with a
-/healthz. The flight recorder (--flight_recorder, on by default) keeps
-the last --recorder_window steps' batches and dropout seeds and dumps a
+<log_prefix>_metrics.csv, and (--tensorboard on, the default) as
+TensorBoard scalars under <log_prefix>_tb; --metrics_port serves them as
+/metrics with a /healthz (a streaming run's cursor on it). The flight
+recorder (--flight_recorder, on by default) keeps the last
+--recorder_window steps' batches and dropout seeds and dumps a
 repro bundle under <output_dir>/repro_bundles on a non-finite step, a
 watchdog trip or a crash; tools/replay.py reproduces and bisects it.
 Survival (resilience/): each step runs inside the preemption guard, and
@@ -57,7 +70,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 import math
 import os
 import sys
@@ -70,11 +82,11 @@ import torch
 from bert_pytorch_tpu_torch import PRETRAIN_GAPS as _ROADMAP
 from bert_pytorch_tpu_torch.training.pretrain import dropout_seeds
 
-# The JAX entry point's flags (run_pretraining.py, parse_arguments) that
-# this parser does not declare. A run config may still set them (the merge
-# attaches every JSON key), so each one is refused unless its value leaves
-# its feature off: key -> the values that do. (The CLI refuses undeclared
-# flags itself.)
+# The JAX entry point's flags (run_pretraining.py, parse_arguments) whose
+# feature the port lacks. The parser declares each one with the JAX type
+# and choices and the default that leaves its feature off, so a JAX command
+# line parses; a value that switches its feature on, from the command line
+# or a run config, is refused: key -> the values that leave it off.
 _REFUSED = {
     "steps_per_loop": (1,),
     "kfac": (False,),
@@ -89,18 +101,13 @@ _REFUSED = {
     "fsdp_overlap": (False,),
     "mesh_config": ("auto",),
     "coalesce_reductions": ("off",),
-    # batches move to the card in the step; no device-side prefetcher
-    "h2d_prefetch": (0,),
     # the libtpu flag pack
     "overlap_flags": ("off",),
     # the port's dropout seeds come from numpy (dropout_seeds)
     "rng_impl": ("threefry2x32",),
-    "stream_dir": (None,),
-    "tensorboard": ("off",),
-    # --device cpu is the port's
     "force_cpu": (False,),
-    "stream_inject": (None,),
 }
+_HINTS = {"force_cpu": "use `--device cpu`"}
 # Flags that only tune a feature refused above: accepted with any value,
 # since their feature is off.
 _TUNING = {
@@ -109,10 +116,48 @@ _TUNING = {
     "kfac_kl_clip": "kfac", "kfac_stats_dtype": "kfac",
     "kfac_skip_layers": "kfac", "kfac_bucket_mb": "kfac",
     "kfac_factor_sync_freq": "kfac",
-    "stream_vocab": "stream_dir", "stream_tokenizer": "stream_dir",
-    "stream_seq_len": "stream_dir", "stream_workers": "stream_dir",
-    "stream_queue_batches": "stream_dir",
 }
+# stream flags that only make sense with --stream_dir: given on the
+# command line without it, they fail at parse time (JAX's list)
+_STREAM_DEPENDENT_FLAGS = ("stream_vocab", "stream_tokenizer",
+                           "stream_seq_len", "stream_workers",
+                           "stream_queue_batches", "stream_inject")
+
+
+def _declare_refused(p: argparse.ArgumentParser) -> None:
+    """The JAX flags of `_REFUSED` and `_TUNING`, with JAX's types and
+    choices; each default leaves its feature off."""
+    p.add_argument("--steps_per_loop", type=int, default=1)
+    p.add_argument("--kfac", action="store_true", default=False)
+    p.add_argument("--kfac_inv_interval", type=int, default=10)
+    p.add_argument("--kfac_factor_interval", type=int, default=1)
+    p.add_argument("--kfac_stat_decay", type=float, default=0.95)
+    p.add_argument("--kfac_damping", type=float, default=0.003)
+    p.add_argument("--kfac_kl_clip", type=float, default=0.001)
+    p.add_argument("--kfac_stats_dtype", type=str, default="f32",
+                   choices=["f32", "bf16"])
+    p.add_argument("--kfac_skip_layers", nargs="+", type=str,
+                   default=["cls_predictions", "embeddings"])
+    p.add_argument("--kfac_bucket_mb", type=float, default=4.0)
+    p.add_argument("--kfac_factor_sync_freq", type=int, default=1)
+    p.add_argument("--mesh", type=str, default="")
+    p.add_argument("--profile_steps", type=str, default=None)
+    p.add_argument("--stacked_params", type=str, default="auto",
+                   choices=["auto", "true", "false"])
+    p.add_argument("--zero1", type=str, default="auto",
+                   choices=["auto", "true", "false"])
+    p.add_argument("--zero1_overlap", action="store_true")
+    p.add_argument("--zero1_rs", action="store_true")
+    p.add_argument("--fsdp_overlap", action="store_true")
+    p.add_argument("--mesh_config", type=str, default="auto",
+                   choices=["auto", "production", "base"])
+    p.add_argument("--coalesce_reductions", type=str, default="off",
+                   choices=["on", "off"])
+    p.add_argument("--overlap_flags", type=str, default="off",
+                   choices=["on", "off"])
+    p.add_argument("--rng_impl", type=str, default="threefry2x32",
+                   choices=["rbg", "unsafe_rbg", "threefry2x32"])
+    p.add_argument("--force_cpu", action="store_true")
 
 
 def parse_arguments(argv=None) -> argparse.Namespace:
@@ -200,6 +245,49 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         "checkpoint at most this many steps back")
     p.add_argument("--prefetch_batches", type=int, default=2,
                    help="host batches assembled ahead on a thread")
+    p.add_argument("--h2d_prefetch", type=int, default=1,
+                   help="batches staged on the card ahead of the step that "
+                        "reads them (data/sharded.DevicePrefetcher): the "
+                        "next batch is pulled and copied from pinned memory "
+                        "on a side CUDA stream while the card runs this "
+                        "step; 0 copies each batch synchronously before its "
+                        "step")
+    p.add_argument("--tensorboard", type=str, default="on",
+                   choices=["on", "off"],
+                   help="TensorBoard sink (<output_dir>/<log_prefix>_tb, "
+                        "torch.utils.tensorboard); off without the "
+                        "tensorboard package, which the log says")
+    p.add_argument("--stream_dir", default=None, type=str,
+                   help="stream mode: a directory (or glob) of raw .txt "
+                        "corpus files (blank-line-separated documents) "
+                        "tokenized on the fly by a thread pool "
+                        "(data/streaming.py), instead of --input_dir's "
+                        "shards; resumes bit-identically, masks included")
+    p.add_argument("--stream_vocab", default=None, type=str,
+                   help="the streaming tokenizer's vocab (default: the "
+                        "model config's vocab_file)")
+    p.add_argument("--stream_tokenizer", default="wordpiece", type=str,
+                   choices=["wordpiece", "bpe"],
+                   help="tokenizer family in stream mode (bpe: a .json "
+                        "vocab with merges.txt beside it)")
+    p.add_argument("--stream_seq_len", default=128, type=int,
+                   help="example length in stream mode ([CLS] + "
+                        "stream_seq_len - 2 tokens + [SEP])")
+    p.add_argument("--stream_workers", default=2, type=int,
+                   help="tokenize threads; consumed in submission order, "
+                        "so the count changes pacing only")
+    p.add_argument("--stream_queue_batches", default=4, type=int,
+                   help="bound of the example queue, in batches "
+                        "(bert_stream_queue_depth)")
+    p.add_argument("--stream_inject", default=None, type=str,
+                   choices=["slow_producer", "corrupt_record",
+                            "worker_crash"],
+                   help="streaming fault drill: slow_producer sleeps in "
+                        "the workers (data_wait), corrupt_record drops "
+                        "every 7th owned record "
+                        "(bert_stream_records_dropped_total), worker_crash "
+                        "kills a tokenize task once per 5th record (re-run "
+                        "with its cursor intact)")
     p.add_argument("--log_freq", type=int, default=10,
                    help="optimization steps per StepWatch 'perf' record")
     p.add_argument("--health_pack", type=str, default="on",
@@ -250,7 +338,10 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         "halt stops the run")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
+    # the JAX flags whose features the port lacks (_REFUSED, _TUNING)
+    _declare_refused(p)
     args = merge_args_with_config(p, argv)
+    validate_stream_args(p, args, argv)
     # a run config's value of a declared flag bypasses argparse's choices
     # (--optimizer bert_adam is a JAX choice the port lacks)
     for action in p._actions:  # noqa: SLF001
@@ -267,12 +358,51 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     return args
 
 
+def validate_stream_args(parser, args, argv=None) -> None:
+    """The two data planes' flags conflict at parse time (JAX's
+    validate_stream_args): --stream_dir with --input_dir, unless one of
+    them comes from the command line and the other from the run config
+    (the command line wins); and a stream flag given on the command line
+    without --stream_dir. A run config may carry either plane's keys."""
+    from bert_pytorch_tpu_torch.config import explicit_cli_keys
+
+    explicit = None
+
+    def cli(flag: str) -> bool:
+        nonlocal explicit
+        if explicit is None:
+            explicit = explicit_cli_keys(parser, argv)
+        return flag in explicit
+
+    if args.stream_dir and args.input_dir:
+        if cli("stream_dir") and not cli("input_dir"):
+            args.input_dir = None
+        elif cli("input_dir") and not cli("stream_dir"):
+            args.stream_dir = None
+        else:
+            parser.error(
+                "--stream_dir (streaming plane) and --input_dir (offline "
+                "sharded-HDF5 plane) are mutually exclusive — pick one "
+                "data plane per run")
+    if not args.stream_dir:
+        stray = [f for f in _STREAM_DEPENDENT_FLAGS if cli(f)]
+        if stray:
+            parser.error(
+                "--" + " --".join(sorted(stray)) + " require --stream_dir "
+                "(they configure the streaming plane; --input_dir reads "
+                "offline shards and ignores them)")
+
+
 def find_mask_token_index(args, config) -> int:
-    """--mask_token_index, else [MASK] (or <mask>) of the config's
-    vocab_file when that file exists, else 103, the standard BERT id."""
+    """--mask_token_index, else [MASK] (or <mask>) of the vocab file when
+    it exists, else 103, the standard BERT id. The vocab is
+    --stream_vocab in stream mode (only there), else the config's
+    vocab_file."""
     if args.mask_token_index is not None:
         return args.mask_token_index
-    vocab_file = getattr(config, "vocab_file", None)
+    stream_vocab = (getattr(args, "stream_vocab", None)
+                    if getattr(args, "stream_dir", None) else None)
+    vocab_file = stream_vocab or getattr(config, "vocab_file", None)
     if vocab_file and os.path.exists(vocab_file):
         from bert_pytorch_tpu_torch.data.tokenization import load_vocab
 
@@ -298,8 +428,9 @@ class SLOBreachHalt(RuntimeError):
 @dataclasses.dataclass
 class PretrainResult:
     """What a run did: its last global step, the train state it ends with,
-    the step it resumed from (None: a fresh start) and the checkpoints it
-    saved ({"step", "bytes", "seconds"} each)."""
+    the step it resumed from (None: a fresh start), the checkpoints it
+    saved ({"step", "bytes", "seconds"} each) and its metrics registry's
+    snapshot as the run ended."""
     step: int
     train_time_s: float
     accum_steps: int
@@ -309,13 +440,14 @@ class PretrainResult:
     resumed_from: Optional[int] = None
     restore_s: Optional[float] = None
     saves: List[Dict] = dataclasses.field(default_factory=list)
+    metrics: Dict = dataclasses.field(default_factory=dict)
 
 
 def _unsupported(args) -> None:
     """Refuse a key of `_REFUSED` whose value switches its feature on."""
     from bert_pytorch_tpu_torch import refuse
 
-    refuse(args, _REFUSED, _ROADMAP)
+    refuse(args, _REFUSED, _ROADMAP, hints=_HINTS)
 
 
 def _config_echo(args) -> Dict:
@@ -325,8 +457,11 @@ def _config_echo(args) -> Dict:
 
 def main(argv=None, log: Callable[[str], None] = print) -> PretrainResult:
     args = parse_arguments(argv)
-    if not args.input_dir or not args.output_dir:
-        raise SystemExit("--input_dir and --output_dir are required")
+    if not (args.input_dir or args.stream_dir) or not args.output_dir:
+        raise SystemExit("--input_dir (or --stream_dir) and --output_dir "
+                         "are required")
+    if args.stream_dir:
+        return train(args, None, log)
     from bert_pytorch_tpu_torch.data.sharded import ShardIndex
 
     files = sorted(str(p) for p in Path(args.input_dir).rglob("*.hdf5"))
@@ -335,11 +470,60 @@ def main(argv=None, log: Callable[[str], None] = print) -> PretrainResult:
     return train(args, ShardIndex(files), log)
 
 
+def _stream_loader(args, config, batch_size: int, registry, log):
+    """--stream_dir's loader (data/streaming.py) and its [MASK] id: the
+    corpus's sorted .txt sources, tokenized by --stream_tokenizer over
+    --stream_vocab (else the model config's vocab_file); the tokenizer's
+    [MASK] / <mask> id unless --mask_token_index is given (a BPE .json
+    vocab's <mask> is invisible to the line-based lookup)."""
+    from bert_pytorch_tpu_torch.data.streaming import (
+        StreamingPretrainingLoader, discover_sources, resolve_mask_id)
+    from bert_pytorch_tpu_torch.data.tokenization import TOKENIZERS
+
+    sources = discover_sources(args.stream_dir)
+    if not sources:
+        raise SystemExit(f"no .txt corpus under {args.stream_dir}")
+    vocab_path = args.stream_vocab or getattr(config, "vocab_file", None)
+    if not vocab_path or not os.path.exists(vocab_path):
+        raise SystemExit("stream mode needs a tokenizer vocab: pass "
+                         "--stream_vocab or set vocab_file in the model "
+                         "config")
+    tokenizer = TOKENIZERS[args.stream_tokenizer](vocab_path)
+    mask_id = find_mask_token_index(args, config)
+    tokenizer_mask = resolve_mask_id(tokenizer)
+    if args.mask_token_index is None and tokenizer_mask is not None:
+        mask_id = tokenizer_mask
+    loader = StreamingPretrainingLoader(
+        sources, tokenizer, batch_size=batch_size,
+        seq_len=args.stream_seq_len, mask_token_index=mask_id,
+        max_pred_per_seq=args.max_predictions_per_seq,
+        masked_lm_prob=args.masked_token_fraction,
+        vocab_size=config.vocab_size, seed=args.seed,
+        num_workers=args.stream_workers,
+        queue_batches=args.stream_queue_batches,
+        prefetch_batches=max(0, args.prefetch_batches),
+        packing=args.packing,
+        packing_max_segments=args.packing_max_segments,
+        packing_lookahead=args.packing_lookahead,
+        registry=registry, inject=args.stream_inject)
+    log(f"dataset: STREAMING {len(sources)} raw-text sources (hash "
+        f"{loader.sources_hash}), {args.stream_workers} tokenize workers "
+        f"({args.stream_tokenizer}), seq {args.stream_seq_len}, step batch "
+        f"{batch_size}; [MASK]={mask_id}"
+        + (f"; FAULT INJECTION: {args.stream_inject}"
+           if args.stream_inject else ""))
+    return loader, mask_id
+
+
 def train(args: argparse.Namespace, index,
-          log: Callable[[str], None] = print) -> PretrainResult:
+          log: Callable[[str], None] = print,
+          batch_tap: Optional[Callable[[Dict], None]] = None
+          ) -> PretrainResult:
     """The run behind `main`, over an already opened shard index (a
     `data.sharded.ShardIndex`, or an object with its interface that holds
-    the same arrays in memory)."""
+    the same arrays in memory), or with --stream_dir over its corpus
+    (`index` None). `batch_tap`, given, sees each host batch a step
+    reads, in dispatch order (after the flight recorder's tap)."""
     if not args.output_dir:
         raise SystemExit("--output_dir is required")
     if not args.model_config_file:
@@ -397,17 +581,6 @@ def train(args: argparse.Namespace, index,
     grad_name = args.dtype if args.grad_dtype == "auto" else args.grad_dtype
     grad_dtype = torch.bfloat16 if grad_name == "bfloat16" else None
 
-    mask_id = find_mask_token_index(args, config)
-    loader = PretrainingDataLoader(
-        index, HostShardSampler(len(index), seed=args.seed),
-        batch_size=step_batch, mask_token_index=mask_id,
-        max_pred_per_seq=args.max_predictions_per_seq,
-        masked_lm_prob=args.masked_token_fraction,
-        vocab_size=config.vocab_size, seed=args.seed,
-        prefetch_batches=max(0, args.prefetch_batches),
-        packing=args.packing,
-        packing_max_segments=args.packing_max_segments,
-        packing_lookahead=args.packing_lookahead)
     os.makedirs(args.output_dir, exist_ok=True)
     if not args.skip_checkpoint and args.num_steps_per_checkpoint < 1:
         raise SystemExit("--num_steps_per_checkpoint must be >= 1")
@@ -419,9 +592,12 @@ def train(args: argparse.Namespace, index,
     # finally, on the success and the exception paths
     tel = init_run("pretrain",
                    log_prefix=os.path.join(args.output_dir, args.log_prefix),
-                   echo=log, metrics_port=args.metrics_port)
-    guard = watchdog = slo_eval = recorder = None
-    # (step, sampler cursor, epoch) of the last completed step, taken
+                   echo=log, metrics_port=args.metrics_port,
+                   tensorboard=args.tensorboard == "on")
+    if tel.logger.tensorboard_dir:
+        log(f"tensorboard: scalars under {tel.logger.tensorboard_dir}")
+    loader = guard = watchdog = slo_eval = recorder = None
+    # (step, loader state, epoch) of the last completed step, taken
     # inside the step's guard: the loader's live cursor may already cover
     # the next batch when a signal lands, and resuming from it would skip
     # that batch
@@ -429,9 +605,41 @@ def train(args: argparse.Namespace, index,
     try:
         prov = collect_provenance(device)
         tel.log_header(**prov)
-        if len(loader.sampler) < step_batch:
-            raise SystemExit(f"the data holds fewer than one step's batch "
-                             f"({step_batch} samples)")
+        if args.stream_dir:
+            loader, mask_id = _stream_loader(args, config, step_batch,
+                                             tel.registry, log)
+            # /healthz carries the plane's live cursor
+            tel.attach_stream(loader)
+            seq_len = args.stream_seq_len
+            data_desc = (f"stream_sources={len(loader.sources)} "
+                         f"seq={seq_len}")
+            # one batch peeked to prove the corpus fills a step, then the
+            # stream rewound through its own initial state (batches the
+            # assembly prefetch ran ahead are dropped, not replayed)
+            try:
+                next(loader)
+            except StopIteration:
+                raise SystemExit(f"the corpus under {args.stream_dir} "
+                                 "holds fewer than one step's batch "
+                                 f"({step_batch} examples)") from None
+            loader.load_state_dict(loader.initial_state())
+        else:
+            mask_id = find_mask_token_index(args, config)
+            loader = PretrainingDataLoader(
+                index, HostShardSampler(len(index), seed=args.seed),
+                batch_size=step_batch, mask_token_index=mask_id,
+                max_pred_per_seq=args.max_predictions_per_seq,
+                masked_lm_prob=args.masked_token_fraction,
+                vocab_size=config.vocab_size, seed=args.seed,
+                prefetch_batches=max(0, args.prefetch_batches),
+                packing=args.packing,
+                packing_max_segments=args.packing_max_segments,
+                packing_lookahead=args.packing_lookahead)
+            if len(loader.sampler) < step_batch:
+                raise SystemExit(f"the data holds fewer than one step's "
+                                 f"batch ({step_batch} samples)")
+            seq_len = index.seq_len()
+            data_desc = f"shards={len(index.files)} samples={len(index)}"
         if device.type == "cuda":
             # build (or reuse) the kernels before the watchdog's phases
             # start: the first step's dispatch must not hold the build
@@ -449,7 +657,6 @@ def train(args: argparse.Namespace, index,
                                  offset=args.previous_phase_end_step)
         tx = Lamb(schedule, weight_decay=0.01, fused=args.fused_optim)
         state = make_train_state(model, tx)
-        seq_len = index.seq_len()
         max_pred_row = packed_prediction_budget(args, seq_len)
         step_fn = build_pretrain_step(
             model, tx, schedule=schedule, accum_steps=accum_steps,
@@ -459,8 +666,8 @@ def train(args: argparse.Namespace, index,
         log(f"device={device} accumulation_steps={accum_steps} "
             f"microbatch={micro} global_batch={step_batch} dtype={args.dtype} "
             f"grad_dtype={grad_name} vocab={config.vocab_size} "
-            f"layers={config.num_hidden_layers} shards={len(index.files)} "
-            f"samples={len(index)} [MASK]={mask_id} "
+            f"layers={config.num_hidden_layers} {data_desc} "
+            f"[MASK]={mask_id} "
             f"fused_optim={args.fused_optim}"
             + (f"; packing on (<= {args.packing_max_segments} segments/row)"
                if args.packing else "")
@@ -479,6 +686,17 @@ def train(args: argparse.Namespace, index,
             state.load_state_dict(sd)
             del sd
             if "sampler" in extra:
+                saved_stream = (isinstance(extra["sampler"], dict)
+                                and "stream" in extra["sampler"])
+                if saved_stream != bool(args.stream_dir):
+                    # the cursor indexes the other plane's data: the
+                    # loader refuses it (and warns); the data restarts
+                    log("WARNING: the checkpoint's data cursor is the "
+                        + ("streaming" if saved_stream else "offline")
+                        + " plane's and this run reads the "
+                        + ("streaming" if args.stream_dir else "offline")
+                        + " plane: not restored, the data starts from "
+                        "the beginning")
                 loader.load_state_dict(extra["sampler"])
             restore_s = time.perf_counter() - t0
             log(f"auto-resumed from step {resumed_from} "
@@ -519,7 +737,10 @@ def train(args: argparse.Namespace, index,
                 provenance=prov,
                 checkpoint_step_fn=manager.latest_step)
             tel.attach_recorder(recorder)
-            loader.batch_tap = recorder.capture_batch
+            if args.stream_dir:
+                # the bundle's `stream`: the source list, the cursor and
+                # the recent batches' record windows at dump time
+                recorder.stream_info_fn = loader.stream_info
             recorder.install_crash_handlers()
             recorder.arm()
             log(f"flight recorder: on, window={recorder.window} steps, "
@@ -550,10 +771,25 @@ def train(args: argparse.Namespace, index,
         loss_sum, loss_n = 0.0, 0
         warned_dropped = False
 
+        # batches reach the card through the prefetcher (one an epoch):
+        # its state_dict() is the loader's as of the batch the last step
+        # read, and its tap hands the recorder batches in dispatch order
+        taps = [t for t in (recorder.capture_batch if recorder is not None
+                            else None, batch_tap) if t is not None]
+
+        def tap(b):
+            for t in taps:
+                t(b)
+
+        make_prefetcher = _prefetcher_factory(
+            args, loader, sw, device, accum_steps, micro,
+            tap if taps else None, log)
+        pf = make_prefetcher()
+
         def save():
             rec = manager.save(state.step, state.state_dict(), extra={
-                "sampler": loader.state_dict(),
-                "epoch": loader.sampler.epoch,
+                "sampler": pf.state_dict(),
+                "epoch": loader.epoch,
                 "config": _config_echo(args)})
             saves.append(dict(rec, step=state.step))
             log(f"checkpoint: step {state.step} saved ({rec['bytes'] / 1e9:.3f}"
@@ -564,10 +800,11 @@ def train(args: argparse.Namespace, index,
         while state.step < limit:
             if slo_engine is not None and args.slo_action == "halt":
                 _check_slo_halt(slo_engine, args, state.step)
-            with sw.phase("data_wait"):
-                batch_np = next(loader, None)
-            if batch_np is None:
+            try:
+                batch_np, batch = next(pf)
+            except StopIteration:
                 loader.reset_epoch()
+                pf = make_prefetcher()
                 continue
             if chaos is not None:
                 chaos.before_dispatch(state.step + 1)
@@ -581,18 +818,18 @@ def train(args: argparse.Namespace, index,
             # a signal inside the guard is raised when the step, its
             # record and the survival snapshot are whole
             with guard.hold():
-                with sw.phase("h2d"):
-                    batch = {k: torch.from_numpy(v.reshape(
-                        accum_steps, micro, *v.shape[1:])).to(device)
-                        for k, v in batch_np.items()}
                 with sw.phase("dispatch"):
                     if chaos is not None:
                         chaos.stall(state.step + 1)
                     metrics = step_fn(state, batch, seeds)
+                del batch
                 if recorder is not None:
                     recorder.record_dispatch(state.step, 1, seeds.numpy())
-                survival.update(step=state.step, sampler=loader.state_dict(),
-                                epoch=loader.sampler.epoch)
+                survival.update(step=state.step, sampler=pf.state_dict(),
+                                epoch=loader.epoch)
+                # the next batch's pull, stacking and copy while the card
+                # runs this step (before the readback below waits for it)
+                pf.fill()
                 # reading the metrics waits for the card: the step time
                 # below is the whole step, host and device
                 with sw.phase("metric_flush"):
@@ -619,7 +856,7 @@ def train(args: argparse.Namespace, index,
                     + (f" examples {examples}" if args.packing else ""))
                 warned_dropped = _warn_step(args, state.step, loss, vals,
                                             bad, warned_dropped, log)
-                tel.log_train(state.step, epoch=loader.sampler.epoch,
+                tel.log_train(state.step, epoch=loader.epoch,
                               average_loss=loss_sum / max(loss_n, 1),
                               step_loss=loss, **vals)
             bundle = None
@@ -663,7 +900,8 @@ def train(args: argparse.Namespace, index,
                               accum_steps=accum_steps,
                               seqs_per_step=step_batch, history=history,
                               state=state, resumed_from=resumed_from,
-                              restore_s=restore_s, saves=saves)
+                              restore_s=restore_s, saves=saves,
+                              metrics=tel.registry.snapshot())
     except BaseException as exc:
         # the partial StepWatch interval and the black box land before the
         # unwind (the bundle before the emergency save, which may fail)
@@ -716,6 +954,52 @@ def train(args: argparse.Namespace, index,
                     pass
 
 
+def _prefetcher_factory(args, loader, sw, device, accum_steps: int,
+                        micro: int, tap, log):
+    """() -> a DevicePrefetcher over `loader` for one epoch
+    (--h2d_prefetch batches staged ahead). The upstream pull is timed as
+    `data_wait` (an empty stream queue shows there, which the watchdog
+    reads as input starvation) and the put as `h2d`. On a card at depth
+    >= 1 the put is `cuda_put`: pinned memory, then a non-blocking copy
+    on a side stream, which the step's stream waits on; at depth 0 and on
+    the CPU it is the synchronous copy."""
+    from bert_pytorch_tpu_torch.data.sharded import (DevicePrefetcher,
+                                                     cuda_put)
+
+    depth = max(0, args.h2d_prefetch)
+    if depth and device.type == "cuda":
+        copy = cuda_put(torch, accum_steps, micro, device,
+                        torch.cuda.Stream(device))
+    else:
+        def copy(batch_np):
+            return {k: torch.from_numpy(v.reshape(
+                accum_steps, micro, *v.shape[1:])).to(device)
+                for k, v in batch_np.items()}
+    log(f"h2d prefetch: depth {depth}"
+        + (" (the next batch staged on a side stream while the card runs "
+           "the step)" if depth and device.type == "cuda" else
+           " (the next batch pulled while the step runs)" if depth else
+           " (each batch copied before its step)"))
+
+    def waited():
+        it = iter(loader)
+        while True:
+            with sw.phase("data_wait"):
+                try:
+                    b = next(it)
+                except StopIteration:
+                    return
+            yield b
+
+    def put(batch_np):
+        with sw.phase("h2d"):
+            return copy(batch_np)
+
+    return lambda: DevicePrefetcher(waited(), put, depth=depth,
+                                    state_fn=loader.state_dict,
+                                    batch_tap=tap)
+
+
 def packed_prediction_budget(args, seq_len: int) -> int:
     """The gathered MLM head's positions a row. Unpacked: the per-example
     --max_predictions_per_seq. Packed, a row pools its segments' masks:
@@ -756,7 +1040,7 @@ def _recorder_run_info(args, accum_steps: int, max_pred_row: int,
         "packing": args.packing,
         "packing_max_segments": args.packing_max_segments,
         "inject_nonfinite_step": args.inject_nonfinite_step,
-        "stream": False,
+        "stream": bool(args.stream_dir),
     }
 
 

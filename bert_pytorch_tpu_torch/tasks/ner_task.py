@@ -28,8 +28,8 @@ from bert_pytorch_tpu_torch.training.finetune import (COMMON_REFUSED,
                                                       COMMON_TUNING)
 
 # The JAX flags the port declares but whose feature it lacks (see
-# squad_task): the BPE tokenizer besides the common ones.
-_REFUSED = dict(COMMON_REFUSED, tokenizer=(None, "wordpiece"))
+# squad_task): the common ones.
+_REFUSED = dict(COMMON_REFUSED)
 _TUNING = dict(COMMON_TUNING)
 
 
@@ -62,7 +62,9 @@ def build_parser():
     p.add_argument("--uppercase", action="store_true", default=False)
     p.add_argument("--tokenizer", type=str, default=None,
                    choices=["wordpiece", "bpe"],
-                   help="wordpiece (bpe is not ported: refused)")
+                   help="tokenizer family of the vocab (default: the "
+                        "model config's `tokenizer`, else wordpiece); bpe "
+                        "reads a .json vocab and the merges.txt beside it")
     p.add_argument("--epochs", type=int, default=10)
     p.add_argument("--lr", type=float, default=5e-6)
     p.add_argument("--clip_grad", type=float, default=5.0)
@@ -131,8 +133,7 @@ def _packed_loss_builder(max_segments: int):
 
 def setup(args, config, device, log, record):
     from bert_pytorch_tpu_torch.data import ner
-    from bert_pytorch_tpu_torch.data.tokenization import (
-        get_wordpiece_tokenizer)
+    from bert_pytorch_tpu_torch.data.tokenization import TOKENIZERS
     from bert_pytorch_tpu_torch.models.bert import BertForTokenClassification
     from bert_pytorch_tpu_torch.training.finetune import (
         TaskRun, bucketed_eval_batches, epoch_steps, eval_buckets,
@@ -141,7 +142,10 @@ def setup(args, config, device, log, record):
     vocab_file = args.vocab_file or config.vocab_file
     if not vocab_file:
         raise SystemExit("vocab_file required (CLI or model config)")
-    tokenizer = get_wordpiece_tokenizer(vocab_file, uppercase=args.uppercase)
+    # --tokenizer, else the model config's family (JAX ner_task's rule;
+    # under a BPE vocab [CLS] and [SEP] take [UNK]'s id, as there)
+    tokenizer = TOKENIZERS[args.tokenizer or config.tokenizer](
+        vocab_file, uppercase=args.uppercase)
     compute_dtype = (torch.bfloat16 if args.dtype == "bfloat16"
                      else torch.float32)
     with torch.device(device):

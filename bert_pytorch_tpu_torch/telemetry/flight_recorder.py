@@ -128,6 +128,10 @@ class FlightRecorder:
         # in every manifest (TelemetryRun.attach_recorder sets both)
         self.metrics_tail_source = metrics_tail_source
         self.registry = registry
+        # a streaming run sets this to its loader's stream_info: the
+        # manifest's `stream` then holds the source list, the cursor and
+        # the recent batches' record windows at dump time
+        self.stream_info_fn: Optional[Callable[[], Dict[str, Any]]] = None
         self._checkpoint_step_fn = checkpoint_step_fn
         self._staged: List[Dict[str, np.ndarray]] = []
         self._records: deque = deque()
@@ -228,11 +232,16 @@ class FlightRecorder:
             "metrics_tail": list(self._tail),
             "metrics_tail_source": self.metrics_tail_source,
             "registry": {},
-            # the JAX run's compiled-program fingerprint and streaming
-            # cursor: the port compiles no program and has no stream
+            # the JAX run's compiled-program fingerprint: the port
+            # compiles no program
             "program_fingerprint": None,
             "stream": None,
         }
+        if self.stream_info_fn is not None:
+            try:
+                manifest["stream"] = self.stream_info_fn()
+            except Exception:
+                pass    # a cursor snapshot must not kill the alarm path
         if self.registry is not None:
             try:
                 manifest["registry"] = self.registry.snapshot()
@@ -362,13 +371,24 @@ def validate_manifest(manifest: Any,
         errors.append("'program_fingerprint' present but malformed (want "
                       "collective_counts + donation_hash)")
     stream = manifest.get("stream")
-    if stream is not None and (
-            not isinstance(stream, dict)
-            or not isinstance(stream.get("sources_hash"), str)
-            or not isinstance(stream.get("sources"), list)
-            or not isinstance(stream.get("cursor"), dict)):
-        errors.append("'stream' present but malformed (want sources_hash "
-                      "+ sources + cursor)")
+    if stream is not None:
+        recent = (stream.get("recent_batches") if isinstance(stream, dict)
+                  else None)
+        if (not isinstance(stream, dict)
+                or not isinstance(stream.get("sources_hash"), str)
+                or not isinstance(stream.get("sources"), list)
+                or not isinstance(stream.get("cursor"), dict)
+                or not isinstance(recent, (list, type(None)))):
+            errors.append("'stream' present but malformed (want "
+                          "sources_hash + sources + cursor [+ "
+                          "recent_batches list])")
+        else:
+            for w in recent or []:
+                if not isinstance(w, dict) or "record_lo" not in w \
+                        or "record_hi" not in w:
+                    errors.append(
+                        f"'stream.recent_batches' entry malformed: {w!r}")
+                    break
     return errors
 
 

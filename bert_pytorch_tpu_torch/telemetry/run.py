@@ -1,7 +1,6 @@
 """One wiring path for a run's telemetry: `init_run(phase=...)`
 (counterpart of bert_pytorch_tpu/telemetry/run.py, without the
-CompileWatch, which is XLA's, the streaming plane and the multi-host
-fold).
+CompileWatch, which is XLA's, and the multi-host fold).
 
     tel = init_run(phase="pretrain", log_prefix=os.path.join(out, "logfile"),
                    metrics_port=args.metrics_port)
@@ -22,7 +21,8 @@ an ephemeral port) and the /healthz snapshot (`healthz()`): the last
 step, the last perf interval, the last health-pack flags, the newest
 non-finite step, checkpoint freshness and a top-level `status` that is
 always present (`ok`, or the SLO engine's ok|degraded|failing verdict);
-with a flight recorder attached, its window, ring bytes and last bundle.
+with a flight recorder attached, its window, ring bytes and last bundle;
+with a streaming loader attached (`attach_stream`), its live cursor.
 
 `log_train` / `log_perf` update the registry and /healthz, then fan out
 through the logger. Every value they take is a host number the loop has
@@ -67,6 +67,7 @@ class TelemetryRun:
         self.ckpt_manager = None
         self.slo = None
         self.recorder = None
+        self.stream_loader = None
         self._closed = False
         try:
             self.supervisor_restarts = int(
@@ -139,6 +140,12 @@ class TelemetryRun:
         payload's `status`, with its `health_summary()` as `slo`."""
         self.slo = engine
 
+    def attach_stream(self, loader) -> None:
+        """Streaming-plane runs (data/streaming.py): /healthz carries the
+        loader's live cursor (epoch, source, record, batches) as
+        `stream`."""
+        self.stream_loader = loader
+
     def log_train(self, step: int, **vals: Any) -> None:
         """One per-step `train` record: the non-finite counters and the
         /healthz flags, then the logger."""
@@ -189,6 +196,13 @@ class TelemetryRun:
                 h["status"] = h["slo"]["status"]
             except Exception:
                 pass  # a probe must never take the run down
+        if self.stream_loader is not None:
+            try:
+                cursor = dict(self.stream_loader.state_dict())
+                cursor.pop("pending", None)     # bulky and not liveness
+                h["stream"] = cursor
+            except Exception:
+                pass    # a probe must never take the run down
         if self.recorder is not None:
             try:
                 h["flight_recorder"] = {
@@ -225,15 +239,19 @@ class TelemetryRun:
 
 def init_run(phase: str, log_prefix: Optional[str] = None,
              echo: Callable[[str], None] = print,
-             metrics_port: Optional[int] = None) -> TelemetryRun:
+             metrics_port: Optional[int] = None,
+             tensorboard: bool = False) -> TelemetryRun:
     """The run's telemetry in one call: a registry with the constant label
-    `phase`, a MetricLogger over `log_prefix`'s sinks (none without it)
-    that echoes through `echo` and publishes into the registry, and, with
+    `phase`, a MetricLogger over `log_prefix`'s sinks (none without it;
+    `tensorboard` adds the TensorBoard sink) that echoes through `echo`
+    and publishes into the registry, and, with
     `metrics_port` (0: an ephemeral port, read `tel.server.port`), the
     /metrics + /healthz exporter."""
     registry = MetricsRegistry(constant_labels={"phase": phase})
     tel = TelemetryRun(phase, MetricLogger(log_prefix, echo=echo,
-                                           registry=registry), registry)
+                                           registry=registry,
+                                           tensorboard=tensorboard),
+                       registry)
     if metrics_port is not None:
         from bert_pytorch_tpu_torch.telemetry.exporter import MetricsServer
 

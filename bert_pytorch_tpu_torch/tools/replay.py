@@ -114,6 +114,29 @@ def ordered_taps(taps: dict) -> List[Tuple[str, object]]:
     return out
 
 
+def describe_stream(stream) -> None:
+    """A streaming run's bundle (--stream_dir): the recorded batches are
+    in the bundle, so the replay needs no corpus; name the records the
+    window covers (global_seq numbers across the sorted sources) and the
+    cursor, for re-pointing the plane at the same place."""
+    if not isinstance(stream, dict):
+        return
+    windows = [w for w in stream.get("recent_batches") or []
+               if isinstance(w, dict)]
+    span = ""
+    if windows:
+        lo = min(w["record_lo"] for w in windows)
+        hi = max(w["record_hi"] for w in windows)
+        span = (f"; recorded batches cover global records {lo}..{hi} "
+                "(global_seq numbering across all sources)")
+    cursor = stream.get("cursor") or {}
+    print(f"streaming-mode bundle: {len(stream.get('sources') or [])} "
+          f"sources (hash {stream.get('sources_hash')}), cursor at epoch "
+          f"{cursor.get('epoch')} source {cursor.get('source')} record "
+          f"{cursor.get('record')} (global_seq {cursor.get('global_seq')})"
+          f"{span}", file=sys.stderr)
+
+
 def main(argv=None) -> dict:
     args = parse_arguments(argv)
     from bert_pytorch_tpu_torch.telemetry.flight_recorder import \
@@ -134,10 +157,11 @@ def main(argv=None) -> dict:
     manifest = _load_manifest(bundle)
     run = manifest["run"]
     if run.get("zero1") or int(run.get("steps_per_loop", 1)) != 1 \
-            or run.get("kfac") or run.get("stream"):
+            or run.get("kfac"):
         raise ReplayError(
-            "the bundle's run used ZeRO-1, --steps_per_loop, K-FAC or the "
-            "streaming plane, which the port does not run")
+            "the bundle's run used ZeRO-1, --steps_per_loop or K-FAC, which "
+            "the port does not run")
+    describe_stream(manifest.get("stream"))
 
     import torch
 

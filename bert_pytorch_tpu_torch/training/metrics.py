@@ -1,12 +1,15 @@
 """Metric logging with several sinks (counterpart of
-bert_pytorch_tpu/training/metrics.py; no TensorBoard sink, which the
-port refuses).
+bert_pytorch_tpu/training/metrics.py).
 
 `logger.log(tag, step, **metrics)` fans one record out to every sink: a
 text line to `echo` (print by default) and to `<log_prefix>.txt`, a JSON
-object `{"tag", "step", "time", ...}` to `<log_prefix>.jsonl`, and a row
+object `{"tag", "step", "time", ...}` to `<log_prefix>.jsonl`, a row
 to `<log_prefix>_metrics.csv` (whose header widens, rows rewritten, when
-a record brings a new key; a resumed run adopts the existing header).
+a record brings a new key; a resumed run adopts the existing header),
+and with `tensorboard=True` a scalar `<tag>/<key>` at `step` for every
+numeric value, through torch.utils.tensorboard's SummaryWriter into
+`<log_prefix>_tb` (the JAX sink's tags and steps). Without the
+`tensorboard` package that sink is off, and the logger says so once.
 With a `registry`, every numeric value also lands in the gauges
 `bert_metric{tag, name}` and `bert_last_logged_step{tag}`, so a /metrics
 scrape sees what the sinks see.
@@ -33,7 +36,8 @@ class MetricLogger:
     VOLATILE_HEADER_KEYS = ("time", "time_unix")
 
     def __init__(self, log_prefix: Optional[str] = None,
-                 echo: Callable[[str], None] = print, registry=None):
+                 echo: Callable[[str], None] = print, registry=None,
+                 tensorboard: bool = False):
         self._echo = echo
         self._closed = False
         self._file: Optional[TextIO] = None
@@ -42,6 +46,8 @@ class MetricLogger:
         self._csv_path: Optional[str] = None
         self._csv_fields: Optional[list] = None
         self._csv_file: Optional[TextIO] = None
+        self._tb = None
+        self.tensorboard_dir: Optional[str] = None
         self._reg_gauge = self._reg_step = None
         if registry is not None:
             self._reg_gauge = registry.gauge(
@@ -58,6 +64,17 @@ class MetricLogger:
             self._csv_path = f"{log_prefix}_metrics.csv"
             self.jsonl_path = f"{log_prefix}.jsonl"
             self._jsonl = open(self.jsonl_path, "a", encoding="utf-8")
+            if tensorboard:
+                self._open_tensorboard(f"{log_prefix}_tb")
+
+    def _open_tensorboard(self, log_dir: str) -> None:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError as e:
+            self._line(f"tensorboard: sink off ({e})")
+            return
+        self._tb = SummaryWriter(log_dir=log_dir)
+        self.tensorboard_dir = log_dir
 
     def _line(self, line: str) -> None:
         self._echo(line)
@@ -81,6 +98,10 @@ class MetricLogger:
             self._jsonl.flush()
         if self._csv_path:
             self._append_csv(record)
+        if self._tb is not None:
+            for k, v in metrics.items():
+                if isinstance(v, (int, float)):
+                    self._tb.add_scalar(f"{tag}/{k}", v, step)
 
     def _append_csv(self, record: Dict[str, Any]) -> None:
         if self._csv_fields is None:
@@ -190,6 +211,9 @@ class MetricLogger:
                 f.close()
         self._file = self._jsonl = self._csv_file = None
         self._csv_path = None
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
 
 
 def _fmt(v: Any) -> str:

@@ -114,14 +114,30 @@ Phases, each of which must pass:
             dropout arm and the fused backward: also one packed
             microbatch's flash launches and the tiles their segment test
             skipped, as the layout predicts;
-12. remat   --checkpoint_activations at phase 2's packed 16 x 512: 2
+12. stream  the streaming data plane (--stream_dir) through the entry
+            point's trainer at phase 1's 2 x 96 x 128 over a synthetic
+            corpus tokenized on the fly: 3 steps at 24 layers with
+            --h2d_prefetch 1 (exact launch counts; the batches the steps
+            read bit-equal to the loader's alone on the host; data_wait's
+            share, the pool's tokens/s, the queue depth, the idle share
+            from a trace) and at 0 (losses and grad norms bit-equal; the
+            trace shows depth 1's copies on a stream of their own); the
+            offline plane's 4 steps at the defaults (--h2d_prefetch 1,
+            --tensorboard on) against the parent's (0, off), in
+            alternated pairs: losses bit-equal, the host phases, the step
+            time and the idle share; at CUT_LAYERS and 2 x 32 x 128, packed:
+            worker_crash bit-equal to the clean run, corrupt_record's drops
+            counted, a resume in a process of its own bit-equal at step 3,
+            --stream_tokenizer bpe over a vocabulary learned from the
+            corpus, and the TensorBoard sink's scalars;
+13. remat   --checkpoint_activations at phase 2's packed 16 x 512: 2
             trainer steps under the model config's policy ("nothing"),
             exact launch counts (each layer's residual tails and flash
             forward twice); per policy (nothing, dots, mlp_only) one
             packed microbatch's loss and all 302 gradients bit-equal to
             remat off, and one optimizer step's launches, peak memory and
             host and device time against remat off;
-13. finetune_squad  SQuAD v1.1 finetuning by the entry point's run_task
+14. finetune_squad  SQuAD v1.1 finetuning by the entry point's run_task
             (bert_pytorch_tpu_torch.run_squad's body): BERT-Large seeded
             from phase 2's last checkpoint, 3 steps of 32 x 384 (flash
             forward with dropout and the fused backward in every layer),
@@ -132,11 +148,11 @@ Phases, each of which must pass:
             run_server serving the finetuned checkpoint; one step profiled
             and timed, the optimizer update timed; one microbatch through
             the kernels against the plain versions;
-14. finetune_ner  CoNLL NER finetuning, 3 steps of 32 x 128 (plain
+15. finetune_ner  CoNLL NER finetuning, 3 steps of 32 x 128 (plain
             attention, the LayerNorm kernels) on a synthetic CoNLL-2003
             file, val and test macro F1, the checkpoint, exact launch
             counts, one step profiled and timed;
-15. finetune_tasks  classify, choice and embed finetuning, one after the
+16. finetune_tasks  classify, choice and embed finetuning, one after the
             other: BERT-Large from phase 2's last checkpoint, 3 steps of
             16 x 128 (choice 16 x 4 x 128) at the JAX base parser's recipe
             on synthetic TSV / JSONL files, val and test accuracy, embed's
@@ -144,21 +160,21 @@ Phases, each of which must pass:
             by the server and deleted, one step profiled and timed, and a
             classify and a choice microbatch through the kernels against
             the plain versions;
-16. serve_slo  the SLO plane, the canary prober and the fault injector on
+17. serve_slo  the SLO plane, the canary prober and the fault injector on
             the five-task server (seeded random BERT-Large checkpoints,
             buckets 128 and 512, bf16), with scripts/check_slo.sh's
-            miniature windows: a clean leg of 20 s at 20 requests/s fires
+            miniature windows: a clean leg of 12 s at 20 requests/s fires
             no alert and every task's probe stays healthy;
             corrupt_answers on squad flips squad alone (every request
             still 200); error_burst pages within one short window and
             resolves within one after it stops; latency_burst's alert
             carries trace ids that GET /v1/traces resolves; the serve log
             directory's three files (the header names the card); then
-            the fixed load of the serve phase with the SLO plane
+            the serve phase's fixed rate for 10 s with the SLO plane
             (configs/slo.json) and the prober on, and again with both
             off: p50 / p99, evaluate()'s host time a tick, the
             latency_p99 burn;
-17. finetune_packed  packed finetuning of the five tasks at BERT-Large
+18. finetune_packed  packed finetuning of the five tasks at BERT-Large
             width, 12 layers (bf16, seeded random init, synthetic
             lengths): a packed
             batch against the same examples one to a row through the
@@ -170,7 +186,7 @@ Phases, each of which must pass:
             run_squad, packed and not, on the same files (examples/s, a
             step's device time, packing_efficiency, real and slot tokens,
             peak memory, exact launch counts);
-18. distill  a BERT-Large-width classify teacher of 12 layers (3 steps
+19. distill  a BERT-Large-width classify teacher of 12 layers (3 steps
             through run_finetune, --perf_artifact: its FINETUNE json's mfu
             on the card's peak) and a SQuAD teacher (one step) distilled into
             student_6l_768 (6 layers, width 768, 12 heads) by
@@ -185,7 +201,7 @@ Phases, each of which must pass:
             config and its checkpoint refused under the teacher's;
             --inject broken_student; a step's time split beside a plain
             finetune step of the student;
-19. init_sources  --init_checkpoint from other sources at BERT-Large
+20. init_sources  --init_checkpoint from other sources at BERT-Large
             width, 12 layers: random weights from a seed written as the
             reference's ckpt_1.pt (its src/modeling.py names, `module.`
             prefixes, 30522 vocab rows); a fresh QA model seeded from it holds
@@ -199,7 +215,7 @@ Phases, each of which must pass:
             copy, the loss's readback) as a device hang; a TF release
             and a JAX orbax directory raise the ImportError naming
             tensorflow / tensorstore, which the chip machine lacks;
-20. survival  pretraining's survival and metrics planes, BERT-Large
+21. survival  pretraining's survival and metrics planes, BERT-Large
             width at 12 layers, phase 1 (96 x 128, accumulation 2,
             health pack on) through the entry
             point's trainer over in-memory shards: a clean 4-step run
@@ -239,8 +255,9 @@ from the main paths' (`launches_in_checks`). It holds the fused LAMB stages
 parameter tensors and a list of odd sizes and misaligned views, and the
 timing phase times them over the 302 tensors.
 
-Phases 17-20 run at CUT_LAYERS (12) layers: their checks hold at any
-depth, and their checkpoints (4 GB each at 24 layers) dominate them.
+Phases 18-21 and the stream phase's drills run at CUT_LAYERS (12)
+layers: their checks hold at any depth, and their checkpoints (4 GB each
+at 24 layers) dominate them.
 
 It prints a `kernels` JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits 2 and prints
@@ -2296,6 +2313,64 @@ def serve_vocab(path: str) -> str:
         f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
                           + sorted(set(" ".join(QUESTIONS + tuple(
                               _WORDS)).split() + ["."]))) + "\n")
+    return path
+
+
+BPE_SPECIALS = ("<s>", "<pad>", "</s>", "<unk>", "<mask>")
+
+
+def bpe_files(texts, directory: str, n_merges: int = 200) -> str:
+    """A byte-level BPE vocabulary learned from `texts`: the specials,
+    the 256 byte symbols, then the `n_merges` most frequent adjacent pairs
+    of the pre-tokenized words, merged greedily (ties by first sight).
+    Writes vocab.json and merges.txt into `directory`; returns the
+    vocab.json path (data/tokenization.get_bpe_tokenizer finds the merges
+    beside it)."""
+    import collections
+
+    from bert_pytorch_tpu_torch.data.tokenization import (
+        ByteLevelBPETokenizer, bytes_to_unicode)
+
+    table = bytes_to_unicode()
+    scanner = ByteLevelBPETokenizer({}, [])
+    words = collections.Counter()
+    for text in texts:
+        text = text.lower()
+        for chunk in scanner._pretokenize(" " + text):  # noqa: SLF001
+            words[tuple(table[b] for b in chunk.encode("utf-8"))] += 1
+    words = dict(words)
+    vocab = list(BPE_SPECIALS) + [table[b] for b in range(256)]
+    merges = []
+    for _ in range(n_merges):
+        pairs = collections.Counter()
+        for word, n in words.items():
+            for a, b in zip(word, word[1:]):
+                pairs[(a, b)] += n
+        if not pairs:
+            break
+        best = max(pairs, key=pairs.get)
+        merges.append(best)
+        vocab.append(best[0] + best[1])
+        merged = {}
+        for word, n in words.items():
+            out, i = [], 0
+            while i < len(word):
+                if i + 1 < len(word) and (word[i], word[i + 1]) == best:
+                    out.append(word[i] + word[i + 1])
+                    i += 2
+                else:
+                    out.append(word[i])
+                    i += 1
+            merged[tuple(out)] = merged.get(tuple(out), 0) + n
+        words = merged
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, "vocab.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump({t: i for i, t in enumerate(dict.fromkeys(vocab))}, f)
+    with open(os.path.join(directory, "merges.txt"), "w",
+              encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n"
+                                             for a, b in merges))
     return path
 
 
@@ -5553,8 +5628,13 @@ SLO_DRILL = {
 SLO_INJECT_LATENCY_MS = 1500.0
 SLO_BUCKETS = "128,512"
 # the clean leg: requests/s and seconds (the other legs send at these
-# rates while they wait for their alert)
-SLO_CLEAN = (20.0, 20.0)
+# rates while they wait for their alert); 12 s covers the page's long
+# window
+SLO_CLEAN = (20.0, 12.0)
+# the planes' cost: the serve phase's fixed rate, for 10 s a leg (1000
+# requests each, ten above the p99), which keeps the whole script inside
+# its time limit with the stream phase added
+SLO_LOAD = (LOAD_RATE, 10.0)
 # an alert must fire, and resolve, within one short window plus this
 # (four evaluation ticks of 0.25 s and a probe interval of 0.5 s)
 SLO_SLACK_S = 1.5
@@ -5790,7 +5870,7 @@ def serve_slo_bucket_drift(np, handle) -> dict:
 def phase_serve_slo(torch, np, summary, device="cuda",
                     cfg_path=os.path.join(HERE, "configs",
                                           "bert_large_uncased_config.json"),
-                    clean=SLO_CLEAN, load=(LOAD_RATE, LOAD_S)):
+                    clean=SLO_CLEAN, load=SLO_LOAD):
     """The SLO plane, the canary prober and the fault injector on the
     five-task server: seeded random checkpoints of `cfg_path`'s model
     (BERT-Large), buckets 128 and 512, bf16, the drill windows
@@ -7407,6 +7487,549 @@ def phase_init_sources(torch, np, summary, device="cuda",
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- pretraining's streaming data plane -----------------------------------------
+
+STREAM_STEPS = 3
+OFFLINE_STEPS = 4               # the offline plane's alternated runs
+STREAM_MICRO = 96               # phase 1's microbatch, accumulation 2
+STREAM_DRILL_MICRO = 32         # the drills', the resume's and BPE's
+STREAM_DOCS = 1500              # documents of 8-300 words: ~2500 examples
+STREAM_BPE_MERGES = 400
+
+
+def stream_corpus(np, directory: str, n_docs: int, seed: int = 0) -> str:
+    """Two .txt files of blank-line-separated documents of `_WORDS`
+    (each 8-300 words, a line of 12 words ending in " ."), from `seed`."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(directory, exist_ok=True)
+    for f in range(2):
+        docs = [_context(rng, int(rng.randint(8, 301))).replace(" . ",
+                                                                " .\n")
+                for _ in range(n_docs // 2)]
+        with open(os.path.join(directory, f"part_{f}.txt"), "w") as fh:
+            fh.write("\n\n".join(docs) + "\n")
+    return directory
+
+
+def _trace_streams(path: str) -> dict:
+    """A torch.profiler chrome trace of the card: the host-to-device
+    copies' bytes by stream, the kernels' streams, and the device's idle
+    share over
+    the run's last two steps (from the end of the first step's last
+    kernel, fused LAMB's second stage, to the end of the last one's): 1 -
+    the union of kernel and copy intervals over that window."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels, copies = [], []
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        cat = ev.get("cat", "")
+        if cat == "kernel":
+            kernels.append(ev)
+        elif cat == "gpu_memcpy" and "HtoD" in ev.get("name", ""):
+            copies.append(ev)
+    ends = sorted(ev["ts"] + ev["dur"] for ev in kernels
+                  if "lamb_stage2" in ev["name"])
+    htod = {}
+    for ev in copies:
+        stream = str(ev["args"].get("stream"))
+        htod[stream] = htod.get(stream, 0) + int(ev["args"].get("bytes", 0))
+    out = {"htod_bytes_by_stream": htod,
+           "kernel_streams": sorted({str(ev["args"].get("stream"))
+                                     for ev in kernels}),
+           "steps_seen": len(ends), "idle_share": None}
+    if len(ends) >= 3:
+        lo, hi = ends[-3], ends[-1]
+        spans = sorted((max(lo, ev["ts"]), min(hi, ev["ts"] + ev["dur"]))
+                       for ev in kernels + copies
+                       if ev["ts"] < hi and ev["ts"] + ev["dur"] > lo)
+        busy, cur = 0.0, lo
+        for a, b in spans:
+            a = max(a, cur)
+            if b > a:
+                busy += b - a
+                cur = b
+        out.update(window_ms=(hi - lo) / 1e3, busy_ms=busy / 1e3,
+                   idle_share=1.0 - busy / (hi - lo))
+    return out
+
+
+def _stream_args(run_pretraining, cfg_path, corpus, vocab, out, device,
+                 micro, steps, *extra):
+    return run_pretraining.parse_arguments([
+        "--config_file", PHASE1_CONFIG, "--model_config_file", cfg_path,
+        "--stream_dir", corpus, "--stream_vocab", vocab,
+        "--stream_seq_len", "128", "--output_dir", out,
+        "--local_batch_size", str(micro),
+        "--global_batch_size", str(2 * micro), "--steps", str(steps),
+        "--fused_optim", "auto", "--vocab_pad_multiple", "8",
+        "--seed", "0", "--log_freq", "1", "--device", device, *extra])
+
+
+def _stream_train(torch, run_pretraining, args, trace=None):
+    """run_pretraining.train(args) over the stream, with the batches the
+    steps read (its `batch_tap`) and, given `trace`, a torch.profiler
+    trace of the card written there. Returns (result, batches, perf
+    records); `result.metrics` is the run's registry snapshot."""
+    batches = []
+
+    def tap(b):
+        batches.append({k: v.copy() for k, v in b.items()})
+
+    def run():
+        return run_pretraining.train(args, None,
+                                     log=lambda m: log(f"stream: {m}"),
+                                     batch_tap=tap)
+
+    if trace is None:
+        result = run()
+    else:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            result = run()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+    return result, batches, _perf_records(args)
+
+
+def _perf_records(args) -> list:
+    with open(os.path.join(args.output_dir, args.log_prefix
+                           + ".jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["tag"] == "perf"]
+
+
+def _host_stream(args, vocab_size: int, n: int, workers: int = 1,
+                 **kw) -> tuple:
+    """The first `n` batches of the run's stream from its loader alone on
+    the host (`workers` tokenize threads, no assembly prefetch), and the
+    tokens/s it tokenized at."""
+    from bert_pytorch_tpu_torch.data.streaming import (
+        StreamingPretrainingLoader, discover_sources, resolve_mask_id)
+    from bert_pytorch_tpu_torch.data.tokenization import TOKENIZERS
+    from bert_pytorch_tpu_torch.telemetry.registry import MetricsRegistry
+
+    tok = TOKENIZERS[args.stream_tokenizer](args.stream_vocab)
+    reg = MetricsRegistry()
+    loader = StreamingPretrainingLoader(
+        discover_sources(args.stream_dir), tok,
+        batch_size=2 * args.local_batch_size, seq_len=args.stream_seq_len,
+        mask_token_index=resolve_mask_id(tok),
+        max_pred_per_seq=args.max_predictions_per_seq,
+        masked_lm_prob=args.masked_token_fraction, vocab_size=vocab_size,
+        seed=args.seed, num_workers=workers, prefetch_batches=0,
+        packing=args.packing, packing_max_segments=args.packing_max_segments,
+        packing_lookahead=args.packing_lookahead, registry=reg, **kw)
+    t0 = time.perf_counter()
+    try:
+        out = [next(loader) for _ in range(n)]
+    finally:
+        loader.close()
+    secs = time.perf_counter() - t0
+    tokens = reg.counter("bert_stream_tokens_total").value()
+    return out, {"tokens": tokens, "seconds": secs,
+                 "tokens_per_s": tokens / secs}, reg
+
+
+def _same_batches(np, a, b) -> bool:
+    return len(a) == len(b) and all(
+        set(x) == set(y) and all(np.array_equal(x[k], y[k]) for k in x)
+        for x, y in zip(a, b))
+
+
+def _series(metrics: dict, name: str) -> list:
+    """[(labels, value)] of `name` in a registry snapshot."""
+    snap = metrics.get(name, {"series": []})
+    return [(s["labels"], s["value"]) for s in snap["series"]]
+
+
+def phase_stream(torch, np, summary, device="cuda",
+                 cfg_path=os.path.join(HERE, "configs",
+                                       "bert_large_uncased_config.json"),
+                 cut_cfg_path=None, micro=STREAM_MICRO, docs=STREAM_DOCS,
+                 bpe_merges=STREAM_BPE_MERGES):
+    """Pretraining's streaming data plane (--stream_dir) through the entry
+    point's trainer, phase 1 (`micro` x 128, accumulation 2), over a
+    synthetic corpus of `docs` documents (`stream_corpus`) with
+    serve_vocab's WordPiece vocabulary:
+
+    1. the main path at `cfg_path` (BERT-Large, 24 layers), STREAM_STEPS
+       steps at --h2d_prefetch 1, packing off: exact launch counts
+       (zeroed just before, read just after); the batches the steps read
+       (the prefetcher's batch_tap) bit-equal to the loader's alone on the
+       host (1 worker, no prefetch); data_wait's share of the step, the
+       pool's tokens/s, the queue depth, the device's idle share;
+    2. the same steps at --h2d_prefetch 0: losses and grad norms
+       bit-equal; a torch.profiler trace of the card shows depth 1's
+       host-to-device copies on a stream of their own; h2d ms, the host
+       clock of a step and the idle share, both ways; then the offline
+       plane (in-memory shards) for OFFLINE_STEPS steps at the defaults
+       (--h2d_prefetch 1, --tensorboard on) and at the parent's behaviour
+       (0, off), in the order on, off, off, on: losses bit-equal, the
+       host phases, the step time and the idle share of each;
+    3. at `cut_cfg_path` (CUT_LAYERS) and a microbatch of at most
+       STREAM_DRILL_MICRO (as legs 4 and 5), packed: --stream_inject
+       worker_crash bit-equal to the uninjected run (losses and batches);
+       corrupt_record drops and counts records
+       (bert_stream_records_dropped_total), its batches those of the same
+       injected loader on the host;
+    4. resume: 2 packed steps and a checkpoint, then a process of its own
+       (chip_smoke.py --pretrain_child) resumes: step 3's loss bit-equal
+       to the unbroken run's, and the checkpointed cursor's first batch
+       that run's third;
+    5. --stream_tokenizer bpe over a byte-level vocabulary learned from
+       the corpus (`bpe_files`): 2 steps, the mask id <mask>'s;
+    6. the TensorBoard sink (--tensorboard on, the default): whether the
+       machine has the tensorboard package; with it, the event file holds
+       the steps' scalars, without it the log says the sink is off.
+
+    `device`, the configs, `micro` and `docs` exist so the phase can be
+    rehearsed on the CPU at a tiny size."""
+    import importlib.util
+    import shutil
+
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from bert_pytorch_tpu_torch.training.checkpoint import EXTRA_FILE
+
+    on_card = torch.device(device).type == "cuda"
+    cut_cfg_path = cut_cfg_path or cfg_path
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    marks, mark = _marks()
+    res = {"seconds": marks}
+    summary["stream"] = res
+    try:
+        corpus = stream_corpus(np, os.path.join(tmp, "corpus"), docs)
+        vocab = serve_vocab(os.path.join(tmp, "vocab.txt"))
+        config = BertConfig.from_json_file(cfg_path)
+        layers = config.num_hidden_layers
+        vocab_size = pad_vocab_size(config.vocab_size, 8)
+        mark("corpus")
+
+        # 1-2. the main path at depth 1, then depth 0
+        runs = {}
+        for depth in (1, 0):
+            out = os.path.join(tmp, f"d{depth}")
+            args = _stream_args(run_pretraining, cfg_path, corpus, vocab,
+                                out, device, micro, STREAM_STEPS,
+                                "--skip_checkpoint", "--h2d_prefetch",
+                                str(depth))
+            trace = os.path.join(tmp, f"trace{depth}.json") if on_card \
+                else None
+            reset_launches()
+            t0 = time.perf_counter()
+            result, batches, perf = _stream_train(
+                torch, run_pretraining, args, trace)
+            tel = result.metrics
+            wall = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            h = result.history
+            warm = perf[1:] or perf
+            step_ms = sum(p["step_time_ms"] for p in warm)
+            row = {
+                "losses": [r["loss"] for r in h],
+                "grad_norms": [r["grad_norm"] for r in h],
+                "launches": launches, "run_s": wall,
+                "step_time_ms": [p["step_time_ms"] for p in perf],
+                "data_wait_ms": [p.get("data_wait_ms") for p in perf],
+                "h2d_ms": [p.get("h2d_ms") for p in perf],
+                "dispatch_ms": [p.get("dispatch_ms") for p in perf],
+                "metric_flush_ms": [p.get("metric_flush_ms") for p in perf],
+                "data_wait_share": sum(p.get("data_wait_ms", 0.0)
+                                       for p in warm) / step_ms,
+                "h2d_share": sum(p.get("h2d_ms", 0.0)
+                                 for p in warm) / step_ms,
+                "stream_tokens": _series(tel, "bert_stream_tokens_total"),
+                "worker_tokens_per_sec": _series(
+                    tel, "bert_stream_worker_tokens_per_sec"),
+                "queue_depth": _series(tel, "bert_stream_queue_depth"),
+                "examples": _series(tel, "bert_stream_examples_total")}
+            if trace is not None:
+                row["trace"] = _trace_streams(trace)
+                os.remove(trace)
+            runs[depth] = (row, batches)
+            res[f"h2d_prefetch_{depth}"] = row
+            check(len(h) == STREAM_STEPS
+                  and all(np.isfinite(row["losses"])),
+                  f"stream depth {depth}: {len(h)} steps, losses "
+                  f"{row['losses']}")
+            log(f"stream: --h2d_prefetch {depth}, {layers} layers, "
+                f"{STREAM_STEPS} steps of 2 x {micro} x 128: losses "
+                f"{row['losses']}, step ms {row['step_time_ms']}, data_wait "
+                f"ms {row['data_wait_ms']} (share {row['data_wait_share']:.3f}"
+                f"), h2d ms {row['h2d_ms']}, launches {launches}, trace "
+                f"{row.get('trace')}, pool {row['worker_tokens_per_sec']}, "
+                f"queue {row['queue_depth']}")
+            del result
+            mark(f"depth{depth}")
+        want = _pretrain_step_launches(layers, STREAM_STEPS, False, False)
+        row1, batches1 = runs[1]
+        row0, batches0 = runs[0]
+        summary.setdefault("launches", {})["stream"] = row1["launches"]
+        res["launches_predicted"] = want
+        if on_card:
+            check(row1["launches"] == want, f"stream: launch counts "
+                  f"{row1['launches']}, want {want}")
+            check(row0["launches"] == want, f"stream depth 0: launch "
+                  f"counts {row0['launches']}, want {want}")
+            # the batches' bytes (the steps' and the one staged past the
+            # last) crossed on a stream that runs no kernel at depth 1
+            t1 = row1["trace"]
+            side = sum(b for st, b in t1["htod_bytes_by_stream"].items()
+                       if st not in t1["kernel_streams"])
+            step_bytes = sum(v.nbytes for v in batches1[0].values())
+            res["side_stream_htod_bytes"] = side
+            check(side >= STREAM_STEPS * step_bytes,
+                  f"stream: depth 1 copied {side} bytes off the kernels' "
+                  f"streams {t1['kernel_streams']} ({t1}); the batches "
+                  f"hold {STREAM_STEPS} x {step_bytes}")
+            check(row0["trace"]["htod_bytes_by_stream"].keys()
+                  <= set(row0["trace"]["kernel_streams"]),
+                  f"stream: depth 0 copied on a side stream: "
+                  f"{row0['trace']}")
+        check(row1["losses"] == row0["losses"]
+              and row1["grad_norms"] == row0["grad_norms"],
+              f"stream: depth 1 losses {row1['losses']} grad norms "
+              f"{row1['grad_norms']} against depth 0's {row0['losses']} "
+              f"{row0['grad_norms']}")
+        # the offline plane (in-memory shards, no tokenize pool) at this
+        # PR's defaults (--h2d_prefetch 1, --tensorboard on) and at the
+        # parent's behaviour (--h2d_prefetch 0, --tensorboard off), in
+        # alternated pairs (on, off, off, on): OFFLINE_STEPS steps each,
+        # the host phases, the step time and the idle share from a trace
+        index = array_index([pretraining_arrays(
+            np, (OFFLINE_STEPS + 2) * micro, 128, vocab_size, seed)
+            for seed in (0, 1)])
+        offline = {"on": [], "off": []}
+        for i, mode in enumerate(("on", "off", "off", "on")):
+            out = os.path.join(tmp, f"offline{i}")
+            args = run_pretraining.parse_arguments([
+                "--config_file", PHASE1_CONFIG,
+                "--model_config_file", cfg_path, "--output_dir", out,
+                "--local_batch_size", str(micro),
+                "--global_batch_size", str(2 * micro),
+                "--steps", str(OFFLINE_STEPS), "--fused_optim", "auto",
+                "--skip_checkpoint", "--vocab_pad_multiple", "8",
+                "--seed", "0", "--log_freq", "1", "--device", device,
+                "--h2d_prefetch", "1" if mode == "on" else "0",
+                "--tensorboard", mode])
+            trace = os.path.join(tmp, f"trace_offline{i}.json") \
+                if on_card else None
+            if on_card:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    result = run_pretraining.train(args, index,
+                                                   log=lambda m: None)
+                    torch.cuda.synchronize()
+                prof.export_chrome_trace(trace)
+            else:
+                result = run_pretraining.train(args, index,
+                                               log=lambda m: None)
+            perf = _perf_records(args)
+            row = {k + "_ms": [p.get(k + "_ms") for p in perf]
+                   for k in ("step_time", "data_wait", "h2d", "dispatch",
+                             "metric_flush")}
+            row["losses"] = [r["loss"] for r in result.history]
+            if trace is not None:
+                row["trace"] = _trace_streams(trace)
+                os.remove(trace)
+            offline[mode].append(row)
+            del result
+        rows = offline["on"] + offline["off"]
+        check(all(r["losses"] == rows[0]["losses"]
+                  and len(r["losses"]) == OFFLINE_STEPS for r in rows),
+              f"stream: the offline runs' losses differ: "
+              f"{[r['losses'] for r in rows]}")
+
+        def pooled(mode, key):
+            # the warm steps (all but each run's first) of both runs
+            vals = [v for r in offline[mode] for v in r[key][1:]]
+            return {"mean": sum(vals) / len(vals), "min": min(vals),
+                    "max": max(vals)}
+
+        res["offline"] = {
+            "runs": offline, "order": ["on", "off", "off", "on"],
+            "steps": OFFLINE_STEPS,
+            "warm": {mode: {k: pooled(mode, k) for k in (
+                "step_time_ms", "h2d_ms", "data_wait_ms", "dispatch_ms",
+                "metric_flush_ms")} for mode in offline}}
+        if on_card:
+            for mode in offline:
+                res["offline"]["warm"][mode]["idle_share"] = [
+                    r["trace"]["idle_share"] for r in offline[mode]]
+        log(f"stream: the offline plane, {OFFLINE_STEPS} steps a run, "
+            f"defaults (h2d 1, tensorboard on) against the parent's (h2d "
+            f"0, tensorboard off), alternated: {res['offline']['warm']}")
+        mark("offline")
+        host, rate, _ = _host_stream(
+            _stream_args(run_pretraining, cfg_path, corpus, vocab, tmp,
+                         device, micro, STREAM_STEPS), vocab_size,
+            STREAM_STEPS)
+        res["host_loader"] = rate
+        check(_same_batches(np, batches1, host) and _same_batches(
+            np, batches0, host), "stream: the batches the steps read "
+            "differ from the loader's alone on the host")
+        log(f"stream: the {STREAM_STEPS} batches the steps read equal the "
+            f"host loader's (1 worker, no prefetch: {rate})")
+        mark("host_loader")
+
+        # 3. packed at CUT_LAYERS, at a microbatch of at most
+        # STREAM_DRILL_MICRO (the pool tokenizes ~1.7 examples a row plus
+        # the packer's lookahead, and sets these runs' pace): the drills
+        dmicro = min(micro, STREAM_DRILL_MICRO)
+        def packed(name, steps, *extra):
+            out = os.path.join(tmp, name)
+            args = _stream_args(run_pretraining, cut_cfg_path, corpus,
+                                vocab, out, device, dmicro, steps,
+                                "--packing", *extra)
+            result, batches, _ = _stream_train(torch, run_pretraining, args)
+            return (args, [r["loss"] for r in result.history], batches,
+                    result.metrics)
+
+        pargs, clean, clean_b, _ = packed("clean", STREAM_STEPS,
+                                          "--skip_checkpoint")
+        _, crash, crash_b, crash_tel = packed(
+            "crash", STREAM_STEPS, "--skip_checkpoint", "--stream_inject",
+            "worker_crash")
+        restarts = _series(crash_tel, "bert_stream_worker_restarts_total")
+        check(crash == clean and _same_batches(np, crash_b, clean_b)
+              and restarts and restarts[0][1] >= 1,
+              f"stream: worker_crash losses {crash} vs {clean}, restarts "
+              f"{restarts}")
+        import warnings
+
+        with warnings.catch_warnings():
+            # one warning a dropped record: counted below instead
+            warnings.simplefilter("ignore")
+            _, corrupt, corrupt_b, corrupt_tel = packed(
+                "corrupt", 2, "--skip_checkpoint", "--stream_inject",
+                "corrupt_record")
+            host_c, _, _ = _host_stream(pargs, vocab_size, 2,
+                                        inject="corrupt_record")
+        dropped = _series(corrupt_tel, "bert_stream_records_dropped_total")
+        check(dropped and dropped[0][1] >= 1
+              and _same_batches(np, corrupt_b, host_c)
+              and np.isfinite(corrupt).all(),
+              f"stream: corrupt_record dropped {dropped}, losses {corrupt}")
+        res["packed"] = {"losses": clean, "worker_crash_losses": crash,
+                         "worker_restarts": restarts,
+                         "corrupt_losses": corrupt,
+                         "records_dropped": dropped,
+                         "segments_max": int(max(b["segment_ids"].max()
+                                                 for b in clean_b))}
+        log(f"stream: packed at {cut_cfg_path}: losses {clean}; "
+            f"worker_crash {crash} (restarts {restarts}); corrupt_record "
+            f"{corrupt} (dropped {dropped})")
+        mark("drills")
+
+        # 4. resume in a process of its own
+        out = os.path.join(tmp, "resume")
+        argv = ["--config_file", PHASE1_CONFIG,
+                "--model_config_file", cut_cfg_path, "--stream_dir", corpus,
+                "--stream_vocab", vocab, "--stream_seq_len", "128",
+                "--output_dir", out, "--local_batch_size", str(dmicro),
+                "--global_batch_size", str(2 * dmicro),
+                "--fused_optim", "auto", "--vocab_pad_multiple", "8",
+                "--seed", "0", "--log_freq", "1", "--device", device,
+                "--packing", "--num_steps_per_checkpoint", "2",
+                "--tensorboard", "off"]
+        args2 = run_pretraining.parse_arguments(argv + ["--steps", "2"])
+        first, _, _ = _stream_train(torch, run_pretraining, args2)
+        with open(os.path.join(out, "pretrain_ckpts", "2",
+                               EXTRA_FILE)) as f:
+            state = json.load(f)["sampler"]
+        check([r["loss"] for r in first.history] == clean[:2],
+              f"stream: the checkpointed run's losses "
+              f"{[r['loss'] for r in first.history]}, the unbroken "
+              f"run's {clean[:2]}")
+        from bert_pytorch_tpu_torch.data.streaming import (
+            StreamingPretrainingLoader, discover_sources)
+        from bert_pytorch_tpu_torch.data.tokenization import TOKENIZERS
+
+        tok = TOKENIZERS["wordpiece"](vocab)
+        lo = StreamingPretrainingLoader(
+            discover_sources(corpus), tok, batch_size=2 * dmicro,
+            seq_len=128, mask_token_index=tok.token_to_id("[MASK]"),
+            max_pred_per_seq=pargs.max_predictions_per_seq,
+            masked_lm_prob=pargs.masked_token_fraction,
+            vocab_size=pad_vocab_size(BertConfig.from_json_file(
+                cut_cfg_path).vocab_size, 8), seed=0, packing=True,
+            num_workers=1)
+        lo.load_state_dict(state)
+        third = next(lo)
+        lo.close()
+        code, text = _child(argv + ["--steps", "1", "--skip_checkpoint"])
+        check(code == 0, f"stream: the resumed process exited {code}: "
+              f"{text[-2000:]}")
+        with open(os.path.join(out, "phase1_log.jsonl")) as f:
+            recs = [r for r in map(json.loads, f) if r["tag"] == "train"]
+        resumed = [r["step_loss"] for r in recs if r["step"] == 3]
+        res["resume"] = {"losses_before": [r["loss"] for r in
+                                           first.history],
+                         "resumed_step3": resumed, "unbroken_step3":
+                         clean[2]}
+        check(resumed == [clean[2]], f"stream: the resumed step 3 loss "
+              f"{resumed}, the unbroken run's {clean[2]}")
+        check(_same_batches(np, [third], [clean_b[2]]), "stream: the "
+              "checkpointed cursor's first batch is not the unbroken "
+              "run's third")
+        log(f"stream: resumed in a process of its own: step 3 loss "
+            f"{resumed} (unbroken {clean[2]}); the cursor's batch is the "
+            "third")
+        del first
+        mark("resume")
+
+        # 5-6. BPE, and the TensorBoard sink
+        bpe = bpe_files([open(p).read() for p in sorted(
+            os.path.join(corpus, n) for n in os.listdir(corpus))],
+            os.path.join(tmp, "bpe"), n_merges=bpe_merges)
+        bpe_vocab = json.load(open(bpe))
+        with open(cut_cfg_path) as f:
+            cfg = dict(json.load(f), vocab_size=len(bpe_vocab))
+        bpe_cfg = os.path.join(tmp, "bpe_config.json")
+        with open(bpe_cfg, "w") as f:
+            json.dump(cfg, f)
+        out = os.path.join(tmp, "bpe_run")
+        lines = []
+        args = _stream_args(run_pretraining, bpe_cfg, corpus, bpe, out,
+                            device, dmicro, 2, "--skip_checkpoint",
+                            "--stream_tokenizer", "bpe", "--tensorboard",
+                            "on")
+        result = run_pretraining.train(args, None, log=lines.append)
+        losses = [r["loss"] for r in result.history]
+        mask_line = [ln for ln in lines if ln.startswith("dataset:")]
+        check(len(losses) == 2 and np.isfinite(losses).all()
+              and f"[MASK]={bpe_vocab['<mask>']}" in mask_line[0],
+              f"stream: BPE losses {losses}, {mask_line}")
+        has_tb = importlib.util.find_spec("tensorboard") is not None
+        tb = {"package": has_tb}
+        if has_tb:
+            from tensorboard.backend.event_processing.event_accumulator \
+                import EventAccumulator
+
+            acc = EventAccumulator(os.path.join(out, "phase1_log_tb"))
+            acc.Reload()
+            got = [(e.step, e.value) for e in acc.Scalars("train/step_loss")]
+            tb["train_step_loss"] = got
+            check([s for s, _ in got] == [1, 2] and np.allclose(
+                [v for _, v in got], losses), f"stream: tensorboard {got}")
+        else:
+            tb["log"] = [ln for ln in lines if ln.startswith("tensorboard")]
+            check(tb["log"] and "sink off" in tb["log"][0],
+                  f"stream: no tensorboard and no line saying so: {lines}")
+        res["bpe"] = {"vocab": len(bpe_vocab), "losses": losses,
+                      "mask_id": bpe_vocab["<mask>"]}
+        res["tensorboard"] = tb
+        log(f"stream: BPE ({len(bpe_vocab)} tokens): losses {losses}; "
+            f"tensorboard {tb}; seconds by part {marks}")
+        mark("bpe_tensorboard")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # -- pretraining's survival and metrics planes -------------------------------
 
 SURVIVAL_STEPS = 4
@@ -7437,9 +8060,10 @@ def pretrain_child(argv) -> int:
     """`chip_smoke.py --pretrain_child -- <run_pretraining flags>`: the
     entry point's run in a process of its own, under its exit-code
     contract (`run_pretraining.exit_code_of`, which `_cli` is), over the
-    survival phase's in-memory shards: the chip machine has no h5py, so
+    survival phase's in-memory shards (the chip machine has no h5py, so
     only the file read differs from `python -m
-    bert_pytorch_tpu_torch.run_pretraining`."""
+    bert_pytorch_tpu_torch.run_pretraining`), or with --stream_dir over
+    its corpus."""
     import numpy as np
 
     sys.path.insert(0, HERE)
@@ -7447,9 +8071,11 @@ def pretrain_child(argv) -> int:
     from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
 
     args = run_pretraining.parse_arguments(argv)
-    vocab = pad_vocab_size(BertConfig.from_json_file(
-        args.model_config_file).vocab_size, args.vocab_pad_multiple)
-    index = survival_index(np, vocab, args.local_batch_size)
+    index = None        # --stream_dir reads its corpus
+    if not args.stream_dir:
+        vocab = pad_vocab_size(BertConfig.from_json_file(
+            args.model_config_file).vocab_size, args.vocab_pad_multiple)
+        index = survival_index(np, vocab, args.local_batch_size)
     return run_pretraining.exit_code_of(
         lambda: run_pretraining.train(args, index))
 
@@ -7850,7 +8476,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="device,build,kernels,timing,model_seq1024,"
                             "serve,train_order,train,train_phase2,"
-                            "train_packed,train_packed_phase2,remat,"
+                            "train_packed,train_packed_phase2,stream,remat,"
                             "finetune_squad,finetune_ner,finetune_tasks,"
                             "serve_slo,finetune_packed,distill,"
                             "init_sources,survival",
@@ -7927,12 +8553,12 @@ def main(argv=None) -> int:
     return 0
 
 
-# finetune_packed, distill, init_sources and survival, whose checks hold
-# at any depth, run BERT-Large's width at CUT_LAYERS layers (the
-# checkpoints they write and read, 4 GB each at 24 layers, dominate
-# them), so that the whole script stays well inside its time limit on a
-# slow host: every phase took 1157 s in one call and 971 s in another
-# with them at 24 layers (PERF.md).
+# finetune_packed, distill, init_sources, survival and the stream
+# phase's drills, whose checks hold at any depth, run BERT-Large's width
+# at CUT_LAYERS layers (the checkpoints they write and read, 4 GB each at
+# 24 layers, dominate them), so that the whole script stays well inside
+# its time limit on a slow host: every phase took 1157 s in one call and
+# 971 s in another with the first four at 24 layers (PERF.md).
 CUT_LAYERS = 12
 
 
@@ -7991,6 +8617,9 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
                 phase_train(torch, np, summary, run=phase, ckpt_dir=ckpt_dir)
             elif phase in PACKED_RUNS:
                 phase_train_packed(torch, np, summary, run=phase)
+            elif phase == "stream":
+                phase_stream(torch, np, summary,
+                             cut_cfg_path=cut["cfg_path"])
             elif phase == "remat":
                 phase_remat(torch, np, summary)
             elif phase == "finetune_squad":

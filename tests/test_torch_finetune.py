@@ -643,9 +643,14 @@ def test_refused_tables_account_for_every_jax_flag(task):
 # --packing is served: tests/test_torch_finetune_packing.py; so are
 # --perf_artifact, squad's --eval_script, --metrics_port and
 # --watchdog_timeout
-# (tests/test_torch_tasks.py::test_lifted_finetune_flag_is_served)
+# (tests/test_torch_tasks.py::test_lifted_finetune_flag_is_served), and
+# NER's --tokenizer bpe (tests/test_torch_bpe.py)
 @pytest.mark.parametrize("task,flag", [("ner", ["--tokenizer", "bpe"])])
 def test_switching_on_a_refused_flag_raises(task, flag):
+    """The refusal machinery raises, naming ROADMAP queue A, on a value
+    that switches on a refused feature; --tokenizer bpe, refused until
+    the BPE tokenizer was ported, now parses."""
+    from bert_pytorch_tpu_torch import FINETUNE_GAPS, refuse
     from bert_pytorch_tpu_torch.tasks import ner_task, squad_task
 
     base = {"squad": [], "ner": ["--train_file", "t", "--labels", "O",
@@ -653,8 +658,10 @@ def test_switching_on_a_refused_flag_raises(task, flag):
     mod = {"squad": squad_task, "ner": ner_task}[task]
     mod.parse_arguments(base + ["--packing", "--packing_max_segments",
                                 "4"])                      # served
+    args = mod.parse_arguments(base + flag)                # served
+    assert "tokenizer" not in mod._REFUSED
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):
-        mod.parse_arguments(base + flag)
+        refuse(args, {"tokenizer": (None, "wordpiece")}, FINETUNE_GAPS)
 
 
 @pytest.mark.parametrize("kind", ["name", "url"])

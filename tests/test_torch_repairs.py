@@ -129,8 +129,9 @@ def _run_config(tmp_path, **over):
 @pytest.mark.parametrize("key,value", [
     ("stacked_params", "true"), ("zero1", "true"),
     ("steps_per_loop", 4), ("profile_steps", "2,4"), ("mesh", "data=2"),
-    ("fsdp_overlap", True), ("stream_dir", "corpus"), ("rng_impl", "rbg"),
-    ("kfac", True), ("h2d_prefetch", 1), ("optimizer", "bert_adam")])
+    ("fsdp_overlap", True), ("zero1_rs", True), ("rng_impl", "rbg"),
+    ("kfac", True), ("coalesce_reductions", "on"),
+    ("optimizer", "bert_adam")])
 def test_run_config_enabling_a_missing_feature_is_refused(tmp_path, key,
                                                           value):
     argv = ["--config_file", _run_config(tmp_path, **{key: value}),
@@ -197,13 +198,22 @@ def test_refused_table_accounts_for_every_jax_flag():
     assert {"packing", "packing_max_segments", "packing_lookahead",
             "flight_recorder", "recorder_window",
             "checkpoint_activations"} <= declared
-    # each JAX flag in exactly one place
-    for dest in jax_flags:
-        places = [dest in declared, dest in refused, dest in tuning]
-        assert sum(places) == 1, (dest, places)
-    # no stale entry, and tuning keys name a refused feature
-    assert declared | set(refused) | set(tuning) == set(jax_flags)
+    # every JAX flag is declared, a refused one too (a JAX command line
+    # parses); the port adds --device alone
+    assert set(jax_flags) == declared
+    # every _REFUSED / _TUNING key is declared, its default among its
+    # off values, and tuning keys name a refused feature
+    assert set(refused) | set(tuning) <= declared
+    assert not set(refused) & set(tuning)
     assert set(tuning.values()) <= set(refused)
+    for dest, off in refused.items():
+        assert port_flags[dest].default in off, dest
+    # the flags this slice ported left the tables, at JAX's defaults
+    for dest in ("stream_dir", "stream_vocab", "stream_tokenizer",
+                 "stream_seq_len", "stream_workers", "stream_queue_batches",
+                 "stream_inject", "h2d_prefetch", "tensorboard"):
+        assert dest not in refused and dest not in tuning, dest
+        assert port_flags[dest].default == jax_flags[dest].default, dest
     # a refused flag's feature is off at values the JAX flag takes
     for dest, off in refused.items():
         flag = jax_flags[dest]
@@ -213,3 +223,29 @@ def test_refused_table_accounts_for_every_jax_flag():
     for dest in declared:
         mine, theirs = port_flags[dest].choices, jax_flags[dest].choices
         assert mine is None or set(mine) <= set(theirs), dest
+
+
+@pytest.mark.parametrize("argv", [
+    ["--tensorboard", "off"], ["--steps_per_loop", "1"],
+    ["--kfac_damping", "0.001"], ["--kfac_skip_layers", "embeddings"],
+    ["--zero1", "false", "--stacked_params", "false", "--mesh_config",
+     "auto", "--overlap_flags", "off", "--rng_impl", "threefry2x32"]])
+def test_jax_command_lines_at_off_values_parse(argv):
+    """A JAX command line that names a flag of a missing feature at its
+    off value parses and passes the refusal check."""
+    args = run_pretraining.parse_arguments(argv)
+    run_pretraining._unsupported(args)
+
+
+@pytest.mark.parametrize("argv,key", [
+    (["--steps_per_loop", "4"], "steps_per_loop"),
+    (["--kfac"], "kfac"), (["--zero1_rs"], "zero1_rs"),
+    (["--overlap_flags", "on"], "overlap_flags"),
+    (["--force_cpu"], "force_cpu")])
+def test_jax_command_lines_at_on_values_are_refused(argv, key):
+    args = run_pretraining.parse_arguments(argv)
+    with pytest.raises(NotImplementedError,
+                       match=f"{key}=.*ROADMAP.md, queue A") as e:
+        run_pretraining._unsupported(args)
+    if key == "force_cpu":
+        assert "--device cpu" in str(e.value)
