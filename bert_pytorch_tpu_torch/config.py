@@ -51,6 +51,8 @@ class BertConfig:
     # it sows the per-layer taps; the port's task heads return the taps
     # when called with return_taps=True, whatever this says.
     debug_taps: bool = False
+    # K-FAC's taps on the pretraining model's Linears (optim/kfac.py)
+    kfac_taps: bool = False
     # Activation checkpointing of every encoder layer in training
     # (models/bert.BertEncoder): the layer's activations are recomputed in
     # the backward pass instead of kept, under `remat_policy`: "nothing"

@@ -30,6 +30,14 @@ LayerNorm output, "mlp_out": the layer's output}, each (B, S, E) in the
 compute dtype: the two points the JAX model sows under `debug_taps`.
 Without the flag the forward is unchanged.
 
+K-FAC's taps (`config.kfac_taps`, optim/kfac.py): the pretraining head
+called with `kfac=KFACTaps()` records, for each tapped Linear (the four of
+every layer: `attention.qkv`, `attention.output`, `intermediate`,
+`mlp_output`; the pooler's `dense`; `cls_seq_relationship`), its input,
+and adds a zero tensor to its output whose gradient is the loss's
+gradient with respect to that output (the JAX model's sow and perturb).
+They are K-FAC's own, apart from the distillation taps above.
+
 Activation checkpointing (`config.checkpoint_activations`, training
 only: a forward under grad): each encoder layer runs under
 `torch.utils.checkpoint` (non-reentrant), by `config.remat_policy` as the
@@ -92,6 +100,56 @@ def _row_linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     xf = x.float()
     out = torch.stack([(xf * w[i]).sum(-1) for i in range(w.shape[0])], -1)
     return (out + layer.bias.to(x.dtype).float()).to(x.dtype)
+
+
+class KFACTaps:
+    """K-FAC's taps of one microbatch's forward. Each tapped Linear calls
+    `taps(site, x, y)` with its input `x` and output `y` and goes on with
+    the result, `y` plus a zero tensor that requires grad (`perts[site]`):
+    the loss's gradient with respect to it is the gradient with respect
+    to the Linear's output, from the same backward pass as the
+    parameters' (JAX's flax `perturb`). `acts[site]` keeps `x`, detached,
+    in the compute dtype. A site records once: the recompute of an
+    activation-checkpointed region calls it again and gets the same
+    perturbation back, so the statistics equal those of the run without
+    remat. `site` is the Linear's module name (`kfac_site`, set by
+    `name_kfac_sites`)."""
+
+    def __init__(self):
+        self.acts: Dict[str, torch.Tensor] = {}
+        self.perts: Dict[str, torch.Tensor] = {}
+
+    def __call__(self, site: str, x: torch.Tensor,
+                 y: torch.Tensor) -> torch.Tensor:
+        pert = self.perts.get(site)
+        if pert is None:
+            self.acts[site] = x.detach()
+            pert = torch.zeros_like(y, requires_grad=True)
+            self.perts[site] = pert
+        return y + pert
+
+
+def _tap(kfac: Optional[KFACTaps], layer: nn.Linear, x: torch.Tensor,
+         y: torch.Tensor) -> torch.Tensor:
+    """y = layer(x) through K-FAC's taps when they are on."""
+    return y if kfac is None else kfac(layer.kfac_site, x, y)
+
+
+def name_kfac_sites(model: nn.Module) -> List[str]:
+    """Name each K-FAC-tapped Linear of `model` by its module name (its
+    `kfac_site`, which its parameters' names extend with .weight and
+    .bias); returns the sites in module order."""
+    sites = []
+    for name, mod in model.named_modules():
+        if getattr(mod, "kfac_tapped", False):
+            mod.kfac_site = name
+            sites.append(name)
+    return sites
+
+
+def _tapped(layer: nn.Linear) -> nn.Linear:
+    layer.kfac_tapped = True
+    return layer
 
 
 def cast_for_serving(model: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -207,32 +265,41 @@ class BertSelfAttention(nn.Module):
         self.n_heads = config.num_attention_heads
         self.head_dim = config.head_dim
         e = config.hidden_size
-        self.qkv = nn.Linear(e, 3 * self.n_heads * self.head_dim)
-        self.output = nn.Linear(self.n_heads * self.head_dim, e)
+        self.qkv = _tapped(nn.Linear(e, 3 * self.n_heads * self.head_dim))
+        self.output = _tapped(nn.Linear(self.n_heads * self.head_dim, e))
         self.rate = config.attention_probs_dropout_prob
         self.plain = plain
 
     def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor,
                 segment_ids: Optional[torch.Tensor],
-                seed: Optional[int] = None) -> torch.Tensor:
+                seed: Optional[int] = None,
+                kfac: Optional[KFACTaps] = None) -> torch.Tensor:
         b, s, _ = hidden.shape
-        qkv = _linear(hidden, self.qkv).view(b, s, 3, self.n_heads,
-                                             self.head_dim)
+        qkv = _tap(kfac, self.qkv, hidden, _linear(hidden, self.qkv))
+        qkv = qkv.view(b, s, 3, self.n_heads, self.head_dim)
         # strided views: the flash kernel reads them in place
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         ctx = dot_product_attention(q, k, v, attention_bias, segment_ids,
                                     plain=self.plain, dropout_seed=seed,
                                     dropout_rate=self.rate)
-        return _linear(ctx.reshape(b, s, -1), self.output)
+        ctx = ctx.reshape(b, s, -1)
+        return _tap(kfac, self.output, ctx, _linear(ctx, self.output))
 
 
 def _mlp(act, hidden: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
-         w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+         w_out: torch.Tensor, b_out: torch.Tensor,
+         kfac: Optional[KFACTaps] = None, sites=(None, None)
+         ) -> torch.Tensor:
     """The MLP's up-projection, activation and down-projection from its
-    four parameter tensors (`_linear`'s casts at use)."""
+    four parameter tensors (`_linear`'s casts at use); with `kfac`, both
+    products tapped as `sites` (up, down)."""
     dt = hidden.dtype
-    inter = act(F.linear(hidden, w_in.to(dt), b_in.to(dt)))
-    return F.linear(inter, w_out.to(dt), b_out.to(dt))
+    inter = F.linear(hidden, w_in.to(dt), b_in.to(dt))
+    if kfac is not None:
+        inter = kfac(sites[0], hidden, inter)
+    inter = act(inter)
+    out = F.linear(inter, w_out.to(dt), b_out.to(dt))
+    return out if kfac is None else kfac(sites[1], inter, out)
 
 
 # The dispatcher ops whose outputs remat_policy "dots" keeps: the cuBLAS
@@ -276,8 +343,8 @@ class BertLayer(nn.Module):
         self.attention = BertSelfAttention(config, plain=plain)
         self.attention_layer_norm = ResidualDropoutLayerNorm(e, rate,
                                                              plain=plain)
-        self.intermediate = nn.Linear(e, config.intermediate_size)
-        self.mlp_output = nn.Linear(config.intermediate_size, e)
+        self.intermediate = _tapped(nn.Linear(e, config.intermediate_size))
+        self.mlp_output = _tapped(nn.Linear(config.intermediate_size, e))
         self.output_layer_norm = ResidualDropoutLayerNorm(e, rate,
                                                           plain=plain)
         self.act = ACT2FN[config.hidden_act]
@@ -286,18 +353,25 @@ class BertLayer(nn.Module):
     def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor,
                 segment_ids: Optional[torch.Tensor],
                 seeds: Sequence[Optional[int]] = (None, None, None),
-                taps: Optional[List[Dict[str, torch.Tensor]]] = None
-                ) -> torch.Tensor:
+                taps: Optional[List[Dict[str, torch.Tensor]]] = None,
+                kfac: Optional[KFACTaps] = None) -> torch.Tensor:
         """`seeds`: (attention probabilities, attention tail, MLP tail).
-        `taps`, when given, receives this layer's tap dict."""
-        attn = self.attention(hidden, attention_bias, segment_ids, seeds[0])
+        `taps`, when given, receives this layer's tap dict; `kfac`,
+        K-FAC's taps of its four Linears."""
+        attn = self.attention(hidden, attention_bias, segment_ids, seeds[0],
+                              kfac)
         hidden = self.attention_layer_norm(attn, hidden, seeds[1])
         weights = (self.intermediate.weight, self.intermediate.bias,
                    self.mlp_output.weight, self.mlp_output.bias)
+        mlp_fn = functools.partial(_mlp, self.act)
+        if kfac is not None:
+            mlp_fn = functools.partial(
+                mlp_fn, kfac=kfac, sites=(self.intermediate.kfac_site,
+                                          self.mlp_output.kfac_site))
         if self.remat_mlp and torch.is_grad_enabled():
-            mlp = _remat(functools.partial(_mlp, self.act), hidden, *weights)
+            mlp = _remat(mlp_fn, hidden, *weights)
         else:
-            mlp = _mlp(self.act, hidden, *weights)
+            mlp = mlp_fn(hidden, *weights)
         out = self.output_layer_norm(mlp, hidden, seeds[2])
         if taps is not None:
             taps.append({"attention_out": hidden, "mlp_out": out})
@@ -321,8 +395,8 @@ class BertEncoder(nn.Module):
     def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor,
                 segment_ids: Optional[torch.Tensor],
                 seeds: Optional[List[int]] = None,
-                taps: Optional[List[Dict[str, torch.Tensor]]] = None
-                ) -> torch.Tensor:
+                taps: Optional[List[Dict[str, torch.Tensor]]] = None,
+                kfac: Optional[KFACTaps] = None) -> torch.Tensor:
         whole = (self.remat_policy in ("nothing", "dots")
                  and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
@@ -330,14 +404,15 @@ class BertEncoder(nn.Module):
                            else seeds[3 * i:3 * i + 3])
             if whole:
                 hidden = self._remat_layer(layer, hidden, attention_bias,
-                                           segment_ids, layer_seeds, taps)
+                                           segment_ids, layer_seeds, taps,
+                                           kfac)
             else:
                 hidden = layer(hidden, attention_bias, segment_ids,
-                               layer_seeds, taps)
+                               layer_seeds, taps, kfac)
         return hidden
 
     def _remat_layer(self, layer: BertLayer, hidden, attention_bias,
-                     segment_ids, seeds, taps):
+                     segment_ids, seeds, taps, kfac=None):
         """One layer as a checkpointed region. Its parameters (under
         `functional_call`, the step's compute copies) enter as inputs and
         are put back into the layer for the recompute; a tap dict comes
@@ -348,7 +423,7 @@ class BertEncoder(nn.Module):
             local = [] if taps is not None else None
             out = functional_call(layer, dict(zip(names, flat)),
                                   (h, attention_bias, segment_ids, seeds),
-                                  {"taps": local})
+                                  {"taps": local, "kfac": kfac})
             if local is None:
                 return out
             return out, local[0]["attention_out"]
@@ -368,16 +443,20 @@ class BertPooler(nn.Module):
 
     def __init__(self, config: BertConfig):
         super().__init__()
-        self.dense = nn.Linear(config.hidden_size, config.hidden_size)
+        self.dense = _tapped(nn.Linear(config.hidden_size,
+                                       config.hidden_size))
 
     def forward(self, hidden: torch.Tensor,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                positions: Optional[torch.Tensor] = None,
+                kfac: Optional[KFACTaps] = None) -> torch.Tensor:
         if positions is None:
             cls = hidden[:, 0]
         else:
             cls = torch.take_along_dim(hidden, positions.long()[..., None],
                                        dim=1)
-        return torch.tanh(_linear(cls, self.dense))
+        # tapped before the tanh: K-FAC's G is of the product's output
+        return torch.tanh(_tap(kfac, self.dense, cls,
+                               _linear(cls, self.dense)))
 
 
 def dropout_seed_list(config: BertConfig,
@@ -424,11 +503,11 @@ class BertModel(nn.Module):
                 segment_ids: Optional[torch.Tensor] = None,
                 dropout_seeds: Optional[torch.Tensor] = None,
                 taps: Optional[List[Dict[str, torch.Tensor]]] = None,
-                embeddings_tap: Optional[List[torch.Tensor]] = None
-                ) -> torch.Tensor:
+                embeddings_tap: Optional[List[torch.Tensor]] = None,
+                kfac: Optional[KFACTaps] = None) -> torch.Tensor:
         """(B, S, E) sequence output in the compute dtype; `taps`, when
-        given, receives one tap dict a layer, and `embeddings_tap` the
-        embeddings' output."""
+        given, receives one tap dict a layer, `embeddings_tap` the
+        embeddings' output, and `kfac` K-FAC's taps."""
         seeds = dropout_seed_list(self.config, dropout_seeds)
         if attention_mask is None:
             attention_mask = (segment_ids > 0 if segment_ids is not None
@@ -441,7 +520,7 @@ class BertModel(nn.Module):
         if embeddings_tap is not None:
             embeddings_tap.append(x)
         return self.encoder(x, bias, segment_ids,
-                            None if seeds is None else seeds[1:], taps)
+                            None if seeds is None else seeds[1:], taps, kfac)
 
 
 class BertForQuestionAnswering(nn.Module):
@@ -722,7 +801,9 @@ class BertForPreTraining(nn.Module):
     ((mlm_logits, nsp_logits), taps) with the bisect's tap points, taps =
     {"embeddings": (B, S, E), "layers": one {"attention_out", "mlp_out"}
     a layer, "pooler", "mlm_head", "nsp_head"}: the points the JAX model
-    sows under `debug_taps`, read by tools/replay.py --bisect."""
+    sows under `debug_taps`, read by tools/replay.py --bisect. Built with
+    `config.kfac_taps`, it names K-FAC's sites (`kfac_sites`) and takes
+    `kfac=KFACTaps()`."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.bfloat16,
                  plain: bool = False):
@@ -730,9 +811,12 @@ class BertForPreTraining(nn.Module):
         self.config = config
         self.bert = BertModel(config, dtype=dtype, plain=plain)
         self.cls_predictions = BertMLMHead(config, plain=plain)
-        self.cls_seq_relationship = (nn.Linear(config.hidden_size, 2)
-                                     if config.next_sentence else None)
+        self.cls_seq_relationship = (
+            _tapped(nn.Linear(config.hidden_size, 2))
+            if config.next_sentence else None)
         self.n_dropout_sites = 1 + 3 * config.num_hidden_layers
+        self.kfac_sites = (name_kfac_sites(self) if config.kfac_taps
+                           else [])
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
@@ -742,12 +826,16 @@ class BertForPreTraining(nn.Module):
                 position_ids: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
                 nsp_positions: Optional[torch.Tensor] = None,
-                return_taps: bool = False):
+                return_taps: bool = False,
+                kfac: Optional[KFACTaps] = None):
+        if kfac is not None and not self.config.kfac_taps:
+            raise ValueError("K-FAC's taps need a model built with "
+                             "config.kfac_taps")
         layer_taps = [] if return_taps else None
         emb_tap = [] if return_taps else None
         seq = self.bert(input_ids, token_type_ids, attention_mask,
                         position_ids, segment_ids, dropout_seeds,
-                        layer_taps, emb_tap)
+                        layer_taps, emb_tap, kfac)
         hidden = seq
         if masked_positions is not None:
             index = masked_positions.long()[..., None].expand(
@@ -757,8 +845,10 @@ class BertForPreTraining(nn.Module):
             hidden, self.bert.embeddings.word_embeddings.weight)
         nsp_logits = pooled = None
         if self.cls_seq_relationship is not None:
-            pooled = self.bert.pooler(seq, nsp_positions)
-            nsp_logits = _linear(pooled, self.cls_seq_relationship).float()
+            pooled = self.bert.pooler(seq, nsp_positions, kfac)
+            nsp_logits = _tap(kfac, self.cls_seq_relationship, pooled,
+                              _linear(pooled, self.cls_seq_relationship))
+            nsp_logits = nsp_logits.float()
         if not return_taps:
             return mlm_logits, nsp_logits
         return (mlm_logits, nsp_logits), {

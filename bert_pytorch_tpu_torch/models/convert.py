@@ -115,3 +115,43 @@ def load_serving_params(path: str) -> Dict[str, torch.Tensor]:
         return {k: v.float() for k, v in sd.items()}
     raise ValueError(f"unknown checkpoint format {path!r}: want a .npz of "
                      "the flat flax tree or a .pt state_dict")
+
+
+def kfac_site_from_flax(path: str) -> str:
+    """A JAX tap path (either encoder layout's leaf, the `_tap` suffix
+    on) -> the port's K-FAC site, the tapped Linear's module name:
+    bert/encoder/layer_3/attention/qkv_tap -> bert.encoder.layers.3.
+    attention.qkv; cls_seq_relationship_tap -> cls_seq_relationship."""
+    if path.endswith("_tap"):
+        path = path[:-len("_tap")]
+    m = _UNSTACKED.match(path + "/")
+    if m:
+        path = f"bert/encoder/layers/{m.group(1)}/{m.group(2)}"
+    return path.rstrip("/").replace("/", ".")
+
+
+def kfac_state_from_flax(flat: Dict[str, np.ndarray], count: int = 0,
+                         inverses: Dict[str, np.ndarray] = None):
+    """The JAX package's KFACState -> the port's (optim/kfac.KFACState):
+    `flat` the factors flattened with "/" (`<tap path>/A`, `<tap path>/G`,
+    stacked leaves unstacked), `inverses` the inverses the same way (None:
+    identities, as a fresh state). The factor matrices need no transposes:
+    a site's A indexes the Linear's input features and a trailing one,
+    its G the output features in the order the port's weight rows take
+    (the QKV's (3, H, D) flattened)."""
+    from bert_pytorch_tpu_torch.optim.kfac import KFACState
+
+    def tree(f):
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        for key, value in unstack_layers(
+                {k: np.asarray(v) for k, v in f.items()}).items():
+            path, kind = key.rsplit("/", 1)
+            out.setdefault(kfac_site_from_flax(path), {})[kind] = \
+                torch.from_numpy(np.array(value, dtype=np.float32))
+        return out
+
+    factors = tree(flat)
+    invs = (tree(inverses) if inverses is not None else
+            {site: {k: torch.eye(t.shape[0]) for k, t in d.items()}
+             for site, d in factors.items()})
+    return KFACState(factors=factors, inverses=invs, count=int(count))

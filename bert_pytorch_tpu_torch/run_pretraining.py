@@ -30,7 +30,13 @@ examples into each row (data/packing.py: segment-masked attention,
 positions reset per segment, NSP per segment; the gathered MLM head's
 budget grows to a row's); --checkpoint_activations recomputes each
 encoder layer in the backward pass under the model config's remat_policy
-(nothing, dots, mlp_only).
+(nothing, dots, mlp_only). --kfac preconditions the gradients with K-FAC
+before LAMB (optim/kfac.py; configs/bert_kfac_pretraining_phase1_config
+.json). --steps_per_loop N runs N steps a host dispatch over a staged
+(N, ...) chunk, reading the metrics once a chunk (the health flags
+max-accumulated), bit-equal to N=1. --profile_steps lo,hi writes a
+torch.profiler trace of those steps under <output_dir>/traces/ and logs
+its summary (telemetry/trace.py; tools/trace_summary.py reads it again).
 
 Checkpoints: every --num_steps_per_checkpoint steps and at the end of the
 run into <output_dir>/pretrain_ckpts/<global step>/, the newest
@@ -46,11 +52,13 @@ are a pure function of (--seed, global step), so a resumed run draws the
 masks an uninterrupted run draws.
 
 Telemetry (telemetry/run.py, as the JAX entry point wires it): a header
-record, then each optimizer step a `train` record (epoch, average_loss,
+record, then each optimizer step (or chunk) a `train` record (epoch, average_loss,
 step_loss and the step's metrics, with the health pack's) and every
 --log_freq steps a StepWatch `perf` record (step time, seq/s, MFU on the
 card's peak, the host phases data_wait / data_prep / h2d / dispatch /
-metric_flush / checkpoint) in <output_dir>/<log_prefix>.{txt,jsonl} and
+metric_flush / checkpoint; on a card the allocator's peak, in-use and
+total bytes as hbm_peak_bytes, hbm_bytes_in_use, hbm_bytes_limit) in
+<output_dir>/<log_prefix>.{txt,jsonl} and
 <log_prefix>_metrics.csv, and (--tensorboard on, the default) as
 TensorBoard scalars under <log_prefix>_tb; --metrics_port serves them as
 /metrics with a /healthz (a streaming run's cursor on it). The flight
@@ -88,10 +96,7 @@ from bert_pytorch_tpu_torch.training.pretrain import dropout_seeds
 # line parses; a value that switches its feature on, from the command line
 # or a run config, is refused: key -> the values that leave it off.
 _REFUSED = {
-    "steps_per_loop": (1,),
-    "kfac": (False,),
     "mesh": ("",),
-    "profile_steps": (None,),
     # the port's per-layer modules are the JAX "false" layout
     "stacked_params": ("auto", "false"),
     # one card: "auto" shards nothing
@@ -109,14 +114,9 @@ _REFUSED = {
 }
 _HINTS = {"force_cpu": "use `--device cpu`"}
 # Flags that only tune a feature refused above: accepted with any value,
-# since their feature is off.
-_TUNING = {
-    "kfac_inv_interval": "kfac", "kfac_factor_interval": "kfac",
-    "kfac_stat_decay": "kfac", "kfac_damping": "kfac",
-    "kfac_kl_clip": "kfac", "kfac_stats_dtype": "kfac",
-    "kfac_skip_layers": "kfac", "kfac_bucket_mb": "kfac",
-    "kfac_factor_sync_freq": "kfac",
-}
+# since their feature is off. --kfac_bucket_mb sizes the coalesced factor
+# reductions of several cards; K-FAC on one card reduces nothing.
+_TUNING = {"kfac_bucket_mb": "coalesce_reductions"}
 # stream flags that only make sense with --stream_dir: given on the
 # command line without it, they fail at parse time (JAX's list)
 _STREAM_DEPENDENT_FLAGS = ("stream_vocab", "stream_tokenizer",
@@ -127,21 +127,8 @@ _STREAM_DEPENDENT_FLAGS = ("stream_vocab", "stream_tokenizer",
 def _declare_refused(p: argparse.ArgumentParser) -> None:
     """The JAX flags of `_REFUSED` and `_TUNING`, with JAX's types and
     choices; each default leaves its feature off."""
-    p.add_argument("--steps_per_loop", type=int, default=1)
-    p.add_argument("--kfac", action="store_true", default=False)
-    p.add_argument("--kfac_inv_interval", type=int, default=10)
-    p.add_argument("--kfac_factor_interval", type=int, default=1)
-    p.add_argument("--kfac_stat_decay", type=float, default=0.95)
-    p.add_argument("--kfac_damping", type=float, default=0.003)
-    p.add_argument("--kfac_kl_clip", type=float, default=0.001)
-    p.add_argument("--kfac_stats_dtype", type=str, default="f32",
-                   choices=["f32", "bf16"])
-    p.add_argument("--kfac_skip_layers", nargs="+", type=str,
-                   default=["cls_predictions", "embeddings"])
     p.add_argument("--kfac_bucket_mb", type=float, default=4.0)
-    p.add_argument("--kfac_factor_sync_freq", type=int, default=1)
     p.add_argument("--mesh", type=str, default="")
-    p.add_argument("--profile_steps", type=str, default=None)
     p.add_argument("--stacked_params", type=str, default="auto",
                    choices=["auto", "true", "false"])
     p.add_argument("--zero1", type=str, default="auto",
@@ -288,6 +275,47 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         "(bert_stream_records_dropped_total), worker_crash "
                         "kills a tokenize task once per 5th record (re-run "
                         "with its cursor intact)")
+    p.add_argument("--steps_per_loop", type=int, default=1,
+                   help="optimization steps a host dispatch: >1 stages that "
+                        "many batches with a leading (N, ...) axis and runs "
+                        "the N steps back to back, reading the metrics once "
+                        "a chunk (the last step's, the health flags "
+                        "max-accumulated over the chunk); each inner step "
+                        "draws its own global step's dropout seeds, so the "
+                        "run is bit-equal to N=1")
+    p.add_argument("--profile_steps", type=str, default=None,
+                   help="'lo,hi': a torch.profiler trace (CPU and CUDA) "
+                        "from before step lo+1's dispatch to after step "
+                        "hi's readback (with --steps_per_loop, the chunks "
+                        "that hold those steps, whole), written under "
+                        "<output_dir>/traces/ "
+                        "(the host phases as host/<phase> ranges) and "
+                        "summarized in the log "
+                        "(bert_pytorch_tpu_torch.tools.trace_summary)")
+    p.add_argument("--kfac", action="store_true", default=False,
+                   help="K-FAC preconditioning before LAMB (optim/kfac.py: "
+                        "the four Linears of every layer, the pooler and "
+                        "the NSP head)")
+    p.add_argument("--kfac_inv_interval", type=int, default=10,
+                   help="steps between inversions of the factors")
+    p.add_argument("--kfac_factor_interval", type=int, default=1,
+                   help="steps between updates of the factors' EMA")
+    p.add_argument("--kfac_stat_decay", type=float, default=0.95,
+                   help="the factors' EMA decay")
+    p.add_argument("--kfac_damping", type=float, default=0.003,
+                   help="Tikhonov damping, factored between A and G")
+    p.add_argument("--kfac_kl_clip", type=float, default=0.001,
+                   help="kl_clip: the preconditioned step's scale bound")
+    p.add_argument("--kfac_stats_dtype", type=str, default="f32",
+                   choices=["f32", "bf16"],
+                   help="dtype of a step's factor statistics (the EMA "
+                        "stays f32)")
+    p.add_argument("--kfac_skip_layers", nargs="+", type=str,
+                   default=["cls_predictions", "embeddings"],
+                   help="sites whose name holds one of these keep their "
+                        "first-order gradients")
+    p.add_argument("--kfac_factor_sync_freq", type=int, default=1,
+                   help="update the factors only every N steps (N > 1)")
     p.add_argument("--log_freq", type=int, default=10,
                    help="optimization steps per StepWatch 'perf' record")
     p.add_argument("--health_pack", type=str, default="on",
@@ -355,7 +383,25 @@ def parse_arguments(argv=None) -> argparse.Namespace:
     if args.chaos and args.chaos_step is None:
         p.error("--chaos requires --chaos_step (the global step the fault "
                 "fires at)")
+    if args.profile_steps is not None:
+        try:
+            parse_profile_steps(args.profile_steps)
+        except ValueError as e:
+            p.error(str(e))
     return args
+
+
+def parse_profile_steps(spec: str):
+    """--profile_steps 'lo,hi' -> (lo, hi), 0 <= lo < hi; ValueError
+    otherwise."""
+    try:
+        lo, hi = (int(x) for x in str(spec).split(","))
+    except ValueError:
+        raise ValueError(f"--profile_steps {spec!r}: want 'lo,hi' (two "
+                         "step numbers)") from None
+    if not 0 <= lo < hi:
+        raise ValueError(f"--profile_steps {spec!r}: want 0 <= lo < hi")
+    return lo, hi
 
 
 def validate_stream_args(parser, args, argv=None) -> None:
@@ -429,8 +475,8 @@ class SLOBreachHalt(RuntimeError):
 class PretrainResult:
     """What a run did: its last global step, the train state it ends with,
     the step it resumed from (None: a fresh start), the checkpoints it
-    saved ({"step", "bytes", "seconds"} each) and its metrics registry's
-    snapshot as the run ended."""
+    saved ({"step", "bytes", "seconds"} each), its metrics registry's
+    snapshot as the run ended and, with --profile_steps, the trace."""
     step: int
     train_time_s: float
     accum_steps: int
@@ -441,6 +487,8 @@ class PretrainResult:
     restore_s: Optional[float] = None
     saves: List[Dict] = dataclasses.field(default_factory=list)
     metrics: Dict = dataclasses.field(default_factory=dict)
+    # --profile_steps: {"trace_file", "steps", "summary"} of the trace
+    profile: Optional[Dict] = None
 
 
 def _unsupported(args) -> None:
@@ -554,8 +602,14 @@ def train(args: argparse.Namespace, index,
     from bert_pytorch_tpu_torch.training.checkpoint import CheckpointManager
     from bert_pytorch_tpu_torch.training.finetune import \
         load_pretrained_params
-    from bert_pytorch_tpu_torch.training.pretrain import build_pretrain_step
+    from bert_pytorch_tpu_torch.telemetry.memory import \
+        device_memory_snapshot
+    from bert_pytorch_tpu_torch.training.pretrain import (
+        build_kfac_pretrain_step, build_pretrain_step, chain_steps,
+        init_kfac_state)
     from bert_pytorch_tpu_torch.training.state import make_train_state
+
+    import numpy as np
 
     device = resolve_device(args.device)
     # the tied decoder's f32 logits need full f32 products
@@ -566,6 +620,13 @@ def train(args: argparse.Namespace, index,
         raise SystemExit(f"--nonfinite_action={args.nonfinite_action} "
                          "requires --health_pack=on")
 
+    try:
+        profile_range = (parse_profile_steps(args.profile_steps)
+                         if args.profile_steps is not None else None)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    n_loop = max(1, args.steps_per_loop)
+
     # one card: the global batch is accum_steps microbatches
     micro = args.local_batch_size
     accum_steps = max(1, math.ceil(args.global_batch_size / micro))
@@ -575,7 +636,8 @@ def train(args: argparse.Namespace, index,
     config = config.replace(
         vocab_size=pad_vocab_size(config.vocab_size,
                                   args.vocab_pad_multiple),
-        checkpoint_activations=args.checkpoint_activations)
+        checkpoint_activations=args.checkpoint_activations,
+        kfac_taps=args.kfac)
     compute_dtype = (torch.bfloat16 if args.dtype == "bfloat16"
                      else torch.float32)
     grad_name = args.dtype if args.grad_dtype == "auto" else args.grad_dtype
@@ -596,7 +658,7 @@ def train(args: argparse.Namespace, index,
                    tensorboard=args.tensorboard == "on")
     if tel.logger.tensorboard_dir:
         log(f"tensorboard: scalars under {tel.logger.tensorboard_dir}")
-    loader = guard = watchdog = slo_eval = recorder = None
+    loader = guard = watchdog = slo_eval = recorder = profiler = None
     # (step, loader state, epoch) of the last completed step, taken
     # inside the step's guard: the loader's live cursor may already cover
     # the next batch when a signal lands, and resuming from it would skip
@@ -658,11 +720,21 @@ def train(args: argparse.Namespace, index,
         tx = Lamb(schedule, weight_decay=0.01, fused=args.fused_optim)
         state = make_train_state(model, tx)
         max_pred_row = packed_prediction_budget(args, seq_len)
-        step_fn = build_pretrain_step(
-            model, tx, schedule=schedule, accum_steps=accum_steps,
-            max_predictions=max_pred_row,
-            grad_dtype=grad_dtype, health=health,
-            nan_inject_step=args.inject_nonfinite_step)
+        kfac = None
+        if args.kfac:
+            kfac = _make_kfac(args)
+            # the factors exist before any restore, which fills them
+            init_kfac_state(model, kfac, state)
+            step_fn = build_kfac_pretrain_step(
+                model, tx, kfac, schedule=schedule, accum_steps=accum_steps,
+                max_predictions=max_pred_row, grad_dtype=grad_dtype,
+                health=health, nan_inject_step=args.inject_nonfinite_step)
+        else:
+            step_fn = build_pretrain_step(
+                model, tx, schedule=schedule, accum_steps=accum_steps,
+                max_predictions=max_pred_row,
+                grad_dtype=grad_dtype, health=health,
+                nan_inject_step=args.inject_nonfinite_step)
         log(f"device={device} accumulation_steps={accum_steps} "
             f"microbatch={micro} global_batch={step_batch} dtype={args.dtype} "
             f"grad_dtype={grad_name} vocab={config.vocab_size} "
@@ -678,6 +750,14 @@ def train(args: argparse.Namespace, index,
             log(f"packing: gathered MLM head scores up to {max_pred_row} "
                 f"positions/row (per-example cap "
                 f"{args.max_predictions_per_seq})")
+        if kfac is not None:
+            from bert_pytorch_tpu_torch.optim.kfac import describe
+
+            # stands in for the JAX loop's bucket-assignment line: one
+            # card reduces nothing
+            log(describe(state.precond_state, kfac.config,
+                         skipped=[s for s in state.precond_state.factors
+                                  if kfac.skipped(s)]))
         resumed_from = restore_s = None
         if manager.latest_step() is not None:
             t0 = time.perf_counter()
@@ -727,11 +807,17 @@ def train(args: argparse.Namespace, index,
 
         n_sites = 1 + 3 * config.num_hidden_layers
         if args.flight_recorder == "on":
+            # the ring holds two chunks: a flagged chunk is dumped after
+            # the next dispatch's record at the latest (JAX's clamp)
+            window = max(args.recorder_window, 2 * n_loop)
+            if window > args.recorder_window:
+                log(f"flight recorder: window raised {args.recorder_window}"
+                    f" -> {window} (2x --steps_per_loop)")
             recorder = FlightRecorder(
                 per_host_dir(os.path.join(args.output_dir, "repro_bundles")),
-                window=args.recorder_window,
+                window=window,
                 run_info=_recorder_run_info(args, accum_steps, max_pred_row,
-                                            grad_name, seq_len),
+                                            grad_name, seq_len, n_loop),
                 model_config=config.to_dict(),
                 checkpoint_dir=manager.directory,
                 provenance=prov,
@@ -783,8 +869,19 @@ def train(args: argparse.Namespace, index,
 
         make_prefetcher = _prefetcher_factory(
             args, loader, sw, device, accum_steps, micro,
-            tap if taps else None, log)
+            tap if taps else None, log, n_loop)
         pf = make_prefetcher()
+
+        def pull():
+            """The next (host batch, device batch or None); a new epoch
+            when one ends."""
+            nonlocal pf
+            while True:
+                try:
+                    return next(pf)
+                except StopIteration:
+                    loader.reset_epoch()
+                    pf = make_prefetcher()
 
         def save():
             rec = manager.save(state.step, state.state_dict(), extra={
@@ -795,49 +892,73 @@ def train(args: argparse.Namespace, index,
             log(f"checkpoint: step {state.step} saved ({rec['bytes'] / 1e9:.3f}"
                 f" GB in {rec['seconds']:.1f} s)")
 
+        if profile_range is not None:
+            profiler = _StepProfiler(profile_range, args.output_dir, device,
+                                     log)
         train_start = time.perf_counter()
-        # the loop pulls a batch only for a step it takes
+        # the loop pulls a batch only for a step it takes; with
+        # --steps_per_loop N it takes N steps a dispatch while N are left,
+        # then single steps (JAX's `remaining` rule)
         while state.step < limit:
             if slo_engine is not None and args.slo_action == "halt":
                 _check_slo_halt(slo_engine, args, state.step)
-            try:
-                batch_np, batch = next(pf)
-            except StopIteration:
-                loader.reset_epoch()
-                pf = make_prefetcher()
-                continue
+            remaining = limit - state.step
+            n = n_loop if remaining >= n_loop else 1
+            pairs = [pull() for _ in range(n)]
+            batch_np = pairs[-1][0]
             if chaos is not None:
                 chaos.before_dispatch(state.step + 1)
+            if profiler is not None:
+                profiler.before_dispatch(state.step, n)
             t0 = time.perf_counter()
             with sw.phase("data_prep"):
-                seeds = dropout_seeds(args.seed, state.step + 1,
-                                      accum_steps, n_sites)
-                real = batch_np.get("segment_ids",
-                                    batch_np["attention_mask"])
-                real_tokens = float((real > 0).sum())
+                seeds = [dropout_seeds(args.seed, state.step + 1 + i,
+                                       accum_steps, n_sites)
+                         for i in range(n)]
+                real_tokens = 0.0
+                for b, _ in pairs:
+                    real = b.get("segment_ids", b["attention_mask"])
+                    real_tokens += float((real > 0).sum())
+            if n_loop > 1:
+                # the chunk staged with a leading (n, ...) axis, one copy
+                with sw.phase("data_prep"):
+                    chunk_np = {k: np.stack([b[k].reshape(
+                        accum_steps, micro, *b[k].shape[1:])
+                        for b, _ in pairs]) for k in batch_np}
+                with sw.phase("h2d"):
+                    batch = {k: torch.from_numpy(v).to(device)
+                             for k, v in chunk_np.items()}
+                del chunk_np
+                seeds = torch.stack(seeds)
+                run_step = chain_steps(step_fn, n)
+            else:
+                batch, seeds = pairs[0][1], seeds[0]
+                run_step = step_fn
+            del pairs
             # a signal inside the guard is raised when the step, its
             # record and the survival snapshot are whole
             with guard.hold():
                 with sw.phase("dispatch"):
                     if chaos is not None:
                         chaos.stall(state.step + 1)
-                    metrics = step_fn(state, batch, seeds)
+                    metrics = run_step(state, batch, seeds)
                 del batch
                 if recorder is not None:
-                    recorder.record_dispatch(state.step, 1, seeds.numpy())
+                    recorder.record_dispatch(state.step - n + 1, n,
+                                             seeds.numpy())
                 survival.update(step=state.step, sampler=pf.state_dict(),
                                 epoch=loader.epoch)
                 # the next batch's pull, stacking and copy while the card
                 # runs this step (before the readback below waits for it)
                 pf.fill()
                 # reading the metrics waits for the card: the step time
-                # below is the whole step, host and device
+                # below is the whole step (or chunk), host and device
                 with sw.phase("metric_flush"):
                     vals = {k: (v.item() if torch.is_tensor(v) else v)
                             for k, v in metrics.items()}
                 if recorder is not None:
                     recorder.note_metrics(state.step, vals)
-                dt = time.perf_counter() - t0
+                dt = (time.perf_counter() - t0) / n
                 examples = int((batch_np["next_sentence_labels"] >= 0).sum())
                 rec = dict(vals, step=state.step, step_ms=dt * 1e3,
                            seq_per_sec=step_batch / dt, examples=examples)
@@ -859,6 +980,8 @@ def train(args: argparse.Namespace, index,
                 tel.log_train(state.step, epoch=loader.epoch,
                               average_loss=loss_sum / max(loss_n, 1),
                               step_loss=loss, **vals)
+            if profiler is not None:
+                profiler.after_readback(state.step)
             bundle = None
             if bad and recorder is not None:
                 # every action dumps: a log or skip run wants the repro of
@@ -877,11 +1000,15 @@ def train(args: argparse.Namespace, index,
             # counted with its step: a crash flush's interval holds the
             # tokens of the steps it counts
             sw.note_tokens(real_tokens)
-            perf = sw.step_done()
+            perf = sw.step_done(n)
             if perf is not None:
+                perf.update(device_memory_snapshot(device))
                 tel.log_perf(state.step, perf)
+            # a chunk checkpoints at the boundary JAX's rule picks: the
+            # chunk that crossed a multiple of num_steps_per_checkpoint
             if (not args.skip_checkpoint
-                    and state.step % args.num_steps_per_checkpoint == 0):
+                    and state.step % args.num_steps_per_checkpoint
+                    < (n_loop if remaining >= n_loop else 1)):
                 with sw.phase("checkpoint"):
                     save()
                 if chaos is not None:
@@ -894,6 +1021,8 @@ def train(args: argparse.Namespace, index,
             log(f"training_seq_per_sec = "
                 f"{step_batch * len(history) / train_time:.2f} "
                 f"({len(history)} steps in {train_time:.1f}s)")
+        if profiler is not None:
+            profiler.stop()
         if recorder is not None:
             recorder.disarm()   # a clean exit: the atexit backstop stands down
         return PretrainResult(step=state.step, train_time_s=train_time,
@@ -901,16 +1030,26 @@ def train(args: argparse.Namespace, index,
                               seqs_per_step=step_batch, history=history,
                               state=state, resumed_from=resumed_from,
                               restore_s=restore_s, saves=saves,
-                              metrics=tel.registry.snapshot())
+                              metrics=tel.registry.snapshot(),
+                              profile=(profiler.result if profiler
+                                       is not None else None))
     except BaseException as exc:
         # the partial StepWatch interval and the black box land before the
         # unwind (the bundle before the emergency save, which may fail)
         try:
             rec = sw.flush()
             if rec is not None:
+                rec.update(device_memory_snapshot(device))
                 tel.log_perf(survival.get("step", 0), rec)
         except Exception:
             pass
+        # the trace of the steps taken so far lands too (a halt, SIGTERM
+        # or crash inside the profiled window)
+        if profiler is not None:
+            try:
+                profiler.stop()
+            except Exception as e:
+                log(f"WARNING: profiler: the trace was not written: {e}")
         if recorder is not None and recorder.last_dump is None:
             try:
                 path = recorder.dump(type(exc).__name__.lower(),
@@ -946,7 +1085,8 @@ def train(args: argparse.Namespace, index,
     finally:
         # the guard closes before the recorder: it restores the recorder's
         # handlers, which the recorder then restores to the original
-        for closeable in (slo_eval, watchdog, guard, recorder, tel, loader):
+        for closeable in (profiler, slo_eval, watchdog, guard, recorder, tel,
+                          loader):
             if closeable is not None:
                 try:
                     closeable.close()
@@ -955,18 +1095,27 @@ def train(args: argparse.Namespace, index,
 
 
 def _prefetcher_factory(args, loader, sw, device, accum_steps: int,
-                        micro: int, tap, log):
+                        micro: int, tap, log, n_loop: int = 1):
     """() -> a DevicePrefetcher over `loader` for one epoch
     (--h2d_prefetch batches staged ahead). The upstream pull is timed as
     `data_wait` (an empty stream queue shows there, which the watchdog
     reads as input starvation) and the put as `h2d`. On a card at depth
     >= 1 the put is `cuda_put`: pinned memory, then a non-blocking copy
     on a side stream, which the step's stream waits on; at depth 0 and on
-    the CPU it is the synchronous copy."""
+    the CPU it is the synchronous copy. With --steps_per_loop > 1 the
+    loop copies whole chunks itself: the prefetcher yields host batches
+    alone (device batch None), at depth 0, as JAX's loop does."""
     from bert_pytorch_tpu_torch.data.sharded import (DevicePrefetcher,
                                                      cuda_put)
 
     depth = max(0, args.h2d_prefetch)
+    if n_loop > 1:
+        if depth:
+            log("h2d prefetch: off (--steps_per_loop>1 stages whole "
+                "chunks; the per-chunk put already amortizes)")
+        return lambda: DevicePrefetcher(
+            _timed_pulls(loader, sw), lambda b: None, depth=0,
+            state_fn=loader.state_dict, batch_tap=tap)
     if depth and device.type == "cuda":
         copy = cuda_put(torch, accum_steps, micro, device,
                         torch.cuda.Stream(device))
@@ -981,23 +1130,92 @@ def _prefetcher_factory(args, loader, sw, device, accum_steps: int,
            " (the next batch pulled while the step runs)" if depth else
            " (each batch copied before its step)"))
 
-    def waited():
-        it = iter(loader)
-        while True:
-            with sw.phase("data_wait"):
-                try:
-                    b = next(it)
-                except StopIteration:
-                    return
-            yield b
-
     def put(batch_np):
         with sw.phase("h2d"):
             return copy(batch_np)
 
-    return lambda: DevicePrefetcher(waited(), put, depth=depth,
-                                    state_fn=loader.state_dict,
+    return lambda: DevicePrefetcher(_timed_pulls(loader, sw), put,
+                                    depth=depth, state_fn=loader.state_dict,
                                     batch_tap=tap)
+
+
+def _timed_pulls(loader, sw):
+    """One epoch of `loader`'s batches, each pull timed as `data_wait`."""
+    it = iter(loader)
+    while True:
+        with sw.phase("data_wait"):
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+        yield b
+
+
+class _StepProfiler:
+    """--profile_steps lo,hi: a torch.profiler trace (CPU, and CUDA on a
+    card) started before the first dispatch that takes a step of lo + 1
+    .. hi (JAX's `lo <= global_step < hi` for single steps; a
+    --steps_per_loop chunk that holds one is traced whole) and stopped
+    after the readback of step hi or beyond; the Chrome trace goes to
+    <output_dir>/traces/steps<first>-<last>.pt.trace.json and its summary
+    (telemetry/trace.py) to the log and `result`. `stop()` is safe on
+    every exit path."""
+
+    def __init__(self, profile_range, output_dir: str, device, log):
+        self.lo, self.hi = profile_range
+        self.dir = os.path.join(output_dir, "traces")
+        self.device = device
+        self.log = log
+        self._prof = None
+        self._first = None
+        self._last = None
+        self.result: Optional[Dict] = None
+
+    def before_dispatch(self, step_done: int, n: int = 1) -> None:
+        """Before the dispatch of steps step_done + 1 .. step_done + n."""
+        if self._prof is None and self.result is None \
+                and step_done < self.hi and step_done + n > self.lo:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=acts)
+            self._prof.start()
+            self._first = step_done + 1
+
+    def after_readback(self, step_done: int) -> None:
+        self._last = step_done
+        if self._prof is not None and step_done >= self.hi:
+            self.stop()
+
+    def stop(self) -> None:
+        """Stop a running trace, write it and log its summary."""
+        if self._prof is None:
+            return
+        from bert_pytorch_tpu_torch.telemetry.trace import (headline,
+                                                            summarize_trace)
+
+        prof, self._prof = self._prof, None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        last = self._last if self._last is not None else self._first
+        path = os.path.join(self.dir,
+                            f"steps{self._first}-{last}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        steps = max(1, last - self._first + 1)
+        summary = summarize_trace(path, steps=steps)
+        self.result = {"trace_file": path, "steps": [self._first, last],
+                       "summary": summary}
+        self.log(f"profile: steps {self._first}..{last} traced to {path}: "
+                 + headline(summary))
+
+    def close(self) -> None:
+        if self._prof is not None:
+            self._prof.stop()
+            self._prof = None
 
 
 def packed_prediction_budget(args, seq_len: int) -> int:
@@ -1015,15 +1233,48 @@ def packed_prediction_budget(args, seq_len: int) -> int:
                + args.packing_max_segments)
 
 
+def _make_kfac(args):
+    """The K-FAC preconditioner of the run's --kfac_* flags."""
+    from bert_pytorch_tpu_torch.optim.kfac import KFAC, KFACConfig
+
+    return KFAC(KFACConfig(
+        inv_interval=args.kfac_inv_interval,
+        factor_interval=args.kfac_factor_interval,
+        stat_decay=args.kfac_stat_decay, damping=args.kfac_damping,
+        kl_clip=args.kfac_kl_clip,
+        skip_layers=tuple(args.kfac_skip_layers),
+        stats_dtype=(torch.bfloat16 if args.kfac_stats_dtype == "bf16"
+                     else torch.float32),
+        factor_sync_freq=args.kfac_factor_sync_freq))
+
+
+def kfac_run_info(args) -> Optional[Dict]:
+    """The run block's `kfac` dict (JAX's keys; one card reduces nothing,
+    so no bucket bytes or assignment), None without --kfac."""
+    if not args.kfac:
+        return None
+    return {"inv_interval": args.kfac_inv_interval,
+            "factor_interval": args.kfac_factor_interval,
+            "stat_decay": args.kfac_stat_decay,
+            "damping": args.kfac_damping, "kl_clip": args.kfac_kl_clip,
+            "skip_layers": list(args.kfac_skip_layers),
+            "factor_bucket_bytes": None,
+            "factor_sync_freq": args.kfac_factor_sync_freq,
+            "bucket_assignment": None,
+            "stats_dtype": args.kfac_stats_dtype}
+
+
 def _recorder_run_info(args, accum_steps: int, max_pred_row: int,
-                       grad_name: str, seq_len: int) -> Dict:
+                       grad_name: str, seq_len: int, n_loop: int = 1
+                       ) -> Dict:
     """The bundle manifest's run block: what tools/replay.py rebuilds the
     step from. The JAX run block's keys, with the port's one-card truth:
     a record's "rng" holds the step's int32 dropout seeds, drawn from
     numpy's PCG64 of (seed + 1000, step) (`rng_impl`); one card, so no
     mesh axis beyond data=1 and no ZeRO-1 sharding."""
     return {
-        "accum_steps": accum_steps, "steps_per_loop": 1, "seed": args.seed,
+        "accum_steps": accum_steps, "steps_per_loop": n_loop,
+        "seed": args.seed, "kfac": kfac_run_info(args),
         "max_pred_row": max_pred_row, "grad_dtype": grad_name,
         "dtype": args.dtype, "optimizer": args.optimizer,
         "learning_rate": args.learning_rate, "lr_decay": args.lr_decay,

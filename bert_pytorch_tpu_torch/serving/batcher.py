@@ -1,6 +1,8 @@
 """Continuous batching: bounded queue -> packed rows -> per-request demux
 (counterpart of bert_pytorch_tpu/serving/batcher.py, one engine: no
-replicas and no work stealing).
+replicas and no work stealing; the packing thread hands batches to one
+forward thread, as JAX's dispatcher hands waves to a replica's worker,
+and a completion thread resolves them).
 
 Several short requests share one (bucket,) row; segment-aware attention
 keeps them apart. A token-local head's outputs for a request are a slice
@@ -12,16 +14,21 @@ Flow control, in order:
 
 - `submit()` raises `TooLong` when the request exceeds the largest bucket
   (HTTP 413) and `Overloaded` when the bounded queue is full (HTTP 503).
-- the dispatcher thread drains the queue (when it found nothing left
+- the packing thread drains the queue (when it found nothing left
   over from the last batch, after one batching window for stragglers;
   a backlog runs at once), expires requests older than the
   admission timeout (`RequestTimeout`, HTTP 504), takes the head request's
   task and natural bucket (the smallest that holds it), first-fits every
   pending request of that task whose natural bucket it is into
-  `batch_rows` rows, runs the batch on the
-  engine and resolves each request with its part of every output (its
-  token span, or its segment's pooled output). Packing off is the same
-  first_fit with one segment per row.
+  `batch_rows` rows and hands the packed batch to the forward thread.
+  Packing off is the same first_fit with one segment per row.
+- the forward thread runs each batch on the engine, in packing order,
+  and hands its outputs to the completion thread, which resolves each
+  request with its part of every output (its token span, or its
+  segment's pooled output). So the next batch is packed and the last
+  one demuxed while the card computes this one: the engine's forward is
+  the only step the three threads take in turn. A handoff holds at most
+  one batch, so no more than three batches are ever past packing.
 - requests that do not fit the current batch stay pending in arrival
   order for the next one.
 
@@ -40,10 +47,13 @@ segments, device-seconds by task and the cost per 1k real tokens at
 `cost_per_device_hour`. Request tracing (serving/request_trace.py) gives
 every admitted request host-side spans (admit, queue_wait, pack, dispatch,
 compute, demux, respond, or a terminal shed / timeout / too_long /
-error) retired into the scheduler's TraceRing; the compute span carries
+error) retired into the scheduler's TraceRing; the dispatch span is the
+packed batch's wait for the forward thread, and the compute span carries
 the request's share of the batch's device-seconds (the batch's wall time,
 pro-rated by real tokens). Tracing records timestamps around the calls
-and touches no batch, so it cannot move an output.
+and touches no batch, so it cannot move an output. `stats()["busy_s"]`
+gives each thread's busy seconds (pack, forward, complete): over a load,
+the stage whose busy share nears 1 is the one that holds the rest back.
 """
 
 from __future__ import annotations
@@ -117,6 +127,23 @@ class InferenceRequest:
 Placement = Tuple[InferenceRequest, int, int, int]
 
 
+@dataclass
+class _Batch:
+    """A packed batch on its way from the packing thread through the
+    engine to the completion thread."""
+
+    task: str
+    bucket: int
+    batch: Dict[str, np.ndarray]
+    placements: List[Placement]
+    t_pack0: float
+    t_packed: float
+    t0: float = 0.0                  # forward start
+    t1: float = 0.0                  # forward end
+    outputs: Any = None
+    error: Optional[Exception] = None
+
+
 def pack_requests(reqs: List[InferenceRequest], bins: List[List[int]],
                   rows: int, bucket: int
                   ) -> Tuple[Dict[str, np.ndarray], List[Placement]]:
@@ -168,10 +195,17 @@ class Scheduler:
         self._q: "queue.Queue[InferenceRequest]" = queue.Queue(
             maxsize=int(queue_size))
         self._pending: List[InferenceRequest] = []
-        self._running = 0            # requests of the batch on the engine
+        # requests packed and not yet resolved
+        self._running = 0
+        # packing -> forward -> completion; None tells a thread to stop
+        self._to_forward: "queue.Queue[Optional[_Batch]]" = queue.Queue(
+            maxsize=1)
+        self._to_complete: "queue.Queue[Optional[_Batch]]" = queue.Queue(
+            maxsize=1)
         self._closed = threading.Event()
-        self._thread: Optional[threading.Thread] = None
+        self._threads: List[threading.Thread] = []
         self._stats_lock = threading.Lock()
+        self._busy = {"pack": 0.0, "forward": 0.0, "complete": 0.0}
         # outcome -> count, and (task, bucket) -> batches run
         self.outcomes: Dict[str, int] = collections.Counter()
         self.batches: Dict[Tuple[str, int], int] = collections.Counter()
@@ -239,7 +273,16 @@ class Scheduler:
             return {"outcomes": dict(self.outcomes),
                     "batches": {f"{t}/{b}": n
                                 for (t, b), n in sorted(self.batches.items())},
-                    "queue_depth": self._q.qsize() + len(self._pending)}
+                    "queue_depth": self._q.qsize() + len(self._pending),
+                    "busy_s": dict(self._busy)}
+
+    def _add_busy(self, stage: str, seconds: float) -> None:
+        with self._stats_lock:
+            self._busy[stage] += seconds
+
+    def _add_running(self, n: int) -> None:
+        with self._stats_lock:
+            self._running += n
 
     # -- client side ----------------------------------------------------------
 
@@ -319,15 +362,24 @@ class Scheduler:
     # -- scheduler side -------------------------------------------------------
 
     def start(self) -> "Scheduler":
-        self._thread = threading.Thread(target=self._loop,
-                                        name="serve-batcher", daemon=True)
-        self._thread.start()
+        self._threads = [
+            threading.Thread(target=target, name=name, daemon=True)
+            for target, name in ((self._loop, "serve-batcher"),
+                                 (self._forward_loop, "serve-forward"),
+                                 (self._complete_loop, "serve-complete"))]
+        for th in self._threads:
+            th.start()
         return self
 
     def close(self) -> None:
         self._closed.set()
-        if self._thread is not None:
-            self._thread.join(timeout=30)
+        if self._threads:
+            # the packing thread stops first; the batches it handed off
+            # still run and resolve, then the stop passes down the line
+            self._threads[0].join(timeout=30)
+            self._to_forward.put(None)
+            for th in self._threads[1:]:
+                th.join(timeout=30)
         for req in self._drain_all():
             if not req.done.is_set():
                 if req.trace is not None:
@@ -337,7 +389,7 @@ class Scheduler:
 
     def wait_idle(self, timeout: float = 30.0) -> bool:
         """Block until every admitted request has resolved (queue empty,
-        nothing pending, no batch on the engine); False when `timeout`
+        nothing pending, no batch past packing); False when `timeout`
         passed first. The graceful drain calls it before closing."""
         deadline = time.perf_counter() + timeout
         while time.perf_counter() < deadline:
@@ -380,6 +432,7 @@ class Scheduler:
         self._pending = keep
 
     def _loop(self) -> None:
+        """The packing thread."""
         while not self._closed.is_set():
             # requests the last batch left behind have waited a batch
             # already: they run without a batching window
@@ -401,7 +454,7 @@ class Scheduler:
             task = self._pending[0].task
             wave = [r for r in self._pending if r.task == task]
             try:
-                placed = self._run(task, wave)
+                packed = self._pack(task, wave)
             except Exception as e:
                 # packing itself failed: fail the head request, the one a
                 # broken layout implicates, so the loop makes progress
@@ -412,16 +465,18 @@ class Scheduler:
                                        t0=head.t_enqueue, site="pack")
                 head.resolve(error=e)
                 placed = {id(head)}
-            finally:
-                self._running = 0
+            else:
+                placed = set(id(req) for req, *_ in packed.placements)
+                self._add_running(len(placed))
+                self._add_busy("pack", packed.t_packed - packed.t_pack0)
+                self._to_forward.put(packed)
             self._pending = [r for r in self._pending
                              if id(r) not in placed]
             self._update_depth()
 
-    def _run(self, task: str, wave: List[InferenceRequest]) -> set:
-        """Pack one batch of the requests whose natural bucket is the head
-        request's, run it, resolve its requests (with the engine's error
-        if the forward failed). Returns the ids of the requests placed."""
+    def _pack(self, task: str, wave: List[InferenceRequest]) -> _Batch:
+        """One batch of the requests whose natural bucket is the head
+        request's, packed."""
         t_pack0 = time.perf_counter()
         bucket = self.engine.select_bucket(wave[0].length)
         wave = [r for r in wave
@@ -432,49 +487,80 @@ class Scheduler:
                          capacity=bucket, max_segments=max_segments)
         batch, placements = pack_requests(wave, bins,
                                           self.engine.batch_rows, bucket)
-        self._running = len(placements)
-        t0 = time.perf_counter()
-        for req, *_ in placements:
+        return _Batch(task, int(bucket), batch, placements, t_pack0,
+                      time.perf_counter())
+
+    def _forward_loop(self) -> None:
+        """The forward thread: each packed batch on the engine, in turn."""
+        while True:
+            item = self._to_forward.get()
+            if item is None:
+                self._to_complete.put(None)
+                return
+            item.t0 = time.perf_counter()
+            try:
+                item.outputs = self.engine.forward(item.task, item.batch)
+            except Exception as e:
+                # fail only the requests that rode this batch, keep serving
+                _log.exception("serving batch for task %r failed",
+                               item.task)
+                item.error = e
+            item.t1 = time.perf_counter()
+            self._add_busy("forward", item.t1 - item.t0)
+            self._to_complete.put(item)
+
+    def _complete_loop(self) -> None:
+        """The completion thread: each batch's requests resolved."""
+        while True:
+            item = self._to_complete.get()
+            if item is None:
+                return
+            t = time.perf_counter()
+            try:
+                self._complete(item)
+            finally:
+                self._add_running(-len(item.placements))
+                self._add_busy("complete", time.perf_counter() - t)
+
+    def _complete(self, item: _Batch) -> None:
+        """Resolve the batch's requests: each with its part of the
+        outputs, or all with the engine's error."""
+        task, bucket, t0, t1 = item.task, item.bucket, item.t0, item.t1
+        for req, *_ in item.placements:
             if req.trace is not None:
-                req.trace.span("queue_wait", req.t_enqueue, t_pack0)
-                req.trace.span("pack", t_pack0, t0, bucket=int(bucket),
-                               wave_segments=len(placements))
-                req.trace.span("dispatch", t0, t0, replica=0,
+                req.trace.span("queue_wait", req.t_enqueue, item.t_pack0)
+                req.trace.span("pack", item.t_pack0, item.t_packed,
+                               bucket=bucket,
+                               wave_segments=len(item.placements))
+                req.trace.span("dispatch", item.t_packed, t0, replica=0,
                                queued_on=0, stolen=False)
-        try:
-            outputs = self.engine.forward(task, batch)
-        except Exception as e:
-            # fail only the requests that rode this batch, keep serving
-            _log.exception("serving batch for task %r failed", task)
-            for req, *_ in placements:
+        if item.error is not None:
+            for req, *_ in item.placements:
                 if req.trace is not None:
                     self._finish_trace(req.trace, "error", t0=t0,
                                        replica=0, site="forward")
-                req.resolve(error=e)
-        else:
-            t1 = time.perf_counter()
-            real = sum(req.length for req, *_ in placements)
-            n_dev = int(getattr(self.engine, "n_devices", 1) or 1)
-            device_seconds = (t1 - t0) * n_dev
-            self._note_batch(task, bucket, placements, real)
-            self._note_cost(task, device_seconds, real)
-            kind = self.engine.output_kind(task)
-            for req, row, offset, seg in placements:
-                if req.trace is None:
-                    req.resolve(result=self._demux(outputs, row, offset,
-                                                   req.length, seg, kind))
-                    continue
-                share = req.length / real if real else 0.0
-                req.trace.span("compute", t0, t1, replica=0,
-                               bucket=int(bucket), n_devices=n_dev,
-                               device_seconds=round(device_seconds * share,
-                                                    9))
-                td0 = time.perf_counter()
-                out = self._demux(outputs, row, offset, req.length, seg,
-                                  kind)
-                req.trace.span("demux", td0, time.perf_counter())
-                req.resolve(result=out)
-        return set(id(req) for req, *_ in placements)
+                req.resolve(error=item.error)
+            return
+        outputs = item.outputs
+        real = sum(req.length for req, *_ in item.placements)
+        n_dev = int(getattr(self.engine, "n_devices", 1) or 1)
+        device_seconds = (t1 - t0) * n_dev
+        self._note_batch(task, bucket, item.placements, real)
+        self._note_cost(task, device_seconds, real)
+        kind = self.engine.output_kind(task)
+        for req, row, offset, seg in item.placements:
+            if req.trace is None:
+                req.resolve(result=self._demux(outputs, row, offset,
+                                               req.length, seg, kind))
+                continue
+            share = req.length / real if real else 0.0
+            req.trace.span("compute", t0, t1, replica=0, bucket=bucket,
+                           n_devices=n_dev,
+                           device_seconds=round(device_seconds * share, 9))
+            td0 = time.perf_counter()
+            out = self._demux(outputs, row, offset, req.length, seg, kind)
+            req.trace.span("demux", td0, time.perf_counter())
+            req.resolve(result=out)
 
     def _note_batch(self, task: str, bucket: int, placements, real: int
                     ) -> None:

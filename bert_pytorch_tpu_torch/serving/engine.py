@@ -110,12 +110,17 @@ class TorchServingEngine:
         # bucket's static buffers
         self._lock = threading.Lock()
         self._host: Dict[int, torch.Tensor] = {}
+        # numpy views of the pinned buffers, made once: each torch call
+        # gives up the interpreter lock and waits to take it back, which
+        # costs the forward thread most when the server is busiest
+        self._host_np: Dict[int, np.ndarray] = {}
         self._static: Dict[int, torch.Tensor] = {}
         if self.graphs_on:
             for b in self.buckets:
                 shape = (len(BATCH_FIELDS), self.batch_rows, b)
                 self._host[b] = torch.zeros(shape, dtype=torch.int32,
                                             pin_memory=True)
+                self._host_np[b] = self._host[b].numpy()
                 self._static[b] = torch.zeros(shape, dtype=torch.int32,
                                               device=self.device)
             self._pool = torch.cuda.graph_pool_handle()
@@ -236,10 +241,10 @@ class TorchServingEngine:
             raise RuntimeError(f"no CUDA graph for task={task!r} bucket="
                                f"{bucket}: call warmup() first")
         with self._lock:
-            host = self._host[bucket]
+            staged = self._host_np[bucket]
             for i, k in enumerate(BATCH_FIELDS):
-                host[i].numpy()[...] = batch[k]
-            self._static[bucket].copy_(host, non_blocking=True)
+                staged[i] = batch[k]
+            self._static[bucket].copy_(self._host[bucket], non_blocking=True)
             g.graph.replay()
             replay_launches(g.launches)
             outs = tuple(o.cpu().numpy() for o in g.outputs)

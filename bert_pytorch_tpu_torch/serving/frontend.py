@@ -49,6 +49,17 @@ from bert_pytorch_tpu_torch.tasks import predict, squad
 from bert_pytorch_tpu_torch.telemetry.registry import CONTENT_TYPE_PROM
 
 MAX_BODY_BYTES = 1 << 20
+# the listening socket's backlog: connections the kernel completes while
+# the accept thread is busy. http.server's default of 5 drops the SYN of
+# every further connection of a burst, and the client waits out TCP's
+# retransmission (1 s, then 3 s, ...) or sees its connection reset: a
+# request with no status at all. Far above the admission queue's bound,
+# so a burst reaches the scheduler, which sheds with 503 when it must.
+LISTEN_BACKLOG = 1024
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    request_queue_size = LISTEN_BACKLOG
 
 
 class HTTPError(Exception):
@@ -58,6 +69,26 @@ class HTTPError(Exception):
         self.code = code
         self.message = message
         self.retry_after = retry_after
+
+
+def round_list(values, digits: int) -> list:
+    """`[round(float(x), digits) for x in values]`, the same floats, in
+    numpy: rint(x * 10**digits) / 10**digits is the double nearest the
+    rounded decimal, as round()'s is, wherever the scaled value lies
+    clear of a .5 tie; the few that lie within its rounding error of one
+    (and any beyond 2**52, or not finite) take round() itself. An
+    embedding's floats, rounded one by one, cost the handler thread
+    more of the interpreter lock than the rest of its request."""
+    x = np.asarray(values, np.float64).reshape(-1)
+    scale = 10.0 ** digits
+    scaled = x * scale
+    out = (np.rint(scaled) / scale).tolist()
+    with np.errstate(invalid="ignore"):
+        near = ~(np.abs(scaled - np.floor(scaled) - 0.5) > 1e-6) \
+            | ~(np.abs(scaled) < 2.0 ** 52)
+    for i in np.flatnonzero(near).tolist():
+        out[i] = round(float(x[i]), digits)
+    return out
 
 
 # -- featurization: fn(tokenizer, *args), in the caller or in a worker -------
@@ -332,8 +363,7 @@ class EmbedService(_TaskService):
                                 for ids in encoded)
         embs = [np.asarray(self.scheduler.result(req), np.float32)
                 for req in reqs]
-        out = {"embeddings": [[round(float(x), 6) for x in e]
-                              for e in embs],
+        out = {"embeddings": [round_list(e, 6) for e in embs],
                "dim": int(embs[0].shape[-1]),
                "real_tokens": sum(len(ids) for ids in encoded)}
         if isinstance(single, str) and body.get("texts") is None:
@@ -511,7 +541,7 @@ class ServingFrontend:
             def log_message(self, fmt, *args):
                 pass
 
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._httpd = _HTTPServer((host, port), Handler)
         self._httpd.daemon_threads = True
         self.host = host
         self.port = int(self._httpd.server_address[1])

@@ -155,7 +155,10 @@ class FlightRecorder:
                         rng: np.ndarray) -> None:
         """Bind the trailing `n_steps` staged batches to steps first_step
         .. first_step + n_steps - 1, with `rng` (the port: the step's
-        (accum, sites) int32 dropout seeds)."""
+        (accum, sites) int32 dropout seeds, or a --steps_per_loop
+        chunk's (n, accum, sites), each record taking its own step's).
+        A dispatch wider than the ring keeps its trailing steps; replay
+        refuses a chunk whose head was evicted."""
         rng = np.asarray(rng)
         take = self._staged[-n_steps:]
         offset = n_steps - len(take)
@@ -163,7 +166,8 @@ class FlightRecorder:
             pos = offset + i
             self._records.append({"step": int(first_step + pos),
                                   "pos": int(pos), "n_steps": int(n_steps),
-                                  "rng": rng, "batch": batch})
+                                  "rng": rng[pos] if rng.ndim == 3 else rng,
+                                  "batch": batch})
         self._staged.clear()
         while len(self._records) > self.window:
             self._records.popleft()

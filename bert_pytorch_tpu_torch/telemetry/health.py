@@ -143,3 +143,16 @@ def health_update(cfg: HealthConfig, telem: Optional[TelemetryState],
                  "grad_spike": spike, "param_norm": pn,
                  "param_norm_drift": drift}
 
+
+# metric keys that training/pretrain.chain_steps max-accumulates over the
+# steps of a --steps_per_loop chunk: the host reads the last inner step's
+# metrics, and a flag raised by any inner step must survive to that read
+STICKY_METRIC_KEYS = ("loss_nonfinite", "grad_nonfinite", "grad_spike",
+                      "skipped_nonfinite", "mlm_dropped")
+
+
+def is_sticky_metric(key: str) -> bool:
+    """True for the metrics chain_steps max-accumulates: the fixed set and
+    the per-group counts (grad_nonfinite_bert, ...), so a chunk localizes
+    a blowup to the group a single step would."""
+    return key in STICKY_METRIC_KEYS or key.startswith("grad_nonfinite_")

@@ -17,7 +17,9 @@ The port runs on one card, so the record's device-seconds are the
 interval's wall time. With a `registry`, `bert_train_steps_total` ticks
 at every `step_done` and `bert_step_time_ms_hist` takes each interval's
 step time. `phase_listener`, when set, hears every phase's entry and exit
-(the hung-step watchdog's feed, resilience/watchdog.py). The one deliberate
+(the hung-step watchdog's feed, resilience/watchdog.py). While a
+torch.profiler runs, each phase is a `host/<name>` range in its trace
+(`phase`). The one deliberate
 difference in the record from the JAX module: the peak table holds
 the NVIDIA cards' published dense tensor-core peaks, and there is no
 default peak. An unknown device (the CPU included) reports `mfu` 0.0 and
@@ -28,7 +30,7 @@ from __future__ import annotations
 
 import os
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Callable, Dict, Optional
 
 # (name fragment, bf16 dense FLOP/s, f32 FLOP/s without tensor cores),
@@ -89,6 +91,16 @@ def flops_per_seq(cfg, seq_len: int, vocab: int, n_pred: int) -> float:
     return 6.0 * (trunk + head) + 12.0 * L * E * seq_len * seq_len
 
 
+def _host_annotation(name: str):
+    """`torch.profiler.record_function(f"host/{name}")` while a profiler
+    is on, else a no-op context."""
+    import torch
+
+    if torch.autograd.profiler._is_profiler_enabled:  # noqa: SLF001
+        return torch.profiler.record_function(f"host/{name}")
+    return nullcontext()
+
+
 class StepWatch:
     """Interval accounting for the host train loop.
 
@@ -134,12 +146,19 @@ class StepWatch:
 
     @contextmanager
     def phase(self, name: str):
+        """Time a host phase of the interval. While a torch.profiler
+        runs, the phase is also a `host/<name>` record_function range in
+        its trace (the JAX loop's TraceAnnotation names), which
+        telemetry/trace.py reads as host time; without a profiler no
+        range is opened."""
         listener = self.phase_listener
         if listener is not None:
             listener(name, True)
         t0 = self._time()
+        annotation = _host_annotation(name)
         try:
-            yield
+            with annotation:
+                yield
         finally:
             self._phases[name] = (self._phases.get(name, 0.0)
                                   + self._time() - t0)

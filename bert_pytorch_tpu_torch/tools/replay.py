@@ -12,11 +12,16 @@ manifest of what the step was built from. This tool closes the loop:
 
 Replay restores the newest checkpoint whose gap to the offending step the
 bundle's records cover, re-runs those steps through the run's own step
-builder (training/pretrain.build_pretrain_step with the run's optimizer,
-schedule, accumulation, prediction budget, health action and fault
-injection) on the recorded batches and seeds, and holds the recorded
+builder (training/pretrain.build_pretrain_step, or build_kfac_pretrain_step
+from the run block's `kfac` dict, with the run's optimizer, schedule,
+accumulation, prediction budget, health action and fault injection) on
+the recorded batches and seeds, and holds the recorded
 DETERMINISTIC_KEYS to the replayed ones bit for bit: on the same kind of
-device the step is the same computation. Across devices (a card's bundle
+device the step is the same computation. A --steps_per_loop run's chunk
+replays step by step (the same computation, training/pretrain.
+chain_steps), its last step's health flags folded over the chunk as the
+run read them; `--step` may name a step inside a chunk, and a chunk the
+ring evicted in part is refused. Across devices (a card's bundle
 replayed on the CPU) expect agreement to float tolerance and the same
 flags.
 
@@ -156,11 +161,9 @@ def main(argv=None) -> dict:
                           + "; ".join(errors))
     manifest = _load_manifest(bundle)
     run = manifest["run"]
-    if run.get("zero1") or int(run.get("steps_per_loop", 1)) != 1 \
-            or run.get("kfac"):
-        raise ReplayError(
-            "the bundle's run used ZeRO-1, --steps_per_loop or K-FAC, which "
-            "the port does not run")
+    if run.get("zero1"):
+        raise ReplayError("the bundle's run used ZeRO-1, which the port "
+                          "does not run")
     describe_stream(manifest.get("stream"))
 
     import torch
@@ -173,9 +176,10 @@ def main(argv=None) -> dict:
     from bert_pytorch_tpu_torch.telemetry.health import (
         HealthConfig, init_telemetry_state)
     from bert_pytorch_tpu_torch.training.checkpoint import CheckpointManager
+    from bert_pytorch_tpu_torch.telemetry.health import is_sticky_metric
     from bert_pytorch_tpu_torch.training.pretrain import (
-        build_pretrain_step, compute_params, debug_forward,
-        inject_nonfinite)
+        _sticky_max, build_kfac_pretrain_step, build_pretrain_step,
+        compute_params, debug_forward, inject_nonfinite, init_kfac_state)
     from bert_pytorch_tpu_torch.training.state import make_train_state
 
     device = resolve_device(args.device)
@@ -204,8 +208,21 @@ def main(argv=None) -> dict:
             f"{steps_avail}, recorded steps {sorted(records)} — the "
             "recorder window did not reach back to a checkpoint (raise "
             "--recorder_window or checkpoint more often)")
+    # --steps_per_loop: the replay starts at a dispatch's head, and the
+    # target's chunk is whole in the ring
+    if records[base + 1]["pos"] != 0:
+        raise ReplayError(
+            f"replay would start mid-dispatch at step {base + 1} "
+            "(--steps_per_loop chunk partially evicted from the ring)")
+    head = target - records[target]["pos"]
+    if any(i not in records for i in range(head, target + 1)):
+        raise ReplayError(
+            f"steps {head}..{head + records[target]['n_steps'] - 1} form "
+            "one --steps_per_loop dispatch; the ring evicted part of it")
 
     config = BertConfig.from_dict(manifest["model_config"])
+    kcfg = run.get("kfac")
+    config = config.replace(kfac_taps=bool(kcfg))
     compute_dtype = (torch.bfloat16 if run.get("dtype", "bfloat16")
                      == "bfloat16" else torch.float32)
     grad_dtype = (torch.bfloat16 if run["grad_dtype"] == "bfloat16"
@@ -223,10 +240,27 @@ def main(argv=None) -> dict:
     tx = Lamb(schedule, weight_decay=0.01,
               fused=run.get("fused_optim", "off"))
     state = make_train_state(model, tx)
-    step_fn = build_pretrain_step(
-        model, tx, schedule=schedule, accum_steps=accum,
-        max_predictions=run["max_pred_row"], grad_dtype=grad_dtype,
-        health=health, nan_inject_step=inject_step)
+    if kcfg:
+        from bert_pytorch_tpu_torch.optim.kfac import KFAC, KFACConfig
+
+        kfac = KFAC(KFACConfig(
+            inv_interval=kcfg["inv_interval"],
+            factor_interval=kcfg["factor_interval"],
+            stat_decay=kcfg["stat_decay"], damping=kcfg["damping"],
+            kl_clip=kcfg["kl_clip"], skip_layers=tuple(kcfg["skip_layers"]),
+            stats_dtype=(torch.bfloat16 if kcfg.get("stats_dtype") == "bf16"
+                         else torch.float32),
+            factor_sync_freq=kcfg.get("factor_sync_freq", 1)))
+        init_kfac_state(model, kfac, state)
+        step_fn = build_kfac_pretrain_step(
+            model, tx, kfac, schedule=schedule, accum_steps=accum,
+            max_predictions=run["max_pred_row"], grad_dtype=grad_dtype,
+            health=health, nan_inject_step=inject_step)
+    else:
+        step_fn = build_pretrain_step(
+            model, tx, schedule=schedule, accum_steps=accum,
+            max_predictions=run["max_pred_row"], grad_dtype=grad_dtype,
+            health=health, nan_inject_step=inject_step)
     if device.type == "cuda":
         from bert_pytorch_tpu_torch.ops.kernels.build import load_kernels
 
@@ -247,13 +281,23 @@ def main(argv=None) -> dict:
         return torch.from_numpy(np.asarray(_seeds_for(npz, records[step]),
                                            np.int32))
 
+    # a --steps_per_loop chunk is its steps one by one (training/pretrain.
+    # chain_steps: the same computation) with the health flags
+    # max-accumulated from its head: what the run read at its last step
+    chunk = None
     for s in range(base + 1, target):
-        step_fn(state, to_device(records[s]), seeds_of(s))
+        m = step_fn(state, to_device(records[s]), seeds_of(s))
+        chunk = (m if records[s]["pos"] == 0 else
+                 {k: _sticky_max(v, chunk[k]) if is_sticky_metric(k)
+                  and k in chunk else v for k, v in m.items()})
     # the parameters entering the target step, for the bisect (the step
     # updates them in place)
     entering = ({k: v.detach().clone() for k, v in state.params.items()}
                 if args.bisect else None)
     metrics = step_fn(state, to_device(records[target]), seeds_of(target))
+    if records[target]["pos"] > 0:
+        metrics = {k: _sticky_max(v, chunk[k]) if is_sticky_metric(k)
+                   and k in chunk else v for k, v in metrics.items()}
     replayed = {k: (v.item() if torch.is_tensor(v) else float(v))
                 for k, v in metrics.items()}
     result = {"step": target, "base_checkpoint": base,

@@ -14,10 +14,10 @@ scheduler's batching window (2 ms, run_server's default, or 0); each
 setting at each of `--rates` requests/s, the rates in turn. A leg
 reports the replies' codes, p50 and p99, the trace ring's dominant span
 for the slowest requests, the server process's CPU ms a request and that
-of its scheduler thread, its accept loop and the rest (the handler
-threads, which exit with their connections, and threads Python does not
-start: the CUDA driver's), and the batches the scheduler ran with their
-mean segments. It needs a CUDA card. Prints one JSON line a leg, then
+of its scheduler threads (pack, forward, complete), its accept loop and
+the rest (the handler threads, which exit with their connections, and
+threads Python does not start: the CUDA driver's), and the batches the
+scheduler ran with their mean segments. It needs a CUDA card. Prints one JSON line a leg, then
 nvidia-smi's name and power limit.
 """
 
@@ -82,7 +82,8 @@ def run_leg(handle, featurizers, rate: float, duration: float, seed: int,
     fixed = json.loads(proc.stdout.strip().splitlines()[-1])["fixed"]
     by_group = {"scheduler": 0.0, "accept loop": 0.0}
     for tid, ms in threads1.items():
-        group = {"serve-batcher": "scheduler",
+        group = {"serve-batcher": "scheduler", "serve-forward": "scheduler",
+                 "serve-complete": "scheduler",
                  "serve-frontend": "accept loop"}.get(named.get(tid))
         if group:
             by_group[group] += ms - threads0.get(tid, 0.0)

@@ -63,18 +63,36 @@ def request_pool(np, seed: int = 0) -> Dict[str, List[dict]]:
     return pool
 
 
-def _post(url: str, route: str, body: dict, timeout: float) -> int:
+def _post(url: str, route: str, body: dict, timeout: float) -> tuple:
+    """(HTTP status, None), or (0, the exception's class name) when the
+    request got no status: a refused, reset or timed-out connection."""
     req = urllib.request.Request(url + f"/v1/{route}",
                                  data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
             r.read()
-            return r.status
+            return r.status, None
     except urllib.error.HTTPError as e:
-        return e.code
+        return e.code, None
+    except Exception as e:
+        reason = getattr(e, "reason", None)
+        return 0, type(reason if isinstance(reason, Exception)
+                       else e).__name__
+
+
+def queue_depth(url: str) -> Optional[float]:
+    """The server's bert_serve_queue_depth gauge from GET /metrics, or
+    None when it cannot be read."""
+    try:
+        with urllib.request.urlopen(url + "/metrics", timeout=5) as r:
+            text = r.read().decode("utf-8")
     except Exception:
-        return 0
+        return None
+    for line in text.splitlines():
+        if line.startswith("bert_serve_queue_depth"):
+            return float(line.rsplit(" ", 1)[-1])
+    return None
 
 
 def _percentile(xs: List[float], q: float) -> Optional[float]:
@@ -103,15 +121,26 @@ def open_loop(np, url: str, pool: Dict[str, List[dict]], rate: float,
             for a, r in zip(arrivals, routes)]
     results: List[tuple] = []
     lock = threading.Lock()
+    depth: List[tuple] = []
+    stop = threading.Event()
 
     def fire(t_sched, route, body):
-        code = _post(url, route, body, timeout)
+        code, err = _post(url, route, body, timeout)
         done = time.perf_counter()
         with lock:
-            results.append((route, code, (done - t_sched) * 1e3))
+            results.append((route, code, (done - t_sched) * 1e3,
+                            t_sched - t0, err))
+
+    def sample():
+        # the scheduler's queue depth once a second over the leg
+        while not stop.wait(1.0):
+            d = queue_depth(url)
+            depth.append((round(time.perf_counter() - t0, 3), d))
 
     threads = []
     t0 = time.perf_counter()
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
     for a, route, body in plan:
         wait = t0 + a - time.perf_counter()
         if wait > 0:
@@ -119,23 +148,38 @@ def open_loop(np, url: str, pool: Dict[str, List[dict]], rate: float,
         th = threading.Thread(target=fire, args=(t0 + a, route, body),
                               daemon=True)
         th.start()
-        threads.append(th)
-    for th in threads:
+        threads.append((th, a, route))
+    for th, _, _ in threads:
         th.join(timeout + 5)
+    stop.set()
+    sampler.join(10)
     wall = time.perf_counter() - t0
-    ok = [ms for _, code, ms in results if code == 200]
+    with lock:
+        results = list(results)
+    answered = {round(at, 6) for _, _, _, at, _ in results}
+    # a request with no status: no HTTP reply (its error's class), or a
+    # client thread still waiting past the client timeout
+    no_status = [{"at_s": round(at, 3), "route": r, "error": err}
+                 for r, code, _, at, err in results if code == 0]
+    no_status += [{"at_s": round(a, 3), "route": r,
+                   "error": "no reply within the client timeout"}
+                  for th, a, r in threads if round(a, 6) not in answered]
+    ok = [ms for _, code, ms, _, _ in results if code == 200]
     codes: Dict[str, int] = {}
-    for _, code, _ in results:
+    for _, code, _, _, _ in results:
         codes[str(code)] = codes.get(str(code), 0) + 1
-    by_route = {r: {"p50_ms": _percentile([ms for rr, c, ms in results
+    by_route = {r: {"p50_ms": _percentile([ms for rr, c, ms, _, _ in results
                                            if rr == r and c == 200], 50),
-                    "p99_ms": _percentile([ms for rr, c, ms in results
+                    "p99_ms": _percentile([ms for rr, c, ms, _, _ in results
                                            if rr == r and c == 200], 99)}
                 for r in ROUTES}
     return {"rate": rate, "duration_s": duration, "sent": len(plan),
             "codes": codes, "ok": len(ok), "wall_s": wall,
             "p50_ms": _percentile(ok, 50), "p99_ms": _percentile(ok, 99),
-            "by_route": by_route}
+            "by_route": by_route,
+            "shed_at_s": sorted(round(at, 3) for _, code, _, at, _
+                                in results if code == 503),
+            "no_status": no_status, "queue_depth": depth}
 
 
 def attribution(url: str, n: int = 32) -> Optional[dict]:

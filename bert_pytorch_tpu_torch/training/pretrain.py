@@ -32,7 +32,8 @@ from bert_pytorch_tpu_torch.models import losses
 from bert_pytorch_tpu_torch.optim.lamb import global_norm_f32
 from bert_pytorch_tpu_torch.telemetry.health import (HealthConfig,
                                                      health_signals,
-                                                     health_update)
+                                                     health_update,
+                                                     is_sticky_metric)
 from bert_pytorch_tpu_torch.training.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -109,12 +110,15 @@ PACKED_FIELDS = ("position_ids", "segment_ids", "nsp_positions")
 
 
 def _model_inputs(micro: Batch, positions: Optional[torch.Tensor],
-                  seeds: Optional[torch.Tensor]) -> Dict:
-    """The pretraining model's keyword inputs of one microbatch."""
+                  seeds: Optional[torch.Tensor], kfac=None) -> Dict:
+    """The pretraining model's keyword inputs of one microbatch (`kfac`:
+    K-FAC's taps, models/bert.KFACTaps)."""
     kw = {"token_type_ids": micro.get("token_type_ids"),
           "attention_mask": micro.get("attention_mask"),
           "masked_positions": positions, "dropout_seeds": seeds}
     kw.update({k: micro[k] for k in PACKED_FIELDS if k in micro})
+    if kfac is not None:
+        kw["kfac"] = kfac
     return kw
 
 
@@ -124,9 +128,10 @@ def pretrain_loss_fn(model: nn.Module,
     masked-token counts as aux. `max_predictions` turns on the gathered
     MLM head: logits for at most that many masked positions per row (a
     packed row's budget covers all of its segments). A packed microbatch
-    scores NSP per segment: (B, G) labels, -1 for an empty slot."""
+    scores NSP per segment: (B, G) labels, -1 for an empty slot. The
+    returned loss_fn takes `kfac=` (K-FAC's taps) too."""
 
-    def loss_fn(params, micro, seeds):
+    def loss_fn(params, micro, seeds, kfac=None):
         labels = micro["masked_lm_labels"]
         positions = None
         dropped = torch.zeros((), dtype=torch.int64, device=labels.device)
@@ -137,7 +142,7 @@ def pretrain_loss_fn(model: nn.Module,
             dropped = dense_total - (labels != -1).sum()
         mlm_logits, nsp_logits = functional_call(
             model, params, (micro["input_ids"],),
-            _model_inputs(micro, positions, seeds))
+            _model_inputs(micro, positions, seeds, kfac))
         loss = losses.pretraining_loss(mlm_logits, labels, nsp_logits,
                                        micro.get("next_sentence_labels"))
         with torch.no_grad():
@@ -230,51 +235,174 @@ def build_pretrain_step(model: nn.Module, tx,
                 loss_fn, gparams, {k: v[i] for k, v in batch.items()},
                 None if seeds is None else seeds[i])
 
-        if accum_steps == 1:
-            loss, aux, grads = micro(0)
-        else:
-            # the carry follows the gradient dtype up to 128 microbatches
-            deep = accum_steps > 128
-            grads, loss, aux = None, None, None
-            for i in range(accum_steps):
-                l_i, a_i, g_i = micro(i)
-                if grads is None:
-                    grads = {k: g.float() if deep else g
-                             for k, g in g_i.items()}
-                    loss, aux = l_i.float(), dict(a_i)
-                else:
-                    for k, g in g_i.items():
-                        grads[k] += g.to(grads[k].dtype)
-                    loss = loss + l_i
-                    aux = {k: aux[k] + a_i[k] for k in aux}
-            grads = {k: g / accum_steps for k, g in grads.items()}
-            loss = loss / accum_steps
+        loss, aux, grads = _accumulate(micro, accum_steps)
 
-        grad_norm = global_norm_f32(grads.values())
-        metrics: Dict = {"loss": loss, "grad_norm": grad_norm}
-        skip = False
-        bad = None
-        if health is not None:
-            hmetrics, bad = health_signals(loss, grads, grad_norm)
-            metrics.update(hmetrics)
-            if health.action == "skip":
-                skip = bool(bad)
-                metrics["skipped_nonfinite"] = int(skip)
-        if not skip:
-            tx.update(grads, state.opt_state, state.params,
-                      grad_norm=grad_norm)
-        if health is not None:
-            state.telemetry, ema_metrics = health_update(
-                health, state.telemetry, grad_norm, bad,
-                state.params.values())
-            metrics.update(ema_metrics)
-        if "mlm_total" in aux:
-            metrics["mlm_accuracy"] = (aux["mlm_correct"]
-                                       / aux["mlm_total"].clamp_min(1))
-            metrics["mlm_dropped"] = aux["mlm_dropped"]
-        if schedule is not None:
-            metrics["learning_rate"] = schedule(state.step)
-        state.step += 1
-        return metrics
+        return _apply_update(tx, schedule, health, state, loss, aux, grads)
 
     return train_step
+
+
+def _accumulate(micro_fn: Callable[[int], Tuple], accum_steps: int):
+    """Run `micro_fn(i)` -> (loss, aux, grads, *more) over the
+    microbatches: the mean loss and gradients (the carry in the
+    gradients' dtype up to 128 microbatches, f32 beyond), aux summed, and
+    each of `more` (dicts of dicts of tensors: K-FAC's statistics) summed
+    then divided by the count."""
+    if accum_steps == 1:
+        return micro_fn(0)
+    deep = accum_steps > 128
+    grads = loss = aux = more = None
+    for i in range(accum_steps):
+        l_i, a_i, g_i, *m_i = micro_fn(i)
+        if grads is None:
+            grads = {k: g.float() if deep else g for k, g in g_i.items()}
+            loss, aux, more = l_i.float(), dict(a_i), m_i
+        else:
+            for k, g in g_i.items():
+                grads[k] += g.to(grads[k].dtype)
+            loss = loss + l_i
+            aux = {k: aux[k] + a_i[k] for k in aux}
+            more = [{site: {k: t + m[site][k] for k, t in d.items()}
+                     for site, d in acc.items()}
+                    for acc, m in zip(more, m_i)]
+    grads = {k: g / accum_steps for k, g in grads.items()}
+    more = [{site: {k: t / accum_steps for k, t in d.items()}
+             for site, d in acc.items()} for acc in more]
+    return (loss / accum_steps, aux, grads, *more)
+
+
+def _apply_update(tx, schedule, health, state: TrainState, loss, aux,
+                  grads, precond_state=None) -> Dict:
+    """The step's tail, shared by both builders: the global gradient
+    norm, the health pack's signals (under "skip" a bad step leaves the
+    parameters, the optimizer state and, given `precond_state`, K-FAC's
+    state as they were), the update, the metrics, the step count."""
+    grad_norm = global_norm_f32(grads.values())
+    metrics: Dict = {"loss": loss, "grad_norm": grad_norm}
+    skip = False
+    bad = None
+    if health is not None:
+        hmetrics, bad = health_signals(loss, grads, grad_norm)
+        metrics.update(hmetrics)
+        if health.action == "skip":
+            skip = bool(bad)
+            metrics["skipped_nonfinite"] = int(skip)
+    if not skip:
+        tx.update(grads, state.opt_state, state.params,
+                  grad_norm=grad_norm)
+        if precond_state is not None:
+            state.precond_state = precond_state
+    if health is not None:
+        state.telemetry, ema_metrics = health_update(
+            health, state.telemetry, grad_norm, bad,
+            state.params.values())
+        metrics.update(ema_metrics)
+    if "mlm_total" in aux:
+        metrics["mlm_accuracy"] = (aux["mlm_correct"]
+                                   / aux["mlm_total"].clamp_min(1))
+        metrics["mlm_dropped"] = aux["mlm_dropped"]
+    if schedule is not None:
+        metrics["learning_rate"] = schedule(state.step)
+    state.step += 1
+    return metrics
+
+
+def build_kfac_pretrain_step(model: nn.Module, tx, kfac,
+                             schedule: Optional[Callable[[int], float]] = None,
+                             accum_steps: int = 1,
+                             max_predictions: Optional[int] = None,
+                             grad_dtype: Optional[torch.dtype] = None,
+                             health: Optional[HealthConfig] = None,
+                             nan_inject_step: Optional[int] = None
+                             ) -> Callable[[TrainState, Batch,
+                                            Optional[torch.Tensor]], Dict]:
+    """The K-FAC variant of `build_pretrain_step` (JAX's
+    build_kfac_pretrain_step): `model` built with config.kfac_taps, `kfac`
+    an optim/kfac.KFAC, `state.precond_state` its KFACState
+    (`init_kfac_state`). Each microbatch's forward runs with K-FAC's taps,
+    and one backward pass gives the parameters' gradients and the taps'
+    output gradients, whose statistics are summed over the microbatches
+    and divided by their count. Then, as the reference's step: the
+    preconditioner (factor EMA, inversion on its interval, F^-1 g, kl_clip
+    at `schedule(state.step)`), then `tx` (LAMB) on the preconditioned
+    gradients; grad_norm is theirs. Under the health pack's "skip" a bad
+    step keeps K-FAC's state too. Packed batches, `grad_dtype`,
+    `nan_inject_step` and the metrics are build_pretrain_step's."""
+    from bert_pytorch_tpu_torch.models.bert import KFACTaps
+
+    loss_fn = pretrain_loss_fn(model, max_predictions)
+
+    def train_step(state: TrainState, batch: Batch,
+                   seeds: Optional[torch.Tensor]) -> Dict:
+        gparams = compute_params(state.params, grad_dtype)
+        if nan_inject_step is not None and state.step + 1 == nan_inject_step:
+            gparams = inject_nonfinite(gparams)
+        names = list(gparams)
+
+        def micro(i):
+            taps = KFACTaps()
+            loss, aux = loss_fn(gparams, {k: v[i] for k, v in batch.items()},
+                                None if seeds is None else seeds[i], taps)
+            sites = list(taps.perts)
+            out = torch.autograd.grad(
+                loss, [gparams[k] for k in names]
+                + [taps.perts[s] for s in sites], allow_unused=True)
+            grads = {k: torch.zeros_like(gparams[k]) if g is None else g
+                     for k, g in zip(names, out)}
+            stats = kfac.compute_stats(
+                taps.acts, dict(zip(sites, out[len(names):])))
+            return loss.detach(), aux, grads, stats
+
+        loss, aux, grads, stats = _accumulate(micro, accum_steps)
+        lr = schedule(state.step) if schedule is not None else 1.0
+        kstate, grads = kfac.step(state.precond_state, stats, grads, lr)
+        return _apply_update(tx, schedule, health, state, loss, aux, grads,
+                             precond_state=kstate)
+
+    return train_step
+
+
+def init_kfac_state(model: nn.Module, kfac, state: TrainState) -> None:
+    """Attach a fresh KFACState (zero factors, identity inverses) for the
+    sites of `model` (built with config.kfac_taps) to `state`, on its
+    parameters' device, before any restore."""
+    from bert_pytorch_tpu_torch.optim.kfac import site_shapes
+
+    device = next(iter(state.params.values())).device
+    state.precond_state = kfac.init(site_shapes(model), device)
+
+
+def _sticky_max(a, b):
+    if torch.is_tensor(a) or torch.is_tensor(b):
+        return torch.maximum(torch.as_tensor(a), torch.as_tensor(b))
+    return max(a, b)
+
+
+def chain_steps(step_fn: Callable, n_steps: int) -> Callable:
+    """A --steps_per_loop chunk (JAX's chain_steps with per_step_batch):
+    chained(state, batch, seeds) runs `step_fn` n_steps times, inner step
+    i on batch[k][i] (a leading (n_steps, ...) axis) with seeds[i], the
+    dropout seeds of its own global step, so a chunk computes what
+    n_steps single steps compute, bit for bit. Nothing is read back to
+    the host between its steps beyond what one step reads. Returns the
+    last step's metrics, except the health flags (telemetry/health.
+    is_sticky_metric), max-accumulated over the chunk so that a NaN or a
+    spike in any inner step survives to the one read a chunk."""
+    if n_steps == 1:
+        return lambda state, batch, seeds: step_fn(
+            state, {k: v[0] for k, v in batch.items()},
+            None if seeds is None else seeds[0])
+
+    def chained(state, batch, seeds):
+        metrics = None
+        for i in range(n_steps):
+            m = step_fn(state, {k: v[i] for k, v in batch.items()},
+                        None if seeds is None else seeds[i])
+            if metrics is not None:
+                for k in m:
+                    if is_sticky_metric(k) and k in metrics:
+                        m[k] = _sticky_max(m[k], metrics[k])
+            metrics = m
+        return metrics
+
+    return chained

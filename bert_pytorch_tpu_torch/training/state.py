@@ -7,7 +7,9 @@ so the model and the state always hold the same weights; the step updates
 them in place, and `load_state_dict` copies a checkpoint into them.
 
 `state_dict()` is what a checkpoint carries: {"step", "params" by name,
-"opt_state": {"count", "mu" by name, "nu" by name}}. `telemetry`, the
+"opt_state": {"count", "mu" by name, "nu" by name}}, and with K-FAC on
+(`precond_state`, optim/kfac.KFACState) "precond_state": {"count",
+"factors" and "inverses" by "<site>/<A|G>"}. `telemetry`, the
 health pack's carry (telemetry/health.TelemetryState), is attached after
 a restore and never saved, so a checkpoint's structure is the same with
 the pack on or off. Both LAMB routes
@@ -33,22 +35,39 @@ class TrainState:
     params: Dict[str, torch.Tensor]
     opt_state: Union[LambState, AdamState]
     telemetry: Optional[Any] = None
+    precond_state: Optional[Any] = None
 
     def state_dict(self) -> Dict:
-        return {"step": int(self.step), "params": dict(self.params),
-                "opt_state": {"count": int(self.opt_state.count),
-                              "mu": dict(self.opt_state.mu),
-                              "nu": dict(self.opt_state.nu)}}
+        sd = {"step": int(self.step), "params": dict(self.params),
+              "opt_state": {"count": int(self.opt_state.count),
+                            "mu": dict(self.opt_state.mu),
+                            "nu": dict(self.opt_state.nu)}}
+        if self.precond_state is not None:
+            sd["precond_state"] = self.precond_state.state_dict()
+        return sd
 
     def load_state_dict(self, sd: Dict) -> None:
         """Copy a state_dict() in place: every tensor by name, of the same
         shape (a missing, extra or reshaped entry raises before anything
-        is copied), then the step and the optimizer's count."""
+        is copied), then the step and the optimizer's count; with K-FAC on,
+        the factors and inverses the same way (a checkpoint without them,
+        or with them where K-FAC is off, raises)."""
         opt = sd["opt_state"]
+        groups = [("params", self.params, sd["params"]),
+                  ("mu", self.opt_state.mu, opt["mu"]),
+                  ("nu", self.opt_state.nu, opt["nu"])]
+        pre = sd.get("precond_state")
+        if (pre is None) != (self.precond_state is None):
+            raise ValueError(
+                "checkpoint " + ("has no" if pre is None else "has a")
+                + " K-FAC precond_state and this run has K-FAC "
+                + ("on" if pre is None else "off"))
+        if pre is not None:
+            mine = self.precond_state.state_dict()
+            groups += [("kfac factors", mine["factors"], pre["factors"]),
+                       ("kfac inverses", mine["inverses"], pre["inverses"])]
         pairs = []
-        for what, have, got in (("params", self.params, sd["params"]),
-                                ("mu", self.opt_state.mu, opt["mu"]),
-                                ("nu", self.opt_state.nu, opt["nu"])):
+        for what, have, got in groups:
             if set(have) != set(got):
                 missing = sorted(set(have) - set(got))
                 extra = sorted(set(got) - set(have))
@@ -66,6 +85,8 @@ class TrainState:
                 t.copy_(src)
         self.step = int(sd["step"])
         self.opt_state.count = int(opt["count"])
+        if pre is not None:
+            self.precond_state.count = int(pre["count"])
 
 
 def make_train_state(model: nn.Module, tx,

@@ -88,11 +88,14 @@ Phases, each of which must pass:
             phase-1 shards held in memory, saving checkpoints (steps 2 and
             3) into a temporary directory; exact launch counts of the
             training kernels and the fused LAMB kernels, finite losses and
-            gradient norms; the last checkpoint read back bit-equal; one
-            optimizer step profiled, the step and one LAMB update timed on
-            the kernels and on route off; one microbatch through the
-            kernels held against the plain versions (f32 and bf16 loss and
-            gradients);
+            gradient norms; the last checkpoint read back bit-equal; step
+            3 traced by --profile_steps and summarized by the port's
+            trace_summary (device total, host phases, idle share, top
+            ops), its device total within 1% of the profiled step's
+            (the same step built apart, read by the same reader); one optimizer step profiled, the
+            step and one LAMB update timed on the kernels and on route
+            off; one microbatch through the kernels held against the
+            plain versions (f32 and bf16 loss and gradients);
 9. train_phase2  the same for phase 2: 3 steps under the phase-2 run
             config (microbatch 16 x 512, 80 predictions, accumulation 2),
             where attention runs the flash forward with dropout and the
@@ -100,7 +103,34 @@ Phases, each of which must pass:
             auto-resumes phase 1's last checkpoint
             (previous_phase_end_step set to 3 for it) and must continue
             from step 3 with phase 1's LAMB state;
-10. train_packed  packed pretraining, phase 1: 3 steps of the entry
+10. train_chunks  --steps_per_loop on phase 2 (24 layers, 16 x 512,
+            accumulation 2) from the chained pretraining checkpoint
+            (train_phase2's, its weights through --init_checkpoint): 4
+            steps a run at N = 1 and N = 2, alternated (1, 2, 2, 1), each
+            traced over its warm chunk by --profile_steps: losses,
+            parameters and LAMB moments bit-equal across the runs, exact
+            launch counts, hbm_* in every perf record; the host clock a
+            traced step and the idle share (a gain reported only where the
+            modes' ranges do not overlap); a run at --steps_per_loop 4
+            --profile_steps 2,3, its chunk traced whole, bit-equal too;
+            one microbatch through the kernels against the plain versions;
+11. train_kfac  K-FAC: configs/bert_kfac_pretraining_phase1_config.json
+            at 24 layers and 2 x 96 x 128, --kfac_inv_interval 2, 3 steps
+            through the trainer: exact launch counts, the factor and
+            inverse bytes, hbm_* in every perf record; a step's parts
+            (forward+backward, statistics, inversion, preconditioning,
+            LAMB: host clock and device time); one K-FAC step on the
+            kernels against the plain versions (loss, grad_norm, nu); at
+            CUT_LAYERS one K-FAC step on the card against the port on the
+            CPU (and layer 0's inversion of the same factors), G's bound
+            read against the card's G from bf16 statistics, from other
+            dropout masks and halved (the last two must exceed it), and
+            a bundle's step 3 replayed bit-identically;
+12. train_roberta  the RoBERTa recipe (no NSP, vocab 28996, linear
+            decay) at 24 layers, 2 x 16 x 128, 2 steps: exact launch
+            counts, finite losses, the 297 tensors LAMB updates, one
+            microbatch through the kernels against the plain versions;
+13. train_packed  packed pretraining, phase 1: 3 steps of the entry
             point's trainer with --packing (8 segments a row, lookahead
             4) over in-memory shards whose real lengths are uniform over
             16-128 tokens: exact launch counts, examples a step and the
@@ -109,12 +139,12 @@ Phases, each of which must pass:
             examples/s); one packed microbatch through the kernels
             against the plain versions; at rate 0 the packed microbatch
             against its examples one a row;
-11. train_packed_phase2  the same at phase 2 (16 x 512, lengths
+14. train_packed_phase2  the same at phase 2 (16 x 512, lengths
             64-512), where the packed segments reach the flash forward's
             dropout arm and the fused backward: also one packed
             microbatch's flash launches and the tiles their segment test
             skipped, as the layout predicts;
-12. stream  the streaming data plane (--stream_dir) through the entry
+15. stream  the streaming data plane (--stream_dir) through the entry
             point's trainer at phase 1's 2 x 96 x 128 over a synthetic
             corpus tokenized on the fly: 3 steps at 24 layers with
             --h2d_prefetch 1 (exact launch counts; the batches the steps
@@ -127,17 +157,17 @@ Phases, each of which must pass:
             alternated pairs: losses bit-equal, the host phases, the step
             time and the idle share; at CUT_LAYERS and 2 x 32 x 128, packed:
             worker_crash bit-equal to the clean run, corrupt_record's drops
-            counted, a resume in a process of its own bit-equal at step 3,
-            --stream_tokenizer bpe over a vocabulary learned from the
+            counted, --stream_tokenizer bpe over a vocabulary learned from the
             corpus, and the TensorBoard sink's scalars;
-13. remat   --checkpoint_activations at phase 2's packed 16 x 512: 2
-            trainer steps under the model config's policy ("nothing"),
-            exact launch counts (each layer's residual tails and flash
-            forward twice); per policy (nothing, dots, mlp_only) one
-            packed microbatch's loss and all 302 gradients bit-equal to
-            remat off, and one optimizer step's launches, peak memory and
-            host and device time against remat off;
-14. finetune_squad  SQuAD v1.1 finetuning by the entry point's run_task
+16. remat   --checkpoint_activations at phase 2's packed 16 x 512, 24
+            layers: 2 trainer steps under the model config's policy
+            ("nothing"), exact launch counts (each layer's residual tails
+            and flash forward twice); per policy (nothing, dots,
+            mlp_only) one packed microbatch's loss and every gradient (12
+            tensors a layer and 14 more) bit-equal to remat off, and one
+            optimizer step's launches, peak memory and host and device
+            time against remat off;
+17. finetune_squad  SQuAD v1.1 finetuning by the entry point's run_task
             (bert_pytorch_tpu_torch.run_squad's body): BERT-Large seeded
             from phase 2's last checkpoint, 3 steps of 32 x 384 (flash
             forward with dropout and the fused backward in every layer),
@@ -148,11 +178,11 @@ Phases, each of which must pass:
             run_server serving the finetuned checkpoint; one step profiled
             and timed, the optimizer update timed; one microbatch through
             the kernels against the plain versions;
-15. finetune_ner  CoNLL NER finetuning, 3 steps of 32 x 128 (plain
+18. finetune_ner  CoNLL NER finetuning, 3 steps of 32 x 128 (plain
             attention, the LayerNorm kernels) on a synthetic CoNLL-2003
             file, val and test macro F1, the checkpoint, exact launch
             counts, one step profiled and timed;
-16. finetune_tasks  classify, choice and embed finetuning, one after the
+19. finetune_tasks  classify, choice and embed finetuning, one after the
             other: BERT-Large from phase 2's last checkpoint, 3 steps of
             16 x 128 (choice 16 x 4 x 128) at the JAX base parser's recipe
             on synthetic TSV / JSONL files, val and test accuracy, embed's
@@ -160,7 +190,7 @@ Phases, each of which must pass:
             by the server and deleted, one step profiled and timed, and a
             classify and a choice microbatch through the kernels against
             the plain versions;
-17. serve_slo  the SLO plane, the canary prober and the fault injector on
+20. serve_slo  the SLO plane, the canary prober and the fault injector on
             the five-task server (seeded random BERT-Large checkpoints,
             buckets 128 and 512, bf16), with scripts/check_slo.sh's
             miniature windows: a clean leg of 12 s at 20 requests/s fires
@@ -174,8 +204,8 @@ Phases, each of which must pass:
             (configs/slo.json) and the prober on, and again with both
             off: p50 / p99, evaluate()'s host time a tick, the
             latency_p99 burn;
-18. finetune_packed  packed finetuning of the five tasks at BERT-Large
-            width, 12 layers (bf16, seeded random init, synthetic
+21. finetune_packed  packed finetuning of the five tasks at BERT-Large
+            width, CUT_LAYERS (bf16, seeded random init, synthetic
             lengths): a packed
             batch against the same examples one to a row through the
             kernels, dropout off (a planted label shift must read 10x the
@@ -186,7 +216,7 @@ Phases, each of which must pass:
             run_squad, packed and not, on the same files (examples/s, a
             step's device time, packing_efficiency, real and slot tokens,
             peak memory, exact launch counts);
-19. distill  a BERT-Large-width classify teacher of 12 layers (3 steps
+22. distill  a BERT-Large-width classify teacher of 8 layers (3 steps
             through run_finetune, --perf_artifact: its FINETUNE json's mfu
             on the card's peak) and a SQuAD teacher (one step) distilled into
             student_6l_768 (6 layers, width 768, 12 heads) by
@@ -201,8 +231,8 @@ Phases, each of which must pass:
             config and its checkpoint refused under the teacher's;
             --inject broken_student; a step's time split beside a plain
             finetune step of the student;
-20. init_sources  --init_checkpoint from other sources at BERT-Large
-            width, 12 layers: random weights from a seed written as the
+23. init_sources  --init_checkpoint from other sources at BERT-Large
+            width, CUT_LAYERS: random weights from a seed written as the
             reference's ckpt_1.pt (its src/modeling.py names, `module.`
             prefixes, 30522 vocab rows); a fresh QA model seeded from it holds
             every bert.* parameter bit-equal to the source and the report
@@ -215,8 +245,8 @@ Phases, each of which must pass:
             copy, the loss's readback) as a device hang; a TF release
             and a JAX orbax directory raise the ImportError naming
             tensorflow / tensorstore, which the chip machine lacks;
-21. survival  pretraining's survival and metrics planes, BERT-Large
-            width at 12 layers, phase 1 (96 x 128, accumulation 2,
+24. survival  pretraining's survival and metrics planes, BERT-Large
+            width at CUT_LAYERS, phase 1 (96 x 128, accumulation 2,
             health pack on) through the entry
             point's trainer over in-memory shards: a clean 4-step run
             with /metrics scraped mid-run and StepWatch perf records
@@ -255,9 +285,11 @@ from the main paths' (`launches_in_checks`). It holds the fused LAMB stages
 parameter tensors and a list of odd sizes and misaligned views, and the
 timing phase times them over the 302 tensors.
 
-Phases 18-21 and the stream phase's drills run at CUT_LAYERS (12)
-layers: their checks hold at any depth, and their checkpoints (4 GB each
-at 24 layers) dominate them.
+Phases 13, 14, 21, 23 and 24, the stream phase's drills and
+train_kfac's replay and card-vs-CPU step run at CUT_LAYERS (6) layers,
+distill's teacher at 8 (deeper than its 6-layer student): their checks
+hold at any depth, and their checkpoints (4 GB each at 24 layers)
+dominate several.
 
 It prints a `kernels` JSON line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits 2 and prints
@@ -2941,10 +2973,11 @@ def serve_routes(torch, np, handle, config, tokenizer, batch512, squad_reqs,
 # -- serving: the graphs, the weight copies, the planes -----------------------
 
 # the rate and length of the fixed-load run, the ramp after it (each rate
-# for LOAD_RAMP_S seconds, stopping where p99 passes LOAD_BOUND_MS), and the
+# for LOAD_RAMP_S seconds, stopping where p99 passes LOAD_BOUND_MS; it
+# starts above the fixed rate, which the fixed run has measured), and the
 # client: bert_pytorch_tpu_torch/tools/serve_load.py in its own process
 LOAD_RATE, LOAD_S = 100.0, 30.0
-LOAD_RAMP = (40, 60, 80, 100, 120, 140, 160, 200)
+LOAD_RAMP = (120, 140, 160, 200, 240, 280)
 LOAD_RAMP_S, LOAD_BOUND_MS = 6.0, 1000.0
 # the int8 accuracy gate, run_server's default --int8_max_delta
 INT8_MAX_DELTA = 0.1
@@ -3277,6 +3310,7 @@ def serve_load(np, handle, vocab, on_card):
     the ramp. A CPU rehearsal sends 20 requests/s for 1 s, no ramp."""
     rate, secs = (LOAD_RATE, LOAD_S) if on_card else (20.0, 1.0)
     ramp = ",".join(str(r) for r in LOAD_RAMP) if on_card else ""
+    busy0, t_load0 = handle.scheduler.stats()["busy_s"], time.perf_counter()
     proc = subprocess.run(
         [sys.executable, SERVE_LOAD, "--url", handle.url, "--rate",
          str(rate), "--duration", str(secs), "--ramp", ramp,
@@ -3286,7 +3320,20 @@ def serve_load(np, handle, vocab, on_card):
     check(proc.returncode == 0, f"serve_load exited {proc.returncode}: "
           f"{proc.stderr[-2000:]}")
     res = json.loads(proc.stdout.strip().splitlines()[-1])
+    # each scheduler thread's busy share over the whole load run (the
+    # fixed leg and the ramp): the one nearest 1 holds the others back
+    wall = time.perf_counter() - t_load0
+    res["busy_share"] = {
+        stage: round((s - busy0[stage]) / wall, 4)
+        for stage, s in handle.scheduler.stats()["busy_s"].items()}
     fixed = res["fixed"]
+    res["diagnosis"] = load_diagnosis(fixed, secs)
+    if fixed["ok"] != fixed["sent"]:
+        log(f"serve: fixed load diagnosis {json.dumps(res['diagnosis'])}; "
+            f"the slowest traces' spans {fixed.get('slowest_traces')}; "
+            f"scheduler busy shares {res['busy_share']}")
+    check(not fixed["no_status"], f"fixed load: {len(fixed['no_status'])} "
+          f"request(s) got no status: {fixed['no_status'][:5]}")
     check(fixed["ok"] == fixed["sent"] > 0, f"fixed load: {fixed['ok']} of "
           f"{fixed['sent']} answered 200 ({fixed['codes']})")
     log(f"serve: load {rate:g} req/s for {secs:g} s: {fixed['sent']} sent, "
@@ -3296,8 +3343,29 @@ def serve_load(np, handle, vocab, on_card):
         f"thread {res.get('featurize_ms')}); ramp "
         + ", ".join(f"{r['rate']:g}: p99 {r['p99_ms']}" for r in res["ramp"])
         + f"; p99 passes {LOAD_BOUND_MS:g} ms at "
-        f"{res['p99_passes_bound_at']} req/s")
+        f"{res['p99_passes_bound_at']} req/s; scheduler busy shares over "
+        f"the run {res['busy_share']}")
     return res
+
+
+def load_diagnosis(fixed: dict, secs: float) -> dict:
+    """What a fixed-load leg's sheds and unanswered requests say: each
+    shed request's send time in the leg, the scheduler's queue depth a
+    second over the leg, and where the sheds fall: "start" when they all
+    fall in the leg's first tenth (something not yet warm), "spread"
+    when they span more than a third of it (the host does not keep up
+    with the rate), "burst" otherwise (a stall of the server)."""
+    shed = fixed.get("shed_at_s") or []
+    where = None
+    if shed:
+        span = shed[-1] - shed[0]
+        where = ("start" if shed[-1] <= secs / 10 else
+                 "spread" if span > secs / 3 else "burst")
+    depth = [d for _, d in fixed.get("queue_depth") or [] if d is not None]
+    return {"shed": len(shed), "shed_at_s": shed[:200], "where": where,
+            "queue_depth": fixed.get("queue_depth"),
+            "max_queue_depth": max(depth) if depth else None,
+            "no_status": fixed.get("no_status")}
 
 
 def drain_drill(np, handle):
@@ -3559,25 +3627,56 @@ def _device_call_ms(torch, fn, reps: int = 3) -> dict:
     return out
 
 
+def trace_summary_of(prof, steps=None, top_ops: int = 20) -> dict:
+    """A finished torch.profiler run's Chrome trace read by the port's
+    telemetry/trace.py, the one classifier of device time that
+    --profile_steps and tools/trace_summary.py use too."""
+    from bert_pytorch_tpu_torch.telemetry.trace import (load_trace_events,
+                                                        summarize_events)
+
+    fd, path = tempfile.mkstemp(suffix=".pt.trace.json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        return summarize_events(load_trace_events(path), steps=steps,
+                                top_ops=top_ops)
+    finally:
+        os.unlink(path)
+
+
+def _checked_device_total(prof) -> float:
+    """A finished profile's device total, read by telemetry/trace.py
+    (kernels, copies and memsets merged per stream). The profiler's own
+    per-event sum of the same profile must agree within 1%."""
+    total = trace_summary_of(prof)["device_ms"]
+    events = sum(_device_ms(ev) for ev in prof.key_averages()
+                 if str(getattr(ev, "device_type", "")).split(".")[-1]
+                 == "CUDA")
+    check(abs(total - events) <= 0.01 * max(total, events),
+          f"device time: the trace reads {total} ms, the profiler's events "
+          f"{events} ms")
+    return total
+
+
 def _device_total_ms(torch, fn) -> float:
-    """Device time of one fn() call: its CUDA kernels' time summed by
-    torch.profiler tracing the card alone (without the CPU's op events
-    the same sum, 118.95 against 118.99 ms on a phase-2 step, in 2-3 s of
-    profiling instead of 7: PERF.md)."""
+    """Device time of one fn() call: torch.profiler tracing the card
+    alone (without the CPU's op events the same total, 118.95 against
+    118.99 ms on a phase-2 step, in 2-3 s of profiling instead of 7:
+    PERF.md), read by `_checked_device_total`."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(_device_ms(ev) for ev in prof.key_averages()
-               if str(getattr(ev, "device_type", "")).split(".")[-1]
-               == "CUDA")
+    return _checked_device_total(prof)
 
 
 def _profile_step(torch, step_fn, state, batch, seeds):
     """One optimizer step under torch.profiler: device time by kernel
     class, by the PyTorch op that launched it (top 12), and the step's own
-    host-clock ms between two synchronizations, profiler on."""
+    host-clock ms between two synchronizations, profiler on; the fourth
+    value is the same step's device total (`_checked_device_total` of
+    this profile)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -3630,8 +3729,9 @@ def _profile_step(torch, step_fn, state, batch, seeds):
             cls = "other: " + name[:60]
         classes[cls] = classes.get(cls, 0.0) + us / 1e3
     top = dict(sorted(ops.items(), key=lambda kv: -kv[1])[:12])
+    device_total = _checked_device_total(prof)
     return (dict(sorted(classes.items(), key=lambda kv: -kv[1])), top,
-            wall_ms)
+            wall_ms, device_total)
 
 
 def _host_ms(torch, fn, reps: int = 3) -> float:
@@ -3772,8 +3872,8 @@ def phase_model_seq1024(torch, np, summary, device="cuda",
         "launches": launches, "launches_predicted": predicted,
         "peak_memory_gib": peak}
 
-# ROADMAP queue C item 1: step 1's gradients of phase 1 in two fresh
-# processes and in this one after the phases before it (serve, by default)
+# ROADMAP queue C item 1: step 1's gradients of phase 1 in a fresh process
+# and in this one after the phases before it (serve, by default)
 def grad_probe(torch, np, device="cuda",
                cfg_path=os.path.join(HERE, "configs",
                                      "bert_large_uncased_config.json"),
@@ -3840,7 +3940,7 @@ def grad_probe(torch, np, device="cuda",
 
 
 def phase_train_order(torch, np, summary, device="cuda"):
-    """ROADMAP queue C item 1: `grad_probe` in two fresh processes and in
+    """ROADMAP queue C item 1: `grad_probe` in a fresh process and in
     this one after the phases that ran before it; compares the forward
     digests and the gradients leaf by leaf, and names the first forward
     output and the first gradient (in backward order: the heads, the last
@@ -3995,7 +4095,10 @@ def phase_train(torch, np, summary, device="cuda",
             "--steps", str(TRAIN_STEPS), "--fused_optim", "auto",
             "--num_steps_per_checkpoint", "2", "--keep_checkpoints", "2",
             "--previous_phase_end_step", str(start_step),
-            "--vocab_pad_multiple", "8", "--seed", "0", "--device", device])
+            "--vocab_pad_multiple", "8", "--seed", "0", "--device", device,
+            # phase 1's last (warm) step traced through --profile_steps
+            *(["--profile_steps", f"{TRAIN_STEPS - 1},{TRAIN_STEPS}"]
+              if run == "train" else [])])
         config = BertConfig.from_json_file(cfg_path)
         config = config.replace(vocab_size=pad_vocab_size(config.vocab_size,
                                                           8))
@@ -4099,6 +4202,19 @@ def phase_train(torch, np, summary, device="cuda",
                  "peak_memory_gib": peak_gb, "launches": launches,
                  "checkpoint": ckpt}
         summary[run] = train
+        if result.profile is not None:
+            ps = result.profile["summary"]
+            train["profile_steps"] = {
+                "steps": result.profile["steps"],
+                "device_ms": ps["device_ms"], "host_ms": ps["host_ms"],
+                "idle_share": ps["idle_share"], "window_ms": ps["window_ms"],
+                "device_busy_ms": ps["device_busy_ms"],
+                "device_top_ops_ms": ps["device_top_ops_ms"]}
+            log(f"{run}: --profile_steps {TRAIN_STEPS - 1},{TRAIN_STEPS}: "
+                f"trace_summary of step(s) {result.profile['steps']}: device "
+                f"{ps['device_ms']:.2f} ms, idle share {ps['idle_share']}, "
+                f"host phases {ps['host_ms']}, top ops "
+                f"{ps['device_top_ops_ms']}")
         del result
 
         # the same trainer's pieces, for a profile of one optimizer step
@@ -4162,18 +4278,27 @@ def phase_train(torch, np, summary, device="cuda",
                     route].update(holder["grads"], state.opt_state,
                                   state.params)))
             lamb_ms = statistics.median(lamb_runs["kernels"])
-            classes, top, prof_ms = _profile_step(torch, step_fn, state,
-                                                  batch, seeds)
+            classes, top, prof_ms, device_total = _profile_step(
+                torch, step_fn, state, batch, seeds)
             train["step_split"] = {"step_ms": step_ms,
                                    "forward_backward_ms": fb_ms,
                                    "lamb_ms": lamb_ms,
                                    "step_ms_by_route": step_runs,
                                    "lamb_ms_by_route": lamb_runs}
-            device_total = sum(classes.values())
             # one stream: the card is idle for the rest of that same step
             idle = 1.0 - device_total / prof_ms
             check(idle >= 0.0, f"{run}: device time {device_total} ms "
                   f"exceeds the profiled step's {prof_ms} ms")
+            if "profile_steps" in train:
+                # the trainer's traced step against this step, both read
+                # by telemetry/trace.py
+                traced_ms = train["profile_steps"]["device_ms"]
+                train["profile_steps"]["vs_profiled_step"] = (
+                    traced_ms / device_total - 1.0)
+                check(abs(traced_ms - device_total) <= 0.01 * device_total,
+                      f"{run}: --profile_steps reads {traced_ms} ms of "
+                      f"device time for a step, the profiled step "
+                      f"{device_total} ms")
             train["profiled_step"] = {
                 "step_ms": prof_ms, "device_ms": classes,
                 "device_total_ms": device_total, "idle_share": idle,
@@ -4228,6 +4353,824 @@ def phase_train(torch, np, summary, device="cuda",
                 "loss_rel": loss_rel, "max_grad_rel_l2": worst,
                 "worst_leaf": worst_name, "peak_memory_gib": peak}
             del got, want_
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- pretraining: K-FAC, --steps_per_loop chunks, the RoBERTa recipe ---------
+
+KFAC_CONFIG = os.path.join(HERE, "configs",
+                           "bert_kfac_pretraining_phase1_config.json")
+# phase 1's shapes (2 x 96 x 128) at 24 layers, 3 steps, the inversions on
+# steps 1 and 3
+KFAC_RUN = {"micro": 96, "seq": 128, "global_batch": 192, "samples": 320,
+            "steps": 3, "inv_interval": 2}
+# At CUT_LAYERS: the replay's run (4 steps of 2 x 32 x 128; a NaN injected
+# at step 4 halts it after the checkpoint of step 2, so the bundle holds
+# steps 1-4 and step 3 replays from that checkpoint), and the card against
+# the CPU on one microbatch of 2 x 128 with K-FAC's state at count 1 (no
+# inversion: at 12 layers one costs the CPU ~7 TFLOP of f32; layer 0's
+# four sites are inverted on both instead).
+KFAC_REPLAY = {"micro": 32, "steps": 4, "samples": 160}
+KFAC_CPU_ROWS = 2
+# one K-FAC step's schedule step: lr above 0, so kl_clip's nu is exercised
+KFAC_LR_STEP = 1000
+# One K-FAC step (bf16) on the kernels against the plain versions: the
+# train phase's bf16 loss tier; the preconditioned grad_norm and nu within
+# its gradient tier, 5e-2 relative.
+KFAC_MODEL_TOL = {"loss": 1e-3, "grad_norm": 5e-2, "nu": 5e-2}
+# The card's K-FAC step (kernels) against the port's on the CPU (plain
+# versions), both bf16: the loss 2e-3 and grad_norm and nu 5e-2 relative;
+# an A factor within 2e-2 of its largest element (statistics of bf16
+# activations that differ in their last bits); a G factor within 1e-1,
+# set between two readings on the card (PERF.md §6): the largest sound
+# one, 2.83e-2 at 12 layers (1.92e-2 at 6), and the smallest fault, 0.505
+# for a G halved (0.931 for G from other dropout masks; G from bf16
+# statistics, an allowed mode, read 2.01e-2); layer 0's bf16 inverses
+# from the same factors within 2^-6 of the largest element (f32
+# factorizations summed in another order, rounded to bf16).
+KFAC_CPU_TOL = {"loss": 2e-3, "grad_norm": 5e-2, "nu": 5e-2,
+                "A": 2e-2, "G": 1e-1, "inverses": 2 ** -6}
+
+
+def _per_step_launches(layers: int, steps: int, flash: bool,
+                       accum: int = 2) -> dict:
+    """A pretraining run's exact launches: per microbatch two LayerNorms
+    (#1/#2), two residual tails a layer (#3/#4), at seq > 256 every
+    layer's flash forward and fused backward; per step one LAMB (#11/#12)."""
+    micro_steps = accum * steps
+    attn = layers * micro_steps if flash else 0
+    return {"add_dropout_layer_norm_fwd": 2 * layers * micro_steps,
+            "add_dropout_layer_norm_bwd": 2 * layers * micro_steps,
+            "layer_norm_fwd": 2 * micro_steps,
+            "layer_norm_bwd": 2 * micro_steps,
+            "flash_attention_fwd": attn, "flash_attention_bwd": attn,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "lamb_stage1": steps, "lamb_stage2": steps}
+
+
+def _check_hbm_fields(records, what: str, on_card: bool) -> None:
+    """Every pretraining perf record carries the three memory fields on a
+    card, none on the CPU."""
+    keys = ("hbm_peak_bytes", "hbm_bytes_in_use", "hbm_bytes_limit")
+    check(bool(records), f"{what}: no perf record")
+    for r in records:
+        have = [k for k in keys if k in r]
+        check(have == (list(keys) if on_card else []),
+              f"{what}: perf record at step {r.get('step')} carries "
+              f"{have}")
+
+
+def _rel_to_max(torch, got, want) -> float:
+    """max |got - want| / max |want|."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def _kfac_setup(torch, config, weights, device, plain=False, accum=1,
+                max_pred=20, **kcfg):
+    """A K-FAC train step over a model holding `weights` (the kernels, or
+    the plain versions), LAMB (fused on the kernels' route) under the K-FAC
+    run config's schedule: (model, kfac, state, step_fn, tx)."""
+    from bert_pytorch_tpu_torch.models.bert import BertForPreTraining
+    from bert_pytorch_tpu_torch.optim.kfac import KFAC, KFACConfig
+    from bert_pytorch_tpu_torch.optim.lamb import Lamb
+    from bert_pytorch_tpu_torch.optim.schedulers import make_schedule
+    from bert_pytorch_tpu_torch.training.pretrain import (
+        build_kfac_pretrain_step, init_kfac_state)
+    from bert_pytorch_tpu_torch.training.state import make_train_state
+
+    with torch.device(device):
+        model = BertForPreTraining(config.replace(kfac_taps=True),
+                                   dtype=torch.bfloat16, plain=plain)
+    model.load_state_dict(weights)
+    schedule = make_schedule("poly", 6e-3, 7038, warmup=0.2843)
+    tx = Lamb(schedule, weight_decay=0.01, fused="off" if plain else "auto")
+    state = make_train_state(model, tx)
+    kfac = KFAC(KFACConfig(**kcfg))
+    init_kfac_state(model, kfac, state)
+    step = build_kfac_pretrain_step(model, tx, kfac, schedule=schedule,
+                                    accum_steps=accum,
+                                    max_predictions=max_pred,
+                                    grad_dtype=torch.bfloat16)
+    return model, kfac, state, step, tx
+
+
+def _kfac_one_step(torch, config, weights, device, plain, batch, seeds,
+                   count=0, **kcfg):
+    """One K-FAC step (accumulation 1) from `weights`, a fresh K-FAC state
+    at `count` (0: the step inverts) and schedule step KFAC_LR_STEP:
+    loss, preconditioned grad_norm, nu and the factors after it."""
+    model, kfac, state, step, _ = _kfac_setup(torch, config, weights, device,
+                                              plain=plain, **kcfg)
+    state.step = KFAC_LR_STEP
+    state.precond_state.count = count
+    m = step(state, {k: v[None] for k, v in batch.items()}, seeds[None])
+    out = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+           "nu": float(kfac.last_nu),
+           "factors": {s: {k: t.float().cpu() for k, t in d.items()}
+                       for s, d in state.precond_state.factors.items()}}
+    del model, state, step
+    return out, kfac
+
+
+def _part_ms(torch, fn, reps: int = 2) -> dict:
+    """Host clock (between synchronizations) and device time (CUDA events
+    around the call: the device's time when the card, not the host, sets
+    the pace, as for these large products and factorizations) of fn(),
+    medians of `reps` after a warm call."""
+    fn()
+    host, dev = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+    return {"host_ms": statistics.median(host),
+            "device_ms": statistics.median(dev)}
+
+
+def _kfac_parts(torch, config, weights, device, batch, seeds):
+    """The host clock and device time (`_part_ms`) of one K-FAC step's
+    parts at the phase's shapes: a microbatch's forward+backward with the
+    taps, its statistics, the inversion of every site, the
+    preconditioning and the LAMB update."""
+    from bert_pytorch_tpu_torch.models.bert import KFACTaps
+    from bert_pytorch_tpu_torch.training.pretrain import (compute_params,
+                                                          pretrain_loss_fn)
+
+    model, kfac, state, _, tx = _kfac_setup(torch, config, weights, device)
+    loss_fn = pretrain_loss_fn(model, 20)
+    gparams = compute_params(state.params, torch.bfloat16)
+    names = list(gparams)
+    micro = {k: v[0] for k, v in batch.items()}
+    held = {}
+
+    def fwd_bwd():
+        taps = KFACTaps()
+        loss, _ = loss_fn(gparams, micro, seeds[0], taps)
+        sites = list(taps.perts)
+        out = torch.autograd.grad(loss, [gparams[k] for k in names]
+                                  + [taps.perts[s] for s in sites])
+        held.update(grads=dict(zip(names, out[:len(names)])),
+                    acts=taps.acts,
+                    perts=dict(zip(sites, out[len(names):])))
+
+    def stats():
+        held["stats"] = kfac.compute_stats(held["acts"], held["perts"])
+
+    def invert():
+        held["inverses"] = kfac._invert(held["factors"])
+
+    def precondition():
+        held["pre"] = kfac.precondition(held["inverses"], held["grads"],
+                                        1e-3)
+
+    def lamb():
+        tx.update(held["pre"], state.opt_state, state.params)
+
+    parts = {}
+    parts["forward_backward"] = _part_ms(torch, fwd_bwd)
+    parts["statistics"] = _part_ms(torch, stats)
+    held["factors"] = kfac._update_factors(state.precond_state.factors,
+                                           held["stats"])
+    parts["inversion"] = _part_ms(torch, invert)
+    parts["preconditioning"] = _part_ms(torch, precondition)
+    parts["lamb"] = _part_ms(torch, lamb)
+    del model, state, held, gparams
+    return parts
+
+
+def phase_train_kfac(torch, np, summary, device="cuda",
+                     cfg_path=os.path.join(HERE, "configs",
+                                           "bert_large_uncased_config.json"),
+                     cut_cfg_path=None, run=KFAC_RUN, cpu_rows=KFAC_CPU_ROWS,
+                     replay_run=KFAC_REPLAY):
+    """K-FAC pretraining: configs/bert_kfac_pretraining_phase1_config.json
+    through the entry point's trainer at 24 layers and phase 1's 2 x 96 x
+    128, --kfac_inv_interval 2, 3 steps (inversions on steps 1 and 3):
+    exact launches (the ph1 column a step), finite losses, the factor and
+    inverse bytes, every perf record's hbm_* fields; the host clock and
+    device time of a step's parts; one K-FAC step on the kernels against
+    the plain versions (loss, the preconditioned grad_norm, kl_clip's nu).
+    At CUT_LAYERS: one K-FAC step on the card against the port on the CPU
+    from the same weights, batch and seeds (and layer 0's inversion of
+    the same factors), and a run halted by a NaN at step 4 whose bundle's
+    step 3 replays bit-identically (tools/replay.py, the K-FAC step
+    rebuilt from the run block's `kfac` dict)."""
+    import shutil
+
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.data.sharded import (HostShardSampler,
+                                                     PretrainingDataLoader)
+    from bert_pytorch_tpu_torch.models.bert import init_weights
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from bert_pytorch_tpu_torch.tools import replay
+
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kfac_")
+    res = summary.setdefault("train_kfac", {})
+    marks, mark = _marks()
+    try:
+        def kfac_args(cfg, out, micro, steps, *extra):
+            return run_pretraining.parse_arguments([
+                "--config_file", KFAC_CONFIG, "--model_config_file", cfg,
+                "--input_dir", os.path.join(tmp, "data"),
+                "--output_dir", out, "--local_batch_size", str(micro),
+                "--global_batch_size", str(2 * micro), "--steps",
+                str(steps), "--kfac_inv_interval", str(run["inv_interval"]),
+                "--fused_optim", "auto", "--vocab_pad_multiple", "8",
+                "--seed", "0", "--log_freq", "1", "--tensorboard", "off",
+                "--device", device, *extra])
+
+        config = BertConfig.from_json_file(cfg_path)
+        config = config.replace(vocab_size=pad_vocab_size(config.vocab_size,
+                                                          8))
+        layers, micro, seq = (config.num_hidden_layers, run["micro"],
+                              run["seq"])
+        index = array_index([pretraining_arrays(
+            np, run["samples"], seq, config.vocab_size, s) for s in (0, 1)])
+        args = kfac_args(cfg_path, os.path.join(tmp, "out"), micro,
+                         run["steps"], "--skip_checkpoint")
+        lines = []
+
+        def keep(m):
+            lines.append(m)
+            log(f"train_kfac: {m}")
+
+        reset_launches()
+        result = run_pretraining.train(args, index, log=keep)
+        launches = dict(LAUNCHES)
+        summary.setdefault("launches", {})["train_kfac"] = launches
+        mark("run")
+        want = _per_step_launches(layers, run["steps"], False)
+        if on_card:
+            check(launches == want, f"train_kfac: launches {launches}, "
+                  f"want {want}")
+        losses = [r["loss"] for r in result.history]
+        norms = [r["grad_norm"] for r in result.history]
+        check(len(losses) == run["steps"] and all(np.isfinite(losses))
+              and all(np.isfinite(norms)), f"train_kfac: losses {losses}, "
+              f"grad norms {norms}")
+        pre = result.state.precond_state
+        check(pre is not None and pre.count == run["steps"],
+              "train_kfac: K-FAC state after the run: "
+              f"{None if pre is None else pre.count}")
+        factor_b, inverse_b = pre.nbytes()
+        check(any(m.startswith(f"kfac: {len(pre.factors)} sites")
+                  for m in lines), "train_kfac: no kfac log line")
+        perf = _perf_records(args)
+        _check_hbm_fields(perf, "train_kfac", on_card)
+        res.update(losses=losses, grad_norms=norms, launches=launches,
+                   launches_predicted=want,
+                   step_ms=[r["step_ms"] for r in result.history],
+                   sites=len(pre.factors), factor_bytes=factor_b,
+                   inverse_bytes=inverse_b,
+                   hbm=[{k: r[k] for k in r if k.startswith("hbm_")}
+                        for r in perf])
+        log(f"train_kfac: {run['steps']} K-FAC steps of {2 * micro} x {seq}"
+            f" at {layers} layers: losses {losses}, grad norms {norms}, "
+            f"step ms {res['step_ms']} (LAMB's train phase: "
+            f"{summary.get('train', {}).get('step_ms')}); {len(pre.factors)}"
+            f" sites, factors {factor_b / 1e9:.3f} GB, inverses "
+            f"{inverse_b / 1e9:.3f} GB; launches {launches} (predicted "
+            f"{want}); perf hbm {res['hbm']}")
+        del result, pre
+
+        # the same step's parts, and the kernels against the plain route
+        with torch.device(device):
+            from bert_pytorch_tpu_torch.models.bert import BertForPreTraining
+
+            model = BertForPreTraining(config, dtype=torch.bfloat16)
+        init_weights(model, torch.Generator(device=device).manual_seed(1),
+                     std=config.initializer_range)
+        weights = {k: v.detach().clone() for k, v in
+                   model.state_dict().items()}
+        del model
+        loader = PretrainingDataLoader(
+            index, HostShardSampler(len(index), seed=1),
+            batch_size=micro, mask_token_index=103,
+            max_pred_per_seq=args.max_predictions_per_seq,
+            masked_lm_prob=args.masked_token_fraction,
+            vocab_size=config.vocab_size, seed=1)
+        batch_np = next(loader)
+        loader.close()
+        batch = {k: torch.from_numpy(v[None]).to(device)
+                 for k, v in batch_np.items()}
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (1, 1 + 3 * layers),
+                              dtype=torch.int32,
+                              generator=torch.Generator().manual_seed(7))
+        if on_card:
+            parts = _kfac_parts(torch, config, weights, device, batch, seeds)
+            res["parts"] = parts
+            log("train_kfac: a step's parts, host ms / device ms: "
+                + "; ".join(f"{k} {v['host_ms']:.1f} / {v['device_ms']:.1f}"
+                            for k, v in parts.items()))
+            mark("parts")
+        one = {k: v[0] for k, v in batch.items()}
+        got, _ = _kfac_one_step(torch, config, weights, device, False, one,
+                                seeds[0], inv_interval=run["inv_interval"])
+        plain, _ = _kfac_one_step(torch, config, weights, device, True, one,
+                                  seeds[0], inv_interval=run["inv_interval"])
+        rel = {k: abs(got[k] - plain[k]) / abs(plain[k])
+               for k in ("loss", "grad_norm", "nu")}
+        res["kernels_vs_plain"] = {"kernels": {k: got[k] for k in rel},
+                                   "plain": {k: plain[k] for k in rel},
+                                   "rel": rel, "tol": KFAC_MODEL_TOL}
+        log(f"train_kfac: one K-FAC step ({micro} x {seq}, bf16), kernels "
+            f"vs plain: {res['kernels_vs_plain']}")
+        for k, tol in KFAC_MODEL_TOL.items():
+            check(np.isfinite(got[k]) and rel[k] <= tol,
+                  f"train_kfac: {k} kernels {got[k]} vs plain {plain[k]}")
+        check(got["nu"] < 1.0, f"train_kfac: nu {got['nu']} (kl_clip not "
+              "exercised)")
+        del got, plain, weights, batch
+        mark("kernels_vs_plain")
+
+        if cut_cfg_path is not None:
+            # the CPU's side of this check runs while the card replays
+            finish = _kfac_card_vs_cpu(
+                torch, np, cut_cfg_path, index, args, device, cpu_rows,
+                run["inv_interval"])
+            mark("card_vs_cpu_card")
+            cut = BertConfig.from_json_file(cut_cfg_path)
+            out = os.path.join(tmp, "replay")
+            rargs = kfac_args(cut_cfg_path, out, replay_run["micro"],
+                              replay_run["steps"],
+                              "--num_steps_per_checkpoint", "2",
+                              "--inject_nonfinite_step",
+                              str(replay_run["steps"]),
+                              "--nonfinite_action", "halt")
+            rindex = array_index([pretraining_arrays(
+                np, replay_run["samples"], seq,
+                pad_vocab_size(cut.vocab_size, 8), s) for s in (2, 3)])
+            try:
+                run_pretraining.train(rargs, rindex,
+                                      log=lambda m: log(f"train_kfac: {m}"))
+                check(False, "train_kfac: the NaN did not halt the run")
+            except run_pretraining.NonFiniteHalt:
+                pass
+            bundles = os.listdir(os.path.join(out, "repro_bundles"))
+            check(len(bundles) == 1, f"train_kfac: bundles {bundles}")
+            bundle = os.path.join(out, "repro_bundles", bundles[0])
+            with open(os.path.join(bundle, "manifest.json")) as f:
+                manifest = json.load(f)
+            check(manifest["run"]["kfac"]["inv_interval"]
+                  == run["inv_interval"], "train_kfac: the bundle's kfac "
+                  f"block {manifest['run']['kfac']}")
+            target = replay_run["steps"] - 1
+            got = replay.main(["--bundle", bundle, "--step", str(target),
+                               "--device", device])
+            res["replay"] = {"step": target,
+                             "base_checkpoint": got["base_checkpoint"],
+                             "match": got["match"],
+                             "mismatches": got["mismatches"]}
+            log(f"train_kfac: replay of step {target} from the bundle "
+                f"({cut.num_hidden_layers} layers): {res['replay']}")
+            check(got["match"] is True, f"train_kfac: replay of step "
+                  f"{target}: {got['mismatches']}")
+            mark("replay")
+            res["card_vs_cpu"] = finish()
+            mark("card_vs_cpu_wait")
+        res["seconds"] = marks
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _kfac_card_vs_cpu(torch, np, cut_cfg_path, index, args, device,
+                      rows: int, inv_interval: int):
+    """One K-FAC step at CUT_LAYERS on the card (the kernels) and on the
+    CPU (the plain versions) from the same weights, microbatch of `rows`
+    and seeds, K-FAC's state at count 1 (no inversion); then layer 0's
+    four sites inverted on both from the card's factors. The CPU's step
+    runs on a thread of its own while the caller goes on with the card;
+    returns finish() -> the comparison, which waits for it."""
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.data.sharded import (HostShardSampler,
+                                                     PretrainingDataLoader)
+    from bert_pytorch_tpu_torch.models.bert import (BertForPreTraining,
+                                                    init_weights)
+
+    config = BertConfig.from_json_file(cut_cfg_path)
+    config = config.replace(vocab_size=pad_vocab_size(config.vocab_size, 8))
+    model = BertForPreTraining(config, dtype=torch.bfloat16)
+    init_weights(model, torch.Generator().manual_seed(2),
+                 std=config.initializer_range)
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    loader = PretrainingDataLoader(
+        index, HostShardSampler(len(index), seed=2), batch_size=rows,
+        mask_token_index=103, max_pred_per_seq=args.max_predictions_per_seq,
+        masked_lm_prob=args.masked_token_fraction,
+        vocab_size=config.vocab_size, seed=2)
+    batch_np = next(loader)
+    loader.close()
+    seeds = torch.randint(-2 ** 31, 2 ** 31,
+                          (1 + 3 * config.num_hidden_layers,),
+                          dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(8))
+    out = {}
+    t0 = time.perf_counter()
+    card, kfac = _kfac_one_step(
+        torch, config, {k: v.to(device) for k, v in weights.items()},
+        device, False, {k: torch.from_numpy(v).to(device)
+                        for k, v in batch_np.items()}, seeds, count=1,
+        inv_interval=inv_interval)
+    layer0 = {s: d for s, d in card["factors"].items()
+              if s.startswith("bert.encoder.layers.0.")}
+    inv_card = kfac._invert({s: {k: t.to(device) for k, t in d.items()}
+                             for s, d in layer0.items()})
+    # G's bound read against what it must tell apart: the card's G from
+    # bf16 statistics (an allowed mode), from other dropout masks (the
+    # output gradients of another backward pass), and halved (the
+    # microbatch average taken twice)
+    other_seeds = torch.randint(-2 ** 31, 2 ** 31, seeds.shape,
+                                dtype=torch.int32,
+                                generator=torch.Generator().manual_seed(9))
+    controls = {"halved": {s: d["G"] / 2
+                           for s, d in card["factors"].items()}}
+    for name, seeds_, kw in (
+            ("stats_bf16", seeds, {"stats_dtype": torch.bfloat16}),
+            ("other_dropout", other_seeds, {})):
+        ctl, _ = _kfac_one_step(
+            torch, config, {k: v.to(device) for k, v in weights.items()},
+            device, False, {k: torch.from_numpy(v).to(device)
+                            for k, v in batch_np.items()}, seeds_, count=1,
+            inv_interval=inv_interval, **kw)
+        controls[name] = {s: d["G"] for s, d in ctl["factors"].items()}
+        del ctl
+    out["card_s"] = time.perf_counter() - t0
+    cpu_side = {}
+
+    def on_cpu():
+        try:
+            t0 = time.perf_counter()
+            cpu, cpu_kfac = _kfac_one_step(
+                torch, config, weights, "cpu", True,
+                {k: torch.from_numpy(v) for k, v in batch_np.items()},
+                seeds, count=1, inv_interval=inv_interval)
+            cpu_side.update(step=cpu, inv=cpu_kfac._invert(layer0),
+                            seconds=time.perf_counter() - t0)
+        except BaseException as e:  # re-raised by finish()
+            cpu_side["error"] = e
+
+    thread = threading.Thread(target=on_cpu, name="kfac-cpu-step",
+                              daemon=True)
+    thread.start()
+
+    def finish() -> dict:
+        thread.join()
+        if "error" in cpu_side:
+            raise cpu_side["error"]
+        cpu, inv_cpu = cpu_side["step"], cpu_side["inv"]
+        out["cpu_s"] = cpu_side["seconds"]
+        rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k])
+               for k in ("loss", "grad_norm", "nu")}
+        worst_f = {k: max((_rel_to_max(torch, card["factors"][s][k],
+                                       cpu["factors"][s][k]), s)
+                          for s in cpu["factors"]) for k in ("A", "G")}
+        worst_i = max((_rel_to_max(torch, inv_card[s][k], inv_cpu[s][k]),
+                       s, k) for s in inv_cpu for k in ("A", "G"))
+        g_controls = {name: max(_rel_to_max(torch, g[s],
+                                            cpu["factors"][s]["G"])
+                                for s in g)
+                      for name, g in controls.items()}
+        out.update(rows=rows, layers=config.num_hidden_layers,
+                   card={k: card[k] for k in rel},
+                   cpu={k: cpu[k] for k in rel}, rel=rel,
+                   worst_factor={k: list(v) for k, v in worst_f.items()},
+                   worst_layer0_inverse=list(worst_i),
+                   g_controls=g_controls, tol=KFAC_CPU_TOL)
+        log(f"train_kfac: one K-FAC step at {config.num_hidden_layers} "
+            f"layers ({rows} x {batch_np['input_ids'].shape[1]}), the card "
+            f"against the CPU: {out}")
+        for k in ("loss", "grad_norm", "nu"):
+            check(rel[k] <= KFAC_CPU_TOL[k], f"train_kfac: {k} card "
+                  f"{card[k]} vs CPU {cpu[k]}")
+        for k, (err, site) in worst_f.items():
+            check(err <= KFAC_CPU_TOL[k], f"train_kfac: factor {site}/{k} "
+                  f"card vs CPU {err}")
+        check(worst_i[0] <= KFAC_CPU_TOL["inverses"], f"train_kfac: layer "
+              f"0 inverse {worst_i[1]}/{worst_i[2]} card vs CPU "
+              f"{worst_i[0]}")
+        for name in ("other_dropout", "halved"):
+            check(g_controls[name] > KFAC_CPU_TOL["G"], f"train_kfac: a G "
+                  f"factor {name} reads {g_controls[name]} against the CPU's,"
+                  f" inside G's bound {KFAC_CPU_TOL['G']}")
+        return out
+
+    return finish
+
+
+# --steps_per_loop: phase 2's 24 layers at 16 x 512, 4 steps a run, runs
+# at N = 1 and N = 2 alternated (1, 2, 2, 1), each traced over its warm
+# chunk (steps 3-4) by --profile_steps; one microbatch of CHUNK_PLAIN_ROWS
+# rows through the kernels against the plain versions.
+CHUNK_STEPS = 4
+CHUNK_N = 2
+CHUNK_ORDER = (1, CHUNK_N, CHUNK_N, 1)
+CHUNK_PLAIN_ROWS = 4
+# then one run of a single chunk, --steps_per_loop 4 --profile_steps 2,3:
+# a window inside the chunk traces the chunk whole
+CHUNK_WIDE = (4, "2,3")
+
+
+def phase_train_chunks(torch, np, summary, device="cuda",
+                       cfg_path=os.path.join(HERE, "configs",
+                                             "bert_large_uncased_config.json"),
+                       ckpt_dir=None, micro=None, order=CHUNK_ORDER,
+                       plain_rows=CHUNK_PLAIN_ROWS):
+    """--steps_per_loop on phase 2: runs of CHUNK_STEPS steps of the
+    entry point's trainer from the chained pretraining checkpoint (the
+    newest in `ckpt_dir`: train_phase2's, weights through
+    --init_checkpoint), at N = 1 and N = 2 in CHUNK_ORDER. Every run's
+    losses at the steps both log, its parameters and LAMB moments (what
+    its checkpoint would hold) are bit-equal; the launches are the ph2
+    column a step; every perf record carries the hbm_* fields. From the
+    --profile_steps trace of the warm chunk: the host clock a step (the
+    traced window over its steps) and the device's idle share; a gain is
+    reported only where the two modes' ranges do not overlap. Last, one
+    run at --steps_per_loop 4 --profile_steps 2,3 (CHUNK_WIDE): bit-equal
+    to the others, its one chunk traced whole."""
+    import shutil
+
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.models.bert import (BertForPreTraining,
+                                                    init_weights)
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from bert_pytorch_tpu_torch.training.checkpoint import CheckpointManager
+
+    spec = TRAIN_RUNS["train_phase2"]
+    micro = micro or spec["micro"]
+    on_card = torch.device(device).type == "cuda"
+    init = []
+    if ckpt_dir is not None:
+        steps = CheckpointManager(os.path.join(
+            ckpt_dir, "pretrain_ckpts")).all_steps()
+        if steps:
+            init = ["--init_checkpoint",
+                    f"{os.path.join(ckpt_dir, 'pretrain_ckpts')}@{steps[-1]}"]
+    check(bool(init) or not on_card, "train_chunks chains from the train "
+          "phases' checkpoint: run train and train_phase2 first")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_chunks_")
+    res = summary.setdefault("train_chunks", {"init": init[1:]})
+    marks, mark = _marks()
+    try:
+        config = BertConfig.from_json_file(cfg_path)
+        config = config.replace(vocab_size=pad_vocab_size(config.vocab_size,
+                                                          8))
+        layers, seq = config.num_hidden_layers, spec["seq"]
+        index = array_index([pretraining_arrays(
+            np, CHUNK_STEPS * micro, seq, config.vocab_size, s)
+            for s in (0, 1)])
+        runs, first_sd = [], None
+        windows = [f"{CHUNK_STEPS - 2},{CHUNK_STEPS}"] * len(order)
+        for i, (n, window) in enumerate(zip(
+                list(order) + [CHUNK_WIDE[0]], windows + [CHUNK_WIDE[1]])):
+            args = run_pretraining.parse_arguments([
+                "--config_file", spec["config"], "--model_config_file",
+                cfg_path, "--input_dir", os.path.join(tmp, "data"),
+                "--output_dir", os.path.join(tmp, f"run{i}"),
+                "--local_batch_size", str(micro), "--global_batch_size",
+                str(2 * micro), "--steps", str(CHUNK_STEPS),
+                "--steps_per_loop", str(n), "--profile_steps", window,
+                "--skip_checkpoint",
+                "--fused_optim", "auto", "--vocab_pad_multiple", "8",
+                "--seed", "0", "--log_freq", str(CHUNK_N),
+                "--tensorboard", "off", "--device", device, *init])
+            reset_launches()
+            result = run_pretraining.train(
+                args, index, log=lambda m, i=i: log(f"train_chunks[{i}]: "
+                                                    f"{m}"))
+            launches = dict(LAUNCHES)
+            want = _per_step_launches(layers, CHUNK_STEPS, spec["flash"])
+            if on_card:
+                check(launches == want, f"train_chunks[{i}] N={n}: launches "
+                      f"{launches}, want {want}")
+            if n == CHUNK_N and "train_chunks" not in summary.get(
+                    "launches", {}):
+                summary.setdefault("launches", {})["train_chunks"] = launches
+            _check_hbm_fields(_perf_records(args), f"train_chunks[{i}]",
+                              on_card)
+            prof = result.profile["summary"]
+            traced = result.profile["steps"]
+            n_traced = traced[1] - traced[0] + 1
+            # what a checkpoint of the run would hold, against the first
+            # run's, on the card
+            sd = result.state.state_dict()
+            if first_sd is None:
+                first_sd = sd
+            else:
+                _check_state_dicts_equal(torch, sd, first_sd,
+                                         f"train_chunks[{i}] N={n}")
+            runs.append({
+                "n": n, "losses": {r["step"]: r["loss"]
+                                   for r in result.history},
+                "traced_steps": traced,
+                "host_ms_a_step": prof["window_ms"] / n_traced,
+                "device_ms_a_step": prof["device_ms"] / n_traced,
+                "idle_share": prof["idle_share"],
+                "host_phases_ms": prof["host_ms"],
+                "step_ms": [r["step_ms"] for r in result.history]})
+            del result, sd
+            log(f"train_chunks[{i}] N={n}: {runs[-1]}")
+        del first_sd
+        mark("runs")
+        wide = runs.pop()
+        check(wide["traced_steps"] == [1, CHUNK_WIDE[0]],
+              f"train_chunks: --steps_per_loop {CHUNK_WIDE[0]} "
+              f"--profile_steps {CHUNK_WIDE[1]} traced {wide['traced_steps']}")
+        check(wide["losses"][CHUNK_STEPS] == runs[0]["losses"][CHUNK_STEPS],
+              f"train_chunks: N={CHUNK_WIDE[0]} loss {wide['losses']}")
+        res["wide"] = wide
+        first = runs[0]
+        for r in runs[1:]:
+            common = sorted(set(first["losses"]) & set(r["losses"]))
+            check(common and all(first["losses"][s] == r["losses"][s]
+                                 for s in common),
+                  f"train_chunks: N={r['n']} losses {r['losses']} vs N="
+                  f"{first['n']} {first['losses']}")
+        host = {n: [r["host_ms_a_step"] for r in runs if r["n"] == n]
+                for n in sorted(set(order))}
+        lo_n, hi_n = min(host), max(host)
+        gain = None
+        if max(host[hi_n]) < min(host[lo_n]):
+            gain = 1.0 - statistics.mean(host[hi_n]) / statistics.mean(
+                host[lo_n])
+        res.update(runs=runs,
+                   host_ms_a_step=host, gain=gain,
+                   idle_share={n: [r["idle_share"] for r in runs
+                                   if r["n"] == n] for n in host})
+        log(f"train_chunks: N=1 vs N={CHUNK_N}, bit-equal; host ms a traced"
+            f" step {host}; idle share {res['idle_share']}; gain "
+            + (f"{gain:.3f}" if gain is not None else "none (the ranges "
+               "overlap)"))
+
+        # one microbatch through the kernels against the plain versions
+        model = BertForPreTraining(config, dtype=torch.bfloat16)
+        init_weights(model, torch.Generator().manual_seed(3),
+                     std=config.initializer_range)
+        weights = {k: v.detach().to(device) for k, v in
+                   model.state_dict().items()}
+        del model
+        arrays = pretraining_arrays(np, plain_rows, seq, config.vocab_size, 5)
+        res["kernels_vs_plain"] = _micro_kernels_vs_plain(
+            torch, np, config, weights, arrays, device, "train_chunks",
+            spec["tol"]["bfloat16"], 80)
+        mark("kernels_vs_plain")
+        res["seconds"] = marks
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _micro_kernels_vs_plain(torch, np, config, weights, arrays, device,
+                            what, tol, max_pred) -> dict:
+    """One microbatch of the shard-schema `arrays` (masked as the loader
+    masks them) through the kernels and the plain versions, bf16: loss and
+    the worst gradient's relative L2, held to `tol`."""
+    from bert_pytorch_tpu_torch.data.sharded import (HostShardSampler,
+                                                     PretrainingDataLoader)
+
+    rows = len(arrays["input_ids"])
+    loader = PretrainingDataLoader(
+        array_index([arrays]), HostShardSampler(rows, seed=4),
+        batch_size=rows, mask_token_index=103, max_pred_per_seq=max_pred,
+        masked_lm_prob=0.15, vocab_size=config.vocab_size, seed=4)
+    micro = {k: torch.from_numpy(v).to(device)
+             for k, v in next(loader).items()}
+    loader.close()
+    seeds = torch.randint(-2 ** 31, 2 ** 31,
+                          (1 + 3 * config.num_hidden_layers,),
+                          dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(9))
+    got = _loss_and_grads(torch, config, torch.bfloat16, False, weights,
+                          micro, seeds, max_pred, device)
+    want = _loss_and_grads(torch, config, torch.bfloat16, True, weights,
+                           micro, seeds, max_pred, device)
+    loss_rel = abs(got[0] - want[0]) / abs(want[0])
+    worst, worst_name = 0.0, None
+    for k, w in want[1].items():
+        rel = (torch.linalg.vector_norm(got[1][k] - w)
+               / torch.linalg.vector_norm(w).clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, k
+    out = {"rows": rows, "loss": got[0], "plain_loss": want[0],
+           "loss_rel": loss_rel, "max_grad_rel_l2": worst,
+           "worst_leaf": worst_name, "tol": tol}
+    log(f"{what}: one microbatch ({rows} rows, bf16), kernels vs plain: "
+        f"{out}")
+    check(np.isfinite(got[0]) and loss_rel <= tol["loss"],
+          f"{what}: loss kernels {got[0]} vs plain {want[0]}")
+    check(worst <= tol["grad"], f"{what}: gradient {worst_name} rel L2 "
+          f"{worst} > {tol['grad']}")
+    return out
+
+
+ROBERTA_CONFIG = os.path.join(HERE, "configs",
+                              "roberta_pretraining_config.json")
+ROBERTA_MODEL = os.path.join(HERE, "configs",
+                             "roberta_large_cased_config.json")
+# 24 layers at 2 x 16 x 128, 2 steps; LAMB's tensors without the pooler,
+# the NSP head and the token-type table: 24 x 12 + 4 + 5
+ROBERTA_RUN = {"micro": 16, "seq": 128, "steps": 2, "samples": 64}
+ROBERTA_TENSORS = 297
+
+
+def phase_train_roberta(torch, np, summary, device="cuda",
+                        cfg_path=ROBERTA_MODEL, run=ROBERTA_RUN,
+                        tensors=ROBERTA_TENSORS):
+    """The RoBERTa recipe (configs/roberta_pretraining_config.json: no
+    NSP, mask 0.15, 80 predictions, linear decay, vocab 28996) through the
+    entry point's trainer at 24 layers, 2 x 16 x 128, 2 steps: exact
+    launches, finite losses, the tensors LAMB updates (no pooler, NSP
+    head or token-type table), [MASK] 103 (the config's vocab file is not
+    in the repo), hbm_* in every perf record; one microbatch through the
+    kernels against the plain versions."""
+    import shutil
+
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.models.bert import (BertForPreTraining,
+                                                    init_weights)
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_roberta_")
+    res = summary.setdefault("train_roberta", {})
+    try:
+        config = BertConfig.from_json_file(cfg_path)
+        check(config.next_sentence is False, "train_roberta: the recipe's "
+              "model has next_sentence false")
+        config = config.replace(vocab_size=pad_vocab_size(config.vocab_size,
+                                                          8))
+        layers, micro, seq = (config.num_hidden_layers, run["micro"],
+                              run["seq"])
+        index = array_index([pretraining_arrays(
+            np, run["samples"], seq, config.vocab_size, s) for s in (0, 1)])
+        args = run_pretraining.parse_arguments([
+            "--config_file", ROBERTA_CONFIG, "--model_config_file", cfg_path,
+            "--input_dir", os.path.join(tmp, "data"),
+            "--output_dir", os.path.join(tmp, "out"),
+            "--local_batch_size", str(micro), "--global_batch_size",
+            str(2 * micro), "--steps", str(run["steps"]),
+            "--skip_checkpoint", "--fused_optim", "auto",
+            "--vocab_pad_multiple", "8", "--seed", "0", "--log_freq", "1",
+            "--tensorboard", "off", "--device", device])
+        check((args.masked_token_fraction, args.max_predictions_per_seq,
+               args.lr_decay) == (0.15, 80, "linear"),
+              f"train_roberta: the recipe's values {args}")
+        lines = []
+
+        def keep(m):
+            lines.append(m)
+            log(f"train_roberta: {m}")
+
+        reset_launches()
+        result = run_pretraining.train(args, index, log=keep)
+        launches = dict(LAUNCHES)
+        summary.setdefault("launches", {})["train_roberta"] = launches
+        want = _per_step_launches(layers, run["steps"], False)
+        if on_card:
+            check(launches == want, f"train_roberta: launches {launches}, "
+                  f"want {want}")
+        losses = [r["loss"] for r in result.history]
+        n_tensors = len(result.state.opt_state.mu)
+        check(len(losses) == run["steps"] and all(np.isfinite(losses)),
+              f"train_roberta: losses {losses}")
+        check(n_tensors == tensors and not any(
+            "pooler" in k or "seq_relationship" in k or "token_type" in k
+            for k in result.state.params),
+            f"train_roberta: LAMB over {n_tensors} tensors")
+        check(any("[MASK]=103" in m for m in lines),
+              "train_roberta: [MASK] id not 103")
+        _check_hbm_fields(_perf_records(args), "train_roberta", on_card)
+        res.update(losses=losses, launches=launches, lamb_tensors=n_tensors,
+                   learning_rates=[r["learning_rate"]
+                                   for r in result.history],
+                   step_ms=[r["step_ms"] for r in result.history])
+        log(f"train_roberta: {run['steps']} steps of {2 * micro} x {seq} at "
+            f"{layers} layers: {res}")
+        del result
+        model = BertForPreTraining(config, dtype=torch.bfloat16)
+        init_weights(model, torch.Generator().manual_seed(4),
+                     std=config.initializer_range)
+        weights = {k: v.detach().to(device) for k, v in
+                   model.state_dict().items()}
+        del model
+        res["kernels_vs_plain"] = _micro_kernels_vs_plain(
+            torch, np, config, weights,
+            pretraining_arrays(np, micro, seq, config.vocab_size, 6),
+            device, "train_roberta", TRAIN_MODEL_TOL["bfloat16"],
+            args.max_predictions_per_seq)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4666,7 +5609,7 @@ def phase_remat(torch, np, summary, device="cuda",
       flash forward twice a microbatch);
     - per policy (off, nothing, dots, mlp_only), on one model switched
       between them (`_set_remat`): one packed microbatch's loss and all
-      302 gradients, dropout on, bit-equal to remat off; then one
+      its gradients, dropout on, bit-equal to remat off; then one
       optimizer step's exact launches, its peak memory
       (torch.cuda.max_memory_allocated, and above the resident state)
       and its host clock and device time.
@@ -4751,8 +5694,9 @@ def phase_remat(torch, np, summary, device="cuda",
             row = res["policies"].setdefault(policy, {})
             if ref is None:
                 ref = (loss, grads)
-                check(len(grads) == 302 or not on_card,
-                      f"remat: {len(grads)} gradients, want 302")
+                want_n = len(dict(model.named_parameters()))
+                check(len(grads) == want_n,
+                      f"remat: {len(grads)} gradients, want {want_n}")
                 continue
             differ = [k for k, g in ref[1].items()
                       if not torch.equal(grads[k], g)]
@@ -5007,8 +5951,8 @@ def _finetune_step_numbers(torch, run, state, batch, seeds, on_card, what,
     out["optimizer_ms"] = _host_ms(torch, lambda: run.tx.update(
         grads, state.opt_state, state.params, grad_norm=norm))
     del grads, gparams
-    classes, top, prof_ms = _profile_step(torch, step_fn, state, batch, seeds)
-    device_total = sum(classes.values())
+    classes, top, prof_ms, device_total = _profile_step(
+        torch, step_fn, state, batch, seeds)
     idle = 1.0 - device_total / prof_ms
     check(idle >= 0.0, f"{what}: device time {device_total} ms exceeds the "
           f"profiled step's {prof_ms} ms")
@@ -5792,6 +6736,11 @@ def _load_run(url: str, rate: float, secs: float) -> dict:
     check(proc.returncode == 0, f"serve_load exited {proc.returncode}: "
           f"{proc.stderr[-2000:]}")
     fixed = json.loads(proc.stdout.strip().splitlines()[-1])["fixed"]
+    fixed["diagnosis"] = load_diagnosis(fixed, secs)
+    if fixed["ok"] != fixed["sent"]:
+        log(f"serve_slo: load diagnosis {json.dumps(fixed['diagnosis'])}")
+    check(not fixed["no_status"], f"load: {len(fixed['no_status'])} "
+          f"request(s) got no status: {fixed['no_status'][:5]}")
     check(fixed["ok"] == fixed["sent"] > 0, f"load: {fixed['ok']} of "
           f"{fixed['sent']} answered 200 ({fixed['codes']})")
     return fixed
@@ -7492,7 +8441,7 @@ def phase_init_sources(torch, np, summary, device="cuda",
 STREAM_STEPS = 3
 OFFLINE_STEPS = 4               # the offline plane's alternated runs
 STREAM_MICRO = 96               # phase 1's microbatch, accumulation 2
-STREAM_DRILL_MICRO = 32         # the drills', the resume's and BPE's
+STREAM_DRILL_MICRO = 32         # the drills' and BPE's
 STREAM_DOCS = 1500              # documents of 8-300 words: ~2500 examples
 STREAM_BPE_MERGES = 400
 
@@ -7669,18 +8618,14 @@ def phase_stream(torch, np, summary, device="cuda",
        (0, off), in the order on, off, off, on: losses bit-equal, the
        host phases, the step time and the idle share of each;
     3. at `cut_cfg_path` (CUT_LAYERS) and a microbatch of at most
-       STREAM_DRILL_MICRO (as legs 4 and 5), packed: --stream_inject
+       STREAM_DRILL_MICRO (as leg 4), packed: --stream_inject
        worker_crash bit-equal to the uninjected run (losses and batches);
        corrupt_record drops and counts records
        (bert_stream_records_dropped_total), its batches those of the same
        injected loader on the host;
-    4. resume: 2 packed steps and a checkpoint, then a process of its own
-       (chip_smoke.py --pretrain_child) resumes: step 3's loss bit-equal
-       to the unbroken run's, and the checkpointed cursor's first batch
-       that run's third;
-    5. --stream_tokenizer bpe over a byte-level vocabulary learned from
+    4. --stream_tokenizer bpe over a byte-level vocabulary learned from
        the corpus (`bpe_files`): 2 steps, the mask id <mask>'s;
-    6. the TensorBoard sink (--tensorboard on, the default): whether the
+    5. the TensorBoard sink (--tensorboard on, the default): whether the
        machine has the tensorboard package; with it, the event file holds
        the steps' scalars, without it the log says the sink is off.
 
@@ -7692,7 +8637,6 @@ def phase_stream(torch, np, summary, device="cuda",
     from bert_pytorch_tpu_torch import run_pretraining
     from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
     from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
-    from bert_pytorch_tpu_torch.training.checkpoint import EXTRA_FILE
 
     on_card = torch.device(device).type == "cuda"
     cut_cfg_path = cut_cfg_path or cfg_path
@@ -7925,64 +8869,7 @@ def phase_stream(torch, np, summary, device="cuda",
             f"{corrupt} (dropped {dropped})")
         mark("drills")
 
-        # 4. resume in a process of its own
-        out = os.path.join(tmp, "resume")
-        argv = ["--config_file", PHASE1_CONFIG,
-                "--model_config_file", cut_cfg_path, "--stream_dir", corpus,
-                "--stream_vocab", vocab, "--stream_seq_len", "128",
-                "--output_dir", out, "--local_batch_size", str(dmicro),
-                "--global_batch_size", str(2 * dmicro),
-                "--fused_optim", "auto", "--vocab_pad_multiple", "8",
-                "--seed", "0", "--log_freq", "1", "--device", device,
-                "--packing", "--num_steps_per_checkpoint", "2",
-                "--tensorboard", "off"]
-        args2 = run_pretraining.parse_arguments(argv + ["--steps", "2"])
-        first, _, _ = _stream_train(torch, run_pretraining, args2)
-        with open(os.path.join(out, "pretrain_ckpts", "2",
-                               EXTRA_FILE)) as f:
-            state = json.load(f)["sampler"]
-        check([r["loss"] for r in first.history] == clean[:2],
-              f"stream: the checkpointed run's losses "
-              f"{[r['loss'] for r in first.history]}, the unbroken "
-              f"run's {clean[:2]}")
-        from bert_pytorch_tpu_torch.data.streaming import (
-            StreamingPretrainingLoader, discover_sources)
-        from bert_pytorch_tpu_torch.data.tokenization import TOKENIZERS
-
-        tok = TOKENIZERS["wordpiece"](vocab)
-        lo = StreamingPretrainingLoader(
-            discover_sources(corpus), tok, batch_size=2 * dmicro,
-            seq_len=128, mask_token_index=tok.token_to_id("[MASK]"),
-            max_pred_per_seq=pargs.max_predictions_per_seq,
-            masked_lm_prob=pargs.masked_token_fraction,
-            vocab_size=pad_vocab_size(BertConfig.from_json_file(
-                cut_cfg_path).vocab_size, 8), seed=0, packing=True,
-            num_workers=1)
-        lo.load_state_dict(state)
-        third = next(lo)
-        lo.close()
-        code, text = _child(argv + ["--steps", "1", "--skip_checkpoint"])
-        check(code == 0, f"stream: the resumed process exited {code}: "
-              f"{text[-2000:]}")
-        with open(os.path.join(out, "phase1_log.jsonl")) as f:
-            recs = [r for r in map(json.loads, f) if r["tag"] == "train"]
-        resumed = [r["step_loss"] for r in recs if r["step"] == 3]
-        res["resume"] = {"losses_before": [r["loss"] for r in
-                                           first.history],
-                         "resumed_step3": resumed, "unbroken_step3":
-                         clean[2]}
-        check(resumed == [clean[2]], f"stream: the resumed step 3 loss "
-              f"{resumed}, the unbroken run's {clean[2]}")
-        check(_same_batches(np, [third], [clean_b[2]]), "stream: the "
-              "checkpointed cursor's first batch is not the unbroken "
-              "run's third")
-        log(f"stream: resumed in a process of its own: step 3 loss "
-            f"{resumed} (unbroken {clean[2]}); the cursor's batch is the "
-            "third")
-        del first
-        mark("resume")
-
-        # 5-6. BPE, and the TensorBoard sink
+        # 4-5. BPE, and the TensorBoard sink
         bpe = bpe_files([open(p).read() for p in sorted(
             os.path.join(corpus, n) for n in os.listdir(corpus))],
             os.path.join(tmp, "bpe"), n_merges=bpe_merges)
@@ -8476,6 +9363,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="device,build,kernels,timing,model_seq1024,"
                             "serve,train_order,train,train_phase2,"
+                            "train_chunks,train_kfac,train_roberta,"
                             "train_packed,train_packed_phase2,stream,remat,"
                             "finetune_squad,finetune_ner,finetune_tasks,"
                             "serve_slo,finetune_packed,distill,"
@@ -8553,23 +9441,28 @@ def main(argv=None) -> int:
     return 0
 
 
-# finetune_packed, distill, init_sources, survival and the stream
-# phase's drills, whose checks hold at any depth, run BERT-Large's width
-# at CUT_LAYERS layers (the checkpoints they write and read, 4 GB each at
-# 24 layers, dominate them), so that the whole script stays well inside
-# its time limit on a slow host: every phase took 1157 s in one call and
-# 971 s in another with the first four at 24 layers (PERF.md).
-CUT_LAYERS = 12
+# finetune_packed, distill, init_sources, survival, the packed
+# pretraining phases, the stream phase's drills and train_kfac's replay
+# and card-vs-CPU step, whose checks hold at any depth, run BERT-Large's
+# width at CUT_LAYERS layers (the checkpoints they write and read, 4 GB
+# each at 24 layers, dominate several), so that the whole script stays
+# inside its time limit on a slow host: every phase took 1157 s in one
+# call and 971 s in another with the first four at 24 layers, and 1219.8
+# s at 12 once the K-FAC, chunk and RoBERTa legs came (PERF.md).
+CUT_LAYERS = 6
+# distill's teacher: deeper than its 6-layer student, whose checkpoint
+# must be refused under the teacher's config with the depth mismatch
+DISTILL_TEACHER_LAYERS = 8
 
 
-def cut_config(directory: str) -> str:
-    """BERT-Large's model config at CUT_LAYERS layers, written into
+def cut_config(directory: str, layers: int = CUT_LAYERS) -> str:
+    """BERT-Large's model config at `layers` layers, written into
     `directory`; returns its path."""
     with open(os.path.join(HERE, "configs",
                            "bert_large_uncased_config.json")) as f:
         cfg = json.load(f)
-    cfg["num_hidden_layers"] = CUT_LAYERS
-    path = os.path.join(directory, f"bert_large_{CUT_LAYERS}l_config.json")
+    cfg["num_hidden_layers"] = layers
+    path = os.path.join(directory, f"bert_large_{layers}l_config.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
     return path
@@ -8615,8 +9508,15 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
                 phase_train_order(torch, np, summary)
             elif phase in TRAIN_RUNS:
                 phase_train(torch, np, summary, run=phase, ckpt_dir=ckpt_dir)
+            elif phase == "train_chunks":
+                phase_train_chunks(torch, np, summary, ckpt_dir=ckpt_dir)
+            elif phase == "train_kfac":
+                phase_train_kfac(torch, np, summary,
+                                 cut_cfg_path=cut["cfg_path"])
+            elif phase == "train_roberta":
+                phase_train_roberta(torch, np, summary)
             elif phase in PACKED_RUNS:
-                phase_train_packed(torch, np, summary, run=phase)
+                phase_train_packed(torch, np, summary, run=phase, **cut)
             elif phase == "stream":
                 phase_stream(torch, np, summary,
                              cut_cfg_path=cut["cfg_path"])
@@ -8633,7 +9533,8 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
             elif phase == "finetune_packed":
                 phase_finetune_packed(torch, np, summary, **cut)
             elif phase == "distill":
-                phase_distill(torch, np, summary, **cut)
+                phase_distill(torch, np, summary, cfg_path=cut_config(
+                    ckpt_dir, DISTILL_TEACHER_LAYERS))
             elif phase == "init_sources":
                 phase_init_sources(torch, np, summary, **cut)
             elif phase == "survival":

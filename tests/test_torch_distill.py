@@ -636,6 +636,37 @@ def test_stepwatch_records_equal_jax(peak):
                 assert g[k] == w[k], k
 
 
+def test_memory_fields_are_absent_off_the_card(tmp_path):
+    """telemetry/memory.device_memory_snapshot is {} on the CPU, as JAX's
+    hbm_snapshot is on a backend without memory stats, so a CPU
+    pretraining run's perf records carry no hbm_* key (on a card every
+    one carries hbm_peak_bytes, hbm_bytes_in_use and hbm_bytes_limit)."""
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.telemetry.memory import \
+        device_memory_snapshot
+    from tests.test_data import write_shard
+
+    assert device_memory_snapshot("cpu") == {}
+    assert device_memory_snapshot(torch.device("cpu")) == {}
+    (tmp_path / "data").mkdir()
+    write_shard(str(tmp_path / "data" / "part_0.hdf5"), 16, seq=32)
+    (tmp_path / "tiny.json").write_text(json.dumps(dict(
+        vocab_size=128, hidden_size=32, num_hidden_layers=1,
+        num_attention_heads=2, intermediate_size=64,
+        max_position_embeddings=64, next_sentence=True)))
+    run_pretraining.main([
+        "--model_config_file", str(tmp_path / "tiny.json"),
+        "--input_dir", str(tmp_path / "data"), "--output_dir",
+        str(tmp_path / "out"), "--local_batch_size", "4",
+        "--global_batch_size", "4", "--steps", "2", "--log_freq", "1",
+        "--device", "cpu", "--tensorboard", "off", "--skip_checkpoint",
+        "--vocab_pad_multiple", "8"], log=lambda m: None)
+    with open(tmp_path / "out" / "logfile.jsonl") as f:
+        perf = [r for r in map(json.loads, f) if r.get("tag") == "perf"]
+    assert len(perf) == 2 and "step_time_ms" in perf[0]
+    assert not any(k.startswith("hbm_") for r in perf for k in r)
+
+
 def test_lookup_peak_flops_on_the_h100_names():
     f = tsw.lookup_peak_flops
     assert f("NVIDIA H100 80GB HBM3") == 989e12

@@ -9,7 +9,12 @@ each pinned on the CPU at a tiny width (2 layers, E=128):
 - a run config that switches on a feature of the JAX entry point the port
   lacks is refused rather than ignored, while keys that only tune a
   feature that is off (and the checked-in run configs) are accepted; every
-  flag of the JAX entry point is accounted for in the port's table.
+  flag of the JAX entry point is accounted for in the port's table, and
+  the flags ported since (--steps_per_loop, --profile_steps, --kfac and its
+  tuners) left it, --kfac_bucket_mb staying a tuner of the refused
+  --coalesce_reductions;
+- the serving frontend's listen backlog: a burst of connections while the
+  accept loop stalls gets a status each (ROADMAP queue C item 9).
 """
 
 import argparse
@@ -128,9 +133,9 @@ def _run_config(tmp_path, **over):
 
 @pytest.mark.parametrize("key,value", [
     ("stacked_params", "true"), ("zero1", "true"),
-    ("steps_per_loop", 4), ("profile_steps", "2,4"), ("mesh", "data=2"),
+    ("zero1_overlap", True), ("overlap_flags", "on"), ("mesh", "data=2"),
     ("fsdp_overlap", True), ("zero1_rs", True), ("rng_impl", "rbg"),
-    ("kfac", True), ("coalesce_reductions", "on"),
+    ("mesh_config", "production"), ("coalesce_reductions", "on"),
     ("optimizer", "bert_adam")])
 def test_run_config_enabling_a_missing_feature_is_refused(tmp_path, key,
                                                           value):
@@ -208,10 +213,15 @@ def test_refused_table_accounts_for_every_jax_flag():
     assert set(tuning.values()) <= set(refused)
     for dest, off in refused.items():
         assert port_flags[dest].default in off, dest
-    # the flags this slice ported left the tables, at JAX's defaults
+    # the flags the slices ported left the tables, at JAX's defaults
     for dest in ("stream_dir", "stream_vocab", "stream_tokenizer",
                  "stream_seq_len", "stream_workers", "stream_queue_batches",
-                 "stream_inject", "h2d_prefetch", "tensorboard"):
+                 "stream_inject", "h2d_prefetch", "tensorboard",
+                 "steps_per_loop", "profile_steps", "kfac",
+                 "kfac_inv_interval", "kfac_factor_interval",
+                 "kfac_stat_decay", "kfac_damping", "kfac_kl_clip",
+                 "kfac_stats_dtype", "kfac_skip_layers",
+                 "kfac_factor_sync_freq"):
         assert dest not in refused and dest not in tuning, dest
         assert port_flags[dest].default == jax_flags[dest].default, dest
     # a refused flag's feature is off at values the JAX flag takes
@@ -238,8 +248,9 @@ def test_jax_command_lines_at_off_values_parse(argv):
 
 
 @pytest.mark.parametrize("argv,key", [
-    (["--steps_per_loop", "4"], "steps_per_loop"),
-    (["--kfac"], "kfac"), (["--zero1_rs"], "zero1_rs"),
+    (["--mesh", "data=2"], "mesh"),
+    (["--coalesce_reductions", "on"], "coalesce_reductions"),
+    (["--zero1_rs"], "zero1_rs"),
     (["--overlap_flags", "on"], "overlap_flags"),
     (["--force_cpu"], "force_cpu")])
 def test_jax_command_lines_at_on_values_are_refused(argv, key):
@@ -249,3 +260,81 @@ def test_jax_command_lines_at_on_values_are_refused(argv, key):
         run_pretraining._unsupported(args)
     if key == "force_cpu":
         assert "--device cpu" in str(e.value)
+
+
+@pytest.mark.parametrize("outcome", ["ok", "shed"])
+def test_a_burst_of_connections_each_gets_a_status(outcome):
+    """The serving frontend's listen backlog (ROADMAP queue C item 9):
+    with its accept loop stalled, as a busy host stalls it, a burst of 64
+    connections is completed by the kernel instead of dropped (a dropped
+    SYN leaves the client waiting out TCP's 1 s retransmission, or
+    reset: no status at all); once the loop runs again every request is
+    answered, 200 or, from a full admission queue, 503 with
+    Retry-After."""
+    import socket
+    import threading
+
+    from bert_pytorch_tpu_torch.serving.batcher import Overloaded
+    from bert_pytorch_tpu_torch.serving.frontend import ServingFrontend
+    from bert_pytorch_tpu_torch.telemetry.registry import MetricsRegistry
+
+    def service(body):
+        if outcome == "shed":
+            raise Overloaded("request queue full (128)")
+        return {"echo": body["i"]}
+
+    fe = ServingFrontend({"echo": service}, MetricsRegistry(),
+                         host="127.0.0.1")
+    try:
+        fe._httpd.shutdown()        # the accept loop stalls
+        conns = []
+        for i in range(64):
+            c = socket.create_connection(("127.0.0.1", fe.port),
+                                         timeout=0.5)
+            body = json.dumps({"i": i}).encode()
+            c.sendall(b"POST /v1/echo HTTP/1.1\r\nHost: x\r\n"
+                      b"Content-Type: application/json\r\n"
+                      b"Connection: close\r\nContent-Length: "
+                      + str(len(body)).encode() + b"\r\n\r\n" + body)
+            conns.append(c)
+        threading.Thread(target=fe._httpd.serve_forever,
+                         daemon=True).start()
+        statuses = []
+        for c in conns:
+            c.settimeout(30)
+            reply = b""
+            while b"\r\n\r\n" not in reply:
+                chunk = c.recv(4096)
+                if not chunk:
+                    break
+                reply += chunk
+            statuses.append(reply.split(b" ", 2)[1].decode())
+            if outcome == "shed":
+                assert b"Retry-After: 1" in reply
+            c.close()
+    finally:
+        fe.close()
+    want = {"ok": "200", "shed": "503"}[outcome]
+    assert statuses == [want] * 64
+
+
+@pytest.mark.parametrize("argv", [
+    ["--kfac_bucket_mb", "8"], ["--kfac", "--kfac_bucket_mb", "16"],
+    ["--kfac", "--steps_per_loop", "4", "--profile_steps", "2,3"]])
+def test_kfac_bucket_mb_is_still_accepted(argv):
+    """--kfac_bucket_mb sizes the coalesced factor reductions of several
+    cards: a tuner of --coalesce_reductions, which stays refused (ROADMAP
+    queue A item 7), accepted at any value with K-FAC on or off; --kfac,
+    --steps_per_loop and --profile_steps run."""
+    assert run_pretraining._TUNING == {"kfac_bucket_mb":
+                                       "coalesce_reductions"}
+    assert "coalesce_reductions" in run_pretraining._REFUSED
+    args = run_pretraining.parse_arguments(argv)
+    run_pretraining._unsupported(args)
+
+
+@pytest.mark.parametrize("spec", ["3", "4,2", "a,b", "-1,2"])
+def test_profile_steps_wants_a_step_range(spec):
+    with pytest.raises(SystemExit):
+        run_pretraining.parse_arguments(["--profile_steps", spec])
+

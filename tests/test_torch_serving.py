@@ -322,6 +322,70 @@ def test_scheduler_packs_sheds_and_expires():
         sch.close()
 
 
+def test_scheduler_packs_the_next_batch_while_the_engine_runs():
+    """The packing thread packs the next batch, batching window and all,
+    while the engine runs this one, so the engine starts it as soon as
+    it is free; every thread's busy seconds are in stats()."""
+    from bert_pytorch_tpu_torch.serving.batcher import Scheduler
+
+    class Timed(_TwoBucketEngine):
+        def __init__(self):
+            super().__init__(stall_s=0.4)
+            self.spans = []
+
+        def forward(self, task, batch):
+            t0 = time.perf_counter()
+            out = super().forward(task, batch)
+            self.spans.append((t0, time.perf_counter()))
+            return out
+
+    engine = Timed()
+    sch = Scheduler(engine, batch_wait_ms=200).start()
+    try:
+        first = sch.submit("squad", np.arange(20) + 1)
+        while not engine.spans and sch.stats()["busy_s"]["pack"] == 0.0:
+            time.sleep(0.01)
+        time.sleep(0.05)
+        # arrives while the first batch is on the engine: its own batch,
+        # its window spent during the first batch's forward
+        second = sch.submit("squad", np.arange(5) + 1)
+        sch.result(first, timeout=30)
+        np.testing.assert_array_equal(sch.result(second, timeout=30)[0],
+                                      np.arange(5) + 1)
+        busy = sch.stats()["busy_s"]
+    finally:
+        sch.close()
+    (_, end0), (start1, _) = engine.spans
+    assert start1 - end0 < 0.1
+    assert set(busy) == {"pack", "forward", "complete"}
+    assert busy["forward"] >= 0.8 and busy["pack"] > 0.0
+
+
+def test_round_list_equals_round_per_float():
+    """The embed response's rounding in numpy gives round()'s floats, sign
+    of zero, ties and non-finite values included."""
+    import math
+
+    from bert_pytorch_tpu_torch.serving.frontend import round_list
+
+    rng = np.random.RandomState(0)
+    cases = [rng.randn(20000).astype(np.float32) * np.float32(0.05),
+             rng.randn(20000).astype(np.float32),
+             (rng.randint(-10 ** 7, 10 ** 7, 20000) / 1e6 + 5e-7),
+             (rng.randint(-10 ** 7, 10 ** 7, 20000) / 1e6
+              + 5e-7).astype(np.float32),
+             np.array([0.0, -0.0, -1e-9, 5e-7, -5e-7, 1.5e-6, 2.5e-6,
+                       np.inf, -np.inf, np.nan, 1e300, 123456789.1234565])]
+    for values in cases:
+        want = [round(float(x), 6) for x in values]
+        got = round_list(values, 6)
+        assert len(got) == len(want)
+        for w, g in zip(want, got):
+            assert type(g) is float
+            assert (w != w and g != g) or (
+                w == g and math.copysign(1.0, w) == math.copysign(1.0, g))
+
+
 # -- the entry point and the package's imports --------------------------------
 
 

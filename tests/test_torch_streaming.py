@@ -511,8 +511,10 @@ def test_stream_bundle_validates_and_replays(stream_run):
 def test_chip_smoke_stream_phase_rehearses_on_cpu(tmp_path):
     """chip_smoke.py's stream phase at a tiny width on the CPU (plain
     versions; the launch counts and the trace are checked on the card
-    only): both depths, the host loader, the drills, the resume in a
-    process of its own, BPE and the TensorBoard sink."""
+    only): both depths, the host loader, the drills, BPE and the
+    TensorBoard sink. (The phase's resume leg went to the chip budget: a
+    streamed run's resume is held bit-equal here, by
+    test_stream_run_resumes_bit_equal.)"""
     import torch
 
     import chip_smoke
@@ -529,7 +531,7 @@ def test_chip_smoke_stream_phase_rehearses_on_cpu(tmp_path):
     assert res["offline"]["order"] == ["on", "off", "off", "on"]
     assert [len(r["losses"]) for m in ("on", "off")
             for r in res["offline"]["runs"][m]] == [4] * 4
-    assert res["resume"]["resumed_step3"] == [res["packed"]["losses"][2]]
+    assert "resume" not in res
     assert res["packed"]["records_dropped"][0][1] >= 1
     assert res["tensorboard"]["package"] is True
     assert summary["launches"]["stream"] == res["h2d_prefetch_1"][
