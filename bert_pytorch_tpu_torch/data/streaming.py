@@ -202,8 +202,14 @@ def tokenize_record(
     constant 'is next' and contributes nothing, same as next_seq_prob=0
     offline shards). Masking via data/masking.dynamic_mask_batch with the
     cursor-derived rng."""
-    enc = tokenizer.encode(text, add_special_tokens=False)
-    ids = list(enc.ids)
+    # ids alone where the tokenizer has the path (data/tokenization's
+    # classes): the native encoders' call holds no interpreter lock and
+    # builds no Encoding, so the pool's threads leave the lock to the
+    # training loop's dispatch; any other tokenizer through encode()
+    encode_ids = getattr(tokenizer, "encode_ids", None)
+    ids = (encode_ids(text, add_special_tokens=False)
+           if encode_ids is not None else
+           list(tokenizer.encode(text, add_special_tokens=False).ids))
     out: List[Dict[str, np.ndarray]] = []
     body = max(1, seq_len - 2)
     for j in range(0, len(ids), body):

@@ -8,8 +8,10 @@ over '##' continuations), with an end-to-end `BertWordPieceTokenizer` that
 frames [CLS]/[SEP] and keeps character offsets; and RoBERTa's byte-level
 BPE (`ByteLevelBPETokenizer`: GPT-2's byte-to-unicode table, its
 pre-tokenizer scanned by hand because `re` lacks \\p{L}, ranked merges).
-`TOKENIZERS` maps "wordpiece" and "bpe" to their factories. The JAX
-package's native C++ encoders give the same ids and are not ported yet.
+`TOKENIZERS` maps "wordpiece" and "bpe" to their factories, which return
+the C++ encoders of bert_pytorch_tpu_torch.native (the same ids, built at
+first use; a failed build raises). The classes here are their behavioural
+spec: construct one directly for the pure-Python encoder.
 """
 
 from __future__ import annotations
@@ -226,6 +228,11 @@ class BertWordPieceTokenizer:
                 add(self.sep_token, sep_id, (0, 0), seq_idx)
         return enc
 
+    def encode_ids(self, text: str, add_special_tokens: bool = True
+                   ) -> List[int]:
+        """`encode(text).ids` (the native encoder builds no Encoding)."""
+        return self.encode(text, add_special_tokens=add_special_tokens).ids
+
     def _words_with_offsets(self, text: str) -> List[Tuple[str, Tuple[int, int]]]:
         """basic-tokenize while tracking each word's (start, end) char span in
         the original text. Offsets point at the pre-normalization word, which
@@ -260,8 +267,10 @@ class BertWordPieceTokenizer:
 
 def get_wordpiece_tokenizer(vocab, uppercase: bool = False
                             ) -> BertWordPieceTokenizer:
-    """WordPiece tokenizer from a vocab file or dict."""
-    return BertWordPieceTokenizer(vocab, lowercase=not uppercase)
+    """The native WordPiece tokenizer from a vocab file or dict."""
+    from bert_pytorch_tpu_torch.native import NativeWordPieceTokenizer
+
+    return NativeWordPieceTokenizer(vocab, lowercase=not uppercase)
 
 
 # ---------------------------------------------------------------------------
@@ -412,6 +421,11 @@ class ByteLevelBPETokenizer:
                 enc.type_ids.append(0)
         return enc
 
+    def encode_ids(self, text: str, add_special_tokens: bool = True
+                   ) -> List[int]:
+        """`encode(text).ids` (the native encoder builds no Encoding)."""
+        return self.encode(text).ids
+
     def decode(self, ids: Sequence[int]) -> str:
         text = "".join(self.ids_to_tokens.get(i, "") for i in ids)
         raw = bytearray(self.byte_decoder.get(ch, 32) for ch in text)
@@ -420,11 +434,14 @@ class ByteLevelBPETokenizer:
 
 def get_bpe_tokenizer(vocab, merges=None, uppercase: bool = False
                       ) -> ByteLevelBPETokenizer:
-    """Byte-level BPE tokenizer; `vocab` may be a .json path, and then
-    `merges` defaults to the merges.txt beside it."""
+    """The native byte-level BPE tokenizer; `vocab` may be a .json path,
+    and then `merges` defaults to the merges.txt beside it."""
+    from bert_pytorch_tpu_torch.native import NativeByteLevelBPETokenizer
+
     if merges is None and isinstance(vocab, str):
         merges = os.path.join(os.path.dirname(vocab), "merges.txt")
-    return ByteLevelBPETokenizer(vocab, merges, lowercase=not uppercase)
+    return NativeByteLevelBPETokenizer(vocab, merges,
+                                       lowercase=not uppercase)
 
 
 TOKENIZERS = {

@@ -139,8 +139,16 @@ def ner_encode_tokens(tokens: Sequence[str], tokenizer, max_pieces: int
     included) rejects an over-long request before it is queued."""
     pieces: List[str] = []
     piece_word: List[int] = []
-    for wi, word in enumerate(tokens):
-        for sub in tokenizer.encode(word, add_special_tokens=False).tokens:
+    # the native encoder takes the request's words in one call (a call a
+    # word costs it what the Python encoder's whole work on a short word
+    # does); each word is still encoded on its own
+    batch = getattr(tokenizer, "encode_batch", None)
+    encodings = (batch(list(tokens), add_special_tokens=False, nthreads=1)
+                 if batch is not None and tokens else
+                 [tokenizer.encode(w, add_special_tokens=False)
+                  for w in tokens])
+    for wi, enc in enumerate(encodings):
+        for sub in enc.tokens:
             pieces.append(sub)
             piece_word.append(wi)
     if len(pieces) > max_pieces - 2:

@@ -14,7 +14,9 @@ Phases, each of which must pass:
             compiles those three sources and layernorm.cu alone for
             ptxas's report: a wgmma serialization note (C75xx) fails, and
             so does a spill of the LayerNorm backward's row kernel or of
-            the pair's kernels, whose registers it lists;
+            the pair's kernels, whose registers it lists; and g++
+            compiles the three native tokenizer libraries (WordPiece,
+            byte-level BPE, the vocab trainer), each timed;
 3. kernels  each kernel's wrapper against its plain PyTorch version on the
             card, in f32 and bf16, at the shapes the serving and training
             paths give it (LayerNorm at (8 * bucket, 1024) for every
@@ -144,14 +146,29 @@ Phases, each of which must pass:
             dropout arm and the fused backward: also one packed
             microbatch's flash launches and the tiles their segment test
             skipped, as the layout predicts;
-15. stream  the streaming data plane (--stream_dir) through the entry
+15. pipeline  the offline corpus pipeline and the native encoders:
+            the three C++ libraries' build seconds (the build phase's, or
+            built here when it did not run); stream_corpus's documents as wikiextractor files through
+            format, shard, a WordPiece and a BPE vocabulary trained by the
+            native and by the Python merge engine (equal), create_samples
+            with the native and with the Python WordPiece (equal samples,
+            sentences/s), WordPiece and BPE tokens/s (native at 1 thread
+            and at min(cpu_count, 16), Python at 1: host rates); the
+            samples' arrays through an in-memory ShardIndex into 2 phase-1
+            steps of the trainer at CUT_LAYERS: exact launch counts,
+            finite losses;
+16. stream  the streaming data plane (--stream_dir) through the entry
             point's trainer at phase 1's 2 x 96 x 128 over a synthetic
-            corpus tokenized on the fly: 3 steps at 24 layers with
+            corpus tokenized on the fly by the native WordPiece: 3 steps at
+            24 layers with
             --h2d_prefetch 1 (exact launch counts; the batches the steps
             read bit-equal to the loader's alone on the host; data_wait's
             share, the pool's tokens/s, the queue depth, the idle share
             from a trace) and at 0 (losses and grad norms bit-equal; the
-            trace shows depth 1's copies on a stream of their own); the
+            trace shows depth 1's copies on a stream of their own), and at
+            1 on the pure-Python WordPiece (losses bit-equal to the native
+            leg's; the three planes' step time, dispatch, idle share, the
+            pool's tokens/s and data_wait's share side by side); the
             offline plane's 4 steps at the defaults (--h2d_prefetch 1,
             --tensorboard on) against the parent's (0, off), in
             alternated pairs: losses bit-equal, the host phases, the step
@@ -159,7 +176,7 @@ Phases, each of which must pass:
             worker_crash bit-equal to the clean run, corrupt_record's drops
             counted, --stream_tokenizer bpe over a vocabulary learned from the
             corpus, and the TensorBoard sink's scalars;
-16. remat   --checkpoint_activations at phase 2's packed 16 x 512, 24
+17. remat   --checkpoint_activations at phase 2's packed 16 x 512, 24
             layers: 2 trainer steps under the model config's policy
             ("nothing"), exact launch counts (each layer's residual tails
             and flash forward twice); per policy (nothing, dots,
@@ -167,7 +184,7 @@ Phases, each of which must pass:
             tensors a layer and 14 more) bit-equal to remat off, and one
             optimizer step's launches, peak memory and host and device
             time against remat off;
-17. finetune_squad  SQuAD v1.1 finetuning by the entry point's run_task
+18. finetune_squad  SQuAD v1.1 finetuning by the entry point's run_task
             (bert_pytorch_tpu_torch.run_squad's body): BERT-Large seeded
             from phase 2's last checkpoint, 3 steps of 32 x 384 (flash
             forward with dropout and the fused backward in every layer),
@@ -178,11 +195,11 @@ Phases, each of which must pass:
             run_server serving the finetuned checkpoint; one step profiled
             and timed, the optimizer update timed; one microbatch through
             the kernels against the plain versions;
-18. finetune_ner  CoNLL NER finetuning, 3 steps of 32 x 128 (plain
+19. finetune_ner  CoNLL NER finetuning, 3 steps of 32 x 128 (plain
             attention, the LayerNorm kernels) on a synthetic CoNLL-2003
             file, val and test macro F1, the checkpoint, exact launch
             counts, one step profiled and timed;
-19. finetune_tasks  classify, choice and embed finetuning, one after the
+20. finetune_tasks  classify, choice and embed finetuning, one after the
             other: BERT-Large from phase 2's last checkpoint, 3 steps of
             16 x 128 (choice 16 x 4 x 128) at the JAX base parser's recipe
             on synthetic TSV / JSONL files, val and test accuracy, embed's
@@ -190,7 +207,7 @@ Phases, each of which must pass:
             by the server and deleted, one step profiled and timed, and a
             classify and a choice microbatch through the kernels against
             the plain versions;
-20. serve_slo  the SLO plane, the canary prober and the fault injector on
+21. serve_slo  the SLO plane, the canary prober and the fault injector on
             the five-task server (seeded random BERT-Large checkpoints,
             buckets 128 and 512, bf16), with scripts/check_slo.sh's
             miniature windows: a clean leg of 12 s at 20 requests/s fires
@@ -204,7 +221,7 @@ Phases, each of which must pass:
             (configs/slo.json) and the prober on, and again with both
             off: p50 / p99, evaluate()'s host time a tick, the
             latency_p99 burn;
-21. finetune_packed  packed finetuning of the five tasks at BERT-Large
+22. finetune_packed  packed finetuning of the five tasks at BERT-Large
             width, CUT_LAYERS (bf16, seeded random init, synthetic
             lengths): a packed
             batch against the same examples one to a row through the
@@ -216,7 +233,7 @@ Phases, each of which must pass:
             run_squad, packed and not, on the same files (examples/s, a
             step's device time, packing_efficiency, real and slot tokens,
             peak memory, exact launch counts);
-22. distill  a BERT-Large-width classify teacher of 8 layers (3 steps
+23. distill  a BERT-Large-width classify teacher of 8 layers (3 steps
             through run_finetune, --perf_artifact: its FINETUNE json's mfu
             on the card's peak) and a SQuAD teacher (one step) distilled into
             student_6l_768 (6 layers, width 768, 12 heads) by
@@ -231,7 +248,7 @@ Phases, each of which must pass:
             config and its checkpoint refused under the teacher's;
             --inject broken_student; a step's time split beside a plain
             finetune step of the student;
-23. init_sources  --init_checkpoint from other sources at BERT-Large
+24. init_sources  --init_checkpoint from other sources at BERT-Large
             width, CUT_LAYERS: random weights from a seed written as the
             reference's ckpt_1.pt (its src/modeling.py names, `module.`
             prefixes, 30522 vocab rows); a fresh QA model seeded from it holds
@@ -245,7 +262,7 @@ Phases, each of which must pass:
             copy, the loss's readback) as a device hang; a TF release
             and a JAX orbax directory raise the ImportError naming
             tensorflow / tensorstore, which the chip machine lacks;
-24. survival  pretraining's survival and metrics planes, BERT-Large
+25. survival  pretraining's survival and metrics planes, BERT-Large
             width at CUT_LAYERS, phase 1 (96 x 128, accumulation 2,
             health pack on) through the entry
             point's trainer over in-memory shards: a clean 4-step run
@@ -285,7 +302,7 @@ from the main paths' (`launches_in_checks`). It holds the fused LAMB stages
 parameter tensors and a list of odd sizes and misaligned views, and the
 timing phase times them over the 302 tensors.
 
-Phases 13, 14, 21, 23 and 24, the stream phase's drills and
+Phases 13, 14, 15, 22, 24 and 25, the stream phase's drills and
 train_kfac's replay and card-vs-CPU step run at CUT_LAYERS (6) layers,
 distill's teacher at 8 (deeper than its 6-layer student): their checks
 hold at any depth, and their checkpoints (4 GB each at 24 layers)
@@ -8601,7 +8618,8 @@ def phase_stream(torch, np, summary, device="cuda",
     """Pretraining's streaming data plane (--stream_dir) through the entry
     point's trainer, phase 1 (`micro` x 128, accumulation 2), over a
     synthetic corpus of `docs` documents (`stream_corpus`) with
-    serve_vocab's WordPiece vocabulary:
+    serve_vocab's WordPiece vocabulary, tokenized by the native encoder
+    (the factory's) unless said otherwise:
 
     1. the main path at `cfg_path` (BERT-Large, 24 layers), STREAM_STEPS
        steps at --h2d_prefetch 1, packing off: exact launch counts
@@ -8612,11 +8630,17 @@ def phase_stream(torch, np, summary, device="cuda",
     2. the same steps at --h2d_prefetch 0: losses and grad norms
        bit-equal; a torch.profiler trace of the card shows depth 1's
        host-to-device copies on a stream of their own; h2d ms, the host
-       clock of a step and the idle share, both ways; then the offline
-       plane (in-memory shards) for OFFLINE_STEPS steps at the defaults
-       (--h2d_prefetch 1, --tensorboard on) and at the parent's behaviour
-       (0, off), in the order on, off, off, on: losses bit-equal, the
-       host phases, the step time and the idle share of each;
+       clock of a step and the idle share, both ways; the same steps at
+       depth 1 on the pure-Python WordPiece (swapped in for the factory
+       in this process: the pool's threads tokenize): losses, grad norms
+       and batches equal to the native leg's, exact launch counts; then
+       the offline plane (in-memory shards) for OFFLINE_STEPS steps at the
+       defaults (--h2d_prefetch 1, --tensorboard on) and at the parent's
+       behaviour (0, off), in the order on, off, off, on: losses
+       bit-equal, the host phases, the step time and the idle share of
+       each; the native, pure-Python and offline planes side by side (a
+       warm step's host clock, its dispatch, the idle share, the pool's
+       tokens/s, data_wait's share);
     3. at `cut_cfg_path` (CUT_LAYERS) and a microbatch of at most
        STREAM_DRILL_MICRO (as leg 4), packed: --stream_inject
        worker_crash bit-equal to the uninjected run (losses and batches);
@@ -8636,10 +8660,20 @@ def phase_stream(torch, np, summary, device="cuda",
 
     from bert_pytorch_tpu_torch import run_pretraining
     from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.data import tokenization
     from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
     on_card = torch.device(device).type == "cuda"
     cut_cfg_path = cut_cfg_path or cfg_path
+    python_made = []
+
+    def python_wordpiece(vocab_file, uppercase=False):
+        # the pure-Python encoder in the factory's place
+        tok = tokenization.BertWordPieceTokenizer(vocab_file,
+                                                  lowercase=not uppercase)
+        python_made.append(type(tok).__name__)
+        return tok
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_")
     marks, mark = _marks()
     res = {"seconds": marks}
@@ -8652,20 +8686,27 @@ def phase_stream(torch, np, summary, device="cuda",
         vocab_size = pad_vocab_size(config.vocab_size, 8)
         mark("corpus")
 
-        # 1-2. the main path at depth 1, then depth 0
+        # 1-2. the main path at depth 1, then depth 0, then depth 1 on
+        # the pure-Python encoder
         runs = {}
-        for depth in (1, 0):
-            out = os.path.join(tmp, f"d{depth}")
+        native_factory = tokenization.TOKENIZERS["wordpiece"]
+        for key, depth in ((1, 1), (0, 0), ("python", 1)):
+            out = os.path.join(tmp, f"d{key}")
             args = _stream_args(run_pretraining, cfg_path, corpus, vocab,
                                 out, device, micro, STREAM_STEPS,
                                 "--skip_checkpoint", "--h2d_prefetch",
                                 str(depth))
-            trace = os.path.join(tmp, f"trace{depth}.json") if on_card \
+            trace = os.path.join(tmp, f"trace{key}.json") if on_card \
                 else None
+            if key == "python":
+                tokenization.TOKENIZERS["wordpiece"] = python_wordpiece
             reset_launches()
             t0 = time.perf_counter()
-            result, batches, perf = _stream_train(
-                torch, run_pretraining, args, trace)
+            try:
+                result, batches, perf = _stream_train(
+                    torch, run_pretraining, args, trace)
+            finally:
+                tokenization.TOKENIZERS["wordpiece"] = native_factory
             tel = result.metrics
             wall = time.perf_counter() - t0
             launches = dict(LAUNCHES)
@@ -8693,13 +8734,15 @@ def phase_stream(torch, np, summary, device="cuda",
             if trace is not None:
                 row["trace"] = _trace_streams(trace)
                 os.remove(trace)
-            runs[depth] = (row, batches)
-            res[f"h2d_prefetch_{depth}"] = row
+            runs[key] = (row, batches)
+            res["python_encoder" if key == "python"
+                else f"h2d_prefetch_{depth}"] = row
             check(len(h) == STREAM_STEPS
                   and all(np.isfinite(row["losses"])),
-                  f"stream depth {depth}: {len(h)} steps, losses "
+                  f"stream leg {key}: {len(h)} steps, losses "
                   f"{row['losses']}")
-            log(f"stream: --h2d_prefetch {depth}, {layers} layers, "
+            log(f"stream: {'pure-Python' if key == 'python' else 'native'}"
+                f" WordPiece, --h2d_prefetch {depth}, {layers} layers, "
                 f"{STREAM_STEPS} steps of 2 x {micro} x 128: losses "
                 f"{row['losses']}, step ms {row['step_time_ms']}, data_wait "
                 f"ms {row['data_wait_ms']} (share {row['data_wait_share']:.3f}"
@@ -8707,10 +8750,18 @@ def phase_stream(torch, np, summary, device="cuda",
                 f"{row.get('trace')}, pool {row['worker_tokens_per_sec']}, "
                 f"queue {row['queue_depth']}")
             del result
-            mark(f"depth{depth}")
+            mark(f"leg_{key}")
         want = _pretrain_step_launches(layers, STREAM_STEPS, False, False)
         row1, batches1 = runs[1]
         row0, batches0 = runs[0]
+        rowp, batchesp = runs["python"]
+        check(python_made and row1["losses"] == rowp["losses"]
+              and row1["grad_norms"] == rowp["grad_norms"]
+              and _same_batches(np, batches1, batchesp),
+              f"stream: the pure-Python encoder's leg ({python_made}) "
+              f"losses {rowp['losses']} grad norms {rowp['grad_norms']} "
+              f"against the native leg's {row1['losses']} "
+              f"{row1['grad_norms']}")
         summary.setdefault("launches", {})["stream"] = row1["launches"]
         res["launches_predicted"] = want
         if on_card:
@@ -8718,6 +8769,9 @@ def phase_stream(torch, np, summary, device="cuda",
                   f"{row1['launches']}, want {want}")
             check(row0["launches"] == want, f"stream depth 0: launch "
                   f"counts {row0['launches']}, want {want}")
+            check(rowp["launches"] == want, f"stream, pure-Python "
+                  f"encoder: launch counts {rowp['launches']}, want "
+                  f"{want}")
             # the batches' bytes (the steps' and the one staged past the
             # last) crossed on a stream that runs no kernel at depth 1
             t1 = row1["trace"]
@@ -8807,6 +8861,35 @@ def phase_stream(torch, np, summary, device="cuda",
         log(f"stream: the offline plane, {OFFLINE_STEPS} steps a run, "
             f"defaults (h2d 1, tensorboard on) against the parent's (h2d "
             f"0, tensorboard off), alternated: {res['offline']['warm']}")
+
+        def _mean(vals):
+            vals = [v for v in vals if v is not None]
+            return sum(vals) / len(vals) if vals else None
+
+        def plane(row):
+            return {"warm_step_ms": _mean(row["step_time_ms"][1:]),
+                    "dispatch_ms": _mean(row["dispatch_ms"][1:]),
+                    "idle_share": row.get("trace", {}).get("idle_share"),
+                    "tokens_per_s": [v for _, v in
+                                     row["worker_tokens_per_sec"]],
+                    "data_wait_share": row["data_wait_share"]}
+
+        on = offline["on"]
+        warm_on = [v for r in on for v in r["step_time_ms"][1:]]
+        res["planes"] = {
+            "native": plane(row1), "python": plane(rowp),
+            "offline": {
+                "warm_step_ms": _mean(warm_on),
+                "dispatch_ms": _mean([v for r in on
+                                      for v in r["dispatch_ms"][1:]]),
+                "idle_share": [r.get("trace", {}).get("idle_share")
+                               for r in on],
+                "tokens_per_s": None,
+                "data_wait_share": sum(
+                    v or 0.0 for r in on for v in r["data_wait_ms"][1:])
+                / sum(warm_on)}}
+        log(f"stream: planes side by side (warm steps, depth 1, the "
+            f"defaults): {json.dumps(res['planes'])}")
         mark("offline")
         host, rate, _ = _host_stream(
             _stream_args(run_pretraining, cfg_path, corpus, vocab, tmp,
@@ -8913,6 +8996,257 @@ def phase_stream(torch, np, summary, device="cuda",
         log(f"stream: BPE ({len(bpe_vocab)} tokens): losses {losses}; "
             f"tensorboard {tb}; seconds by part {marks}")
         mark("bpe_tensorboard")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- the offline corpus pipeline and the native encoders ---------------------
+
+PIPELINE_STEPS = 2
+PIPELINE_SEQ = 128
+PIPELINE_SHARD_BYTES = 300_000  # ~4 shards of the 1500-document corpus
+PIPELINE_VOCAB = 30522          # BERT's; the trainers stop where merges do
+PIPELINE_RATE_TEXTS = 6000      # the sentences the tokens/s are read over
+
+
+def wiki_corpus(np, directory: str, n_docs: int, seed: int = 0) -> list:
+    """`stream_corpus`'s documents as wikiextractor output (a <doc> block
+    each, a title line, then its lines with their sentences capitalized
+    and the period closed up, so the formatter's sentence split finds
+    them): one file per stream_corpus file; returns their paths."""
+    src = stream_corpus(np, os.path.join(directory, "stream"), n_docs, seed)
+    paths = []
+    for name in sorted(os.listdir(src)):
+        with open(os.path.join(src, name)) as f:
+            docs = [d for d in f.read().split("\n\n") if d.strip()]
+        path = os.path.join(directory, f"wiki_{name}")
+        with open(path, "w") as f:
+            for i, doc in enumerate(docs):
+                lines = [ln.replace(" .", ".").capitalize()
+                         for ln in doc.splitlines() if ln.strip()]
+                f.write(f'<doc id="{i}" title="Doc {i}">\nDoc {i}\n'
+                        + "\n".join(lines) + "\n</doc>\n")
+        paths.append(path)
+    return paths
+
+
+def native_build_start() -> dict:
+    """The three native tokenizer libraries compiled anew from this
+    checkout's sources, each on a thread of its own (the build phase runs
+    them beside nvcc); `native_build_wait` gives each one's seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bert_pytorch_tpu_torch.native import build as native_build
+
+    def one(target):
+        t0 = time.perf_counter()
+        native_build.build(target, force=True)
+        return round(time.perf_counter() - t0, 3)
+
+    pool = ThreadPoolExecutor(len(native_build.TARGETS))
+    futures = {t: pool.submit(one, t) for t in native_build.TARGETS}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def native_build_wait(futures: dict) -> dict:
+    return {t: f.result() for t, f in futures.items()}
+
+
+def _rate(fn, reps: int = 1) -> tuple:
+    """(fn()'s result, the least seconds of `reps` calls)."""
+    best = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        secs = time.perf_counter() - t0
+        best = secs if best is None else min(best, secs)
+    return out, best
+
+
+def phase_pipeline(torch, np, summary, device="cuda", cut_cfg_path=None,
+                   micro=STREAM_MICRO, docs=STREAM_DOCS):
+    """The offline corpus pipeline (bert_pytorch_tpu_torch.pipeline) and
+    the native encoders (bert_pytorch_tpu_torch.native) on this machine's
+    host, then the card:
+
+    1. the three C++ libraries' seconds, built from this checkout's
+       sources beside nvcc by the build phase (here, at once, where that
+       phase did not run);
+    2. `stream_corpus`'s `docs` documents as wikiextractor files,
+       format -> shard -> count -> a WordPiece and a BPE vocabulary, each
+       trained by the native merge engine and by the Python one: the two
+       equal, the seconds of each;
+    3. create_samples over each shard (max_seq_len 128, next_seq_prob
+       0.5, short_seq_prob 0.1, seed + shard) with the native and with
+       the Python WordPiece: the samples equal, the sentences/s of each;
+    4. WordPiece and BPE tokens/s on the same sentences: native at 1
+       thread and at min(cpu_count, 16), pure Python at 1 (host rates);
+    5. the native samples' arrays (encode.sample_arrays) through an
+       in-memory ShardIndex into run_pretraining.train: PIPELINE_STEPS
+       phase-1 steps (`micro` x 128, accumulation 2) at `cut_cfg_path`
+       (CUT_LAYERS), exact launch counts, finite losses.
+
+    `device`, `micro` and `docs` exist so the phase can be rehearsed on
+    the CPU at a tiny size."""
+    import shutil
+
+    from bert_pytorch_tpu_torch import native, run_pretraining
+    from bert_pytorch_tpu_torch.config import BertConfig
+    from bert_pytorch_tpu_torch.data.tokenization import (
+        BertWordPieceTokenizer, ByteLevelBPETokenizer, get_bpe_tokenizer,
+        get_wordpiece_tokenizer)
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from bert_pytorch_tpu_torch.pipeline import encode, shard, vocab
+    from bert_pytorch_tpu_torch.pipeline import format as fmt
+
+    on_card = torch.device(device).type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    marks, mark = _marks()
+    res = {"seconds": marks}
+    summary["pipeline"] = res
+    try:
+        # 1. the libraries, compiled anew (by the build phase, if it ran)
+        where = "beside nvcc in the build phase"
+        if "native_build_s" not in summary:
+            where = "here, at once"
+            summary["native_build_s"] = native_build_wait(
+                native_build_start())
+        res["build_s"] = summary["native_build_s"]
+        mark("build")
+        log(f"pipeline: native libraries built from the sources {where} "
+            f"in {res['build_s']} s")
+
+        # 2. format -> shard -> vocab
+        raw = wiki_corpus(np, os.path.join(tmp, "raw"), docs)
+        formatted = os.path.join(tmp, "formatted.txt")
+        articles = fmt.format_wiki_files(raw, formatted)
+        n_shards = shard.shard(formatted, os.path.join(
+            tmp, "shards", "shard_{index}.txt"), PIPELINE_SHARD_BYTES)
+        shards = [os.path.join(tmp, "shards", f"shard_{i}.txt")
+                  for i in range(1, n_shards + 1)]
+        counts = vocab.count_words(shards)
+        mark("format_shard_count")
+        trained = {}
+        for engine in ("native", "python"):
+            wp, wp_s = _rate(lambda: vocab.train_wordpiece(
+                counts, PIPELINE_VOCAB, native=engine == "native"))
+            bpe, bpe_s = _rate(lambda: vocab.train_bpe(
+                counts, PIPELINE_VOCAB, native=engine == "native"))
+            trained[engine] = (wp, bpe)
+            res[f"vocab_{engine}_s"] = {"wordpiece": wp_s, "bpe": bpe_s}
+        check(trained["native"] == trained["python"],
+              "pipeline: the native and Python vocab trainers differ")
+        wp_vocab, (bpe_vocab, bpe_merges) = trained["native"]
+        vocab_txt = os.path.join(tmp, "vocab", "vocab.txt")
+        vocab.save_wordpiece_vocab(wp_vocab, vocab_txt)
+        vocab_json = os.path.join(tmp, "vocab", "bpe", "vocab.json")
+        vocab.save_bpe(bpe_vocab, bpe_merges, vocab_json)
+        res.update(articles=articles, shards=n_shards,
+                   words=len(counts), wordpiece_vocab=len(wp_vocab),
+                   bpe_vocab=len(bpe_vocab), bpe_merges=len(bpe_merges))
+        log(f"pipeline: {articles} articles in {n_shards} shards, "
+            f"{len(counts)} distinct words; WordPiece {len(wp_vocab)} "
+            f"tokens, BPE {len(bpe_vocab)} ({len(bpe_merges)} merges), "
+            f"equal by both engines; seconds native "
+            f"{res['vocab_native_s']}, Python {res['vocab_python_s']}")
+        mark("vocab")
+
+        # 3. create_samples, native against Python
+        nat = get_wordpiece_tokenizer(vocab_txt)
+        check(isinstance(nat, native.NativeWordPieceTokenizer),
+              f"pipeline: the factory gave {type(nat).__name__}")
+        py = BertWordPieceTokenizer(vocab_txt)
+        sentences = []
+        for path in shards:
+            with open(path) as f:
+                sentences += [ln.strip() for ln in f if ln.strip()]
+        samples = {}
+        for name, tok in (("native", nat), ("python", py)):
+            got, secs = _rate(lambda: [encode.create_samples(
+                path, tok, PIPELINE_SEQ, 0.5, 0.1, seed=i)
+                for i, path in enumerate(shards)])
+            samples[name] = got
+            res[f"samples_{name}"] = {
+                "samples": sum(map(len, got)), "seconds": secs,
+                "sentences_per_s": len(sentences) / secs}
+
+        def fields(s):
+            return (s.sequence, s.special_token_positions, s.is_random_next)
+
+        check([[fields(s) for s in sh] for sh in samples["native"]]
+              == [[fields(s) for s in sh] for sh in samples["python"]],
+              "pipeline: create_samples differs native against Python")
+        log(f"pipeline: create_samples over {len(sentences)} sentences, "
+            f"equal: native {res['samples_native']}, Python "
+            f"{res['samples_python']}")
+        mark("samples")
+
+        # 4. tokens/s on the same sentences (host rates)
+        texts = sentences[:PIPELINE_RATE_TEXTS]
+        threads = min(os.cpu_count() or 1, 16)
+        bpe_nat = get_bpe_tokenizer(vocab_json)
+        bpe_py = ByteLevelBPETokenizer(vocab_json, os.path.join(
+            os.path.dirname(vocab_json), "merges.txt"), lowercase=True)
+        rates = {}
+        for name, n_tok, p_tok in (("wordpiece", nat, py),
+                                   ("bpe", bpe_nat, bpe_py)):
+            row = {}
+            for label, t in (("native_1", 1), (f"native_{threads}",
+                                               threads)):
+                (lens, *_), secs = _rate(
+                    lambda: n_tok.encode_batch_arrays(
+                        texts, add_special_tokens=False, nthreads=t), 3)
+                row[label] = float(lens.sum()) / secs
+            ids, secs = _rate(lambda: [p_tok.encode_ids(
+                s, add_special_tokens=False) for s in texts])
+            row["python_1"] = sum(map(len, ids)) / secs
+            check(sum(map(len, ids)) == int(lens.sum()),
+                  f"pipeline: {name} tokens native {int(lens.sum())}, "
+                  f"Python {sum(map(len, ids))}")
+            rates[name] = row
+        res["tokens_per_s"] = rates
+        res["rate_texts"] = len(texts)
+        log(f"pipeline: tokens/s on {len(texts)} sentences (host): "
+            f"{rates}")
+        mark("rates")
+
+        # 5. the samples' arrays into the trainer, on the card
+        arrays = [encode.sample_arrays(sh, nat, PIPELINE_SEQ)
+                  for sh in samples["native"] if sh]
+        index = array_index(arrays)
+        layers = BertConfig.from_json_file(cut_cfg_path).num_hidden_layers
+        args = run_pretraining.parse_arguments([
+            "--config_file", PHASE1_CONFIG,
+            "--model_config_file", cut_cfg_path,
+            "--output_dir", os.path.join(tmp, "run"),
+            "--local_batch_size", str(micro),
+            "--global_batch_size", str(2 * micro),
+            "--steps", str(PIPELINE_STEPS), "--fused_optim", "auto",
+            "--skip_checkpoint", "--vocab_pad_multiple", "8",
+            "--mask_token_index", str(nat.token_to_id("[MASK]")),
+            "--seed", "0", "--log_freq", "1", "--device", device])
+        reset_launches()
+        result = run_pretraining.train(args, index, log=lambda m: None)
+        launches = dict(LAUNCHES)
+        losses = [r["loss"] for r in result.history]
+        want = _pretrain_step_launches(layers, PIPELINE_STEPS, False, False)
+        res.update(samples_in_memory=index.total, losses=losses,
+                   launches=launches, launches_predicted=want,
+                   step_time_ms=[p["step_time_ms"]
+                                 for p in _perf_records(args)])
+        summary.setdefault("launches", {})["pipeline"] = launches
+        check(len(losses) == PIPELINE_STEPS
+              and all(np.isfinite(losses)),
+              f"pipeline: losses {losses}")
+        if on_card:
+            check(launches == want, f"pipeline: launch counts {launches}, "
+                  f"want {want}")
+        log(f"pipeline: {PIPELINE_STEPS} phase-1 steps of 2 x {micro} x "
+            f"{PIPELINE_SEQ} at {layers} layers over {index.total} "
+            f"samples in memory: losses {losses}, launches {launches}, "
+            f"step ms {res['step_time_ms']}; seconds by part {marks}")
+        mark("train")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -9364,7 +9698,8 @@ def main(argv=None) -> int:
                     default="device,build,kernels,timing,model_seq1024,"
                             "serve,train_order,train,train_phase2,"
                             "train_chunks,train_kfac,train_roberta,"
-                            "train_packed,train_packed_phase2,stream,remat,"
+                            "train_packed,train_packed_phase2,pipeline,"
+                            "stream,remat,"
                             "finetune_squad,finetune_ner,finetune_tasks,"
                             "serve_slo,finetune_packed,distill,"
                             "init_sources,survival",
@@ -9482,12 +9817,16 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
                     load_kernels)
 
                 ptxas = ptxas_start()
+                natives = native_build_start()
                 try:
                     load_kernels()
                 finally:
                     summary["ptxas"] = ptxas_check(*ptxas)
                 summary["build_s"] = time.perf_counter() - t0
-                log(f"build: kernels built in {summary['build_s']:.1f} s")
+                summary["native_build_s"] = native_build_wait(natives)
+                log(f"build: kernels built in {summary['build_s']:.1f} s; "
+                    f"the native tokenizer libraries beside them in "
+                    f"{summary['native_build_s']} s")
                 summary["fused_bwd_build"] = fused_backward_build(torch)
                 summary["fwd_build"] = forward_build(torch)
                 summary["split_bwd_build"] = split_backward_build(torch)
@@ -9517,6 +9856,9 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
                 phase_train_roberta(torch, np, summary)
             elif phase in PACKED_RUNS:
                 phase_train_packed(torch, np, summary, run=phase, **cut)
+            elif phase == "pipeline":
+                phase_pipeline(torch, np, summary,
+                               cut_cfg_path=cut["cfg_path"])
             elif phase == "stream":
                 phase_stream(torch, np, summary,
                              cut_cfg_path=cut["cfg_path"])
@@ -9543,6 +9885,8 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
                 raise PhaseError(f"unknown phase {phase!r}")
             torch.cuda.synchronize()
             summary["phases"][phase] = "ok"
+            summary.setdefault("phase_s", {})[phase] = round(
+                time.perf_counter() - t0, 1)
         except Exception as e:  # report every phase, then fail the run
             import traceback
 
