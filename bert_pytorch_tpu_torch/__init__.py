@@ -20,6 +20,9 @@ PRETRAIN_GAPS = "ROADMAP.md, queue A: what the pretraining slice left out"
 FINETUNE_GAPS = "ROADMAP.md, queue A: what the finetuning slice left out"
 SERVE_GAPS = ("ROADMAP.md, queue A item 1: the serving engine and the "
               "serving planes")
+# what the data axis left of multi-card training: the fsdp, model and seq
+# axes, K-FAC over several ranks, the serving replicas
+PARALLEL_GAPS = "ROADMAP.md, queue A item 7: multi-GPU training"
 
 
 def refuse(args, refused: Dict[str, Tuple], gaps: str,

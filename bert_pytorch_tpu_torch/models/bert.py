@@ -80,6 +80,7 @@ from bert_pytorch_tpu_torch.ops.attention import (dot_product_attention,
                                                   make_attention_bias)
 from bert_pytorch_tpu_torch.ops.layernorm import (add_dropout_layer_norm,
                                                   add_dropout_layer_norm_ref,
+                                                  adln_shard_seed,
                                                   layer_norm, layer_norm_ref)
 
 
@@ -190,6 +191,9 @@ class ResidualDropoutLayerNorm(LayerNorm):
     add in the compute dtype. Training: the fused kernel, which adds in
     f32 after dropping x with the counter-hash mask of `seed`."""
 
+    # the data-parallel shard this replica trains (set_dropout_shard)
+    dropout_shard = 0
+
     def __init__(self, dim: int, rate: float, eps: float = 1e-12,
                  plain: bool = False):
         super().__init__(dim, eps, plain)
@@ -200,6 +204,17 @@ class ResidualDropoutLayerNorm(LayerNorm):
                 seed: Optional[int] = None) -> torch.Tensor:
         if seed is None or self.rate == 0.0:
             return super().forward(residual + x)
+        if self.dropout_shard:
+            if x.shape[-1] % 128:
+                from bert_pytorch_tpu_torch import PARALLEL_GAPS
+
+                # JAX runs this width through its XLA path, whose
+                # global-view mask the kernel's hash cannot offset
+                raise NotImplementedError(
+                    f"residual dropout at width {x.shape[-1]} (not a "
+                    "multiple of 128) on a data-parallel shard is not "
+                    f"ported yet (see {PARALLEL_GAPS})")
+            seed = adln_shard_seed(seed, self.dropout_shard)
         fn = add_dropout_layer_norm_ref if self.plain else add_dropout_layer_norm
         return fn(x, residual, self.scale, self.bias, seed, self.rate,
                   self.eps)
@@ -235,6 +250,9 @@ class BertEmbeddings(nn.Module):
         self.layer_norm = LayerNorm(e, plain=plain)
         self.rate = config.hidden_dropout_prob
 
+    # the data-parallel shard this replica trains (set_dropout_shard)
+    dropout_shard = 0
+
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor],
                 position_ids: Optional[torch.Tensor],
@@ -253,7 +271,8 @@ class BertEmbeddings(nn.Module):
                                  token_type_ids, dtype)
         x = self.layer_norm(x)
         if seed is not None and self.rate > 0.0:
-            x = hash_dropout(x, seed, self.rate)
+            x = hash_dropout(x, seed, self.rate,
+                             self.dropout_shard * x.shape[0] * x.shape[1])
         return x
 
 
@@ -270,6 +289,9 @@ class BertSelfAttention(nn.Module):
         self.rate = config.attention_probs_dropout_prob
         self.plain = plain
 
+    # the data-parallel shard this replica trains (set_dropout_shard)
+    dropout_shard = 0
+
     def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor,
                 segment_ids: Optional[torch.Tensor],
                 seed: Optional[int] = None,
@@ -281,7 +303,8 @@ class BertSelfAttention(nn.Module):
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         ctx = dot_product_attention(q, k, v, attention_bias, segment_ids,
                                     plain=self.plain, dropout_seed=seed,
-                                    dropout_rate=self.rate)
+                                    dropout_rate=self.rate,
+                                    dropout_shard=self.dropout_shard)
         ctx = ctx.reshape(b, s, -1)
         return _tap(kfac, self.output, ctx, _linear(ctx, self.output))
 
@@ -457,6 +480,26 @@ class BertPooler(nn.Module):
         # tapped before the tanh: K-FAC's G is of the product's output
         return torch.tanh(_tap(kfac, self.dense, cls,
                                _linear(cls, self.dense)))
+
+
+def set_dropout_shard(model: nn.Module, shard: int) -> nn.Module:
+    """Make `model` the replica of data-parallel shard (rank) `shard`:
+    each dropout site then draws what the JAX package's one-process
+    data-parallel mesh draws on that shard from the same site seed. The
+    fused residual-dropout-LayerNorm adds shard x 0x3C6EF35F to its seed
+    (JAX's _adln_sharded); the flash kernels XOR theirs with shard x
+    0x9E3779B9 (_flash_sharded); the embeddings' and plain attention's
+    hash_dropout, global-view functions that GSPMD partitions over the
+    batch, hash the shard's rows of the global batch (rows offset by
+    shard x B x S and shard x B x H x S, B the shard's batch). Shard 0
+    folds nothing, so a one-card run draws what it always drew. The
+    pretraining model has no other site; the task heads' dropout is
+    finetuning's, which does not run over ranks."""
+    for mod in model.modules():
+        if isinstance(mod, (BertEmbeddings, BertSelfAttention,
+                            ResidualDropoutLayerNorm)):
+            mod.dropout_shard = int(shard)
+    return model
 
 
 def dropout_seed_list(config: BertConfig,

@@ -18,18 +18,27 @@ from typing import Optional, Tuple
 import torch
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore_index: int = -1) -> torch.Tensor:
-    """Mean CE over positions where labels != ignore_index; logits
-    (..., C), labels (...) int."""
+def cross_entropy_terms(logits: torch.Tensor, labels: torch.Tensor,
+                        ignore_index: int = -1
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(nll sum, valid count): `cross_entropy` before its division, for a
+    caller that divides by a count summed over ranks (the data-parallel
+    step)."""
     logits = logits.float()
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    count = valid.sum().clamp_min(1)
-    return nll.sum() / count
+    return nll.sum(), valid.sum()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_index: int = -1) -> torch.Tensor:
+    """Mean CE over positions where labels != ignore_index; logits
+    (..., C), labels (...) int."""
+    total, count = cross_entropy_terms(logits, labels, ignore_index)
+    return total / count.clamp_min(1)
 
 
 def pretraining_loss(mlm_logits: torch.Tensor,
@@ -45,6 +54,25 @@ def pretraining_loss(mlm_logits: torch.Tensor,
     if nsp_logits is not None and next_sentence_labels is not None:
         loss = loss + cross_entropy(nsp_logits, next_sentence_labels,
                                     ignore_index=-1)
+    return loss
+
+
+def pretraining_loss_over_ranks(mlm_logits: torch.Tensor,
+                                masked_lm_labels: torch.Tensor,
+                                nsp_logits: Optional[torch.Tensor],
+                                next_sentence_labels: Optional[torch.Tensor],
+                                counts: torch.Tensor) -> torch.Tensor:
+    """This rank's share of the data-parallel microbatch's loss: its nll
+    sums divided by the counts of every rank's microbatch (`counts`: the
+    (masked tokens, NSP labels) summed over ranks), so the ranks' shares
+    add up to `pretraining_loss` of the whole microbatch and their
+    gradients sum to its gradient (the JAX package's --zero1_rs region
+    divides its local sums by the psum'd counts the same way)."""
+    total, _ = cross_entropy_terms(mlm_logits, masked_lm_labels)
+    loss = total / counts[0].clamp_min(1)
+    if nsp_logits is not None and next_sentence_labels is not None:
+        total, _ = cross_entropy_terms(nsp_logits, next_sentence_labels)
+        loss = loss + total / counts[1].clamp_min(1)
     return loss
 
 

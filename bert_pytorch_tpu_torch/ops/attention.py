@@ -111,10 +111,10 @@ def keep_dropout(x: torch.Tensor, keep: torch.Tensor, rate: float
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _hash_dropout_apply(x: torch.Tensor, seed: int, rate: float
-                        ) -> torch.Tensor:
-    return keep_dropout(x, hash_keep_mask(seed, x.shape, rate, x.device),
-                        rate)
+def _hash_dropout_apply(x: torch.Tensor, seed: int, rate: float,
+                        row0: int = 0) -> torch.Tensor:
+    return keep_dropout(x, hash_keep_mask(seed, x.shape, rate, x.device,
+                                          row0), rate)
 
 
 class HashDropoutFn(torch.autograd.Function):
@@ -122,30 +122,49 @@ class HashDropoutFn(torch.autograd.Function):
     the backward applies the same mask and scale to the gradient."""
 
     @staticmethod
-    def forward(ctx, x, seed, rate):
-        ctx.seed, ctx.rate = seed, rate
-        return _hash_dropout_apply(x, seed, rate)
+    def forward(ctx, x, seed, rate, row0=0):
+        ctx.seed, ctx.rate, ctx.row0 = seed, rate, row0
+        return _hash_dropout_apply(x, seed, rate, row0)
 
     @staticmethod
     def backward(ctx, g):
-        return _hash_dropout_apply(g, ctx.seed, ctx.rate), None, None
+        return (_hash_dropout_apply(g, ctx.seed, ctx.rate, ctx.row0), None,
+                None, None)
 
 
-def hash_dropout(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
+def hash_dropout(x: torch.Tensor, seed, rate: float,
+                 row0: int = 0) -> torch.Tensor:
     """Dropout whose keep mask is `row_col_keep` of the int32 `seed` over
     x's flattened (rows, last axis) view, regenerated in the backward pass
-    (the JAX package's `hash_dropout`)."""
-    return HashDropoutFn.apply(x, int(seed), float(rate))
+    (the JAX package's `hash_dropout`). `row0`: the view's first row in
+    the global array: a data-parallel rank hashes its rows of the global
+    batch, as GSPMD partitions the JAX package's global-view mask."""
+    return HashDropoutFn.apply(x, int(seed), float(rate), int(row0))
+
+
+# The flash kernels' per-shard seed fold of the JAX package
+# (ops/attention._flash_sharded): shard i of a data-parallel mesh XORs the
+# site's seed with i * 0x9E3779B9, with int32 wrap.
+FLASH_SHARD_FOLD = 0x9E3779B9
+
+
+def flash_shard_seed(seed, shard: int) -> int:
+    """The int32 seed data-parallel shard `shard` hands the flash
+    kernels: `seed` itself on shard 0."""
+    return _as_int32(int(seed) ^ ((int(shard) * FLASH_SHARD_FOLD) & _U32))
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: Optional[torch.Tensor] = None,
                   segment_ids: Optional[torch.Tensor] = None,
                   dropout_seed: Optional[int] = None,
-                  dropout_rate: float = 0.0) -> torch.Tensor:
+                  dropout_rate: float = 0.0,
+                  dropout_shard: int = 0) -> torch.Tensor:
     """Plain dense attention; returns (B, S, H, D) in q.dtype. With a
     `dropout_seed` and a rate above 0 (training), the probabilities go
-    through `hash_dropout` after the cast to the compute dtype."""
+    through `hash_dropout` after the cast to the compute dtype; on
+    data-parallel shard `dropout_shard` the (B, H, S, S) view's rows
+    start at that shard's rows of the global batch."""
     scores = _scores(q, k)
     if bias is not None:
         scores = scores + bias.float()
@@ -153,7 +172,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = scores + make_segment_attention_bias(segment_ids)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     if dropout_seed is not None and dropout_rate > 0.0:
-        probs = hash_dropout(probs, dropout_seed, dropout_rate)
+        b, h, s, _ = probs.shape
+        probs = hash_dropout(probs, dropout_seed, dropout_rate,
+                             dropout_shard * b * h * s)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
     if segment_ids is not None:
         out = out * (segment_ids > 0).to(out.dtype)[:, :, None, None]
@@ -577,19 +598,27 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           segment_ids: Optional[torch.Tensor] = None,
                           plain: bool = False,
                           dropout_seed: Optional[int] = None,
-                          dropout_rate: float = 0.0) -> torch.Tensor:
+                          dropout_rate: float = 0.0,
+                          dropout_shard: int = 0) -> torch.Tensor:
     """(B, S, H, D) attention by the "auto" rule: the flash kernels where
     `takes_flash`, plain attention otherwise. `plain=True` computes the
     same split with the flash kernel's plain version, differentiated by
     autograd (a reference run to hold the kernels against).
     `dropout_seed` (training) turns on dropout of the probabilities at
     `dropout_rate`: the flash mask on the flash route, `hash_dropout`
-    (`row_col_keep`) on the plain one, as in the JAX package."""
+    (`row_col_keep`) on the plain one, as in the JAX package. On
+    data-parallel shard `dropout_shard` each route draws what the JAX
+    package's data-parallel mesh draws on that shard: the flash seed
+    XOR-folded (`flash_shard_seed`), the plain mask at the shard's rows
+    of the global batch."""
     rate = dropout_rate if dropout_seed is not None else 0.0
     if takes_flash(q, k):
         seed = dropout_seed if rate > 0.0 else None
+        if seed is not None and dropout_shard:
+            seed = flash_shard_seed(seed, dropout_shard)
         if plain:
             return flash_attention_ref(q, k, v, bias, segment_ids, seed,
                                        rate)[0]
         return FlashAttentionFn.apply(q, k, v, bias, segment_ids, seed, rate)
-    return attention_ref(q, k, v, bias, segment_ids, dropout_seed, rate)
+    return attention_ref(q, k, v, bias, segment_ids, dropout_seed, rate,
+                         dropout_shard)

@@ -196,14 +196,28 @@ def row_col_keep(seed, row0: int, rows: int, cols: int, rate: float,
 
 
 def hash_keep_mask(seed, shape: Sequence[int], rate: float,
-                   device: Optional[torch.device] = None) -> torch.Tensor:
+                   device: Optional[torch.device] = None,
+                   row0: int = 0) -> torch.Tensor:
     """row_col_keep over the flattened (R, E) view of `shape`, reshaped
-    (`_hash_keep_mask`)."""
+    (`_hash_keep_mask`); `row0`: the view's first row in a larger array
+    (a data-parallel rank's rows of the global batch)."""
     rows = 1
     for s in shape[:-1]:
         rows *= s
-    return row_col_keep(seed, 0, rows, shape[-1], rate,
+    return row_col_keep(seed, row0, rows, shape[-1], rate,
                         device).reshape(shape)
+
+
+# The fused residual-dropout-LayerNorm's per-shard seed fold of the JAX
+# package (ops/layernorm._adln_sharded): shard i of a data-parallel mesh
+# adds i * 0x3C6EF35F to the site's seed, with int32 wrap.
+ADLN_SHARD_FOLD = 0x3C6EF35F
+
+
+def adln_shard_seed(seed, shard: int) -> int:
+    """The int32 seed data-parallel shard `shard` hands the fused
+    residual-dropout-LayerNorm: `seed` itself on shard 0."""
+    return _as_int32(int(seed) + int(shard) * ADLN_SHARD_FOLD)
 
 
 # -- the fused residual-dropout-LayerNorm -------------------------------------

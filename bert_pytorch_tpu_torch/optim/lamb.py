@@ -22,6 +22,10 @@ trust norms with one function (`trust_norms`) and keep one mu and one nu
 tensor per parameter name, so a state written under one route resumes
 under the other.
 
+Under ZeRO-1 (parallel/zero.py) `update` takes `shards`: each rank
+updates its pieces of the tensors, every piece with its tensor's decay
+flag, the norms summed over the ranks from per-piece partials.
+
 The port keeps every encoder weight as its own tensor (the JAX package's
 unstacked layout), so one ratio per tensor is the per-layer ratio that
 `default_trust_batch_axes` gives the stacked layout. Gradients may arrive
@@ -120,25 +124,41 @@ class Lamb:
 
     @torch.no_grad()
     def update(self, grads: Params, state: LambState, params: Params,
-               grad_norm: Optional[torch.Tensor] = None) -> None:
-        """`grad_norm`: global_norm_f32 of `grads`, when the caller has it
-        already (the train step does); computed here otherwise."""
+               grad_norm: Optional[torch.Tensor] = None,
+               shards=None) -> None:
+        """`grad_norm`: the global gradient norm, when the caller has it
+        already (the train step does); computed here otherwise. `shards`
+        (a parallel/zero.DataParallel under ZeRO-1): `grads`, `params` and
+        the moments are this rank's pieces, by piece key in its order, a
+        piece taking the weight-decay flag of its tensor; the global norm
+        and each tensor's trust norms are then summed over the ranks from
+        the pieces' partial sums of squares (`shards.global_norm`,
+        `shards.trust_norms`), and every rank joins both reductions,
+        pieces or none."""
         state.count += 1
-        names = list(params)
+        keys = list(params)
+        g = [grads[k] for k in keys]
+        if shards is None:
+            norm_of, trust_of, names = global_norm_f32, trust_norms, keys
+        else:
+            norm_of, trust_of = shards.global_norm, shards.trust_norms
+            names = shards.weight_decay_names()
         if grad_norm is None:
-            grad_norm = global_norm_f32(grads[k] for k in names)
+            grad_norm = norm_of(g)
         denom = torch.clamp(grad_norm / self.max_grad_norm, min=1.0)
         cf = np.float32(state.count)
         c1 = float(np.float32(1.0) - np.float32(self.b1) ** cf)
         c2 = float(np.float32(1.0) - np.float32(self.b2) ** cf)
         lr = self.lr(state.count - 1)
-        wd = [self.weight_decay if default_weight_decay_mask(k) else 0.0
-              for k in names]
-        g = [grads[k] for k in names]
-        mu = [state.mu[k] for k in names]
-        nu = [state.nu[k] for k in names]
-        p = [params[k] for k in names]
-        if self.fused in ("off", "xla"):
+        wd = [self.weight_decay if default_weight_decay_mask(n) else 0.0
+              for n in names]
+        mu = [state.mu[k] for k in keys]
+        nu = [state.nu[k] for k in keys]
+        p = [params[k] for k in keys]
+        plain = self.fused in ("off", "xla")
+        if plain and shards is None:
+            # one tensor's temporaries alive at a time; a piece's ratio
+            # waits for every rank's partials, so pieces take the lists
             c1t, c2t = fused_optim.bias_corrections(c1, c2, denom.device)
             for args in zip(g, mu, nu, p, wd):
                 u = fused_optim.stage1_math(*args, denom, c1t, c2t, self.b1,
@@ -147,6 +167,14 @@ class Lamb:
                 t = trust_ratio_t(*trust_norms([pi], [u]), lr)
                 pi.add_(t[0] * u)
             return
-        u = fused_optim.lamb_stage1(g, mu, nu, p, wd, denom, c1, c2,
-                                    self.b1, self.b2, self.eps)
-        fused_optim.lamb_stage2(trust_ratio_t(*trust_norms(p, u), lr), u, p)
+        u = []
+        if keys:
+            stage1 = (fused_optim.lamb_stage1_ref if plain
+                      else fused_optim.lamb_stage1)
+            u = stage1(g, mu, nu, p, wd, denom, c1, c2, self.b1, self.b2,
+                       self.eps)
+        t = trust_ratio_t(*trust_of(p, u), lr)
+        if keys:
+            stage2 = (fused_optim.lamb_stage2_ref if plain
+                      else fused_optim.lamb_stage2)
+            stage2(t, u, p)

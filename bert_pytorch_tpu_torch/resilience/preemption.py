@@ -14,6 +14,12 @@ place, so a step cut in half would leave a state that belongs to no step.
 The loop therefore runs each step inside `guard.hold()`: a signal that
 arrives there is noted at once and raised when the step (and the loop's
 note of it) is whole.
+
+Over several ranks (`agree`, parallel/dist.agree_any) the ranks must
+leave together, since the emergency save gathers the state from every
+rank: a signal is only noted, wherever it lands, and at the end of each
+`hold()` the ranks vote; when any rank holds a signal, every rank raises
+there, at the same step. torchrun forwards SIGTERM to every rank.
 """
 
 from __future__ import annotations
@@ -41,8 +47,10 @@ class PreemptionGuard:
             guard.close()
     """
 
-    def __init__(self, log: Callable[[str], None] = print):
+    def __init__(self, log: Callable[[str], None] = print,
+                 agree: Optional[Callable[[bool], bool]] = None):
         self._log = log
+        self._agree = agree
         self.preempted_signal: Optional[int] = None
         self._old: Dict[int, Any] = {}
         self._held = False
@@ -67,7 +75,7 @@ class PreemptionGuard:
                       "progress, ignoring")
             return
         self.preempted_signal = signum
-        if self._held:
+        if self._held or self._agree is not None:
             self._pending = (signum, frame)
             return
         self._raise(signum, frame)
@@ -81,12 +89,20 @@ class PreemptionGuard:
 
     @contextlib.contextmanager
     def hold(self) -> Iterator[None]:
-        """Within the block a signal is noted, and raised at its end."""
+        """Within the block a signal is noted, and raised at its end (over
+        several ranks: raised on every rank when any rank holds one)."""
         self._held = True
         try:
             yield
         finally:
             self._held = False
+        if self._agree is not None:
+            if self._agree(self._pending is not None):
+                pending = self._pending or (signal.SIGTERM, None)
+                self._pending = None
+                self.preempted_signal = pending[0]
+                self._raise(*pending)
+            return
         if self._pending is not None:
             pending, self._pending = self._pending, None
             self._raise(*pending)

@@ -1,6 +1,7 @@
-"""Pretraining entry point of the port: BERT pretraining on one card,
-phase 1 (seq 128) or phase 2 (seq 512, attention through the flash
-kernels), the sequence length taken from the shards (or --stream_seq_len).
+"""Pretraining entry point of the port: BERT pretraining on one card or
+over several ranks, phase 1 (seq 128) or phase 2 (seq 512, attention
+through the flash kernels), the sequence length taken from the shards (or
+--stream_seq_len).
 
     python -m bert_pytorch_tpu_torch.run_pretraining \\
         --config_file configs/bert_pretraining_phase{1,2}_config.json \\
@@ -37,6 +38,20 @@ before LAMB (optim/kfac.py; configs/bert_kfac_pretraining_phase1_config
 max-accumulated), bit-equal to N=1. --profile_steps lo,hi writes a
 torch.profiler trace of those steps under <output_dir>/traces/ and logs
 its summary (telemetry/trace.py; tools/trace_summary.py reads it again).
+
+Several ranks (parallel/): `torchrun --nproc_per_node N -m
+bert_pytorch_tpu_torch.run_pretraining --mesh data=N ...` runs rank r on
+cuda:LOCAL_RANK (NCCL; --device cpu: gloo). --local_batch_size is a
+rank's microbatch, as in the JAX entry point; each rank reads its part of
+the data (HostShardSampler's split, masks at --seed + rank); the
+gradients are summed over the ranks after the last microbatch. --zero1
+(auto: on above one rank) shards LAMB's moments and update
+(parallel/zero.py), with --zero1_rs (a reduce-scatter of the gradients)
+and --zero1_overlap (the weights gathered where the forward uses them);
+--coalesce_reductions buckets the norm reductions; --mesh_config auto
+picks `production` (packing, ZeRO-1, gather-on-use) on cards. Rank 0
+logs, writes the sinks and the one-card checkpoint format; each rank's
+perf records land in <output_dir>/metrics_hosts/, folded into rank 0's.
 
 Checkpoints: every --num_steps_per_checkpoint steps and at the end of the
 run into <output_dir>/pretrain_ckpts/<global step>/, the newest
@@ -96,16 +111,8 @@ from bert_pytorch_tpu_torch.training.pretrain import dropout_seeds
 # line parses; a value that switches its feature on, from the command line
 # or a run config, is refused: key -> the values that leave it off.
 _REFUSED = {
-    "mesh": ("",),
     # the port's per-layer modules are the JAX "false" layout
     "stacked_params": ("auto", "false"),
-    # one card: "auto" shards nothing
-    "zero1": ("auto", "false"),
-    "zero1_overlap": (False,),
-    "zero1_rs": (False,),
-    "fsdp_overlap": (False,),
-    "mesh_config": ("auto",),
-    "coalesce_reductions": ("off",),
     # the libtpu flag pack
     "overlap_flags": ("off",),
     # the port's dropout seeds come from numpy (dropout_seeds)
@@ -113,10 +120,15 @@ _REFUSED = {
     "force_cpu": (False,),
 }
 _HINTS = {"force_cpu": "use `--device cpu`"}
+# What the data axis left of multi-card training (PARALLEL_GAPS): the
+# fsdp axis's gather-on-use. A --mesh with fsdp, model or seq above 1 and
+# --kfac over several ranks are refused by `_unsupported` and `train`.
+_REFUSED_PARALLEL = {"fsdp_overlap": (False,)}
 # Flags that only tune a feature refused above: accepted with any value,
-# since their feature is off. --kfac_bucket_mb sizes the coalesced factor
-# reductions of several cards; K-FAC on one card reduces nothing.
-_TUNING = {"kfac_bucket_mb": "coalesce_reductions"}
+# since their feature is off. (--kfac_bucket_mb sizes K-FAC's coalesced
+# factor reductions over several ranks, which `train` refuses; it is
+# accepted at any value.)
+_TUNING: Dict[str, str] = {}
 # stream flags that only make sense with --stream_dir: given on the
 # command line without it, they fail at parse time (JAX's list)
 _STREAM_DEPENDENT_FLAGS = ("stream_vocab", "stream_tokenizer",
@@ -125,26 +137,52 @@ _STREAM_DEPENDENT_FLAGS = ("stream_vocab", "stream_tokenizer",
 
 
 def _declare_refused(p: argparse.ArgumentParser) -> None:
-    """The JAX flags of `_REFUSED` and `_TUNING`, with JAX's types and
-    choices; each default leaves its feature off."""
+    """The JAX flags of `_REFUSED`, `_REFUSED_PARALLEL` and `_TUNING`,
+    with JAX's types and choices; each default leaves its feature off."""
     p.add_argument("--kfac_bucket_mb", type=float, default=4.0)
-    p.add_argument("--mesh", type=str, default="")
     p.add_argument("--stacked_params", type=str, default="auto",
                    choices=["auto", "true", "false"])
-    p.add_argument("--zero1", type=str, default="auto",
-                   choices=["auto", "true", "false"])
-    p.add_argument("--zero1_overlap", action="store_true")
-    p.add_argument("--zero1_rs", action="store_true")
     p.add_argument("--fsdp_overlap", action="store_true")
-    p.add_argument("--mesh_config", type=str, default="auto",
-                   choices=["auto", "production", "base"])
-    p.add_argument("--coalesce_reductions", type=str, default="off",
-                   choices=["on", "off"])
     p.add_argument("--overlap_flags", type=str, default="off",
                    choices=["on", "off"])
     p.add_argument("--rng_impl", type=str, default="threefry2x32",
                    choices=["rbg", "unsafe_rbg", "threefry2x32"])
     p.add_argument("--force_cpu", action="store_true")
+
+
+def _declare_parallel(p: argparse.ArgumentParser) -> None:
+    """The data axis's flags (parallel/): JAX's names, types, choices and
+    defaults."""
+    p.add_argument("--mesh", type=str, default="",
+                   help="mesh axes, e.g. 'data=4' (empty: data = the rank "
+                        "count); their product must equal the ranks. The "
+                        "port implements the data axis: fsdp, model or seq "
+                        "above 1 is refused")
+    p.add_argument("--zero1", type=str, default="auto",
+                   choices=["auto", "true", "false"],
+                   help="ZeRO-1: each rank keeps LAMB's moments for its "
+                        "1/N of the parameters and updates only that "
+                        "slice, then the slices are all-gathered (auto: on "
+                        "when the data axis is above 1)")
+    p.add_argument("--zero1_overlap", action="store_true",
+                   help="ZeRO-1's gather-on-use: the masters rest as "
+                        "slices between steps; each unit's all-gather is "
+                        "issued at the step's start and awaited where the "
+                        "forward first uses it")
+    p.add_argument("--zero1_rs", action="store_true",
+                   help="ZeRO-1's gradients leave through a reduce-scatter "
+                        "into each rank's slice instead of an all-reduce "
+                        "and a slice (forces --zero1_overlap)")
+    p.add_argument("--mesh_config", type=str, default="auto",
+                   choices=["auto", "production", "base"],
+                   help="production: packing, ZeRO-1 and --zero1_overlap "
+                        "where the data axis is above 1; auto picks it on "
+                        "cards for a mesh with a data axis above 1")
+    p.add_argument("--coalesce_reductions", type=str, default="off",
+                   choices=["on", "off"],
+                   help="the norm reductions of a ZeRO-1 step in 4 MB "
+                        "buckets (on) or one a tensor (off); the same bits "
+                        "either way")
 
 
 def parse_arguments(argv=None) -> argparse.Namespace:
@@ -366,6 +404,7 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                         "halt stops the run")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
+    _declare_parallel(p)
     # the JAX flags whose features the port lacks (_REFUSED, _TUNING)
     _declare_refused(p)
     args = merge_args_with_config(p, argv)
@@ -489,13 +528,24 @@ class PretrainResult:
     metrics: Dict = dataclasses.field(default_factory=dict)
     # --profile_steps: {"trace_file", "steps", "summary"} of the trace
     profile: Optional[Dict] = None
+    # the ranks, the mesh, the ZeRO-1 arms and layout, the collectives
+    parallel: Optional[Dict] = None
 
 
 def _unsupported(args) -> None:
-    """Refuse a key of `_REFUSED` whose value switches its feature on."""
-    from bert_pytorch_tpu_torch import refuse
+    """Refuse a key of `_REFUSED` (or `_REFUSED_PARALLEL`) whose value
+    switches its feature on, and a --mesh with an axis other than data
+    above 1."""
+    from bert_pytorch_tpu_torch import PARALLEL_GAPS, refuse
+    from bert_pytorch_tpu_torch.parallel.mesh import parse_mesh_arg
 
     refuse(args, _REFUSED, _ROADMAP, hints=_HINTS)
+    refuse(args, _REFUSED_PARALLEL, PARALLEL_GAPS)
+    shape = parse_mesh_arg(getattr(args, "mesh", "")) or {}
+    if any(n > 1 for a, n in shape.items() if a != "data"):
+        raise NotImplementedError(
+            f"mesh={args.mesh!r} is not ported yet (see {PARALLEL_GAPS}): "
+            "the port implements the data axis alone")
 
 
 def _config_echo(args) -> Dict:
@@ -519,14 +569,15 @@ def main(argv=None, log: Callable[[str], None] = print) -> PretrainResult:
 
 
 def _stream_loader(args, config, batch_size: int, registry, log):
-    """--stream_dir's loader (data/streaming.py) and its [MASK] id: the
-    corpus's sorted .txt sources, tokenized by --stream_tokenizer over
+    """--stream_dir's loader (data/streaming.py) and its [MASK] id: this
+    rank's records of the corpus's sorted .txt sources, tokenized by --stream_tokenizer over
     --stream_vocab (else the model config's vocab_file); the tokenizer's
     [MASK] / <mask> id unless --mask_token_index is given (a BPE .json
     vocab's <mask> is invisible to the line-based lookup)."""
     from bert_pytorch_tpu_torch.data.streaming import (
         StreamingPretrainingLoader, discover_sources, resolve_mask_id)
     from bert_pytorch_tpu_torch.data.tokenization import TOKENIZERS
+    from bert_pytorch_tpu_torch.parallel import dist
 
     sources = discover_sources(args.stream_dir)
     if not sources:
@@ -547,6 +598,7 @@ def _stream_loader(args, config, batch_size: int, registry, log):
         max_pred_per_seq=args.max_predictions_per_seq,
         masked_lm_prob=args.masked_token_fraction,
         vocab_size=config.vocab_size, seed=args.seed,
+        world_size=dist.get_world_size(), rank=dist.get_rank(),
         num_workers=args.stream_workers,
         queue_batches=args.stream_queue_batches,
         prefetch_batches=max(0, args.prefetch_batches),
@@ -571,7 +623,9 @@ def train(args: argparse.Namespace, index,
     `data.sharded.ShardIndex`, or an object with its interface that holds
     the same arrays in memory), or with --stream_dir over its corpus
     (`index` None). `batch_tap`, given, sees each host batch a step
-    reads, in dispatch order (after the flight recorder's tap)."""
+    reads, in dispatch order (after the flight recorder's tap). Over
+    several ranks (torchrun's environment, or a process group the caller
+    made) this is one rank's part of the run."""
     if not args.output_dir:
         raise SystemExit("--output_dir is required")
     if not args.model_config_file:
@@ -579,13 +633,29 @@ def train(args: argparse.Namespace, index,
     _unsupported(args)
 
     from bert_pytorch_tpu_torch import resolve_device
+    from bert_pytorch_tpu_torch.parallel import dist
+
+    device = resolve_device(args.device)
+    # torchrun's environment makes this rank's group (NCCL on cards, gloo
+    # on the CPU); a group the caller made is kept and left open
+    owned_group = not dist.is_initialized() and dist.initialize(args.device)
+    try:
+        return _train(args, index, log, batch_tap, device)
+    finally:
+        if owned_group:
+            dist.shutdown()
+
+
+def _train(args, index, log, batch_tap, device) -> "PretrainResult":
     from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
     from bert_pytorch_tpu_torch.data.sharded import (HostShardSampler,
                                                      PretrainingDataLoader)
     from bert_pytorch_tpu_torch.models.bert import (BertForPreTraining,
-                                                    init_weights)
+                                                    init_weights,
+                                                    set_dropout_shard)
     from bert_pytorch_tpu_torch.optim.lamb import Lamb
     from bert_pytorch_tpu_torch.optim.schedulers import make_schedule
+    from bert_pytorch_tpu_torch.parallel import dist
     from bert_pytorch_tpu_torch.resilience.chaos import ChaosMonkey
     from bert_pytorch_tpu_torch.resilience.preemption import (
         PreemptionGuard, emergency_save, is_preemption_exit)
@@ -611,7 +681,14 @@ def train(args: argparse.Namespace, index,
 
     import numpy as np
 
-    device = resolve_device(args.device)
+    par = _parallel_plan(args, device)
+    world, rank = par.world, par.rank
+    if rank:
+        # rank 0 alone logs and writes the sinks and the checkpoints
+        log = _quiet
+    if device.type == "cuda":
+        device = dist.local_device("cuda")
+        torch.cuda.set_device(device)
     # the tied decoder's f32 logits need full f32 products
     torch.backends.cuda.matmul.allow_tf32 = False
     health = (HealthConfig(action=args.nonfinite_action)
@@ -627,10 +704,14 @@ def train(args: argparse.Namespace, index,
         raise SystemExit(str(e)) from None
     n_loop = max(1, args.steps_per_loop)
 
-    # one card: the global batch is accum_steps microbatches
+    # the accumulation math of the JAX entry point: the global batch is
+    # accum_steps microbatches of local_batch_size rows a data shard (a
+    # rank); step_batch is this rank's rows a step
     micro = args.local_batch_size
-    accum_steps = max(1, math.ceil(args.global_batch_size / micro))
+    micro_global = micro * par.data_shards
+    accum_steps = max(1, math.ceil(args.global_batch_size / micro_global))
     step_batch = accum_steps * micro
+    global_step_batch = accum_steps * micro_global
 
     config = BertConfig.from_json_file(args.model_config_file)
     config = config.replace(
@@ -652,13 +733,20 @@ def train(args: argparse.Namespace, index,
     # one telemetry wiring path: the logger's sinks, the registry and the
     # /metrics + /healthz exporter; everything below is closed in the
     # finally, on the success and the exception paths
+    main_rank = rank == 0
     tel = init_run("pretrain",
-                   log_prefix=os.path.join(args.output_dir, args.log_prefix),
-                   echo=log, metrics_port=args.metrics_port,
-                   tensorboard=args.tensorboard == "on")
+                   log_prefix=(os.path.join(args.output_dir, args.log_prefix)
+                               if main_rank else None),
+                   echo=log,
+                   metrics_port=args.metrics_port if main_rank else None,
+                   tensorboard=args.tensorboard == "on" and main_rank,
+                   multihost_dir=(os.path.join(args.output_dir,
+                                               "metrics_hosts")
+                                  if world > 1 else None),
+                   process_index=rank, process_count=world)
     if tel.logger.tensorboard_dir:
         log(f"tensorboard: scalars under {tel.logger.tensorboard_dir}")
-    loader = guard = watchdog = slo_eval = recorder = profiler = None
+    loader = guard = watchdog = slo_eval = recorder = profiler = dp = None
     # (step, loader state, epoch) of the last completed step, taken
     # inside the step's guard: the loader's live cursor may already cover
     # the next batch when a signal lands, and resuming from it would skip
@@ -667,6 +755,14 @@ def train(args: argparse.Namespace, index,
     try:
         prov = collect_provenance(device)
         tel.log_header(**prov)
+        log(f"parallel: {world} rank(s), mesh={par.mesh.shape} "
+            f"mesh_config={par.mesh_config} zero1={par.zero1} "
+            f"zero1_overlap={par.zero1_overlap} zero1_rs={par.zero1_rs} "
+            f"coalesce_reductions={'on' if par.coalesce else 'off'}"
+            + (f" backend={dist.backend()}" if dist.is_initialized()
+               else ""))
+        for note in par.notes:
+            log(note)
         if args.stream_dir:
             loader, mask_id = _stream_loader(args, config, step_batch,
                                              tel.registry, log)
@@ -687,12 +783,15 @@ def train(args: argparse.Namespace, index,
             loader.load_state_dict(loader.initial_state())
         else:
             mask_id = find_mask_token_index(args, config)
+            # each rank reads its contiguous part of the index and
+            # masks with seed + rank (the JAX entry point's split)
             loader = PretrainingDataLoader(
-                index, HostShardSampler(len(index), seed=args.seed),
+                index, HostShardSampler(len(index), world_size=world,
+                                        rank=rank, seed=args.seed),
                 batch_size=step_batch, mask_token_index=mask_id,
                 max_pred_per_seq=args.max_predictions_per_seq,
                 masked_lm_prob=args.masked_token_fraction,
-                vocab_size=config.vocab_size, seed=args.seed,
+                vocab_size=config.vocab_size, seed=args.seed + rank,
                 prefetch_batches=max(0, args.prefetch_batches),
                 packing=args.packing,
                 packing_max_segments=args.packing_max_segments,
@@ -713,12 +812,29 @@ def train(args: argparse.Namespace, index,
             model = BertForPreTraining(config, dtype=compute_dtype)
         init_weights(model, torch.Generator(device=device).manual_seed(
             args.seed), std=config.initializer_range)
+        if world > 1:
+            set_dropout_shard(model, rank)
+        if world > 1 or par.zero1:
+            from bert_pytorch_tpu_torch.parallel.zero import DataParallel
+
+            dp = DataParallel(model, zero1=par.zero1,
+                              reduce_scatter=par.zero1_rs,
+                              gather_on_use=par.zero1_overlap,
+                              coalesce=par.coalesce)
+            log("parallel: " + ", ".join(
+                f"{k}={v}" for k, v in dp.describe().items()))
+            if par.zero1:
+                tel.registry.gauge(
+                    "bert_zero1_replicated_leaves",
+                    "parameter tensors ZeRO-1 leaves whole on every rank "
+                    "(the port's flat layout splits all of them)").set(
+                        len(dp.replicated_leaves))
         schedule = make_schedule(args.lr_decay, args.learning_rate,
                                  args.max_steps,
                                  warmup=args.warmup_proportion,
                                  offset=args.previous_phase_end_step)
         tx = Lamb(schedule, weight_decay=0.01, fused=args.fused_optim)
-        state = make_train_state(model, tx)
+        state = make_train_state(model, tx, dp=dp)
         max_pred_row = packed_prediction_budget(args, seq_len)
         kfac = None
         if args.kfac:
@@ -734,9 +850,10 @@ def train(args: argparse.Namespace, index,
                 model, tx, schedule=schedule, accum_steps=accum_steps,
                 max_predictions=max_pred_row,
                 grad_dtype=grad_dtype, health=health,
-                nan_inject_step=args.inject_nonfinite_step)
+                nan_inject_step=args.inject_nonfinite_step, dp=dp)
         log(f"device={device} accumulation_steps={accum_steps} "
-            f"microbatch={micro} global_batch={step_batch} dtype={args.dtype} "
+            f"microbatch={micro} global_batch={global_step_batch} "
+            f"rank_batch={step_batch} dtype={args.dtype} "
             f"grad_dtype={grad_name} vocab={config.vocab_size} "
             f"layers={config.num_hidden_layers} {data_desc} "
             f"[MASK]={mask_id} "
@@ -759,12 +876,13 @@ def train(args: argparse.Namespace, index,
                          skipped=[s for s in state.precond_state.factors
                                   if kfac.skipped(s)]))
         resumed_from = restore_s = None
-        if manager.latest_step() is not None:
-            t0 = time.perf_counter()
-            sd, extra, resumed_from = manager.restore_with_fallback(
-                map_location=device)
+        t0 = time.perf_counter()
+        restored = _restore(manager, device, world, rank)
+        if restored is not None:
+            sd, extra, resumed_from = restored
             state.load_state_dict(sd)
-            del sd
+            del sd, restored
+            extra = _rank_cursor(extra, world, rank)
             if "sampler" in extra:
                 saved_stream = (isinstance(extra["sampler"], dict)
                                 and "stream" in extra["sampler"])
@@ -817,7 +935,7 @@ def train(args: argparse.Namespace, index,
                 per_host_dir(os.path.join(args.output_dir, "repro_bundles")),
                 window=window,
                 run_info=_recorder_run_info(args, accum_steps, max_pred_row,
-                                            grad_name, seq_len, n_loop),
+                                            grad_name, seq_len, n_loop, par),
                 model_config=config.to_dict(),
                 checkpoint_dir=manager.directory,
                 provenance=prov,
@@ -834,7 +952,8 @@ def train(args: argparse.Namespace, index,
         # the guard layers over the recorder's handlers: SIGTERM walks
         # guard -> recorder -> SystemExit(143), and the except-path below
         # dumps the bundle and the emergency checkpoint
-        guard = PreemptionGuard(log=log)
+        guard = PreemptionGuard(log=log, agree=(dist.agree_any if world > 1
+                                                else None))
         guard.install()
         watchdog = arm_watchdog(args.watchdog_timeout, args.watchdog_action,
                                 sw, registry=tel.registry, log=log,
@@ -854,6 +973,8 @@ def train(args: argparse.Namespace, index,
                     if args.steps is not None else target)
         history: List[Dict] = []
         saves: List[Dict] = []
+        saved_steps: List[int] = []     # every rank's: the saves it joined
+        comm_mark = dist.stats_total()
         loss_sum, loss_n = 0.0, 0
         warned_dropped = False
 
@@ -884,10 +1005,15 @@ def train(args: argparse.Namespace, index,
                     pf = make_prefetcher()
 
         def save():
-            rec = manager.save(state.step, state.state_dict(), extra={
-                "sampler": pf.state_dict(),
-                "epoch": loader.epoch,
-                "config": _config_echo(args)})
+            # every rank joins: under ZeRO-1 state_dict() gathers the
+            # moments and the masters; rank 0 writes the one-card format
+            sd = state.state_dict()
+            extra = _cursor_extra(pf.state_dict(), world)
+            saved_steps.append(state.step)
+            if not main_rank:
+                return
+            rec = manager.save(state.step, sd, extra=dict(
+                extra, epoch=loader.epoch, config=_config_echo(args)))
             saves.append(dict(rec, step=state.step))
             log(f"checkpoint: step {state.step} saved ({rec['bytes'] / 1e9:.3f}"
                 f" GB in {rec['seconds']:.1f} s)")
@@ -961,7 +1087,8 @@ def train(args: argparse.Namespace, index,
                 dt = (time.perf_counter() - t0) / n
                 examples = int((batch_np["next_sentence_labels"] >= 0).sum())
                 rec = dict(vals, step=state.step, step_ms=dt * 1e3,
-                           seq_per_sec=step_batch / dt, examples=examples)
+                           seq_per_sec=global_step_batch / dt,
+                           examples=examples)
                 history.append(rec)
                 loss = vals.pop("loss")
                 bad = (vals.get("loss_nonfinite", 0) > 0
@@ -1003,6 +1130,8 @@ def train(args: argparse.Namespace, index,
             perf = sw.step_done(n)
             if perf is not None:
                 perf.update(device_memory_snapshot(device))
+                if dp is not None:
+                    comm_mark = _collective_fields(perf, comm_mark)
                 tel.log_perf(state.step, perf)
             # a chunk checkpoints at the boundary JAX's rule picks: the
             # chunk that crossed a multiple of num_steps_per_checkpoint
@@ -1011,12 +1140,14 @@ def train(args: argparse.Namespace, index,
                     < (n_loop if remaining >= n_loop else 1)):
                 with sw.phase("checkpoint"):
                     save()
-                if chaos is not None:
+                if chaos is not None and main_rank:
                     chaos.after_checkpoint(manager.directory, state.step)
         train_time = time.perf_counter() - train_start
         if history and not args.skip_checkpoint and (
-                not saves or saves[-1]["step"] != state.step):
+                not saved_steps or saved_steps[-1] != state.step):
             save()
+        # every rank returns once the last checkpoint is on disk
+        dist.barrier()
         if history:
             log(f"training_seq_per_sec = "
                 f"{step_batch * len(history) / train_time:.2f} "
@@ -1031,6 +1162,15 @@ def train(args: argparse.Namespace, index,
                               state=state, resumed_from=resumed_from,
                               restore_s=restore_s, saves=saves,
                               metrics=tel.registry.snapshot(),
+                              parallel=dict(
+                                  par.describe(),
+                                  **(dp.describe() if dp is not None
+                                     else {}),
+                                  norm_reductions=(dp.reducer.summary()
+                                                   if dp is not None
+                                                   else None),
+                                  collectives={k: dict(v) for k, v in
+                                               dist.STATS.items()}),
                               profile=(profiler.result if profiler
                                        is not None else None))
     except BaseException as exc:
@@ -1069,12 +1209,15 @@ def train(args: argparse.Namespace, index,
             else:
                 try:
                     t0 = time.perf_counter()
-                    if emergency_save(manager, survival["step"],
-                                      state.state_dict(), extra={
-                                          "sampler": survival["sampler"],
-                                          "epoch": survival["epoch"],
-                                          "config": _config_echo(args)},
-                                      log=log):
+                    # collective over several ranks: every rank left at
+                    # the same step (the guard's vote) and joins the
+                    # gather; rank 0 writes
+                    sd = state.state_dict()
+                    extra = _cursor_extra(survival["sampler"], world)
+                    if main_rank and emergency_save(
+                            manager, survival["step"], sd, extra=dict(
+                                extra, epoch=survival["epoch"],
+                                config=_config_echo(args)), log=log):
                         log(f"preemption: emergency save of step "
                             f"{survival['step']} took "
                             f"{time.perf_counter() - t0:.2f} s")
@@ -1086,12 +1229,164 @@ def train(args: argparse.Namespace, index,
         # the guard closes before the recorder: it restores the recorder's
         # handlers, which the recorder then restores to the original
         for closeable in (profiler, slo_eval, watchdog, guard, recorder, tel,
-                          loader):
+                          loader, dp):
             if closeable is not None:
                 try:
                     closeable.close()
                 except Exception:
                     pass
+
+
+def _quiet(_msg: str) -> None:
+    """The log of a rank other than 0."""
+
+
+@dataclasses.dataclass
+class _Parallel:
+    """The resolved data axis of a run (`_parallel_plan`)."""
+    world: int
+    rank: int
+    mesh: object
+    data_shards: int
+    mesh_config: str
+    zero1: bool
+    zero1_overlap: bool
+    zero1_rs: bool
+    coalesce: bool
+    notes: List[str]
+
+    def describe(self) -> Dict:
+        return {"world": self.world, "mesh": self.mesh.shape,
+                "mesh_config": self.mesh_config, "zero1": self.zero1,
+                "zero1_overlap": self.zero1_overlap,
+                "zero1_rs": self.zero1_rs, "coalesce": self.coalesce}
+
+
+def _parallel_plan(args, device) -> _Parallel:
+    """--mesh over the ranks, and --mesh_config, --zero1, --zero1_overlap,
+    --zero1_rs and --coalesce_reductions resolved as the JAX entry point
+    resolves them (run_pretraining.py:684-728): `production` (picked by
+    `auto` on a card when the data axis is above 1) turns on packing,
+    ZeRO-1 and its gather-on-use; --zero1 auto is on when the data axis is
+    above 1; --zero1_overlap and --zero1_rs need ZeRO-1 and --zero1_rs a
+    data-only mesh, and forces --zero1_overlap. --kfac over several ranks
+    or with ZeRO-1 is refused (PARALLEL_GAPS). May set args.packing,
+    args.zero1."""
+    from bert_pytorch_tpu_torch import PARALLEL_GAPS
+    from bert_pytorch_tpu_torch.parallel import dist, mesh as mesh_lib
+    from bert_pytorch_tpu_torch.parallel.zero import rs_supported
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    mesh = mesh_lib.make_mesh(mesh_lib.parse_mesh_arg(args.mesh), world)
+    notes: List[str] = []
+    production = (args.mesh_config == "production"
+                  or (args.mesh_config == "auto" and device.type != "cpu"
+                      and mesh_lib.production_qualifies(mesh)))
+    name = (mesh_lib.PRODUCTION_CONFIG if production
+            else mesh_lib.mesh_config(mesh))
+    if production:
+        feats = mesh_lib.production_features(mesh)
+        if feats["packing"] and not args.packing:
+            args.packing = True
+        if feats["zero1"] and args.zero1 == "auto":
+            args.zero1 = "true"
+        if feats["zero1_overlap"] and args.zero1 != "false":
+            args.zero1_overlap = True
+        notes.append("mesh_config=production: " + " ".join(
+            f"{k}={'on' if v else 'off'}" for k, v in sorted(feats.items())))
+    zero1 = (args.zero1 == "true"
+             or (args.zero1 == "auto" and mesh.data > 1))
+    overlap = bool(args.zero1_overlap) and zero1
+    if args.zero1_overlap and not zero1:
+        notes.append("WARNING: --zero1_overlap ignored (--zero1 is off or "
+                     "the data axis is trivial)")
+    rs = bool(args.zero1_rs) and zero1
+    if args.zero1_rs and not zero1:
+        notes.append("WARNING: --zero1_rs ignored (--zero1 is off or the "
+                     "data axis is trivial)")
+    if rs:
+        if not rs_supported(mesh):
+            raise SystemExit(
+                "--zero1_rs needs a data-only mesh with a data axis above "
+                f"1; got {mesh.shape} — drop the flag or reshape the mesh")
+        if not overlap:
+            overlap = True
+            notes.append("--zero1_rs forces --zero1_overlap (the "
+                         "scattered gradient lands in the slice the update "
+                         "owns; the masters rest as slices)")
+    if args.kfac and (world > 1 or zero1):
+        raise NotImplementedError(
+            f"--kfac over several ranks or with ZeRO-1 is not ported yet "
+            f"(see {PARALLEL_GAPS}); run it on one card with --zero1 false")
+    return _Parallel(world, rank, mesh, mesh_lib.data_shard_count(mesh),
+                     name, zero1, overlap, rs,
+                     args.coalesce_reductions == "on", notes)
+
+
+def _restore(manager, device, world: int, rank: int):
+    """(state_dict, extra, step) of the newest checkpoint that verifies,
+    or None without one. Over several ranks rank 0 walks the steps (and
+    quarantines a corrupt one) and the others load the step it chose."""
+    from bert_pytorch_tpu_torch.parallel import dist
+
+    if world == 1:
+        if manager.latest_step() is None:
+            return None
+        return manager.restore_with_fallback(map_location=device)
+    got = err = None
+    if rank == 0:
+        try:
+            if manager.latest_step() is not None:
+                got = manager.restore_with_fallback(map_location=device)
+        except Exception as e:      # every rank raises it, not rank 0 alone
+            err = f"{type(e).__name__}: {e}"
+    step, err = dist.broadcast_object(
+        (None if got is None else got[2], err))
+    if err is not None:
+        raise RuntimeError(f"checkpoint restore failed on rank 0: {err}")
+    if step is None:
+        return None
+    return got if rank == 0 else manager.restore(step, map_location=device)
+
+
+def _cursor_extra(cursor, world: int) -> Dict:
+    """A checkpoint's data cursors: "sampler", rank 0's (the one-card
+    format: without packing every rank's is the same, the ranks moving in
+    lockstep), and over several ranks "sampler_ranks", every rank's in
+    rank order (a packed loader's pending examples are its own).
+    Collective over several ranks."""
+    from bert_pytorch_tpu_torch.parallel import dist
+
+    if world == 1:
+        return {"sampler": cursor}
+    ranks = dist.all_gather_object(cursor)
+    return {"sampler": ranks[0], "sampler_ranks": ranks}
+
+
+def _rank_cursor(extra: Dict, world: int, rank: int) -> Dict:
+    """A restored checkpoint's extra with this rank's cursor as
+    "sampler": its own from "sampler_ranks" when the checkpoint was made
+    by as many ranks, else rank 0's (which the loader refuses, with a
+    warning, when the world differs)."""
+    ranks = extra.get("sampler_ranks")
+    if ranks is not None and len(ranks) == world:
+        return dict(extra, sampler=ranks[rank])
+    return extra
+
+
+def _collective_fields(perf: Dict, mark: Dict) -> Dict:
+    """Add this interval's collectives to a perf record (a step's average
+    of the bytes, the calls and the host milliseconds spent in them);
+    returns the new mark."""
+    from bert_pytorch_tpu_torch.parallel import dist
+
+    now = dist.stats_total()
+    steps = max(1, int(perf.get("steps", 1)))
+    perf["collective_bytes_per_step"] = (now["bytes"] - mark["bytes"]) / steps
+    perf["collective_calls_per_step"] = (now["calls"] - mark["calls"]) / steps
+    perf["collective_host_ms_per_step"] = round(
+        (now["host_s"] - mark["host_s"]) * 1e3 / steps, 3)
+    return now
 
 
 def _prefetcher_factory(args, loader, sw, device, accum_steps: int,
@@ -1265,13 +1560,13 @@ def kfac_run_info(args) -> Optional[Dict]:
 
 
 def _recorder_run_info(args, accum_steps: int, max_pred_row: int,
-                       grad_name: str, seq_len: int, n_loop: int = 1
-                       ) -> Dict:
+                       grad_name: str, seq_len: int, n_loop: int = 1,
+                       par: Optional[_Parallel] = None) -> Dict:
     """The bundle manifest's run block: what tools/replay.py rebuilds the
-    step from. The JAX run block's keys, with the port's one-card truth:
-    a record's "rng" holds the step's int32 dropout seeds, drawn from
-    numpy's PCG64 of (seed + 1000, step) (`rng_impl`); one card, so no
-    mesh axis beyond data=1 and no ZeRO-1 sharding."""
+    step from. The JAX run block's keys: a record's "rng" holds the step's
+    int32 dropout seeds, drawn from numpy's PCG64 of (seed + 1000, step)
+    (`rng_impl`), the same on every rank; the mesh and the ZeRO-1 arms of
+    the run (`par`)."""
     return {
         "accum_steps": accum_steps, "steps_per_loop": n_loop,
         "seed": args.seed, "kfac": kfac_run_info(args),
@@ -1283,9 +1578,12 @@ def _recorder_run_info(args, accum_steps: int, max_pred_row: int,
         "previous_phase_end_step": args.previous_phase_end_step,
         "rng_impl": "pcg64_int32_seeds",
         "health_pack": args.health_pack,
-        "nonfinite_action": args.nonfinite_action, "zero1": False,
-        "zero1_overlap": False, "zero1_rs": False,
-        "fused_optim": args.fused_optim, "mesh": {"data": 1},
+        "nonfinite_action": args.nonfinite_action,
+        "zero1": bool(par and par.zero1),
+        "zero1_overlap": bool(par and par.zero1_overlap),
+        "zero1_rs": bool(par and par.zero1_rs),
+        "fused_optim": args.fused_optim,
+        "mesh": par.mesh.shape if par is not None else {"data": 1},
         "seq_len": seq_len, "local_batch_size": args.local_batch_size,
         "global_batch_size": args.global_batch_size,
         "packing": args.packing,

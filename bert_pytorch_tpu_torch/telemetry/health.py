@@ -26,7 +26,7 @@ host policies applied by the entry point when it reads the metrics.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -70,18 +70,32 @@ def _nonfinite(t: torch.Tensor) -> torch.Tensor:
 
 
 def health_signals(loss: torch.Tensor, grads: Dict[str, torch.Tensor],
-                   grad_norm: torch.Tensor
+                   grad_norm: torch.Tensor,
+                   names: Optional[Iterable[str]] = None,
+                   reduce: Optional[Callable[[torch.Tensor],
+                                             torch.Tensor]] = None
                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """(metrics, bad): loss_nonfinite, grad_nonfinite_<group> per top-level
     parameter group (bert, cls_predictions, ...) and their total
     grad_nonfinite, all int32 tensors on the card; `bad` is a bool tensor,
-    true when any count is nonzero or the gradient norm is not finite."""
+    true when any count is nonzero or the gradient norm is not finite.
+
+    Under ZeRO-1 `grads` are this rank's pieces (keys "<name>@<start>"):
+    `names`, every parameter's name, fixes the groups on every rank, and
+    `reduce` sums the (groups,) counts over the ranks, so the counts are
+    the whole gradient's."""
     metrics = {"loss_nonfinite": _nonfinite(loss.float())}
     groups: Dict[str, torch.Tensor] = {}
+    if names is not None:
+        zero = torch.zeros((), dtype=torch.int32, device=loss.device)
+        groups = {n.split(".", 1)[0]: zero for n in names}
     for name, g in grads.items():
         group = name.split(".", 1)[0]
         c = _nonfinite(g)
         groups[group] = c if group not in groups else groups[group] + c
+    if reduce is not None:
+        summed = reduce(torch.stack(list(groups.values())))
+        groups = dict(zip(groups, summed.unbind(0)))
     total = torch.zeros((), dtype=torch.int32, device=loss.device)
     for group, c in groups.items():
         metrics[f"grad_nonfinite_{group}"] = c
@@ -94,7 +108,8 @@ def health_signals(loss: torch.Tensor, grads: Dict[str, torch.Tensor],
 
 def health_update(cfg: HealthConfig, telem: Optional[TelemetryState],
                   grad_norm: torch.Tensor, bad: torch.Tensor,
-                  params_after: Iterable[torch.Tensor]
+                  params_after: Iterable[torch.Tensor],
+                  param_norm: Optional[torch.Tensor] = None
                   ) -> Tuple[TelemetryState, Dict[str, torch.Tensor]]:
     """Fold this step into the carry; returns (new carry, metrics:
     grad_norm_ema, grad_norm_z, grad_spike, param_norm, param_norm_drift).
@@ -104,7 +119,8 @@ def health_update(cfg: HealthConfig, telem: Optional[TelemetryState],
     (it starts at 0, so after k updates only 1 - d^k of it has
     accumulated). Every update is selected on `bad`, so a non-finite norm
     never enters the EMAs. The parameter norm is the global f32 norm of
-    `params_after` (optim/lamb.global_norm_f32)."""
+    `params_after` (optim/lamb.global_norm_f32), or `param_norm` when the
+    caller has it (under ZeRO-1, summed over the ranks' pieces)."""
     from bert_pytorch_tpu_torch.optim.lamb import global_norm_f32
 
     if telem is None:
@@ -131,7 +147,8 @@ def health_update(cfg: HealthConfig, telem: Optional[TelemetryState],
     new_ema = torch.where(good, ema, telem.grad_norm_ema)
     new_var = torch.where(good, var, telem.grad_norm_var)
 
-    pn = global_norm_f32(params_after)
+    pn = (param_norm if param_norm is not None
+          else global_norm_f32(params_after))
     drift = torch.where(telem.param_norm_prev > 0,
                         (pn - telem.param_norm_prev)
                         / torch.clamp(telem.param_norm_prev, min=1e-12),

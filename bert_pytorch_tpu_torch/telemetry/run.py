@@ -68,6 +68,9 @@ class TelemetryRun:
         self.slo = None
         self.recorder = None
         self.stream_loader = None
+        # telemetry/multihost.HostMetricsAggregator of a run over several
+        # ranks: each perf record published, rank 0 folding the others'
+        self.aggregator = None
         self._closed = False
         try:
             self.supervisor_restarts = int(
@@ -168,8 +171,18 @@ class TelemetryRun:
         self.logger.log("train", step, **vals)
 
     def log_perf(self, step: int, record: Dict[str, Any]) -> None:
-        """One StepWatch interval `perf` record: the gauges and /healthz,
-        then the logger."""
+        """One StepWatch interval `perf` record: over several ranks this
+        rank's numbers published and, on rank 0, the ranks' fold added to
+        the record (with a straggler warning); then the gauges and
+        /healthz, then the logger."""
+        if self.aggregator is not None:
+            record = dict(record)
+            self.aggregator.publish(int(step), record)
+            if self.aggregator.process_index == 0:
+                agg, warning = self.aggregator.fold()
+                record.update(agg)
+                if warning:
+                    self.logger.info("WARNING: " + warning)
         for k, g in self._perf_g.items():
             if isinstance(record.get(k), (int, float)):
                 g.set(float(record[k]))
@@ -228,6 +241,8 @@ class TelemetryRun:
             return
         self._closed = True
         for fn in ((self.server.close if self.server is not None
+                    else None),
+                   (self.aggregator.close if self.aggregator is not None
                     else None), self.logger.close):
             if fn is None:
                 continue
@@ -240,18 +255,30 @@ class TelemetryRun:
 def init_run(phase: str, log_prefix: Optional[str] = None,
              echo: Callable[[str], None] = print,
              metrics_port: Optional[int] = None,
-             tensorboard: bool = False) -> TelemetryRun:
+             tensorboard: bool = False,
+             multihost_dir: Optional[str] = None,
+             process_index: int = 0, process_count: int = 1,
+             straggler_z: float = 3.0) -> TelemetryRun:
     """The run's telemetry in one call: a registry with the constant label
     `phase`, a MetricLogger over `log_prefix`'s sinks (none without it;
     `tensorboard` adds the TensorBoard sink) that echoes through `echo`
     and publishes into the registry, and, with
     `metrics_port` (0: an ephemeral port, read `tel.server.port`), the
-    /metrics + /healthz exporter."""
+    /metrics + /healthz exporter. `multihost_dir` turns on the per-rank
+    publish and rank 0's fold (telemetry/multihost.py) for rank
+    `process_index` of `process_count`."""
     registry = MetricsRegistry(constant_labels={"phase": phase})
     tel = TelemetryRun(phase, MetricLogger(log_prefix, echo=echo,
                                            registry=registry,
                                            tensorboard=tensorboard),
                        registry)
+    if multihost_dir:
+        from bert_pytorch_tpu_torch.telemetry.multihost import \
+            HostMetricsAggregator
+
+        tel.aggregator = HostMetricsAggregator(
+            multihost_dir, process_index=process_index,
+            process_count=process_count, z_threshold=straggler_z)
     if metrics_port is not None:
         from bert_pytorch_tpu_torch.telemetry.exporter import MetricsServer
 

@@ -131,7 +131,7 @@ def pretrain_loss_fn(model: nn.Module,
     scores NSP per segment: (B, G) labels, -1 for an empty slot. The
     returned loss_fn takes `kfac=` (K-FAC's taps) too."""
 
-    def loss_fn(params, micro, seeds, kfac=None):
+    def loss_fn(params, micro, seeds, kfac=None, counts=None):
         labels = micro["masked_lm_labels"]
         positions = None
         dropped = torch.zeros((), dtype=torch.int64, device=labels.device)
@@ -143,14 +143,37 @@ def pretrain_loss_fn(model: nn.Module,
         mlm_logits, nsp_logits = functional_call(
             model, params, (micro["input_ids"],),
             _model_inputs(micro, positions, seeds, kfac))
-        loss = losses.pretraining_loss(mlm_logits, labels, nsp_logits,
-                                       micro.get("next_sentence_labels"))
+        nsp_labels = micro.get("next_sentence_labels")
+        if counts is None:
+            loss = losses.pretraining_loss(mlm_logits, labels, nsp_logits,
+                                           nsp_labels)
+        else:
+            loss = losses.pretraining_loss_over_ranks(
+                mlm_logits, labels, nsp_logits, nsp_labels, counts)
         with torch.no_grad():
             correct, total = losses.mlm_accuracy(mlm_logits, labels)
         return loss, {"mlm_correct": correct, "mlm_total": total,
                       "mlm_dropped": dropped}
 
     return loss_fn
+
+
+def microbatch_counts(batch: Batch, accum_steps: int,
+                      max_predictions: Optional[int]) -> torch.Tensor:
+    """(accum_steps, 2) int64: each microbatch's scored masked tokens (at
+    most `max_predictions` a row when the gathered head is on) and its
+    NSP labels, the denominators of its loss."""
+    rows = []
+    for i in range(accum_steps):
+        labels = batch["masked_lm_labels"][i]
+        if max_predictions is not None:
+            labels = gather_masked_labels(labels, max_predictions)[1]
+        nsp = batch.get("next_sentence_labels")
+        rows.append(torch.stack([
+            (labels != -1).sum(),
+            (nsp[i] != -1).sum() if nsp is not None
+            else torch.zeros((), dtype=torch.int64, device=labels.device)]))
+    return torch.stack(rows).to(torch.int64)
 
 
 def debug_forward(model: nn.Module, params: Dict[str, torch.Tensor],
@@ -205,7 +228,8 @@ def build_pretrain_step(model: nn.Module, tx,
                         max_predictions: Optional[int] = None,
                         grad_dtype: Optional[torch.dtype] = None,
                         health: Optional[HealthConfig] = None,
-                        nan_inject_step: Optional[int] = None
+                        nan_inject_step: Optional[int] = None,
+                        dp=None
                         ) -> Callable[[TrainState, Batch,
                                        Optional[torch.Tensor]], Dict]:
     """Returns train_step(state, batch, seeds) -> metrics, which updates
@@ -220,12 +244,26 @@ def build_pretrain_step(model: nn.Module, tx,
     grad_spike, param_norm, param_norm_drift), whose carry the step keeps
     on `state.telemetry`. `nan_inject_step`: at that global step (the
     step being taken, 1-based) layer 0's attention output weight carries
-    a NaN in the forward (`inject_nonfinite`)."""
+    a NaN in the forward (`inject_nonfinite`).
+
+    `dp` (a parallel/zero.DataParallel) makes it this rank's part of a
+    data-parallel step (`_dp_step`): `batch` holds the rank's rows of
+    every microbatch, and the loss, the metrics and the update are the
+    whole global batch's."""
+    if dp is not None and loss_fn_builder is not None:
+        from bert_pytorch_tpu_torch import PARALLEL_GAPS
+
+        raise NotImplementedError("a data-parallel step of a task loss is "
+                                  f"not ported yet (see {PARALLEL_GAPS})")
     loss_fn = (pretrain_loss_fn(model, max_predictions)
                if loss_fn_builder is None else loss_fn_builder(model))
 
     def train_step(state: TrainState, batch: Batch,
                    seeds: Optional[torch.Tensor]) -> Dict:
+        if dp is not None:
+            return _dp_step(dp, loss_fn, tx, schedule, health, state, batch,
+                            seeds, accum_steps, max_predictions, grad_dtype,
+                            nan_inject_step)
         gparams = compute_params(state.params, grad_dtype)
         if nan_inject_step is not None and state.step + 1 == nan_inject_step:
             gparams = inject_nonfinite(gparams)
@@ -242,20 +280,28 @@ def build_pretrain_step(model: nn.Module, tx,
     return train_step
 
 
-def _accumulate(micro_fn: Callable[[int], Tuple], accum_steps: int):
+def _accumulate(micro_fn: Callable[[int], Tuple], accum_steps: int,
+                into: Optional[Dict[str, torch.Tensor]] = None):
     """Run `micro_fn(i)` -> (loss, aux, grads, *more) over the
     microbatches: the mean loss and gradients (the carry in the
     gradients' dtype up to 128 microbatches, f32 beyond), aux summed, and
     each of `more` (dicts of dicts of tensors: K-FAC's statistics) summed
-    then divided by the count."""
-    if accum_steps == 1:
+    then divided by the count. `into`: the carry's tensors by name (the
+    data-parallel step's views of its flat buffer, in the carry's dtype),
+    which then receive the gradients in place and are returned."""
+    if accum_steps == 1 and into is None:
         return micro_fn(0)
     deep = accum_steps > 128
     grads = loss = aux = more = None
     for i in range(accum_steps):
         l_i, a_i, g_i, *m_i = micro_fn(i)
         if grads is None:
-            grads = {k: g.float() if deep else g for k, g in g_i.items()}
+            if into is None:
+                grads = {k: g.float() if deep else g for k, g in g_i.items()}
+            else:
+                grads = into
+                for k, g in g_i.items():
+                    grads[k].copy_(g)
             loss, aux, more = l_i.float(), dict(a_i), m_i
         else:
             for k, g in g_i.items():
@@ -265,37 +311,102 @@ def _accumulate(micro_fn: Callable[[int], Tuple], accum_steps: int):
             more = [{site: {k: t + m[site][k] for k, t in d.items()}
                      for site, d in acc.items()}
                     for acc, m in zip(more, m_i)]
-    grads = {k: g / accum_steps for k, g in grads.items()}
+        del g_i
+    if accum_steps == 1:
+        return (loss, aux, grads, *more)
+    if into is None:
+        grads = {k: g / accum_steps for k, g in grads.items()}
+    else:
+        for g in grads.values():
+            g.div_(accum_steps)
     more = [{site: {k: t / accum_steps for k, t in d.items()}
              for site, d in acc.items()} for acc in more]
     return (loss / accum_steps, aux, grads, *more)
 
 
+def _dp_step(dp, loss_fn: LossFn, tx, schedule, health, state: TrainState,
+             batch: Batch, seeds: Optional[torch.Tensor], accum_steps: int,
+             max_predictions: Optional[int],
+             grad_dtype: Optional[torch.dtype],
+             nan_inject_step: Optional[int]) -> Dict:
+    """This rank's part of a data-parallel step (parallel/zero.py): the
+    compute leaves (under gather-on-use every unit's all-gather issued
+    here and awaited where the forward reaches the unit), the microbatch
+    counts summed over the ranks, the rank's loss and gradients against
+    them accumulated (`_accumulate`) into the views of the flat carry, the
+    gradients summed over the ranks a unit at a time, the loss and counts
+    summed, then the update (`_apply_update` with `dp`)."""
+    gparams = dp.compute_params(state.params, grad_dtype)
+    if gparams is None:
+        gparams = compute_params(state.params, grad_dtype)
+    if nan_inject_step is not None and state.step + 1 == nan_inject_step:
+        dp.wait_all()
+        gparams = inject_nonfinite(gparams)
+    counts = dp.global_counts(
+        microbatch_counts(batch, accum_steps, max_predictions))
+
+    def micro(i):
+        return loss_and_grads(
+            lambda p, m, s: loss_fn(p, m, s, counts=counts[i]), gparams,
+            {k: v[i] for k, v in batch.items()},
+            None if seeds is None else seeds[i])
+
+    # the carry: views of the flat buffer the reductions run over
+    flat, views = dp.carry(torch.float32 if accum_steps > 128 else
+                           next(iter(gparams.values())).dtype)
+    loss, aux, _ = _accumulate(micro, accum_steps, into=views)
+    dp.wait_all()
+    grads = dp.reduce_grads(flat)
+    # the loss and the counts of every rank, in one small reduction
+    keys = sorted(aux)
+    summed = dp.global_counts(torch.stack(
+        [loss.float()] + [aux[k].float() for k in keys]))
+    loss = summed[0]
+    aux = {k: summed[1 + j] for j, k in enumerate(keys)}
+    aux["mlm_dropped"] = aux["mlm_dropped"].to(torch.int64)
+    return _apply_update(tx, schedule, health, state, loss, aux, grads,
+                         dp=dp)
+
+
 def _apply_update(tx, schedule, health, state: TrainState, loss, aux,
-                  grads, precond_state=None) -> Dict:
+                  grads, precond_state=None, dp=None) -> Dict:
     """The step's tail, shared by both builders: the global gradient
     norm, the health pack's signals (under "skip" a bad step leaves the
     parameters, the optimizer state and, given `precond_state`, K-FAC's
     state as they were), the update, the metrics, the step count."""
-    grad_norm = global_norm_f32(grads.values())
+    zero1 = dp is not None and dp.zero1
+    grad_norm = (dp.global_norm(list(grads.values())) if zero1
+                 else global_norm_f32(grads.values()))
     metrics: Dict = {"loss": loss, "grad_norm": grad_norm}
     skip = False
     bad = None
     if health is not None:
-        hmetrics, bad = health_signals(loss, grads, grad_norm)
+        hmetrics, bad = health_signals(
+            loss, grads, grad_norm,
+            names=dp.layout.names if zero1 else None,
+            reduce=dp.nonfinite_counts if zero1 else None)
         metrics.update(hmetrics)
         if health.action == "skip":
             skip = bool(bad)
             metrics["skipped_nonfinite"] = int(skip)
+    own = dp.piece_views(dp.master) if zero1 else None
     if not skip:
-        tx.update(grads, state.opt_state, state.params,
-                  grad_norm=grad_norm)
+        if zero1:
+            tx.update(grads, state.opt_state, own, grad_norm=grad_norm,
+                      shards=dp)
+        else:
+            tx.update(grads, state.opt_state, state.params,
+                      grad_norm=grad_norm)
         if precond_state is not None:
             state.precond_state = precond_state
+    if zero1 and not dp.gather_on_use:
+        dp.gather_masters()
     if health is not None:
         state.telemetry, ema_metrics = health_update(
             health, state.telemetry, grad_norm, bad,
-            state.params.values())
+            state.params.values(),
+            param_norm=dp.global_norm(list(own.values())) if zero1
+            else None)
         metrics.update(ema_metrics)
     if "mlm_total" in aux:
         metrics["mlm_accuracy"] = (aux["mlm_correct"]

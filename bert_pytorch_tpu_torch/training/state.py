@@ -12,7 +12,9 @@ them in place, and `load_state_dict` copies a checkpoint into them.
 "factors" and "inverses" by "<site>/<A|G>"}. `telemetry`, the
 health pack's carry (telemetry/health.TelemetryState), is attached after
 a restore and never saved, so a checkpoint's structure is the same with
-the pack on or off. Both LAMB routes
+the pack on or off. Under ZeRO-1 (`sharding`) the moments are the
+rank's pieces and both methods are collective (parallel/zero.py). Both
+LAMB routes
 and FusedAdam keep that layout, so a state saved under one LAMB route
 resumes under the other.
 """
@@ -36,8 +38,13 @@ class TrainState:
     opt_state: Union[LambState, AdamState]
     telemetry: Optional[Any] = None
     precond_state: Optional[Any] = None
+    # ZeRO-1 (parallel/zero.DataParallel): the moments hold this rank's
+    # pieces; state_dict() and load_state_dict() speak the one-card format
+    sharding: Optional[Any] = None
 
     def state_dict(self) -> Dict:
+        if self.sharding is not None:
+            return self.sharding.full_state_dict(self)
         sd = {"step": int(self.step), "params": dict(self.params),
               "opt_state": {"count": int(self.opt_state.count),
                             "mu": dict(self.opt_state.mu),
@@ -52,6 +59,8 @@ class TrainState:
         is copied), then the step and the optimizer's count; with K-FAC on,
         the factors and inverses the same way (a checkpoint without them,
         or with them where K-FAC is off, raises)."""
+        if self.sharding is not None:
+            return self.sharding.load_full_state_dict(self, sd)
         opt = sd["opt_state"]
         groups = [("params", self.params, sd["params"]),
                   ("mu", self.opt_state.mu, opt["mu"]),
@@ -90,11 +99,13 @@ class TrainState:
 
 
 def make_train_state(model: nn.Module, tx,
-                     extra: Optional[Dict[str, torch.Tensor]] = None
-                     ) -> TrainState:
+                     extra: Optional[Dict[str, torch.Tensor]] = None,
+                     dp=None) -> TrainState:
     """A fresh state over `model`'s parameters, which must be f32, and
     `extra`, parameters by name trained beside them (a distillation run's
-    projections); `tx` is a Lamb or a FusedAdam."""
+    projections); `tx` is a Lamb or a FusedAdam. `dp`, a ZeRO-1
+    parallel/zero.DataParallel built over `model`, gives LAMB moments for
+    this rank's pieces alone, and `state_dict()` becomes collective."""
     params = {k: p.detach() for k, p in model.named_parameters()}
     for k, p in (extra or {}).items():
         if k in params:
@@ -103,4 +114,11 @@ def make_train_state(model: nn.Module, tx,
     bad = [k for k, p in params.items() if p.dtype != torch.float32]
     if bad:
         raise ValueError(f"master parameters must be float32: {bad[:3]}")
+    if dp is not None and dp.zero1:
+        if extra:
+            raise ValueError("ZeRO-1 takes the model's parameters alone")
+        mu, nu = dp.init_moments()
+        return TrainState(step=0, params=params,
+                          opt_state=LambState(count=0, mu=mu, nu=nu),
+                          sharding=dp)
     return TrainState(step=0, params=params, opt_state=tx.init(params))

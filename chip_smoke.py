@@ -105,18 +105,7 @@ Phases, each of which must pass:
             auto-resumes phase 1's last checkpoint
             (previous_phase_end_step set to 3 for it) and must continue
             from step 3 with phase 1's LAMB state;
-10. train_chunks  --steps_per_loop on phase 2 (24 layers, 16 x 512,
-            accumulation 2) from the chained pretraining checkpoint
-            (train_phase2's, its weights through --init_checkpoint): 4
-            steps a run at N = 1 and N = 2, alternated (1, 2, 2, 1), each
-            traced over its warm chunk by --profile_steps: losses,
-            parameters and LAMB moments bit-equal across the runs, exact
-            launch counts, hbm_* in every perf record; the host clock a
-            traced step and the idle share (a gain reported only where the
-            modes' ranges do not overlap); a run at --steps_per_loop 4
-            --profile_steps 2,3, its chunk traced whole, bit-equal too;
-            one microbatch through the kernels against the plain versions;
-11. train_kfac  K-FAC: configs/bert_kfac_pretraining_phase1_config.json
+10. train_kfac  K-FAC: configs/bert_kfac_pretraining_phase1_config.json
             at 24 layers and 2 x 96 x 128, --kfac_inv_interval 2, 3 steps
             through the trainer: exact launch counts, the factor and
             inverse bytes, hbm_* in every perf record; a step's parts
@@ -128,11 +117,11 @@ Phases, each of which must pass:
             read against the card's G from bf16 statistics, from other
             dropout masks and halved (the last two must exceed it), and
             a bundle's step 3 replayed bit-identically;
-12. train_roberta  the RoBERTa recipe (no NSP, vocab 28996, linear
+11. train_roberta  the RoBERTa recipe (no NSP, vocab 28996, linear
             decay) at 24 layers, 2 x 16 x 128, 2 steps: exact launch
             counts, finite losses, the 297 tensors LAMB updates, one
             microbatch through the kernels against the plain versions;
-13. train_packed  packed pretraining, phase 1: 3 steps of the entry
+12. train_packed  packed pretraining, phase 1: 3 steps of the entry
             point's trainer with --packing (8 segments a row, lookahead
             4) over in-memory shards whose real lengths are uniform over
             16-128 tokens: exact launch counts, examples a step and the
@@ -141,12 +130,37 @@ Phases, each of which must pass:
             examples/s); one packed microbatch through the kernels
             against the plain versions; at rate 0 the packed microbatch
             against its examples one a row;
-14. train_packed_phase2  the same at phase 2 (16 x 512, lengths
+13. train_packed_phase2  the same at phase 2 (16 x 512, lengths
             64-512), where the packed segments reach the flash forward's
             dropout arm and the fused backward: also one packed
             microbatch's flash launches and the tiles their segment test
             skipped, as the layout predicts;
-15. pipeline  the offline corpus pipeline and the native encoders:
+14. train_dp  data-parallel pretraining (parallel/), BERT-Large width at
+            CUT_LAYERS, phase 1: one rank under an NCCL group of one
+            (ZeRO-1, so the NCCL wrappers run on the card) and two ranks
+            sharing the card over gloo (chip_smoke.py --dp_child
+            processes): the step-level 2-rank leg on the same global
+            batch (2 x 96 x 128, dropout off, f32 gradients) against the
+            1-rank leg within DP_TOL; 3 steps of the entry point at
+            --mesh data=2 under --mesh_config auto (packing, ZeRO-1,
+            gather-on-use), + --zero1_rs, + --coalesce_reductions on, and
+            ZeRO-1 with the end-of-step gather, bit-equal to one another
+            (losses, grad norms, the params' digest) with exact launches
+            on each rank; the first arm's 2-rank checkpoint restored by
+            one rank and kept for train_chunks and finetune_tasks;
+15. train_chunks  --steps_per_loop on phase 2 (BERT-Large's width at
+            CUT_LAYERS, 16 x 512, accumulation 2) from the chained
+            pretraining checkpoint (train_dp's, its weights through
+            --init_checkpoint, every parameter loaded): 4
+            steps a run at N = 1 and N = 2, alternated (1, 2, 2, 1), each
+            traced over its warm chunk by --profile_steps: losses,
+            parameters and LAMB moments bit-equal across the runs, exact
+            launch counts, hbm_* in every perf record; the host clock a
+            traced step and the idle share (a gain reported only where the
+            modes' ranges do not overlap); a run at --steps_per_loop 4
+            --profile_steps 2,3, its chunk traced whole, bit-equal too;
+            one microbatch through the kernels against the plain versions;
+16. pipeline  the offline corpus pipeline and the native encoders:
             the three C++ libraries' build seconds (the build phase's, or
             built here when it did not run); stream_corpus's documents as wikiextractor files through
             format, shard, a WordPiece and a BPE vocabulary trained by the
@@ -157,10 +171,10 @@ Phases, each of which must pass:
             samples' arrays through an in-memory ShardIndex into 2 phase-1
             steps of the trainer at CUT_LAYERS: exact launch counts,
             finite losses;
-16. stream  the streaming data plane (--stream_dir) through the entry
+17. stream  the streaming data plane (--stream_dir) through the entry
             point's trainer at phase 1's 2 x 96 x 128 over a synthetic
             corpus tokenized on the fly by the native WordPiece: 3 steps at
-            24 layers with
+            STREAM_LAYERS (12) layers with
             --h2d_prefetch 1 (exact launch counts; the batches the steps
             read bit-equal to the loader's alone on the host; data_wait's
             share, the pool's tokens/s, the queue depth, the idle share
@@ -176,7 +190,7 @@ Phases, each of which must pass:
             worker_crash bit-equal to the clean run, corrupt_record's drops
             counted, --stream_tokenizer bpe over a vocabulary learned from the
             corpus, and the TensorBoard sink's scalars;
-17. remat   --checkpoint_activations at phase 2's packed 16 x 512, 24
+18. remat   --checkpoint_activations at phase 2's packed 16 x 512, 24
             layers: 2 trainer steps under the model config's policy
             ("nothing"), exact launch counts (each layer's residual tails
             and flash forward twice); per policy (nothing, dots,
@@ -184,7 +198,7 @@ Phases, each of which must pass:
             tensors a layer and 14 more) bit-equal to remat off, and one
             optimizer step's launches, peak memory and host and device
             time against remat off;
-18. finetune_squad  SQuAD v1.1 finetuning by the entry point's run_task
+19. finetune_squad  SQuAD v1.1 finetuning by the entry point's run_task
             (bert_pytorch_tpu_torch.run_squad's body): BERT-Large seeded
             from phase 2's last checkpoint, 3 steps of 32 x 384 (flash
             forward with dropout and the fused backward in every layer),
@@ -195,19 +209,21 @@ Phases, each of which must pass:
             run_server serving the finetuned checkpoint; one step profiled
             and timed, the optimizer update timed; one microbatch through
             the kernels against the plain versions;
-19. finetune_ner  CoNLL NER finetuning, 3 steps of 32 x 128 (plain
+20. finetune_ner  CoNLL NER finetuning, 3 steps of 32 x 128 (plain
             attention, the LayerNorm kernels) on a synthetic CoNLL-2003
             file, val and test macro F1, the checkpoint, exact launch
             counts, one step profiled and timed;
-20. finetune_tasks  classify, choice and embed finetuning, one after the
-            other: BERT-Large from phase 2's last checkpoint, 3 steps of
+21. finetune_tasks  classify, choice and embed finetuning, one after the
+            other: BERT-Large's width at CUT_LAYERS from train_dp's
+            pretraining checkpoint (--init_checkpoint; finetune_squad
+            keeps the chain from phase 2's at 24 layers), 3 steps of
             16 x 128 (choice 16 x 4 x 128) at the JAX base parser's recipe
             on synthetic TSV / JSONL files, val and test accuracy, embed's
             embedding norms, exact launch counts, the checkpoint answered
             by the server and deleted, one step profiled and timed, and a
             classify and a choice microbatch through the kernels against
             the plain versions;
-21. serve_slo  the SLO plane, the canary prober and the fault injector on
+22. serve_slo  the SLO plane, the canary prober and the fault injector on
             the five-task server (seeded random BERT-Large checkpoints,
             buckets 128 and 512, bf16), with scripts/check_slo.sh's
             miniature windows: a clean leg of 12 s at 20 requests/s fires
@@ -221,7 +237,7 @@ Phases, each of which must pass:
             (configs/slo.json) and the prober on, and again with both
             off: p50 / p99, evaluate()'s host time a tick, the
             latency_p99 burn;
-22. finetune_packed  packed finetuning of the five tasks at BERT-Large
+23. finetune_packed  packed finetuning of the five tasks at BERT-Large
             width, CUT_LAYERS (bf16, seeded random init, synthetic
             lengths): a packed
             batch against the same examples one to a row through the
@@ -233,7 +249,7 @@ Phases, each of which must pass:
             run_squad, packed and not, on the same files (examples/s, a
             step's device time, packing_efficiency, real and slot tokens,
             peak memory, exact launch counts);
-23. distill  a BERT-Large-width classify teacher of 8 layers (3 steps
+24. distill  a BERT-Large-width classify teacher of 8 layers (3 steps
             through run_finetune, --perf_artifact: its FINETUNE json's mfu
             on the card's peak) and a SQuAD teacher (one step) distilled into
             student_6l_768 (6 layers, width 768, 12 heads) by
@@ -248,7 +264,7 @@ Phases, each of which must pass:
             config and its checkpoint refused under the teacher's;
             --inject broken_student; a step's time split beside a plain
             finetune step of the student;
-24. init_sources  --init_checkpoint from other sources at BERT-Large
+25. init_sources  --init_checkpoint from other sources at BERT-Large
             width, CUT_LAYERS: random weights from a seed written as the
             reference's ckpt_1.pt (its src/modeling.py names, `module.`
             prefixes, 30522 vocab rows); a fresh QA model seeded from it holds
@@ -262,7 +278,7 @@ Phases, each of which must pass:
             copy, the loss's readback) as a device hang; a TF release
             and a JAX orbax directory raise the ImportError naming
             tensorflow / tensorstore, which the chip machine lacks;
-25. survival  pretraining's survival and metrics planes, BERT-Large
+26. survival  pretraining's survival and metrics planes, BERT-Large
             width at CUT_LAYERS, phase 1 (96 x 128, accumulation 2,
             health pack on) through the entry
             point's trainer over in-memory shards: a clean 4-step run
@@ -302,7 +318,7 @@ from the main paths' (`launches_in_checks`). It holds the fused LAMB stages
 parameter tensors and a list of odd sizes and misaligned views, and the
 timing phase times them over the 302 tensors.
 
-Phases 13, 14, 15, 22, 24 and 25, the stream phase's drills and
+Phases 10, 13-16, 21, 23, 25 and 26, the stream phase's drills and
 train_kfac's replay and card-vs-CPU step run at CUT_LAYERS (6) layers,
 distill's teacher at 8 (deeper than its 6-layer student): their checks
 hold at any depth, and their checkpoints (4 GB each at 24 layers)
@@ -328,6 +344,8 @@ import urllib.error
 import urllib.request
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# this process's start (a train_dp rank reports its start-up from it)
+START = time.perf_counter()
 
 BUCKETS = (64, 128, 256, 512)
 BATCH_ROWS = 8
@@ -1601,6 +1619,48 @@ def bert_large_lamb_state(torch, gen, g_dtype):
                    for k, _ in shapes]}
 
 
+def bert_large_shard_lamb_state(torch, gen, g_dtype, rank: int = 1,
+                                world: int = 2):
+    """LAMB's lists over rank `rank`'s pieces of BERT-Large's parameters
+    under ZeRO-1 over `world` ranks (parallel/zero.FlatLayout): views of
+    one flat f32 parameter buffer and of the rank's shard buffers (bf16 or
+    f32 gradients, f32 moments), tensors cut by a shard boundary among
+    them, each piece with its tensor's weight decay."""
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.models.bert import BertForPreTraining
+    from bert_pytorch_tpu_torch.optim.lamb import default_weight_decay_mask
+    from bert_pytorch_tpu_torch.parallel.zero import FlatLayout
+
+    config = BertConfig.from_json_file(os.path.join(
+        HERE, "configs", "bert_large_uncased_config.json"))
+    config = config.replace(vocab_size=pad_vocab_size(config.vocab_size, 8))
+    with torch.device("meta"):
+        named = list(BertForPreTraining(config).named_parameters())
+    layout = FlatLayout([k for k, _ in named], [p.shape for _, p in named],
+                        world)
+    pieces = layout.pieces(rank)
+    n = layout.shard_total
+
+    def randn(count, scale=1.0):
+        return torch.randn(count, generator=gen, device="cuda") * scale
+
+    flat_p = randn(layout.total, 0.02)
+    g, mu, nu = randn(n, 0.01).to(g_dtype), randn(n, 1e-3), \
+        randn(n, 1e-3).square()
+
+    def at(buf, pc):
+        return buf[pc.compact:pc.compact + pc.hi - pc.lo]
+
+    cut = sum(1 for pc in pieces
+              if pc.hi - pc.lo < layout.shape[pc.name].numel())
+    return {"g": [at(g, pc) for pc in pieces],
+            "mu": [at(mu, pc) for pc in pieces],
+            "nu": [at(nu, pc) for pc in pieces],
+            "p": [flat_p[pc.lo:pc.hi] for pc in pieces],
+            "wd": [0.01 if default_weight_decay_mask(pc.name) else 0.0
+                   for pc in pieces], "cut": cut}
+
+
 def odd_lamb_state(torch, gen, g_dtype):
     """Lists the BERT-Large list lacks: sizes 1-3 and around the 4-element
     vectors and the kernels' chunk, and views that start off a 16-byte
@@ -1625,7 +1685,9 @@ def odd_lamb_state(torch, gen, g_dtype):
 def check_lamb_kernels(torch, np, results):
     """Kernels #11 and #12 against their plain versions on the card, bit
     for bit: over BERT-Large's parameter list with bf16 gradients (the
-    training path's), the same with f32 gradients, and the odd list; stage
+    training path's), the same with f32 gradients, over the pieces rank 1
+    of 2 updates under ZeRO-1 (views of flat buffers, tensors cut by its
+    slice's boundaries) with bf16 gradients, and the odd list; stage
     1's mu, nu and u, stage 2's product and its fused apply to p; every
     kernel run twice with identical bits."""
     from bert_pytorch_tpu_torch.ops.fused_optim import (
@@ -1640,10 +1702,16 @@ def check_lamb_kernels(torch, np, results):
     for what, make, g_dtype in (
             ("BERT-Large", bert_large_lamb_state, torch.bfloat16),
             ("BERT-Large", bert_large_lamb_state, torch.float32),
+            ("BERT-Large's ZeRO-1 pieces of rank 1 of 2",
+             bert_large_shard_lamb_state, torch.bfloat16),
             ("odd sizes and views", odd_lamb_state, torch.bfloat16),
             ("odd sizes and views", odd_lamb_state, torch.float32)):
         name = str(g_dtype).split(".")[-1]
         st = make(torch, gen, g_dtype)
+        if "cut" in st:
+            # a tensor cut by the rank's slice boundary appears as a piece
+            check(st["cut"] > 0, f"{what}: no tensor is cut by a boundary")
+            name = "shard_pieces"
         n_el = sum(x.numel() for x in st["g"])
         runs = []
         for fn in (lamb_stage1, lamb_stage1, lamb_stage1_ref):
@@ -4903,12 +4971,14 @@ CHUNK_WIDE = (4, "2,3")
 def phase_train_chunks(torch, np, summary, device="cuda",
                        cfg_path=os.path.join(HERE, "configs",
                                              "bert_large_uncased_config.json"),
-                       ckpt_dir=None, micro=None, order=CHUNK_ORDER,
+                       micro=None, order=CHUNK_ORDER,
                        plain_rows=CHUNK_PLAIN_ROWS):
     """--steps_per_loop on phase 2: runs of CHUNK_STEPS steps of the
     entry point's trainer from the chained pretraining checkpoint (the
-    newest in `ckpt_dir`: train_phase2's, weights through
-    --init_checkpoint), at N = 1 and N = 2 in CHUNK_ORDER. Every run's
+    one train_dp kept, at `cfg_path`'s depth: the script passes
+    BERT-Large's width at CUT_LAYERS; its weights through
+    --init_checkpoint, every parameter loaded), at N = 1 and N = 2 in
+    CHUNK_ORDER. Every run's
     losses at the steps both log, its parameters and LAMB moments (what
     its checkpoint would hold) are bit-equal; the launches are the ph2
     column a step; every perf record carries the hbm_* fields. From the
@@ -4924,20 +4994,15 @@ def phase_train_chunks(torch, np, summary, device="cuda",
     from bert_pytorch_tpu_torch.models.bert import (BertForPreTraining,
                                                     init_weights)
     from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
-    from bert_pytorch_tpu_torch.training.checkpoint import CheckpointManager
 
     spec = TRAIN_RUNS["train_phase2"]
     micro = micro or spec["micro"]
     on_card = torch.device(device).type == "cuda"
-    init = []
-    if ckpt_dir is not None:
-        steps = CheckpointManager(os.path.join(
-            ckpt_dir, "pretrain_ckpts")).all_steps()
-        if steps:
-            init = ["--init_checkpoint",
-                    f"{os.path.join(ckpt_dir, 'pretrain_ckpts')}@{steps[-1]}"]
-    check(bool(init) or not on_card, "train_chunks chains from the train "
-          "phases' checkpoint: run train and train_phase2 first")
+    prev = summary.get("train_dp", {}).get("checkpoint")
+    check(prev is not None or not on_card, "train_chunks chains from "
+          "train_dp's checkpoint: run train_dp first")
+    init = [] if prev is None else [
+        "--init_checkpoint", f"{prev['dir']}@{prev['step']}"]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_chunks_")
     res = summary.setdefault("train_chunks", {"init": init[1:]})
     marks, mark = _marks()
@@ -4964,11 +5029,23 @@ def phase_train_chunks(torch, np, summary, device="cuda",
                 "--fused_optim", "auto", "--vocab_pad_multiple", "8",
                 "--seed", "0", "--log_freq", str(CHUNK_N),
                 "--tensorboard", "off", "--device", device, *init])
+            lines = []
+
+            def note(m, i=i):
+                lines.append(m)
+                log(f"train_chunks[{i}]: {m}")
+
             reset_launches()
-            result = run_pretraining.train(
-                args, index, log=lambda m, i=i: log(f"train_chunks[{i}]: "
-                                                    f"{m}"))
+            result = run_pretraining.train(args, index, log=note)
             launches = dict(LAUNCHES)
+            if prev is not None:
+                loaded = [ln for ln in lines
+                          if ln.startswith("init_checkpoint ")]
+                check(loaded == [f"init_checkpoint step {prev['step']}: "
+                                 f"loaded {len(result.state.params)} param "
+                                 "leaves, 0 fresh-initialized"],
+                      f"train_chunks[{i}] init checkpoint: {loaded}, want "
+                      "every parameter")
             want = _per_step_launches(layers, CHUNK_STEPS, spec["flash"])
             if on_card:
                 check(launches == want, f"train_chunks[{i}] N={n}: launches "
@@ -6372,12 +6449,13 @@ def phase_finetune_tasks(torch, np, summary, device="cuda",
                          cfg_path=os.path.join(
                              HERE, "configs",
                              "bert_large_uncased_config.json"),
-                         ckpt_dir=None, batch=TASK_TRAIN[0]):
-    """classify, choice and embed finetuning of `cfg_path`'s model
-    (BERT-Large, 24 layers, full width, vocab padded to 30528) by the
-    entry point's run_task, one after the other: seeded from
-    train_phase2's last checkpoint when that phase ran (else random
-    weights from the seed), FINETUNE_STEPS steps of `batch` x 128 at the
+                         batch=TASK_TRAIN[0]):
+    """classify, choice and embed finetuning of `cfg_path`'s model (the
+    script passes BERT-Large's width at CUT_LAYERS; vocab padded to 30528)
+    by the entry point's run_task, one after the other: seeded from the
+    pretraining checkpoint train_dp kept (at `cfg_path`'s depth) when
+    that phase ran, else random weights from the seed, FINETUNE_STEPS
+    steps of `batch` x 128 at the
     JAX base parser's recipe (lr 3e-5, 10% warmup, clip 1.0, bf16,
     dropout 0.1; choice at TASK_CHOICES choices, `batch` x 4 rows), on
     synthetic train, val and test files; val and test accuracy, embed's
@@ -6407,9 +6485,8 @@ def phase_finetune_tasks(torch, np, summary, device="cuda",
     config = BertConfig.from_json_file(cfg_path)
     config = config.replace(vocab_size=pad_vocab_size(config.vocab_size, 8))
     layers = config.num_hidden_layers
-    prev = summary.get("train_phase2", {}).get("checkpoint")
-    pretrain = (None if prev is None or ckpt_dir is None
-                else os.path.join(ckpt_dir, "pretrain_ckpts"))
+    prev = summary.get("train_dp", {}).get("checkpoint")
+    pretrain = None if prev is None else prev["dir"]
     init = [] if pretrain is None else [
         "--init_checkpoint", f"{pretrain}@{prev['step']}"]
     per_step = {"layer_norm_fwd": 1, "layer_norm_bwd": 1,
@@ -8621,7 +8698,8 @@ def phase_stream(torch, np, summary, device="cuda",
     serve_vocab's WordPiece vocabulary, tokenized by the native encoder
     (the factory's) unless said otherwise:
 
-    1. the main path at `cfg_path` (BERT-Large, 24 layers), STREAM_STEPS
+    1. the main path at `cfg_path` (the script passes BERT-Large's width
+       at STREAM_LAYERS), STREAM_STEPS
        steps at --h2d_prefetch 1, packing off: exact launch counts
        (zeroed just before, read just after); the batches the steps read
        (the prefetcher's batch_tap) bit-equal to the loader's alone on the
@@ -9277,6 +9355,439 @@ def _survival_argv(cfg_path, out, device, micro, *extra):
             "--health_pack", "on", "--device", device, *extra]
 
 
+# The data-parallel phase (train_dp, ROADMAP queue A item 7's data axis):
+# BERT-Large's width at CUT_LAYERS, phase 1 at 2 ranks x 96 x 128, 3 steps.
+# Two ranks share the one card over gloo (torch's gloo runs every
+# collective the step needs on CUDA tensors; nothing is staged by the
+# port); the 1-rank reference runs under an NCCL group of one. `samples`:
+# the synthetic examples a shard (two shards), enough for 3 packed steps a
+# rank; `micro`: a rank's rows.
+DP_RUN = {"ranks": 2, "micro": 96, "seq": 128, "steps": 3,
+          "samples": 640, "lr": 1e-3}
+# The 2-rank step against the 1-rank step on the same global batch,
+# dropout off, f32 gradients: the ranks run the bf16 forward on half the
+# rows each (other product shapes, other roundings) and sum their f32
+# gradients over the ranks, so the losses agree to ~1e-5 and the
+# parameters, all tensors together, to a relative L2 of the same order
+# (the CPU rehearsal at 2 layers: 9.95e-6 and 1.15e-5). A single tensor
+# can read far more: Adam's first steps move an element by about lr
+# whatever its gradient's size, so a zero-initialised bias whose gradient
+# element is near 0 flips sign on a rounding (the rehearsal's worst
+# tensor: 1.2e-2); the phase reports that tensor and bounds the whole.
+# The grad norm reads each step's gradient at parameters the earlier
+# steps already moved apart, so its disagreement grows with the step:
+# 1.6e-5, 5.7e-5 and 1.8e-4 on the card (H100, CUT_LAYERS). A fault of the
+# gradient's scale moves it by a half or more (a mean over the ranks in
+# place of the sum halves it; counts not summed over the ranks double it),
+# which LAMB's scale-free update would hide from the loss and the params.
+DP_TOL = {"loss": 1e-4, "param": 1e-4, "grad_norm": 1e-3}
+
+
+def _dp_index(np, run, config):
+    """The phase's synthetic pretraining samples, two in-memory shards."""
+    return array_index([pretraining_arrays(np, run["samples"], run["seq"],
+                                           config.vocab_size, s)
+                        for s in (0, 1)])
+
+
+def _dp_batches(np, index, config, args_seed: int, rows: int, steps: int,
+                max_pred: int):
+    """`steps` global batches of `rows` rows drawn by the entry point's
+    loader (masks included) at world 1: the step-level legs' data."""
+    from bert_pytorch_tpu_torch.data.sharded import (HostShardSampler,
+                                                     PretrainingDataLoader)
+
+    loader = PretrainingDataLoader(
+        index, HostShardSampler(len(index), seed=args_seed),
+        batch_size=rows, mask_token_index=103, max_pred_per_seq=max_pred,
+        masked_lm_prob=0.15, vocab_size=config.vocab_size, seed=args_seed,
+        prefetch_batches=0)
+    try:
+        return [next(loader) for _ in range(steps)]
+    finally:
+        loader.close()
+
+
+def _dp_step_leg(torch, np, config, batches, rank: int, world: int, device,
+                 lr: float):
+    """The step-level leg: a seeded random model, ZeRO-1 over `world`
+    ranks (build_pretrain_step with a DataParallel), one microbatch a step
+    of this rank's rows of each global batch, dropout off (no seeds), the
+    bf16 forward with f32 gradients, LAMB on the kernels. Returns (losses, grad norms, the
+    one-card params; collective)."""
+    from bert_pytorch_tpu_torch.models.bert import (BertForPreTraining,
+                                                    init_weights,
+                                                    set_dropout_shard)
+    from bert_pytorch_tpu_torch.optim.lamb import Lamb
+    from bert_pytorch_tpu_torch.optim.schedulers import make_schedule
+    from bert_pytorch_tpu_torch.parallel.zero import DataParallel
+    from bert_pytorch_tpu_torch.telemetry.health import HealthConfig
+    from bert_pytorch_tpu_torch.training.pretrain import build_pretrain_step
+    from bert_pytorch_tpu_torch.training.state import make_train_state
+
+    with torch.device(device):
+        model = BertForPreTraining(config, dtype=torch.bfloat16)
+    init_weights(model, torch.Generator(device=device).manual_seed(0),
+                 std=config.initializer_range)
+    set_dropout_shard(model, rank)
+    dp = DataParallel(model, zero1=True)
+    sched = make_schedule("poly", lr, 10, warmup=0.0)
+    tx = Lamb(sched, weight_decay=0.01, fused="auto")
+    state = make_train_state(model, tx, dp=dp)
+    step = build_pretrain_step(model, tx, schedule=sched, accum_steps=1,
+                               max_predictions=80, grad_dtype=None,
+                               health=HealthConfig(), dp=dp)
+    losses, norms = [], []
+    for b in batches:
+        rows = len(b["input_ids"]) // world
+        batch = {k: torch.from_numpy(np.ascontiguousarray(
+            v[rank * rows:(rank + 1) * rows]))[None].to(device)
+            for k, v in b.items()}
+        m = step(state, batch, None)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    params = {k: v.detach().float().cpu()
+              for k, v in state.state_dict()["params"].items()}
+    dp.close()
+    return losses, norms, params
+
+
+def _dp_arms(run: dict, device: str):
+    """The entry-point legs of the two ranks: (name, extra argv, saves).
+    On a card --mesh_config auto picks production (packing, ZeRO-1,
+    gather-on-use); the CPU rehearsal names production, which auto keeps
+    off there."""
+    auto = ["--mesh_config", "auto" if device == "cuda" else "production"]
+    return [("production", auto, True),
+            ("production_rs", auto + ["--zero1_rs"], False),
+            ("production_coalesced", auto + ["--coalesce_reductions", "on"],
+             False),
+            ("zero1_end_gather", ["--mesh_config", "base", "--zero1", "true",
+                                  "--packing"], False)]
+
+
+def dp_child(argv) -> int:
+    """`chip_smoke.py --dp_child JOB RANK`: one rank of the train_dp
+    phase's two, both on the one card (LOCAL_RANK 0) in a gloo group
+    (FileStore at the job's `store`): the step-level compare leg, then
+    each entry-point arm through run_pretraining.train over the in-memory
+    shards, the launches counted from 0 just before each arm and read
+    just after; writes rank<RANK>.json (and rank 0 the compare leg's
+    params) under the job's `out`."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    with open(argv[0]) as f:
+        job = json.load(f)
+    rank = int(argv[1])
+    os.environ["LOCAL_RANK"] = "0"
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from bert_pytorch_tpu_torch.parallel import dist
+
+    device = job["device"]
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from bert_pytorch_tpu_torch.ops.kernels.build import load_kernels
+
+        load_kernels()
+    else:
+        torch.set_num_threads(1)
+    dist.initialize(device, backend="gloo",
+                    init_method=f"file://{job['store']}", rank=rank,
+                    world_size=job["world"])
+    run = job["run"]
+    out = {"rank": rank, "start_s": time.perf_counter() - START}
+    config = BertConfig.from_json_file(job["cfg_path"])
+    config = config.replace(vocab_size=pad_vocab_size(config.vocab_size, 8))
+    index = _dp_index(np, run, config)
+    t0 = time.perf_counter()
+    batches = _dp_batches(np, index, config, 0, run["micro"] * job["world"],
+                          run["steps"], 20)
+    losses, norms, params = _dp_step_leg(
+        torch, np, config, batches, rank, job["world"], device, run["lr"])
+    out["compare"] = {"loss": losses, "grad_norm": norms,
+                      "s": time.perf_counter() - t0,
+                      "ready_s": t0 - START}
+    if rank == 0:
+        torch.save(params, os.path.join(job["out"], "compare_params.pt"))
+    del params
+    out["arms"] = {}
+    for name, argv_arm, saves in _dp_arms(run, device):
+        args = run_pretraining.parse_arguments(
+            job["base_argv"] + ["--output_dir",
+                                os.path.join(job["out"], name)]
+            + argv_arm + ([] if saves else ["--skip_checkpoint"]))
+        dist.reset_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        result = run_pretraining.train(args, index, log=(
+            (lambda m, n=name: log(f"train_dp[{n}]: {m}")) if rank == 0
+            else (lambda m: None)))
+        launches = dict(LAUNCHES)
+        sd = result.state.state_dict()      # collective under ZeRO-1
+        digest = hashlib.sha256()
+        for k in sorted(sd["params"]):
+            digest.update(sd["params"][k].detach().contiguous().cpu()
+                          .numpy().tobytes())
+        out["arms"][name] = {
+            "loss": [h["loss"] for h in result.history],
+            "grad_norm": [h["grad_norm"] for h in result.history],
+            "step_ms": [h["step_ms"] for h in result.history],
+            "examples": [h["examples"] for h in result.history],
+            "launches": launches, "params_sha256": digest.hexdigest(),
+            "parallel": result.parallel, "saves": [s["step"] for s in
+                                                   result.saves],
+            "s": time.perf_counter() - t0}
+        del sd, result
+    with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=str)
+    dist.barrier()
+    dist.shutdown()
+    return 0
+
+
+def phase_train_dp(torch, np, summary, device="cuda", cfg_path=None,
+                   run=None, keep=None):
+    """Data-parallel pretraining (parallel/): the 1-rank reference under
+    an NCCL group of one (ZeRO-1, so the NCCL wrappers run on the card)
+    and two ranks on the one card over gloo (`dp_child`): the step-level
+    compare leg (the same global batch, dropout off, f32 gradients)
+    against the reference within DP_TOL; the entry point's arms (--mesh data=2 with --mesh_config
+    auto: packing, ZeRO-1, gather-on-use; + --zero1_rs; + coalesced norm
+    reductions; ZeRO-1 with the end-of-step gather) bit-equal to one
+    another (losses, grad norms, the params' digest), finite, their
+    launches exact on each rank; the first arm's 2-rank checkpoint
+    restored by one rank, then moved to `keep` when given (train_chunks
+    and finetune_tasks start from it through --init_checkpoint). `device`,
+    `cfg_path` and `run` exist for the CPU rehearsal; the script runs
+    BERT-Large's width at CUT_LAYERS."""
+    import hashlib
+    import shutil
+
+    from bert_pytorch_tpu_torch import run_pretraining
+    from bert_pytorch_tpu_torch.config import BertConfig, pad_vocab_size
+    from bert_pytorch_tpu_torch.parallel import dist
+
+    run = dict(DP_RUN, **(run or {}))
+    on_card = torch.device(device).type == "cuda"
+    world = run["ranks"]
+    if on_card:
+        # the ranks are processes of their own on this card: what the
+        # earlier phases left in this process's cache goes back first
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+    config = BertConfig.from_json_file(cfg_path)
+    config = config.replace(vocab_size=pad_vocab_size(config.vocab_size, 8))
+    layers = config.num_hidden_layers
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    res = {"ranks": world, "layers": layers, "micro": run["micro"],
+           "seq": run["seq"], "steps": run["steps"]}
+    try:
+        base = ["--config_file", PHASE1_CONFIG, "--model_config_file",
+                cfg_path, "--input_dir", os.path.join(tmp, "memory"),
+                "--local_batch_size", str(run["micro"]),
+                "--global_batch_size", str(run["micro"] * world),
+                "--steps", str(run["steps"]), "--fused_optim", "auto",
+                "--vocab_pad_multiple", "8", "--seed", "0",
+                "--device", device, "--mesh", f"data={world}",
+                "--num_steps_per_checkpoint", "1000", "--tensorboard", "off",
+                "--log_freq", "1"]
+        job = {"device": device, "world": world, "run": run,
+               "cfg_path": cfg_path, "base_argv": base, "out": tmp,
+               "store": os.path.join(tmp, "store")}
+        job_path = os.path.join(tmp, "job.json")
+        with open(job_path, "w") as f:
+            json.dump(job, f)
+        # the two ranks start first (their imports and the card's context
+        # take seconds); the reference runs meanwhile
+        env = dict(os.environ, PYTHONPATH=HERE)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--dp_child", job_path, str(r)], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        try:
+            t0 = time.perf_counter()
+            index = _dp_index(np, run, config)
+            batches = _dp_batches(np, index, config, 0, run["micro"] * world,
+                                  run["steps"], 20)
+            dist.initialize(device, backend="nccl" if on_card else "gloo",
+                            init_method="file://" + os.path.join(
+                                tmp, "reference_store"),
+                            rank=0, world_size=1)
+            try:
+                check(dist.backend() == ("nccl" if on_card else "gloo"),
+                      f"reference group backend {dist.backend()}")
+                dist.reset_stats()
+                ref_loss, ref_norm, ref_params = _dp_step_leg(
+                    torch, np, config, batches, 0, 1, device, run["lr"])
+                ref_stats = {k: dict(v) for k, v in dist.STATS.items()}
+            finally:
+                dist.shutdown()
+            res["reference"] = {"loss": ref_loss, "grad_norm": ref_norm,
+                                "collectives": ref_stats,
+                                "s": round(time.perf_counter() - t0, 2)}
+            check(ref_stats.get("reduce_scatter", {}).get("calls", 0) > 0
+                  and ref_stats.get("all_gather", {}).get("calls", 0) > 0,
+                  f"the reference ran no collective: {ref_stats}")
+            logs = []
+            for p in procs:
+                logs.append(p.communicate(timeout=900)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for r, (p, out) in enumerate(zip(procs, logs)):
+            if p.returncode:
+                log(f"train_dp: rank {r} output:\n{out[-6000:]}")
+            check(p.returncode == 0, f"rank {r} exited {p.returncode}: "
+                  + out[-1500:].replace("\n", " | "))
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        res["rank_timeline_s"] = [
+            {"start": r["start_s"], "ready": r["compare"]["ready_s"],
+             "compare": r["compare"]["s"],
+             "arms": {n: a["s"] for n, a in r["arms"].items()}}
+            for r in ranks]
+
+        # the compare leg against the reference
+        cmp_loss = ranks[0]["compare"]["loss"]
+        for r in ranks[1:]:
+            check(r["compare"]["loss"] == cmp_loss,
+                  "the ranks' compare-leg losses differ")
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(cmp_loss,
+                                                          ref_loss))
+        cmp_norm = ranks[0]["compare"]["grad_norm"]
+        norm_rel = max(abs(a - b) / abs(b) for a, b in zip(cmp_norm,
+                                                          ref_norm))
+        got = torch.load(os.path.join(tmp, "compare_params.pt"),
+                         weights_only=True)
+        param_rel = max(
+            (float((got[k] - w).norm() / w.norm().clamp_min(1e-30)), k)
+            for k, w in ref_params.items())
+        sq = [(float((got[k] - w).square().sum()), float(w.square().sum()))
+              for k, w in ref_params.items()]
+        global_rel = (sum(a for a, _ in sq) / sum(b for _, b in sq)) ** 0.5
+        del got, ref_params
+        res["compare"] = {"loss": cmp_loss, "ref_loss": ref_loss,
+                          "grad_norm": cmp_norm, "ref_grad_norm": ref_norm,
+                          "loss_max_rel": loss_rel,
+                          "grad_norm_max_rel": norm_rel,
+                          "param_max_rel": param_rel[0],
+                          "param_global_rel": global_rel,
+                          "param_worst": param_rel[1], "tol": DP_TOL}
+        log(f"train_dp: 2 ranks against 1 (same global batch, dropout off):"
+            f" losses {cmp_loss} / {ref_loss} (max rel {loss_rel:.3g}), "
+            f"grad norms {cmp_norm} / {ref_norm} (max rel {norm_rel:.3g}), "
+            f"params max rel L2 {param_rel[0]:.3g} ({param_rel[1]}), all "
+            f"together {global_rel:.3g}")
+        check(all(np.isfinite(cmp_loss)) and loss_rel <= DP_TOL["loss"],
+              f"2-rank loss {cmp_loss} against {ref_loss}: rel {loss_rel}")
+        check(all(np.isfinite(cmp_norm)) and norm_rel <= DP_TOL["grad_norm"],
+              f"2-rank grad norms {cmp_norm} against {ref_norm}: rel "
+              f"{norm_rel}")
+        check(global_rel <= DP_TOL["param"],
+              f"2-rank params against 1-rank: rel L2 {global_rel} (worst "
+              f"tensor {param_rel})")
+
+        # the arms: bit-equal, finite, launches exact
+        arms = [a[0] for a in _dp_arms(run, device)]
+        want = _per_step_launches(layers, run["steps"], False, accum=1)
+        first = ranks[0]["arms"][arms[0]]
+        res["arms"] = {}
+        for name in arms:
+            for r in ranks:
+                a = r["arms"][name]
+                for key in ("loss", "grad_norm", "params_sha256"):
+                    check(a[key] == first[key],
+                          f"arm {name} rank {r['rank']}: {key} "
+                          f"{a[key]} != {arms[0]}'s {first[key]}")
+                got_l = {k: a["launches"].get(k, 0) for k in want}
+                # the CPU rehearsal runs the plain versions: no launches
+                check(got_l == want or not on_card,
+                      f"arm {name} rank {r['rank']}: launches {got_l}, "
+                      f"want {want}")
+                check(all(np.isfinite(a["loss"])),
+                      f"arm {name}: losses {a['loss']}")
+            a0 = ranks[0]["arms"][name]
+            par = a0["parallel"]
+            res["arms"][name] = {
+                "step_ms": [r["arms"][name]["step_ms"] for r in ranks],
+                "examples": a0["examples"], "s": a0["s"],
+                "mesh_config": par["mesh_config"], "zero1": par["zero1"],
+                "zero1_overlap": par["zero1_overlap"],
+                "zero1_rs": par["zero1_rs"], "coalesce": par["coalesce"],
+                "collectives": par["collectives"],
+                "norm_reductions": par["norm_reductions"],
+                "replicated_leaves": par["replicated_leaves"]}
+        prod = res["arms"][arms[0]]
+        check(prod["mesh_config"] == "production" and prod["zero1"]
+              and prod["zero1_overlap"],
+              f"--mesh_config auto on the card resolved to {prod}")
+        # the gradients leave the --zero1_rs arm by a reduce-scatter alone
+        # and the coalesced arm (no --zero1_rs) by an all-reduce, the same
+        # reduce-scatter and an all-gather of the reduced slices: equal
+        # reduce-scatter bytes, and all-gather bytes that differ by exactly
+        # those (the norm partials' bytes do not depend on the buckets)
+        rs, co = (res["arms"][a]["collectives"] for a in arms[1:3])
+        grad_bytes = rs.get("reduce_scatter", {}).get("bytes", 0)
+        gathered = (co.get("all_gather", {}).get("bytes", 0)
+                    - rs.get("all_gather", {}).get("bytes", 0))
+        check(res["arms"][arms[1]]["zero1_rs"] and grad_bytes > 0
+              and co.get("reduce_scatter", {}).get("bytes") == grad_bytes
+              and gathered == grad_bytes,
+              f"the --zero1_rs arm's collectives {rs} against the "
+              f"all-reduce arm's {co}: the gradients' all-gather "
+              f"({gathered} bytes) must be the reduce-scatter's "
+              f"({grad_bytes}) and only the all-reduce arm's")
+        res["loss"] = first["loss"]
+        summary.setdefault("launches", {})["train_dp"] = dict(
+            ranks[0]["arms"][arms[0]]["launches"])
+        log(f"train_dp: arms {arms} bit-equal on both ranks: losses "
+            f"{first['loss']}, grad norms {first['grad_norm']}; launches "
+            f"exact a rank ({want}); step ms (rank 0 / rank 1) "
+            + "; ".join(f"{n} {v['step_ms']}" for n, v in
+                        res["arms"].items()))
+
+        # the first arm's 2-rank checkpoint restored by one rank
+        check(ranks[0]["arms"][arms[0]]["saves"] == [run["steps"]],
+              f"the 2-rank arm saved {ranks[0]['arms'][arms[0]]['saves']}")
+        args = run_pretraining.parse_arguments(
+            [a for a in base if a not in ("--mesh", f"data={world}")]
+            + ["--output_dir", os.path.join(tmp, arms[0]), "--steps", "0"])
+        t0 = time.perf_counter()
+        one = run_pretraining.train(args, _dp_index(np, run, config),
+                                    log=lambda m: None)
+        res["restore_one_rank_s"] = round(time.perf_counter() - t0, 2)
+        digest = hashlib.sha256()
+        for k in sorted(one.state.params):
+            digest.update(one.state.params[k].detach().contiguous().cpu()
+                          .numpy().tobytes())
+        check(one.resumed_from == run["steps"]
+              and digest.hexdigest() == first["params_sha256"],
+              f"one rank restored step {one.resumed_from} with params "
+              f"{digest.hexdigest()[:12]}, want step {run['steps']} and "
+              f"{first['params_sha256'][:12]}")
+        log(f"train_dp: the 2-rank step-{run['steps']} checkpoint restored "
+            f"by one rank, params bit-equal "
+            f"({res['restore_one_rank_s']} s)")
+        if keep is not None:
+            shutil.move(os.path.join(tmp, arms[0], "pretrain_ckpts"), keep)
+            res["checkpoint"] = {"dir": keep, "step": run["steps"]}
+        summary["train_dp"] = res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def pretrain_child(argv) -> int:
     """`chip_smoke.py --pretrain_child -- <run_pretraining flags>`: the
     entry point's run in a process of its own, under its exit-code
@@ -9693,12 +10204,15 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:2] == ["--pretrain_child", "--"]:
         return pretrain_child(argv[2:])
+    if argv[:1] == ["--dp_child"]:
+        return dp_child(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="device,build,kernels,timing,model_seq1024,"
                             "serve,train_order,train,train_phase2,"
-                            "train_chunks,train_kfac,train_roberta,"
-                            "train_packed,train_packed_phase2,pipeline,"
+                            "train_kfac,train_roberta,train_packed,"
+                            "train_packed_phase2,train_dp,train_chunks,"
+                            "pipeline,"
                             "stream,remat,"
                             "finetune_squad,finetune_ner,finetune_tasks,"
                             "serve_slo,finetune_packed,distill,"
@@ -9747,7 +10261,8 @@ def main(argv=None) -> int:
                "phases": {}, "kernels": results}
     ok = True
     # phase 1's checkpoints, which phase 2 resumes (~4 GB each at
-    # BERT-Large, 2 kept), removed when the script ends
+    # BERT-Large, 2 kept), and train_dp's at CUT_LAYERS, which train_chunks
+    # and finetune_tasks start from, removed when the script ends
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         ok = run_phases(torch, np, phases, summary, results, peaks, ckpt_dir)
@@ -9785,6 +10300,11 @@ def main(argv=None) -> int:
 # call and 971 s in another with the first four at 24 layers, and 1219.8
 # s at 12 once the K-FAC, chunk and RoBERTa legs came (PERF.md).
 CUT_LAYERS = 6
+# the stream phase's planes at half BERT-Large's depth (they ran at 24
+# before train_dp came, whose time this won back with the train_chunks
+# and finetune_tasks cuts): its checks hold at any depth; its step times,
+# idle shares and data_wait shares are not comparable with 24 layers
+STREAM_LAYERS = 12
 # distill's teacher: deeper than its 6-layer student, whose checkpoint
 # must be refused under the teacher's config with the depth mismatch
 DISTILL_TEACHER_LAYERS = 8
@@ -9848,7 +10368,7 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
             elif phase in TRAIN_RUNS:
                 phase_train(torch, np, summary, run=phase, ckpt_dir=ckpt_dir)
             elif phase == "train_chunks":
-                phase_train_chunks(torch, np, summary, ckpt_dir=ckpt_dir)
+                phase_train_chunks(torch, np, summary, **cut)
             elif phase == "train_kfac":
                 phase_train_kfac(torch, np, summary,
                                  cut_cfg_path=cut["cfg_path"])
@@ -9856,11 +10376,15 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
                 phase_train_roberta(torch, np, summary)
             elif phase in PACKED_RUNS:
                 phase_train_packed(torch, np, summary, run=phase, **cut)
+            elif phase == "train_dp":
+                phase_train_dp(torch, np, summary, keep=os.path.join(
+                    ckpt_dir, "dp_pretrain_ckpts"), **cut)
             elif phase == "pipeline":
                 phase_pipeline(torch, np, summary,
                                cut_cfg_path=cut["cfg_path"])
             elif phase == "stream":
                 phase_stream(torch, np, summary,
+                             cfg_path=cut_config(ckpt_dir, STREAM_LAYERS),
                              cut_cfg_path=cut["cfg_path"])
             elif phase == "remat":
                 phase_remat(torch, np, summary)
@@ -9869,7 +10393,7 @@ def run_phases(torch, np, phases, summary, results, peaks, ckpt_dir) -> bool:
             elif phase == "finetune_ner":
                 phase_finetune_ner(torch, np, summary)
             elif phase == "finetune_tasks":
-                phase_finetune_tasks(torch, np, summary, ckpt_dir=ckpt_dir)
+                phase_finetune_tasks(torch, np, summary, **cut)
             elif phase == "serve_slo":
                 phase_serve_slo(torch, np, summary)
             elif phase == "finetune_packed":

@@ -11,8 +11,9 @@ each pinned on the CPU at a tiny width (2 layers, E=128):
   feature that is off (and the checked-in run configs) are accepted; every
   flag of the JAX entry point is accounted for in the port's table, and
   the flags ported since (--steps_per_loop, --profile_steps, --kfac and its
-  tuners) left it, --kfac_bucket_mb staying a tuner of the refused
-  --coalesce_reductions;
+  tuners, the data axis's --mesh, --zero1* and --coalesce_reductions)
+  left it, a --mesh beyond the data axis and --fsdp_overlap refused
+  naming ROADMAP queue A item 7;
 - the serving frontend's listen backlog: a burst of connections while the
   accept loop stalls gets a status each (ROADMAP queue C item 9).
 """
@@ -132,10 +133,10 @@ def _run_config(tmp_path, **over):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("stacked_params", "true"), ("zero1", "true"),
-    ("zero1_overlap", True), ("overlap_flags", "on"), ("mesh", "data=2"),
-    ("fsdp_overlap", True), ("zero1_rs", True), ("rng_impl", "rbg"),
-    ("mesh_config", "production"), ("coalesce_reductions", "on"),
+    ("stacked_params", "true"), ("mesh", "fsdp=1,model=1,seq=2"),
+    ("mesh", "model=2"), ("overlap_flags", "on"), ("mesh", "fsdp=2"),
+    ("fsdp_overlap", True), ("force_cpu", True), ("rng_impl", "rbg"),
+    ("rng_impl", "unsafe_rbg"), ("mesh", "data=1,seq=4"),
     ("optimizer", "bert_adam")])
 def test_run_config_enabling_a_missing_feature_is_refused(tmp_path, key,
                                                           value):
@@ -248,9 +249,9 @@ def test_jax_command_lines_at_off_values_parse(argv):
 
 
 @pytest.mark.parametrize("argv,key", [
-    (["--mesh", "data=2"], "mesh"),
-    (["--coalesce_reductions", "on"], "coalesce_reductions"),
-    (["--zero1_rs"], "zero1_rs"),
+    (["--mesh", "data=1,fsdp=2"], "mesh"),
+    (["--fsdp_overlap"], "fsdp_overlap"),
+    (["--mesh", "seq=2"], "mesh"),
     (["--overlap_flags", "on"], "overlap_flags"),
     (["--force_cpu"], "force_cpu")])
 def test_jax_command_lines_at_on_values_are_refused(argv, key):
@@ -322,13 +323,12 @@ def test_a_burst_of_connections_each_gets_a_status(outcome):
     ["--kfac_bucket_mb", "8"], ["--kfac", "--kfac_bucket_mb", "16"],
     ["--kfac", "--steps_per_loop", "4", "--profile_steps", "2,3"]])
 def test_kfac_bucket_mb_is_still_accepted(argv):
-    """--kfac_bucket_mb sizes the coalesced factor reductions of several
-    cards: a tuner of --coalesce_reductions, which stays refused (ROADMAP
-    queue A item 7), accepted at any value with K-FAC on or off; --kfac,
-    --steps_per_loop and --profile_steps run."""
-    assert run_pretraining._TUNING == {"kfac_bucket_mb":
-                                       "coalesce_reductions"}
-    assert "coalesce_reductions" in run_pretraining._REFUSED
+    """--kfac_bucket_mb sizes K-FAC's coalesced factor reductions over
+    several ranks, which stay refused (ROADMAP queue A item 7, at run
+    time); the flag is accepted at any value with K-FAC on or off, and
+    --kfac, --steps_per_loop and --profile_steps run."""
+    assert "kfac_bucket_mb" not in run_pretraining._REFUSED
+    assert "kfac_bucket_mb" not in run_pretraining._REFUSED_PARALLEL
     args = run_pretraining.parse_arguments(argv)
     run_pretraining._unsupported(args)
 
