@@ -55,6 +55,17 @@ run without it; each kernel launch of the recompute counts in
 kernel's plain PyTorch version, differentiated by autograd: a reference to
 hold the kernels against on the card, never a route a run takes.
 
+Tensor parallelism (`model_shard`, a parallel/tensor.ModelShard of size
+M > 1; the pretraining model): the rank holds H / M heads of every
+layer's attention (its rows of the fused QKV projection and its input
+columns of the output projection), I / M columns of the MLP, and V / M
+rows of the word embeddings and of the MLM decoder's bias
+(parallel/rules.py); the rest is whole on every model peer. The
+activations cross the split through parallel/tensor's two operators, and
+the MLM logits come out as the rank's part of the vocabulary
+(models/losses.vocab_parallel_terms reads them). A width the model axis
+does not divide raises ValueError.
+
 Shape glossary: B batch, S sequence, H heads, D head_dim, E hidden,
 P masked positions per row, V vocab, G packed segments per row, C
 choices.
@@ -82,6 +93,11 @@ from bert_pytorch_tpu_torch.ops.layernorm import (add_dropout_layer_norm,
                                                   add_dropout_layer_norm_ref,
                                                   adln_shard_seed,
                                                   layer_norm, layer_norm_ref)
+from bert_pytorch_tpu_torch.parallel.tensor import (ModelShard,
+                                                    column_linear,
+                                                    copy_to_model, is_split,
+                                                    reduce_from_model,
+                                                    row_linear)
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -238,10 +254,16 @@ class BertEmbeddings(nn.Module):
     LayerNorm and (training) hash dropout. `position_ids` resets positions
     per packed segment."""
 
-    def __init__(self, config: BertConfig, plain: bool = False):
+    def __init__(self, config: BertConfig, plain: bool = False,
+                 shard: Optional[ModelShard] = None):
         super().__init__()
         e = config.hidden_size
-        self.word_embeddings = nn.Embedding(config.vocab_size, e)
+        self.shard = shard if is_split(shard) else None
+        vocab = (shard.part(config.vocab_size, "word_embeddings rows "
+                            "(vocab_size)") if self.shard else
+                 config.vocab_size)
+        self.vocab0 = self.shard.index * vocab if self.shard else 0
+        self.word_embeddings = nn.Embedding(vocab, e)
         self.position_embeddings = nn.Embedding(
             config.max_position_embeddings, e)
         self.token_type_embeddings = (
@@ -253,6 +275,20 @@ class BertEmbeddings(nn.Module):
     # the data-parallel shard this replica trains (set_dropout_shard)
     dropout_shard = 0
 
+    def _words(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """The word-embedding rows of `input_ids`, f32. Under the model
+        axis each rank looks up the ids among its rows, zeroes the others
+        and the ranks' results are summed (one non-zero term a position:
+        exact)."""
+        if self.shard is None:
+            return self.word_embeddings(input_ids)
+        local = input_ids.long() - self.vocab0
+        mine = (local >= 0) & (local < self.word_embeddings.num_embeddings)
+        rows = self.word_embeddings(torch.where(mine, local,
+                                                torch.zeros_like(local)))
+        rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+        return reduce_from_model(rows, self.shard)
+
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor],
                 position_ids: Optional[torch.Tensor],
@@ -262,7 +298,7 @@ class BertEmbeddings(nn.Module):
             position_ids = torch.arange(input_ids.shape[-1],
                                         device=input_ids.device)[None, :]
         # gather in f32 then cast: the same values as casting the table
-        x = (self.word_embeddings(input_ids).to(dtype)
+        x = (self._words(input_ids).to(dtype)
              + self.position_embeddings(position_ids).to(dtype))
         if self.token_type_embeddings is not None:
             if token_type_ids is None:
@@ -279,9 +315,14 @@ class BertEmbeddings(nn.Module):
 class BertSelfAttention(nn.Module):
     """Fused QKV projection -> attention -> output projection."""
 
-    def __init__(self, config: BertConfig, plain: bool = False):
+    def __init__(self, config: BertConfig, plain: bool = False,
+                 shard: Optional[ModelShard] = None):
         super().__init__()
-        self.n_heads = config.num_attention_heads
+        self.shard = shard if is_split(shard) else None
+        self.heads_total = config.num_attention_heads
+        self.n_heads = (shard.part(self.heads_total, "num_attention_heads")
+                        if self.shard else self.heads_total)
+        self.head0 = self.shard.index * self.n_heads if self.shard else 0
         self.head_dim = config.head_dim
         e = config.hidden_size
         self.qkv = _tapped(nn.Linear(e, 3 * self.n_heads * self.head_dim))
@@ -289,39 +330,49 @@ class BertSelfAttention(nn.Module):
         self.rate = config.attention_probs_dropout_prob
         self.plain = plain
 
-    # the data-parallel shard this replica trains (set_dropout_shard)
+    # the data-parallel shard this replica trains and its flat (data
+    # shard, model) index, the flash seed's fold (set_dropout_shard)
     dropout_shard = 0
+    flash_shard = None
 
     def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor,
                 segment_ids: Optional[torch.Tensor],
                 seed: Optional[int] = None,
                 kfac: Optional[KFACTaps] = None) -> torch.Tensor:
         b, s, _ = hidden.shape
-        qkv = _tap(kfac, self.qkv, hidden, _linear(hidden, self.qkv))
+        qkv = _tap(kfac, self.qkv, hidden,
+                   column_linear(hidden, self.qkv.weight, self.qkv.bias,
+                                 self.shard))
         qkv = qkv.view(b, s, 3, self.n_heads, self.head_dim)
         # strided views: the flash kernel reads them in place
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         ctx = dot_product_attention(q, k, v, attention_bias, segment_ids,
                                     plain=self.plain, dropout_seed=seed,
                                     dropout_rate=self.rate,
-                                    dropout_shard=self.dropout_shard)
+                                    dropout_shard=self.dropout_shard,
+                                    head0=self.head0,
+                                    heads=self.heads_total,
+                                    flash_shard=self.flash_shard)
         ctx = ctx.reshape(b, s, -1)
-        return _tap(kfac, self.output, ctx, _linear(ctx, self.output))
+        return _tap(kfac, self.output, ctx,
+                    row_linear(ctx, self.output.weight, self.output.bias,
+                               self.shard))
 
 
 def _mlp(act, hidden: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
          w_out: torch.Tensor, b_out: torch.Tensor,
-         kfac: Optional[KFACTaps] = None, sites=(None, None)
-         ) -> torch.Tensor:
+         kfac: Optional[KFACTaps] = None, sites=(None, None),
+         shard: Optional[ModelShard] = None) -> torch.Tensor:
     """The MLP's up-projection, activation and down-projection from its
     four parameter tensors (`_linear`'s casts at use); with `kfac`, both
-    products tapped as `sites` (up, down)."""
-    dt = hidden.dtype
-    inter = F.linear(hidden, w_in.to(dt), b_in.to(dt))
+    products tapped as `sites` (up, down). Under the model axis
+    (`shard`) the up-projection is a column split and the
+    down-projection a row split."""
+    inter = column_linear(hidden, w_in, b_in, shard)
     if kfac is not None:
         inter = kfac(sites[0], hidden, inter)
     inter = act(inter)
-    out = F.linear(inter, w_out.to(dt), b_out.to(dt))
+    out = row_linear(inter, w_out, b_out, shard)
     return out if kfac is None else kfac(sites[1], inter, out)
 
 
@@ -359,15 +410,19 @@ class BertLayer(nn.Module):
     so its (B, S, I) activations are recomputed, not kept."""
 
     def __init__(self, config: BertConfig, plain: bool = False,
-                 remat_mlp: bool = False):
+                 remat_mlp: bool = False,
+                 shard: Optional[ModelShard] = None):
         super().__init__()
         e = config.hidden_size
         rate = config.hidden_dropout_prob
-        self.attention = BertSelfAttention(config, plain=plain)
+        self.shard = shard if is_split(shard) else None
+        inner = (shard.part(config.intermediate_size, "intermediate_size")
+                 if self.shard else config.intermediate_size)
+        self.attention = BertSelfAttention(config, plain=plain, shard=shard)
         self.attention_layer_norm = ResidualDropoutLayerNorm(e, rate,
                                                              plain=plain)
-        self.intermediate = _tapped(nn.Linear(e, config.intermediate_size))
-        self.mlp_output = _tapped(nn.Linear(config.intermediate_size, e))
+        self.intermediate = _tapped(nn.Linear(e, inner))
+        self.mlp_output = _tapped(nn.Linear(inner, e))
         self.output_layer_norm = ResidualDropoutLayerNorm(e, rate,
                                                           plain=plain)
         self.act = ACT2FN[config.hidden_act]
@@ -386,7 +441,7 @@ class BertLayer(nn.Module):
         hidden = self.attention_layer_norm(attn, hidden, seeds[1])
         weights = (self.intermediate.weight, self.intermediate.bias,
                    self.mlp_output.weight, self.mlp_output.bias)
-        mlp_fn = functools.partial(_mlp, self.act)
+        mlp_fn = functools.partial(_mlp, self.act, shard=self.shard)
         if kfac is not None:
             mlp_fn = functools.partial(
                 mlp_fn, kfac=kfac, sites=(self.intermediate.kfac_site,
@@ -406,13 +461,14 @@ class BertEncoder(nn.Module):
     policy "nothing" or "dots", each layer in training runs as one
     checkpointed region (module docstring)."""
 
-    def __init__(self, config: BertConfig, plain: bool = False):
+    def __init__(self, config: BertConfig, plain: bool = False,
+                 shard: Optional[ModelShard] = None):
         super().__init__()
         remat = config.checkpoint_activations
         self.remat_policy = config.remat_policy if remat else None
         self.layers = nn.ModuleList(
             BertLayer(config, plain=plain,
-                      remat_mlp=self.remat_policy == "mlp_only")
+                      remat_mlp=self.remat_policy == "mlp_only", shard=shard)
             for _ in range(config.num_hidden_layers))
 
     def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor,
@@ -482,23 +538,30 @@ class BertPooler(nn.Module):
                                _linear(cls, self.dense)))
 
 
-def set_dropout_shard(model: nn.Module, shard: int) -> nn.Module:
-    """Make `model` the replica of data-parallel shard (rank) `shard`:
-    each dropout site then draws what the JAX package's one-process
-    data-parallel mesh draws on that shard from the same site seed. The
+def set_dropout_shard(model: nn.Module, shard: int,
+                      flat: Optional[int] = None) -> nn.Module:
+    """Make `model` the replica of data shard `shard` (d x F + f of its
+    rank's mesh coordinates; the rank on a data-only mesh), at flat
+    (data shard, model) index `flat` ((d x F + f) x M + m; `shard` when
+    None): each dropout site then draws what the JAX package's
+    one-process mesh draws on that shard from the same site seed. The
     fused residual-dropout-LayerNorm adds shard x 0x3C6EF35F to its seed
-    (JAX's _adln_sharded); the flash kernels XOR theirs with shard x
+    (JAX's _adln_sharded: no model term, the model peers draw one mask
+    on their one activation); the flash kernels XOR theirs with flat x
     0x9E3779B9 (_flash_sharded); the embeddings' and plain attention's
     hash_dropout, global-view functions that GSPMD partitions over the
-    batch, hash the shard's rows of the global batch (rows offset by
-    shard x B x S and shard x B x H x S, B the shard's batch). Shard 0
-    folds nothing, so a one-card run draws what it always drew. The
+    batch (and the heads), hash the shard's rows of the global batch
+    (rows offset by shard x B x S, and in attention the rows of the
+    rank's batch rows and heads, B the shard's batch). Shard 0 folds
+    nothing, so a one-card run draws what it always drew. The
     pretraining model has no other site; the task heads' dropout is
     finetuning's, which does not run over ranks."""
     for mod in model.modules():
         if isinstance(mod, (BertEmbeddings, BertSelfAttention,
                             ResidualDropoutLayerNorm)):
             mod.dropout_shard = int(shard)
+        if isinstance(mod, BertSelfAttention):
+            mod.flash_shard = None if flat is None else int(flat)
     return model
 
 
@@ -531,12 +594,13 @@ class BertModel(nn.Module):
     sequence output and the pretraining head applies the pooler."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.bfloat16,
-                 plain: bool = False):
+                 plain: bool = False, model_shard: Optional[ModelShard] = None):
         super().__init__()
         self.config = config
         self.dtype = dtype
-        self.embeddings = BertEmbeddings(config, plain=plain)
-        self.encoder = BertEncoder(config, plain=plain)
+        self.embeddings = BertEmbeddings(config, plain=plain,
+                                         shard=model_shard)
+        self.encoder = BertEncoder(config, plain=plain, shard=model_shard)
         self.pooler = BertPooler(config) if config.next_sentence else None
 
     def forward(self, input_ids: torch.Tensor,
@@ -816,20 +880,28 @@ class BertMLMHead(nn.Module):
     an f32 product of the upcast operands (TF32 off) is the JAX einsum's
     preferred_element_type=f32 value, never rounded to bf16."""
 
-    def __init__(self, config: BertConfig, plain: bool = False):
+    def __init__(self, config: BertConfig, plain: bool = False,
+                 shard: Optional[ModelShard] = None):
         super().__init__()
         e = config.hidden_size
+        self.shard = shard if is_split(shard) else None
         self.transform = nn.Linear(e, e)
         self.act = ACT2FN["gelu" if config.hidden_act == "bias_gelu"
                           else config.hidden_act]
         self.layer_norm = LayerNorm(e, plain=plain)
-        self.bias = nn.Parameter(torch.zeros(config.vocab_size))
+        self.bias = nn.Parameter(torch.zeros(
+            shard.part(config.vocab_size, "cls_predictions.bias (vocab_size)")
+            if self.shard else config.vocab_size))
 
     def forward(self, hidden: torch.Tensor,
                 word_embedding: torch.Tensor) -> torch.Tensor:
+        """(..., V) f32 logits; under the model axis the rank's (..., V /
+        M) part of the vocabulary (the tied table's rows it holds)."""
         x = self.layer_norm(self.act(_linear(hidden, self.transform)))
         table = word_embedding.to(x.dtype)
-        return torch.matmul(x.float(), table.float().t()) + self.bias
+        # the decoder's input gradient, f32, summed over the model group
+        return torch.matmul(copy_to_model(x.float(), self.shard),
+                            table.float().t()) + self.bias
 
 
 class BertForPreTraining(nn.Module):
@@ -846,14 +918,19 @@ class BertForPreTraining(nn.Module):
     a layer, "pooler", "mlm_head", "nsp_head"}: the points the JAX model
     sows under `debug_taps`, read by tools/replay.py --bisect. Built with
     `config.kfac_taps`, it names K-FAC's sites (`kfac_sites`) and takes
-    `kfac=KFACTaps()`."""
+    `kfac=KFACTaps()`. `model_shard` (module docstring): this rank's part
+    of the model axis; the MLM logits are then its part of the
+    vocabulary."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.bfloat16,
-                 plain: bool = False):
+                 plain: bool = False, model_shard: Optional[ModelShard] = None):
         super().__init__()
         self.config = config
-        self.bert = BertModel(config, dtype=dtype, plain=plain)
-        self.cls_predictions = BertMLMHead(config, plain=plain)
+        self.model_shard = model_shard if is_split(model_shard) else None
+        self.bert = BertModel(config, dtype=dtype, plain=plain,
+                              model_shard=model_shard)
+        self.cls_predictions = BertMLMHead(config, plain=plain,
+                                           shard=model_shard)
         self.cls_seq_relationship = (
             _tapped(nn.Linear(config.hidden_size, 2))
             if config.next_sentence else None)

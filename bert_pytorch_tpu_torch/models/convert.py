@@ -29,6 +29,8 @@ H_t) ride beside the student's parameters as
 is only transposes and reshapes, so it turns a flat JAX gradient tree
 into the port's layout as well. `load_serving_params` reads a serving
 checkpoint: a `.npz` of that flat tree, or a `.pt` state_dict.
+`shard_state_dict` cuts a pretraining model's one-card state_dict into
+one rank's model part on a mesh (parallel/rules.py).
 """
 
 from __future__ import annotations
@@ -155,3 +157,19 @@ def kfac_state_from_flax(flat: Dict[str, np.ndarray], count: int = 0,
             {site: {k: torch.eye(t.shape[0]) for k, t in d.items()}
              for site, d in factors.items()})
     return KFACState(factors=factors, inverses=invs, count=int(count))
+
+
+def shard_state_dict(sd: Dict[str, torch.Tensor], mesh, rank: int
+                     ) -> Dict[str, torch.Tensor]:
+    """The model-local tensors of rank `rank` (mesh coordinates (d, f, m))
+    from the one-card state_dict `sd` of a BertForPreTraining (what
+    `params_from_flax` gives): model part m of M of every tensor the
+    model axis splits (parallel/rules.py: the QKV heads, the attention
+    output's input columns, the MLP, the word embeddings' and the MLM
+    bias's vocabulary rows), every other tensor whole. The data and fsdp
+    coordinates take the same tensors: fsdp slices the flat units of the
+    model part (parallel/zero.py)."""
+    from bert_pytorch_tpu_torch.parallel import rules
+
+    m = mesh.coords(rank)["model"]
+    return {k: rules.shard(k, v, m, mesh.model) for k, v in sd.items()}

@@ -57,18 +57,58 @@ def pretraining_loss(mlm_logits: torch.Tensor,
     return loss
 
 
+def vocab_parallel_terms(logits: torch.Tensor, labels: torch.Tensor,
+                         shard, ignore_index: int = -1
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`cross_entropy_terms` over f32 logits split on the vocabulary by
+    the model axis (parallel/tensor.ModelShard `shard`: this rank holds
+    classes [index * C, (index + 1) * C) of C = logits.shape[-1]): the
+    rank's max, then the MAX over the model group; the local sum of exp,
+    summed over the group; the label's logit from the rank that owns it
+    (zeros elsewhere, summed: exact). nll = log(sum) + max - logit, with
+    the softmax's gradient on each rank's own classes."""
+    from bert_pytorch_tpu_torch.parallel.tensor import (max_over_model,
+                                                        reduce_from_model)
+
+    logits = logits.float()
+    width = logits.shape[-1]
+    lo = shard.index * width
+    valid = labels != ignore_index
+    local = labels.long() - lo
+    mine = valid & (local >= 0) & (local < width)
+    safe = torch.where(mine, local, torch.zeros_like(local))
+    gmax = max_over_model(logits.amax(dim=-1), shard)
+    sumexp = reduce_from_model(
+        torch.exp(logits - gmax[..., None]).sum(dim=-1), shard)
+    picked = torch.gather(logits, -1, safe[..., None])[..., 0]
+    picked = reduce_from_model(
+        torch.where(mine, picked, torch.zeros_like(picked)), shard)
+    nll = torch.log(sumexp) + gmax - picked
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum(), valid.sum()
+
+
 def pretraining_loss_over_ranks(mlm_logits: torch.Tensor,
                                 masked_lm_labels: torch.Tensor,
                                 nsp_logits: Optional[torch.Tensor],
                                 next_sentence_labels: Optional[torch.Tensor],
-                                counts: torch.Tensor) -> torch.Tensor:
+                                counts: torch.Tensor,
+                                shard=None) -> torch.Tensor:
     """This rank's share of the data-parallel microbatch's loss: its nll
     sums divided by the counts of every rank's microbatch (`counts`: the
     (masked tokens, NSP labels) summed over ranks), so the ranks' shares
     add up to `pretraining_loss` of the whole microbatch and their
     gradients sum to its gradient (the JAX package's --zero1_rs region
-    divides its local sums by the psum'd counts the same way)."""
-    total, _ = cross_entropy_terms(mlm_logits, masked_lm_labels)
+    divides its local sums by the psum'd counts the same way). Under the
+    model axis (`shard` split) the MLM logits are the rank's part of the
+    vocabulary (`vocab_parallel_terms`); every model peer computes the
+    same loss."""
+    from bert_pytorch_tpu_torch.parallel.tensor import is_split
+
+    if is_split(shard):
+        total, _ = vocab_parallel_terms(mlm_logits, masked_lm_labels, shard)
+    else:
+        total, _ = cross_entropy_terms(mlm_logits, masked_lm_labels)
     loss = total / counts[0].clamp_min(1)
     if nsp_logits is not None and next_sentence_labels is not None:
         total, _ = cross_entropy_terms(nsp_logits, next_sentence_labels)
@@ -100,12 +140,34 @@ def token_classification_loss(logits: torch.Tensor, labels: torch.Tensor,
     return cross_entropy(logits, labels, ignore_index=ignore_index)
 
 
-def mlm_accuracy(mlm_logits: torch.Tensor, labels: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def vocab_parallel_argmax(logits: torch.Tensor, shard) -> torch.Tensor:
+    """The global argmax over logits split on the vocabulary by the model
+    axis: each rank's first maximal class, then the rank with the largest
+    maximum, the lowest model index among ties, so the lowest global
+    index of a tie wins, as jnp.argmax's does. The same on every peer."""
+    from bert_pytorch_tpu_torch.parallel import dist
+
+    width = logits.shape[-1]
+    val = logits.float().amax(dim=-1)
+    idx = torch.argmax(logits, dim=-1) + shard.index * width
+    vals = dist.all_gather_rows(val.contiguous(), shard.group)
+    idxs = dist.all_gather_rows(idx.contiguous(), shard.group)
+    best = vals.amax(0)
+    # the first model rank whose maximum is the best
+    first = torch.argmax((vals == best[None]).to(torch.int32), dim=0)
+    return torch.gather(idxs, 0, first[None])[0].view(val.shape)
+
+
+def mlm_accuracy(mlm_logits: torch.Tensor, labels: torch.Tensor,
+                 shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(correct, masked) counts of the masked-token predictions; argmax
-    takes the first of tied maxima, as jnp.argmax does."""
+    takes the first of tied maxima, as jnp.argmax does (over the whole
+    vocabulary when `shard` splits it: `vocab_parallel_argmax`)."""
+    from bert_pytorch_tpu_torch.parallel.tensor import is_split
+
     valid = labels != -1
-    pred = torch.argmax(mlm_logits, dim=-1)
+    pred = (vocab_parallel_argmax(mlm_logits, shard) if is_split(shard)
+            else torch.argmax(mlm_logits, dim=-1))
     correct = (pred == labels) & valid
     return correct.sum(), valid.sum()
 

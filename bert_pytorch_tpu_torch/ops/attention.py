@@ -133,13 +133,16 @@ class HashDropoutFn(torch.autograd.Function):
 
 
 def hash_dropout(x: torch.Tensor, seed, rate: float,
-                 row0: int = 0) -> torch.Tensor:
+                 row0=0) -> torch.Tensor:
     """Dropout whose keep mask is `row_col_keep` of the int32 `seed` over
     x's flattened (rows, last axis) view, regenerated in the backward pass
     (the JAX package's `hash_dropout`). `row0`: the view's first row in
     the global array: a data-parallel rank hashes its rows of the global
-    batch, as GSPMD partitions the JAX package's global-view mask."""
-    return HashDropoutFn.apply(x, int(seed), float(rate), int(row0))
+    batch, as GSPMD partitions the JAX package's global-view mask; or an
+    int64 tensor of every row's index there."""
+    return HashDropoutFn.apply(
+        x, int(seed), float(rate),
+        row0 if torch.is_tensor(row0) else int(row0))
 
 
 # The flash kernels' per-shard seed fold of the JAX package
@@ -149,9 +152,24 @@ FLASH_SHARD_FOLD = 0x9E3779B9
 
 
 def flash_shard_seed(seed, shard: int) -> int:
-    """The int32 seed data-parallel shard `shard` hands the flash
-    kernels: `seed` itself on shard 0."""
+    """The int32 seed shard `shard` hands the flash kernels: `seed`
+    itself on shard 0. `shard` is the flat (data, fsdp, model) index
+    ((d * F + f) * M + m, JAX's flat_batch_head_shard)."""
     return _as_int32(int(seed) ^ ((int(shard) * FLASH_SHARD_FOLD) & _U32))
+
+
+def probs_rows(b: int, h: int, s: int, shard: int = 0, head0: int = 0,
+               heads: Optional[int] = None, device=None) -> torch.Tensor:
+    """The global (B * H * S)-view row of every row of a rank's (b, h, s,
+    s) probabilities: rows ((shard * b + i) * heads + head0 + j) * s + q,
+    the rank's batch rows and heads of JAX's global view (int64, one a
+    row)."""
+    heads = h if heads is None else heads
+    bi = torch.arange(b, dtype=torch.int64, device=device) + shard * b
+    hj = torch.arange(h, dtype=torch.int64, device=device) + head0
+    q = torch.arange(s, dtype=torch.int64, device=device)
+    return ((bi[:, None, None] * heads + hj[None, :, None]) * s
+            + q[None, None, :]).reshape(-1)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -159,12 +177,15 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   segment_ids: Optional[torch.Tensor] = None,
                   dropout_seed: Optional[int] = None,
                   dropout_rate: float = 0.0,
-                  dropout_shard: int = 0) -> torch.Tensor:
+                  dropout_shard: int = 0, head0: int = 0,
+                  heads: Optional[int] = None) -> torch.Tensor:
     """Plain dense attention; returns (B, S, H, D) in q.dtype. With a
     `dropout_seed` and a rate above 0 (training), the probabilities go
     through `hash_dropout` after the cast to the compute dtype; on
     data-parallel shard `dropout_shard` the (B, H, S, S) view's rows
-    start at that shard's rows of the global batch."""
+    start at that shard's rows of the global batch. A model rank holds
+    heads [head0, head0 + H) of `heads`: its rows of the global view are
+    then a run a (batch row, head) block (`probs_rows`)."""
     scores = _scores(q, k)
     if bias is not None:
         scores = scores + bias.float()
@@ -173,8 +194,12 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     if dropout_seed is not None and dropout_rate > 0.0:
         b, h, s, _ = probs.shape
-        probs = hash_dropout(probs, dropout_seed, dropout_rate,
-                             dropout_shard * b * h * s)
+        if heads is None or heads == h:
+            row0 = dropout_shard * b * h * s
+        else:
+            row0 = probs_rows(b, h, s, dropout_shard, head0, heads,
+                              probs.device)
+        probs = hash_dropout(probs, dropout_seed, dropout_rate, row0)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
     if segment_ids is not None:
         out = out * (segment_ids > 0).to(out.dtype)[:, :, None, None]
@@ -599,7 +624,10 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           plain: bool = False,
                           dropout_seed: Optional[int] = None,
                           dropout_rate: float = 0.0,
-                          dropout_shard: int = 0) -> torch.Tensor:
+                          dropout_shard: int = 0, head0: int = 0,
+                          heads: Optional[int] = None,
+                          flash_shard: Optional[int] = None
+                          ) -> torch.Tensor:
     """(B, S, H, D) attention by the "auto" rule: the flash kernels where
     `takes_flash`, plain attention otherwise. `plain=True` computes the
     same split with the flash kernel's plain version, differentiated by
@@ -610,15 +638,19 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     data-parallel shard `dropout_shard` each route draws what the JAX
     package's data-parallel mesh draws on that shard: the flash seed
     XOR-folded (`flash_shard_seed`), the plain mask at the shard's rows
-    of the global batch."""
+    of the global batch. Under the model axis q, k and v hold heads
+    [head0, head0 + H) of `heads`: the plain mask takes those heads' rows
+    of the global view, and the flash seed folds `flash_shard`, the flat
+    (data shard, model) index (`dropout_shard` when None)."""
     rate = dropout_rate if dropout_seed is not None else 0.0
     if takes_flash(q, k):
         seed = dropout_seed if rate > 0.0 else None
-        if seed is not None and dropout_shard:
-            seed = flash_shard_seed(seed, dropout_shard)
+        fold = dropout_shard if flash_shard is None else flash_shard
+        if seed is not None and fold:
+            seed = flash_shard_seed(seed, fold)
         if plain:
             return flash_attention_ref(q, k, v, bias, segment_ids, seed,
                                        rate)[0]
         return FlashAttentionFn.apply(q, k, v, bias, segment_ids, seed, rate)
     return attention_ref(q, k, v, bias, segment_ids, dropout_seed, rate,
-                         dropout_shard)
+                         dropout_shard, head0, heads)

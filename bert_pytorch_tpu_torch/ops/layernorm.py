@@ -180,9 +180,16 @@ def row_col_keep(seed, row0: int, rows: int, cols: int, rate: float,
     right shifts are arithmetic shifts masked to the kept bits, and the
     unsigned compare is a signed compare of both sides with the top bit
     flipped. The row and column terms are exact in int64 first, then
-    folded to int32, so only two full-size multiplies run."""
+    folded to int32, so only two full-size multiplies run. `row0` may
+    also be an int64 tensor of the `rows` rows' own indices (a model
+    rank's heads are rows that are not one run of the global view)."""
     seed_term = ((int(seed) & _U32) * 0xC2B2AE3D) & _U32
-    r = torch.arange(rows, dtype=torch.int64, device=device) + int(row0)
+    if torch.is_tensor(row0):
+        r = row0.to(device=device, dtype=torch.int64).reshape(-1)
+        if r.numel() != rows:
+            raise ValueError(f"{r.numel()} row indices for {rows} rows")
+    else:
+        r = torch.arange(rows, dtype=torch.int64, device=device) + int(row0)
     c = torch.arange(cols, dtype=torch.int64, device=device)
     r_term = _to_int32(((r & _U32) * 0x9E3779B1 & _U32) ^ seed_term)
     c_term = _to_int32((c * 0x85EBCA77) & _U32)
@@ -200,7 +207,8 @@ def hash_keep_mask(seed, shape: Sequence[int], rate: float,
                    row0: int = 0) -> torch.Tensor:
     """row_col_keep over the flattened (R, E) view of `shape`, reshaped
     (`_hash_keep_mask`); `row0`: the view's first row in a larger array
-    (a data-parallel rank's rows of the global batch)."""
+    (a data-parallel rank's rows of the global batch), or a tensor of
+    each row's index there."""
     rows = 1
     for s in shape[:-1]:
         rows *= s

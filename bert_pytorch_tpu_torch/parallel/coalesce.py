@@ -17,7 +17,10 @@ rank:
 Either way the partials are all-gathered and summed in rank order
 (dist.sum_rows_in_order), so every total has the same bits with the
 reduction coalesced or not. `summary()` records the buckets of the last
-call.
+call. `group` (a dist.Group; the default group when None) is the ranks
+the partials are summed over: the slicing group of parallel/zero.py.
+Under the model axis zero.py then sums a split tensor's totals over the
+model group, in rank order, and counts a whole tensor once.
 """
 
 from __future__ import annotations
@@ -55,8 +58,9 @@ class NormReducer:
     """Sums of per-tensor partials over the ranks (module docstring)."""
 
     def __init__(self, coalesce: bool = False,
-                 bucket_bytes: int = DEFAULT_BUCKET_BYTES):
+                 bucket_bytes: int = DEFAULT_BUCKET_BYTES, group=None):
         self.coalesce = bool(coalesce)
+        self.group = group
         self.bucket_bytes = int(bucket_bytes)
         self.collectives = 0      # collectives issued, every call
         self._summary: Optional[Dict[str, Any]] = None
@@ -73,7 +77,7 @@ class NormReducer:
         out = torch.empty_like(cols)
         for g in groups:
             lo, hi = g[0], g[-1] + 1
-            rows = dist.all_gather_rows(cols[lo:hi].reshape(-1))
+            rows = dist.all_gather_rows(cols[lo:hi].reshape(-1), self.group)
             out[lo:hi] = dist.sum_rows_in_order(rows).view(hi - lo, k)
         self.collectives += len(groups)
         self._summary = {"coalesce": self.coalesce,

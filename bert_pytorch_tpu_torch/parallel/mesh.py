@@ -4,9 +4,13 @@ point's `parse_mesh_arg`).
 
 The JAX package lays its devices out on four axes, data, fsdp, model and
 seq. The port runs one process a card, and the ranks of torch.distributed
-are the mesh's devices; it implements the data axis (data parallelism,
-ZeRO-1). A mesh with fsdp, model or seq above 1 is refused, naming
-PARALLEL_GAPS.
+are the mesh's devices, in JAX's device order: JAX reshapes its device
+list in MESH_AXES order, so rank r sits at (d, f, m, s) with
+r = ((d * F + f) * M + m) * S + s (`Mesh.coords`). It implements the
+data axis (data parallelism, ZeRO-1), the fsdp axis (the parameters and
+LAMB's moments rest sliced, gathered at use) and the model axis (tensor
+parallelism over the heads, the MLP and the vocabulary). A mesh with seq
+above 1 is refused, naming PARALLEL_GAPS.
 """
 
 from __future__ import annotations
@@ -47,13 +51,42 @@ class Mesh:
     def size(self) -> int:
         return self.data * self.fsdp * self.model * self.seq
 
+    def coords(self, rank: int) -> Dict[str, int]:
+        """Rank `rank`'s coordinate on each axis (JAX's device order:
+        the last axis varies fastest)."""
+        out, r = {}, int(rank)
+        for a in reversed(MESH_AXES):
+            n = getattr(self, a)
+            out[a] = r % n
+            r //= n
+        return {a: out[a] for a in MESH_AXES}
+
+    def rank_of(self, coords: Dict[str, int]) -> int:
+        """The rank at `coords` (axes left out are 0)."""
+        r = 0
+        for a in MESH_AXES:
+            r = r * getattr(self, a) + int(coords.get(a, 0))
+        return r
+
+    def data_shard_index(self, rank: int) -> int:
+        """Which of the batch's data x fsdp parts rank `rank` trains:
+        d * F + f (JAX's batch spec over ("data", "fsdp"))."""
+        c = self.coords(rank)
+        return c["data"] * self.fsdp + c["fsdp"]
+
+    def flat_shard_index(self, rank: int) -> int:
+        """(d * F + f) * M + m: the flash kernels' per-shard dropout fold
+        (JAX's flat_batch_head_shard)."""
+        return (self.data_shard_index(rank) * self.model
+                + self.coords(rank)["model"])
+
 
 def make_mesh(shape: Optional[Dict[str, int]], world_size: int) -> Mesh:
     """The mesh over `world_size` ranks (JAX's make_mesh over its
     devices): unspecified axes are 1; without a `data` entry the data axis
     takes what the others leave; with one, the product must equal the
-    world size. An unknown axis raises ValueError, fsdp, model or seq
-    above 1 NotImplementedError."""
+    world size. An unknown axis raises ValueError, seq above 1
+    NotImplementedError."""
     shape = dict(shape or {})
     unknown = sorted(set(shape) - set(MESH_AXES))
     if unknown:
@@ -69,17 +102,26 @@ def make_mesh(shape: Optional[Dict[str, int]], world_size: int) -> Mesh:
     mesh = Mesh(**sizes)
     if mesh.size != world_size:
         raise ValueError(f"mesh shape {shape} != rank count {world_size}")
-    beyond = {a: n for a, n in mesh.shape.items() if a != "data" and n > 1}
-    if beyond:
+    if mesh.seq > 1:
         raise NotImplementedError(
-            f"mesh axes {beyond} are not ported yet: the port implements "
-            f"the data axis alone (see {PARALLEL_GAPS})")
+            f"mesh axis seq={mesh.seq} (ring attention) is not ported yet: "
+            f"the port implements the data, fsdp and model axes (see "
+            f"{PARALLEL_GAPS})")
     return mesh
 
 
 def data_shard_count(mesh: Mesh) -> int:
     """Ways the batch is split (data x fsdp)."""
     return mesh.data * mesh.fsdp
+
+
+def check_model_split(name: str, size: int, model: int) -> None:
+    """A width the model axis splits must divide by it: ValueError naming
+    the tensor and the sizes otherwise (GSPMD would pad; the port does
+    not)."""
+    if model > 1 and size % model:
+        raise ValueError(f"{name}: {size} does not divide over the model "
+                         f"axis of {model} (the port splits evenly)")
 
 
 def mesh_config(mesh: Optional[Mesh]) -> str:

@@ -40,18 +40,25 @@ torch.profiler trace of those steps under <output_dir>/traces/ and logs
 its summary (telemetry/trace.py; tools/trace_summary.py reads it again).
 
 Several ranks (parallel/): `torchrun --nproc_per_node N -m
-bert_pytorch_tpu_torch.run_pretraining --mesh data=N ...` runs rank r on
-cuda:LOCAL_RANK (NCCL; --device cpu: gloo). --local_batch_size is a
-rank's microbatch, as in the JAX entry point; each rank reads its part of
-the data (HostShardSampler's split, masks at --seed + rank); the
-gradients are summed over the ranks after the last microbatch. --zero1
-(auto: on above one rank) shards LAMB's moments and update
-(parallel/zero.py), with --zero1_rs (a reduce-scatter of the gradients)
-and --zero1_overlap (the weights gathered where the forward uses them);
+bert_pytorch_tpu_torch.run_pretraining --mesh data=D,fsdp=F,model=M ...`
+runs rank r on cuda:LOCAL_RANK (NCCL; --device cpu: gloo), at mesh
+coordinates (d, f, m) in JAX's device order. --local_batch_size is a
+data shard's microbatch, as in the JAX entry point; the batch splits
+over data x fsdp, each data shard d x F + f reading its part of the data
+(HostShardSampler's split, masks at --seed + data shard), and the model
+peers of a data shard read the same rows; the gradients are summed over
+the data shards after the last microbatch. --zero1 (auto: on when the
+data axis is above 1) shards LAMB's moments and update
+(parallel/zero.py), with --zero1_rs (a reduce-scatter of the gradients,
+data-only meshes) and --zero1_overlap (the weights gathered where the
+forward uses them); fsdp rests the weights and moments sliced, gathered
+each step, with --fsdp_overlap each where the forward uses it; the model
+axis splits the heads, the MLP and the vocabulary (parallel/tensor.py);
 --coalesce_reductions buckets the norm reductions; --mesh_config auto
-picks `production` (packing, ZeRO-1, gather-on-use) on cards. Rank 0
-logs, writes the sinks and the one-card checkpoint format; each rank's
-perf records land in <output_dir>/metrics_hosts/, folded into rank 0's.
+picks `production` (packing, ZeRO-1, gather-on-use, fsdp_overlap) on
+cards. Rank 0 logs, writes the sinks and the one-card checkpoint format
+(any mesh restores it); each rank's perf records land in
+<output_dir>/metrics_hosts/, folded into rank 0's.
 
 Checkpoints: every --num_steps_per_checkpoint steps and at the end of the
 run into <output_dir>/pretrain_ckpts/<global step>/, the newest
@@ -120,10 +127,10 @@ _REFUSED = {
     "force_cpu": (False,),
 }
 _HINTS = {"force_cpu": "use `--device cpu`"}
-# What the data axis left of multi-card training (PARALLEL_GAPS): the
-# fsdp axis's gather-on-use. A --mesh with fsdp, model or seq above 1 and
-# --kfac over several ranks are refused by `_unsupported` and `train`.
-_REFUSED_PARALLEL = {"fsdp_overlap": (False,)}
+# What multi-card training still refuses (PARALLEL_GAPS): no flag; a
+# --mesh with seq above 1 (ring attention) and --kfac over several ranks
+# are refused by `_unsupported` and `_parallel_plan`.
+_REFUSED_PARALLEL: Dict[str, tuple] = {}
 # Flags that only tune a feature refused above: accepted with any value,
 # since their feature is off. (--kfac_bucket_mb sizes K-FAC's coalesced
 # factor reductions over several ranks, which `train` refuses; it is
@@ -142,7 +149,6 @@ def _declare_refused(p: argparse.ArgumentParser) -> None:
     p.add_argument("--kfac_bucket_mb", type=float, default=4.0)
     p.add_argument("--stacked_params", type=str, default="auto",
                    choices=["auto", "true", "false"])
-    p.add_argument("--fsdp_overlap", action="store_true")
     p.add_argument("--overlap_flags", type=str, default="off",
                    choices=["on", "off"])
     p.add_argument("--rng_impl", type=str, default="threefry2x32",
@@ -154,10 +160,14 @@ def _declare_parallel(p: argparse.ArgumentParser) -> None:
     """The data axis's flags (parallel/): JAX's names, types, choices and
     defaults."""
     p.add_argument("--mesh", type=str, default="",
-                   help="mesh axes, e.g. 'data=4' (empty: data = the rank "
-                        "count); their product must equal the ranks. The "
-                        "port implements the data axis: fsdp, model or seq "
-                        "above 1 is refused")
+                   help="mesh axes, e.g. 'data=2,fsdp=2,model=2' (empty: "
+                        "data = the rank count); their product must equal "
+                        "the ranks. seq above 1 is refused")
+    p.add_argument("--fsdp_overlap", action="store_true",
+                   help="fsdp's gather-on-use: each unit's all-gather is "
+                        "awaited where the forward first uses it (without: "
+                        "all before the forward); with --zero1 it forces "
+                        "--zero1_overlap")
     p.add_argument("--zero1", type=str, default="auto",
                    choices=["auto", "true", "false"],
                    help="ZeRO-1: each rank keeps LAMB's moments for its "
@@ -534,18 +544,18 @@ class PretrainResult:
 
 def _unsupported(args) -> None:
     """Refuse a key of `_REFUSED` (or `_REFUSED_PARALLEL`) whose value
-    switches its feature on, and a --mesh with an axis other than data
-    above 1."""
+    switches its feature on, and a --mesh with seq above 1."""
     from bert_pytorch_tpu_torch import PARALLEL_GAPS, refuse
     from bert_pytorch_tpu_torch.parallel.mesh import parse_mesh_arg
 
     refuse(args, _REFUSED, _ROADMAP, hints=_HINTS)
     refuse(args, _REFUSED_PARALLEL, PARALLEL_GAPS)
     shape = parse_mesh_arg(getattr(args, "mesh", "")) or {}
-    if any(n > 1 for a, n in shape.items() if a != "data"):
+    if shape.get("seq", 1) > 1:
         raise NotImplementedError(
             f"mesh={args.mesh!r} is not ported yet (see {PARALLEL_GAPS}): "
-            "the port implements the data axis alone")
+            "the port implements the data, fsdp and model axes; seq (ring "
+            "attention) is next")
 
 
 def _config_echo(args) -> Dict:
@@ -570,15 +580,19 @@ def main(argv=None, log: Callable[[str], None] = print) -> PretrainResult:
 
 def _stream_loader(args, config, batch_size: int, registry, log):
     """--stream_dir's loader (data/streaming.py) and its [MASK] id: this
-    rank's records of the corpus's sorted .txt sources, tokenized by --stream_tokenizer over
+    rank's data shard's records (--mesh's data x fsdp split; the model
+    peers of a shard read the same) of the corpus's sorted .txt
+    sources, tokenized by --stream_tokenizer over
     --stream_vocab (else the model config's vocab_file); the tokenizer's
     [MASK] / <mask> id unless --mask_token_index is given (a BPE .json
     vocab's <mask> is invisible to the line-based lookup)."""
     from bert_pytorch_tpu_torch.data.streaming import (
         StreamingPretrainingLoader, discover_sources, resolve_mask_id)
     from bert_pytorch_tpu_torch.data.tokenization import TOKENIZERS
-    from bert_pytorch_tpu_torch.parallel import dist
+    from bert_pytorch_tpu_torch.parallel import dist, mesh as mesh_lib
 
+    mesh = mesh_lib.make_mesh(mesh_lib.parse_mesh_arg(args.mesh),
+                              dist.get_world_size())
     sources = discover_sources(args.stream_dir)
     if not sources:
         raise SystemExit(f"no .txt corpus under {args.stream_dir}")
@@ -598,7 +612,8 @@ def _stream_loader(args, config, batch_size: int, registry, log):
         max_pred_per_seq=args.max_predictions_per_seq,
         masked_lm_prob=args.masked_token_fraction,
         vocab_size=config.vocab_size, seed=args.seed,
-        world_size=dist.get_world_size(), rank=dist.get_rank(),
+        world_size=mesh_lib.data_shard_count(mesh),
+        rank=mesh.data_shard_index(dist.get_rank()),
         num_workers=args.stream_workers,
         queue_batches=args.stream_queue_batches,
         prefetch_batches=max(0, args.prefetch_batches),
@@ -743,7 +758,9 @@ def _train(args, index, log, batch_tap, device) -> "PretrainResult":
                    multihost_dir=(os.path.join(args.output_dir,
                                                "metrics_hosts")
                                   if world > 1 else None),
-                   process_index=rank, process_count=world)
+                   process_index=rank, process_count=world,
+                   data_shard_of=[par.mesh.data_shard_index(r)
+                                  for r in range(world)])
     if tel.logger.tensorboard_dir:
         log(f"tensorboard: scalars under {tel.logger.tensorboard_dir}")
     loader = guard = watchdog = slo_eval = recorder = profiler = dp = None
@@ -758,6 +775,7 @@ def _train(args, index, log, batch_tap, device) -> "PretrainResult":
         log(f"parallel: {world} rank(s), mesh={par.mesh.shape} "
             f"mesh_config={par.mesh_config} zero1={par.zero1} "
             f"zero1_overlap={par.zero1_overlap} zero1_rs={par.zero1_rs} "
+            f"fsdp_overlap={par.fsdp_overlap} coords={par.coords} "
             f"coalesce_reductions={'on' if par.coalesce else 'off'}"
             + (f" backend={dist.backend()}" if dist.is_initialized()
                else ""))
@@ -783,15 +801,18 @@ def _train(args, index, log, batch_tap, device) -> "PretrainResult":
             loader.load_state_dict(loader.initial_state())
         else:
             mask_id = find_mask_token_index(args, config)
-            # each rank reads its contiguous part of the index and
-            # masks with seed + rank (the JAX entry point's split)
+            # each data shard reads its contiguous part of the index and
+            # masks with seed + shard (the JAX entry point's split, a
+            # host a data shard); model peers read the same rows
             loader = PretrainingDataLoader(
-                index, HostShardSampler(len(index), world_size=world,
-                                        rank=rank, seed=args.seed),
+                index, HostShardSampler(len(index),
+                                        world_size=par.data_shards,
+                                        rank=par.data_shard, seed=args.seed),
                 batch_size=step_batch, mask_token_index=mask_id,
                 max_pred_per_seq=args.max_predictions_per_seq,
                 masked_lm_prob=args.masked_token_fraction,
-                vocab_size=config.vocab_size, seed=args.seed + rank,
+                vocab_size=config.vocab_size,
+                seed=args.seed + par.data_shard,
                 prefetch_batches=max(0, args.prefetch_batches),
                 packing=args.packing,
                 packing_max_segments=args.packing_max_segments,
@@ -808,19 +829,41 @@ def _train(args, index, log, batch_tap, device) -> "PretrainResult":
                 load_kernels
 
             load_kernels()
+        axes = model_shard = None
+        if world > 1:
+            from bert_pytorch_tpu_torch.parallel.tensor import ModelShard
+
+            axes = dist.make_axes(par.mesh)
+            if par.mesh.model > 1:
+                model_shard = ModelShard(axes.coords["model"], par.mesh.model,
+                                         axes.model)
+        # the one-card model's seeded weights, then this rank's model part
+        # (the same initial weights at any mesh shape)
         with torch.device(device):
             model = BertForPreTraining(config, dtype=compute_dtype)
         init_weights(model, torch.Generator(device=device).manual_seed(
             args.seed), std=config.initializer_range)
+        if model_shard is not None:
+            from bert_pytorch_tpu_torch.models.convert import \
+                shard_state_dict
+
+            whole = model.state_dict()
+            with torch.device(device):
+                model = BertForPreTraining(config, dtype=compute_dtype,
+                                           model_shard=model_shard)
+            model.load_state_dict(shard_state_dict(whole, par.mesh, rank))
+            del whole
         if world > 1:
-            set_dropout_shard(model, rank)
+            set_dropout_shard(model, par.data_shard,
+                              par.mesh.flat_shard_index(rank))
         if world > 1 or par.zero1:
             from bert_pytorch_tpu_torch.parallel.zero import DataParallel
 
             dp = DataParallel(model, zero1=par.zero1,
                               reduce_scatter=par.zero1_rs,
                               gather_on_use=par.zero1_overlap,
-                              coalesce=par.coalesce)
+                              coalesce=par.coalesce, axes=axes,
+                              fsdp_overlap=par.fsdp_overlap)
             log("parallel: " + ", ".join(
                 f"{k}={v}" for k, v in dp.describe().items()))
             if par.zero1:
@@ -899,6 +942,13 @@ def _train(args, index, log, batch_tap, device) -> "PretrainResult":
             restore_s = time.perf_counter() - t0
             log(f"auto-resumed from step {resumed_from} "
                 f"({restore_s:.1f} s)")
+        elif args.init_checkpoint and dp is not None and dp.sharded:
+            # the one-card tensors, then this rank's part of each
+            whole = {n: torch.zeros(dp.global_shape(n), device=device)
+                     for n in dp.layout.names}
+            load_pretrained_params(args.init_checkpoint, whole, log=log)
+            dp.load_params(whole)
+            del whole
         elif args.init_checkpoint:
             load_pretrained_params(args.init_checkpoint, state.params,
                                    log=log)
@@ -1243,7 +1293,7 @@ def _quiet(_msg: str) -> None:
 
 @dataclasses.dataclass
 class _Parallel:
-    """The resolved data axis of a run (`_parallel_plan`)."""
+    """The resolved mesh of a run (`_parallel_plan`)."""
     world: int
     rank: int
     mesh: object
@@ -1254,24 +1304,39 @@ class _Parallel:
     zero1_rs: bool
     coalesce: bool
     notes: List[str]
+    fsdp_overlap: bool = False
+
+    @property
+    def data_shard(self) -> int:
+        """This rank's data shard, d x F + f: its part of the batch."""
+        return self.mesh.data_shard_index(self.rank)
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        return self.mesh.coords(self.rank)
 
     def describe(self) -> Dict:
         return {"world": self.world, "mesh": self.mesh.shape,
                 "mesh_config": self.mesh_config, "zero1": self.zero1,
                 "zero1_overlap": self.zero1_overlap,
-                "zero1_rs": self.zero1_rs, "coalesce": self.coalesce}
+                "zero1_rs": self.zero1_rs,
+                "fsdp_overlap": self.fsdp_overlap, "coalesce": self.coalesce,
+                "coords": self.coords, "data_shard": self.data_shard}
 
 
 def _parallel_plan(args, device) -> _Parallel:
     """--mesh over the ranks, and --mesh_config, --zero1, --zero1_overlap,
-    --zero1_rs and --coalesce_reductions resolved as the JAX entry point
-    resolves them (run_pretraining.py:684-728): `production` (picked by
-    `auto` on a card when the data axis is above 1) turns on packing,
-    ZeRO-1 and its gather-on-use; --zero1 auto is on when the data axis is
-    above 1; --zero1_overlap and --zero1_rs need ZeRO-1 and --zero1_rs a
-    data-only mesh, and forces --zero1_overlap. --kfac over several ranks
-    or with ZeRO-1 is refused (PARALLEL_GAPS). May set args.packing,
-    args.zero1."""
+    --zero1_rs, --fsdp_overlap and --coalesce_reductions resolved as the
+    JAX entry point resolves them (run_pretraining.py:684-728):
+    `production` (picked by `auto` on a card when the data, fsdp or seq
+    axis is above 1) turns on packing, ZeRO-1 and its gather-on-use where
+    the data axis is above 1, and --fsdp_overlap where the fsdp axis is;
+    --zero1 auto is on when the data axis is above 1; --zero1_overlap and
+    --zero1_rs need ZeRO-1 and --zero1_rs a data-only mesh, and forces
+    --zero1_overlap; --fsdp_overlap on a trivial fsdp axis is a WARNING
+    note and a normal run, and with ZeRO-1 forces --zero1_overlap. --kfac
+    over several ranks or with ZeRO-1 is refused (PARALLEL_GAPS). May set
+    args.packing, args.zero1."""
     from bert_pytorch_tpu_torch import PARALLEL_GAPS
     from bert_pytorch_tpu_torch.parallel import dist, mesh as mesh_lib
     from bert_pytorch_tpu_torch.parallel.zero import rs_supported
@@ -1292,6 +1357,8 @@ def _parallel_plan(args, device) -> _Parallel:
             args.zero1 = "true"
         if feats["zero1_overlap"] and args.zero1 != "false":
             args.zero1_overlap = True
+        if feats["fsdp_overlap"]:
+            args.fsdp_overlap = True
         notes.append("mesh_config=production: " + " ".join(
             f"{k}={'on' if v else 'off'}" for k, v in sorted(feats.items())))
     zero1 = (args.zero1 == "true"
@@ -1300,6 +1367,14 @@ def _parallel_plan(args, device) -> _Parallel:
     if args.zero1_overlap and not zero1:
         notes.append("WARNING: --zero1_overlap ignored (--zero1 is off or "
                      "the data axis is trivial)")
+    fsdp_overlap = bool(args.fsdp_overlap) and mesh.fsdp > 1
+    if args.fsdp_overlap and not fsdp_overlap:
+        notes.append("WARNING: --fsdp_overlap ignored (the mesh's fsdp "
+                     "axis is trivial)")
+    if fsdp_overlap and zero1 and not overlap:
+        overlap = True
+        notes.append("--fsdp_overlap with --zero1 forces --zero1_overlap "
+                     "(resting layout must match the update's output pin)")
     rs = bool(args.zero1_rs) and zero1
     if args.zero1_rs and not zero1:
         notes.append("WARNING: --zero1_rs ignored (--zero1 is off or the "
@@ -1320,7 +1395,7 @@ def _parallel_plan(args, device) -> _Parallel:
             f"(see {PARALLEL_GAPS}); run it on one card with --zero1 false")
     return _Parallel(world, rank, mesh, mesh_lib.data_shard_count(mesh),
                      name, zero1, overlap, rs,
-                     args.coalesce_reductions == "on", notes)
+                     args.coalesce_reductions == "on", notes, fsdp_overlap)
 
 
 def _restore(manager, device, world: int, rank: int):

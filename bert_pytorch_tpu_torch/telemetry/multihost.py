@@ -23,6 +23,14 @@ step behind rank 0's; records carry their step id so the fold reports
 the spread (`hosts_step_min`/`max`).
 
 Stdlib-only: process index and count are constructor arguments.
+
+On a mesh with a model axis several ranks train one data shard: they
+step through the same rows, so their throughput is one shard's, not
+theirs added. `data_shard_of` (a data shard index for each process)
+makes the fold count each shard once: `seq_per_sec_global` sums the
+`seq_per_sec` of the lowest-numbered process of every data shard (the
+fold fields stay per process: every rank's step time is reported). The
+loss is the whole batch's on every rank, logged once by rank 0.
 """
 
 from __future__ import annotations
@@ -70,8 +78,11 @@ class HostMetricsAggregator:
 
     def __init__(self, root_dir: str, process_index: int,
                  process_count: int, z_threshold: float = 3.0,
-                 fold_fields: Sequence[str] = DEFAULT_FOLD_FIELDS):
+                 fold_fields: Sequence[str] = DEFAULT_FOLD_FIELDS,
+                 data_shard_of: Optional[Sequence[int]] = None):
         self.root_dir = root_dir
+        self.data_shard_of = (list(data_shard_of)
+                              if data_shard_of is not None else None)
         self.process_index = int(process_index)
         self.process_count = int(process_count)
         self.z_threshold = float(z_threshold)
@@ -118,6 +129,15 @@ class HostMetricsAggregator:
             "hosts_step_max": max(r.get("step", 0) for r in latest.values()),
         }
         warning = None
+        if self.data_shard_of is not None:
+            first: Dict[int, int] = {}
+            for i, shard in enumerate(self.data_shard_of):
+                first.setdefault(shard, i)
+            rates = [latest[i].get("seq_per_sec") for i in first.values()
+                     if i in latest]
+            if rates and all(isinstance(r, (int, float)) for r in rates):
+                agg["seq_per_sec_global"] = round(sum(rates), 2)
+                agg["data_shards_reporting"] = len(rates)
         for field in self.fold_fields:
             vals = {i: float(r[field]) for i, r in latest.items()
                     if isinstance(r.get(field), (int, float))}

@@ -258,7 +258,8 @@ def init_run(phase: str, log_prefix: Optional[str] = None,
              tensorboard: bool = False,
              multihost_dir: Optional[str] = None,
              process_index: int = 0, process_count: int = 1,
-             straggler_z: float = 3.0) -> TelemetryRun:
+             straggler_z: float = 3.0,
+             data_shard_of=None) -> TelemetryRun:
     """The run's telemetry in one call: a registry with the constant label
     `phase`, a MetricLogger over `log_prefix`'s sinks (none without it;
     `tensorboard` adds the TensorBoard sink) that echoes through `echo`
@@ -266,7 +267,8 @@ def init_run(phase: str, log_prefix: Optional[str] = None,
     `metrics_port` (0: an ephemeral port, read `tel.server.port`), the
     /metrics + /healthz exporter. `multihost_dir` turns on the per-rank
     publish and rank 0's fold (telemetry/multihost.py) for rank
-    `process_index` of `process_count`."""
+    `process_index` of `process_count` (`data_shard_of`: each rank's data
+    shard, so the fold counts a shard's throughput once)."""
     registry = MetricsRegistry(constant_labels={"phase": phase})
     tel = TelemetryRun(phase, MetricLogger(log_prefix, echo=echo,
                                            registry=registry,
@@ -278,7 +280,8 @@ def init_run(phase: str, log_prefix: Optional[str] = None,
 
         tel.aggregator = HostMetricsAggregator(
             multihost_dir, process_index=process_index,
-            process_count=process_count, z_threshold=straggler_z)
+            process_count=process_count, z_threshold=straggler_z,
+            data_shard_of=data_shard_of)
     if metrics_port is not None:
         from bert_pytorch_tpu_torch.telemetry.exporter import MetricsServer
 

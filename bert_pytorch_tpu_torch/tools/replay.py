@@ -164,6 +164,14 @@ def main(argv=None) -> dict:
     if run.get("zero1"):
         raise ReplayError("the bundle's run used ZeRO-1, which the port "
                           "does not run")
+    ranks = 1
+    for n in (run.get("mesh") or {}).values():
+        ranks *= int(n)
+    if ranks > 1:
+        raise ReplayError(f"the bundle's run had {ranks} ranks (mesh "
+                          f"{run['mesh']}): a rank's batch and state are "
+                          "part of the step, which replay on one card "
+                          "does not run")
     describe_stream(manifest.get("stream"))
 
     import torch

@@ -129,7 +129,11 @@ def pretrain_loss_fn(model: nn.Module,
     MLM head: logits for at most that many masked positions per row (a
     packed row's budget covers all of its segments). A packed microbatch
     scores NSP per segment: (B, G) labels, -1 for an empty slot. The
-    returned loss_fn takes `kfac=` (K-FAC's taps) too."""
+    returned loss_fn takes `kfac=` (K-FAC's taps) too. A model built on
+    the model axis (`model.model_shard`) gives its part of the
+    vocabulary's logits: the loss and the accuracy then reduce over the
+    model group (the step passes `counts`)."""
+    shard = getattr(model, "model_shard", None)
 
     def loss_fn(params, micro, seeds, kfac=None, counts=None):
         labels = micro["masked_lm_labels"]
@@ -145,13 +149,16 @@ def pretrain_loss_fn(model: nn.Module,
             _model_inputs(micro, positions, seeds, kfac))
         nsp_labels = micro.get("next_sentence_labels")
         if counts is None:
+            if shard is not None:
+                raise ValueError("a model-split loss needs the counts "
+                                 "summed over the ranks")
             loss = losses.pretraining_loss(mlm_logits, labels, nsp_logits,
                                            nsp_labels)
         else:
             loss = losses.pretraining_loss_over_ranks(
-                mlm_logits, labels, nsp_logits, nsp_labels, counts)
+                mlm_logits, labels, nsp_logits, nsp_labels, counts, shard)
         with torch.no_grad():
-            correct, total = losses.mlm_accuracy(mlm_logits, labels)
+            correct, total = losses.mlm_accuracy(mlm_logits, labels, shard)
         return loss, {"mlm_correct": correct, "mlm_total": total,
                       "mlm_dropped": dropped}
 
@@ -247,9 +254,12 @@ def build_pretrain_step(model: nn.Module, tx,
     a NaN in the forward (`inject_nonfinite`).
 
     `dp` (a parallel/zero.DataParallel) makes it this rank's part of a
-    data-parallel step (`_dp_step`): `batch` holds the rank's rows of
-    every microbatch, and the loss, the metrics and the update are the
-    whole global batch's."""
+    parallel step (`_dp_step`): `batch` holds the rank's rows of every
+    microbatch (its data shard's: the model peers hold the same rows),
+    and the loss, the metrics and the update are the whole global
+    batch's. Under the model axis `model` is the rank's part
+    (parallel/tensor.py) and the update its part of every split tensor.
+    """
     if dp is not None and loss_fn_builder is not None:
         from bert_pytorch_tpu_torch import PARALLEL_GAPS
 
@@ -339,7 +349,9 @@ def _dp_step(dp, loss_fn: LossFn, tx, schedule, health, state: TrainState,
     gparams = dp.compute_params(state.params, grad_dtype)
     if gparams is None:
         gparams = compute_params(state.params, grad_dtype)
-    if nan_inject_step is not None and state.step + 1 == nan_inject_step:
+    if (nan_inject_step is not None and state.step + 1 == nan_inject_step
+            and dp.axes.coords["model"] == 0):
+        # element [0, 0] of the one-card tensor lies on model coordinate 0
         dp.wait_all()
         gparams = inject_nonfinite(gparams)
     counts = dp.global_counts(
@@ -374,24 +386,24 @@ def _apply_update(tx, schedule, health, state: TrainState, loss, aux,
     norm, the health pack's signals (under "skip" a bad step leaves the
     parameters, the optimizer state and, given `precond_state`, K-FAC's
     state as they were), the update, the metrics, the step count."""
-    zero1 = dp is not None and dp.zero1
-    grad_norm = (dp.global_norm(list(grads.values())) if zero1
+    sharded = dp is not None and dp.sharded
+    grad_norm = (dp.global_norm(list(grads.values())) if sharded
                  else global_norm_f32(grads.values()))
     metrics: Dict = {"loss": loss, "grad_norm": grad_norm}
     skip = False
     bad = None
     if health is not None:
         hmetrics, bad = health_signals(
-            loss, grads, grad_norm,
-            names=dp.layout.names if zero1 else None,
-            reduce=dp.nonfinite_counts if zero1 else None)
+            loss, dp.counted(grads) if sharded else grads, grad_norm,
+            names=dp.layout.names if sharded else None,
+            reduce=dp.nonfinite_counts if sharded else None)
         metrics.update(hmetrics)
         if health.action == "skip":
             skip = bool(bad)
             metrics["skipped_nonfinite"] = int(skip)
-    own = dp.piece_views(dp.master) if zero1 else None
+    own = dp.own_masters() if sharded else None
     if not skip:
-        if zero1:
+        if sharded:
             tx.update(grads, state.opt_state, own, grad_norm=grad_norm,
                       shards=dp)
         else:
@@ -399,13 +411,13 @@ def _apply_update(tx, schedule, health, state: TrainState, loss, aux,
                       grad_norm=grad_norm)
         if precond_state is not None:
             state.precond_state = precond_state
-    if zero1 and not dp.gather_on_use:
-        dp.gather_masters()
+    if sharded:
+        dp.end_step()
     if health is not None:
         state.telemetry, ema_metrics = health_update(
             health, state.telemetry, grad_norm, bad,
             state.params.values(),
-            param_norm=dp.global_norm(list(own.values())) if zero1
+            param_norm=dp.global_norm(list(own.values())) if sharded
             else None)
         metrics.update(ema_metrics)
     if "mlm_total" in aux:

@@ -12,8 +12,11 @@ them in place, and `load_state_dict` copies a checkpoint into them.
 "factors" and "inverses" by "<site>/<A|G>"}. `telemetry`, the
 health pack's carry (telemetry/health.TelemetryState), is attached after
 a restore and never saved, so a checkpoint's structure is the same with
-the pack on or off. Under ZeRO-1 (`sharding`) the moments are the
-rank's pieces and both methods are collective (parallel/zero.py). Both
+the pack on or off. Under a sharded state (`sharding`: ZeRO-1, fsdp or
+the model axis) the moments are the rank's pieces, the masters its model
+part (or its slice of it), and both methods are collective and speak the
+one-card format, so a checkpoint moves between mesh shapes
+(parallel/zero.py). Both
 LAMB routes
 and FusedAdam keep that layout, so a state saved under one LAMB route
 resumes under the other.
@@ -103,7 +106,7 @@ def make_train_state(model: nn.Module, tx,
                      dp=None) -> TrainState:
     """A fresh state over `model`'s parameters, which must be f32, and
     `extra`, parameters by name trained beside them (a distillation run's
-    projections); `tx` is a Lamb or a FusedAdam. `dp`, a ZeRO-1
+    projections); `tx` is a Lamb or a FusedAdam. `dp`, a sharded
     parallel/zero.DataParallel built over `model`, gives LAMB moments for
     this rank's pieces alone, and `state_dict()` becomes collective."""
     params = {k: p.detach() for k, p in model.named_parameters()}
@@ -114,9 +117,10 @@ def make_train_state(model: nn.Module, tx,
     bad = [k for k, p in params.items() if p.dtype != torch.float32]
     if bad:
         raise ValueError(f"master parameters must be float32: {bad[:3]}")
-    if dp is not None and dp.zero1:
+    if dp is not None and dp.sharded:
         if extra:
-            raise ValueError("ZeRO-1 takes the model's parameters alone")
+            raise ValueError("a sharded state takes the model's parameters "
+                             "alone")
         mu, nu = dp.init_moments()
         return TrainState(step=0, params=params,
                           opt_state=LambState(count=0, mu=mu, nu=nu),

@@ -3061,9 +3061,9 @@ def serve_routes(torch, np, handle, config, tokenizer, batch512, squad_reqs,
 # for LOAD_RAMP_S seconds, stopping where p99 passes LOAD_BOUND_MS; it
 # starts above the fixed rate, which the fixed run has measured), and the
 # client: bert_pytorch_tpu_torch/tools/serve_load.py in its own process
-LOAD_RATE, LOAD_S = 100.0, 30.0
+LOAD_RATE, LOAD_S = 100.0, 20.0
 LOAD_RAMP = (120, 140, 160, 200, 240, 280)
-LOAD_RAMP_S, LOAD_BOUND_MS = 6.0, 1000.0
+LOAD_RAMP_S, LOAD_BOUND_MS = 4.0, 1000.0
 # the int8 accuracy gate, run_server's default --int8_max_delta
 INT8_MAX_DELTA = 0.1
 SERVE_LOAD = os.path.join(HERE, "bert_pytorch_tpu_torch", "tools",
@@ -9409,12 +9409,16 @@ def _dp_batches(np, index, config, args_seed: int, rows: int, steps: int,
 
 
 def _dp_step_leg(torch, np, config, batches, rank: int, world: int, device,
-                 lr: float):
+                 lr: float, mesh=None, seeds=None):
     """The step-level leg: a seeded random model, ZeRO-1 over `world`
     ranks (build_pretrain_step with a DataParallel), one microbatch a step
     of this rank's rows of each global batch, dropout off (no seeds), the
-    bf16 forward with f32 gradients, LAMB on the kernels. Returns (losses, grad norms, the
-    one-card params; collective)."""
+    bf16 forward with f32 gradients, LAMB on the kernels. `mesh` (a
+    parallel/mesh.Mesh over the `world` ranks) places the ranks on it
+    instead, without ZeRO-1: each builds its model part of the same
+    seeded weights and takes its data shard's rows; `seeds` (one (1,
+    sites) int32 tensor a step) turns dropout on. Returns (losses, grad
+    norms, the one-card params; collective)."""
     from bert_pytorch_tpu_torch.models.bert import (BertForPreTraining,
                                                     init_weights,
                                                     set_dropout_shard)
@@ -9429,8 +9433,28 @@ def _dp_step_leg(torch, np, config, batches, rank: int, world: int, device,
         model = BertForPreTraining(config, dtype=torch.bfloat16)
     init_weights(model, torch.Generator(device=device).manual_seed(0),
                  std=config.initializer_range)
-    set_dropout_shard(model, rank)
-    dp = DataParallel(model, zero1=True)
+    shards, index = world, rank
+    if mesh is None:
+        set_dropout_shard(model, rank)
+        dp = DataParallel(model, zero1=True)
+    else:
+        from bert_pytorch_tpu_torch.models.convert import shard_state_dict
+        from bert_pytorch_tpu_torch.parallel import dist
+        from bert_pytorch_tpu_torch.parallel.tensor import ModelShard
+
+        axes = dist.make_axes(mesh)
+        whole = model.state_dict()
+        with torch.device(device):
+            model = BertForPreTraining(config, dtype=torch.bfloat16,
+                                       model_shard=ModelShard(
+                                           axes.coords["model"], mesh.model,
+                                           axes.model))
+        model.load_state_dict(shard_state_dict(whole, mesh, rank))
+        del whole
+        shards = mesh.data * mesh.fsdp
+        index = mesh.data_shard_index(rank)
+        set_dropout_shard(model, index, mesh.flat_shard_index(rank))
+        dp = DataParallel(model, axes=axes)
     sched = make_schedule("poly", lr, 10, warmup=0.0)
     tx = Lamb(sched, weight_decay=0.01, fused="auto")
     state = make_train_state(model, tx, dp=dp)
@@ -9438,12 +9462,12 @@ def _dp_step_leg(torch, np, config, batches, rank: int, world: int, device,
                                max_predictions=80, grad_dtype=None,
                                health=HealthConfig(), dp=dp)
     losses, norms = [], []
-    for b in batches:
-        rows = len(b["input_ids"]) // world
+    for i, b in enumerate(batches):
+        rows = len(b["input_ids"]) // shards
         batch = {k: torch.from_numpy(np.ascontiguousarray(
-            v[rank * rows:(rank + 1) * rows]))[None].to(device)
+            v[index * rows:(index + 1) * rows]))[None].to(device)
             for k, v in b.items()}
-        m = step(state, batch, None)
+        m = step(state, batch, None if seeds is None else seeds[i])
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     params = {k: v.detach().float().cpu()
@@ -9458,12 +9482,84 @@ def _dp_arms(run: dict, device: str):
     gather-on-use); the CPU rehearsal names production, which auto keeps
     off there."""
     auto = ["--mesh_config", "auto" if device == "cuda" else "production"]
+    fsdp = ["--mesh", "fsdp=2", "--mesh_config", "base", "--packing"]
     return [("production", auto, True),
             ("production_rs", auto + ["--zero1_rs"], False),
             ("production_coalesced", auto + ["--coalesce_reductions", "on"],
              False),
             ("zero1_end_gather", ["--mesh_config", "base", "--zero1", "true",
-                                  "--packing"], False)]
+                                  "--packing"], False),
+            ("fsdp", fsdp, False),
+            ("fsdp_overlap", fsdp + ["--fsdp_overlap"], False)]
+
+
+def _dp_model_arm(run: dict):
+    """The model-axis arm of the train_dp ranks: --mesh model=2 through
+    the entry point (packing, one data shard of half a rank's `micro`
+    rows: accumulation 1; the model group's f32 activation sums through
+    gloo set its step, ~2.6 s at 96 rows on the card), which saves its
+    checkpoint for the one-rank restore."""
+    rows = str(max(1, run["micro"] // 2))
+    return ("model2", ["--mesh", "model=2", "--mesh_config", "base",
+                       "--packing", "--local_batch_size", rows,
+                       "--global_batch_size", rows], True)
+
+
+# train_dp's seq-512 leg at model=2: dropout on, so the flash
+# kernels (#5, #7) run on BERT-Large's 16 / 2 = 8 local heads with the
+# folded seed; one step of `rows` rows of 512 from a synthetic shard of
+# `samples`, 80 predictions a row.
+DP_SEQ512 = {"rows": 8, "samples": 32, "steps": 1}
+
+
+def _dp_seq512_leg(torch, np, config, rank: int, world: int, device,
+                   lr: float) -> dict:
+    """(c): DP_SEQ512's step at model=2 with dropout on (the launches
+    counted from 0 just before the step-level leg and read just after),
+    then the flash forward (#5) and the fused backward (#7) at the leg's
+    shape, (rows, 512, 8, 64) bf16, with this rank's folded seed, against
+    their plain versions (on the card; the CPU runs the plain versions
+    alone)."""
+    from bert_pytorch_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+        flash_attention_ref, flash_shard_seed)
+    from bert_pytorch_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from bert_pytorch_tpu_torch.parallel.mesh import Mesh
+    from bert_pytorch_tpu_torch.training.pretrain import dropout_seeds
+
+    leg = DP_SEQ512
+    mesh = Mesh(model=world)
+    index = array_index([pretraining_arrays(np, leg["samples"], 512,
+                                            config.vocab_size, 5)])
+    batches = _dp_batches(np, index, config, 0, leg["rows"], leg["steps"],
+                          80)
+    sites = 1 + 3 * config.num_hidden_layers
+    seeds = [dropout_seeds(0, i + 1, 1, sites) for i in range(leg["steps"])]
+    t0 = time.perf_counter()
+    reset_launches()
+    losses, norms, _ = _dp_step_leg(torch, np, config, batches, rank, world,
+                                    device, lr, mesh=mesh, seeds=seeds)
+    out = {"loss": losses, "grad_norm": norms, "launches": dict(LAUNCHES),
+           "s": time.perf_counter() - t0}
+    heads = config.num_attention_heads // mesh.model
+    seed = flash_shard_seed(int(seeds[0][0, 1]),
+                            mesh.flat_shard_index(rank))
+    gen = torch.Generator(device=device).manual_seed(7 + rank)
+    shape = (leg["rows"], 512, heads, config.head_dim)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=device)
+                  .to(torch.bfloat16) for _ in range(4))
+    out_k, lse_k = flash_attention(q, k, v, None, None, seed, 0.1)
+    ref, lse_ref = flash_attention_ref(q, k, v, None, None, seed, 0.1)
+    dk = flash_attention_bwd(q, k, v, None, None, out_k, lse_k, g, seed,
+                             0.1)
+    dref = flash_attention_bwd_ref(q, k, v, None, None, out_k, lse_k, g,
+                                   seed, 0.1)
+    out["kernels"] = {
+        "shape": list(shape), "seed": seed,
+        "fwd_max_abs_err": (out_k.float() - ref.float()).abs().max().item(),
+        "lse_max_abs_err": (lse_k - lse_ref).abs().max().item(),
+        "bwd_rel_err": max(_rel(a, b) for a, b in zip(dk, dref))}
+    return out
 
 
 def dp_child(argv) -> int:
@@ -9516,19 +9612,40 @@ def dp_child(argv) -> int:
     if rank == 0:
         torch.save(params, os.path.join(job["out"], "compare_params.pt"))
     del params
+    # (b) the same global batches at model=2 (one data shard: every rank
+    # takes all the rows), dropout off
+    from bert_pytorch_tpu_torch.parallel.mesh import Mesh
+
+    t0 = time.perf_counter()
+    dist.reset_stats()
+    reset_launches()
+    losses, norms, params = _dp_step_leg(
+        torch, np, config, batches, rank, job["world"], device, run["lr"],
+        mesh=Mesh(model=job["world"]))
+    out["model2_compare"] = {"loss": losses, "grad_norm": norms,
+                             "launches": dict(LAUNCHES),
+                             "collectives": dist.axis_stats(),
+                             "s": time.perf_counter() - t0}
+    if rank == 0:
+        torch.save(params, os.path.join(job["out"], "model2_params.pt"))
+    del params, batches
     out["arms"] = {}
-    for name, argv_arm, saves in _dp_arms(run, device):
+    for name, argv_arm, saves in _dp_arms(run, device) + [_dp_model_arm(run)]:
         args = run_pretraining.parse_arguments(
             job["base_argv"] + ["--output_dir",
                                 os.path.join(job["out"], name)]
             + argv_arm + ([] if saves else ["--skip_checkpoint"]))
         dist.reset_stats()
         reset_launches()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         result = run_pretraining.train(args, index, log=(
             (lambda m, n=name: log(f"train_dp[{n}]: {m}")) if rank == 0
             else (lambda m: None)))
         launches = dict(LAUNCHES)
+        peak = (torch.cuda.max_memory_allocated() if device == "cuda"
+                else None)
         sd = result.state.state_dict()      # collective under ZeRO-1
         digest = hashlib.sha256()
         for k in sorted(sd["params"]):
@@ -9542,8 +9659,12 @@ def dp_child(argv) -> int:
             "launches": launches, "params_sha256": digest.hexdigest(),
             "parallel": result.parallel, "saves": [s["step"] for s in
                                                    result.saves],
+            "hbm_peak_bytes": peak,
+            "collectives_by_axis": dist.axis_stats(),
             "s": time.perf_counter() - t0}
         del sd, result
+    out["seq512"] = _dp_seq512_leg(torch, np, config, rank, job["world"],
+                                   device, run["lr"])
     with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f, default=str)
     dist.barrier()
@@ -9677,6 +9798,7 @@ def phase_train_dp(torch, np, summary, device="cuda", cfg_path=None,
         sq = [(float((got[k] - w).square().sum()), float(w.square().sum()))
               for k, w in ref_params.items()]
         global_rel = (sum(a for a, _ in sq) / sum(b for _, b in sq)) ** 0.5
+        torch.save(ref_params, os.path.join(tmp, "reference_params.pt"))
         del got, ref_params
         res["compare"] = {"loss": cmp_loss, "ref_loss": ref_loss,
                           "grad_norm": cmp_norm, "ref_grad_norm": ref_norm,
@@ -9698,6 +9820,51 @@ def phase_train_dp(torch, np, summary, device="cuda", cfg_path=None,
         check(global_rel <= DP_TOL["param"],
               f"2-rank params against 1-rank: rel L2 {global_rel} (worst "
               f"tensor {param_rel})")
+
+        # (b) model=2 on the same global batches against the reference;
+        # without seeds the residual tails are LayerNorms (#1/#2) alone
+        want = _per_step_launches(layers, run["steps"], False, accum=1)
+        want_off = dict(want, add_dropout_layer_norm_fwd=0,
+                        add_dropout_layer_norm_bwd=0)
+        for k in ("fwd", "bwd"):
+            want_off[f"layer_norm_{k}"] += want[f"add_dropout_layer_norm_{k}"]
+        m2 = [r["model2_compare"] for r in ranks]
+        for r in m2[1:]:
+            check(r["loss"] == m2[0]["loss"]
+                  and r["grad_norm"] == m2[0]["grad_norm"],
+                  "the model=2 ranks' compare-leg metrics differ")
+        m2_loss = max(abs(a - b) / abs(b) for a, b in zip(m2[0]["loss"],
+                                                          ref_loss))
+        m2_norm = max(abs(a - b) / abs(b)
+                      for a, b in zip(m2[0]["grad_norm"], ref_norm))
+        got = torch.load(os.path.join(tmp, "model2_params.pt"),
+                         weights_only=True)
+        want_params = torch.load(os.path.join(tmp, "reference_params.pt"),
+                                 weights_only=True)
+        sq = [(float((got[k] - w).square().sum()), float(w.square().sum()))
+              for k, w in want_params.items()]
+        m2_rel = (sum(a for a, _ in sq) / sum(b for _, b in sq)) ** 0.5
+        del got, want_params
+        res["model2_compare"] = {
+            "loss": m2[0]["loss"], "grad_norm": m2[0]["grad_norm"],
+            "loss_max_rel": m2_loss, "grad_norm_max_rel": m2_norm,
+            "param_global_rel": m2_rel, "s": m2[0]["s"],
+            "collectives_by_axis": m2[0]["collectives"], "tol": DP_TOL}
+        log(f"train_dp: model=2 against 1 rank (same global batch, dropout "
+            f"off): losses {m2[0]['loss']} (max rel {m2_loss:.3g}), grad "
+            f"norms max rel {m2_norm:.3g}, params all together "
+            f"{m2_rel:.3g}; {m2[0]['s']:.1f} s")
+        check(all(np.isfinite(m2[0]["loss"])) and m2_loss <= DP_TOL["loss"]
+              and m2_norm <= DP_TOL["grad_norm"]
+              and m2_rel <= DP_TOL["param"],
+              f"model=2 against 1 rank: loss {m2_loss}, grad norm "
+              f"{m2_norm}, params {m2_rel} (bounds {DP_TOL})")
+        for r in m2:
+            got_l = {k: r["launches"].get(k, 0) for k in want_off}
+            check(got_l == want_off or not on_card,
+                  f"model=2 compare leg: launches {got_l}, want {want_off}")
+        summary.setdefault("launches", {})["train_dp_model2_compare"] = \
+            dict(m2[0]["launches"])
 
         # the arms: bit-equal, finite, launches exact
         arms = [a[0] for a in _dp_arms(run, device)]
@@ -9752,6 +9919,73 @@ def phase_train_dp(torch, np, summary, device="cuda", cfg_path=None,
         res["loss"] = first["loss"]
         summary.setdefault("launches", {})["train_dp"] = dict(
             ranks[0]["arms"][arms[0]]["launches"])
+        for name in ("fsdp", "fsdp_overlap"):
+            summary["launches"][f"train_dp_{name}"] = dict(
+                ranks[0]["arms"][name]["launches"])
+        # each rank's memory: the f32 state it rests with and its peak
+        res["memory"] = {
+            name: {"resting_f32_bytes": [
+                r["arms"][name]["parallel"]["resting_f32_bytes"]
+                for r in ranks],
+                "hbm_peak_bytes": [r["arms"][name]["hbm_peak_bytes"]
+                                   for r in ranks],
+                "collectives_by_axis": ranks[0]["arms"][name][
+                    "collectives_by_axis"]}
+            for name in arms + ["model2"]}
+        log("train_dp: memory a rank (resting f32 / hbm peak, MB): " + "; "
+            .join(f"{n} " + " ".join(
+                f"{a / 2**20:.0f}/{(b or 0) / 2**20:.0f}" for a, b in zip(
+                    v["resting_f32_bytes"], v["hbm_peak_bytes"]))
+                for n, v in res["memory"].items()))
+        fs, zg = (res["memory"][n]["resting_f32_bytes"][0]
+                  for n in ("fsdp", "zero1_end_gather"))
+        check(fs < zg, f"fsdp=2 rests {fs} f32 bytes, ZeRO-1 with whole "
+              f"masters {zg}")
+
+        # the model=2 arm: finite, launches exact, the ranks agree
+        m2a = [r["arms"]["model2"] for r in ranks]
+        for a in m2a:
+            for key in ("loss", "grad_norm", "params_sha256"):
+                check(a[key] == m2a[0][key],
+                      f"model2 arm: the ranks' {key} differ")
+            got_l = {k: a["launches"].get(k, 0) for k in want}
+            check((got_l == want or not on_card)
+                  and all(np.isfinite(a["loss"])),
+                  f"model2 arm: launches {got_l} (want {want}), losses "
+                  f"{a['loss']}")
+        res["arms"]["model2"] = {
+            "step_ms": [a["step_ms"] for a in m2a], "loss": m2a[0]["loss"],
+            "s": m2a[0]["s"], "collectives_by_axis":
+                m2a[0]["collectives_by_axis"]}
+        summary["launches"]["train_dp_model2"] = dict(m2a[0]["launches"])
+
+        # (c) model=2 at seq 512, dropout on: #5 and #7 on 8 local heads
+        want512 = _per_step_launches(layers, DP_SEQ512["steps"], True,
+                                     accum=1)
+        s512 = [r["seq512"] for r in ranks]
+        for r in s512:
+            got_l = {k: r["launches"].get(k, 0) for k in want512}
+            check(got_l == want512 or not on_card,
+                  f"model=2 seq-512 leg: launches {got_l}, want {want512}")
+            check(all(np.isfinite(r["loss"])) and r["loss"] == s512[0]["loss"],
+                  f"model=2 seq-512 leg: losses {r['loss']}")
+            kern = r["kernels"]
+            check(kern["fwd_max_abs_err"] <= FLASH_TOL["bfloat16"]
+                  and kern["lse_max_abs_err"] <= LSE_TOL
+                  and kern["bwd_rel_err"] <= FLASH_BWD_TOL["bfloat16"],
+                  f"model=2 flash kernels at {kern['shape']} seed "
+                  f"{kern['seed']} against their plain versions: {kern}")
+        res["seq512"] = {"loss": s512[0]["loss"], "s": s512[0]["s"],
+                         "kernels": [r["kernels"] for r in s512]}
+        summary["launches"]["train_dp_model2_seq512"] = dict(
+            s512[0]["launches"])
+        log(f"train_dp: model=2 at seq 512 (dropout on): loss "
+            f"{s512[0]['loss']}, launches exact a rank ({want512}); #5/#7 at "
+            f"{s512[0]['kernels']['shape']} with each rank's folded seed "
+            "against their plain versions: " + "; ".join(
+                f"seed {k['seed']} fwd {k['fwd_max_abs_err']:.3g} lse "
+                f"{k['lse_max_abs_err']:.3g} bwd {k['bwd_rel_err']:.3g}"
+                for k in res["seq512"]["kernels"]))
         log(f"train_dp: arms {arms} bit-equal on both ranks: losses "
             f"{first['loss']}, grad norms {first['grad_norm']}; launches "
             f"exact a rank ({want}); step ms (rank 0 / rank 1) "
@@ -9780,6 +10014,26 @@ def phase_train_dp(torch, np, summary, device="cuda", cfg_path=None,
         log(f"train_dp: the 2-rank step-{run['steps']} checkpoint restored "
             f"by one rank, params bit-equal "
             f"({res['restore_one_rank_s']} s)")
+        # the model=2 arm's checkpoint (the one-card layout) on one rank
+        check(m2a[0]["saves"] == [run["steps"]],
+              f"the model=2 arm saved {m2a[0]['saves']}")
+        args = run_pretraining.parse_arguments(
+            [a for a in base if a not in ("--mesh", f"data={world}")]
+            + ["--output_dir", os.path.join(tmp, "model2"), "--steps", "0"])
+        one = run_pretraining.train(args, _dp_index(np, run, config),
+                                    log=lambda m: None)
+        digest = hashlib.sha256()
+        for k in sorted(one.state.params):
+            digest.update(one.state.params[k].detach().contiguous().cpu()
+                          .numpy().tobytes())
+        check(one.resumed_from == run["steps"]
+              and digest.hexdigest() == m2a[0]["params_sha256"],
+              f"one rank restored the model=2 step {one.resumed_from} with "
+              f"params {digest.hexdigest()[:12]}, want "
+              f"{m2a[0]['params_sha256'][:12]}")
+        del one
+        log("train_dp: the model=2 checkpoint restored by one rank, params "
+            "bit-equal")
         if keep is not None:
             shutil.move(os.path.join(tmp, arms[0], "pretrain_ckpts"), keep)
             res["checkpoint"] = {"dir": keep, "step": run["steps"]}

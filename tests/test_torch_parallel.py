@@ -72,21 +72,33 @@ def test_mesh_of_another_size_is_an_error_as_in_jax(spec):
                                   ["--mesh", "data=2,seq=4"],
                                   ["--fsdp_overlap"]])
 def test_parallel_refusals_hold_against_jax_parser(argv):
-    """JAX's parser takes these command lines (and builds their mesh);
-    the port refuses each, naming PARALLEL_GAPS."""
+    """JAX's parser takes these command lines (and builds their mesh).
+    The port builds the fsdp and model meshes JAX builds over 8 ranks and
+    passes their command lines; --fsdp_overlap on one rank runs with
+    JAX's WARNING note; the seq axis stays refused, naming
+    PARALLEL_GAPS."""
     import run_pretraining as jax_entry
 
     jargs = jax_entry.parse_arguments(argv)
-    if "--mesh" in argv:
-        assert dict(jax_mesh.make_mesh(
-            jax_entry.parse_mesh_arg(jargs.mesh)).shape)
-        with pytest.raises(NotImplementedError, match=PARALLEL_GAPS):
-            port_mesh.make_mesh(port_mesh.parse_mesh_arg(jargs.mesh), 8)
     args = run_pretraining.parse_arguments(argv)
-    key = "mesh" if "--mesh" in argv else "fsdp_overlap"
-    with pytest.raises(NotImplementedError,
-                       match=f"{key}=.*{PARALLEL_GAPS}"):
+    if "--mesh" in argv:
+        shape = jax_entry.parse_mesh_arg(jargs.mesh)
+        jm = jax_mesh.make_mesh(shape)
+        if shape.get("seq", 1) > 1:
+            with pytest.raises(NotImplementedError, match=PARALLEL_GAPS):
+                port_mesh.make_mesh(port_mesh.parse_mesh_arg(jargs.mesh), 8)
+            with pytest.raises(NotImplementedError,
+                               match=f"mesh=.*{PARALLEL_GAPS}"):
+                run_pretraining._unsupported(args)
+            return
+        got = port_mesh.make_mesh(port_mesh.parse_mesh_arg(jargs.mesh), 8)
+        assert got.shape == dict(jm.shape)
         run_pretraining._unsupported(args)
+        return
+    run_pretraining._unsupported(args)
+    par = run_pretraining._parallel_plan(args, torch.device("cpu"))
+    assert not par.fsdp_overlap
+    assert any("WARNING: --fsdp_overlap ignored" in n for n in par.notes)
 
 
 def test_kfac_over_ranks_is_refused():

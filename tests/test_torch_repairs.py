@@ -140,11 +140,28 @@ def _run_config(tmp_path, **over):
     ("optimizer", "bert_adam")])
 def test_run_config_enabling_a_missing_feature_is_refused(tmp_path, key,
                                                           value):
+    """A run config switching on a feature the port lacks is refused,
+    naming ROADMAP. The fsdp and model axes and --fsdp_overlap are ported:
+    on one rank a model=2 or fsdp=2 mesh is JAX's make_mesh error (its
+    size is not the rank count), and --fsdp_overlap runs with JAX's
+    WARNING note."""
     argv = ["--config_file", _run_config(tmp_path, **{key: value}),
             "--model_config_file", _model_config(tmp_path),
             "--input_dir", str(_shards(tmp_path / "data")),
             "--output_dir", str(tmp_path / "out"), "--skip_checkpoint",
             "--device", "cpu"]
+    if (key, value) in (("mesh", "model=2"), ("mesh", "fsdp=2")):
+        with pytest.raises(ValueError, match="1 ranks not divisible"):
+            run_pretraining.main(argv, log=lambda m: None)
+        return
+    if key == "fsdp_overlap":
+        lines = []
+        got = run_pretraining.main(
+            argv + ["--steps", "1", "--local_batch_size", "4",
+                    "--global_batch_size", "4"], log=lines.append)
+        assert got.step == 1
+        assert any("WARNING: --fsdp_overlap ignored" in ln for ln in lines)
+        return
     with pytest.raises(NotImplementedError, match=f"{key}=.*ROADMAP"):
         run_pretraining.main(argv, log=lambda m: None)
 
@@ -255,7 +272,22 @@ def test_jax_command_lines_at_off_values_parse(argv):
     (["--overlap_flags", "on"], "overlap_flags"),
     (["--force_cpu"], "force_cpu")])
 def test_jax_command_lines_at_on_values_are_refused(argv, key):
+    """A JAX command line switching on a missing feature is refused,
+    naming ROADMAP queue A. The fsdp axis and --fsdp_overlap are ported:
+    data=1,fsdp=2 passes the refusal check and on one rank is JAX's
+    make_mesh error; --fsdp_overlap on one rank runs with JAX's WARNING
+    note."""
     args = run_pretraining.parse_arguments(argv)
+    if key == "fsdp_overlap" or argv[-1] == "data=1,fsdp=2":
+        run_pretraining._unsupported(args)
+        if key == "mesh":
+            with pytest.raises(ValueError, match="rank count 1"):
+                run_pretraining._parallel_plan(args, torch.device("cpu"))
+        else:
+            par = run_pretraining._parallel_plan(args, torch.device("cpu"))
+            assert not par.fsdp_overlap and any(
+                "WARNING: --fsdp_overlap ignored" in n for n in par.notes)
+        return
     with pytest.raises(NotImplementedError,
                        match=f"{key}=.*ROADMAP.md, queue A") as e:
         run_pretraining._unsupported(args)

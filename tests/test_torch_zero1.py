@@ -302,10 +302,11 @@ def test_sigterm_to_both_ranks_saves_once_collectively(tmp_path):
 def test_chip_smoke_train_dp_phase_rehearses_on_cpu(tmp_path):
     """chip_smoke.py's train_dp phase at a tiny width on the CPU: the
     1-rank reference (gloo here, NCCL on the card), two rank processes
-    (`--dp_child`), the compare leg within DP_TOL, the four entry-point
-    arms bit-equal, the 2-rank checkpoint restored by one rank and kept;
-    then train_chunks chained from that checkpoint (--init_checkpoint,
-    every parameter loaded)."""
+    (`--dp_child`), the compare leg and the model=2 leg within DP_TOL, the
+    six data and fsdp entry-point arms bit-equal, the model=2 arm and its
+    seq-512 leg, the 2-rank and the model=2 checkpoints restored by one
+    rank and the first kept; then train_chunks chained from that
+    checkpoint (--init_checkpoint, every parameter loaded)."""
     import numpy as np_
 
     import chip_smoke
@@ -325,7 +326,20 @@ def test_chip_smoke_train_dp_phase_rehearses_on_cpu(tmp_path):
     assert (res["compare"]["grad_norm_max_rel"]
             <= chip_smoke.DP_TOL["grad_norm"])
     assert set(res["arms"]) == {"production", "production_rs",
-                                "production_coalesced", "zero1_end_gather"}
+                                "production_coalesced", "zero1_end_gather",
+                                "fsdp", "fsdp_overlap", "model2"}
+    # the model axis against the 1-rank reference, dropout off
+    m2 = res["model2_compare"]
+    assert m2["loss_max_rel"] <= chip_smoke.DP_TOL["loss"]
+    assert m2["param_global_rel"] <= chip_smoke.DP_TOL["param"]
+    assert m2["collectives_by_axis"]["model"]["bytes"] > 0
+    assert len(res["seq512"]["kernels"]) == 2
+    assert {"train_dp_fsdp", "train_dp_fsdp_overlap", "train_dp_model2",
+            "train_dp_model2_compare",
+            "train_dp_model2_seq512"} <= set(summary["launches"])
+    mem = res["memory"]
+    assert mem["fsdp"]["resting_f32_bytes"][0] < \
+        mem["zero1_end_gather"]["resting_f32_bytes"][0]
     assert res["arms"]["production"]["mesh_config"] == "production"
     assert res["arms"]["production_rs"]["zero1_rs"]
     assert res["checkpoint"] == {"dir": str(tmp_path / "kept"), "step": 3}

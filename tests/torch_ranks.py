@@ -14,10 +14,19 @@ starts one rank of a gloo group over the CPU (a FileStore at the job's
   step's batch in `batches` (an .npz: "<step>/<field>" arrays of the
   global batch, (accum, rows, ...)), each step's dropout seeds from
   `seeds`; writes the losses, grad norms and learning rates, and rank 0
-  the final one-card state_dict (params, mu, nu) to rank0_<arm>.npz;
+  the final one-card state_dict (params, mu, nu) to rank0_<arm>.npz; an
+  arm's "mesh" (a --mesh string) places the ranks on that mesh: each
+  builds its model part (convert.shard_state_dict), reads its data
+  shard's rows and folds its dropout seeds by its coordinates, and
+  "fsdp_overlap" and "remat" (a remat policy) switch those on;
 - "main": run_pretraining.main(argv) for each argv of `runs` on this
   rank, recording the sample indices its sampler hands out; writes each
-  run's history, saves and indices;
+  run's history, saves, indices and the sha256 of its final one-card
+  params (`state_dict()`, collective);
+- "vocab": the MLM loss terms, their gradient and the accuracy of the
+  logits and labels in `inputs` (an .npz) with the vocabulary split over
+  a model axis of the world's ranks; writes the rank's gradient of its
+  part to grad<RANK>.npy;
 - "sigterm": run_pretraining.train under its exit-code contract
   (`exit_code_of`), touching `<out>/ready<RANK>` at its first batch; the
   test signals the processes and reads their exit codes.
@@ -65,17 +74,41 @@ def _steps_arm(job, rank, index, arms):
     from bert_pytorch_tpu_torch.training.pretrain import build_pretrain_step
     from bert_pytorch_tpu_torch.training.state import make_train_state
 
+    from bert_pytorch_tpu_torch.models.convert import shard_state_dict
+    from bert_pytorch_tpu_torch.parallel import dist, mesh as mesh_lib
+    from bert_pytorch_tpu_torch.parallel.tensor import ModelShard
+
+    dist.reset_stats()
     world = job["world"]
-    model = BertForPreTraining(BertConfig.from_dict(job["config"]),
-                               dtype=torch.float32)
+    config = BertConfig.from_dict(job["config"])
+    if arms.get("remat"):
+        config = config.replace(checkpoint_activations=True,
+                                remat_policy=arms["remat"])
     params = np.load(job["params"])
-    model.load_state_dict({k: torch.from_numpy(params[k]) for k in params},
-                          strict=True)
-    set_dropout_shard(model, rank)
+    whole = {k: torch.from_numpy(params[k]) for k in params}
+    axes = shard = None
+    shards, shard_index = world, rank
+    if arms.get("mesh"):
+        mesh = mesh_lib.make_mesh(mesh_lib.parse_mesh_arg(arms["mesh"]),
+                                  world)
+        axes = dist.make_axes(mesh)
+        if mesh.model > 1:
+            shard = ModelShard(axes.coords["model"], mesh.model, axes.model)
+        whole = shard_state_dict(whole, mesh, rank)
+        shards, shard_index = (mesh_lib.data_shard_count(mesh),
+                               mesh.data_shard_index(rank))
+        flat = mesh.flat_shard_index(rank)
+    else:
+        flat = rank
+    model = BertForPreTraining(config, dtype=torch.float32,
+                               model_shard=shard)
+    model.load_state_dict(whole, strict=True)
+    set_dropout_shard(model, shard_index, flat)
     dp = DataParallel(model, zero1=arms.get("zero1", False),
                       reduce_scatter=arms.get("zero1_rs", False),
                       gather_on_use=arms.get("zero1_overlap", False),
-                      coalesce=arms.get("coalesce", False))
+                      coalesce=arms.get("coalesce", False), axes=axes,
+                      fsdp_overlap=arms.get("fsdp_overlap", False))
     sched = make_schedule("poly", job["lr"], job["total_steps"],
                           warmup=job["warmup"])
     tx = Lamb(sched, weight_decay=0.01, fused=arms.get("fused", "off"))
@@ -94,10 +127,11 @@ def _steps_arm(job, rank, index, arms):
                          if k.startswith(f"{i}/")})
         batch = {}
         for f in fields:
-            a = batches[f"{i}/{f}"]           # (accum, world * rows, ...)
-            rows = a.shape[1] // world
+            a = batches[f"{i}/{f}"]           # (accum, shards * rows, ...)
+            rows = a.shape[1] // shards
             batch[f] = torch.from_numpy(
-                np.ascontiguousarray(a[:, rank * rows:(rank + 1) * rows]))
+                np.ascontiguousarray(a[:, shard_index * rows:(shard_index + 1)
+                                      * rows]))
         s = None if seeds is None else torch.from_numpy(seeds[i])
         m = step(state, batch, s)
         out["loss"].append(float(m["loss"]))
@@ -115,6 +149,7 @@ def _steps_arm(job, rank, index, arms):
         np.savez(os.path.join(job["out"], f"rank0_{index}.npz"), **arrays)
     out["pieces"] = len(dp.pieces)
     out["describe"] = dp.describe()
+    out["collectives"] = {a: dict(v) for a, v in dist.axis_stats().items()}
     dp.close()
     return out
 
@@ -134,12 +169,20 @@ def _main(job, rank):
         return got
 
     sharded.HostShardSampler.next_indices = record
+    import hashlib
+
     out = []
     for argv in job["runs"]:
         del seen[:]
         lines = []
         result = run_pretraining.main(argv, log=lines.append)
+        sd = result.state.state_dict()
+        digest = hashlib.sha256()
+        for k in sorted(sd["params"]):
+            digest.update(sd["params"][k].detach().contiguous().numpy()
+                          .tobytes())
         out.append({
+            "params_sha256": digest.hexdigest(),
             "step": result.step, "resumed_from": result.resumed_from,
             "history": [{k: v for k, v in h.items()
                          if isinstance(v, (int, float))}
@@ -171,7 +214,30 @@ def _sigterm(job, rank):
     return {"code": code}
 
 
-JOBS = {"steps": _steps, "main": _main, "sigterm": _sigterm}
+def _vocab(job, rank):
+    from bert_pytorch_tpu_torch.models import losses
+    from bert_pytorch_tpu_torch.parallel import dist, mesh as mesh_lib
+    from bert_pytorch_tpu_torch.parallel.tensor import ModelShard
+
+    mesh = mesh_lib.make_mesh({"model": job["world"]}, job["world"])
+    axes = dist.make_axes(mesh)
+    shard = ModelShard(axes.coords["model"], mesh.model, axes.model)
+    data = np.load(job["inputs"])
+    logits = torch.from_numpy(data["logits"])
+    labels = torch.from_numpy(data["labels"])
+    width = logits.shape[-1] // mesh.model
+    local = logits[..., shard.index * width:(shard.index + 1) * width]
+    local = local.clone().requires_grad_()
+    total, count = losses.vocab_parallel_terms(local, labels, shard)
+    total.backward()
+    correct, masked = losses.mlm_accuracy(local.detach(), labels, shard)
+    np.save(os.path.join(job["out"], f"grad{rank}.npy"), local.grad.numpy())
+    return {"total": float(total), "count": int(count),
+            "correct": int(correct), "masked": int(masked)}
+
+
+JOBS = {"steps": _steps, "main": _main, "sigterm": _sigterm,
+        "vocab": _vocab}
 
 
 def start(job, world, out, env=None):
